@@ -1,0 +1,457 @@
+"""GPU smoke run of the PyTorch port's sharded online request path.
+
+Run from the repository root on a machine with one NVIDIA GPU and the CUDA
+toolkit::
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. **Card.**  The card's name and power limit (``nvidia-smi``).
+2. **Build.**  Both CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` per source, started together.
+3. **Kernels against their plain versions** at the main path's shapes: the
+   fused ingest kernel over 65,536-row batches into the full 2^19-card,
+   8-shard store state (ring 256 rows x 2 lanes, 512 buckets of 64 s:
+   ~15.6 GB, plus a second copy for the plain version) — all six arrays
+   bit-exact through a key with more rows than the ring holds, bucket-slot
+   reuse, trailing pads and an all-pad batch; the route-rank kernel on
+   4,096-row batches at S = 8 and on an all-one-shard batch — exact.  Each
+   is timed with CUDA events beside its plain version.
+4. **Main path.**  ``FeatureService.build(fraud_view(), sharded=True,
+   num_shards=8)`` on the GPU; a day of ~4.2M transactions ingested in
+   65,536-row time slices; 8 request batches of 4,096 rows served through
+   ``ShardRouter`` in preagg mode with ingest on.  Each batch's answers
+   must equal, bit for bit, the same state queried with ranks from the
+   route kernel's plain version; afterwards the store state must equal the
+   ingest kernel's plain version replayed over the same batches.  Both
+   kernels' launch counters must have gone up during this phase.
+5. **Trace.**  One more request batch (no ingest) under
+   ``torch.profiler``: device kernels launched, device busy time and the
+   device's idle share of the batch, the largest device items.
+6. **Summary.**  Request latency, ingest rate, then one ``kernels`` JSON
+   line, then the card line, then the ``ok`` line last.
+
+The weights of this system are its data: made here from a fixed seed.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SEED = 0
+NUM_CARDS = 1 << 19
+NUM_SHARDS = 8
+STORE_KW = dict(capacity=256, num_buckets=512, bucket_size=64)
+DAY = 86_400
+SLICE_ROWS = 65_536
+WARM_SLICES = 64          # 64 x 65,536 = 4,194,304 transactions
+REQ_ROWS = 4_096
+REQ_BATCHES = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _max_abs_err(a, b) -> float:
+    """0.0 when the tensors are bitwise equal, else the largest difference
+    (computed in 64M-element chunks: the state arrays are gigabytes)."""
+    av = a.view(torch.int32) if a.dtype == torch.float32 else a
+    bv = b.view(torch.int32) if b.dtype == torch.float32 else b
+    if torch.equal(av, bv):
+        return 0.0
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    worst = 0.0
+    for i in range(0, fa.numel(), 1 << 26):
+        d = (fa[i:i + (1 << 26)].double() - fb[i:i + (1 << 26)].double())
+        worst = max(worst, float(d.abs().max()))
+    return worst if worst > 0 else float("nan")  # differing bits, equal values
+
+
+def _flat_batch(rng, n, t_lo, t_hi, hot_rows=0, pad=0):
+    """A (flat key, ts)-sorted ingest batch over the 2^19 flat keys, as the
+    sharded store hands it to the kernel; ``hot_rows`` rows on one key,
+    ``pad`` sentinel rows at the end."""
+    key = rng.integers(0, NUM_CARDS, n).astype(np.int32)
+    key[:hot_rows] = 12_345
+    ts = rng.integers(t_lo, t_hi, n).astype(np.int32)
+    o = np.lexsort((ts, key))
+    key, ts = key[o], ts[o]
+    amt = rng.gamma(1.5, 60.0, n).astype(np.float32)
+    vals = np.stack([amt, (amt > 100.0).astype(np.float32)], axis=1)
+    key = np.concatenate([key, np.full(pad, NUM_CARDS, np.int32)])
+    ts = np.concatenate([ts, np.full(pad, ts[-1] if n else t_lo, np.int32)])
+    vals = np.concatenate([vals, np.zeros((pad, 2), np.float32)])
+    dev = torch.device("cuda")
+    return (torch.as_tensor(key, device=dev), torch.as_tensor(ts, device=dev),
+            torch.as_tensor(vals, device=dev))
+
+
+def _ingest_bytes(plan, rows, lanes) -> int:
+    """Bytes the fused ingest of one batch must move: the batch (key, ts,
+    lanes) read once, plus each state element the batch touches read once
+    and written once (ring slots written; bucket stats, bitmap and id
+    read and written per segment; cursor per key run)."""
+    from repro_torch.kernels.ingest.ops import PLAN_ROWS
+
+    p = {name: int(plan[i].sum()) for i, name in enumerate(PLAN_ROWS)
+         if name in ("ring_w", "walk", "kend")}
+    batch = rows * (4 + 4 + 4 * lanes)
+    ring = p["ring_w"] * (4 + 4 * lanes)
+    bucket = p["walk"] * 2 * (20 * lanes + 4 * lanes + 4)
+    cursor = p["kend"] * 2 * 4
+    return batch + ring + bucket + cursor
+
+
+def check_ingest_kernel(results) -> None:
+    from repro_torch.core import preagg as pg
+    from repro_torch.core import storage as st
+    from repro_torch.kernels.ingest.ops import (
+        fused_ingest, ingest_plan, launch_fused_ingest,
+    )
+    from repro_torch.kernels.ingest.ref import fused_ingest_ref
+
+    dev = torch.device("cuda")
+    C, NB, BS = STORE_KW["capacity"], STORE_KW["num_buckets"], STORE_KW["bucket_size"]
+
+    def fresh():
+        r = st.ring_init(NUM_CARDS, C, 2, dev)
+        b = pg.bucket_init(NUM_CARDS, NB, 2, BS, dev)
+        return [r.ts, r.vals, r.cursor, b.stats, b.bitmap, b.bucket]
+
+    sk, sr = fresh(), fresh()
+    rng = np.random.default_rng(SEED + 1)
+    slice_s = DAY // WARM_SLICES
+    cases = [
+        ("slice", SLICE_ROWS, 0, slice_s, 0, 0),
+        ("hot key 300 rows > C", SLICE_ROWS - 1000, slice_s, 2 * slice_s, 300, 1000),
+        ("slice", SLICE_ROWS, 2 * slice_s, 3 * slice_s, 0, 0),
+        ("all pads", 0, 3 * slice_s, 3 * slice_s, 0, SLICE_ROWS),
+        # 512 buckets of 64 s later: every slot of the first slices' buckets
+        # is reused, so stale slots are reset before merging
+        ("stale reuse", SLICE_ROWS, NB * BS, NB * BS + slice_s, 0, 0),
+    ]
+    worst = 0.0
+    for name, n, lo, hi, hot, pad in cases:
+        k, t, v = _flat_batch(rng, n, lo, hi, hot, pad)
+        fused_ingest(*sk, k, t, v, bucket_size=BS)
+        fused_ingest_ref(*sr, k, t, v, bucket_size=BS)
+        torch.cuda.synchronize()
+        errs = [_max_abs_err(a, b) for a, b in zip(sk, sr)]
+        if any(e != 0.0 for e in errs):
+            _fail(f"fused_ingest differs from its plain version on "
+                  f"'{name}': per-array max |diff| {errs}")
+        worst = max(worst, max(errs))
+        print(f"fused_ingest == plain on '{name}' ({n} rows + {pad} pads): "
+              "six arrays bit-exact", flush=True)
+
+    # timing on one main-path-shaped batch (state keeps changing: the same
+    # work each repetition)
+    k, t, v = _flat_batch(rng, SLICE_ROWS, 4 * slice_s, 5 * slice_s)
+    plan = ingest_plan(k, t, sk[2], sk[5], capacity=C, bucket_size=BS)
+    ms = _time_ms(lambda: fused_ingest(*sk, k, t, v, bucket_size=BS), 20)
+    kernel_ms = _time_ms(
+        lambda: launch_fused_ingest(*sk, t, v, plan), 20
+    )
+    plain_ms = _time_ms(
+        lambda: fused_ingest_ref(*sr, k, t, v, bucket_size=BS), 3
+    )
+    nbytes = _ingest_bytes(plan, SLICE_ROWS, 2)
+    results["fused_ingest"] = dict(
+        max_abs_err=worst, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
+        shape=f"{SLICE_ROWS} rows x 2 lanes into {NUM_CARDS} keys",
+    )
+    print(f"fused_ingest {SLICE_ROWS} rows: wrapper {ms:.4f} ms "
+          f"(kernel alone {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {results['fused_ingest']['bound_ms']:.5f} ms "
+          f"({nbytes} bytes)", flush=True)
+    del sk, sr, k, t, v, plan
+    torch.cuda.empty_cache()
+
+
+def check_route_kernel(results) -> None:
+    from repro_torch.core.hashing import KeyPermutation
+    from repro_torch.kernels.route.ops import route_rank
+    from repro_torch.kernels.route.ref import route_rank_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    perm = KeyPermutation(NUM_CARDS)
+    batches = []
+    for _ in range(4):
+        keys = rng.integers(0, NUM_CARDS, REQ_ROWS)
+        batches.append(("feistel S=8", torch.as_tensor(
+            (perm(keys) % NUM_SHARDS).astype(np.int32), device=dev)))
+    batches.append(("all on one shard", torch.full(
+        (REQ_ROWS,), 3, dtype=torch.int32, device=dev)))
+    pad = torch.as_tensor(
+        (perm(rng.integers(0, NUM_CARDS, REQ_ROWS)) % NUM_SHARDS).astype(np.int32),
+        device=dev)
+    pad[-100:] = NUM_SHARDS
+    batches.append(("100 pad ids", pad))
+    worst = 0.0
+    for name, shard in batches:
+        rk, ck = route_rank(shard, num_shards=NUM_SHARDS)
+        rr, cr = route_rank_ref(shard, NUM_SHARDS)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(rk, rr), _max_abs_err(ck, cr))
+        if err != 0.0:
+            _fail(f"route_rank differs from its plain version on '{name}'")
+        worst = max(worst, err)
+        print(f"route_rank == plain on '{name}' ({REQ_ROWS} rows, "
+              f"S={NUM_SHARDS}): exact", flush=True)
+    shard = batches[0][1]
+    ms = _time_ms(lambda: route_rank(shard, num_shards=NUM_SHARDS), 200, 5)
+    plain_ms = _time_ms(lambda: route_rank_ref(shard, NUM_SHARDS), 200, 5)
+    nbytes = REQ_ROWS * 4 * 2 + NUM_SHARDS * 4
+    results["route_rank"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
+        shape=f"{REQ_ROWS} rows, S={NUM_SHARDS}",
+    )
+    print(f"route_rank {REQ_ROWS} rows: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {results['route_rank']['bound_ms']:.6f} ms", flush=True)
+
+
+def _request_rows(rng, t_lo):
+    cols = dict(
+        card=rng.integers(0, NUM_CARDS, REQ_ROWS).astype(np.int32),
+        ts=rng.integers(t_lo, t_lo + 60, REQ_ROWS).astype(np.int32),
+        amount=rng.gamma(1.5, 60.0, REQ_ROWS).astype(np.float32),
+        mcc=rng.integers(0, 32, REQ_ROWS).astype(np.int32),
+        device=rng.integers(0, 8, REQ_ROWS).astype(np.int32),
+        geo=rng.integers(0, 16, REQ_ROWS).astype(np.int32),
+    )
+    return cols
+
+
+def main_path(results) -> None:
+    from repro_torch import kernels
+    from repro_torch.core import shard as shard_mod
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.kernels.ingest.ref import fused_ingest_ref
+    from repro_torch.kernels.route.ref import route_rank_ref
+    from repro_torch.obs import Telemetry, get_telemetry, use_telemetry
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.router import ShardRouter
+    from repro_torch.serve.service import BatchScheduler, FeatureService
+
+    svc = FeatureService.build(
+        "fraud", fraud_view(), num_keys=NUM_CARDS, sharded=True,
+        num_shards=NUM_SHARDS, mode="preagg", device="cuda", **STORE_KW,
+    )
+    store = svc.store
+    print(f"store state: {sum(t.numel() * t.element_size() for t in store.state.arrays()) / 1e9:.2f} GB "
+          f"({NUM_SHARDS} shards x {store.num_keys} cards)", flush=True)
+
+    # every flat batch the store hands to the ingest kernel, kept to replay
+    # through the plain version afterwards
+    applied = []
+    apply_kernel = store._apply_ingest
+
+    def recording_apply(key, ts, lanes):
+        applied.append((key, ts, lanes))
+        apply_kernel(key, ts, lanes)
+
+    store._apply_ingest = recording_apply
+
+    # the expected answers: the same state queried with the route kernel's
+    # plain version in place of the kernel
+    def route_rank_plain(shard, *, num_shards):
+        return route_rank_ref(shard, num_shards)
+
+    def expected_answers(rows):
+        # its own telemetry, so the served path's spans stay its own
+        shard_mod.route_rank = route_rank_plain
+        try:
+            with use_telemetry(Telemetry()):
+                out = store.query(dict(rows), mode="preagg")
+            return {f: v.cpu().numpy() for f, v in out.items()}
+        finally:
+            shard_mod.route_rank = kernels_route_rank
+
+    kernels_route_rank = shard_mod.route_rank
+    rng = np.random.default_rng(SEED)
+    slices = [
+        fraud_transactions(rng, SLICE_ROWS, NUM_CARDS,
+                           i * DAY // WARM_SLICES, (i + 1) * DAY // WARM_SLICES)
+        for i in range(WARM_SLICES)
+    ]
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for cols in slices:
+        store.ingest(cols)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    rows_in = WARM_SLICES * SLICE_ROWS
+    print(f"warm ingest: {rows_in} rows in {ingest_s:.3f} s = "
+          f"{rows_in / ingest_s:.0f} rows/s (host routing + device ingest, "
+          f"{WARM_SLICES} batches)", flush=True)
+    ingest_launches = kernels.LAUNCHES["fused_ingest"]
+
+    router = ShardRouter(
+        svc, BatchScheduler(buckets=(REQ_ROWS,), max_batch=REQ_ROWS)
+    )
+    svc.stats = type(svc.stats)()
+    for b in range(REQ_BATCHES):
+        rows = _request_rows(rng, DAY + 60 * b)
+        want = expected_answers(rows)
+        for i in range(REQ_ROWS):
+            router.submit({c: v[i] for c, v in rows.items()})
+        got = router.pump(flush=True)
+        for f in want:
+            a, g = want[f], got[f]
+            if g.shape != (REQ_ROWS,) or not np.all(np.isfinite(g)):
+                _fail(f"batch {b} feature {f}: shape {g.shape} or non-finite")
+            if not np.array_equal(a.view(np.int32), g.view(np.int32)):
+                _fail(f"batch {b} feature {f}: routed answers differ from "
+                      "the route plain version's")
+        if not (got["tx_count_1h"] >= 1).all():
+            _fail("every request counts at least itself in its window")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    print(f"served {REQ_BATCHES} batches x {REQ_ROWS} rows: answers == "
+          "route plain version's, bit for bit", flush=True)
+    if launches["fused_ingest"] <= ingest_launches or launches["route_rank"] < REQ_BATCHES:
+        _fail(f"kernel launch counts on the main path: {launches}")
+    for k in ("fused_ingest", "route_rank"):
+        results[k]["launches"] = launches[k]
+    st = svc.stats
+    print(f"request latency (queue wait + batch wall, {st.requests} requests): "
+          f"p50 {st.request_p50_ms:.3f} ms, p99 {st.request_p99_ms:.3f} ms; "
+          f"batch wall p50 {st.p50_ms:.3f} ms, p99 {st.p99_ms:.3f} ms", flush=True)
+    spans = get_telemetry().metrics.histogram(
+        "span_seconds", unit="s", labels=("name", "kind"))
+    for name, kind in (("query.route", "host"), ("route.device", "device"),
+                       ("query.scatter", "host"), ("ingest", "device"),
+                       ("request", "host")):
+        print(f"span {name}: mean {1e3 * spans.mean(name=name, kind=kind):.3f} ms "
+              f"over {int(spans.count(name=name, kind=kind))}", flush=True)
+
+    # the store state == the ingest plain version over the same batches
+    store._apply_ingest = apply_kernel
+    ref = store._init_state()
+    ref_flat = [t.flatten(0, 1) for t in ref.arrays()]
+    for key, ts, lanes in applied:
+        fused_ingest_ref(*ref_flat, key, ts, lanes, bucket_size=store.bucket_size)
+    torch.cuda.synchronize()
+    errs = [_max_abs_err(a, b) for a, b in zip(store.state.arrays(), ref.arrays())]
+    if any(e != 0.0 for e in errs):
+        _fail(f"ingested state differs from the plain version: {errs}")
+    print(f"ingested state ({len(applied)} batches) == ingest plain version: "
+          "six arrays bit-exact", flush=True)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del ref, ref_flat, applied
+    torch.cuda.empty_cache()
+    trace_request(svc, _request_rows(rng, DAY + 60 * REQ_BATCHES))
+
+
+def trace_request(svc, rows) -> None:
+    """Profile one request batch: device kernels, busy time, idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    svc.request(dict(rows), ingest=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        svc.request(dict(rows), ingest=False)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    n_kernels = sum(e.count for e in dev)
+    if busy_ms <= 0:
+        print("trace: the profiler recorded no device time (device busy "
+              "share not measured)", flush=True)
+        return
+    print(f"trace (profiler on): request batch wall {wall_ms:.3f} ms, "
+          f"{n_kernels} device kernels, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
+              f"x{e.count} {e.key[:90]}", flush=True)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        _fail("no CUDA GPU visible (this smoke run needs one)")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    try:
+        from repro_torch.kernels import build
+    except ImportError as e:
+        _fail(f"the port's package is not next to this script ({e})")
+    card = _card_line()
+    print(f"card: {card}", flush=True)
+    t0 = time.perf_counter()
+    build.build()
+    print(f"built {sorted(build.SOURCES)} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, log in sorted(build.BUILD_LOGS.items()):
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  {name}: {ln.strip()}", flush=True)
+
+    results = {}
+    check_ingest_kernel(results)
+    check_route_kernel(results)
+    main_path(results)
+
+    line = {"kernels": [
+        dict(name="fused_ingest", route="cuda",
+             source="src/repro_torch/kernels/csrc/fused_ingest.cu",
+             replaces="src/repro/kernels/ingest/ingest.py:182",
+             bound_by="bytes", library_ms=None, **results["fused_ingest"]),
+        dict(name="route_rank", route="cuda",
+             source="src/repro_torch/kernels/csrc/route_rank.cu",
+             replaces="src/repro/kernels/route/route.py:57",
+             bound_by="bytes", library_ms=None, **results["route_rank"]),
+    ]}
+    print(json.dumps(line), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
