@@ -1,4 +1,5 @@
-"""GPU smoke run of the PyTorch port's sharded online request path.
+"""GPU smoke run of the PyTorch port: the sharded online request path and
+the offline feature path with its offline<->online consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -8,16 +9,19 @@ toolkit::
 Phases, in order; any failure exits non-zero:
 
 1. **Card.**  The card's name and power limit (``nvidia-smi``).
-2. **Build.**  Both CUDA kernels from ``src/repro_torch/kernels/csrc``, one
-   ``nvcc`` per source, started together.
+2. **Build.**  All four CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, started together.
 3. **Kernels against their plain versions** at the main path's shapes: the
    fused ingest kernel over 65,536-row batches into the full 2^19-card,
    8-shard store state (ring 256 rows x 2 lanes, 512 buckets of 64 s:
    ~15.6 GB, plus a second copy for the plain version) — all six arrays
    bit-exact through a key with more rows than the ring holds, bucket-slot
    reuse, trailing pads and an all-pad batch; the route-rank kernel on
-   4,096-row batches at S = 8 and on an all-one-shard batch — exact.  Each
-   is timed with CUDA events beside its plain version.
+   4,096-row batches at S = 8 and on an all-one-shard batch — exact; the
+   fold-levels kernel for min, max and or at N = 2^24 rows sorted over
+   2^19 cards and at the edges (N = 1, N not a power of two, one segment
+   over all rows, every row its own segment, NaN / ±0.0 values) — bit for
+   bit.  Each is timed with CUDA events beside its plain version.
 4. **Main path.**  ``FeatureService.build(fraud_view(), sharded=True,
    num_shards=8)`` on the GPU; a day of ~4.2M transactions ingested in
    65,536-row time slices; 8 request batches of 4,096 rows served through
@@ -26,10 +30,28 @@ Phases, in order; any failure exits non-zero:
    route kernel's plain version; afterwards the store state must equal the
    ingest kernel's plain version replayed over the same batches.  Both
    kernels' launch counters must have gone up during this phase.
-5. **Trace.**  One more request batch (no ingest) under
+5. **Window stats.**  On the main path's warm state (flat keys), the
+   window-stats kernel for one 4,096-row request batch, windows 1 h and
+   6 h: count, min and max bit-exact against its plain version, sums
+   within ``rtol=1e-5, atol=1e-3``; SUM 1 h, COUNT 1 h and MAX 6 h agree
+   with the store's own preagg query on the same rows.  Its bound counts
+   the bytes this batch's data needs (``_window_stats_bytes``).
+6. **Trace.**  One more request batch (no ingest) under
    ``torch.profiler``: device kernels launched, device busy time and the
    device's idle share of the batch, the largest device items.
-6. **Summary.**  Request latency, ingest rate, then one ``kernels`` JSON
+7. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+   ...)`` over 2^24 transactions (four days of the main path's traffic)
+   on 2^19 cards, cold then warm; every feature must equal, bit for bit,
+   a run with the fold-levels kernel's plain version swapped in, and the
+   kernel's launch counter must have gone up.  Warm rows/s and peak
+   device memory are printed, then one more warm export under
+   ``torch.profiler`` (device busy time, idle share, largest items).
+8. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+   2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
+   cards in a day, where the ring (256 rows) wraps and every one of the
+   512 bucket slots of 64 s is reused; naive and preagg mode: all must
+   pass.
+9. **Summary.**  Request latency, ingest rate, then one ``kernels`` JSON
    line, then the card line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -55,6 +77,20 @@ SLICE_ROWS = 65_536
 WARM_SLICES = 64          # 64 x 65,536 = 4,194,304 transactions
 REQ_ROWS = 4_096
 REQ_BATCHES = 8
+OFFLINE_DAYS = 4          # 4 x 4,194,304 = 2^24 transactions
+VERIFY_ROWS = 1 << 20
+# (cards, span s) of the consistency runs, 2^20 transactions each:
+# - 2^17 cards in one hour (8 per card): every 1 h / 6 h window reaches back
+#   to its card's first row.  Spread over a day, this traffic leaves some
+#   1 h windows with two near-equal large amounts, whose STD the reference's
+#   own verify_view tolerance does not cover in either package
+#   (tests/test_torch_offline.py::test_verify_view_fraud_span; ROADMAP
+#   Queue C);
+# - 2^11 cards over a day (512 per card): the ring (256 rows) wraps and
+#   every bucket slot is reused (1,350 bucket ids over 512 slots), while a
+#   6 h window still fits in the ring.
+VERIFY_RUNS = ((1 << 17, 3600), (1 << 11, DAY))
+WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
@@ -248,6 +284,82 @@ def check_route_kernel(results) -> None:
           f"bound {results['route_rank']['bound_ms']:.6f} ms", flush=True)
 
 
+def _fold_inputs(rng, n, op, segments, special=False):
+    """(x, seg) on the card: ``segments`` keys sorted over n rows (0: one
+    segment over all rows, -1: every row its own segment)."""
+    from repro_torch.core.windows import segment_starts
+
+    dev = torch.device("cuda")
+    if segments == 0:
+        key = np.zeros(n, np.int32)
+    elif segments < 0:
+        key = np.arange(n, dtype=np.int32)
+    else:
+        key = np.sort(rng.integers(0, segments, n)).astype(np.int32)
+    if op == "or":
+        x = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    else:
+        x = rng.normal(size=n).astype(np.float32)
+        if special:
+            pick = rng.random(n) < 0.2
+            x[pick] = rng.choice(np.array(
+                [0x0, 0x80000000, 0x7FC00000, 0xFFC00000, 0x7FC00001,
+                 0xFF800005, 0x7F800000, 0xFF800000], np.uint32
+            ).view(np.float32), int(pick.sum()))
+    return (torch.as_tensor(x, device=dev),
+            segment_starts(torch.as_tensor(key, device=dev)))
+
+
+def check_fold_kernel(results) -> None:
+    from repro_torch.kernels.window_agg.ops import fold_levels
+    from repro_torch.kernels.window_agg.ref import (
+        fold_levels_ref,
+        fold_num_levels,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    n_main = 1 << 24
+    cases = [(f"N=2^24 over {NUM_CARDS} cards", n_main, NUM_CARDS, False),
+             ("N=1", 1, 1, False),
+             ("N=1,000,003 (not a power of two)", 1_000_003, 4096, False),
+             ("one segment over all rows", 1 << 20, 0, False),
+             ("every row its own segment", 1 << 20, -1, False),
+             ("NaN / +-0.0 / +-inf values", 1 << 20, 1024, True)]
+    worst = 0.0
+    for name, n, segments, special in cases:
+        for op in ("min", "max", "or"):
+            if special and op == "or":
+                continue
+            x, seg = _fold_inputs(rng, n, op, segments, special)
+            got = fold_levels(x, seg, op=op)
+            want = fold_levels_ref(x, seg, op)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want) if got.shape == want.shape else 1.0
+            if err != 0.0:
+                _fail(f"fold_levels({op}) differs from its plain version on "
+                      f"'{name}' (max |diff| {err})")
+            worst = max(worst, err)
+            del got, want
+        print(f"fold_levels == plain on '{name}' ({n} rows): min / max"
+              f"{'' if special else ' / or'} bit-exact", flush=True)
+    x, seg = _fold_inputs(rng, n_main, "max", NUM_CARDS)
+    ms = _time_ms(lambda: fold_levels(x, seg, op="max"), 10)
+    plain_ms = _time_ms(lambda: fold_levels_ref(x, seg, "max"), 3)
+    kl = fold_num_levels(n_main)
+    nbytes = n_main * (8 + 4 * kl)
+    results["fold_levels"] = dict(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
+        shape=f"{n_main} rows over {NUM_CARDS} cards, max, KL={kl} "
+              f"({kl - 1} level launches a call)",
+    )
+    print(f"fold_levels {n_main} rows (KL={kl}): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {results['fold_levels']['bound_ms']:.4f}"
+          f" ms ({nbytes} bytes)", flush=True)
+    del x, seg
+    torch.cuda.empty_cache()
+
+
 def _request_rows(rng, t_lo):
     cols = dict(
         card=rng.integers(0, NUM_CARDS, REQ_ROWS).astype(np.int32),
@@ -351,8 +463,9 @@ def main_path(results) -> None:
           "route plain version's, bit for bit", flush=True)
     if launches["fused_ingest"] <= ingest_launches or launches["route_rank"] < REQ_BATCHES:
         _fail(f"kernel launch counts on the main path: {launches}")
-    for k in ("fused_ingest", "route_rank"):
-        results[k]["launches"] = launches[k]
+    # window_stats sits beside the preagg query (not on this path): 0
+    for k in ("fused_ingest", "route_rank", "window_stats"):
+        results.setdefault(k, {})["launches"] = launches[k]
     st = svc.stats
     print(f"request latency (queue wait + batch wall, {st.requests} requests): "
           f"p50 {st.request_p50_ms:.3f} ms, p99 {st.request_p99_ms:.3f} ms; "
@@ -381,7 +494,106 @@ def main_path(results) -> None:
           flush=True)
     del ref, ref_flat, applied
     torch.cuda.empty_cache()
+    check_window_stats(results, store, _request_rows(rng, DAY + 60 * REQ_BATCHES))
     trace_request(svc, _request_rows(rng, DAY + 60 * REQ_BATCHES))
+
+
+def _window_stats_bytes(ring_ts, bagg_bucket, qk, q_ts, L, B):
+    """(distinct keys, bytes) the window-stats call must move on this data:
+    per distinct key its C ring timestamps (to find the raw rows), the lane
+    values of the ring rows some window folds raw (head or tail bucket),
+    the stored ids of the bucket slots that can hold a middle bucket of the
+    widest window (id mod NB for b_lo < id < b_q) and the stats of the
+    slots whose id is a middle bucket of some window; per request its key,
+    ts and lanes in and its (NW, L, 5) stats out."""
+    NB = bagg_bucket.shape[1]
+    uk, inv = torch.unique(qk, return_inverse=True)
+    ts, bids = ring_ts[qk.long()], bagg_bucket[qk.long()]
+    b_q = torch.div(q_ts, B, rounding_mode="floor")[:, None]
+    raw = torch.zeros_like(ts, dtype=torch.bool)
+    mid = torch.zeros_like(bids, dtype=torch.bool)
+    row_b = torch.div(ts, B, rounding_mode="floor")
+    live = (ts != -2**31) & (ts <= q_ts[:, None])
+    for T in WINDOWS:
+        b_lo = torch.div(q_ts - T, B, rounding_mode="floor")[:, None]
+        inside = live & (ts > q_ts[:, None] - T)
+        raw |= inside & ((row_b == b_q) | ((row_b == b_lo) & (b_lo != b_q)))
+        mid |= (bids > b_lo) & (bids < b_q)
+    b_lo = torch.div(q_ts - max(WINDOWS), B, rounding_mode="floor")[:, None]
+    span = (b_q - b_lo - 1).clamp(0, NB)
+    slot = torch.arange(NB, device=qk.device)[None, :]
+    cand = torch.remainder(slot - (b_lo + 1), NB) < span
+    per_key = [torch.zeros((uk.numel(), m.shape[1]), dtype=torch.int32,
+                           device=qk.device).index_add_(0, inv, m.int()) > 0
+               for m in (raw, cand, mid)]
+    raw_u, cand_u, mid_u = (int(m.sum()) for m in per_key)
+    Q, NW = qk.numel(), len(WINDOWS)
+    nbytes = (uk.numel() * ring_ts.shape[1] * 4 + raw_u * 4 * L
+              + cand_u * 4 + mid_u * 20 * L
+              + Q * ((8 + 4 * L) + NW * L * 20))
+    return int(uk.numel()), nbytes
+
+
+def check_window_stats(results, store, rows) -> None:
+    """The window-stats kernel on the main path's warm state: against its
+    plain version, and against the store's own preagg answers."""
+    from repro_torch.core.expr import Col
+    from repro_torch.kernels.window_agg.ops import window_stats
+    from repro_torch.kernels.window_agg.ref import window_stats_ref
+    from repro_torch.obs import Telemetry, use_telemetry
+
+    dev = torch.device("cuda")
+    fs = store._flat_state()
+    shard, local = store._route_ids(rows["card"])
+    qk = torch.as_tensor((shard * store.num_keys + local).astype(np.int32),
+                         device=dev)
+    cols = store._columns(rows)
+    args = (fs.ring.ts, fs.ring.vals, fs.bagg.stats, fs.bagg.bucket, qk,
+            cols["ts"], store._lanes(cols))
+    kw = dict(windows=WINDOWS, bucket_size=store.bucket_size)
+    got = window_stats(*args, **kw)
+    want = window_stats_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if got.shape != (REQ_ROWS, len(WINDOWS), store.num_lanes, 5):
+        _fail(f"window_stats shape {tuple(got.shape)}")
+    exact = max(_max_abs_err(got[..., i].contiguous(), want[..., i].contiguous())
+                for i in (1, 2, 3))
+    if exact != 0.0:
+        _fail(f"window_stats count/min/max differ from the plain version "
+              f"(max |diff| {exact})")
+    sums = [(got[..., i] - want[..., i]).abs().max().item() for i in (0, 4)]
+    if not all(torch.allclose(got[..., i], want[..., i], rtol=1e-5, atol=1e-3)
+               for i in (0, 4)):
+        _fail(f"window_stats sums outside rtol 1e-5 / atol 1e-3: {sums}")
+    with use_telemetry(Telemetry()):
+        res = store.query(dict(rows), mode="preagg")
+    lane = store._lane_of[Col("amount").key]
+    g = got.cpu().numpy()
+    s1h, c1h, m6h = g[:, 0, lane, 0], g[:, 0, lane, 1], g[:, 1, lane, 3]
+    if not np.allclose(s1h, res["amt_sum_1h"].cpu().numpy(), rtol=1e-5,
+                       atol=1e-3):
+        _fail("window_stats SUM 1h disagrees with the store's preagg query")
+    for name, v in (("tx_count_1h", c1h), ("amt_max_6h", m6h)):
+        if not np.array_equal(v, res[name].cpu().numpy()):
+            _fail(f"window_stats {name} differs from the store's preagg query")
+    print(f"window_stats == plain on {REQ_ROWS} requests x {len(WINDOWS)} "
+          f"windows x {store.num_lanes} lanes: count/min/max bit-exact, sums "
+          f"max |diff| {max(sums):.3e}; SUM 1h / COUNT 1h / MAX 6h agree with "
+          "the store's preagg query", flush=True)
+    ms = _time_ms(lambda: window_stats(*args, **kw), 50, 3)
+    plain_ms = _time_ms(lambda: window_stats_ref(*args, **kw), 5)
+    C, L, NB = store.capacity, store.num_lanes, store.num_buckets
+    keys, nbytes = _window_stats_bytes(fs.ring.ts, fs.bagg.bucket, qk,
+                                       cols["ts"], L, store.bucket_size)
+    results["window_stats"].update(
+        max_abs_err=max(sums), ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
+        shape=f"{REQ_ROWS} requests ({keys} keys), C={C}, NB={NB}, L={L}, "
+              f"windows {WINDOWS}",
+    )
+    print(f"window_stats {REQ_ROWS} requests: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {results['window_stats']['bound_ms']:.5f}"
+          f" ms ({nbytes} bytes)", flush=True)
 
 
 def trace_request(svc, rows) -> None:
@@ -411,6 +623,138 @@ def trace_request(svc, rows) -> None:
               f"x{e.count} {e.key[:90]}", flush=True)
 
 
+def offline_path(results) -> None:
+    """The offline export over 2^24 transactions, through the fold-levels
+    kernel, and the same export with the kernel's plain version swapped
+    in: every feature bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.core import windows as win
+    from repro_torch.core.engine import OfflineEngine
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.kernels.window_agg.ref import fold_levels_ref
+    from repro_torch.scenarios import fraud_view
+
+    rng = np.random.default_rng(SEED + 3)
+    per_day = WARM_SLICES * SLICE_ROWS
+    days = [fraud_transactions(rng, per_day, NUM_CARDS, d * DAY, (d + 1) * DAY)
+            for d in range(OFFLINE_DAYS)]
+    cols = {c: np.concatenate([d[c] for d in days]) for c in days[0]}
+    del days
+    n = len(cols["card"])
+    view = fraud_view()
+    engine = OfflineEngine(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    engine.compute(view, cols)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = engine.compute(view, cols)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # one launch per doubling level, in each of the two exports
+    if launches["fold_levels"] < 2:
+        _fail(f"the offline path did not launch the fold-levels kernel: "
+              f"{launches}")
+    results["fold_levels"]["launches"] = launches["fold_levels"]
+    print(f"offline export, {n} transactions on {NUM_CARDS} cards, "
+          f"{len(view.features)} features: cold {cold_s:.3f} s, warm "
+          f"{warm_s:.3f} s = {n / warm_s:.0f} rows/s (host columns to "
+          f"device included); fold_levels launches {launches['fold_levels']}"
+          f" over 2 runs; peak device memory {peak / 1e9:.2f} GB", flush=True)
+
+    amount = torch.as_tensor(cols["amount"], device="cuda")
+    for f, v in out.items():
+        if v.shape != (n,) or not bool(torch.isfinite(v).all()):
+            _fail(f"offline feature {f}: shape {tuple(v.shape)} or non-finite")
+    if not bool((out["tx_count_1h"] >= 1).all()):
+        _fail("offline: a row's 1 h window must count the row itself")
+    if not bool((out["amt_max_6h"] >= amount).all()):
+        _fail("offline: a row's 6 h max must be at least its own amount")
+
+    kernel_fold = win.fold_levels
+
+    def fold_levels_plain(x, seg, *, op):
+        return fold_levels_ref(x, seg, op)
+
+    win.fold_levels = fold_levels_plain
+    try:
+        plain = engine.compute(view, cols)
+    finally:
+        win.fold_levels = kernel_fold
+    torch.cuda.synchronize()
+    for f in out:
+        err = _max_abs_err(out[f], plain[f])
+        if err != 0.0:
+            _fail(f"offline feature {f} differs from the run with the "
+                  f"fold-levels plain version (max |diff| {err})")
+    print(f"offline export == the fold-levels plain version's run: "
+          f"{len(out)} features bit-exact", flush=True)
+    del out, plain, amount
+    torch.cuda.empty_cache()
+    trace_offline(engine, view, cols)
+
+
+def trace_offline(engine, view, cols) -> None:
+    """Profile one warm offline export: device kernels, busy time, idle
+    share, the largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.compute(view, cols)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms <= 0:
+        print("offline trace: the profiler recorded no device time (device "
+              "busy share not measured)", flush=True)
+        return
+    print(f"offline trace (profiler on): export wall {wall_ms:.3f} ms, "
+          f"{sum(e.count for e in dev)} device kernels, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}",
+          flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
+              f"x{e.count} {e.key[:90]}", flush=True)
+
+
+def consistency() -> None:
+    """verify_view on the card, naive and preagg mode, for each run of
+    ``VERIFY_RUNS``."""
+    from repro_torch.core.consistency import verify_view
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.scenarios import fraud_view
+
+    rng = np.random.default_rng(SEED + 4)
+    for cards, span in VERIFY_RUNS:
+        cols = fraud_transactions(rng, VERIFY_ROWS, cards, 0, span)
+        per_card = np.bincount(cols["card"], minlength=cards)
+        print(f"consistency: {VERIFY_ROWS} transactions on {cards} cards "
+              f"over {span} s, {per_card.max()} on the busiest card "
+              f"(ring {STORE_KW['capacity']})", flush=True)
+        for mode in ("naive", "preagg"):
+            t0 = time.perf_counter()
+            rep = verify_view(fraud_view(), cols, num_keys=cards,
+                              mode=mode, device="cuda", **STORE_KW)
+            print(f"{rep.summary()} in {time.perf_counter() - t0:.1f} s: "
+                  f"max_abs_err {rep.max_abs_err!r}, max_rel_err "
+                  f"{rep.max_rel_err!r}; per feature {rep.per_feature}",
+                  flush=True)
+            if not rep.passed:
+                _fail(f"verify_view ({mode}, {cards} cards over {span} s) "
+                      f"failed: {rep.per_feature}")
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         _fail("no CUDA GPU visible (this smoke run needs one)")
@@ -433,7 +777,10 @@ def main() -> None:
     results = {}
     check_ingest_kernel(results)
     check_route_kernel(results)
+    check_fold_kernel(results)
     main_path(results)
+    offline_path(results)
+    consistency()
 
     line = {"kernels": [
         dict(name="fused_ingest", route="cuda",
@@ -444,6 +791,14 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/route_rank.cu",
              replaces="src/repro/kernels/route/route.py:57",
              bound_by="bytes", library_ms=None, **results["route_rank"]),
+        dict(name="fold_levels", route="cuda",
+             source="src/repro_torch/kernels/csrc/fold_levels.cu",
+             replaces="src/repro/kernels/window_agg/window_agg.py:288",
+             bound_by="bytes", library_ms=None, **results["fold_levels"]),
+        dict(name="window_stats", route="cuda",
+             source="src/repro_torch/kernels/csrc/window_stats.cu",
+             replaces="src/repro/kernels/window_agg/window_agg.py:103",
+             bound_by="bytes", library_ms=None, **results["window_stats"]),
     ]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -1,7 +1,9 @@
-"""Synthetic card-transaction data for the fraud scenario (§3.3).
+"""Schemas of the example scenarios and synthetic card-transaction data.
 
-:data:`FRAUD_SCHEMA` is the reference package's transactions table
-(key = card id, heavy-tailed amounts, categorical MCC / device / geo).
+:data:`FRAUD_SCHEMA` (§3.3 card transactions: key = card id, heavy-tailed
+amounts, categorical MCC / device / geo), :data:`RECO_SCHEMA` (§3.2
+orders) and :data:`MULTITABLE_DB` (transactions + wires union stream +
+accounts / merchants profile tables) are the reference package's.
 :func:`fraud_transactions` draws a batch in bulk with numpy — no per-row
 Python loop, so deployment-sized streams (millions of rows) are cheap to
 make — returned (card, ts)-sorted, as ingest requires.
@@ -13,14 +15,42 @@ from typing import Dict
 
 import numpy as np
 
-from repro_torch.core.storage import TableSchema
+from repro_torch.core.storage import Database, TableSchema
 
-__all__ = ["FRAUD_SCHEMA", "fraud_transactions"]
+__all__ = ["FRAUD_SCHEMA", "RECO_SCHEMA", "MULTITABLE_DB",
+           "fraud_transactions"]
 
 FRAUD_SCHEMA = TableSchema(
     name="transactions", key="card", ts="ts",
     numeric=("amount",),
     categorical=("mcc", "device", "geo"),
+)
+
+RECO_SCHEMA = TableSchema(
+    name="orders", key="user", ts="ts",
+    numeric=("price", "qty"),
+    categorical=("product", "category"),
+)
+
+MULTITABLE_DB = Database(
+    name="fraud_multitable",
+    primary=TableSchema(
+        name="transactions", key="account", ts="ts",
+        numeric=("amount", "merchant"),
+    ),
+    secondary=(
+        # union stream: same key space + shared "amount" column
+        TableSchema(name="wires", key="account", ts="ts", numeric=("amount",)),
+        # LAST JOIN targets: slowly-changing profile tables
+        TableSchema(
+            name="accounts", key="account", ts="ts",
+            numeric=("credit_limit", "risk_score"),
+        ),
+        TableSchema(
+            name="merchants", key="merchant", ts="ts",
+            numeric=("avg_ticket", "fraud_reports"),
+        ),
+    ),
 )
 
 

@@ -35,7 +35,9 @@ __all__ = [
 ]
 
 # kernel name -> CUDA launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"fused_ingest": 0, "route_rank": 0}
+LAUNCHES: Dict[str, int] = {
+    "fused_ingest": 0, "route_rank": 0, "fold_levels": 0, "window_stats": 0,
+}
 
 
 def reset_launches() -> None:
@@ -43,8 +45,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def count_launch(kernel: str) -> None:
-    LAUNCHES[kernel] += 1
+def count_launch(kernel: str, n: int = 1) -> None:
+    """Add ``n`` device launches of ``kernel`` (a wrapper that issues
+    several launches in one call counts each)."""
+    LAUNCHES[kernel] += n
 
 
 def use_cuda_kernel(kernel: str, *tensors: torch.Tensor) -> bool:

@@ -10,7 +10,8 @@ once, and waits for all of them.
 
 Flags: ``sm_90a`` (Hopper), C++17, ``-O3`` and ``-fmad=false`` — the
 ingest kernel's float sums must round exactly like the plain version's
-separate multiply and add, so no fused multiply-add may form.
+separate multiply and add, so no fused multiply-add may form (the same
+holds for the window-stats kernel's sumsq lane).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES: Dict[str, str] = {
     "fused_ingest": "fused_ingest.cu",
     "route_rank": "route_rank.cu",
+    "fold_levels": "fold_levels.cu",
+    "window_stats": "window_stats.cu",
 }
 
 NVCC_FLAGS = (

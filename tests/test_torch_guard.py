@@ -99,6 +99,13 @@ def test_entry_points_refuse_cpu_unless_asked():
         ShardedOnlineStore(view, num_shards=4, **kw)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         FeatureService.build("f", view, sharded=True, num_shards=2, **kw)
+    from repro_torch.core.consistency import verify_view
+    from repro_torch.core.engine import OfflineEngine
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        OfflineEngine()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        verify_view(view, {}, num_keys=64, num_buckets=512)
     arrays = [np.zeros(1, t) for t in (np.int32, np.float32, np.int32,
                                       np.float32, np.int32, np.int32)]
     with pytest.raises(RuntimeError, match="no CUDA GPU"):

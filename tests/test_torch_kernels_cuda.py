@@ -6,9 +6,13 @@ the GPU with ``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_kernels_cuda.py``.  This file imports neither ``jax`` nor
 the JAX package, so it runs where only PyTorch is installed.
 
-Tolerances: both kernels must equal their plain versions exactly — the
-ingest kernel on all six state arrays (f32 compared as int32 bit
-patterns), the route kernel on ranks and counts (integers).  The whole
+Tolerances: the ingest, route and fold-levels kernels must equal their
+plain versions exactly — the ingest kernel on all six state arrays (f32
+compared as int32 bit patterns), the route kernel on ranks and counts
+(integers), the fold-levels kernel on every level (NaN payloads and
+``±0.0`` included).  The window-stats kernel's count, min and max are
+exact; its sum and sumsq reduce in the kernel's tree order, within
+``rtol=1e-5, atol=1e-3``.  The whole
 store on the GPU equals the same store on the CPU: state bit-exact,
 COUNT / MAX bit-exact, SUM / MEAN within ``rtol=1e-5`` (masked ring
 sums reduce in a device-chosen order), STD within that plus the
@@ -26,6 +30,12 @@ from repro_torch.kernels.ingest.ops import fused_ingest
 from repro_torch.kernels.ingest.ref import fused_ingest_ref
 from repro_torch.kernels.route.ops import route_rank
 from repro_torch.kernels.route.ref import route_rank_ref
+from repro_torch.kernels.window_agg.ops import fold_levels, window_stats
+from repro_torch.kernels.window_agg.ref import (
+    fold_levels_ref,
+    fold_num_levels,
+    window_stats_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -160,3 +170,145 @@ def test_sharded_store_on_gpu_matches_cpu(cuda):
         np.testing.assert_array_equal(
             sa[name].view(np.int32), sb[name].view(np.int32), err_msg=name
         )
+
+
+# float32 patterns: ±0, NaNs of both signs and payloads, ±inf, ±1
+_SPECIAL = np.array(
+    [0x0, 0x80000000, 0x7FC00000, 0xFFC00000, 0x7FC00001, 0x7F800001,
+     0xFF800005, 0x7F800000, 0xFF800000, 0x3F800000, 0xBF800000],
+    np.uint32,
+).view(np.float32)
+
+
+def _seg(key):
+    n = len(key)
+    start = np.ones(n, bool)
+    start[1:] = key[1:] != key[:-1]
+    return np.maximum.accumulate(np.where(start, np.arange(n), 0)).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("op", ["min", "max", "or"])
+@pytest.mark.parametrize("n", [1, 5, 1000, 4097, (1 << 20) + 3])
+@pytest.mark.parametrize("layout", ["segments", "one_segment", "all_starts"])
+def test_fold_levels_kernel_matches_ref(cuda, op, n, layout):
+    rng = np.random.default_rng(n * 7 + len(op) + len(layout))
+    key = {"segments": np.sort(rng.integers(0, 1 + n // 50, n)),
+           "one_segment": np.zeros(n),
+           "all_starts": np.arange(n)}[layout].astype(np.int32)
+    if op == "or":
+        x = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    else:
+        x = rng.normal(size=n).astype(np.float32)
+        special = rng.random(n) < 0.1
+        x[special] = rng.choice(_SPECIAL, int(special.sum()))
+    xt = torch.as_tensor(x, device=cuda)
+    st = torch.as_tensor(_seg(key), device=cuda)
+    before = kernels.LAUNCHES["fold_levels"]
+    got = fold_levels(xt, st, op=op)
+    # one launch per doubling level (level 0 is a copy)
+    assert kernels.LAUNCHES["fold_levels"] == before + fold_num_levels(n) - 1
+    want = fold_levels_ref(xt, st, op)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    _assert_same([got], [want], f"fold_levels {op} n={n} {layout}")
+
+
+def _gpu_store(cuda, rng, keys=512, rows=20_000):
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.service import FeatureService
+
+    svc = FeatureService.build(
+        "w", fraud_view(), num_keys=keys, sharded=True, num_shards=4,
+        capacity=64, num_buckets=512, bucket_size=64, device="cuda",
+    )
+    for i in range(4):
+        svc.store.ingest(fraud_transactions(rng, rows // 4, keys,
+                                             i * 9000, (i + 1) * 9000))
+    return svc.store
+
+
+@pytest.mark.parametrize("t_lo,t_hi", [(30_000, 40_000), (0, 300)])
+def test_window_stats_kernel_matches_ref(cuda, t_lo, t_hi):
+    """On a sharded fraud store's flat state (2 lanes), late and early
+    requests: count, min, max exact; sums within rtol 1e-5."""
+    rng = np.random.default_rng(t_lo + 3)
+    store = _gpu_store(cuda, rng)
+    s = store._flat_state()
+    keys = rng.integers(0, 512, 1000)
+    shard, local = store._route_ids(keys)
+    qk = torch.as_tensor((shard * store.num_keys + local).astype(np.int32),
+                         device=cuda)
+    qt = torch.as_tensor(rng.integers(t_lo, t_hi, 1000).astype(np.int32),
+                         device=cuda)
+    ql = torch.as_tensor(rng.gamma(1.5, 60.0, (1000, 2)).astype(np.float32),
+                         device=cuda)
+    args = (s.ring.ts, s.ring.vals, s.bagg.stats, s.bagg.bucket, qk, qt, ql)
+    before = kernels.LAUNCHES["window_stats"]
+    got = window_stats(*args, windows=(3600, 21600), bucket_size=64)
+    assert kernels.LAUNCHES["window_stats"] == before + 1
+    want = window_stats_ref(*args, windows=(3600, 21600), bucket_size=64)
+    torch.cuda.synchronize()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(got[..., i].view(np.int32),
+                                      want[..., i].view(np.int32))
+    for i in (0, 4):
+        np.testing.assert_allclose(got[..., i], want[..., i], rtol=1e-5,
+                                   atol=1e-3)
+
+
+def test_window_stats_rejects_out_of_range_keys(cuda):
+    z = torch.zeros
+    args = (z((4, 8), dtype=torch.int32, device=cuda),
+            z((4, 8, 1), device=cuda), z((4, 16, 1, 5), device=cuda),
+            z((4, 16), dtype=torch.int32, device=cuda),
+            torch.tensor([0, 4], dtype=torch.int32, device=cuda),
+            z(2, dtype=torch.int32, device=cuda), z((2, 1), device=cuda))
+    with pytest.raises(ValueError, match="outside"):
+        window_stats(*args, windows=(60,), bucket_size=8)
+
+
+def test_offline_engine_on_gpu_matches_cpu(cuda):
+    """The fraud view offline on the GPU (fold-levels kernel) equals the
+    CPU run: MAX and counts exact; sums within the mean-centering bound
+    (the mean reduces in a device-chosen order)."""
+    from repro_torch.core.engine import OfflineEngine
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.scenarios import fraud_view
+
+    rng = np.random.default_rng(11)
+    cols = fraud_transactions(rng, 50_000, 1024, 0, 86_400)
+    perm = rng.permutation(50_000)
+    cols = {c: v[perm] for c, v in cols.items()}
+    before = kernels.LAUNCHES["fold_levels"]
+    a = OfflineEngine(device="cuda").compute(fraud_view(), cols)
+    assert kernels.LAUNCHES["fold_levels"] > before
+    b = OfflineEngine(device="cpu").compute(fraud_view(), cols)
+    for f in ("tx_count_1h", "tx_count_50", "amt_max_6h", "big_ratio_1h"):
+        np.testing.assert_array_equal(a[f].cpu().numpy(), b[f].numpy(),
+                                      err_msg=f)
+    amax = float(cols["amount"].max())
+    cnt = float(b["tx_count_1h"].max())
+    for f in ("amt_sum_1h", "amt_sum_6h", "amt_mean_1h"):
+        np.testing.assert_allclose(a[f].cpu().numpy(), b[f].numpy(),
+                                   rtol=1e-5, atol=1e-5 * amax * cnt,
+                                   err_msg=f)
+
+
+@pytest.mark.parametrize("mode", ["naive", "preagg"])
+def test_verify_view_on_gpu_passes(cuda, mode):
+    """One hour of traffic, ~10 rows per card (the regime chip_smoke.py
+    checks; over a day the STD tolerance of verify_view does not hold in
+    either package — ROADMAP Queue C)."""
+    from repro_torch.core.consistency import verify_view
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.scenarios import fraud_view
+
+    rng = np.random.default_rng(12)
+    cols = fraud_transactions(rng, 20_000, 2048, 0, 3600)
+    rep = verify_view(fraud_view(), cols, num_keys=2048, capacity=256,
+                      num_buckets=512, bucket_size=64, mode=mode,
+                      device="cuda")
+    assert rep.passed, rep.summary() + f" per-feature: {rep.per_feature}"
