@@ -1,5 +1,6 @@
-"""GPU smoke run of the PyTorch port: the sharded online request path and
-the offline feature path with its offline<->online consistency check.
+"""GPU smoke run of the PyTorch port: the sharded online request path, the
+fraud scoring path on top of it, and the offline feature path with its
+offline<->online consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -9,7 +10,7 @@ toolkit::
 Phases, in order; any failure exits non-zero:
 
 1. **Card.**  The card's name and power limit (``nvidia-smi``).
-2. **Build.**  All four CUDA kernels from ``src/repro_torch/kernels/csrc``,
+2. **Build.**  All five CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, started together.
 3. **Kernels against their plain versions** at the main path's shapes: the
    fused ingest kernel over 65,536-row batches into the full 2^19-card,
@@ -39,26 +40,47 @@ Phases, in order; any failure exits non-zero:
 6. **Trace.**  One more request batch (no ingest) under
    ``torch.profiler``: device kernels launched, device busy time and the
    device's idle share of the batch, the largest device items.
-7. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+7. **Signature-embedding kernel** against its plain version at the
+   scoring shapes: 4,096 rows, k = 2, a 2^18 x 512 float32 table (512 MB,
+   larger than L2) over 8 batches of real multi-hash ids; and a bf16
+   table, k = 1 and 3, D = 510 (not a multiple of 4 floats or 8 bf16) —
+   all bit for bit.  Timed with CUDA events beside its plain version and
+   ``F.embedding_bag`` (the library call), cycling over the 8 id batches
+   so repeated launches do not find their rows in L2.  Its bound counts
+   the distinct table rows each batch probes.
+8. **Scoring path.**  ``ScoringService`` on the main path's warm sharded
+   service (reused) with ``DecoderLM(featinsight_fraud.config())`` — 8
+   layers, d_model 512, bf16, weights from a seeded generator on the
+   card — and the 2^18 x 512 table: one warm-up batch, then 8 scored
+   batches of 4,096 rows.  Scores must be finite and in [0, 1]; the
+   signature-embedding kernel must have launched once a batch; the
+   embeddings and scores must equal, bit for bit, the same batches served
+   with the kernel's plain version swapped in (a score difference is
+   checked against the kernel path's own run-to-run difference).  Prints
+   the fenced batch wall p50 / p99 split into features, embedding and
+   model, the peak device memory and one traced batch; then runs
+   ``repro_torch.launch.serve.main`` once on the card at its defaults.
+9. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-8. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+10. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-9. **Summary.**  Request latency, ingest rate, then one ``kernels`` JSON
-   line, then the card line, then the ``ok`` line last.
+11. **Summary.**  One ``kernels`` JSON line, then the card line, then the
+    ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -92,6 +114,9 @@ VERIFY_ROWS = 1 << 20
 VERIFY_RUNS = ((1 << 17, 3600), (1 << 11, DAY))
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# the scoring path's signature-embedding table and probes
+SIG_ROWS, SIG_DIM, SIG_PROBES = 1 << 18, 512, 2
+SIG_BATCHES = 8
 
 
 def _fail(msg: str) -> None:
@@ -372,7 +397,7 @@ def _request_rows(rng, t_lo):
     return cols
 
 
-def main_path(results) -> None:
+def main_path(results):
     from repro_torch import kernels
     from repro_torch.core import shard as shard_mod
     from repro_torch.data.synthetic import fraud_transactions
@@ -496,6 +521,7 @@ def main_path(results) -> None:
     torch.cuda.empty_cache()
     check_window_stats(results, store, _request_rows(rng, DAY + 60 * REQ_BATCHES))
     trace_request(svc, _request_rows(rng, DAY + 60 * REQ_BATCHES))
+    return svc
 
 
 def _window_stats_bytes(ring_ts, bagg_bucket, qk, q_ts, L, B):
@@ -619,6 +645,278 @@ def trace_request(svc, rows) -> None:
           f"{n_kernels} device kernels, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}", flush=True)
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
+              f"x{e.count} {e.key[:90]}", flush=True)
+
+
+def _sig_ids(rng, n, k, V):
+    """(N, k) multi-hash ids of ``n`` random 20-bit signatures, as the
+    scoring path computes them."""
+    from repro_torch.core.signature import multi_hash_ids
+
+    sig = torch.as_tensor(rng.integers(0, 2**20, n).astype(np.int32),
+                          device="cuda")
+    return multi_hash_ids(sig, k, V)
+
+
+def _sig_bytes(ids, D, esize) -> int:
+    """Bytes one signature-embedding call must move on these ids: each
+    distinct probed table row once, the ids, the weights and the output."""
+    n, k = ids.shape
+    rows = int(torch.unique(ids).numel())
+    return rows * D * esize + n * k * 4 + k * 4 + n * D * esize
+
+
+def check_signature_kernel(results):
+    """The signature-embedding kernel against its plain version, bit for
+    bit, then timed at the scoring shapes.  Returns the float32 table the
+    scoring phase uses."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.signature.ops import (
+        launch_signature_embed,
+        signature_embed,
+    )
+    from repro_torch.kernels.signature.ref import signature_embed_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 6)
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    table = torch.randn((SIG_ROWS, SIG_DIM), generator=g, device=dev) * 0.02
+    w = torch.full((SIG_PROBES,), 1.0 / SIG_PROBES, device=dev)
+
+    def check(name, tab, ids, wts):
+        out = torch.empty((ids.shape[0], tab.shape[1]), dtype=tab.dtype,
+                          device=dev)
+        launch_signature_embed(tab, ids, wts, out)
+        want = signature_embed_ref(tab, ids, wts).to(tab.dtype)
+        torch.cuda.synchronize()
+        bits = torch.int32 if tab.dtype == torch.float32 else torch.int16
+        if not torch.equal(out.view(bits), want.view(bits)):
+            err = float((out.float() - want.float()).abs().max())
+            _fail(f"signature_embed differs from its plain version on "
+                  f"'{name}' (max |diff| {err})")
+        print(f"signature_embed == plain on '{name}' ({ids.shape[0]} rows, "
+              f"k={ids.shape[1]}, table {tuple(tab.shape)} {tab.dtype}): "
+              "bit-exact", flush=True)
+
+    batches = [_sig_ids(rng, REQ_ROWS, SIG_PROBES, SIG_ROWS)
+               for _ in range(SIG_BATCHES)]
+    for b, ids in enumerate(batches):
+        check(f"scoring batch {b}", table, ids, w)
+    bf16 = table.to(torch.bfloat16)
+    check("bf16 table", bf16, batches[0], w)
+    for k in (1, 3):
+        wk = torch.randn((k,), generator=g, device=dev)
+        ids = _sig_ids(rng, REQ_ROWS, k, SIG_ROWS)
+        check(f"k={k}", table, ids, wk)
+        check(f"k={k} bf16", bf16, ids, wk)
+    odd = table[: 1 << 16, :510].contiguous()
+    ids = _sig_ids(rng, REQ_ROWS, SIG_PROBES, odd.shape[0])
+    check("D=510 f32", odd, ids, w)
+    check("D=510 bf16", odd.to(torch.bfloat16), ids, w)
+    del bf16, odd
+
+    # timing: each repetition takes the next of the 8 id batches (8 x 8,192
+    # probed rows of 2 KB = 128 MB, so a launch does not find its rows in
+    # the 50 MB L2)
+    out = torch.empty((REQ_ROWS, SIG_DIM), device=dev)
+    wide = w.expand(REQ_ROWS, SIG_PROBES).contiguous()
+    ids_long = [ids.long() for ids in batches]
+    sigs = [torch.as_tensor(rng.integers(0, 2**20, REQ_ROWS).astype(np.int32),
+                            device=dev) for _ in range(SIG_BATCHES)]
+    step = itertools.count()
+
+    def nxt():
+        return next(step) % SIG_BATCHES
+
+    def library_call():
+        i = nxt()
+        return F.embedding_bag(ids_long[i], table, per_sample_weights=wide,
+                               mode="sum")
+
+    reps = 10 * SIG_BATCHES
+    ms = _time_ms(lambda: launch_signature_embed(
+        table, batches[nxt()], w, out), reps, SIG_BATCHES)
+    plain_ms = _time_ms(lambda: signature_embed_ref(
+        table, batches[nxt()], w), reps, SIG_BATCHES)
+    library_ms = _time_ms(library_call, reps, SIG_BATCHES)
+    wrapper_ms = _time_ms(lambda: signature_embed(
+        table, sigs[nxt()], w, num_hashes=SIG_PROBES), reps, SIG_BATCHES)
+    lib = F.embedding_bag(ids_long[0], table, per_sample_weights=wide,
+                          mode="sum")
+    want = signature_embed_ref(table, batches[0], w)
+    lib_err = float((lib - want).abs().max())
+    nbytes = sum(_sig_bytes(ids, SIG_DIM, 4) for ids in batches) / SIG_BATCHES
+    results["signature_embed"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        wrapper_ms=wrapper_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
+        bytes=nbytes, library_max_abs_diff=lib_err,
+        shape=f"{REQ_ROWS} rows, k={SIG_PROBES}, table {SIG_ROWS} x "
+              f"{SIG_DIM} f32 (mean over {SIG_BATCHES} id batches)",
+    )
+    print(f"signature_embed {REQ_ROWS} rows k={SIG_PROBES}: kernel {ms:.4f} "
+          f"ms (wrapper with the id hashing {wrapper_ms:.4f} ms), plain "
+          f"{plain_ms:.4f} ms, F.embedding_bag {library_ms:.4f} ms (max "
+          f"|diff| {lib_err:.3e}), bound "
+          f"{results['signature_embed']['bound_ms']:.5f} ms ({nbytes:.0f} "
+          "bytes)", flush=True)
+    return table
+
+
+def _batch_spans(tracer):
+    """Durations (s) of the last ``score`` span and its three children."""
+    root = tracer.last_root("score")
+    out = {"score": root.duration_s}
+    for c in root.children:
+        out[c.name] = c.duration_s
+    return out
+
+
+def scoring_path(results, svc, table) -> None:
+    """ScoringService on the warm sharded service with the full-width bf16
+    fraud model; the same batches with the signature-embedding kernel's
+    plain version swapped in; one traced batch; the serve launcher."""
+    from repro_torch import kernels
+    from repro_torch.configs.featinsight_fraud import config
+    from repro_torch.core.signature import multi_hash_ids
+    from repro_torch.kernels.signature.ref import signature_embed_ref
+    from repro_torch.launch import serve
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.serve.service import ScoringService
+
+    # float32 products stay float32 (no TF32), as the reference asks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = config()
+    model = DecoderLM(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    scoring = ScoringService(svc, model, table)
+    rng = np.random.default_rng(SEED + 7)
+    t0 = DAY + 60 * (REQ_BATCHES + 2)
+    batches = [_request_rows(rng, t0 + 60 * b) for b in range(REQ_BATCHES)]
+    print(f"scoring model {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_dtype}, {n_params} parameters; "
+          f"{REQ_ROWS} rows x {cfg.frontend_len + 1} positions a batch",
+          flush=True)
+
+    kernel_embed = scoring._embed
+    embs = []
+
+    def recording_embed(*a, **kw):
+        out = kernel_embed(*a, **kw)
+        embs.append(out)
+        return out
+
+    def recording_embed_plain(tab, sig, wts, *, num_hashes):
+        ids = multi_hash_ids(sig, num_hashes, tab.shape[0])
+        out = signature_embed_ref(tab, ids, wts).to(tab.dtype)
+        embs.append(out)
+        return out
+
+    tel = Telemetry()
+
+    def serve_all():
+        del embs[:]
+        scores, spans, walls = [], [], []
+        for rows in batches:
+            tt = time.perf_counter()
+            scores.append(scoring.handle(dict(rows)))
+            walls.append(time.perf_counter() - tt)
+            spans.append(_batch_spans(tel.tracer))
+        return scores, [e.clone() for e in embs], spans, walls
+
+    with use_telemetry(tel):
+        scoring._embed = recording_embed
+        scoring.handle(dict(batches[0]))      # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        scores, emb_k, spans, walls = serve_all()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        if launches["signature_embed"] < REQ_BATCHES:
+            _fail(f"the scoring path did not launch the signature-embedding "
+                  f"kernel once a batch: {launches}")
+        results["signature_embed"]["launches"] = launches["signature_embed"]
+        for b, sc in enumerate(scores):
+            if sc.shape != (REQ_ROWS,) or not np.all(np.isfinite(sc)):
+                _fail(f"scoring batch {b}: shape {sc.shape} or non-finite")
+            if not np.all((sc >= 0) & (sc <= 1)):
+                _fail(f"scoring batch {b}: scores outside [0, 1]")
+        print(f"scored {REQ_BATCHES} batches x {REQ_ROWS} rows: finite, in "
+              f"[{min(s.min() for s in scores):.4f}, "
+              f"{max(s.max() for s in scores):.4f}]; launches {launches}",
+              flush=True)
+        for name in ("score", "score.features", "score.embed", "score.model"):
+            v = np.array([sp[name] for sp in spans]) * 1e3
+            print(f"span {name}: p50 {np.percentile(v, 50):.3f} ms, p99 "
+                  f"{np.percentile(v, 99):.3f} ms (of {len(v)} batches)",
+                  flush=True)
+        w = np.array(walls) * 1e3
+        print(f"scoring batch wall (handle, fenced) p50 "
+              f"{np.percentile(w, 50):.3f} ms, p99 {np.percentile(w, 99):.3f}"
+              f" ms = {REQ_ROWS / np.percentile(w, 50) * 1e3:.0f} rows/s at "
+              f"p50; peak device memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f}"
+              f" GB above the {base / 1e9:.2f} GB held before)", flush=True)
+
+        scoring._embed = recording_embed_plain
+        scores_p, emb_p, _, _ = serve_all()
+        for b in range(REQ_BATCHES):
+            if not torch.equal(emb_k[b].view(torch.int32),
+                               emb_p[b].view(torch.int32)):
+                _fail(f"scoring batch {b}: embeddings differ from the run "
+                      "with the plain version")
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(scores, scores_p))
+        if diff == 0.0 and all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                               for a, b in zip(scores, scores_p)):
+            print("scoring == the run with the signature-embedding plain "
+                  "version: embeddings and scores bit for bit", flush=True)
+        else:
+            scoring._embed = recording_embed
+            scores_k2, _, _, _ = serve_all()
+            rerun = max(float(np.abs(a - b).max())
+                        for a, b in zip(scores, scores_k2))
+            print(f"scoring vs the plain-version run: embeddings bit for "
+                  f"bit, scores max |diff| {diff:.3e}; the kernel path's own "
+                  f"run-to-run max |diff| {rerun:.3e}", flush=True)
+            if diff > rerun:
+                _fail("scores differ from the plain-version run by more than "
+                      "the kernel path's own run-to-run difference")
+        scoring._embed = kernel_embed
+        trace_scoring(scoring, batches[0])
+    del embs, emb_k, emb_p, scoring, model
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    out = serve.main([])
+    if out["requests"] < 512 or out.get("p50_ms", 0) <= 0:
+        _fail(f"repro_torch.launch.serve.main on the card: {out}")
+
+
+def trace_scoring(scoring, rows) -> None:
+    """Profile one scoring batch: device busy time, idle share, the largest
+    device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scoring.handle(dict(rows))
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms <= 0:
+        print("scoring trace: the profiler recorded no device time (device "
+              "busy share not measured)", flush=True)
+        return
+    print(f"scoring trace (profiler on): batch wall {wall_ms:.3f} ms, "
+          f"{sum(e.count for e in dev)} device kernels, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}",
+          flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
               f"x{e.count} {e.key[:90]}", flush=True)
 
@@ -778,7 +1076,11 @@ def main() -> None:
     check_ingest_kernel(results)
     check_route_kernel(results)
     check_fold_kernel(results)
-    main_path(results)
+    svc = main_path(results)
+    table = check_signature_kernel(results)
+    scoring_path(results, svc, table)
+    del svc, table
+    torch.cuda.empty_cache()
     offline_path(results)
     consistency()
 
@@ -799,6 +1101,10 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/window_stats.cu",
              replaces="src/repro/kernels/window_agg/window_agg.py:103",
              bound_by="bytes", library_ms=None, **results["window_stats"]),
+        dict(name="signature_embed", route="cuda",
+             source="src/repro_torch/kernels/csrc/signature_embed.cu",
+             replaces="src/repro/kernels/signature/signature.py:41",
+             bound_by="bytes", **results["signature_embed"]),
     ]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

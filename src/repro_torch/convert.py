@@ -1,15 +1,18 @@
-"""Carry online-store state between this package and the JAX reference.
+"""Carry state and weights between this package and the JAX reference.
 
-The six primary arrays of an online store — ring ts / vals / cursor and
-bucket stats / bitmap / ids — as numpy, either single-device ``(K, ...)``
-or sharded ``(S, K_local, ...)``.  The tests seed both packages' stores
-from the same warm state with these (the part weight conversion plays for
-a model), and read states back to compare them bit for bit.
+* Online-store state: the six primary arrays of an online store — ring
+  ts / vals / cursor and bucket stats / bitmap / ids — as numpy, either
+  single-device ``(K, ...)`` or sharded ``(S, K_local, ...)``.  The tests
+  seed both packages' stores from the same warm state with these, and read
+  states back to compare them bit for bit.
+* Model weights: :func:`decoder_from_numpy` builds a
+  :class:`~repro_torch.models.transformer.DecoderLM` from the reference
+  model's parameter tree as numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Union
+from typing import Dict, Iterator, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,7 +22,12 @@ from repro_torch.core import preagg as pg
 from repro_torch.core import storage as st
 from repro_torch.core.online import OnlineState
 
-__all__ = ["STATE_ARRAYS", "online_state_from_numpy", "online_state_to_numpy"]
+__all__ = [
+    "STATE_ARRAYS",
+    "online_state_from_numpy",
+    "online_state_to_numpy",
+    "decoder_from_numpy",
+]
 
 # names and dtypes of the six primary arrays, in kernel argument order
 STATE_ARRAYS = (
@@ -68,3 +76,60 @@ def online_state_to_numpy(state: OnlineState) -> Dict[str, np.ndarray]:
         name: t.detach().cpu().numpy()
         for (name, _), t in zip(STATE_ARRAYS, state.arrays())
     }
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    for name, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, f"{prefix}{name}.")
+        else:
+            yield f"{prefix}{name}", v
+
+
+def decoder_from_numpy(cfg, params: Mapping, device="cuda"):
+    """A :class:`~repro_torch.models.transformer.DecoderLM` of ``cfg`` on
+    ``device`` holding the reference model's weights.
+
+    ``params`` is the reference's parameter tree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): ``embed.table`` (and
+    ``embed.head`` when untied), the per-layer parameters stacked on a
+    leading layer axis under ``layers.*``, and ``ln_out.scale``.  Each
+    array must match its parameter's shape, and every parameter must be
+    given.  Values pass through float32, so a bfloat16 tree
+    arrives bit for bit in bfloat16 parameters.
+    """
+    from repro_torch.models.transformer import DecoderLM
+
+    model = DecoderLM(cfg, device=device)
+    own = dict(model.named_parameters())
+    unset = set(own)
+
+    def put(name: str, a) -> None:
+        if name not in own:
+            raise KeyError(f"decoder_from_numpy: no parameter {name!r}")
+        p = own[name]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(
+                f"decoder_from_numpy: {name} has shape {tuple(a.shape)}, "
+                f"the model's is {tuple(p.shape)}"
+            )
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
+        with torch.no_grad():
+            p.copy_(t.to(device=p.device, dtype=p.dtype))
+        unset.discard(name)
+
+    for name, a in _flatten(params):
+        a = np.asarray(a)
+        if name.startswith("layers."):
+            if a.shape[0] != cfg.n_layers:
+                raise ValueError(
+                    f"decoder_from_numpy: {name} stacks {a.shape[0]} layers, "
+                    f"the config has {cfg.n_layers}"
+                )
+            for i in range(cfg.n_layers):
+                put(f"blocks.{i}.{name[len('layers.'):]}", a[i])
+        else:
+            put(name, a)
+    if unset:
+        raise KeyError(f"decoder_from_numpy: parameters not given: {sorted(unset)}")
+    return model

@@ -34,6 +34,7 @@ SOURCES: Dict[str, str] = {
     "route_rank": "route_rank.cu",
     "fold_levels": "fold_levels.cu",
     "window_stats": "window_stats.cu",
+    "signature_embed": "signature_embed.cu",
 }
 
 NVCC_FLAGS = (

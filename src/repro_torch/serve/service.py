@@ -1,14 +1,17 @@
-"""Online feature service — FeatInsight §3.1 step 4.
+"""Online feature service — FeatInsight §3.1 step 4 — and the §3.3
+scoring service on top of it.
 
 ``FeatureService`` is the paper's deployment unit: a named, versioned view
 bound to an online store, answering request rows with feature vectors
 under a latency budget.  ``BatchScheduler`` is the serving loop's
 micro-batcher: requests coalesce up to ``max_batch`` or ``max_wait_us``
 (whichever first) and are padded to a fixed batch shape.
+``ScoringService`` turns request rows into fraud scores: features, a
+signature embedding of the key, then the model.
 
 The single-scenario slice of the reference package's ``repro.serve.
-service`` (``MultiScenarioService`` and ``ScoringService`` are not ported
-yet).  Answers come back as numpy arrays on the host.
+service`` (``MultiScenarioService`` is not ported yet).  Answers come back
+as numpy arrays on the host.
 """
 
 from __future__ import annotations
@@ -17,12 +20,13 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.online import OnlineFeatureStore
 from repro_torch.core.view import FeatureRegistry, FeatureView
 from repro_torch.obs import get_telemetry
 
-__all__ = ["ServiceStats", "FeatureService", "BatchScheduler"]
+__all__ = ["ServiceStats", "FeatureService", "BatchScheduler", "ScoringService"]
 
 
 @dataclasses.dataclass
@@ -257,6 +261,12 @@ class FeatureService:
         self.stats.observe_requests(req_lat)
         return out
 
+    def feature_matrix(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
+        """(B, F) float32 features of ``rows`` in ``view.features`` order,
+        without ingesting them."""
+        out = self.request(rows, ingest=False)
+        return np.stack([out[f] for f in self.view.features], axis=-1)
+
 
 class BatchScheduler:
     """Coalesce requests into fixed-shape batches (bucketed padding).
@@ -370,3 +380,95 @@ class BatchScheduler:
             "1", labels=("layer",),
         ).set(pad / bucket, layer="scheduler")
         return cols
+
+
+class ScoringService:
+    """features -> signature embedding -> model -> score (fraud §3.3).
+
+    ``handle`` builds one frontend sequence per request row: the row's
+    feature vector and the signature embedding of its key, each zero-padded
+    to ``d_model``, then zero patches up to the model's ``frontend_len``;
+    one zero token follows, and the score is the sigmoid of the last
+    position's logit 0.  The model (a :class:`~repro_torch.models.
+    transformer.DecoderLM`) and ``embed_table`` live on the device the
+    service runs on; the embedding and the model's cache-free forward run
+    under ``torch.inference_mode()``.
+
+    Each call records a ``score`` span with three children:
+    ``score.features`` (host: the feature service's request, answers on
+    the host), ``score.embed`` and ``score.model`` (device, fenced).
+    """
+
+    def __init__(self, feature_service: FeatureService, model,
+                 embed_table: torch.Tensor, num_hashes: int = 2):
+        from repro_torch.core.signature import signature_ids
+        from repro_torch.kernels.signature.ops import signature_embed
+
+        cfg = model.cfg
+        widths = {"feature count": len(feature_service.view.features),
+                  "embedding width": embed_table.shape[1]}
+        for what, width in widths.items():
+            if width > cfg.d_model:
+                raise ValueError(
+                    f"ScoringService: {what} {width} exceeds d_model "
+                    f"{cfg.d_model}"
+                )
+        if cfg.frontend_len < 2:
+            raise ValueError(
+                "ScoringService: the model needs frontend_len >= 2 (the "
+                "feature vector and the embedding)"
+            )
+        self.fs = feature_service
+        self.model = model
+        self.table = embed_table
+        self.num_hashes = num_hashes
+        self._signature_ids = signature_ids
+        self._embed = signature_embed
+        self._weights = torch.full(
+            (num_hashes,), 1.0 / num_hashes, dtype=torch.float32,
+            device=embed_table.device,
+        )
+
+    def _score(self, feats: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        """(B,) float32 scores from (B, d_model) features and embeddings."""
+        cfg = self.model.cfg
+        B = feats.shape[0]
+        fe = torch.cat([feats[:, None, :], emb[:, None, :]], dim=1)
+        fe = torch.nn.functional.pad(fe, (0, 0, 0, cfg.frontend_len - 2))
+        batch = {
+            "tokens": torch.zeros((B, 1), dtype=torch.int32, device=fe.device),
+            "frontend_embeds": fe,
+        }
+        logits = self.model(batch)
+        return torch.sigmoid(logits[:, -1, 0])
+
+    def handle(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
+        """(B,) float32 fraud scores of the request ``rows``."""
+        tracer = get_telemetry().tracer
+        cfg = self.model.cfg
+        dev = self.table.device
+        n = len(next(iter(rows.values())))
+        with tracer.span("score", rows=n):
+            with tracer.span("score.features"):
+                feats = self.fs.feature_matrix(rows)  # (B, F)
+            # the store's own tensors stay outside inference mode: ingest
+            # updates them in place later
+            with torch.inference_mode():
+                with tracer.span("score.embed", kind="device") as sp:
+                    key = np.asarray(rows[self.fs.view.schema.key])
+                    sig = self._signature_ids(
+                        [torch.as_tensor(key.astype(np.int32), device=dev)],
+                        bits=20,
+                    )
+                    emb = sp.fence(self._embed(self.table, sig, self._weights,
+                                               num_hashes=self.num_hashes))
+                with tracer.span("score.model", kind="device") as sp:
+                    featvec = torch.nn.functional.pad(
+                        torch.as_tensor(feats, dtype=torch.float32, device=dev),
+                        (0, cfg.d_model - feats.shape[1]),
+                    )
+                    emb = torch.nn.functional.pad(
+                        emb, (0, cfg.d_model - emb.shape[-1])
+                    )
+                    scores = sp.fence(self._score(featvec, emb))
+            return scores.cpu().numpy()

@@ -12,7 +12,8 @@ compared as int32 bit patterns), the route kernel on ranks and counts
 (integers), the fold-levels kernel on every level (NaN payloads and
 ``±0.0`` included).  The window-stats kernel's count, min and max are
 exact; its sum and sumsq reduce in the kernel's tree order, within
-``rtol=1e-5, atol=1e-3``.  The whole
+``rtol=1e-5, atol=1e-3``.  The signature-embedding kernel equals its
+plain version bit for bit (float32 and bfloat16 tables).  The whole
 store on the GPU equals the same store on the CPU: state bit-exact,
 COUNT / MAX bit-exact, SUM / MEAN within ``rtol=1e-5`` (masked ring
 sums reduce in a device-chosen order), STD within that plus the
@@ -29,6 +30,11 @@ from repro_torch.core import storage as st
 from repro_torch.kernels.ingest.ops import fused_ingest
 from repro_torch.kernels.ingest.ref import fused_ingest_ref
 from repro_torch.kernels.route.ops import route_rank
+from repro_torch.kernels.signature.ops import (
+    launch_signature_embed,
+    signature_embed,
+)
+from repro_torch.kernels.signature.ref import signature_embed_ref
 from repro_torch.kernels.route.ref import route_rank_ref
 from repro_torch.kernels.window_agg.ops import fold_levels, window_stats
 from repro_torch.kernels.window_agg.ref import (
@@ -312,3 +318,101 @@ def test_verify_view_on_gpu_passes(cuda, mode):
                       num_buckets=512, bucket_size=64, mode=mode,
                       device="cuda")
     assert rep.passed, rep.summary() + f" per-feature: {rep.per_feature}"
+
+
+def _sig_case(dev, V, D, N, k, dtype, seed=13):
+    g = torch.Generator().manual_seed(seed)
+    table = torch.randn((V, D), generator=g).to(dtype).to(dev)
+    ids = torch.randint(0, V, (N, k), generator=g, dtype=torch.int32).to(dev)
+    w = torch.randn((k,), generator=g).to(dev)
+    return table, ids, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,N,k", [
+    (4096, 512, 4096, 2),     # the scoring shapes, table cut to 4096 rows
+    (1000, 64, 1, 1),
+    (1000, 130, 777, 3),      # D not a multiple of 4 floats / 8 bf16
+    (50, 7, 300, 4),
+    (1 << 16, 8, 2048, 32),   # the most probes the kernel takes
+])
+def test_signature_embed_kernel_matches_ref(cuda, V, D, N, k, dtype):
+    table, ids, w = _sig_case(cuda, V, D, N, k, dtype)
+    out = torch.empty((N, D), dtype=dtype, device=cuda)
+    launch_signature_embed(table, ids, w, out)
+    want = signature_embed_ref(table, ids, w).to(dtype)
+    torch.cuda.synchronize()
+    a, b = out.cpu(), want.cpu()
+    if dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    else:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    assert torch.equal(a, b)
+
+
+def test_signature_embed_kernel_unaligned_and_bad_ids(cuda):
+    """A table view that starts off a 16-byte boundary takes the scalar
+    path; an out-of-range id gives a NaN row, the other rows stay exact."""
+    table, ids, w = _sig_case(cuda, 513, 64, 100, 2, torch.float32)
+    view = table[1:]                       # 256-byte row offset: aligned
+    odd = table.reshape(-1)[1:1 + 512 * 63].reshape(512, 63)  # unaligned
+    for t in (view, odd):
+        out = torch.empty((100, t.shape[1]), device=cuda)
+        launch_signature_embed(t, ids % 512, w, out)
+        want = signature_embed_ref(t, ids % 512, w)
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+    bad = (ids % 512).clone()
+    bad[7, 1] = 512
+    out = torch.empty((100, 64), device=cuda)
+    launch_signature_embed(view, bad, w, out)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[7]).all()
+    keep = torch.arange(100, device=cuda) != 7
+    want = signature_embed_ref(view, ids % 512, w)
+    assert torch.equal(out[keep].view(torch.int32), want[keep].view(torch.int32))
+
+
+def test_signature_embed_dispatch_counts_launches(cuda):
+    table, _, w = _sig_case(cuda, 1 << 12, 128, 1, 2, torch.float32)
+    sig = torch.arange(0, 5000, dtype=torch.int32, device=cuda) * 7919
+    before = kernels.LAUNCHES["signature_embed"]
+    out = signature_embed(table, sig, w, num_hashes=2)
+    assert kernels.LAUNCHES["signature_embed"] == before + 1
+    cpu = signature_embed(table.cpu(), sig.cpu(), w.cpu(), num_hashes=2)
+    assert torch.equal(out.cpu().view(torch.int32), cpu.view(torch.int32))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        signature_embed(table.half(), sig, w, num_hashes=2)
+    with pytest.raises(ValueError, match="mixed devices"):
+        signature_embed(table, sig.cpu(), w, num_hashes=2)
+
+
+def test_scoring_service_on_gpu_matches_cpu(cuda):
+    """The scoring path on the card (B5 launched) against the same path on
+    the CPU with the same weights and store state: scores within
+    ``atol=1e-4`` (float32 model; cuBLAS and the CPU's BLAS
+    sum in different orders)."""
+    from repro_torch.configs.featinsight_fraud import smoke_config
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.service import FeatureService, ScoringService
+
+    rng = np.random.default_rng(14)
+    hist = fraud_transactions(rng, 5000, 256, 0, 20_000)
+    table = rng.normal(0, 0.02, (1 << 12, 128)).astype(np.float32)
+    model = DecoderLM(smoke_config(), seed=1, device="cuda")
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        fs = FeatureService.build("f", fraud_view(), num_keys=256,
+                                  sharded=True, num_shards=4, device=dev,
+                                  capacity=64, num_buckets=512, bucket_size=64)
+        fs.store.ingest(dict(hist))
+        svc = ScoringService(fs, model.to(dev), torch.as_tensor(table, device=dev))
+        req = {c: v[:512].copy() for c, v in
+               fraud_transactions(np.random.default_rng(15), 512, 256,
+                                  20_000, 20_600).items()}
+        before = kernels.LAUNCHES["signature_embed"]
+        scores[dev] = svc.handle(req)
+        if dev == "cuda":
+            assert kernels.LAUNCHES["signature_embed"] == before + 1
+    np.testing.assert_allclose(scores["cuda"], scores["cpu"], atol=1e-4)
