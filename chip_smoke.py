@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port: the sharded online request path, the
-fraud scoring path on top of it, and the offline feature path with its
-offline<->online consistency check.
+fraud scoring path on top of it, RWKV6 serving (rwkv6-3b prefill and
+decode), and the offline feature path with its offline<->online
+consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -10,7 +11,7 @@ toolkit::
 Phases, in order; any failure exits non-zero:
 
 1. **Card.**  The card's name and power limit (``nvidia-smi``).
-2. **Build.**  All five CUDA kernels from ``src/repro_torch/kernels/csrc``,
+2. **Build.**  All six CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, started together.
 3. **Kernels against their plain versions** at the main path's shapes: the
    fused ingest kernel over 65,536-row batches into the full 2^19-card,
@@ -60,19 +61,42 @@ Phases, in order; any failure exits non-zero:
    the fenced batch wall p50 / p99 split into features, embedding and
    model, the peak device memory and one traced batch; then runs
    ``repro_torch.launch.serve.main`` once on the card at its defaults.
-9. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+9. **WKV6 kernel** against its plain versions at the RWKV6 path's shapes
+   (float32 inputs from a seeded generator): (8, 40, 1024, 64) with a
+   random s0 against the chunked plain version, a (1, 4, 1024, 64) slice
+   against the recurrence, the decode step (8, 40, 1, 64), (1, 2, 100, 64)
+   and the lw edges (above 0, below the -3.5 floor, 0, a whole chunk at
+   the floor); tolerances at ``WKV_TOL``.  Timed with CUDA events beside
+   the chunked plain version; its bound is the larger of its bytes over
+   3.35 TB/s and its chunk products over the float32 peak.
+10. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+   (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
+   2,900,298,240 parameters drawn on the card from a seeded generator, no
+   depth cut); 8 prompts of 1,024 random tokens prefilled, then 32 tokens
+   decoded greedily.  Logits finite, ``pos`` advanced, the WKV6 kernel
+   launched exactly 32 x (1 + 32) times; the prefill logits and final
+   ``wkv`` states equal a run with the chunked plain version swapped in,
+   within ``RWKV_BF16_STEPS`` bf16 steps.  Prints the fenced prefill wall
+   and tokens/s, decode step p50 / p99 and tokens/s, peak device memory,
+   how far decode after 1 and 8 steps is from prefill over the longer
+   prompt, and one traced prefill and decode step.  Then the same model
+   in float32 (same seed; ``mu``, ``u`` and ``w0``, which the reference's
+   init sets to constants, randomized): decode after 1 and 8 steps equals
+   prefill over the longer prompt, and the kernel run the chunked-plain
+   run, within ``RWKV_F32_TOL``.
+11. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-10. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+12. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-11. **Summary.**  One ``kernels`` JSON line, then the card line, then the
+13. **Summary.**  One ``kernels`` JSON line, then the card line, then the
     ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -117,6 +141,26 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # the scoring path's signature-embedding table and probes
 SIG_ROWS, SIG_DIM, SIG_PROBES = 1 << 18, 512, 2
 SIG_BATCHES = 8
+# float32 outside the tensor cores, H100 SXM (NVIDIA data sheet): the WKV6
+# kernel's chunk products run there
+FP32_FLOP_PER_S = 67e12
+# the RWKV6 serving phase: 8 prompts of 1,024 tokens, 32 greedy decode steps
+RWKV_BATCH, RWKV_PROMPT, RWKV_DECODE = 8, 1024, 32
+RWKV_PARAMS = 2_900_298_240   # rwkv6-3b's parameter tree (not param_count())
+# WKV6 kernel vs its chunked plain version, and vs the recurrence: float32
+# products summed in another order (allclose atol = rtol)
+WKV_TOL = {"chunked": 1e-4, "recurrence": 5e-4}
+# the bf16 model's prefill with the kernel and with the chunked plain
+# version differ only in float32 rounding inside the scan; a flipped bf16
+# rounding of the residual stream spreads over 32 layers.  Allowed: this
+# many bf16 steps (2^-8) of the array's largest value
+RWKV_BF16_STEPS = 8
+# decode after prefill vs prefill over the longer prompt, after this many
+# steps
+RWKV_CHECK_STEPS = (1, 8)
+# the float32 model's checks: the reference's own tolerance for decode vs
+# prefill (tests/test_arch_smoke.py), allclose atol = rtol
+RWKV_F32_TOL = 5e-4
 
 
 def _fail(msg: str) -> None:
@@ -504,7 +548,9 @@ def main_path(results):
               f"over {int(spans.count(name=name, kind=kind))}", flush=True)
 
     # the store state == the ingest plain version over the same batches
-    store._apply_ingest = apply_kernel
+    # drop the instance attribute (a bound method stored on its own object
+    # is a reference cycle that keeps the 15.6 GB store alive after del)
+    del store._apply_ingest
     ref = store._init_state()
     ref_flat = [t.flatten(0, 1) for t in ref.arrays()]
     for key, ts, lanes in applied:
@@ -921,6 +967,339 @@ def trace_scoring(scoring, rows) -> None:
               f"x{e.count} {e.key[:90]}", flush=True)
 
 
+def _wkv6_cost(shape, with_s0):
+    """(bytes, FLOP) one WKV6 call must move and compute: r, k, v, lw read
+    and y written once, u, s0 (when given) and the final state; per
+    (b, h) and row the chunk products r~ S and k~ᵀ v (2 D² multiply-adds)
+    and A = r~ k~ᵀ and A v (2 x 16 D)."""
+    B, H, T, D = shape
+    nbytes = 4 * (5 * B * H * T * D + H * D + (2 if with_s0 else 1) * B * H * D * D)
+    flop = 2 * B * H * T * (2 * D * D + 2 * 16 * D)
+    return nbytes, flop
+
+
+def _wkv6_inputs(gen, shape, lw_edge=None):
+    """(r, k, v, lw, u, s0) float32 on the card, scaled as the reference's
+    kernel tests scale them; ``lw_edge`` as in ``check_wkv6_kernel``."""
+    B, H, T, D = shape
+    dev = torch.device("cuda")
+
+    def randn(*s):
+        return torch.randn(s, generator=gen, device=dev)
+
+    r, k, v = randn(*shape) * 0.5, randn(*shape) * 0.5, randn(*shape)
+    lw = -torch.exp(randn(*shape) - 1.0)
+    if lw_edge == "lw > 0":
+        lw[..., ::3] = torch.rand(lw[..., ::3].shape, generator=gen, device=dev) * 2
+    elif lw_edge == "lw < -3.5":
+        lw[..., 1::3] = -3.6 - 16 * torch.rand(lw[..., 1::3].shape,
+                                               generator=gen, device=dev)
+    elif lw_edge == "lw = 0":
+        lw.zero_()
+    elif lw_edge == "a chunk at -3.5 (e^56)":
+        lw[:, :, 16:32] = -3.5
+    return r, k, v, lw, randn(H, D) * 0.3, randn(B, H, D, D) * 0.1
+
+
+def check_wkv6_kernel(results) -> None:
+    """The WKV6 kernel against its chunked plain version and the
+    recurrence, then timed at the prefill and decode shapes."""
+    from repro_torch.kernels.wkv6.ops import launch_wkv6, wkv6, wkv6_chunked
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    H = 40
+    main = (RWKV_BATCH, H, RWKV_PROMPT, 64)
+    decode = (RWKV_BATCH, H, 1, 64)
+    cases = [("prefill", main, True, None), ("decode step", decode, True, None),
+             ("decode step, zero state", decode, False, None),
+             ("T=100", (1, 2, 100, 64), True, None)]
+    cases += [(e, (2, H, 48, 64), True, e) for e in (
+        "lw > 0", "lw < -3.5", "lw = 0", "a chunk at -3.5 (e^56)")]
+    worst = 0.0
+    for name, shape, with_s0, edge in cases:
+        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape, edge)
+        s0 = s0 if with_s0 else None
+        y, s = wkv6(r, k, v, lw, u, s0)
+        yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
+        torch.cuda.synchronize()
+        err = max(float((y - yc).abs().max()), float((s - sc).abs().max()))
+        tol = WKV_TOL["chunked"]
+        if not (torch.allclose(y, yc, rtol=tol, atol=tol)
+                and torch.allclose(s, sc, rtol=tol, atol=tol)):
+            _fail(f"wkv6 differs from its chunked plain version on '{name}' "
+                  f"{shape} (max |diff| {err:.3e}, tolerance {tol})")
+        worst = max(worst, err)
+        print(f"wkv6 == chunked plain on '{name}' {shape}: max |diff| "
+              f"{err:.3e} (atol = rtol = {tol})", flush=True)
+        if name == "prefill":
+            sl = slice(0, 4)
+            yr, sr = wkv6_ref(r[:1, sl], k[:1, sl], v[:1, sl], lw[:1, sl],
+                              u[sl], s0[:1, sl])
+            torch.cuda.synchronize()
+            ref_err = max(float((y[:1, sl] - yr).abs().max()),
+                          float((s[:1, sl] - sr).abs().max()))
+            tol_r = WKV_TOL["recurrence"]
+            if not (torch.allclose(y[:1, sl], yr, rtol=tol_r, atol=tol_r)
+                    and torch.allclose(s[:1, sl], sr, rtol=tol_r, atol=tol_r)):
+                _fail(f"wkv6 differs from the recurrence on (1, 4, 1024, 64) "
+                      f"(max |diff| {ref_err:.3e})")
+            print(f"wkv6 == recurrence on (1, 4, {RWKV_PROMPT}, 64): max "
+                  f"|diff| {ref_err:.3e} (atol = rtol = {tol_r})", flush=True)
+            del yr, sr
+        del r, k, v, lw, u, s0, y, s, yc, sc
+
+    timed = {}
+    for label, shape in (("prefill", main), ("decode", decode)):
+        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)
+        y = torch.empty_like(r)
+        s = torch.empty_like(s0)
+        reps = 20 if label == "prefill" else 200
+        kernel_ms = _time_ms(lambda: launch_wkv6(r, k, v, lw, u, s0, y, s),
+                             reps, 3)
+        wrapper_ms = _time_ms(lambda: wkv6(r, k, v, lw, u, s0), reps, 3)
+        plain_ms = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, s0), 3)
+        nbytes, flop = _wkv6_cost(shape, True)
+        by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
+        timed[label] = dict(ms=kernel_ms, wrapper_ms=wrapper_ms,
+                            plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
+                            bound_by="bytes" if by_bytes >= by_ops else "operations",
+                            bytes=nbytes, flop=flop)
+        print(f"wkv6 {shape}: kernel {kernel_ms:.4f} ms (wrapper "
+              f"{wrapper_ms:.4f} ms), chunked plain {plain_ms:.4f} ms, bound "
+              f"{max(by_bytes, by_ops):.5f} ms ({nbytes} bytes -> "
+              f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms)", flush=True)
+        del r, k, v, lw, u, s0, y, s
+    pre, dec = timed["prefill"], timed["decode"]
+    results["wkv6"] = dict(
+        max_abs_err=worst, **pre,
+        decode_ms=dec["ms"], decode_plain_ms=dec["plain_ms"],
+        decode_bound_ms=dec["bound_ms"],
+        shape=f"{main} prefill with s0 (decode {decode}: kernel "
+              f"{dec['ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms)",
+    )
+    torch.cuda.empty_cache()
+
+
+def _bf16_close(got, want):
+    """(max |diff|, allowed): allowed is ``RWKV_BF16_STEPS`` bf16 steps of
+    ``want``'s largest value."""
+    got, want = got.float(), want.float()
+    allowed = RWKV_BF16_STEPS * 2.0 ** -8 * float(want.abs().max())
+    return float((got - want).abs().max()), allowed
+
+
+def rwkv6_path(results) -> None:
+    """rwkv6-3b at full width: 8 x 1,024-token prefill, 32 greedy decode
+    steps, every WKV6 scan through the kernel; then the checks against
+    longer prefills and the chunked-plain run, and one traced prefill and
+    decode step."""
+    from repro_torch import kernels
+    from repro_torch.configs import rwkv6_3b
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = rwkv6_3b.config()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"rwkv6 model {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.param_dtype}; {n_params} parameters "
+          f"({wbytes / 1e9:.2f} GB) drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if n_params != RWKV_PARAMS:
+        _fail(f"rwkv6-3b has {n_params} parameters, expected {RWKV_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    prompts = torch.randint(0, cfg.vocab, (RWKV_BATCH, RWKV_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+
+    # warm-up at the same shapes: cuBLAS heuristics, the allocator
+    _, st = model.prefill({"tokens": prompts})
+    model.decode_step(st, prompts[:, :1])
+    del st
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits, state = model.prefill({"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_logits, prefill_wkv = logits, state["wkv"]
+    finite = torch.isfinite(logits).all()
+    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    generated, step_ms, step_logits = [tok], [], []
+    for _ in range(RWKV_DECODE):
+        t1 = time.perf_counter()
+        lg, state = model.decode_step(state, tok)
+        tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        finite &= torch.isfinite(lg).all()
+        generated.append(tok)
+        step_logits.append(lg)
+    launches = kernels.LAUNCHES["wkv6"]
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * (1 + RWKV_DECODE)
+    if launches != want:
+        _fail(f"the RWKV6 path launched the WKV6 kernel {launches} times, "
+              f"expected {want} (one per layer per call)")
+    results["wkv6"]["launches"] = launches
+    if not bool(finite):
+        _fail("rwkv6: non-finite logits")
+    pos = state["pos"].cpu()
+    if not bool((pos == RWKV_PROMPT + RWKV_DECODE).all()):
+        _fail(f"rwkv6: pos {pos.tolist()} after {RWKV_DECODE} steps")
+    ms = np.array(step_ms)
+    n_tok = RWKV_BATCH * RWKV_PROMPT
+    print(f"rwkv6 prefill {RWKV_BATCH} x {RWKV_PROMPT} tokens: {prefill_s:.3f} "
+          f"s fenced = {n_tok / prefill_s:.0f} tokens/s; decode {RWKV_DECODE} "
+          f"steps x {RWKV_BATCH}: p50 {np.percentile(ms, 50):.3f} ms, p99 "
+          f"{np.percentile(ms, 99):.3f} ms = "
+          f"{RWKV_BATCH / np.percentile(ms, 50) * 1e3:.1f} tokens/s at p50; "
+          f"wkv6 launches {launches} (= {cfg.n_layers} layers x "
+          f"{1 + RWKV_DECODE} calls); peak device memory {peak / 1e9:.2f} GB "
+          f"({(peak - base) / 1e9:.2f} GB above the {base / 1e9:.2f} GB "
+          f"held before, {wbytes / 1e9:.2f} GB of it weights); logits "
+          f"finite, pos {int(pos[0])}",
+          flush=True)
+    seq = torch.cat([prompts] + generated, dim=1)
+    # bf16 decode against prefill over the longer prompt, measured: the two
+    # round the residual stream at different places (GEMMs of other
+    # shapes), by more than 8 bf16 steps of max |logit| after 8 steps on
+    # the H100; the check is the float32 run below
+    for steps in RWKV_CHECK_STEPS:
+        ref, _ = model.prefill({"tokens": seq[:, :RWKV_PROMPT + steps]})
+        err, allowed = _bf16_close(step_logits[steps - 1], ref)
+        print(f"rwkv6 bf16 decode after {steps} step(s) vs prefill over "
+              f"{RWKV_PROMPT + steps} tokens: logits max |diff| {err:.4f} = "
+              f"{err / allowed * RWKV_BF16_STEPS:.1f} bf16 steps of max "
+              "|logit| (measured, not checked: see the float32 run)",
+              flush=True)
+        del ref
+    plain_logits, plain_state = _prefill_plain(model, prompts)
+    for name, got, ref in (("prefill logits", prefill_logits, plain_logits),
+                           ("final wkv states", prefill_wkv, plain_state["wkv"])):
+        err, allowed = _bf16_close(got, ref)
+        if err > allowed:
+            _fail(f"rwkv6 {name} differ from the chunked-plain run (max "
+                  f"|diff| {err:.4f} > {allowed:.4f})")
+        print(f"rwkv6 bf16 {name} == the chunked-plain run: max |diff| "
+              f"{err:.4e} (allowed {allowed:.4f} = {RWKV_BF16_STEPS} bf16 "
+              "steps of the largest value)", flush=True)
+    del plain_logits, plain_state, step_logits
+    trace_rwkv6(model, prompts, state, tok)
+    del model, state, logits, prefill_logits, prefill_wkv
+    torch.cuda.empty_cache()
+    rwkv6_float32_checks(cfg, prompts, seq)
+
+
+def _prefill_plain(model, prompts):
+    """``model.prefill`` with the WKV6 kernel's chunked plain version
+    swapped in; fails if the kernel launched."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import wkv6_chunked
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    def wkv6_plain(r, k, v, lw, u, s0=None):
+        return wkv6_chunked(r, k, v, lw, u, s0)
+
+    kernel_wkv6 = rwkv_mod.wkv6
+    rwkv_mod.wkv6 = wkv6_plain
+    try:
+        before = kernels.LAUNCHES["wkv6"]
+        out = model.prefill({"tokens": prompts})
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["wkv6"] != before:
+            _fail("the chunked-plain run launched the kernel")
+    finally:
+        rwkv_mod.wkv6 = kernel_wkv6
+    return out
+
+
+def rwkv6_float32_checks(cfg, prompts, seq) -> None:
+    """rwkv6-3b at full width in float32 (weights from the same seed, the
+    shift mixes, bonus and base decay randomized): decode after prefill
+    against prefill over the longer prompt, and the kernel run against the
+    chunked-plain run, at ``RWKV_F32_TOL``."""
+    from repro_torch.models import build_model
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg32, seed=SEED, device="cuda")
+    # the reference's init zeros the shift mixes and the bonus (with u = 0
+    # the kernel and the chunked plain version agree bit for bit on the
+    # H100): seeded random values drive the token shift and the bonus here
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    with torch.no_grad():
+        for lp in model.layers:
+            for mu in (lp["tm"]["mu"], lp["cm"]["mu"]):
+                mu.copy_(torch.rand(mu.shape, generator=gen, device="cuda"))
+            u, w0 = lp["tm"]["u"], lp["tm"]["w0"]
+            u.copy_(0.5 * torch.randn(u.shape, generator=gen, device="cuda"))
+            w0.copy_(torch.randn(w0.shape, generator=gen, device="cuda") - 0.5)
+    logits, state = model.prefill({"tokens": prompts})
+    wkv0 = state["wkv"]
+    step_logits = []
+    for i in range(max(RWKV_CHECK_STEPS)):
+        lg, state = model.decode_step(
+            state, seq[:, RWKV_PROMPT + i:RWKV_PROMPT + i + 1])
+        step_logits.append(lg)
+    checks = []
+    for steps in RWKV_CHECK_STEPS:
+        ref, _ = model.prefill({"tokens": seq[:, :RWKV_PROMPT + steps]})
+        checks.append((f"decode after {steps} step(s) vs prefill over "
+                       f"{RWKV_PROMPT + steps} tokens: logits",
+                       step_logits[steps - 1], ref))
+    plain_logits, plain_state = _prefill_plain(model, prompts)
+    checks += [("prefill logits vs the chunked-plain run", logits, plain_logits),
+               ("final wkv states vs the chunked-plain run", wkv0,
+                plain_state["wkv"])]
+    for name, got, ref in checks:
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=RWKV_F32_TOL, atol=RWKV_F32_TOL):
+            _fail(f"rwkv6 float32 {name}: max |diff| {err:.3e} outside "
+                  f"atol = rtol = {RWKV_F32_TOL}")
+        print(f"rwkv6 float32 {name}: max |diff| {err:.3e} (atol = rtol = "
+              f"{RWKV_F32_TOL}; largest value {float(ref.abs().max()):.3f})",
+              flush=True)
+    del model, state, logits, wkv0, step_logits, checks, plain_logits, plain_state
+    torch.cuda.empty_cache()
+
+
+def trace_rwkv6(model, prompts, state, tok) -> None:
+    """Profile one prefill and one decode step: device kernels, busy time,
+    idle share, the largest device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for label, fn in (("prefill", lambda: model.prefill({"tokens": prompts})),
+                      ("decode step", lambda: model.decode_step(state, tok))):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+        if busy_ms <= 0:
+            print(f"rwkv6 {label} trace: the profiler recorded no device time "
+                  "(device busy share not measured)", flush=True)
+            continue
+        print(f"rwkv6 {label} trace (profiler on): wall {wall_ms:.3f} ms, "
+              f"{sum(e.count for e in dev)} device kernels, device busy "
+              f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}",
+              flush=True)
+        for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
+                  f"x{e.count} {e.key[:90]}", flush=True)
+
+
 def offline_path(results) -> None:
     """The offline export over 2^24 transactions, through the fold-levels
     kernel, and the same export with the kernel's plain version swapped
@@ -1081,6 +1460,8 @@ def main() -> None:
     scoring_path(results, svc, table)
     del svc, table
     torch.cuda.empty_cache()
+    check_wkv6_kernel(results)
+    rwkv6_path(results)
     offline_path(results)
     consistency()
 
@@ -1105,6 +1486,10 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/signature_embed.cu",
              replaces="src/repro/kernels/signature/signature.py:41",
              bound_by="bytes", **results["signature_embed"]),
+        dict(name="wkv6", route="cuda",
+             source="src/repro_torch/kernels/csrc/wkv6.cu",
+             replaces="src/repro/kernels/wkv6/wkv6.py:99",
+             library_ms=None, **results["wkv6"]),
     ]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

@@ -6,8 +6,9 @@
   seed both packages' stores from the same warm state with these, and read
   states back to compare them bit for bit.
 * Model weights: :func:`decoder_from_numpy` builds a
-  :class:`~repro_torch.models.transformer.DecoderLM` from the reference
-  model's parameter tree as numpy arrays.
+  :class:`~repro_torch.models.transformer.DecoderLM`, and
+  :func:`rwkv6_from_numpy` a :class:`~repro_torch.models.rwkv6.RWKV6LM`,
+  from the reference model's parameter tree as numpy arrays.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ __all__ = [
     "online_state_from_numpy",
     "online_state_to_numpy",
     "decoder_from_numpy",
+    "rwkv6_from_numpy",
 ]
 
 # names and dtypes of the six primary arrays, in kernel argument order
@@ -86,32 +88,25 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]
             yield f"{prefix}{name}", v
 
 
-def decoder_from_numpy(cfg, params: Mapping, device="cuda"):
-    """A :class:`~repro_torch.models.transformer.DecoderLM` of ``cfg`` on
-    ``device`` holding the reference model's weights.
-
-    ``params`` is the reference's parameter tree with numpy leaves
-    (``jax.tree.map(np.asarray, params)``): ``embed.table`` (and
-    ``embed.head`` when untied), the per-layer parameters stacked on a
-    leading layer axis under ``layers.*``, and ``ln_out.scale``.  Each
-    array must match its parameter's shape, and every parameter must be
-    given.  Values pass through float32, so a bfloat16 tree
-    arrives bit for bit in bfloat16 parameters.
-    """
-    from repro_torch.models.transformer import DecoderLM
-
-    model = DecoderLM(cfg, device=device)
+def _load_numpy(model, params: Mapping, n_layers: int, layer_prefix: str,
+                who: str):
+    """Copy the reference's parameter tree (numpy leaves) into ``model``:
+    leaves under ``layers.*`` are stacked on a leading layer axis and go to
+    ``<layer_prefix>.<i>.*``, the others by their own name.  Every
+    parameter must be given, each with its parameter's shape; values pass
+    through float32, so a bfloat16 tree arrives bit for bit in bfloat16
+    parameters."""
     own = dict(model.named_parameters())
     unset = set(own)
 
     def put(name: str, a) -> None:
         if name not in own:
-            raise KeyError(f"decoder_from_numpy: no parameter {name!r}")
+            raise KeyError(f"{who}: no parameter {name!r}")
         p = own[name]
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(
-                f"decoder_from_numpy: {name} has shape {tuple(a.shape)}, "
-                f"the model's is {tuple(p.shape)}"
+                f"{who}: {name} has shape {tuple(a.shape)}, the model's is "
+                f"{tuple(p.shape)}"
             )
         t = torch.from_numpy(np.array(a, dtype=np.float32))
         with torch.no_grad():
@@ -121,15 +116,41 @@ def decoder_from_numpy(cfg, params: Mapping, device="cuda"):
     for name, a in _flatten(params):
         a = np.asarray(a)
         if name.startswith("layers."):
-            if a.shape[0] != cfg.n_layers:
+            if a.shape[0] != n_layers:
                 raise ValueError(
-                    f"decoder_from_numpy: {name} stacks {a.shape[0]} layers, "
-                    f"the config has {cfg.n_layers}"
+                    f"{who}: {name} stacks {a.shape[0]} layers, the config "
+                    f"has {n_layers}"
                 )
-            for i in range(cfg.n_layers):
-                put(f"blocks.{i}.{name[len('layers.'):]}", a[i])
+            for i in range(n_layers):
+                put(f"{layer_prefix}.{i}.{name[len('layers.'):]}", a[i])
         else:
             put(name, a)
     if unset:
-        raise KeyError(f"decoder_from_numpy: parameters not given: {sorted(unset)}")
+        raise KeyError(f"{who}: parameters not given: {sorted(unset)}")
     return model
+
+
+def decoder_from_numpy(cfg, params: Mapping, device="cuda"):
+    """A :class:`~repro_torch.models.transformer.DecoderLM` of ``cfg`` on
+    ``device`` holding the reference model's weights.
+
+    ``params`` is the reference's parameter tree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): ``embed.table`` (and
+    ``embed.head`` when untied), the per-layer parameters stacked on a
+    leading layer axis under ``layers.*``, and ``ln_out.scale``.
+    """
+    from repro_torch.models.transformer import DecoderLM
+
+    return _load_numpy(DecoderLM(cfg, device=device), params, cfg.n_layers,
+                       "blocks", "decoder_from_numpy")
+
+
+def rwkv6_from_numpy(cfg, params: Mapping, device="cuda"):
+    """A :class:`~repro_torch.models.rwkv6.RWKV6LM` of ``cfg`` on
+    ``device`` holding the reference model's weights: ``embed.table``,
+    ``layers.{ln_tm,tm,ln_cm,cm}.*`` stacked on a leading layer axis, and
+    ``ln_out.scale``, with numpy leaves."""
+    from repro_torch.models.rwkv6 import RWKV6LM
+
+    return _load_numpy(RWKV6LM(cfg, device=device), params, cfg.n_layers,
+                       "layers", "rwkv6_from_numpy")

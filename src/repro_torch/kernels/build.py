@@ -11,7 +11,8 @@ once, and waits for all of them.
 Flags: ``sm_90a`` (Hopper), C++17, ``-O3`` and ``-fmad=false`` — the
 ingest kernel's float sums must round exactly like the plain version's
 separate multiply and add, so no fused multiply-add may form (the same
-holds for the window-stats kernel's sumsq lane).
+holds for the window-stats kernel's sumsq lane).  A kernel that wants
+fused multiply-adds spells them with ``fmaf`` (the WKV6 scan does).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ SOURCES: Dict[str, str] = {
     "fold_levels": "fold_levels.cu",
     "window_stats": "window_stats.cu",
     "signature_embed": "signature_embed.cu",
+    "wkv6": "wkv6.cu",
 }
 
 NVCC_FLAGS = (

@@ -63,8 +63,9 @@ class ModelConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
 
-    # the reference's attention implementation switch (xla | pallas); the
-    # dense model here always runs its plain attention
+    # the reference's attention / wkv6 implementation switch (xla | pallas),
+    # kept so configs carry across; no model here reads it: the dense model
+    # runs its plain attention, RWKV6LM launches the wkv6 kernel on a card
     attn_impl: str = "xla"
 
     moe_groups: int = 1
@@ -89,5 +90,52 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return _DTYPES[self.compute_dtype]
 
+    @property
+    def d_rnn(self) -> int:
+        return self.rnn_width or (self.d_model * 4 // 3)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_count(self, active_only: bool = False) -> int:
+        """The reference's parameter count (for ``6 N D`` FLOP accounting),
+        formula for formula.  For ``family == "rwkv"`` it counts ``3 D F``
+        channel-mix and ``5 D^2 + 2 D 64`` time-mix weights where
+        :class:`~repro_torch.models.rwkv6.RWKV6LM` holds ``2 D F + D^2``
+        and ``5 D^2 + 2 D 32`` (ROADMAP Queue C): copied as it is, so the
+        two packages agree; count a model's own with its ``parameters()``."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab_padded, self.n_layers
+        hd, H, Hkv = self.hd, self.n_heads, self.n_kv_heads
+        attn = D * H * hd + 2 * D * Hkv * hd + H * hd * D
+        if self.family == "rwkv":
+            # time-mix r,k,v,g,o + decay lora + channel-mix
+            attn = 5 * D * D + 2 * D * 64
+            ffn = 2 * D * self.d_ff + self.d_ff * D
+            per_layer = attn + ffn
+            emb = V * D * (1 if self.tie_embeddings else 2)
+            return L * per_layer + emb
+        if self.mlp in ("swiglu", "geglu"):
+            ffn_dense = 3 * D * F
+        else:
+            ffn_dense = 2 * D * F
+        if self.family == "moe":
+            n_e = self.top_k if active_only else self.num_experts
+            ffn = n_e * ffn_dense + D * self.num_experts
+        else:
+            ffn = ffn_dense
+        per_layer = attn + ffn
+        if self.family == "griffin":
+            drnn = self.d_rnn
+            rec = 2 * D * drnn + drnn * D + drnn * self.conv_width + 2 * drnn
+            n_attn = L // self.attn_every
+            n_rec = L - n_attn
+            body = n_attn * (attn + ffn) + n_rec * (rec + ffn)
+        elif self.family == "encdec":
+            # encoder self-attn+ffn, decoder self+cross+ffn
+            enc = self.n_encoder_layers * (attn + ffn)
+            dec = L * (2 * attn + ffn)
+            body = enc + dec
+        else:
+            body = L * per_layer
+        emb = V * D * (1 if self.tie_embeddings else 2)
+        return body + emb

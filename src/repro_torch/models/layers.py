@@ -15,7 +15,7 @@ too: a bf16 ``torch.matmul`` would round its result to bf16.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,13 +23,26 @@ import torch.nn.functional as F
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
-    "norm_apply", "rope", "attention_qkv", "gqa_attention", "mlp_apply",
-    "embed_lookup", "logits_from_embedding", "dense_init",
+    "norm_init", "norm_apply", "rope", "attention_qkv", "gqa_attention",
+    "mlp_apply", "embed_init", "embed_lookup", "logits_from_embedding",
+    "dense_init",
 ]
 
 Params = Mapping[str, torch.Tensor]
 
 _MASKED = -1e30
+
+
+def norm_init(
+    cfg: ModelConfig, device: torch.device, d: Optional[int] = None
+) -> Dict[str, torch.Tensor]:
+    """A norm's parameters (``scale``, and ``bias`` for LayerNorm) over
+    ``d`` (default d_model): float32 whatever the parameter dtype."""
+    d = d or cfg.d_model
+    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return p
 
 
 def norm_apply(p: Params, x: torch.Tensor, kind: str = "rmsnorm") -> torch.Tensor:
@@ -156,6 +169,19 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         raise ValueError(f"unknown mlp {cfg.mlp!r}")
     return h @ p["w_out"]
+
+
+def embed_init(
+    cfg: ModelConfig, generator: torch.Generator
+) -> Dict[str, torch.Tensor]:
+    """The (vocab_padded, D) table of std 1/sqrt(D), which keeps tied-head
+    logits at O(1) scale at init, and the (D, vocab_padded) head when the
+    embeddings are untied."""
+    Vp, D = cfg.vocab_padded, cfg.d_model
+    p = {"table": dense_init((Vp, D), cfg.pdtype, generator, scale=D ** -0.5)}
+    if not cfg.tie_embeddings:
+        p["head"] = dense_init((D, Vp), cfg.pdtype, generator)
+    return p
 
 
 def embed_lookup(p: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

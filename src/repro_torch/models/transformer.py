@@ -32,11 +32,13 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention_qkv,
     dense_init,
+    embed_init,
     embed_lookup,
     gqa_attention,
     logits_from_embedding,
     mlp_apply,
     norm_apply,
+    norm_init,
 )
 
 __all__ = ["ParamTree", "DecoderBlock", "DecoderLM"]
@@ -62,15 +64,6 @@ class ParamTree(nn.Module):
         return name in self._parameters or name in self._modules
 
 
-def _norm_tree(cfg: ModelConfig, device: torch.device, d: Optional[int] = None) -> Dict:
-    # norm parameters stay float32 whatever the parameter dtype
-    d = d or cfg.d_model
-    p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
-    if cfg.norm == "layernorm":
-        p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
-    return p
-
-
 class DecoderBlock(nn.Module):
     """Pre-norm attention + MLP block (``ln_attn``, ``attn``, ``ln_mlp``,
     ``mlp`` as in the reference's per-layer parameter tree)."""
@@ -87,17 +80,17 @@ class DecoderBlock(nn.Module):
             "wo": dense_init((H * hd, D), pd, generator),
         }
         if cfg.qk_norm:
-            attn["q_norm"] = _norm_tree(cfg, dev, hd)
-            attn["k_norm"] = _norm_tree(cfg, dev, hd)
+            attn["q_norm"] = norm_init(cfg, dev, hd)
+            attn["k_norm"] = norm_init(cfg, dev, hd)
         mlp = {
             "w_in": dense_init((D, F), pd, generator),
             "w_out": dense_init((F, D), pd, generator),
         }
         if cfg.mlp in ("swiglu", "geglu"):
             mlp["w_gate"] = dense_init((D, F), pd, generator)
-        self.ln_attn = ParamTree(_norm_tree(cfg, dev))
+        self.ln_attn = ParamTree(norm_init(cfg, dev))
         self.attn = ParamTree(attn)
-        self.ln_mlp = ParamTree(_norm_tree(cfg, dev))
+        self.ln_mlp = ParamTree(norm_init(cfg, dev))
         self.mlp = ParamTree(mlp)
 
     def forward(
@@ -136,16 +129,11 @@ class DecoderLM(nn.Module):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        Vp, D = cfg.vocab_padded, cfg.d_model
-        # std 1/sqrt(D): keeps tied-head logits at O(1) scale at init
-        embed = {"table": dense_init((Vp, D), cfg.pdtype, gen, scale=D ** -0.5)}
-        if not cfg.tie_embeddings:
-            embed["head"] = dense_init((D, Vp), cfg.pdtype, gen)
-        self.embed = ParamTree(embed)
+        self.embed = ParamTree(embed_init(cfg, gen))
         self.blocks = nn.ModuleList(
             DecoderBlock(cfg, gen) for _ in range(cfg.n_layers)
         )
-        self.ln_out = ParamTree(_norm_tree(cfg, dev))
+        self.ln_out = ParamTree(norm_init(cfg, dev))
 
     @property
     def device(self) -> torch.device:

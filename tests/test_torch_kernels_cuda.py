@@ -13,7 +13,12 @@ compared as int32 bit patterns), the route kernel on ranks and counts
 ``±0.0`` included).  The window-stats kernel's count, min and max are
 exact; its sum and sumsq reduce in the kernel's tree order, within
 ``rtol=1e-5, atol=1e-3``.  The signature-embedding kernel equals its
-plain version bit for bit (float32 and bfloat16 tables).  The whole
+plain version bit for bit (float32 and bfloat16 tables).  The WKV6
+kernel is held to its chunked plain version at ``atol = rtol = 1e-4`` and
+to the recurrence at ``5e-4`` (float32 products summed in another order);
+``RWKV6LM`` on the card to the same model on the CPU at ``1e-3`` on
+logits and states (float32 smoke model; cuBLAS and the CPU's BLAS sum in
+different orders, over two layers and three decode steps).  The whole
 store on the GPU equals the same store on the CPU: state bit-exact,
 COUNT / MAX bit-exact, SUM / MEAN within ``rtol=1e-5`` (masked ring
 sums reduce in a device-chosen order), STD within that plus the
@@ -42,6 +47,8 @@ from repro_torch.kernels.window_agg.ref import (
     fold_num_levels,
     window_stats_ref,
 )
+from repro_torch.kernels.wkv6.ops import launch_wkv6, wkv6, wkv6_chunked
+from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -416,3 +423,117 @@ def test_scoring_service_on_gpu_matches_cpu(cuda):
         if dev == "cuda":
             assert kernels.LAUNCHES["signature_embed"] == before + 1
     np.testing.assert_allclose(scores["cuda"], scores["cpu"], atol=1e-4)
+
+
+def _wkv_case(dev, shape, seed, lw_edge=None):
+    """(r, k, v, lw, u, s0) on ``dev``, scaled as the reference's kernel
+    tests scale them; ``lw_edge`` puts lw above 0, below the floor, at 0
+    or a whole chunk at the floor."""
+    B, H, T, D = shape
+    g = torch.Generator().manual_seed(seed)
+    r = torch.randn(shape, generator=g) * 0.5
+    k = torch.randn(shape, generator=g) * 0.5
+    v = torch.randn(shape, generator=g)
+    lw = -torch.exp(torch.randn(shape, generator=g) - 1.0)
+    if lw_edge == "positive":
+        lw[..., ::3] = torch.rand(lw[..., ::3].shape, generator=g) * 2.0
+    elif lw_edge == "below_floor":
+        lw[..., 1::3] = -3.6 - 16.0 * torch.rand(lw[..., 1::3].shape, generator=g)
+    elif lw_edge == "zero":
+        lw.zero_()
+    elif lw_edge == "chunk_at_floor":
+        lw[:, :, 16:32] = LOG_W_MIN
+    u = torch.randn((H, D), generator=g) * 0.3
+    s0 = torch.randn((B, H, D, D), generator=g) * 0.1
+    return [x.to(dev) for x in (r, k, v, lw, u, s0)]
+
+
+@pytest.mark.parametrize("shape,with_s0,edge", [
+    ((2, 3, 64, 32), True, None),
+    ((1, 2, 100, 64), True, None),
+    ((2, 4, 128, 64), True, None),
+    ((1, 1, 16, 16), True, None),
+    ((2, 3, 1, 64), True, None),       # a decode step
+    ((2, 3, 1, 64), False, None),
+    ((1, 2, 100, 64), False, None),
+    ((1, 2, 48, 64), True, "positive"),
+    ((1, 2, 48, 64), True, "below_floor"),
+    ((1, 2, 48, 64), True, "zero"),
+    ((1, 2, 48, 64), True, "chunk_at_floor"),
+])
+def test_wkv6_kernel_matches_plain_versions(cuda, shape, with_s0, edge):
+    r, k, v, lw, u, s0 = _wkv_case(cuda, shape, sum(shape), edge)
+    s0 = s0 if with_s0 else None
+    before = kernels.LAUNCHES["wkv6"]
+    y, s = wkv6(r, k, v, lw, u, s0)
+    assert kernels.LAUNCHES["wkv6"] == before + 1
+    yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
+    yr, sr = wkv6_ref(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert y.shape == shape and s.shape == shape[:2] + (shape[3], shape[3])
+    for got, want, tol in ((y, yc, 1e-4), (s, sc, 1e-4), (y, yr, 5e-4),
+                           (s, sr, 5e-4)):
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+def test_wkv6_kernel_dtypes_and_refusals(cuda):
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 2, 20, 64), 5)
+    y, s = wkv6(r.bfloat16(), k, v, lw, u, s0)
+    assert y.dtype == torch.bfloat16 and s.dtype == torch.float32
+    yc, _ = wkv6_chunked(r.bfloat16(), k, v, lw, u, s0)
+    torch.testing.assert_close(y.float(), yc.float(), atol=2e-2, rtol=2e-2)
+    # a transposed (non-contiguous) view goes in as it is
+    rt = r.transpose(1, 2).contiguous().transpose(1, 2)
+    y2, _ = wkv6(rt, k, v, lw, u, s0)
+    y1, _ = wkv6(r, k, v, lw, u, s0)
+    assert torch.equal(y1, y2)
+    bad = _wkv_case(cuda, (1, 2, 20, 48), 5)
+    with pytest.raises(ValueError, match="head dims"):
+        wkv6(*bad)
+    with pytest.raises(ValueError, match="mixed devices"):
+        wkv6(r, k, v, lw, u.cpu(), s0)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        wkv6(r.requires_grad_(), k, v, lw, u, s0)
+    out = torch.empty_like(r.detach()), torch.empty_like(s0)
+    launch_wkv6(r.detach(), k, v, lw, u, None, *out)  # zero state from null
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[0], wkv6_chunked(r.detach(), k, v, lw, u)[0],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_rwkv6_on_gpu_matches_cpu(cuda):
+    """The smoke-width RWKV6 (float32, random mu / u / w0) on the card —
+    one WKV6 launch per layer per call — against the same weights on the
+    CPU: prefill, then three decode steps."""
+    import copy
+
+    from repro_torch.configs.rwkv6_3b import smoke_config
+    from repro_torch.models.rwkv6 import RWKV6LM
+
+    cfg = smoke_config()
+    gpu = RWKV6LM(cfg, seed=2, device="cuda")
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for lp in gpu.layers:
+            for p in (lp["tm"]["mu"], lp["cm"]["mu"]):
+                p.copy_(torch.rand(p.shape, generator=g))
+            lp["tm"]["u"].copy_(torch.randn(lp["tm"]["u"].shape, generator=g) * 0.5)
+            lp["tm"]["w0"].copy_(torch.randn(lp["tm"]["w0"].shape, generator=g) - 0.5)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 37), generator=g, dtype=torch.int32)
+    before = kernels.LAUNCHES["wkv6"]
+    lg, sg = gpu.prefill({"tokens": tokens.to(cuda)})
+    assert kernels.LAUNCHES["wkv6"] == before + cfg.n_layers
+    lc, sc = cpu.prefill({"tokens": tokens})
+    for step in range(4):
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+        for name in sc:
+            torch.testing.assert_close(sg[name].cpu(), sc[name], atol=1e-3,
+                                       rtol=1e-3)
+        if step == 3:
+            break
+        tok = torch.randint(0, cfg.vocab, (2, 1), generator=g, dtype=torch.int32)
+        before = kernels.LAUNCHES["wkv6"]
+        lg, sg = gpu.decode_step(sg, tok.to(cuda))
+        assert kernels.LAUNCHES["wkv6"] == before + cfg.n_layers
+        lc, sc = cpu.decode_step(sc, tok)

@@ -305,7 +305,7 @@ def test_launch_serve_main_on_cpu():
 
 def test_unported_paths_raise():
     _, cfg = _cfgs()
-    for family in ("moe", "rwkv", "griffin", "encdec"):
+    for family in ("moe", "griffin", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg.replace(family=family), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
