@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch port: the sharded online request path, the
 fraud scoring path on top of it, RWKV6 serving (rwkv6-3b prefill and
-decode), and the offline feature path with its offline<->online
-consistency check.
+decode), dense LM serving (nemotron-4-15b prefill and decode), and the
+offline feature path with its offline<->online consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -11,7 +11,7 @@ toolkit::
 Phases, in order; any failure exits non-zero:
 
 1. **Card.**  The card's name and power limit (``nvidia-smi``).
-2. **Build.**  All six CUDA kernels from ``src/repro_torch/kernels/csrc``,
+2. **Build.**  All seven CUDA kernels from ``src/repro_torch/kernels/csrc``,
    one ``nvcc`` per source, started together.
 3. **Kernels against their plain versions** at the main path's shapes: the
    fused ingest kernel over 65,536-row batches into the full 2^19-card,
@@ -57,7 +57,8 @@ Phases, in order; any failure exits non-zero:
    signature-embedding kernel must have launched once a batch; the
    embeddings and scores must equal, bit for bit, the same batches served
    with the kernel's plain version swapped in (a score difference is
-   checked against the kernel path's own run-to-run difference).  Prints
+   checked against the kernel path's own run-to-run difference); flash
+   attention (B6) must have launched once per layer per batch.  Prints
    the fenced batch wall p50 / p99 split into features, embedding and
    model, the peak device memory and one traced batch; then runs
    ``repro_torch.launch.serve.main`` once on the card at its defaults.
@@ -76,27 +77,52 @@ Phases, in order; any failure exits non-zero:
    decoded greedily.  Logits finite, ``pos`` advanced, the WKV6 kernel
    launched exactly 32 x (1 + 32) times; the prefill logits and final
    ``wkv`` states equal a run with the chunked plain version swapped in,
-   within ``RWKV_BF16_STEPS`` bf16 steps.  Prints the fenced prefill wall
+   within ``LM_BF16_STEPS`` bf16 steps.  Prints the fenced prefill wall
    and tokens/s, decode step p50 / p99 and tokens/s, peak device memory,
    how far decode after 1 and 8 steps is from prefill over the longer
    prompt, and one traced prefill and decode step.  Then the same model
    in float32 (same seed; ``mu``, ``u`` and ``w0``, which the reference's
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
-   run, within ``RWKV_F32_TOL``.
-11. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+   run, within ``LM_F32_TOL``.
+11. **Flash attention kernel (B6)** against its plain version
+   ``attention_ref``: the reference's six kernel-test shapes in float32
+   and bf16, then bf16 at nemotron-4-15b's prefill (8, 48 heads over 8,
+   2,048, 128, causal), mixtral-8x7b's sliding window (1, 32 over 8,
+   8,192, 128, window 4,096), phi3's head dim (8, 32, 32, 1,024, 96) and
+   the fraud scorer's (4,096, 8, 8, 65, 64); tolerances ``FA_TOL``.  The
+   nemotron, mixtral and phi3 shapes are timed with CUDA events beside
+   the plain version and ``F.scaled_dot_product_attention`` (the library
+   call, timed only); the bound is the larger of the visible (q, k) pairs'
+   products over the bf16 peak and q, k, v, o over 3.35 TB/s.
+12. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+   at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
+   heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
+   15,628,376,064 parameters drawn on the card from a seeded generator);
+   8 prompts of 2,048 random tokens prefilled into a FullKV of 2,080
+   positions, then 32 tokens decoded greedily.  B6 must launch exactly 32
+   times per prefill and never in decode; logits finite; the prefill of 2
+   of the prompts equals a run with ``gqa_attention`` swapped in within
+   ``LM_BF16_STEPS`` bf16 steps of the largest logit.  Prints the fenced
+   prefill tokens/s, decode step p50 / p99 and tokens/s, the memory held
+   before the phase and the peak, and one traced prefill and decode step.
+   Then a float32 model at full width and 4 layers: the kernel run equals
+   the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
+   and decode after 1 and 8 steps equals prefill over the longer prompt
+   within the reference's ``LM_F32_TOL``.
+13. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-12. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+14. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-13. **Summary.**  One ``kernels`` JSON line, then the card line, then the
+15. **Summary.**  One ``kernels`` JSON line, then the card line, then the
     ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -150,17 +176,55 @@ RWKV_PARAMS = 2_900_298_240   # rwkv6-3b's parameter tree (not param_count())
 # WKV6 kernel vs its chunked plain version, and vs the recurrence: float32
 # products summed in another order (allclose atol = rtol)
 WKV_TOL = {"chunked": 1e-4, "recurrence": 5e-4}
-# the bf16 model's prefill with the kernel and with the chunked plain
-# version differ only in float32 rounding inside the scan; a flipped bf16
+# an LM's bf16 prefill with a kernel and with its plain version swapped in
+# (WKV6's chunked version; gqa_attention, which rounds the attention
+# weights to bf16) differ in rounding inside one layer; a flipped bf16
 # rounding of the residual stream spreads over 32 layers.  Allowed: this
 # many bf16 steps (2^-8) of the array's largest value
-RWKV_BF16_STEPS = 8
+LM_BF16_STEPS = 8
 # decode after prefill vs prefill over the longer prompt, after this many
 # steps
-RWKV_CHECK_STEPS = (1, 8)
-# the float32 model's checks: the reference's own tolerance for decode vs
+LM_CHECK_STEPS = (1, 8)
+# the float32 models' checks: the reference's own tolerance for decode vs
 # prefill (tests/test_arch_smoke.py), allclose atol = rtol
-RWKV_F32_TOL = 5e-4
+LM_F32_TOL = 5e-4
+# bf16 dense tensor-core peak, H100 SXM (NVIDIA data sheet): flash
+# attention's products are bf16 on the main path
+BF16_FLOP_PER_S = 989e12
+# flash attention (B6) against its plain version: the reference's own
+# tolerances (tests/test_kernels.py), allclose atol = rtol
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# B, H, Hkv, S, D, causal, window, dtype: the reference's six kernel-test
+# shapes (tests/test_kernels.py) in both dtypes, then the paths' shapes:
+# nemotron-4-15b's prefill, mixtral-8x7b's sliding window (the attention
+# shape only; its MoE model waits), phi3's head dim, the fraud scorer's
+FA_TEST_SHAPES = [
+    (2, 4, 2, 256, 64, True, None), (1, 8, 8, 128, 128, True, 64),
+    (2, 4, 1, 192, 80, False, None), (1, 2, 2, 100, 32, True, 32),
+    (2, 16, 4, 128, 128, True, None), (1, 4, 4, 384, 64, True, 128),
+]
+FA_PATH_SHAPES = {
+    "nemotron": (8, 48, 8, 2048, 128, True, None),
+    "mixtral": (1, 32, 8, 8192, 128, True, 4096),
+    "phi3": (8, 32, 32, 1024, 96, True, None),
+    "scorer": (4096, 8, 8, 65, 64, True, None),
+}
+FA_TIMED = ("nemotron", "mixtral", "phi3")
+# the nemotron-4-15b serving phase: 8 prompts of 2,048 tokens, 32 greedy
+# decode steps into a FullKV of 2,080 positions
+NEMO_BATCH, NEMO_PROMPT, NEMO_DECODE = 8, 2048, 32
+NEMO_MAX_LEN = NEMO_PROMPT + NEMO_DECODE
+# nemotron-4-15b's parameter tree, norms included (param_count() gives
+# 15,627,976,704 without them)
+NEMO_PARAMS = 15_628_376_064
+# the plain-attention comparisons run on this many of the prompts: their
+# S x S float32 scores are 1.6 GB in bf16's (B, Hkv, G, S, S) layout
+NEMO_PLAIN_BATCH = 2
+# the float32 model's depth (full width)
+NEMO_F32_LAYERS = 4
+# float32 model, kernel vs plain attention: max |diff| within this share
+# of the largest logit (the two attentions differ only in summation order)
+NEMO_F32_REL = 1e-4
 
 
 def _fail(msg: str) -> None:
@@ -887,6 +951,11 @@ def scoring_path(results, svc, table) -> None:
             _fail(f"the scoring path did not launch the signature-embedding "
                   f"kernel once a batch: {launches}")
         results["signature_embed"]["launches"] = launches["signature_embed"]
+        if launches["flash_attention"] != cfg.n_layers * REQ_BATCHES:
+            _fail(f"the scoring path launched flash attention "
+                  f"{launches['flash_attention']} times, expected "
+                  f"{cfg.n_layers * REQ_BATCHES} (one per layer per batch)")
+        results["scoring_flash_attention_launches"] = launches["flash_attention"]
         for b, sc in enumerate(scores):
             if sc.shape != (REQ_ROWS,) or not np.all(np.isfinite(sc)):
                 _fail(f"scoring batch {b}: shape {sc.shape} or non-finite")
@@ -1082,10 +1151,10 @@ def check_wkv6_kernel(results) -> None:
 
 
 def _bf16_close(got, want):
-    """(max |diff|, allowed): allowed is ``RWKV_BF16_STEPS`` bf16 steps of
+    """(max |diff|, allowed): allowed is ``LM_BF16_STEPS`` bf16 steps of
     ``want``'s largest value."""
     got, want = got.float(), want.float()
-    allowed = RWKV_BF16_STEPS * 2.0 ** -8 * float(want.abs().max())
+    allowed = LM_BF16_STEPS * 2.0 ** -8 * float(want.abs().max())
     return float((got - want).abs().max()), allowed
 
 
@@ -1173,12 +1242,12 @@ def rwkv6_path(results) -> None:
     # round the residual stream at different places (GEMMs of other
     # shapes), by more than 8 bf16 steps of max |logit| after 8 steps on
     # the H100; the check is the float32 run below
-    for steps in RWKV_CHECK_STEPS:
+    for steps in LM_CHECK_STEPS:
         ref, _ = model.prefill({"tokens": seq[:, :RWKV_PROMPT + steps]})
         err, allowed = _bf16_close(step_logits[steps - 1], ref)
         print(f"rwkv6 bf16 decode after {steps} step(s) vs prefill over "
               f"{RWKV_PROMPT + steps} tokens: logits max |diff| {err:.4f} = "
-              f"{err / allowed * RWKV_BF16_STEPS:.1f} bf16 steps of max "
+              f"{err / allowed * LM_BF16_STEPS:.1f} bf16 steps of max "
               "|logit| (measured, not checked: see the float32 run)",
               flush=True)
         del ref
@@ -1190,10 +1259,11 @@ def rwkv6_path(results) -> None:
             _fail(f"rwkv6 {name} differ from the chunked-plain run (max "
                   f"|diff| {err:.4f} > {allowed:.4f})")
         print(f"rwkv6 bf16 {name} == the chunked-plain run: max |diff| "
-              f"{err:.4e} (allowed {allowed:.4f} = {RWKV_BF16_STEPS} bf16 "
+              f"{err:.4e} (allowed {allowed:.4f} = {LM_BF16_STEPS} bf16 "
               "steps of the largest value)", flush=True)
     del plain_logits, plain_state, step_logits
-    trace_rwkv6(model, prompts, state, tok)
+    trace_lm("rwkv6", lambda: model.prefill({"tokens": prompts}),
+             lambda: model.decode_step(state, tok))
     del model, state, logits, prefill_logits, prefill_wkv
     torch.cuda.empty_cache()
     rwkv6_float32_checks(cfg, prompts, seq)
@@ -1226,7 +1296,7 @@ def rwkv6_float32_checks(cfg, prompts, seq) -> None:
     """rwkv6-3b at full width in float32 (weights from the same seed, the
     shift mixes, bonus and base decay randomized): decode after prefill
     against prefill over the longer prompt, and the kernel run against the
-    chunked-plain run, at ``RWKV_F32_TOL``."""
+    chunked-plain run, at ``LM_F32_TOL``."""
     from repro_torch.models import build_model
 
     cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
@@ -1245,12 +1315,12 @@ def rwkv6_float32_checks(cfg, prompts, seq) -> None:
     logits, state = model.prefill({"tokens": prompts})
     wkv0 = state["wkv"]
     step_logits = []
-    for i in range(max(RWKV_CHECK_STEPS)):
+    for i in range(max(LM_CHECK_STEPS)):
         lg, state = model.decode_step(
             state, seq[:, RWKV_PROMPT + i:RWKV_PROMPT + i + 1])
         step_logits.append(lg)
     checks = []
-    for steps in RWKV_CHECK_STEPS:
+    for steps in LM_CHECK_STEPS:
         ref, _ = model.prefill({"tokens": seq[:, :RWKV_PROMPT + steps]})
         checks.append((f"decode after {steps} step(s) vs prefill over "
                        f"{RWKV_PROMPT + steps} tokens: logits",
@@ -1261,24 +1331,24 @@ def rwkv6_float32_checks(cfg, prompts, seq) -> None:
                 plain_state["wkv"])]
     for name, got, ref in checks:
         err = float((got - ref).abs().max())
-        if not torch.allclose(got, ref, rtol=RWKV_F32_TOL, atol=RWKV_F32_TOL):
+        if not torch.allclose(got, ref, rtol=LM_F32_TOL, atol=LM_F32_TOL):
             _fail(f"rwkv6 float32 {name}: max |diff| {err:.3e} outside "
-                  f"atol = rtol = {RWKV_F32_TOL}")
+                  f"atol = rtol = {LM_F32_TOL}")
         print(f"rwkv6 float32 {name}: max |diff| {err:.3e} (atol = rtol = "
-              f"{RWKV_F32_TOL}; largest value {float(ref.abs().max()):.3f})",
+              f"{LM_F32_TOL}; largest value {float(ref.abs().max()):.3f})",
               flush=True)
     del model, state, logits, wkv0, step_logits, checks, plain_logits, plain_state
     torch.cuda.empty_cache()
 
 
-def trace_rwkv6(model, prompts, state, tok) -> None:
-    """Profile one prefill and one decode step: device kernels, busy time,
-    idle share, the largest device items."""
+def trace_lm(name, prefill, decode) -> None:
+    """Profile one prefill and one decode step (``prefill()`` and
+    ``decode()``): device kernels, busy time, idle share, the largest
+    device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for label, fn in (("prefill", lambda: model.prefill({"tokens": prompts})),
-                      ("decode step", lambda: model.decode_step(state, tok))):
+    for label, fn in (("prefill", prefill), ("decode step", decode)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1288,16 +1358,283 @@ def trace_rwkv6(model, prompts, state, tok) -> None:
         dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
         if busy_ms <= 0:
-            print(f"rwkv6 {label} trace: the profiler recorded no device time "
+            print(f"{name} {label} trace: the profiler recorded no device time "
                   "(device busy share not measured)", flush=True)
             continue
-        print(f"rwkv6 {label} trace (profiler on): wall {wall_ms:.3f} ms, "
+        print(f"{name} {label} trace (profiler on): wall {wall_ms:.3f} ms, "
               f"{sum(e.count for e in dev)} device kernels, device busy "
               f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}",
               flush=True)
         for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:8]:
             print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
                   f"x{e.count} {e.key[:90]}", flush=True)
+
+
+def _fa_cost(shape, esize):
+    """(bytes, FLOP) one attention call must move and compute: q, k, v read
+    and o written once; 4 D FLOP (q·k and p·v) per visible (q, k) pair of
+    every head, counted from the causal limit and the window."""
+    B, H, Hkv, S, D, causal, window = shape
+    q = np.arange(S, dtype=np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(S, np.int64)
+    pairs = int(np.maximum(hi - lo + 1, 0).sum())
+    nbytes = esize * S * D * B * (2 * H + 2 * Hkv)
+    return nbytes, 4 * B * H * D * pairs
+
+
+def _fa_inputs(gen, shape, dtype):
+    B, H, Hkv, S, D = shape[:5]
+    return [torch.randn((B, h, S, D), generator=gen, device="cuda").to(dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def check_flash_attention_kernel(results) -> None:
+    """Flash attention (B6) against ``attention_ref`` on the reference's
+    test shapes and the paths' shapes; the nemotron, mixtral and phi3
+    shapes timed beside the plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    cases = [(f"test {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
+             for sh in FA_TEST_SHAPES]
+    cases += [(name, sh, torch.bfloat16) for name, sh in FA_PATH_SHAPES.items()]
+    worst = {}
+    for name, shape, dtype in cases:
+        causal, window = shape[5:]
+        q, k, v = _fa_inputs(gen, shape, dtype)
+        out = attention(q, k, v, causal=causal, window=window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        err = float((out.float() - want.float()).abs().max())
+        tol = FA_TOL[dtype]
+        if not torch.allclose(out.float(), want.float(), atol=tol, rtol=tol):
+            _fail(f"flash attention differs from its plain version on {name} "
+                  f"{shape} {dtype} (max |diff| {err:.3e}, tolerance {tol})")
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+        print(f"flash_attention == attention_ref on {name} {shape} {dtype}: "
+              f"max |diff| {err:.3e} (atol = rtol = {tol})", flush=True)
+        del q, k, v, out, want
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for name in FA_TIMED:
+        shape = FA_PATH_SHAPES[name]
+        B, H, Hkv, S, D, causal, window = shape
+        q, k, v = _fa_inputs(gen, shape, torch.bfloat16)
+        kernel_ms = _time_ms(lambda: attention(q, k, v, causal=causal,
+                                               window=window), 10, 2)
+        plain_ms = _time_ms(lambda: attention_ref(q, k, v, causal=causal,
+                                                  window=window), 3)
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device="cuda")
+            mask = ((pos[None, :] <= pos[:, None])
+                    & (pos[None, :] > pos[:, None] - window))
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        library_ms = _time_ms(lib, 10, 2)
+        nbytes, flop = _fa_cost(shape, 2)
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * flop / BF16_FLOP_PER_S
+        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=library_ms,
+                           bound_ms=max(by_bytes, by_ops),
+                           bound_by="bytes" if by_bytes >= by_ops else "operations")
+        print(f"flash_attention {name} {shape} bf16: kernel {kernel_ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+              f"{max(by_bytes, by_ops):.5f} ms ({nbytes} bytes -> "
+              f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms; kernel at "
+              f"{flop / kernel_ms / 1e9:.1f} TFLOP/s)", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    others = "; ".join(
+        f"{n} {FA_PATH_SHAPES[n][:5]} window {FA_PATH_SHAPES[n][6]}: kernel "
+        f"{timed[n]['ms']:.4f} ms, plain {timed[n]['plain_ms']:.4f} ms, SDPA "
+        f"{timed[n]['library_ms']:.4f} ms, bound {timed[n]['bound_ms']:.5f} ms"
+        for n in FA_TIMED[1:])
+    results["flash_attention"] = dict(
+        max_abs_err=worst[torch.bfloat16], max_abs_err_f32=worst[torch.float32],
+        **timed["nemotron"],
+        shape=f"{FA_PATH_SHAPES['nemotron'][:5]} bf16 causal ({others})",
+    )
+
+
+def _prefill_plain_attention(model, prompts, **kw):
+    """``model.prefill`` with ``gqa_attention`` (the reference model's own
+    attention) swapped in for B6; fails if the kernel launched."""
+    from repro_torch import kernels
+    from repro_torch.models import layers, transformer
+
+    def plain(q, k, v, positions, *, window):
+        return layers.gqa_attention(q, k, v, positions, positions,
+                                    causal=True, window=window)
+
+    kernel_attention = transformer.causal_self_attention
+    transformer.causal_self_attention = plain
+    try:
+        before = kernels.LAUNCHES["flash_attention"]
+        out = model.prefill({"tokens": prompts}, **kw)
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES["flash_attention"] != before:
+            _fail("the plain-attention run launched the kernel")
+    finally:
+        transformer.causal_self_attention = kernel_attention
+    return out
+
+
+def nemotron_path(results) -> None:
+    """nemotron-4-15b at full width and depth: 8 x 2,048-token prefill, 32
+    greedy decode steps, every prefill attention through B6; the check
+    against the plain-attention run, one traced prefill and decode step;
+    then the float32 checks."""
+    from repro_torch import kernels
+    from repro_torch.configs import nemotron_4_15b
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cfg = nemotron_4_15b.config()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"dense LM {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, "
+          f"{cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}; "
+          f"{n_params} parameters ({wbytes / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.1f} s; {held / 1e9:.2f} GB held "
+          "before the phase", flush=True)
+    if n_params != NEMO_PARAMS:
+        _fail(f"nemotron-4-15b has {n_params} parameters, expected {NEMO_PARAMS}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    prompts = torch.randint(0, cfg.vocab, (NEMO_BATCH, NEMO_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+
+    # warm-up at the same shapes: cuBLAS heuristics, the allocator
+    _, cache = model.prefill({"tokens": prompts}, max_len=NEMO_MAX_LEN)
+    model.decode_step(cache, prompts[:, :1])
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill({"tokens": prompts}, max_len=NEMO_MAX_LEN)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    after_prefill = kernels.LAUNCHES["flash_attention"]
+    finite = torch.isfinite(logits).all()
+    tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    generated, step_ms = [tok], []
+    for _ in range(NEMO_DECODE):
+        t1 = time.perf_counter()
+        lg, cache = model.decode_step(cache, tok)
+        tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        finite &= torch.isfinite(lg).all()
+        generated.append(tok)
+    launches = kernels.LAUNCHES["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    if after_prefill != cfg.n_layers or launches != cfg.n_layers:
+        _fail(f"the nemotron path launched flash attention {after_prefill} "
+              f"times in prefill and {launches - after_prefill} in "
+              f"{NEMO_DECODE} decode steps, expected {cfg.n_layers} and 0")
+    results["flash_attention"]["launches"] = launches
+    if not bool(finite):
+        _fail("nemotron: non-finite logits")
+    pos = cache.pos.cpu()
+    if not bool((pos == NEMO_MAX_LEN).all()):
+        _fail(f"nemotron: pos {pos.tolist()} after {NEMO_DECODE} steps")
+    ms = np.array(step_ms)
+    n_tok = NEMO_BATCH * NEMO_PROMPT
+    print(f"nemotron prefill {NEMO_BATCH} x {NEMO_PROMPT} tokens: "
+          f"{prefill_s:.3f} s fenced = {n_tok / prefill_s:.0f} tokens/s; "
+          f"decode {NEMO_DECODE} steps x {NEMO_BATCH}: p50 "
+          f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} "
+          f"ms = {NEMO_BATCH / np.percentile(ms, 50) * 1e3:.1f} tokens/s at "
+          f"p50; flash_attention launches {after_prefill} in prefill, "
+          f"{launches - after_prefill} in decode; peak device memory "
+          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
+          f"{base / 1e9:.2f} GB held after the build, {wbytes / 1e9:.2f} GB "
+          f"of it weights); logits finite, pos {int(pos[0])}", flush=True)
+    seq = torch.cat([prompts] + generated, dim=1)
+    few = prompts[:NEMO_PLAIN_BATCH]
+    got, _ = model.prefill({"tokens": few})
+    want, _ = _prefill_plain_attention(model, few)
+    err, allowed = _bf16_close(got, want)
+    steps = err / allowed * LM_BF16_STEPS
+    if err > allowed:
+        _fail(f"nemotron bf16 prefill differs from the plain-attention run "
+              f"by {steps:.2f} bf16 steps of the largest logit (max |diff| "
+              f"{err:.4f})")
+    print(f"nemotron bf16 prefill of {NEMO_PLAIN_BATCH} prompts == the "
+          f"gqa_attention run: logits max |diff| {err:.4e} = {steps:.2f} bf16 "
+          f"steps of max |logit| {float(want.abs().max()):.3f} (allowed "
+          f"{LM_BF16_STEPS})", flush=True)
+    del got, want
+    trace_lm("nemotron", lambda: model.prefill({"tokens": prompts},
+                                               max_len=NEMO_MAX_LEN),
+             lambda: model.decode_step(cache, tok))
+    del model, cache, logits, lg
+    torch.cuda.empty_cache()
+    nemotron_float32_checks(cfg, prompts, seq)
+
+
+def nemotron_float32_checks(cfg, prompts, seq) -> None:
+    """nemotron-4-15b at full width, 4 layers, float32: the kernel run
+    against the plain-attention run, and decode after prefill against
+    prefill over the longer prompt."""
+    from repro_torch.models import build_model
+
+    cfg32 = cfg.replace(n_layers=NEMO_F32_LAYERS, param_dtype="float32",
+                        compute_dtype="float32")
+    model = build_model(cfg32, seed=SEED, device="cuda")
+    few = prompts[:NEMO_PLAIN_BATCH]
+    got, _ = model.prefill({"tokens": few})
+    want, _ = _prefill_plain_attention(model, few)
+    err = float((got - want).abs().max())
+    allowed = NEMO_F32_REL * float(want.abs().max())
+    if err > allowed:
+        _fail(f"nemotron float32 prefill differs from the plain-attention run "
+              f"(max |diff| {err:.3e} > {allowed:.3e})")
+    print(f"nemotron float32 ({NEMO_F32_LAYERS} layers) prefill of "
+          f"{NEMO_PLAIN_BATCH} prompts == the gqa_attention run: max |diff| "
+          f"{err:.3e} (allowed {allowed:.3e} = {NEMO_F32_REL} of max |logit|)",
+          flush=True)
+    del got, want
+    _, cache = model.prefill({"tokens": prompts}, max_len=NEMO_MAX_LEN)
+    step_logits = []
+    for i in range(max(LM_CHECK_STEPS)):
+        lg, cache = model.decode_step(
+            cache, seq[:, NEMO_PROMPT + i:NEMO_PROMPT + i + 1])
+        step_logits.append(lg)
+    for steps in LM_CHECK_STEPS:
+        ref, _ = model.prefill({"tokens": seq[:, :NEMO_PROMPT + steps]})
+        got = step_logits[steps - 1]
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, rtol=LM_F32_TOL, atol=LM_F32_TOL):
+            _fail(f"nemotron float32 decode after {steps} step(s) vs prefill "
+                  f"over {NEMO_PROMPT + steps} tokens: max |diff| {err:.3e} "
+                  f"outside atol = rtol = {LM_F32_TOL}")
+        print(f"nemotron float32 decode after {steps} step(s) vs prefill over "
+              f"{NEMO_PROMPT + steps} tokens: logits max |diff| {err:.3e} "
+              f"(atol = rtol = {LM_F32_TOL}; largest value "
+              f"{float(ref.abs().max()):.3f})", flush=True)
+        del ref
+    del model, cache, step_logits
+    torch.cuda.empty_cache()
 
 
 def offline_path(results) -> None:
@@ -1462,6 +1799,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     check_wkv6_kernel(results)
     rwkv6_path(results)
+    check_flash_attention_kernel(results)
+    nemotron_path(results)
     offline_path(results)
     consistency()
 
@@ -1490,6 +1829,11 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/wkv6.cu",
              replaces="src/repro/kernels/wkv6/wkv6.py:99",
              library_ms=None, **results["wkv6"]),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
+             scoring_launches=results["scoring_flash_attention_launches"],
+             **results["flash_attention"]),
     ]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

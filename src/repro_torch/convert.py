@@ -29,6 +29,7 @@ __all__ = [
     "online_state_to_numpy",
     "decoder_from_numpy",
     "rwkv6_from_numpy",
+    "kv_cache_from_numpy",
 ]
 
 # names and dtypes of the six primary arrays, in kernel argument order
@@ -154,3 +155,38 @@ def rwkv6_from_numpy(cfg, params: Mapping, device="cuda"):
 
     return _load_numpy(RWKV6LM(cfg, device=device), params, cfg.n_layers,
                        "layers", "rwkv6_from_numpy")
+
+
+def kv_cache_from_numpy(cache_arrays, device="cuda"):
+    """The port's :class:`~repro_torch.models.kvcache.FullKV`, or
+    :class:`~repro_torch.models.kvcache.SlidingKV` when ``k_pos`` is
+    given, on ``device``, holding copies of the reference's cache.
+
+    ``cache_arrays`` maps ``k``, ``v``, ``pos`` (and ``k_pos`` for the
+    ring) to arrays, or is the reference's cache object itself (read by
+    those attribute names through ``numpy.asarray``).  ``k`` and ``v`` keep
+    their dtype (a numpy ``bfloat16`` arrives bit for bit in
+    ``torch.bfloat16``); positions are int32."""
+    from repro_torch.models import kvcache as kvc
+
+    names = ("k", "v", "pos", "k_pos")
+    if not isinstance(cache_arrays, Mapping):
+        cache_arrays = {n: getattr(cache_arrays, n) for n in names
+                        if hasattr(cache_arrays, n)}
+    dev = resolve_device(device)
+
+    def kv(a) -> torch.Tensor:
+        a = np.asarray(a)
+        dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else None
+        t = torch.from_numpy(np.array(a, dtype=np.float32 if dtype else a.dtype))
+        return t.to(device=dev, dtype=dtype)
+
+    def positions(a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+
+    k, v = kv(cache_arrays["k"]), kv(cache_arrays["v"])
+    pos = positions(cache_arrays["pos"])
+    if "k_pos" in cache_arrays:
+        return kvc.SlidingKV(k=k, v=v, k_pos=positions(cache_arrays["k_pos"]),
+                             pos=pos)
+    return kvc.FullKV(k=k, v=v, pos=pos)

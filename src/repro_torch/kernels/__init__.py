@@ -37,7 +37,7 @@ __all__ = [
 # kernel name -> CUDA launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {
     "fused_ingest": 0, "route_rank": 0, "fold_levels": 0, "window_stats": 0,
-    "signature_embed": 0, "wkv6": 0,
+    "signature_embed": 0, "wkv6": 0, "flash_attention": 0,
 }
 
 

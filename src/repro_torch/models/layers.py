@@ -9,6 +9,14 @@ reference computes in float32 from bf16 operands — norms, RoPE, the
 attention scores and softmax, tied logits — the operands are upcast here
 too: a bf16 ``torch.matmul`` would round its result to bf16.
 
+:func:`causal_self_attention` is a block's attention over its own whole
+sequence (prefill, scoring): on CUDA tensors it launches flash attention
+kernel B6, on CPU tensors it is :func:`gqa_attention`, the reference
+model's own arithmetic.  The two differ in one rounding: B6 keeps the
+attention weights in float32 for the PV product, where ``gqa_attention``
+rounds them to the value dtype first (ROADMAP Queue C); in float32 they
+are the same function.
+
 ``cross_entropy_loss`` waits for the training slice; the reference's
 ``logical_constraint`` (mesh sharding hints) has no meaning on one GPU.
 """
@@ -20,10 +28,12 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
     "norm_init", "norm_apply", "rope", "attention_qkv", "gqa_attention",
+    "causal_self_attention",
     "mlp_apply", "embed_init", "embed_lookup", "logits_from_embedding",
     "dense_init",
 ]
@@ -152,6 +162,26 @@ def gqa_attention(
         p_.to(v.dtype).to(torch.float32), v.to(torch.float32),
     )
     return o.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def causal_self_attention(
+    q: torch.Tensor,          # (B, S, H, hd)
+    k: torch.Tensor,          # (B, S, Hkv, hd)
+    v: torch.Tensor,          # (B, S, Hkv, hd)
+    positions: torch.Tensor,  # (B, S): 0 .. S - 1 in every row
+    *,
+    window: Optional[int],
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) attention of a sequence over
+    itself, (B, S, H, hd) in ``q``'s dtype.  CUDA tensors go through kernel
+    B6 as transposed views (no copy; the kernel reads positions as the
+    sequence index), CPU tensors through :func:`gqa_attention`."""
+    if q.is_cuda:
+        o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                      causal=True, window=window)
+        return o.transpose(1, 2)
+    return gqa_attention(q, k, v, positions, positions, causal=True,
+                         window=window)
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -11,17 +11,24 @@ tree across.
 :meth:`DecoderLM.prefill` is split in two: :meth:`DecoderLM.forward`
 returns the last token's logits and builds no cache — the scoring path
 calls only this, where the reference's ``jax.jit`` drops the unread cache
-on its own — and ``prefill`` builds the :class:`~repro_torch.models.
-kvcache.FullKV` cache on top of the same pass.
+on its own — and ``prefill`` builds the cache on top of the same pass:
+:class:`~repro_torch.models.kvcache.FullKV`, or the
+:class:`~repro_torch.models.kvcache.SlidingKV` ring when the config has a
+sliding window.  Both passes run each block's self-attention through
+:func:`~repro_torch.models.layers.causal_self_attention` (kernel B6 on the
+card).  :meth:`DecoderLM.decode_step` feeds one token per sequence against
+either cache, through :func:`~repro_torch.models.layers.gqa_attention`
+(the reference computes it outside any Pallas kernel too), and updates
+the cache in place.  All three run under ``torch.inference_mode()``: the
+parameters build no autograd graph, and B6 has no backward.
 
-Not ported yet (each raises ``NotImplementedError``): the ``moe`` family,
-sliding-window attention with its ring cache, ``decode_step`` and the
-training loss.
+Not ported yet (each raises ``NotImplementedError``): the ``moe`` family
+and the training loss.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -31,6 +38,7 @@ from repro_torch.models import kvcache as kvc
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention_qkv,
+    causal_self_attention,
     dense_init,
     embed_init,
     embed_lookup,
@@ -42,6 +50,8 @@ from repro_torch.models.layers import (
 )
 
 __all__ = ["ParamTree", "DecoderBlock", "DecoderLM"]
+
+Cache = Union[kvc.FullKV, kvc.SlidingKV]
 
 
 class ParamTree(nn.Module):
@@ -100,13 +110,42 @@ class DecoderBlock(nn.Module):
         cfg = self.cfg
         h = norm_apply(self.ln_attn, x, cfg.norm)
         q, k, v = attention_qkv(self.attn, h, positions, cfg)
-        o = gqa_attention(q, k, v, positions, positions, causal=True,
-                          window=cfg.sliding_window)
+        o = causal_self_attention(q, k, v, positions,
+                                  window=cfg.sliding_window)
+        return self._finish(x, o), k, v
+
+    def decode(
+        self,
+        x: torch.Tensor,            # (B, 1, D)
+        positions: torch.Tensor,    # (B, 1)
+        cache,                      # FullKV or SlidingKV
+        layer: int,
+        k_positions: torch.Tensor,  # (B, Sk) after this step's write
+        valid: torch.Tensor,        # (B, Sk) bool
+    ) -> torch.Tensor:
+        """One decode step of this block: writes the step's keys and
+        values into layer ``layer`` of ``cache`` (in place) and attends
+        over the cache."""
+        cfg = self.cfg
+        h = norm_apply(self.ln_attn, x, cfg.norm)
+        q, k_new, v_new = attention_qkv(self.attn, h, positions, cfg)
+        update = (kvc.sliding_kv_update_layer
+                  if isinstance(cache, kvc.SlidingKV)
+                  else kvc.full_kv_update_layer)
+        k_layer, v_layer = update(cache.k[layer], cache.v[layer], k_new,
+                                  v_new, cache.pos)
+        o = gqa_attention(q, k_layer, v_layer, positions, k_positions,
+                          causal=True, window=cfg.sliding_window,
+                          kv_valid=valid)
+        return self._finish(x, o)
+
+    def _finish(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """The output projection and the MLP, each added to the residual."""
+        cfg = self.cfg
         B, S, H, hd = o.shape
         x = x + (o.reshape(B, S, H * hd) @ self.attn["wo"]).to(x.dtype)
         h = norm_apply(self.ln_mlp, x, cfg.norm)
-        x = x + mlp_apply(self.mlp, h, cfg).to(x.dtype)
-        return x, k, v
+        return x + mlp_apply(self.mlp, h, cfg).to(x.dtype)
 
 
 class DecoderLM(nn.Module):
@@ -119,11 +158,6 @@ class DecoderLM(nn.Module):
             raise NotImplementedError(
                 f"DecoderLM: family {cfg.family!r} is not ported yet "
                 "(ROADMAP, next slices: MoE)"
-            )
-        if cfg.sliding_window is not None:
-            raise NotImplementedError(
-                "DecoderLM: sliding-window attention and its ring cache are "
-                "not ported yet (ROADMAP, next slices: LM decode)"
             )
         self.cfg = cfg
         dev = resolve_device(device)
@@ -164,33 +198,82 @@ class DecoderLM(nn.Module):
         # the reference's norm over all positions followed by the slice
         return norm_apply(self.ln_out, x[:, -1:], self.cfg.norm)
 
+    @torch.inference_mode()
     def forward(self, batch: Dict) -> torch.Tensor:
         """Last-token logits (B, 1, vocab_padded) float32, no cache."""
         return logits_from_embedding(self.embed, self.last_hidden(batch),
                                      self.cfg)
 
+    @torch.inference_mode()
     def prefill(
         self, batch: Dict, max_len: Optional[int] = None
-    ) -> Tuple[torch.Tensor, kvc.FullKV]:
-        """Run the prompt: last-token logits and the filled cache."""
+    ) -> Tuple[torch.Tensor, Cache]:
+        """Run the prompt: last-token logits and the filled cache — a
+        :class:`~repro_torch.models.kvcache.SlidingKV` holding the last
+        ``min(S, W)`` positions in slots ``position % W`` when the config
+        has a sliding window ``W`` (``max_len`` is then not read), else a
+        :class:`~repro_torch.models.kvcache.FullKV` of ``max(max_len, S)``
+        positions."""
         cfg = self.cfg
         kv: List = []
         logits = logits_from_embedding(
             self.embed, self.last_hidden(batch, kv), cfg
         )
         B, S = kv[0][0].shape[:2]
-        # a frontend extends the sequence past the token count: the cache
-        # holds all of it
-        max_len = max(max_len or S, S)
-        cache = kvc.full_kv_init(cfg, B, max_len, self.device)
-        for i, (k, v) in enumerate(kv):
-            cache.k[i, :, :S] = k
-            cache.v[i, :, :S] = v
+        dev = self.device
+        if cfg.sliding_window is not None:
+            W = cfg.sliding_window
+            cache = kvc.sliding_kv_init(cfg, B, W, dev)
+            take = min(S, W)
+            abs_pos = torch.arange(S - take, S, dtype=torch.int32, device=dev)
+            slots = (abs_pos % W).long()
+            for i, (k, v) in enumerate(kv):
+                cache.k[i][:, slots] = k[:, S - take:]
+                cache.v[i][:, slots] = v[:, S - take:]
+            cache.k_pos[:, slots] = abs_pos
+        else:
+            # a frontend extends the sequence past the token count: the
+            # cache holds all of it
+            max_len = max(max_len or S, S)
+            cache = kvc.full_kv_init(cfg, B, max_len, dev)
+            for i, (k, v) in enumerate(kv):
+                cache.k[i, :, :S] = k
+                cache.v[i, :, :S] = v
         cache.pos.fill_(S)
         return logits, cache
 
-    def decode_step(self, cache, tokens: torch.Tensor):
-        raise NotImplementedError(
-            "DecoderLM.decode_step is not ported yet (ROADMAP, next slices: "
-            "LM decode)"
-        )
+    @torch.inference_mode()
+    def decode_step(
+        self, cache: Cache, tokens: torch.Tensor
+    ) -> Tuple[torch.Tensor, Cache]:
+        """One token for every sequence: ``tokens`` (B, 1) at positions
+        ``cache.pos``.  Returns logits (B, 1, vocab_padded) float32 and the
+        cache, updated in place: the step's keys and values written, ``pos``
+        (and, for the ring, ``k_pos``) advanced, as the reference's
+        ``decode_step`` returns them."""
+        cfg = self.cfg
+        x = embed_lookup(self.embed, tokens, cfg)
+        B = tokens.shape[0]
+        pos = cache.pos
+        positions = pos[:, None]
+        rows = torch.arange(B, device=pos.device)
+        if isinstance(cache, kvc.SlidingKV):
+            W = cache.window
+            slot = (pos % W).long()
+            # the ring's positions once this step is written: the same for
+            # every layer
+            kp = cache.k_pos.clone()
+            kp[rows, slot] = pos
+            valid = (kp >= 0) & (kp > positions - (cfg.sliding_window or W))
+        else:
+            kp = torch.arange(cache.max_len, dtype=torch.int32,
+                              device=pos.device).expand(B, -1)
+            valid = kp <= positions
+        for i, block in enumerate(self.blocks):
+            x = block.decode(x, positions, cache, i, kp, valid)
+        x = norm_apply(self.ln_out, x, cfg.norm)
+        logits = logits_from_embedding(self.embed, x, cfg)
+        if isinstance(cache, kvc.SlidingKV):
+            cache.k_pos = kp
+        cache.pos = pos + 1
+        return logits, cache

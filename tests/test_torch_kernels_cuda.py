@@ -18,7 +18,13 @@ kernel is held to its chunked plain version at ``atol = rtol = 1e-4`` and
 to the recurrence at ``5e-4`` (float32 products summed in another order);
 ``RWKV6LM`` on the card to the same model on the CPU at ``1e-3`` on
 logits and states (float32 smoke model; cuBLAS and the CPU's BLAS sum in
-different orders, over two layers and three decode steps).  The whole
+different orders, over two layers and three decode steps).  The flash
+attention kernel is held to its plain version at the reference's
+``atol = rtol = 2e-5`` (float32) and ``3e-2`` (bf16); ``DecoderLM`` on the
+card (B6 in every prefill) to the same model on the CPU (``gqa_attention``)
+at ``1e-3`` in float32, where the two attentions are one function, and at
+eight bf16 steps of the largest logit in bf16, where B6 keeps the weights
+p in float32 and ``gqa_attention`` rounds them to bf16.  The whole
 store on the GPU equals the same store on the CPU: state bit-exact,
 COUNT / MAX bit-exact, SUM / MEAN within ``rtol=1e-5`` (masked ring
 sums reduce in a device-chosen order), STD within that plus the
@@ -32,6 +38,11 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import preagg as pg
 from repro_torch.core import storage as st
+from repro_torch.kernels.flash_attention.ops import (
+    attention,
+    launch_flash_attention,
+)
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ingest.ops import fused_ingest
 from repro_torch.kernels.ingest.ref import fused_ingest_ref
 from repro_torch.kernels.route.ops import route_rank
@@ -537,3 +548,121 @@ def test_rwkv6_on_gpu_matches_cpu(cuda):
         lg, sg = gpu.decode_step(sg, tok.to(cuda))
         assert kernels.LAUNCHES["wkv6"] == before + cfg.n_layers
         lc, sc = cpu.decode_step(sc, tok)
+
+
+# B, H, Hkv, S, D, causal, window: the reference's six shapes
+# (tests/test_kernels.py), GQA 6:1 (nemotron-4-15b's grouping), D = 96
+# (phi3), one row past a tile, the window wider than the sequence
+FA_SHAPES = [
+    (2, 4, 2, 256, 64, True, None),
+    (1, 8, 8, 128, 128, True, 64),
+    (2, 4, 1, 192, 80, False, None),
+    (1, 2, 2, 100, 32, True, 32),
+    (2, 16, 4, 128, 128, True, None),
+    (1, 4, 4, 384, 64, True, 128),
+    (2, 12, 2, 200, 128, True, None),
+    (2, 4, 4, 130, 96, True, None),
+    (3, 2, 1, 65, 64, True, None),
+    (1, 6, 2, 150, 128, False, 1000),
+]
+
+
+def _fa_case(dev, B, H, Hkv, S, D, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, h, S, D), generator=g).to(dev, dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", FA_SHAPES)
+def test_flash_attention_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
+                                            window, dtype):
+    q, k, v = _fa_case(cuda, B, H, Hkv, S, D, dtype, B + H + S + D)
+    before = kernels.LAUNCHES["flash_attention"]
+    out = attention(q, k, v, causal=causal, window=window)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_strides_scale_and_refusals(cuda):
+    # (B, S, H, D) activations passed as transposed views: no copy, the
+    # output in the same layout
+    g = torch.Generator().manual_seed(3)
+    x = [torch.randn((2, 90, h, 64), generator=g).to(cuda) for h in (6, 3, 3)]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    out = attention(q, k, v, window=40)
+    assert out.stride() == q.stride()
+    want = attention_ref(*(t.contiguous() for t in (q, k, v)), window=40)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    for kw in (dict(scale=0.2), dict(causal=False, window=0),
+               dict(window=-5), dict(window=0)):
+        torch.testing.assert_close(attention(q, k, v, **kw),
+                                   attention_ref(q, k, v, **kw),
+                                   atol=2e-5, rtol=2e-5)
+    assert not attention(q, k, v, window=0).any()  # every key masked
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        attention(*_fa_case(cuda, 1, 2, 2, 8, 160, torch.float32, 1))
+    with pytest.raises(ValueError, match="mixed devices"):
+        attention(q, k.cpu(), v)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        attention(q.detach().requires_grad_(), k, v)
+    o = torch.empty_like(q)
+    before = kernels.LAUNCHES["flash_attention"]
+    launch_flash_attention(q, k, v, o, causal=True, window=None, scale=0.125)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o, attention_ref(q, k, v), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype,window", [
+    ("float32", None), ("float32", 8), ("bfloat16", None),
+])
+def test_decoder_lm_on_gpu_matches_cpu(cuda, dtype, window):
+    """nemotron-4-15b's smoke config on the card -- B6 once per layer per
+    prefill, none in decode -- against the same weights on the CPU:
+    prefill over 40 tokens, then three decode steps (the ring of 8 wraps
+    when ``window`` is set)."""
+    import copy
+
+    from repro_torch.configs.nemotron_4_15b import smoke_config
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = smoke_config().replace(param_dtype=dtype, compute_dtype=dtype,
+                                 sliding_window=window)
+    gpu = DecoderLM(cfg, seed=2, device="cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=g, dtype=torch.int32)
+
+    def check(got, want):
+        if dtype == "float32":
+            torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=1e-3)
+        else:
+            tol = 8 * 2.0 ** -8 * float(want.float().abs().max())
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       atol=tol, rtol=0)
+
+    before = kernels.LAUNCHES["flash_attention"]
+    lg, cg = gpu.prefill({"tokens": tokens.to(cuda)}, max_len=44)
+    assert kernels.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    lc, cc = cpu.prefill({"tokens": tokens}, max_len=44)
+    for step in range(4):
+        check(lg, lc)
+        check(cg.k, cc.k)
+        check(cg.v, cc.v)
+        assert torch.equal(cg.pos.cpu(), cc.pos)
+        if step == 3:
+            break
+        tok = torch.randint(0, cfg.vocab, (2, 1), generator=g, dtype=torch.int32)
+        before = kernels.LAUNCHES["flash_attention"]
+        lg, cg = gpu.decode_step(cg, tok.to(cuda))
+        assert kernels.LAUNCHES["flash_attention"] == before
+        lc, cc = cpu.decode_step(cc, tok)

@@ -310,11 +310,10 @@ def test_unported_paths_raise():
             build_model(cfg.replace(family=family), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg.replace(family="nope"), device="cpu")
+    # sliding-window attention and decode_step are ported
+    # (tests/test_torch_decoder_lm.py); the decoder itself still refuses MoE
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM(cfg.replace(sliding_window=4), device="cpu")
-    model = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.decode_step(None, torch.zeros((1, 1), dtype=torch.int32))
+        DecoderLM(cfg.replace(family="moe"), device="cpu")
 
 
 def test_seeded_init_is_deterministic_and_scaled():
