@@ -10,6 +10,8 @@ launches the kernel or raises.
 **Launch counters.**  ``LAUNCHES[name]`` is a plain integer per kernel that
 the wrapper increments right where it launches the CUDA kernel (and
 nowhere else), so a run can prove its main path went through the kernel.
+A kernel with several instantiations also counts each one in
+``VARIANT_LAUNCHES[name][variant]``; those add up to ``LAUNCHES[name]``.
 
 **Dispatch telemetry.**  :func:`note_dispatch` counts every entry-point
 call into ``kernel_dispatch_total{kernel,impl}`` with ``impl`` one of
@@ -22,12 +24,13 @@ no counterpart here: a CUDA kernel sizes its own blocks.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 __all__ = [
     "LAUNCHES",
+    "VARIANT_LAUNCHES",
     "reset_launches",
     "count_launch",
     "use_cuda_kernel",
@@ -39,17 +42,27 @@ LAUNCHES: Dict[str, int] = {
     "fused_ingest": 0, "route_rank": 0, "fold_levels": 0, "window_stats": 0,
     "signature_embed": 0, "wkv6": 0, "flash_attention": 0,
 }
+# kernel name -> instantiation -> CUDA launches since the last reset
+VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
+    "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0},
+}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for counts in VARIANT_LAUNCHES.values():
+        for v in counts:
+            counts[v] = 0
 
 
-def count_launch(kernel: str, n: int = 1) -> None:
+def count_launch(kernel: str, n: int = 1, variant: Optional[str] = None) -> None:
     """Add ``n`` device launches of ``kernel`` (a wrapper that issues
-    several launches in one call counts each)."""
+    several launches in one call counts each), and of its instantiation
+    ``variant`` where it has several."""
     LAUNCHES[kernel] += n
+    if variant is not None:
+        VARIANT_LAUNCHES[kernel][variant] += n
 
 
 def use_cuda_kernel(kernel: str, *tensors: torch.Tensor) -> bool:

@@ -11,15 +11,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.flash_attention.ops import attention as jax_attention
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro_torch import kernels
-from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ops import (
+    MAX_HEAD_DIM,
+    SHORT_SEQ_MAX,
+    attention,
+    plan_attention,
+)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.obs import Telemetry, use_telemetry
 
-# B, H, Hkv, S, D, causal, window: tests/test_kernels.py's six shapes
+# B, H, Hkv, S, D, causal, window: tests/test_kernels.py's six shapes,
+# then the scorer's sequence and recurrentgemma-9b's head dim
 FA_SHAPES = [
     (2, 4, 2, 256, 64, True, None),
     (1, 8, 8, 128, 128, True, 64),
@@ -27,6 +34,9 @@ FA_SHAPES = [
     (1, 2, 2, 100, 32, True, 32),      # odd seq
     (2, 16, 4, 128, 128, True, None),  # GQA 4:1
     (1, 4, 4, 384, 64, True, 128),     # window == block
+] + [
+    (2, 8, 8, 65, 64, True, None),     # the fraud scorer's 65 rows
+    (1, 4, 1, 96, 256, True, 32),      # head dim 256, MQA, window
 ]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -107,3 +117,74 @@ def test_refusals():
         attention(q, k[:, :, :8], v[:, :, :8])
     with pytest.raises(ValueError, match=r"\(B, H, S, D\)"):
         attention(q[0], k, v)
+
+
+def _bf16_views(B, S, H, Hkv, hd):
+    """The model's (B, S, H, hd) activations as (B, H, S, hd) views."""
+    return [torch.zeros((B, S, h, hd), dtype=torch.bfloat16).transpose(1, 2)
+            for h in (H, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128, 256])
+def test_plan_takes_the_models_views_without_a_copy(hd):
+    """``DecoderLM`` hands B6 transposed views of its projections: at every
+    head dim of the registry's configs they need no copy, in both bf16
+    instantiations and in float32."""
+    for S, variant in ((SHORT_SEQ_MAX, "mma16"), (SHORT_SEQ_MAX + 1, "wgmma")):
+        plan = plan_attention(*_bf16_views(2, S, 8, 2, hd))
+        assert plan.variant == variant and plan.copy == (False,) * 3
+        assert plan.head_dim == hd and plan.tile_d >= hd
+    plan = plan_attention(*(x.float() for x in _bf16_views(2, 300, 8, 2, hd)))
+    assert plan.variant == "simt" and plan.copy == (False,) * 3
+
+
+def test_plan_instantiations_padding_grid_and_refusal():
+    # the scorer's shape: a block per (b, KV head), a warp per 16-row tile
+    plan = plan_attention(*_bf16_views(4096, 65, 8, 8, 64))
+    assert (plan.variant, plan.tile_d, plan.grid, plan.threads) == (
+        "mma16", 64, (4096 * 8, 1), 32 * 5)
+    # GQA 6:1 at S = 128: 6 heads x 8 tiles share 8 warps
+    assert plan_attention(*_bf16_views(1, 128, 48, 8, 128)).threads == 256
+    # nemotron's prefill: 128-row query tiles, 3 warpgroups
+    plan = plan_attention(*_bf16_views(8, 2048, 48, 8, 128))
+    assert (plan.variant, plan.grid, plan.threads) == (
+        "wgmma", (8 * 48, 16), 384)
+    # D = 256: 64-row query tiles, 2 warpgroups
+    plan = plan_attention(*_bf16_views(2, 4096, 16, 1, 256))
+    assert (plan.tile_d, plan.grid, plan.threads) == (256, (32, 64), 256)
+    # D = 100 is padded to 112 with zeros (all three copied)
+    plan = plan_attention(*[torch.zeros(1, h, 300, 100, dtype=torch.bfloat16)
+                            for h in (4, 2, 2)])
+    assert plan.head_dim == 112 and plan.copy == (True,) * 3
+    # a row stride TMA cannot take (100 elements = 200 bytes): copied
+    base = torch.zeros(1, 4, 300, 100, dtype=torch.bfloat16)
+    plan = plan_attention(base[..., :64], base[..., :64], base[..., :64])
+    assert plan.head_dim == 64 and plan.copy == (True,) * 3
+    # float32 takes any D on the CUDA cores: 64-row tiles, 32 above D 128
+    x = torch.zeros(2, 4, 300, 100)
+    assert plan_attention(x, x, x) == plan_attention(x, x, x)
+    plan = plan_attention(x, x, x)
+    assert (plan.variant, plan.tile_d, plan.head_dim, plan.grid) == (
+        "simt", 128, 100, (8, 5))
+    x = torch.zeros(2, 4, 300, 160)
+    assert plan_attention(x, x, x).grid == (8, 10)
+    with pytest.raises(ValueError, match=f"head dims up to {MAX_HEAD_DIM}"):
+        plan_attention(*[torch.zeros(1, 2, 8, 288, dtype=torch.bfloat16)] * 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_padded_and_copied_inputs_match_jax(dtype):
+    """What ``attention`` copies on the card -- D = 100 padded with zeros
+    (the scale still 1 / sqrt(100)), a view with a 200-byte row stride --
+    computes the same function (the CPU path takes the tensors as they
+    are)."""
+    jx, tx = _inputs(1, 4, 2, 70, 100, dtype, 11)
+    want = jax_attention_ref(*jx)
+    got = attention(*(F.pad(x, (0, 12)) for x in tx),
+                    scale=100 ** -0.5)[..., :100]
+    np.testing.assert_allclose(_np(got), _np(want), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    jx64 = [x[..., :64] for x in jx]
+    got = attention(*(x[..., :64] for x in tx))
+    np.testing.assert_allclose(_np(got), _np(jax_attention_ref(*jx64)),
+                               atol=TOL[dtype], rtol=TOL[dtype])

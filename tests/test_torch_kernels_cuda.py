@@ -23,8 +23,8 @@ attention kernel is held to its plain version at the reference's
 ``atol = rtol = 2e-5`` (float32) and ``3e-2`` (bf16); ``DecoderLM`` on the
 card (B6 in every prefill) to the same model on the CPU (``gqa_attention``)
 at ``1e-3`` in float32, where the two attentions are one function, and at
-eight bf16 steps of the largest logit in bf16, where B6 keeps the weights
-p in float32 and ``gqa_attention`` rounds them to bf16.  The whole
+eight bf16 steps of the largest logit in bf16, where both round the
+weights p to bf16 but sum in other orders.  The whole
 store on the GPU equals the same store on the CPU: state bit-exact,
 COUNT / MAX bit-exact, SUM / MEAN within ``rtol=1e-5`` (masked ring
 sums reduce in a device-chosen order), STD within that plus the
@@ -41,6 +41,7 @@ from repro_torch.core import storage as st
 from repro_torch.kernels.flash_attention.ops import (
     attention,
     launch_flash_attention,
+    plan_attention,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ingest.ops import fused_ingest
@@ -573,6 +574,10 @@ def _fa_case(dev, B, H, Hkv, S, D, dtype, seed):
             for h in (H, Hkv, Hkv)]
 
 
+def _fa_tol(dtype):
+    return 2e-5 if dtype == torch.float32 else 3e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", FA_SHAPES)
 def test_flash_attention_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
@@ -584,42 +589,82 @@ def test_flash_attention_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
     want = attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    tol = _fa_tol(dtype)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
 
 
-def test_flash_attention_kernel_strides_scale_and_refusals(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 65, 100, 129])
+@pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 160, 256])
+def test_flash_attention_kernel_head_dims(cuda, D, S, dtype):
+    """Every head-dim tile of every instantiation: bf16 S <= 128 runs
+    "mma16", S = 129 "wgmma", float32 "simt"; a window on odd D."""
+    window = 40 if D % 32 else None
+    q, k, v = _fa_case(cuda, 2, 4, 2, S, D, dtype, D + S)
+    variant = plan_attention(q, k, v).variant
+    assert variant == ("simt" if dtype == torch.float32
+                       else "mma16" if S <= 128 else "wgmma")
+    kernels.reset_launches()
+    out = attention(q, k, v, window=window)
+    assert kernels.VARIANT_LAUNCHES["flash_attention"][variant] == 1
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = _fa_tol(dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
     # (B, S, H, D) activations passed as transposed views: no copy, the
     # output in the same layout
+    tol = _fa_tol(dtype)
     g = torch.Generator().manual_seed(3)
-    x = [torch.randn((2, 90, h, 64), generator=g).to(cuda) for h in (6, 3, 3)]
-    q, k, v = (t.transpose(1, 2) for t in x)
-    out = attention(q, k, v, window=40)
-    assert out.stride() == q.stride()
-    want = attention_ref(*(t.contiguous() for t in (q, k, v)), window=40)
-    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
-    for kw in (dict(scale=0.2), dict(causal=False, window=0),
-               dict(window=-5), dict(window=0)):
-        torch.testing.assert_close(attention(q, k, v, **kw),
-                                   attention_ref(q, k, v, **kw),
-                                   atol=2e-5, rtol=2e-5)
-    assert not attention(q, k, v, window=0).any()  # every key masked
+    for S in (90, 300):  # both bf16 instantiations
+        x = [torch.randn((2, S, h, 64), generator=g).to(cuda, dtype)
+             for h in (6, 3, 3)]
+        q, k, v = (t.transpose(1, 2) for t in x)
+        assert not any(plan_attention(q, k, v).copy)
+        out = attention(q, k, v, window=40)
+        assert out.stride() == q.stride()
+        want = attention_ref(*(t.contiguous() for t in (q, k, v)), window=40)
+        torch.testing.assert_close(out.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        for kw in (dict(scale=0.2), dict(causal=False, window=0),
+                   dict(window=-5), dict(window=0),
+                   dict(causal=False, window=S + 50)):
+            torch.testing.assert_close(attention(q, k, v, **kw).float(),
+                                       attention_ref(q, k, v, **kw).float(),
+                                       atol=tol, rtol=tol)
+        assert not attention(q, k, v, window=0).any()  # every key masked
+    # a view TMA cannot take (odd strides) is copied; an odd D is padded
+    base = torch.randn((1, 4, 200, 100), generator=g).to(cuda, dtype)
+    q = k = v = base[..., :64]
+    torch.testing.assert_close(attention(q, k, v).float(),
+                               attention_ref(q, k, v).float(), atol=tol,
+                               rtol=tol)
+    q = k = v = base[..., :100].contiguous()
+    torch.testing.assert_close(attention(q, k, v).float(),
+                               attention_ref(q, k, v).float(), atol=tol,
+                               rtol=tol)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        attention(q, k.bfloat16(), v)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        attention(*_fa_case(cuda, 1, 2, 2, 8, 160, torch.float32, 1))
+        attention(q, k.to(torch.float64), v)
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        attention(*_fa_case(cuda, 1, 2, 2, 8, 288, dtype, 1))
     with pytest.raises(ValueError, match="mixed devices"):
         attention(q, k.cpu(), v)
     with pytest.raises(NotImplementedError, match="no backward"):
         attention(q.detach().requires_grad_(), k, v)
+    q, k, v = (t.transpose(1, 2) for t in x)
     o = torch.empty_like(q)
     before = kernels.LAUNCHES["flash_attention"]
     launch_flash_attention(q, k, v, o, causal=True, window=None, scale=0.125)
     assert kernels.LAUNCHES["flash_attention"] == before + 1
     torch.cuda.synchronize()
-    torch.testing.assert_close(o, attention_ref(q, k, v), atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype,window", [

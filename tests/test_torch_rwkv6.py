@@ -178,13 +178,14 @@ def test_wkv6_refuses_gradients_and_bad_shapes():
 # ---------------------------------------------------------------------------
 
 
-def _models(dtype, seed=0):
+def _models(dtype, seed=0, **shape):
     """(JAX model, its params with mu / u / w0 randomized, the port's model
-    holding the same weights), at ``smoke_config()`` in ``dtype``."""
+    holding the same weights), at ``smoke_config()`` (with ``shape``'s
+    fields replaced) in ``dtype``."""
     jcfg = jax_registry.get_smoke_config("rwkv6-3b").replace(
-        param_dtype=dtype, compute_dtype=dtype)
+        param_dtype=dtype, compute_dtype=dtype, **shape)
     cfg = registry.get_smoke_config("rwkv6-3b").replace(
-        param_dtype=dtype, compute_dtype=dtype)
+        param_dtype=dtype, compute_dtype=dtype, **shape)
     jm = jax_build_model(jcfg)
     params = jm.init(seed=seed)
     rng = np.random.default_rng(seed + 100)
@@ -255,6 +256,44 @@ def test_rwkv6_decode_after_prefill_matches_longer_prefill():
         _close(lg[:, 0], ref[:, 0], 5e-4, f"position {i}")
         _close(state["wkv"], ref_state["wkv"], 5e-4, f"wkv at {i}")
         assert int(state["pos"][0]) == i + 1
+
+
+def _bf16_steps(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / (2.0 ** -8 * np.abs(want).max()))
+
+
+@pytest.mark.parametrize("shape", [
+    {},                                                   # smoke_config()
+    dict(d_model=512, n_heads=8, n_kv_heads=8, d_ff=1792),
+])
+def test_rwkv6_bf16_decode_gap_matches_jax(shape):
+    """bf16 decode after 1 and 8 steps against a prefill over the longer
+    prompt, in both packages on the same weights: the port's gap (max
+    |diff| of the last logits in bf16 steps of the largest) within the
+    JAX package's plus one bf16 step.  At the smoke width both gaps are 0;
+    at d_model 512 the CPU's bf16 GEMMs round a 1-row and a 40-row product
+    differently (about 0.3 steps).  The same gap grows with width and
+    depth: ``tests/rwkv6_bf16_gap.py`` measures it at full width."""
+    jm, params, model = _models("bfloat16", seed=3, **shape)
+    rng = np.random.default_rng(3)
+    B, T = 2, 32
+    seq = rng.integers(0, model.cfg.vocab, (B, T + 8)).astype(np.int32)
+    _, js = jm.prefill(params, {"tokens": jnp.asarray(seq[:, :T])})
+    _, ts = model.prefill({"tokens": torch.from_numpy(seq[:, :T])})
+    jdec, tdec = [], []
+    for i in range(8):
+        tok = seq[:, T + i:T + i + 1]
+        jl, js = jm.decode_step(params, js, jnp.asarray(tok))
+        tl, ts = model.decode_step(ts, torch.from_numpy(tok))
+        jdec.append(np.asarray(jl[:, -1], np.float32))
+        tdec.append(tl[:, -1].float().numpy())
+    for steps in (1, 8):
+        jl, _ = jm.prefill(params, {"tokens": jnp.asarray(seq[:, :T + steps])})
+        tl, _ = model.prefill({"tokens": torch.from_numpy(seq[:, :T + steps])})
+        jgap = _bf16_steps(jdec[steps - 1], jl[:, -1])
+        tgap = _bf16_steps(tdec[steps - 1], tl[:, -1].float().numpy())
+        assert tgap <= jgap + 1.0, (steps, tgap, jgap)
 
 
 def test_rwkv6_seeded_init_is_deterministic_and_scaled():
