@@ -63,25 +63,38 @@ Phases, in order; any failure exits non-zero:
    the fenced batch wall p50 / p99 split into features, embedding and
    model, the peak device memory and one traced batch; then runs
    ``repro_torch.launch.serve.main`` once on the card at its defaults.
-9. **WKV6 kernel** against its plain versions at the RWKV6 path's shapes
-   (float32 inputs from a seeded generator): (8, 40, 1024, 64) with a
-   random s0 against the chunked plain version, a (1, 4, 1024, 64) slice
-   against the recurrence, the decode step (8, 40, 1, 64), (1, 2, 100, 64)
-   and the lw edges (above 0, below the -3.5 floor, 0, a whole chunk at
-   the floor); tolerances at ``WKV_TOL``.  Timed with CUDA events beside
-   the chunked plain version; its bound is the larger of its bytes over
-   3.35 TB/s and its chunk products over the float32 peak.
+9. **WKV6 kernel** against its plain versions, float32 inputs from a
+   seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
+   D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
+   and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
+   contiguous (1, 2, 100, 64), the lw edges (above 0, below the -3.5
+   floor, 0, a whole chunk at the floor), and every head dim the kernel is
+   built for plus D = 48 (zero-padded) at T = 1, 15, 16 and 100; each
+   against the chunked plain version and, on four heads, the recurrence,
+   at ``WKV_TOL``; T < 16 must run the ``step`` instantiation, longer
+   sequences ``chunk``, and only D = 48 may be copied.  The prefill and
+   decode shapes are timed on the model's views with CUDA events: the
+   kernel's eager launches (as the model issues them; at decode the
+   host's launch overhead is most of that time) and the same launches
+   inside a CUDA graph (the kernel alone), the wrapper ``wkv6`` apart,
+   and the chunked plain version; its bound is the larger
+   of its bytes over 3.35 TB/s and its chunk products over the float32
+   peak.
 10. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
-   depth cut); 8 prompts of 1,024 random tokens prefilled, then 32 tokens
-   decoded greedily.  Logits finite, ``pos`` advanced, the WKV6 kernel
+   depth cut).  A prefill and a decode step with a spy on B7's entry
+   point: every call hands the kernel the model's projections uncopied and
+   takes y back in place.  Then 8 prompts of 1,024 random tokens
+   prefilled, then 32 tokens decoded greedily.  Logits finite, ``pos`` advanced, the WKV6 kernel
    launched exactly 32 x (1 + 32) times; the prefill logits and final
-   ``wkv`` states equal a run with the chunked plain version swapped in,
-   within ``LM_BF16_STEPS`` bf16 steps.  Prints the fenced prefill wall
+   ``wkv`` states are within ``RWKV_SCAN_STEPS`` bf16 steps of a run with
+   the chunked plain version swapped in (a run with the recurrence
+   swapped in is printed beside it).  Prints the fenced prefill wall
    and tokens/s, decode step p50 / p99 and tokens/s, peak device memory,
    how far decode after 1 and 8 steps is from prefill over the longer
-   prompt, and one traced prefill and decode step.  Then, at 16 layers,
+   prompt, and one traced prefill and decode step (with B7's share of
+   device time and the copy kernels left).  Then, at 16 layers,
    4 prompts of 256 tokens, that bf16 gap must stay within
    ``RWKV_GAP_MARGIN`` times the JAX package's own (``RWKV_REF_GAP``,
    measured by ``tests/rwkv6_bf16_gap.py``).  Then the same model
@@ -97,9 +110,11 @@ Phases, in order; any failure exits non-zero:
    float32 and bf16, then bf16 at nemotron-4-15b's prefill (8, 48 heads
    over 8, 2,048, 128, causal), mixtral-8x7b's sliding window (1, 32 over
    8, 8,192, 128, window 4,096), phi3's head dim (8, 32, 32, 1,024, 96),
-   the fraud scorer's (4,096, 8, 8, 65, 64) and recurrentgemma-9b's head
-   dim 256 (2, 16 over 1, 4,096, 256, window 2,048); tolerances
-   ``FA_TOL``, each shape's instantiation launched once.  Every path
+   the fraud scorer's (4,096, 8, 8, 65, 64), recurrentgemma-9b's head
+   dim 256 (2, 16 over 1, 4,096, 256, window 2,048) and D = 512 (2, 8
+   over 2, 1,024, 512); head dims above 256 (288, 320, 512, 1000, the
+   ``wide`` instantiation) in float32 and bf16; tolerances ``FA_TOL``,
+   each shape's instantiation launched once.  Every path
    shape is timed with CUDA events beside the plain version and
    ``F.scaled_dot_product_attention`` (the library call, timed only; a
    boolean mask for a window); the bound is the larger of the visible
@@ -189,6 +204,10 @@ RWKV_PARAMS = 2_900_298_240   # rwkv6-3b's parameter tree (not param_count())
 # WKV6 kernel vs its chunked plain version, and vs the recurrence: float32
 # products summed in another order (allclose atol = rtol)
 WKV_TOL = {"chunked": 1e-4, "recurrence": 5e-4}
+# WKV6 head dims checked: every build (16 ... 256) and 48, zero-padded to
+# 64; sequence lengths on both sides of a chunk (T < 16 runs "step")
+WKV_CHECK_DIMS = (16, 32, 48, 64, 128, 256)
+WKV_CHECK_LENGTHS = (1, 15, 16, 100)
 # an LM's bf16 prefill with a kernel and with its plain version swapped in
 # (WKV6's chunked version; gqa_attention, which rounds the attention
 # weights to bf16 as B6 does, but sums in another order) differ in
@@ -196,6 +215,16 @@ WKV_TOL = {"chunked": 1e-4, "recurrence": 5e-4}
 # rounding of the residual stream spreads over 32 layers.  Allowed: this
 # many bf16 steps (2^-8) of the array's largest value
 LM_BF16_STEPS = 8
+# rwkv6-3b in bf16 amplifies any rounding difference in the scan over its
+# 32 layers: its two plain versions, the chunked one and the recurrence,
+# both float32 and correct, part by more than LM_BF16_STEPS.  The kernel
+# run may be this many bf16 steps of the largest value from the
+# chunked-plain run: 1.5 x the largest gap between the two plain versions'
+# runs over seeds 0-4 (14.36, the final states at seed 1; logits 12.89-
+# 13.59), rounded up (``tests/rwkv6_bf16_gap.py --scans``; PERF.md,
+# section 6).  The float32 checks (LM_F32_TOL) hold the kernel's
+# arithmetic on this model
+RWKV_SCAN_STEPS = 22
 # decode after prefill vs prefill over the longer prompt, after this many
 # steps
 LM_CHECK_STEPS = (1, 8)
@@ -238,7 +267,14 @@ FA_PATH_SHAPES = {
     "scorer": (4096, 8, 8, 65, 64, True, None),
     # recurrentgemma-9b's local attention: head dim 256, MQA, window 2,048
     "d256": (2, 16, 1, 4096, 256, True, 2048),
+    # above the tiled instantiations ("wide"): no registry config has it
+    "d512": (2, 8, 2, 1024, 512, True, None),
 }
+# head dims above 256 ("wide"), checked in both dtypes
+FA_WIDE_SHAPES = [
+    (2, 4, 2, 100, 288, True, None), (2, 4, 2, 65, 320, True, 30),
+    (2, 4, 2, 300, 512, True, None), (2, 4, 2, 77, 1000, True, 50),
+]
 FA_TIMED = tuple(FA_PATH_SHAPES)
 # the short-sequence dispatch threshold: both bf16 instantiations timed at
 # the scorer's S = 65 and at S = 128 (the longest "mma16" takes)
@@ -1064,7 +1100,7 @@ def _print_b6_share(dev, busy_ms) -> None:
 
     by = {}
     for e in dev:
-        m = re.search(r"fa_(wgmma|mma16|simt)_kernel", e.key)
+        m = re.search(r"fa_(wgmma|mma16|simt|wide)_kernel", e.key)
         if m:
             ms, n = by.get(m.group(1), (0.0, 0))
             by[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -1075,6 +1111,32 @@ def _print_b6_share(dev, busy_ms) -> None:
           f"{total / busy_ms:.4f} of device busy ("
           + ", ".join(f"{v} {ms:.4f} ms x{n}" for v, (ms, n) in sorted(by.items()))
           + ")", flush=True)
+
+
+def _print_b7_share(dev, busy_ms) -> None:
+    """The WKV6 kernel's (B7's) device time in a trace and its share of
+    the device busy time, by instantiation; and the device copies in the
+    trace (kernels named for a copy; a wrapper that copied B7's inputs
+    and output would add five a layer)."""
+    import re
+
+    by, copies = {}, [0.0, 0]
+    for e in dev:
+        m = re.search(r"wkv6_(chunk|step)_kernel", e.key)
+        if m:
+            ms, n = by.get(m.group(1), (0.0, 0))
+            by[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        elif "copy" in e.key.lower():
+            copies[0] += e.self_device_time_total / 1e3
+            copies[1] += e.count
+    if not by:
+        return
+    total = sum(ms for ms, _ in by.values())
+    print(f"  B7 (wkv6): {total:.4f} ms device time = {total / busy_ms:.4f} "
+          f"of device busy ("
+          + ", ".join(f"{v} {ms:.4f} ms x{n}" for v, (ms, n) in sorted(by.items()))
+          + f"); copy kernels in the whole trace: {copies[1]}, "
+          f"{copies[0]:.4f} ms", flush=True)
 
 
 def trace_scoring(scoring, rows) -> None:
@@ -1115,17 +1177,22 @@ def _wkv6_cost(shape, with_s0):
     return nbytes, flop
 
 
-def _wkv6_inputs(gen, shape, lw_edge=None):
+def _wkv6_inputs(gen, shape, lw_edge=None, layout="bthd"):
     """(r, k, v, lw, u, s0) float32 on the card, scaled as the reference's
-    kernel tests scale them; ``lw_edge`` as in ``check_wkv6_kernel``."""
+    kernel tests scale them; r, k, v, lw as the model hands them over --
+    (B, T, H, D) tensors viewed as (B, H, T, D) -- or, ``layout="bhtd"``,
+    contiguous; ``lw_edge`` as in ``check_wkv6_kernel``."""
     B, H, T, D = shape
     dev = torch.device("cuda")
 
     def randn(*s):
         return torch.randn(s, generator=gen, device=dev)
 
-    r, k, v = randn(*shape) * 0.5, randn(*shape) * 0.5, randn(*shape)
-    lw = -torch.exp(randn(*shape) - 1.0)
+    made = (B, T, H, D) if layout == "bthd" else shape
+    r, k, v = randn(*made) * 0.5, randn(*made) * 0.5, randn(*made)
+    lw = -torch.exp(randn(*made) - 1.0)
+    if layout == "bthd":
+        r, k, v, lw = (x.transpose(1, 2) for x in (r, k, v, lw))
     if lw_edge == "lw > 0":
         lw[..., ::3] = torch.rand(lw[..., ::3].shape, generator=gen, device=dev) * 2
     elif lw_edge == "lw < -3.5":
@@ -1138,26 +1205,62 @@ def _wkv6_inputs(gen, shape, lw_edge=None):
     return r, k, v, lw, randn(H, D) * 0.3, randn(B, H, D, D) * 0.1
 
 
+def _graph_time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: the kernels back to back, without the host's
+    launch overhead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    ms = _time_ms(graph.replay, 3) / reps
+    del graph
+    return ms
+
+
 def check_wkv6_kernel(results) -> None:
     """The WKV6 kernel against its chunked plain version and the
-    recurrence, then timed at the prefill and decode shapes."""
-    from repro_torch.kernels.wkv6.ops import launch_wkv6, wkv6, wkv6_chunked
+    recurrence -- at the model's shapes and layout, every head dim, both
+    instantiations -- then timed at the prefill and decode shapes as the
+    model calls them."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import (
+        launch_wkv6, plan_wkv6, wkv6, wkv6_chunked,
+    )
     from repro_torch.kernels.wkv6.ref import wkv6_ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     H = 40
     main = (RWKV_BATCH, H, RWKV_PROMPT, 64)
     decode = (RWKV_BATCH, H, 1, 64)
-    cases = [("prefill", main, True, None), ("decode step", decode, True, None),
-             ("decode step, zero state", decode, False, None),
-             ("T=100", (1, 2, 100, 64), True, None)]
-    cases += [(e, (2, H, 48, 64), True, e) for e in (
+    cases = [("prefill", main, True, None, "bthd"),
+             ("decode step", decode, True, None, "bthd"),
+             ("decode step, zero state", decode, False, None, "bthd"),
+             ("T=15", (RWKV_BATCH, H, 15, 64), True, None, "bthd"),
+             ("T=100, contiguous", (1, 2, 100, 64), True, None, "bhtd")]
+    cases += [(e, (2, H, 48, 64), True, e, "bthd") for e in (
         "lw > 0", "lw < -3.5", "lw = 0", "a chunk at -3.5 (e^56)")]
+    cases += [(f"D={D}, T={T}", (2, 8, T, D), True, None, "bthd")
+              for D in WKV_CHECK_DIMS for T in WKV_CHECK_LENGTHS]
     worst = 0.0
-    for name, shape, with_s0, edge in cases:
-        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape, edge)
+    for name, shape, with_s0, edge, layout in cases:
+        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape, edge, layout)
         s0 = s0 if with_s0 else None
+        plan = plan_wkv6(r, k, v, lw)
+        if plan.variant != ("step" if shape[2] < 16 else "chunk") or (
+                any(plan.copy) != (shape[3] not in (16, 32, 64, 128, 256))):
+            _fail(f"wkv6 on '{name}' {shape}: plan {plan}")
+        kernels.reset_launches()
         y, s = wkv6(r, k, v, lw, u, s0)
+        if kernels.VARIANT_LAUNCHES["wkv6"][plan.variant] != 1:
+            _fail(f"wkv6 on '{name}': the {plan.variant} instantiation was "
+                  f"not launched ({kernels.VARIANT_LAUNCHES['wkv6']})")
         yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
         torch.cuda.synchronize()
         err = max(float((y - yc).abs().max()), float((s - sc).abs().max()))
@@ -1167,53 +1270,65 @@ def check_wkv6_kernel(results) -> None:
             _fail(f"wkv6 differs from its chunked plain version on '{name}' "
                   f"{shape} (max |diff| {err:.3e}, tolerance {tol})")
         worst = max(worst, err)
-        print(f"wkv6 == chunked plain on '{name}' {shape}: max |diff| "
-              f"{err:.3e} (atol = rtol = {tol})", flush=True)
-        if name == "prefill":
-            sl = slice(0, 4)
-            yr, sr = wkv6_ref(r[:1, sl], k[:1, sl], v[:1, sl], lw[:1, sl],
-                              u[sl], s0[:1, sl])
-            torch.cuda.synchronize()
-            ref_err = max(float((y[:1, sl] - yr).abs().max()),
-                          float((s[:1, sl] - sr).abs().max()))
-            tol_r = WKV_TOL["recurrence"]
-            if not (torch.allclose(y[:1, sl], yr, rtol=tol_r, atol=tol_r)
-                    and torch.allclose(s[:1, sl], sr, rtol=tol_r, atol=tol_r)):
-                _fail(f"wkv6 differs from the recurrence on (1, 4, 1024, 64) "
-                      f"(max |diff| {ref_err:.3e})")
-            print(f"wkv6 == recurrence on (1, 4, {RWKV_PROMPT}, 64): max "
-                  f"|diff| {ref_err:.3e} (atol = rtol = {tol_r})", flush=True)
-            del yr, sr
-        del r, k, v, lw, u, s0, y, s, yc, sc
+        # the recurrence on every case, on a slice of the large ones
+        sl = slice(0, 4)
+        yr, sr = wkv6_ref(r[:1, sl], k[:1, sl], v[:1, sl], lw[:1, sl], u[sl],
+                          None if s0 is None else s0[:1, sl])
+        ref_err = max(float((y[:1, sl] - yr).abs().max()),
+                      float((s[:1, sl] - sr).abs().max()))
+        tol_r = WKV_TOL["recurrence"]
+        if not (torch.allclose(y[:1, sl], yr, rtol=tol_r, atol=tol_r)
+                and torch.allclose(s[:1, sl], sr, rtol=tol_r, atol=tol_r)):
+            _fail(f"wkv6 differs from the recurrence on '{name}' {shape} "
+                  f"(max |diff| {ref_err:.3e})")
+        print(f"wkv6 ({plan.variant}, {layout}, copies {plan.copy}) on "
+              f"'{name}' {shape}: max |diff| {err:.3e} to the chunked plain "
+              f"version (atol = rtol = {tol}), {ref_err:.3e} to the "
+              f"recurrence on (1, 4) heads (atol = rtol = {tol_r})",
+              flush=True)
+        del r, k, v, lw, u, s0, y, s, yc, sc, yr, sr
 
     timed = {}
     for label, shape in (("prefill", main), ("decode", decode)):
-        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)
+        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)   # the model's views
         y = torch.empty_like(r)
         s = torch.empty_like(s0)
         reps = 20 if label == "prefill" else 200
         kernel_ms = _time_ms(lambda: launch_wkv6(r, k, v, lw, u, s0, y, s),
                              reps, 3)
+        graph_ms = _graph_time_ms(
+            lambda: launch_wkv6(r, k, v, lw, u, s0, y, s), reps)
         wrapper_ms = _time_ms(lambda: wkv6(r, k, v, lw, u, s0), reps, 3)
         plain_ms = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, s0), 3)
         nbytes, flop = _wkv6_cost(shape, True)
         by_bytes, by_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flop / FP32_FLOP_PER_S
-        timed[label] = dict(ms=kernel_ms, wrapper_ms=wrapper_ms,
+        # eager launches, as the model issues them (at decode the host's
+        # launch overhead is most of it); in a CUDA graph, the kernel alone
+        timed[label] = dict(ms=kernel_ms, graph_ms=graph_ms,
+                            wrapper_ms=wrapper_ms,
                             plain_ms=plain_ms, bound_ms=max(by_bytes, by_ops),
                             bound_by="bytes" if by_bytes >= by_ops else "operations",
                             bytes=nbytes, flop=flop)
-        print(f"wkv6 {shape}: kernel {kernel_ms:.4f} ms (wrapper "
-              f"{wrapper_ms:.4f} ms), chunked plain {plain_ms:.4f} ms, bound "
+        print(f"wkv6 {label} {shape} on the model's (B, T, H, D) views: "
+              f"kernel {kernel_ms:.4f} ms eager (in a CUDA graph "
+              f"{graph_ms:.4f} ms; the wrapper wkv6() {wrapper_ms:.4f} ms), "
+              f"chunked plain {plain_ms:.4f} ms, bound "
               f"{max(by_bytes, by_ops):.5f} ms ({nbytes} bytes -> "
-              f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms)", flush=True)
+              f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms; "
+              f"{max(by_bytes, by_ops) / kernel_ms:.3f} of the bound eager, "
+              f"{max(by_bytes, by_ops) / graph_ms:.3f} in the graph)",
+              flush=True)
         del r, k, v, lw, u, s0, y, s
     pre, dec = timed["prefill"], timed["decode"]
     results["wkv6"] = dict(
         max_abs_err=worst, **pre,
-        decode_ms=dec["ms"], decode_plain_ms=dec["plain_ms"],
+        decode_ms=dec["ms"], decode_graph_ms=dec["graph_ms"],
+        decode_wrapper_ms=dec["wrapper_ms"], decode_plain_ms=dec["plain_ms"],
         decode_bound_ms=dec["bound_ms"],
-        shape=f"{main} prefill with s0 (decode {decode}: kernel "
-              f"{dec['ms']:.4f} ms, bound {dec['bound_ms']:.5f} ms)",
+        shape=f"{main} prefill with s0 on the model's views (decode "
+              f"{decode}: kernel {dec['ms']:.4f} ms eager, "
+              f"{dec['graph_ms']:.4f} ms in a CUDA graph, bound "
+              f"{dec['bound_ms']:.5f} ms)",
     )
     torch.cuda.empty_cache()
 
@@ -1257,6 +1372,7 @@ def rwkv6_path(results) -> None:
     _, st = model.prefill({"tokens": prompts})
     model.decode_step(st, prompts[:, :1])
     del st
+    _b7_copies_check(model, prompts)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -1320,22 +1436,69 @@ def rwkv6_path(results) -> None:
               f"{RWKV_GAP_LAYERS} below)", flush=True)
         del ref
     plain_logits, plain_state = _prefill_plain(model, prompts)
-    for name, got, ref in (("prefill logits", prefill_logits, plain_logits),
-                           ("final wkv states", prefill_wkv, plain_state["wkv"])):
-        err, allowed = _bf16_close(got, ref)
-        if err > allowed:
-            _fail(f"rwkv6 {name} differ from the chunked-plain run (max "
-                  f"|diff| {err:.4f} > {allowed:.4f})")
-        print(f"rwkv6 bf16 {name} == the chunked-plain run: max |diff| "
-              f"{err:.4e} (allowed {allowed:.4f} = {LM_BF16_STEPS} bf16 "
-              "steps of the largest value)", flush=True)
-    del plain_logits, plain_state, step_logits
+    rec_logits, rec_state = _prefill_plain(model, prompts, recurrence=True)
+    for name, got, ref, rec in (
+            ("prefill logits", prefill_logits, plain_logits, rec_logits),
+            ("final wkv states", prefill_wkv, plain_state["wkv"],
+             rec_state["wkv"])):
+        err, steps8 = _bf16_close(got, ref)
+        step = steps8 / LM_BF16_STEPS
+        spread = _bf16_close(rec, ref)[0]
+        if err > RWKV_SCAN_STEPS * step:
+            _fail(f"rwkv6 {name} differ from the chunked-plain run by "
+                  f"{err / step:.2f} bf16 steps, allowed {RWKV_SCAN_STEPS} "
+                  f"(the recurrence-plain run by {spread / step:.2f})")
+        print(f"rwkv6 bf16 {name}: the kernel run vs the chunked-plain run "
+              f"{err / step:.2f} bf16 steps of the largest value (allowed "
+              f"{RWKV_SCAN_STEPS}); the recurrence-plain run vs the "
+              f"chunked-plain run {spread / step:.2f}, the kernel run vs the "
+              f"recurrence-plain run {_bf16_close(got, rec)[0] / step:.2f}",
+              flush=True)
+    del plain_logits, plain_state, rec_logits, rec_state, step_logits
     trace_lm("rwkv6", lambda: model.prefill({"tokens": prompts}),
              lambda: model.decode_step(state, tok))
     del model, state, logits, prefill_logits, prefill_wkv
     torch.cuda.empty_cache()
     rwkv6_bf16_gap_check(cfg)
     rwkv6_float32_checks(cfg, prompts, seq)
+
+
+def _b7_copies_check(model, prompts) -> None:
+    """One prefill and one decode step with a spy on B7's entry point:
+    every call must hand the kernel the model's (B, S, H, 64) projections
+    as they are (no copy planned, the launched pointers the given ones) and
+    take y back as a view whose (B, S, H, 64) order is contiguous."""
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    seen = {"calls": 0, "copied": 0, "y not in place": 0}
+    real_wkv6, real_launch = rwkv_mod.wkv6, wkv_ops.launch_wkv6
+    given = []
+
+    def spy(r, k, v, lw, u, s0=None):
+        seen["calls"] += 1
+        given[:] = [x.data_ptr() for x in (r, k, v, lw)]
+        y, s = real_wkv6(r, k, v, lw, u, s0)
+        seen["y not in place"] += not y.transpose(1, 2).is_contiguous()
+        return y, s
+
+    def launch_spy(r, k, v, lw, *rest):
+        seen["copied"] += [x.data_ptr() for x in (r, k, v, lw)] != given
+        return real_launch(r, k, v, lw, *rest)
+
+    rwkv_mod.wkv6, wkv_ops.launch_wkv6 = spy, launch_spy
+    try:
+        _, st = model.prefill({"tokens": prompts})
+        model.decode_step(st, prompts[:, :1])
+        torch.cuda.synchronize()
+    finally:
+        rwkv_mod.wkv6, wkv_ops.launch_wkv6 = real_wkv6, real_launch
+    if seen["calls"] != 2 * model.cfg.n_layers or seen["copied"] or seen[
+            "y not in place"]:
+        _fail(f"B7 on the RWKV6 path copied its inputs or output: {seen}")
+    print(f"rwkv6: B7 took the model's (B, S, H, 64) views uncopied in all "
+          f"{seen['calls']} calls of a prefill and a decode step, y back in "
+          f"place ({seen})", flush=True)
 
 
 def rwkv6_bf16_gap_check(cfg) -> None:
@@ -1377,15 +1540,19 @@ def rwkv6_bf16_gap_check(cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def _prefill_plain(model, prompts):
-    """``model.prefill`` with the WKV6 kernel's chunked plain version
-    swapped in; fails if the kernel launched."""
+def _prefill_plain(model, prompts, recurrence=False):
+    """``model.prefill`` with the WKV6 kernel's chunked plain version (or,
+    ``recurrence``, the recurrence ``wkv6_ref``) swapped in; fails if the
+    kernel launched."""
     from repro_torch import kernels
     from repro_torch.kernels.wkv6.ops import wkv6_chunked
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
     from repro_torch.models import rwkv6 as rwkv_mod
 
+    plain = wkv6_ref if recurrence else wkv6_chunked
+
     def wkv6_plain(r, k, v, lw, u, s0=None):
-        return wkv6_chunked(r, k, v, lw, u, s0)
+        return plain(r, k, v, lw, u, s0)
 
     kernel_wkv6 = rwkv_mod.wkv6
     rwkv_mod.wkv6 = wkv6_plain
@@ -1477,6 +1644,7 @@ def trace_lm(name, prefill, decode) -> None:
             print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
                   f"x{e.count} {e.key[:90]}", flush=True)
         _print_b6_share(dev, busy_ms)
+        _print_b7_share(dev, busy_ms)
 
 
 def _fa_cost(shape, esize):
@@ -1502,6 +1670,9 @@ def _fa_label(mangled: str) -> str:
     """``fa_wgmma_kernel<128>`` from a mangled kernel name."""
     import re
 
+    m = re.search(r"(fa_[a-z0-9]+_kernel)I(13__nv_bfloat16|f)E", mangled)
+    if m is not None:  # fa_wide_kernel<float> / <bf16>
+        return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
     m = re.search(r"(fa_[a-z0-9]+_kernel)I((?:Li\d+E)+)E", mangled)
     if m is None:
         return mangled
@@ -1593,6 +1764,8 @@ def check_flash_attention_kernel(results) -> None:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     cases = [(f"test {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
              for sh in FA_TEST_SHAPES]
+    cases += [(f"wide {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
+              for sh in FA_WIDE_SHAPES]
     cases += [(name, sh, torch.bfloat16) for name, sh in FA_PATH_SHAPES.items()]
     worst = {}
     for name, shape, dtype in cases:

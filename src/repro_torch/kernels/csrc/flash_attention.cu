@@ -24,7 +24,7 @@
 // Bound on the H100: operations -- 4·D FLOP per visible (q, k) pair and
 // head at 989 TFLOP/s of bf16 tensor-core peak -- for long sequences;
 // bytes (q, k, v read once, o written once at 3.35 TB/s) for short ones
-// and for small D.  Three instantiations, chosen by the wrapper
+// and for small D.  Four instantiations, chosen by the wrapper
 // (kernels/flash_attention/ops.py, plan_attention):
 //
 // 1. fa_wgmma_kernel -- bf16, S > 128: Hopper's own design.  A producer
@@ -51,6 +51,10 @@
 //    the IEEE divide) to hold the reference's 2e-5; on tensor cores
 //    float32 would run as TF32.  A 64-row query tile at D <= 128, a
 //    32-row one above, so the accumulator stays in registers.
+// 4. fa_wide_kernel -- D > 256, float32 or bf16, on the CUDA cores: the
+//    output columns split across blocks, 256 to a block; each block forms
+//    the scores from all of D in 128-column slices of q and k, summed in
+//    float32.
 //
 // In 1 and 2 the weights P are rounded to bf16 for the PV product (the
 // reference model's gqa_attention rounds them the same way); the
@@ -60,7 +64,8 @@
 // passes its (B, S, H, hd) activations as transposed views without a
 // copy.  The bf16 instantiations need D a multiple of 16 and 16-byte
 // aligned bases and strides (TMA, cp.async); the wrapper pads or copies
-// where they are not.  D up to 256.
+// where they are not.  D up to 256 on the tiled instantiations; any D
+// above on fa_wide_kernel.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -328,6 +333,215 @@ __global__ void __launch_bounds__(NT, 2) fa_simt_kernel(Params p) {
       for (int e = 0; e < 4; ++e) {
         const int d = 4 * tx + 32 * jj + e;
         if (d < p.D) orow[d] = acc[i][jj][e] / denom;
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 4. D > 256, float32 or bf16, on the CUDA cores
+// ---------------------------------------------------------------------------
+
+// The output's columns are split across blocks: a block owns WIDE_DO of
+// them for a WIDE_BQ-row query tile, and forms each score tile from all
+// of D in WIDE_DS-column slices of q and k staged in turn (the scores
+// summed in float32 registers), then takes its columns of P V.  Every
+// column block recomputes the scores: ~D / 256 times the QKᵀ work, for
+// head dims no registry config has.  Thread (ty, tx) as in fa_simt_kernel:
+// query rows ty + 16 i, score columns tx + 8 j, output columns
+// 4 tx + 32 jj + e.  bf16 loads widen to float32 and P rounds to bf16 for
+// P V, as in the other bf16 instantiations.
+constexpr int WIDE_BQ = 32;
+constexpr int WIDE_DS = 128;  // head-dim slice of a score pass
+constexpr int WIDE_DO = 256;  // output columns of a block
+
+struct Wide {
+  static constexpr int BQ = WIDE_BQ, BK = WIDE_BQ;
+  static constexpr int LD = WIDE_DS + 4, LV = WIDE_DO + 4, LP = BK + 4;
+  static constexpr int RI = BQ / 16, KJ = BK / 8, CJ = WIDE_DO / 32;
+  static constexpr size_t bytes() {
+    return sizeof(float) *
+           ((size_t)(BQ + BK) * LD + (size_t)BQ * LP + (size_t)BK * LV);
+  }
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void narrow(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16(x);
+}
+
+// rows row0 .. row0 + ROWS - 1, columns c0 .. c0 + COLS - 1 of one head as
+// float32 rows of LDT floats; rows >= S and columns >= D are zeros
+template <int ROWS, int COLS, int LDT, typename E>
+__device__ __forceinline__ void stage_wide(float* dst, const E* src,
+                                          long long rs, int row0, int c0,
+                                          int S, int D) {
+#pragma unroll 4
+  for (int it = 0; it < ROWS * COLS / NT; ++it) {
+    const int e = it * NT + threadIdx.x;
+    const int r = e / COLS, d = e % COLS;
+    float x = 0.0f;
+    if (row0 + r < S && c0 + d < D)
+      x = widen(src[(long long)(row0 + r) * rs + c0 + d]);
+    dst[r * LDT + d] = x;
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
+  using C = Wide;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LV = C::LV, LP = C::LP,
+                RI = C::RI, KJ = C::KJ, CJ = C::CJ;
+  constexpr bool BF16 = sizeof(E) == 2;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + BQ * LD;
+  float* ps = ks + BK * LD;
+  float* vs = ps + BQ * LP;
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int nd = (p.D + WIDE_DO - 1) / WIDE_DO;
+  const int bh = blockIdx.x / nd;
+  const int d0 = (blockIdx.x % nd) * WIDE_DO;
+  const long long b = bh / p.H;
+  const int h = bh % p.H;
+  const int hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const E* qg = static_cast<const E*>(p.q) + b * p.sq[0] + h * p.sq[1];
+  const E* kg = static_cast<const E*>(p.k) + b * p.sk[0] + hk * p.sk[1];
+  const E* vg = static_cast<const E*>(p.v) + b * p.sv[0] + hk * p.sv[1];
+  E* og = static_cast<E*>(p.o) + b * p.so[0] + h * p.so[1];
+
+  int k_lo, k_hi;
+  key_range(p, q0, BQ, k_lo, k_hi);
+  const int t_lo = k_lo / BK;
+  const int t_hi = (k_hi + BK - 1) / BK;
+
+  float acc[RI][CJ][4];
+  float m[RI], l[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = NEG;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < CJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BK;
+    float s[RI][KJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
+    for (int c0 = 0; c0 < p.D; c0 += WIDE_DS) {
+      __syncthreads();  // the last slice's (and tile's) tiles are read
+      stage_wide<BQ, WIDE_DS, LD>(qs, qg, p.sq[2], q0, c0, p.S, p.D);
+      stage_wide<BK, WIDE_DS, LD>(ks, kg, p.sk[2], k0, c0, p.S, p.D);
+      __syncthreads();
+#pragma unroll 2
+      for (int d = 0; d < WIDE_DS; d += 4) {
+        float4 qv[RI];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d);
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const float4 kv =
+              *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * LD + d);
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+          }
+        }
+      }
+    }
+
+    // scale, mask, the running max and the weights (the last tile's P V
+    // finished before the slices' first barrier)
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qp = q0 + ty + 16 * i;
+      float mx = NEG;
+      bool ok[KJ];
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        ok[j] = visible(p, qp, k0 + tx + 8 * j);
+        s[i][j] = ok[j] ? s[i][j] * p.scale : NEG;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float m_new = fmaxf(m[i], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) {
+        const float pw = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
+        sum += pw;
+        ps[(ty + 16 * i) * LP + tx + 8 * j] =
+            BF16 ? __bfloat162float(__float2bfloat16(pw)) : pw;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+      const float alpha = m[i] == NEG ? 0.0f : expf(m[i] - m_new);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < CJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
+    }
+    stage_wide<BK, WIDE_DO, LV>(vs, vg, p.sv[2], k0, d0, p.S, p.D);
+    __syncthreads();
+
+    // acc += p v over this block's output columns
+#pragma unroll 2
+    for (int c = 0; c < BK; c += 4) {
+      float4 pv[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * LP + c);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+        for (int jj = 0; jj < CJ; ++jj) {
+          const float4 vv = *reinterpret_cast<const float4*>(
+              vs + (c + cc) * LV + 4 * tx + 32 * jj);
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            const float pw = lane_of(pv[i], cc);
+            acc[i][jj][0] = fmaf(pw, vv.x, acc[i][jj][0]);
+            acc[i][jj][1] = fmaf(pw, vv.y, acc[i][jj][1]);
+            acc[i][jj][2] = fmaf(pw, vv.z, acc[i][jj][2]);
+            acc[i][jj][3] = fmaf(pw, vv.w, acc[i][jj][3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + 16 * i;
+    if (row >= p.S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    E* orow = og + (long long)row * p.so[2];
+#pragma unroll
+    for (int jj = 0; jj < CJ; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = d0 + 4 * tx + 32 * jj + e;
+        if (d < p.D) narrow(orow + d, acc[i][jj][e] / denom);
       }
   }
 }
@@ -1087,7 +1301,8 @@ bool aligned16(const void* ptr, const long long* st) {
 
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D); element strides over (b, h, s),
 // D contiguous.  variant: 0 = fa_simt_kernel (float32), 1 = fa_wgmma_kernel
-// (bf16), 2 = fa_mma16_kernel (bf16, S <= 128); tile_d the instantiation's
+// (bf16), 2 = fa_mma16_kernel (bf16, S <= 128), 3 / 4 = fa_wide_kernel
+// (float32 / bf16, D > 256); tile_d the instantiation's
 // head-dim tile; grid and threads as the wrapper planned them (checked
 // here against the instantiation's tiles).  window is read when has_window
 // is set.  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
@@ -1103,7 +1318,7 @@ extern "C" int flash_attention_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 ||
-      D > tile_d || grid_y > 65535)
+      (D > tile_d && variant < 3) || grid_y > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -1131,6 +1346,16 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = (cudaStream_t)stream;
   const int bad = (int)cudaErrorInvalidValue;
 
+  if (variant == 3 || variant == 4) {  // fa_wide_kernel, float32 / bf16
+    if (tile_d != WIDE_DO || D <= 256 ||
+        (long long)grid_x != BH * ((D + WIDE_DO - 1) / WIDE_DO) ||
+        grid_y != (S + WIDE_BQ - 1) / WIDE_BQ || threads != NT)
+      return bad;
+    if (variant == 3)
+      return launch(fa_wide_kernel<float>, Wide::bytes(), grid, NT, s, p);
+    return launch(fa_wide_kernel<__nv_bfloat16>, Wide::bytes(), grid, NT, s,
+                  p);
+  }
   if (variant == 0) {
     const int bq = tile_d <= 128 ? 64 : 32;
     if (tile_d % 32 != 0 || tile_d > 256 || D <= tile_d - 32 ||

@@ -16,7 +16,10 @@ it):
 * ``"mma16"``: bf16, ``S <= SHORT_SEQ_MAX`` -- a block per (b, KV head)
   holding all of that head's K and V, ``mma.sync`` on 16-row query tiles;
 * ``"simt"``: float32 -- CUDA-core products, which hold the reference's
-  ``2e-5`` (tensor cores would round float32 to TF32).
+  ``2e-5`` (tensor cores would round float32 to TF32);
+* ``"wide"``: D above :data:`MAX_HEAD_DIM`, float32 or bf16 -- CUDA-core
+  products with the output's columns split across blocks, 256 to a block,
+  each block forming the scores from all of D in 128-column slices.
 
 The reference's ``impl`` (Pallas or XLA), ``block_q`` / ``block_k`` (VMEM
 tile sizes) and ``interpret`` are controls of its TPU lowering and have no
@@ -24,7 +27,7 @@ counterpart.  The reference pads D to 128 lanes for its MXU; here the
 bf16 instantiations need D a multiple of 16 and 16-byte aligned bases and
 (b, h, s) strides (TMA, ``cp.async``), so :func:`attention` pads D with
 zeros (which add nothing) or makes a tensor contiguous where that does not
-hold; float32 takes any D up to :data:`MAX_HEAD_DIM` as it is.
+hold; float32 takes any D as it is, and so does ``"wide"`` in bf16.
 
 The kernel takes per-(b, h, s) element strides with D contiguous, so a
 model passes its (B, S, H, hd) activations as ``transpose(1, 2)`` views
@@ -65,13 +68,16 @@ __all__ = [
     "SHORT_SEQ_MAX",
 ]
 
-# the float32 instantiation keeps a 32 x 256 output tile in registers, the
-# bf16 ones a 64 x 256 wgmma accumulator
+# the largest head dim of the tiled instantiations: "simt" keeps a 32 x 256
+# output tile in registers, the bf16 ones a 64 x 256 wgmma accumulator;
+# above it "wide" splits the output's columns across blocks
 MAX_HEAD_DIM = 256
 # bf16 sequences up to this length take "mma16" (the block stages a whole
 # KV head in shared memory); longer ones "wgmma"
 SHORT_SEQ_MAX = 128
-_VARIANT_CODE = {"simt": 0, "wgmma": 1, "mma16": 2}
+# "wide": query rows and output columns of a block
+WIDE_ROWS, WIDE_COLS = 32, 256
+_VARIANT_CODE = {"simt": 0, "wgmma": 1, "mma16": 2, "wide": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _argtypes_set = False
@@ -106,15 +112,13 @@ def _tma_ready(x: torch.Tensor) -> bool:
 def plan_attention(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> AttentionPlan:
     """The plan for ``attention(q, k, v)`` on the card; reads only shapes,
-    strides, dtypes and base addresses.  Raises ``ValueError`` for D above
-    :data:`MAX_HEAD_DIM`."""
+    strides, dtypes and base addresses."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     if D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"attention: the kernel takes head dims up to {MAX_HEAD_DIM}, "
-            f"got {D}"
-        )
+        return AttentionPlan(
+            "wide", WIDE_COLS, D, tuple(x.stride(-1) != 1 for x in (q, k, v)),
+            (B * H * _cdiv(D, WIDE_COLS), _cdiv(S, WIDE_ROWS)), 128)
     if q.dtype == torch.float32:
         tile = _cdiv(D, 32) * 32
         bq = 64 if tile <= 128 else 32
@@ -178,9 +182,12 @@ def launch_flash_attention(
     B, H, S, D = q.shape
     strides = [s for x in (q, k, v, o) for s in _strides(x)]
     dev = q.device
+    # "wide" has a float32 (3) and a bf16 (4) build
+    code = _VARIANT_CODE[plan.variant] + (
+        plan.variant == "wide" and q.dtype == torch.bfloat16)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _VARIANT_CODE[plan.variant], plan.tile_d, B, H, k.shape[1], S, D,
+        code, plan.tile_d, B, H, k.shape[1], S, D,
         *strides, int(causal), int(window is not None),
         # a window beyond ±(S + 1) masks as ±(S + 1) does; kept in an int
         0 if window is None else max(-(S + 1), min(int(window), S + 1)),

@@ -2,20 +2,39 @@
 
 ``wkv6(r, k, v, lw, u, s0=None)`` -> (y (B, H, T, D) in ``r``'s dtype,
 final state (B, H, D, D) float32).  CUDA tensors launch the hand-written
-kernel (``kernels/csrc/wkv6.cu``, which masks a ragged last chunk itself);
-CPU tensors run :func:`wkv6_chunked`, the plain twin of the reference's
-``_wkv6_xla_chunked``: the same chunk-16 factorization, its scan over
-chunks a Python loop, T padded to a chunk multiple with identity rows
-(r = k = v = 0, lw = 0), which leave y and the carried state untouched.
-The reference's ``impl`` switch (Pallas or XLA, two lowerings of one
-function on the TPU) has no counterpart: where the tensors live decides.
+kernel (``kernels/csrc/wkv6.cu``); CPU tensors run :func:`wkv6_chunked`,
+the plain twin of the reference's ``_wkv6_xla_chunked``: the same chunk-16
+factorization, its scan over chunks a Python loop, T padded to a chunk
+multiple with identity rows (r = k = v = 0, lw = 0), which leave y and the
+carried state untouched.  The reference's ``impl`` switch (Pallas or XLA,
+two lowerings of one function on the TPU) has no counterpart: where the
+tensors live decides.
+
+The kernel has two instantiations; :func:`plan_wkv6` picks one from the
+shapes alone (pure Python, so the CPU tests reach it):
+
+* ``"chunk"``: T >= 16 -- chunks of 16 rows, the value columns split
+  across blocks, the chunk products on the tensor cores in 3xTF32;
+* ``"step"``: T < 16 (a decode step) -- the recurrence, one pass over the
+  state per step.
+
+Both read r, k, v, lw through their (b, h, t) strides with D contiguous
+and write y with ``r``'s strides, so a model hands over its (B, T, H, D)
+projections as ``transpose(1, 2)`` views and takes y back the same way,
+with no copy.  :func:`wkv6` copies an input only where the kernel cannot
+take it: another dtype than float32, D not contiguous, or (``"chunk"``,
+whose ``cp.async`` moves 16 bytes) a base or stride that is not 16-byte
+aligned.  Head dims are built at 16, 32, 64, 128 and 256; any other D up
+to 256 is zero-padded to the next one (padded channels carry r = k = v =
+0 and lw = 0, which add nothing to y or S), and D above 256 raises.
 
 Tolerances (``tests/test_torch_rwkv6.py``): :func:`wkv6_chunked` and the
 recurrence :func:`~repro_torch.kernels.wkv6.ref.wkv6_ref` are held to the
 reference's recurrence at ``atol = rtol = 5e-4``, the reference's own
 (``tests/test_kernels.py``); :func:`wkv6_chunked` is held to the
 reference's ``impl="xla"`` at ``atol = rtol = 2e-5`` (the same arithmetic,
-the matrix products summed in another order).
+the matrix products summed in another order).  The kernel is held to
+:func:`wkv6_chunked` at ``1e-4`` (``tests/test_torch_kernels_cuda.py``).
 
 No gradient: the kernel's backward comes with the training slice, so
 ``wkv6`` raises when autograd would record it.
@@ -24,7 +43,8 @@ No gradient: the kernel's backward comes with the training slice, so
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import struct
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,13 +52,21 @@ import torch.nn.functional as F
 from repro_torch.kernels import count_launch, note_dispatch, use_cuda_kernel
 from repro_torch.kernels.wkv6.ref import LOG_W_MIN
 
-__all__ = ["wkv6", "wkv6_chunked", "launch_wkv6", "CHUNK", "KERNEL_HEAD_DIMS"]
+__all__ = [
+    "wkv6", "wkv6_chunked", "launch_wkv6", "plan_wkv6", "kernel_inputs",
+    "WKV6Plan", "CHUNK",
+    "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
+]
 
 CHUNK = 16
-# head dims the CUDA kernel is built for (4·D threads a block)
-KERNEL_HEAD_DIMS = (16, 32, 64)
+# head dims the CUDA kernel is built for; others are zero-padded up to one
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+_VARIANT_CODE = {"chunk": 0, "step": 1}
+# the (b, h, t, d) strides of r, k, v, lw and y, as the launcher reads them
+_pack_strides = struct.Struct("20q").pack
 
-_argtypes_set = False
+_launch_fn = None  # the library's wkv6_launch, bound at first launch
 
 
 def wkv6_chunked(
@@ -87,39 +115,100 @@ def wkv6_chunked(
     return y[:, :, :T].to(r.dtype), S
 
 
+class WKV6Plan(NamedTuple):
+    """How one call runs on the card: the instantiation, the head dim it
+    is built for (D, or D zero-padded up to it), and which of r, k, v, lw
+    are copied (converted to float32, padded or made contiguous)."""
+
+    variant: str
+    head_dim: int
+    copy: Tuple[bool, bool, bool, bool]
+
+
+def _variant(T: int) -> str:
+    """The instantiation for T rows: the recurrence below one chunk."""
+    return "step" if T < CHUNK else "chunk"
+
+
+def _strides(x: torch.Tensor):
+    """(b, h, t) element strides; a dimension of size 1 gets its
+    contiguous stride (its index is always 0)."""
+    B, H, T, D = x.shape
+    sb, sh, st, _ = x.stride()
+    return (sb if B > 1 else H * T * D, sh if H > 1 else T * D,
+            st if T > 1 else D)
+
+
+def _takes(x: torch.Tensor, floats: int) -> bool:
+    """float32, D contiguous, base and (b, h, t) strides a multiple of
+    ``floats`` elements."""
+    if x.dtype != torch.float32 or x.stride(3) != 1:
+        return False
+    if floats == 1:
+        return True
+    return (x.data_ptr() % (4 * floats) == 0
+            and not any(s % floats for s in _strides(x)))
+
+
+def plan_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lw: torch.Tensor) -> WKV6Plan:
+    """The plan for ``wkv6(r, k, v, lw, ...)`` on the card; reads only
+    shapes, strides, dtypes and base addresses.  Raises ``ValueError`` for
+    D above :data:`MAX_HEAD_DIM`."""
+    T, D = r.shape[2], r.shape[3]
+    if D > MAX_HEAD_DIM:
+        raise ValueError(
+            f"wkv6: the kernel takes head dims up to {MAX_HEAD_DIM}, got {D}"
+        )
+    head_dim = D if D in KERNEL_HEAD_DIMS else next(
+        d for d in KERNEL_HEAD_DIMS if d >= D)
+    variant = _variant(T)
+    floats = 4 if variant == "chunk" else 1
+    return WKV6Plan(variant, head_dim, tuple(
+        head_dim != D or not _takes(x, floats) for x in (r, k, v, lw)))
+
+
 def launch_wkv6(
-    r: torch.Tensor,    # (B, H, T, D) float32, contiguous (as k, v, lw)
+    r: torch.Tensor,    # (B, H, T, D) float32, D contiguous (as k, v, lw)
     k: torch.Tensor,
     v: torch.Tensor,
     lw: torch.Tensor,
     u: torch.Tensor,    # (H, D) float32, contiguous
     s0: Optional[torch.Tensor],  # (B, H, D, D) float32, contiguous, or None
-    y: torch.Tensor,    # (B, H, T, D) float32 out
-    s_out: torch.Tensor,  # (B, H, D, D) float32 out
+    y: torch.Tensor,    # (B, H, T, D) float32 out, D contiguous
+    s_out: torch.Tensor,  # (B, H, D, D) float32 out, contiguous
 ) -> None:
-    """Launch the CUDA kernel: ``y`` and ``s_out`` are written on the
-    current stream; raises if the launch fails."""
-    global _argtypes_set
-    from repro_torch.kernels.build import library
+    """Launch the CUDA kernel (``"step"`` for T < 16, else ``"chunk"``):
+    ``y`` and ``s_out`` are written on the current stream; raises if the
+    launch fails (a D the kernel is not built for, strides the
+    instantiation cannot take)."""
+    global _launch_fn
+    if _launch_fn is None:
+        from repro_torch.kernels.build import library
 
-    fn = library("wkv6").wkv6_launch
-    if not _argtypes_set:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p
-        ]
+        fn = library("wkv6").wkv6_launch
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                       + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _argtypes_set = True
+        _launch_fn = fn
     B, H, T, D = r.shape
-    dev = r.device
-    err = fn(
+    variant = _variant(T)
+    index = r.get_device()
+    # a decode launch takes less device time than its host work: the raw
+    # stream handle costs a tenth of torch.cuda.current_stream(...)
+    err = _launch_fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
         u.data_ptr(), 0 if s0 is None else s0.data_ptr(),
-        y.data_ptr(), s_out.data_ptr(), B, H, T, D, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
+        y.data_ptr(), s_out.data_ptr(), B, H, T, D, _VARIANT_CODE[variant],
+        _pack_strides(*r.stride(), *k.stride(), *v.stride(), *lw.stride(),
+                      *y.stride()),
+        index, torch._C._cuda_getCurrentRawStream(index),
     )
-    count_launch("wkv6")
+    count_launch("wkv6", variant=variant)
     if err != 0:
-        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"wkv6 kernel launch failed ({variant}, D = {D}): CUDA error {err}"
+        )
 
 
 def wkv6(
@@ -130,7 +219,8 @@ def wkv6(
     u: torch.Tensor,    # (H, D)
     s0: Optional[torch.Tensor] = None,  # (B, H, D, D)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(y (B, H, T, D) in ``r``'s dtype, final state (B, H, D, D) float32)."""
+    """(y (B, H, T, D) in ``r``'s dtype, final state (B, H, D, D) float32).
+    On the card y has ``r``'s strides where ``r`` goes in uncopied."""
     if r.dim() != 4 or any(x.shape != r.shape for x in (k, v, lw)):
         raise ValueError(
             f"wkv6: r, k, v, lw must share one (B, H, T, D) shape, got "
@@ -153,16 +243,33 @@ def wkv6(
         note_dispatch("wkv6", "ref")
         return wkv6_chunked(r, k, v, lw, u, s0)
     note_dispatch("wkv6", "cuda")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"wkv6: the kernel takes head dims {KERNEL_HEAD_DIMS}, got {D}"
-        )
+    plan = plan_wkv6(r, k, v, lw)
+    *ins, u_in, s0_in = kernel_inputs(plan, r, k, v, lw, u, s0)
+    # r's strides when r goes in as it is (a transposed view stays one)
+    y = torch.empty_like(ins[0])
+    s_out = y.new_empty((B, H, plan.head_dim, plan.head_dim))
+    launch_wkv6(*ins, u_in, s0_in, y, s_out)
+    if plan.head_dim != D:
+        y, s_out = y[..., :D], s_out[..., :D, :D].contiguous()
+    return (y if r.dtype == torch.float32 else y.to(r.dtype)), s_out
 
-    def f32(x):
-        return x.to(torch.float32).contiguous()
 
-    y = torch.empty((B, H, T, D), dtype=torch.float32, device=r.device)
-    s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
-    launch_wkv6(f32(r), f32(k), f32(v), f32(lw), f32(u),
-                None if s0 is None else f32(s0), y, s_out)
-    return y.to(r.dtype), s_out
+def kernel_inputs(plan: WKV6Plan, r, k, v, lw, u, s0=None):
+    """(r, k, v, lw, u, s0) as ``plan`` launches them: the inputs it marks
+    copied as contiguous float32, zero-padded to ``plan.head_dim``; u and
+    s0 contiguous float32 on a 16-byte base (the state moves as float4),
+    padded likewise; the others as they are."""
+    pad = plan.head_dim - r.shape[-1]
+
+    def padded(x, dims):
+        if pad:  # a new tensor, contiguous on a fresh base
+            return F.pad(x.to(torch.float32), (0, pad) * dims)
+        if (x.dtype == torch.float32 and x.is_contiguous()
+                and x.data_ptr() % 16 == 0):
+            return x
+        return x.to(torch.float32, memory_format=torch.contiguous_format,
+                    copy=True)
+
+    ins = [padded(x, 1) if c else x
+           for x, c in zip((r, k, v, lw), plan.copy)]
+    return (*ins, padded(u, 1), None if s0 is None else padded(s0, 2))

@@ -21,6 +21,16 @@ reported, and the largest.  After 1 step the port's per-layer states
 (``att_shift``, ``cm_shift``, ``wkv``) are compared the same way, to show
 where the two runs part.  Prints one JSON line per model.  On the CPU at
 16 layers it holds about 9 GB.
+
+With ``--scans SEED ...`` (card only) it measures instead how far the
+bf16 model parts three correct float32 WKV6 scans -- the kernel, the
+chunked plain version and the recurrence, each swapped in for one
+prefill -- on the weights and prompts of each seed (drawn as
+``chip_smoke.py`` draws them at its ``SEED``); ``chip_smoke.py``'s
+``RWKV_SCAN_STEPS`` comes from it::
+
+    PYTHONPATH=src python tests/rwkv6_bf16_gap.py --device cuda \
+        --layers 32 --prompt 1024 --batch 8 --scans 0 1 2 3 4
 """
 
 import argparse
@@ -88,6 +98,52 @@ def port_record(model, device, seq, prompt):
     return out, layers
 
 
+def whole_steps(got, want) -> float:
+    """max |got - want| over the whole array, in bf16 steps of max |want|
+    (as ``chip_smoke.py``'s checks count them)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / (
+        2.0 ** -8 * float(want.abs().max()))
+
+
+def scan_spread(cfg, seeds, batch, prompt) -> None:
+    """Per seed, one JSON line: the pairwise gaps of the prefill logits and
+    final ``wkv`` states of the runs with each WKV6 scan swapped in."""
+    from repro_torch.kernels.wkv6.ops import wkv6, wkv6_chunked
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    scans = {"kernel": wkv6, "chunked": wkv6_chunked,
+             "recurrence": wkv6_ref}
+    pairs = (("kernel", "chunked"), ("recurrence", "chunked"),
+             ("kernel", "recurrence"))
+    for seed in seeds:
+        t0 = time.perf_counter()
+        model = build_model(cfg, seed=seed, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+        prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        outs = {}
+        try:
+            with torch.inference_mode():
+                for name, scan in scans.items():
+                    rwkv_mod.wkv6 = scan
+                    logits, state = model.prefill({"tokens": prompts})
+                    outs[name] = (logits, state["wkv"])
+        finally:
+            rwkv_mod.wkv6 = wkv6
+        rec = {"seed": seed, "layers": cfg.n_layers, "batch": batch,
+               "prompt": prompt}
+        for i, what in enumerate(("logits", "wkv")):
+            for a, b in pairs:
+                rec[f"{what}: {a} vs {b}"] = whole_steps(outs[a][i],
+                                                         outs[b][i])
+        rec["seconds"] = round(time.perf_counter() - t0, 1)
+        print(json.dumps(rec), flush=True)
+        del model, outs
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=16)
@@ -96,6 +152,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default="bfloat16")
     ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--scans", type=int, nargs="*", default=None,
+                    metavar="SEED")
     args = ap.parse_args()
     kw = dict(n_layers=args.layers, param_dtype=args.dtype,
               compute_dtype=args.dtype)
@@ -105,6 +163,12 @@ def main() -> None:
     head = {"layers": args.layers, "prompt": args.prompt,
             "batch": args.batch, "dtype": args.dtype}
     t0 = time.perf_counter()
+    if args.scans is not None:
+        if args.device != "cuda":
+            ap.error("--scans runs the WKV6 kernel: it needs --device cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        scan_spread(cfg, args.scans, args.batch, args.prompt)
+        return
     if args.device == "cuda":
         # the port's own seeded weights on the card, then on the host CPU
         torch.backends.cuda.matmul.allow_tf32 = False

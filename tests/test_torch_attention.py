@@ -168,8 +168,14 @@ def test_plan_instantiations_padding_grid_and_refusal():
         "simt", 128, 100, (8, 5))
     x = torch.zeros(2, 4, 300, 160)
     assert plan_attention(x, x, x).grid == (8, 10)
-    with pytest.raises(ValueError, match=f"head dims up to {MAX_HEAD_DIM}"):
-        plan_attention(*[torch.zeros(1, 2, 8, 288, dtype=torch.bfloat16)] * 3)
+    # above MAX_HEAD_DIM, either dtype: "wide", 256 output columns and 32
+    # query rows a block, D as it is
+    for dt in (torch.bfloat16, torch.float32):
+        plan = plan_attention(*[torch.zeros(1, 2, 40, MAX_HEAD_DIM + 32,
+                                            dtype=dt)] * 3)
+        assert (plan.variant, plan.tile_d, plan.head_dim, plan.copy,
+                plan.grid, plan.threads) == (
+            "wide", 256, 288, (False,) * 3, (2 * 2, 2), 128)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

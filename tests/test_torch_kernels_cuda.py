@@ -59,7 +59,12 @@ from repro_torch.kernels.window_agg.ref import (
     fold_num_levels,
     window_stats_ref,
 )
-from repro_torch.kernels.wkv6.ops import launch_wkv6, wkv6, wkv6_chunked
+from repro_torch.kernels.wkv6.ops import (
+    launch_wkv6,
+    plan_wkv6,
+    wkv6,
+    wkv6_chunked,
+)
 from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_ref
 
 pytestmark = pytest.mark.cuda
@@ -437,16 +442,21 @@ def test_scoring_service_on_gpu_matches_cpu(cuda):
     np.testing.assert_allclose(scores["cuda"], scores["cpu"], atol=1e-4)
 
 
-def _wkv_case(dev, shape, seed, lw_edge=None):
+def _wkv_case(dev, shape, seed, lw_edge=None, layout="bhtd"):
     """(r, k, v, lw, u, s0) on ``dev``, scaled as the reference's kernel
     tests scale them; ``lw_edge`` puts lw above 0, below the floor, at 0
-    or a whole chunk at the floor."""
+    or a whole chunk at the floor.  ``layout="bthd"`` gives r, k, v, lw as
+    the model hands them over: (B, T, H, D) tensors viewed as (B, H, T,
+    D)."""
     B, H, T, D = shape
     g = torch.Generator().manual_seed(seed)
-    r = torch.randn(shape, generator=g) * 0.5
-    k = torch.randn(shape, generator=g) * 0.5
-    v = torch.randn(shape, generator=g)
-    lw = -torch.exp(torch.randn(shape, generator=g) - 1.0)
+    made = (B, T, H, D) if layout == "bthd" else shape
+    r = torch.randn(made, generator=g) * 0.5
+    k = torch.randn(made, generator=g) * 0.5
+    v = torch.randn(made, generator=g)
+    lw = -torch.exp(torch.randn(made, generator=g) - 1.0)
+    if layout == "bthd":
+        r, k, v, lw = (x.transpose(1, 2) for x in (r, k, v, lw))
     if lw_edge == "positive":
         lw[..., ::3] = torch.rand(lw[..., ::3].shape, generator=g) * 2.0
     elif lw_edge == "below_floor":
@@ -460,29 +470,45 @@ def _wkv_case(dev, shape, seed, lw_edge=None):
     return [x.to(dev) for x in (r, k, v, lw, u, s0)]
 
 
-@pytest.mark.parametrize("shape,with_s0,edge", [
-    ((2, 3, 64, 32), True, None),
-    ((1, 2, 100, 64), True, None),
-    ((2, 4, 128, 64), True, None),
-    ((1, 1, 16, 16), True, None),
-    ((2, 3, 1, 64), True, None),       # a decode step
-    ((2, 3, 1, 64), False, None),
-    ((1, 2, 100, 64), False, None),
-    ((1, 2, 48, 64), True, "positive"),
-    ((1, 2, 48, 64), True, "below_floor"),
-    ((1, 2, 48, 64), True, "zero"),
-    ((1, 2, 48, 64), True, "chunk_at_floor"),
+# every head dim the kernel is built for, and 48 (zero-padded to 64), at
+# sequence lengths on both sides of a chunk: T < 16 runs "step", T >= 16
+# "chunk"
+WKV_DIMS = (16, 32, 48, 64, 128, 256)
+WKV_LENGTHS = (1, 2, 15, 16, 17, 100, 1024)
+
+
+@pytest.mark.parametrize("shape,with_s0,edge,layout", [
+    *[((2, 2, T, D), True, None, "bhtd") for D in WKV_DIMS
+      for T in WKV_LENGTHS],
+    # the model's (B, T, H, D) views, prefill and decode
+    ((2, 3, 100, 64), True, None, "bthd"),
+    ((2, 3, 1, 64), True, None, "bthd"),
+    ((2, 3, 15, 48), True, None, "bthd"),
+    ((2, 3, 1, 64), False, None, "bhtd"),       # a decode step, zero state
+    ((1, 2, 100, 64), False, None, "bhtd"),
+    ((1, 2, 48, 64), True, "positive", "bhtd"),
+    ((1, 2, 48, 64), True, "below_floor", "bhtd"),
+    ((1, 2, 48, 64), True, "zero", "bhtd"),
+    ((1, 2, 48, 64), True, "chunk_at_floor", "bhtd"),
+    ((1, 2, 15, 64), True, "below_floor", "bhtd"),
 ])
-def test_wkv6_kernel_matches_plain_versions(cuda, shape, with_s0, edge):
-    r, k, v, lw, u, s0 = _wkv_case(cuda, shape, sum(shape), edge)
+def test_wkv6_kernel_matches_plain_versions(cuda, shape, with_s0, edge,
+                                            layout):
+    r, k, v, lw, u, s0 = _wkv_case(cuda, shape, sum(shape), edge, layout)
     s0 = s0 if with_s0 else None
-    before = kernels.LAUNCHES["wkv6"]
+    plan = plan_wkv6(r, k, v, lw)
+    assert plan.variant == ("step" if shape[2] < 16 else "chunk")
+    assert plan.copy == (shape[3] == 48,) * 4  # the model's views go in as they are
+    kernels.reset_launches()
     y, s = wkv6(r, k, v, lw, u, s0)
-    assert kernels.LAUNCHES["wkv6"] == before + 1
+    assert kernels.LAUNCHES["wkv6"] == 1
+    assert kernels.VARIANT_LAUNCHES["wkv6"][plan.variant] == 1
     yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
     yr, sr = wkv6_ref(r, k, v, lw, u, s0)
     torch.cuda.synchronize()
     assert y.shape == shape and s.shape == shape[:2] + (shape[3], shape[3])
+    if not any(plan.copy):
+        assert y.stride() == r.stride()  # y written in the caller's layout
     for got, want, tol in ((y, yc, 1e-4), (s, sc, 1e-4), (y, yr, 5e-4),
                            (s, sr, 5e-4)):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
@@ -499,8 +525,22 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
     y2, _ = wkv6(rt, k, v, lw, u, s0)
     y1, _ = wkv6(r, k, v, lw, u, s0)
     assert torch.equal(y1, y2)
-    bad = _wkv_case(cuda, (1, 2, 20, 48), 5)
-    with pytest.raises(ValueError, match="head dims"):
+    # D = 48 is zero-padded to 64 and computed
+    r48, k48, v48, lw48, u48, s48 = _wkv_case(cuda, (1, 2, 20, 48), 5)
+    y48, st48 = wkv6(r48, k48, v48, lw48, u48, s48)
+    yc48, sc48 = wkv6_chunked(r48, k48, v48, lw48, u48, s48)
+    torch.testing.assert_close(y48, yc48, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st48, sc48, atol=1e-4, rtol=1e-4)
+    # a view cp.async cannot take (a 4-byte offset base) is copied
+    base = torch.randn((1, 2, 20, 65), device=cuda)
+    plan = plan_wkv6(base[..., 1:], k, v, lw)
+    assert plan.copy == (True, False, False, False)
+    y3, _ = wkv6(base[..., 1:], k, v, lw, u, s0)
+    torch.testing.assert_close(
+        y3, wkv6_chunked(base[..., 1:], k, v, lw, u, s0)[0], atol=1e-4,
+        rtol=1e-4)
+    bad = _wkv_case(cuda, (1, 2, 20, 272), 5)
+    with pytest.raises(ValueError, match="head dims up to 256"):
         wkv6(*bad)
     with pytest.raises(ValueError, match="mixed devices"):
         wkv6(r, k, v, lw, u.cpu(), s0)
@@ -511,6 +551,52 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(out[0], wkv6_chunked(r.detach(), k, v, lw, u)[0],
                                atol=1e-4, rtol=1e-4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launch_wkv6(r48, k48, v48, lw48, u48, None, *out)  # no D = 48 build
+
+
+def test_time_mix_hands_b7_its_views_without_copies(cuda, monkeypatch):
+    """``_time_mix`` on the card: B7 launches on the very (B, S, H, 64)
+    projections the model made, viewed as (B, H, S, 64) -- no copy of r,
+    k, v or lw -- and y comes back as a view whose (B, S, H, 64) order is
+    contiguous, in prefill ("chunk") and in a decode step ("step")."""
+    from repro_torch.configs.rwkv6_3b import smoke_config
+    from repro_torch.kernels.wkv6 import ops as wkv_ops
+    from repro_torch.models import rwkv6 as rwkv_mod
+
+    calls = []
+    real_wkv6, real_launch = rwkv_mod.wkv6, wkv_ops.launch_wkv6
+
+    def spy_wkv6(r, k, v, lw, u, s0=None):
+        calls.append({"given": [(x.data_ptr(), x.stride()) for x in (r, k, v, lw)]})
+        y, s = real_wkv6(r, k, v, lw, u, s0)
+        calls[-1]["y"] = y
+        return y, s
+
+    def spy_launch(r, k, v, lw, u, s0, y, s_out):
+        calls[-1]["launched"] = [(x.data_ptr(), x.stride()) for x in (r, k, v, lw)]
+        calls[-1]["y_launched"] = y.data_ptr()
+        return real_launch(r, k, v, lw, u, s0, y, s_out)
+
+    monkeypatch.setattr(rwkv_mod, "wkv6", spy_wkv6)
+    monkeypatch.setattr(wkv_ops, "launch_wkv6", spy_launch)
+    cfg = smoke_config()
+    model = rwkv_mod.RWKV6LM(cfg, seed=3, device="cuda")
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (2, 37), generator=g, dtype=torch.int32)
+    kernels.reset_launches()
+    _, state = model.prefill({"tokens": tokens.to(cuda)})
+    model.decode_step(state, tokens[:, :1].to(cuda))
+    assert kernels.VARIANT_LAUNCHES["wkv6"] == {"chunk": cfg.n_layers,
+                                                "step": cfg.n_layers}
+    assert len(calls) == 2 * cfg.n_layers
+    for c in calls:
+        assert c["launched"] == c["given"]
+        assert c["y"].data_ptr() == c["y_launched"]
+        assert c["y"].transpose(1, 2).is_contiguous()
+    S = tokens.shape[1]
+    assert calls[0]["given"][0][1][2] == cfg.d_model  # a row of (B, S, H, 64)
+    assert calls[0]["y"].shape[2] == S
 
 
 def test_rwkv6_on_gpu_matches_cpu(cuda):
@@ -615,6 +701,33 @@ def test_flash_attention_kernel_head_dims(cuda, D, S, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,S,window", [
+    (288, 100, None), (320, 65, 30), (512, 300, None), (1000, 77, 50),
+])
+def test_flash_attention_kernel_wide_head_dims(cuda, D, S, window, dtype):
+    """Head dims above 256 ("wide": the output's columns split across
+    blocks, the scores summed over 128-column slices of D), causal and
+    windowed, GQA, and a (B, S, H, D) transposed view."""
+    q, k, v = _fa_case(cuda, 2, 4, 2, S, D, dtype, D + S)
+    plan = plan_attention(q, k, v)
+    assert plan.variant == "wide" and not any(plan.copy)
+    kernels.reset_launches()
+    out = attention(q, k, v, window=window)
+    assert kernels.VARIANT_LAUNCHES["flash_attention"]["wide"] == 1
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, window=window)
+    tol = _fa_tol(dtype)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    out_t = attention(qt, kt, vt, causal=False, window=window)
+    assert out_t.stride() == qt.stride()
+    want = attention_ref(q, k, v, causal=False, window=window)
+    torch.testing.assert_close(out_t.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
     # (B, S, H, D) activations passed as transposed views: no copy, the
     # output in the same layout
@@ -651,8 +764,6 @@ def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
         attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         attention(q, k.to(torch.float64), v)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        attention(*_fa_case(cuda, 1, 2, 2, 8, 288, dtype, 1))
     with pytest.raises(ValueError, match="mixed devices"):
         attention(q, k.cpu(), v)
     with pytest.raises(NotImplementedError, match="no backward"):

@@ -41,7 +41,13 @@ from repro.kernels.wkv6.ref import wkv6_ref as jax_wkv6_ref
 from repro.models import build_model as jax_build_model
 from repro_torch.configs import registry
 from repro_torch.convert import rwkv6_from_numpy
-from repro_torch.kernels.wkv6.ops import wkv6, wkv6_chunked
+from repro_torch.kernels.wkv6.ops import (
+    WKV6Plan,
+    kernel_inputs,
+    plan_wkv6,
+    wkv6,
+    wkv6_chunked,
+)
 from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_ref
 from repro_torch.models import build_model
 from repro_torch.models.rwkv6 import RWKV6LM
@@ -171,6 +177,88 @@ def test_wkv6_refuses_gradients_and_bad_shapes():
         wkv6(r.detach(), k, v, lw, u[:1])
     with pytest.raises(ValueError, match="s0 must be"):
         wkv6(r.detach(), k, v, lw, u, s0[:, :1])
+
+
+def test_wkv6_zero_padded_head_dim_is_exact():
+    """What the kernel's wrapper does to a head dim it is not built for:
+    D = 48 zero-padded to 64 (r = k = v = 0, lw = 0 in the new channels,
+    s0 and u padded with zeros), run and trimmed, equals the unpadded call
+    and JAX's ``impl="xla"``.  The padded channels are exact zeros in y
+    and S; the rest differs from the unpadded call only in the order the
+    BLAS sums 64 products instead of 48 (``atol = rtol = 1e-6``, a few
+    float32 ulps)."""
+    args = _wkv_inputs((2, 3, 40, 48), 48)
+    out = _port_and_jax(args, pallas=False)
+    t = [torch.from_numpy(a) for a in args]
+    pad = [torch.nn.functional.pad(x, (0, 16)) for x in t[:5]]
+    s0 = torch.nn.functional.pad(t[5], (0, 16, 0, 16))
+    y, s = wkv6_chunked(*pad, s0)
+    assert not y[..., 48:].any() and not s[..., 48:, :].any()
+    assert not s[..., :, 48:].any()
+    _close(y[..., :48], out["chunked"][0], 1e-6, "y vs unpadded")
+    _close(s[..., :48, :48], out["chunked"][1], 1e-6, "S vs unpadded")
+    _close(y[..., :48], out["jax_xla"][0], 2e-5, "y")
+    _close(s[..., :48, :48], out["jax_xla"][1], 2e-5, "S")
+
+
+@pytest.mark.parametrize("T", [1, 37])
+def test_wkv6_model_strided_views_match_contiguous(T):
+    """r, k, v, lw as ``_time_mix`` hands them over -- (B, T, H, D)
+    tensors viewed as (B, H, T, D) -- give the same y and state as the same
+    values made contiguous."""
+    B, H, D = 2, 3, 64
+    rng = np.random.default_rng(T)
+    f = np.float32
+    made = [rng.normal(size=(B, T, H, D)).astype(f) * 0.5 for _ in range(3)]
+    made.append((-np.exp(rng.normal(size=(B, T, H, D)) - 1.0)).astype(f))
+    views = [torch.from_numpy(a).transpose(1, 2) for a in made]
+    u = torch.from_numpy((rng.normal(size=(H, D)) * 0.3).astype(f))
+    s0 = torch.from_numpy((rng.normal(size=(B, H, D, D)) * 0.1).astype(f))
+    assert not views[0].is_contiguous() or T == 1
+    y, s = wkv6(*views, u, s0)
+    yc, sc = wkv6(*(x.contiguous() for x in views), u, s0)
+    assert torch.equal(y, yc) and torch.equal(s, sc)
+
+
+def test_wkv6_plan_takes_the_model_views_as_they_are():
+    """``plan_wkv6`` (what the card would run): the model's (B, T, H, 64)
+    views need no copy in either instantiation; D = 48 is padded to 64,
+    bf16 and a view off the 16-byte grid are copied, D > 256 raises."""
+    B, H, D = 2, 40, 64
+    for T, variant in ((1, "step"), (15, "step"), (16, "chunk"), (1024, "chunk")):
+        x = torch.zeros(B, T, H, D).transpose(1, 2)
+        plan = plan_wkv6(x, x, x, x)
+        assert (plan.variant, plan.head_dim, plan.copy) == (
+            variant, 64, (False,) * 4)
+    x = torch.zeros(1, 2, 20, 48)
+    plan = plan_wkv6(x, x, x, x)
+    assert plan == WKV6Plan("chunk", 64, (True,) * 4)
+    # what the plan launches: padded, float32, D contiguous and aligned,
+    # and the padding carries zeros
+    ins = kernel_inputs(plan, x + 1, x, x, x, torch.ones(2, 48),
+                        torch.ones(1, 2, 48, 48))
+    assert plan_wkv6(*ins[:4]).copy == (False,) * 4
+    assert [t.shape[-1] for t in ins] == [64] * 6 and ins[5].shape[-2] == 64
+    assert not ins[0][..., 48:].any() and not ins[4][:, 48:].any()
+    assert not ins[5][..., 48:, :].any() and not ins[5][..., 48:].any()
+    x = torch.zeros(1, 2, 20, 64)
+    plan = plan_wkv6(x.bfloat16(), x, x, x)
+    assert plan.copy == (True, False, False, False)
+    ins = kernel_inputs(plan, x.bfloat16(), x, x, x, torch.zeros(2, 64))
+    assert ins[0].dtype == torch.float32 and ins[1] is x and ins[5] is None
+    base = torch.zeros(1, 2, 20, 65)
+    plan = plan_wkv6(base[..., 1:], x, x, x)            # chunk: cp.async
+    assert plan.copy == (True, False, False, False)
+    ins = kernel_inputs(plan, base[..., 1:], x, x, x, torch.zeros(2, 64))
+    assert ins[0].is_contiguous() and not any(plan_wkv6(*ins[:4]).copy)
+    # a state off the 16-byte grid is copied onto it
+    state = torch.zeros(1 + 2 * 64 * 64)[1:].view(1, 2, 64, 64)
+    s_in = kernel_inputs(plan_wkv6(x, x, x, x), x, x, x, x,
+                         torch.zeros(2, 64), state)[5]
+    assert s_in.data_ptr() % 16 == 0 and torch.equal(s_in, state)
+    assert not plan_wkv6(base[:, :, :3, 1:], *(t[:, :, :3] for t in (x, x, x))).copy[0]
+    with pytest.raises(ValueError, match="head dims up to 256"):
+        plan_wkv6(*[torch.zeros(1, 1, 4, 272)] * 4)
 
 
 # ---------------------------------------------------------------------------
