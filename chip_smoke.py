@@ -18,12 +18,17 @@ Phases, in order; any failure exits non-zero:
    8-shard store state (ring 256 rows x 2 lanes, 512 buckets of 64 s:
    ~15.6 GB, plus a second copy for the plain version) — all six arrays
    bit-exact through a key with more rows than the ring holds, bucket-slot
-   reuse, trailing pads and an all-pad batch; the route-rank kernel on
+   reuse, trailing pads, an all-pad batch, one key with 20,000 rows over
+   22 buckets and a batch of 65,536 distinct keys; the route-rank kernel on
    4,096-row batches at S = 8 and on an all-one-shard batch — exact; the
    fold-levels kernel for min, max and or at N = 2^24 rows sorted over
    2^19 cards and at the edges (N = 1, N not a power of two, one segment
-   over all rows, every row its own segment, NaN / ±0.0 values) — bit for
-   bit.  Each is timed with CUDA events beside its plain version.
+   over all rows, every row its own segment, NaN / ±0.0 values, segments
+   just shorter and longer than its halo, a hot key of 2^20 rows among
+   the 2^24, NaN / ±inf in segments longer than the halo) — bit for bit.
+   Ingest and fold levels must launch once a call.  Each is timed with
+   CUDA events beside its plain version (the ingest kernel also inside a
+   CUDA graph, without the host's launch time).
 4. **Main path.**  ``FeatureService.build(fraud_view(), sharded=True,
    num_shards=8)`` on the GPU; a day of ~4.2M transactions ingested in
    65,536-row time slices; 8 request batches of 4,096 rows served through
@@ -69,17 +74,18 @@ Phases, in order; any failure exits non-zero:
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
    contiguous (1, 2, 100, 64), the lw edges (above 0, below the -3.5
    floor, 0, a whole chunk at the floor), and every head dim the kernel is
-   built for plus D = 48 (zero-padded) at T = 1, 15, 16 and 100; each
+   built for plus D = 48 (zero-padded) at T = 1, 15, 16 and 100, and
+   D = 288, 512 and 1,000 (``wide``) at T = 1, 16 and 100; each
    against the chunked plain version and, on four heads, the recurrence,
-   at ``WKV_TOL``; T < 16 must run the ``step`` instantiation, longer
-   sequences ``chunk``, and only D = 48 may be copied.  The prefill and
-   decode shapes are timed on the model's views with CUDA events: the
-   kernel's eager launches (as the model issues them; at decode the
-   host's launch overhead is most of that time) and the same launches
-   inside a CUDA graph (the kernel alone), the wrapper ``wkv6`` apart,
-   and the chunked plain version; its bound is the larger
-   of its bytes over 3.35 TB/s and its chunk products over the float32
-   peak.
+   at ``WKV_TOL``; D > 256 must run the ``wide`` instantiation, T < 16
+   ``step``, longer sequences ``chunk``, and only D = 48 may be copied.
+   The prefill and decode shapes are timed on the model's views with CUDA
+   events: the kernel's eager launches (as the model issues them; at
+   decode the host's launch overhead is most of that time) and the same
+   launches inside a CUDA graph (the kernel alone), the wrapper ``wkv6``
+   apart, and the chunked plain version; its bound is the larger of its
+   bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
+   version.
 10. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
@@ -208,6 +214,10 @@ WKV_TOL = {"chunked": 1e-4, "recurrence": 5e-4}
 # 64; sequence lengths on both sides of a chunk (T < 16 runs "step")
 WKV_CHECK_DIMS = (16, 32, 48, 64, 128, 256)
 WKV_CHECK_LENGTHS = (1, 15, 16, 100)
+# head dims above 256 ("wide", any T), and the shape it is timed at
+WKV_WIDE_DIMS = (288, 512, 1000)
+WKV_WIDE_LENGTHS = (1, 16, 100)
+WKV_WIDE_TIMED = (2, 8, 256, 512)
 # an LM's bf16 prefill with a kernel and with its plain version swapped in
 # (WKV6's chunked version; gqa_attention, which rounds the attention
 # weights to bf16 as B6 does, but sums in another order) differ in
@@ -220,8 +230,8 @@ LM_BF16_STEPS = 8
 # both float32 and correct, part by more than LM_BF16_STEPS.  The kernel
 # run may be this many bf16 steps of the largest value from the
 # chunked-plain run: 1.5 x the largest gap between the two plain versions'
-# runs over seeds 0-4 (14.36, the final states at seed 1; logits 12.89-
-# 13.59), rounded up (``tests/rwkv6_bf16_gap.py --scans``; PERF.md,
+# runs over seeds 0-9 (14.36, the final states at seed 1; logits 11.79-
+# 13.85), rounded up (``tests/rwkv6_bf16_gap.py --scans``; PERF.md,
 # section 6).  The float32 checks (LM_F32_TOL) hold the kernel's
 # arithmetic on this model
 RWKV_SCAN_STEPS = 22
@@ -347,11 +357,14 @@ def _max_abs_err(a, b) -> float:
     return worst if worst > 0 else float("nan")  # differing bits, equal values
 
 
-def _flat_batch(rng, n, t_lo, t_hi, hot_rows=0, pad=0):
+def _flat_batch(rng, n, t_lo, t_hi, hot_rows=0, pad=0, distinct=False):
     """A (flat key, ts)-sorted ingest batch over the 2^19 flat keys, as the
     sharded store hands it to the kernel; ``hot_rows`` rows on one key,
-    ``pad`` sentinel rows at the end."""
-    key = rng.integers(0, NUM_CARDS, n).astype(np.int32)
+    ``pad`` sentinel rows at the end; ``distinct``: n different keys."""
+    if distinct:
+        key = rng.choice(NUM_CARDS, n, replace=False).astype(np.int32)
+    else:
+        key = rng.integers(0, NUM_CARDS, n).astype(np.int32)
     key[:hot_rows] = 12_345
     ts = rng.integers(t_lo, t_hi, n).astype(np.int32)
     o = np.lexsort((ts, key))
@@ -366,27 +379,34 @@ def _flat_batch(rng, n, t_lo, t_hi, hot_rows=0, pad=0):
             torch.as_tensor(vals, device=dev))
 
 
-def _ingest_bytes(plan, rows, lanes) -> int:
+def _ingest_bytes(key, ts, lanes) -> int:
     """Bytes the fused ingest of one batch must move: the batch (key, ts,
     lanes) read once, plus each state element the batch touches read once
-    and written once (ring slots written; bucket stats, bitmap and id
-    read and written per segment; cursor per key run)."""
-    from repro_torch.kernels.ingest.ops import PLAN_ROWS
-
-    p = {name: int(plan[i].sum()) for i, name in enumerate(PLAN_ROWS)
-         if name in ("ring_w", "walk", "kend")}
-    batch = rows * (4 + 4 + 4 * lanes)
-    ring = p["ring_w"] * (4 + 4 * lanes)
-    bucket = p["walk"] * 2 * (20 * lanes + 4 * lanes + 4)
-    cursor = p["kend"] * 2 * 4
+    and written once (ring slots written: a run's last C rows; bucket
+    stats, bitmap and id read and written per (key, bucket) segment;
+    cursor per key run), counted from the batch with numpy."""
+    key, ts = key.cpu().numpy(), ts.cpu().numpy()
+    real = key < NUM_CARDS
+    k, b = key[real], np.floor_divide(ts[real], STORE_KW["bucket_size"])
+    new_run = np.ones(len(k), bool)
+    new_run[1:] = k[1:] != k[:-1]
+    new_seg = new_run.copy()
+    new_seg[1:] |= b[1:] != b[:-1]
+    run_len = np.diff(np.append(np.flatnonzero(new_run), len(k)))
+    ring_w = int(np.minimum(run_len, STORE_KW["capacity"]).sum())
+    batch = len(key) * (4 + 4 + 4 * lanes)
+    ring = ring_w * (4 + 4 * lanes)
+    bucket = int(new_seg.sum()) * 2 * (20 * lanes + 4 * lanes + 4)
+    cursor = len(run_len) * 2 * 4
     return batch + ring + bucket + cursor
 
 
 def check_ingest_kernel(results) -> None:
+    from repro_torch import kernels
     from repro_torch.core import preagg as pg
     from repro_torch.core import storage as st
     from repro_torch.kernels.ingest.ops import (
-        fused_ingest, ingest_plan, launch_fused_ingest,
+        fused_ingest, launch_fused_ingest,
     )
     from repro_torch.kernels.ingest.ref import fused_ingest_ref
 
@@ -410,42 +430,70 @@ def check_ingest_kernel(results) -> None:
         # is reused, so stale slots are reset before merging
         ("stale reuse", SLICE_ROWS, NB * BS, NB * BS + slice_s, 0, 0),
     ]
+    # drawn from their own generator, so the timed batch below (and its
+    # bound) is the same draw as before they were added
+    rng_new = np.random.default_rng(SEED + 11)
+    new_cases = [
+        # one key's warp: 20,000 rows over the slice's 22 buckets
+        ("hot key 20,000 rows over 22 buckets", SLICE_ROWS,
+         NB * BS + slice_s, NB * BS + 2 * slice_s, 20_000, 0, False),
+        ("65,536 distinct keys", SLICE_ROWS, NB * BS + 2 * slice_s,
+         NB * BS + 3 * slice_s, 0, 0, True),
+    ]
     worst = 0.0
-    for name, n, lo, hi, hot, pad in cases:
-        k, t, v = _flat_batch(rng, n, lo, hi, hot, pad)
+
+    def check(name, n, pad, batch):
+        nonlocal worst
+        k, t, v = batch
+        kernels.reset_launches()
         fused_ingest(*sk, k, t, v, bucket_size=BS)
+        per_call = kernels.LAUNCHES["fused_ingest"]
         fused_ingest_ref(*sr, k, t, v, bucket_size=BS)
         torch.cuda.synchronize()
         errs = [_max_abs_err(a, b) for a, b in zip(sk, sr)]
         if any(e != 0.0 for e in errs):
             _fail(f"fused_ingest differs from its plain version on "
                   f"'{name}': per-array max |diff| {errs}")
+        if per_call != 1:
+            _fail(f"fused_ingest on '{name}': {per_call} launches a call")
         worst = max(worst, max(errs))
         print(f"fused_ingest == plain on '{name}' ({n} rows + {pad} pads): "
-              "six arrays bit-exact", flush=True)
+              f"six arrays bit-exact; {per_call} launch", flush=True)
+
+    for name, n, lo, hi, hot, pad in cases:
+        check(name, n, pad, _flat_batch(rng, n, lo, hi, hot, pad))
+    for name, n, lo, hi, hot, pad, distinct in new_cases:
+        check(name, n, pad, _flat_batch(rng_new, n, lo, hi, hot, pad, distinct))
 
     # timing on one main-path-shaped batch (state keeps changing: the same
     # work each repetition)
     k, t, v = _flat_batch(rng, SLICE_ROWS, 4 * slice_s, 5 * slice_s)
-    plan = ingest_plan(k, t, sk[2], sk[5], capacity=C, bucket_size=BS)
     ms = _time_ms(lambda: fused_ingest(*sk, k, t, v, bucket_size=BS), 20)
+    # the kernel's launches eager (host launch time included) and in a
+    # CUDA graph (the kernel alone)
     kernel_ms = _time_ms(
-        lambda: launch_fused_ingest(*sk, t, v, plan), 20
+        lambda: launch_fused_ingest(*sk, k, t, v, bucket_size=BS), 20
+    )
+    graph_ms = _graph_time_ms(
+        lambda: launch_fused_ingest(*sk, k, t, v, bucket_size=BS), 20
     )
     plain_ms = _time_ms(
         lambda: fused_ingest_ref(*sr, k, t, v, bucket_size=BS), 3
     )
-    nbytes = _ingest_bytes(plan, SLICE_ROWS, 2)
+    nbytes = _ingest_bytes(k, t, 2)
     results["fused_ingest"] = dict(
-        max_abs_err=worst, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        max_abs_err=worst, ms=ms, kernel_ms=kernel_ms,
+        kernel_graph_ms=graph_ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
+        launches_per_call=1,
         shape=f"{SLICE_ROWS} rows x 2 lanes into {NUM_CARDS} keys",
     )
     print(f"fused_ingest {SLICE_ROWS} rows: wrapper {ms:.4f} ms "
-          f"(kernel alone {kernel_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"bound {results['fused_ingest']['bound_ms']:.5f} ms "
-          f"({nbytes} bytes)", flush=True)
-    del sk, sr, k, t, v, plan
+          f"(kernel alone {kernel_ms:.4f} ms eager, {graph_ms:.4f} ms in a "
+          f"CUDA graph), plain {plain_ms:.4f} ms, bound "
+          f"{results['fused_ingest']['bound_ms']:.5f} ms ({nbytes} bytes); "
+          "1 launch a call", flush=True)
+    del sk, sr, k, t, v
     torch.cuda.empty_cache()
 
 
@@ -493,18 +541,26 @@ def check_route_kernel(results) -> None:
           f"bound {results['route_rank']['bound_ms']:.6f} ms", flush=True)
 
 
-def _fold_inputs(rng, n, op, segments, special=False):
+def _fold_inputs(rng, n, op, segments, special=False, hot=0):
     """(x, seg) on the card: ``segments`` keys sorted over n rows (0: one
-    segment over all rows, -1: every row its own segment)."""
+    segment over all rows, -1: every row its own segment, "halo": segments
+    of FOLD_HALO - 1 ... FOLD_HALO + 2 rows); ``hot`` rows on one key."""
     from repro_torch.core.windows import segment_starts
+    from repro_torch.kernels.window_agg.ops import FOLD_HALO
 
     dev = torch.device("cuda")
-    if segments == 0:
+    if segments == "halo":
+        lens = rng.integers(FOLD_HALO - 1, FOLD_HALO + 3, n // FOLD_HALO + 1)
+        key = np.repeat(np.arange(len(lens)), lens)[:n].astype(np.int32)
+    elif segments == 0:
         key = np.zeros(n, np.int32)
     elif segments < 0:
         key = np.arange(n, dtype=np.int32)
     else:
         key = np.sort(rng.integers(0, segments, n)).astype(np.int32)
+        if hot:
+            key[n // 3:n // 3 + hot] = key[n // 3]
+            key = np.sort(key)
     if op == "or":
         x = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
     else:
@@ -520,51 +576,71 @@ def _fold_inputs(rng, n, op, segments, special=False):
 
 
 def check_fold_kernel(results) -> None:
-    from repro_torch.kernels.window_agg.ops import fold_levels
-    from repro_torch.kernels.window_agg.ref import (
-        fold_levels_ref,
-        fold_num_levels,
-    )
+    from repro_torch import kernels
+    from repro_torch.kernels.window_agg.ops import fold_levels, plan_fold_levels
+    from repro_torch.kernels.window_agg.ref import fold_levels_ref
 
     rng = np.random.default_rng(SEED + 5)
     n_main = 1 << 24
-    cases = [(f"N=2^24 over {NUM_CARDS} cards", n_main, NUM_CARDS, False),
-             ("N=1", 1, 1, False),
-             ("N=1,000,003 (not a power of two)", 1_000_003, 4096, False),
-             ("one segment over all rows", 1 << 20, 0, False),
-             ("every row its own segment", 1 << 20, -1, False),
-             ("NaN / +-0.0 / +-inf values", 1 << 20, 1024, True)]
+    cases = [(f"N=2^24 over {NUM_CARDS} cards", n_main, NUM_CARDS, False, 0),
+             ("N=1", 1, 1, False, 0),
+             ("N=1,000,003 (not a power of two)", 1_000_003, 4096, False, 0),
+             ("one segment over all rows", 1 << 20, 0, False, 0),
+             ("every row its own segment", 1 << 20, -1, False, 0),
+             ("NaN / +-0.0 / +-inf values", 1 << 20, 1024, True, 0)]
+    # drawn from their own generator, so the timed input below is the same
+    # draw as before they were added
+    rng_new = np.random.default_rng(SEED + 12)
+    new_cases = [
+        ("segments of the halo's length +-2, across tile starts", 1 << 22,
+         "halo", False, 0),
+        (f"a hot key of 2^20 rows among N=2^24 over {NUM_CARDS} cards",
+         n_main, NUM_CARDS, False, 1 << 20),
+        ("NaN / +-0.0 / +-inf in segments of ~2,048 rows (longer than the "
+         "halo)", 1 << 20, 512, True, 0),
+    ]
     worst = 0.0
-    for name, n, segments, special in cases:
-        for op in ("min", "max", "or"):
-            if special and op == "or":
-                continue
-            x, seg = _fold_inputs(rng, n, op, segments, special)
-            got = fold_levels(x, seg, op=op)
-            want = fold_levels_ref(x, seg, op)
-            torch.cuda.synchronize()
-            err = _max_abs_err(got, want) if got.shape == want.shape else 1.0
-            if err != 0.0:
-                _fail(f"fold_levels({op}) differs from its plain version on "
-                      f"'{name}' (max |diff| {err})")
-            worst = max(worst, err)
-            del got, want
-        print(f"fold_levels == plain on '{name}' ({n} rows): min / max"
-              f"{'' if special else ' / or'} bit-exact", flush=True)
+    for gen, group in ((rng, cases), (rng_new, new_cases)):
+        for name, n, segments, special, hot in group:
+            for op in ("min", "max", "or"):
+                if special and op == "or":
+                    continue
+                x, seg = _fold_inputs(gen, n, op, segments, special, hot)
+                kernels.reset_launches()
+                got = fold_levels(x, seg, op=op)
+                per_call = kernels.LAUNCHES["fold_levels"]
+                want = fold_levels_ref(x, seg, op)
+                torch.cuda.synchronize()
+                err = (_max_abs_err(got, want) if got.shape == want.shape
+                       else 1.0)
+                if err != 0.0:
+                    _fail(f"fold_levels({op}) differs from its plain version "
+                          f"on '{name}' (max |diff| {err})")
+                if per_call != 1:
+                    _fail(f"fold_levels({op}) on '{name}': {per_call} "
+                          "launches a call")
+                worst = max(worst, err)
+                del got, want
+            print(f"fold_levels == plain on '{name}' ({n} rows): min / max"
+                  f"{'' if special else ' / or'} bit-exact; 1 launch a call",
+                  flush=True)
     x, seg = _fold_inputs(rng, n_main, "max", NUM_CARDS)
     ms = _time_ms(lambda: fold_levels(x, seg, op="max"), 10)
     plain_ms = _time_ms(lambda: fold_levels_ref(x, seg, "max"), 3)
-    kl = fold_num_levels(n_main)
+    plan = plan_fold_levels(n_main)
+    kl = plan.levels
     nbytes = n_main * (8 + 4 * kl)
     results["fold_levels"] = dict(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
-        shape=f"{n_main} rows over {NUM_CARDS} cards, max, KL={kl} "
-              f"({kl - 1} level launches a call)",
+        launches_per_call=1,
+        shape=f"{n_main} rows over {NUM_CARDS} cards, max, KL={kl} (one "
+              f"launch a call: tiles of {plan.tile} rows + a halo of "
+              f"{plan.halo})",
     )
     print(f"fold_levels {n_main} rows (KL={kl}): {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, bound {results['fold_levels']['bound_ms']:.4f}"
-          f" ms ({nbytes} bytes)", flush=True)
+          f" ms ({nbytes} bytes); 1 launch a call", flush=True)
     del x, seg
     torch.cuda.empty_cache()
 
@@ -1248,13 +1324,17 @@ def check_wkv6_kernel(results) -> None:
         "lw > 0", "lw < -3.5", "lw = 0", "a chunk at -3.5 (e^56)")]
     cases += [(f"D={D}, T={T}", (2, 8, T, D), True, None, "bthd")
               for D in WKV_CHECK_DIMS for T in WKV_CHECK_LENGTHS]
+    cases += [(f"D={D}, T={T} (wide)", (2, 4, T, D), True, None, "bthd")
+              for D in WKV_WIDE_DIMS for T in WKV_WIDE_LENGTHS]
     worst = 0.0
     for name, shape, with_s0, edge, layout in cases:
         r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape, edge, layout)
         s0 = s0 if with_s0 else None
         plan = plan_wkv6(r, k, v, lw)
-        if plan.variant != ("step" if shape[2] < 16 else "chunk") or (
-                any(plan.copy) != (shape[3] not in (16, 32, 64, 128, 256))):
+        D = shape[3]
+        want = ("wide" if D > 256 else "step" if shape[2] < 16 else "chunk")
+        if plan.variant != want or (
+                any(plan.copy) != (D <= 256 and D not in (16, 32, 64, 128, 256))):
             _fail(f"wkv6 on '{name}' {shape}: plan {plan}")
         kernels.reset_launches()
         y, s = wkv6(r, k, v, lw, u, s0)
@@ -1319,16 +1399,30 @@ def check_wkv6_kernel(results) -> None:
               f"{max(by_bytes, by_ops) / graph_ms:.3f} in the graph)",
               flush=True)
         del r, k, v, lw, u, s0, y, s
+    # "wide" (D > 256, off every model's path): its time beside the
+    # chunked plain version's
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, WKV_WIDE_TIMED)
+    y, s = torch.empty_like(r), torch.empty_like(s0)
+    wide_ms = _time_ms(lambda: launch_wkv6(r, k, v, lw, u, s0, y, s), 3)
+    wide_plain_ms = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, s0), 3)
+    nbytes, flop = _wkv6_cost(WKV_WIDE_TIMED, True)
+    wide_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S)
+    print(f"wkv6 wide {WKV_WIDE_TIMED}: kernel {wide_ms:.4f} ms, chunked "
+          f"plain {wide_plain_ms:.4f} ms, bound {wide_bound:.5f} ms",
+          flush=True)
+    del r, k, v, lw, u, s0, y, s
     pre, dec = timed["prefill"], timed["decode"]
     results["wkv6"] = dict(
         max_abs_err=worst, **pre,
         decode_ms=dec["ms"], decode_graph_ms=dec["graph_ms"],
         decode_wrapper_ms=dec["wrapper_ms"], decode_plain_ms=dec["plain_ms"],
         decode_bound_ms=dec["bound_ms"],
+        wide_ms=wide_ms, wide_plain_ms=wide_plain_ms, wide_bound_ms=wide_bound,
         shape=f"{main} prefill with s0 on the model's views (decode "
               f"{decode}: kernel {dec['ms']:.4f} ms eager, "
               f"{dec['graph_ms']:.4f} ms in a CUDA graph, bound "
-              f"{dec['bound_ms']:.5f} ms)",
+              f"{dec['bound_ms']:.5f} ms; wide {WKV_WIDE_TIMED}: "
+              f"{wide_ms:.4f} ms)",
     )
     torch.cuda.empty_cache()
 
@@ -2079,7 +2173,7 @@ def offline_path(results) -> None:
     warm_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    # one launch per doubling level, in each of the two exports
+    # one launch a fold-levels call, at least one call in each export
     if launches["fold_levels"] < 2:
         _fail(f"the offline path did not launch the fold-levels kernel: "
               f"{launches}")

@@ -45,7 +45,7 @@ LAUNCHES: Dict[str, int] = {
 # kernel name -> instantiation -> CUDA launches since the last reset
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
-    "wkv6": {"chunk": 0, "step": 0},
+    "wkv6": {"chunk": 0, "step": 0, "wide": 0},
 }
 
 

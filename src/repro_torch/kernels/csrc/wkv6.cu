@@ -24,8 +24,8 @@
 // Bound on the H100: bytes -- r, k, v, lw read once, y written once (5 ·
 // B·H·T·D floats), u, s0 and S (2 · B·H·D² floats) at 3.35 TB/s.  The
 // chunk products (~2·B·H·T·D·(2D + 2·16) FLOP) sit just under it on the
-// CUDA cores' 67 TFLOP/s, so they go to the tensor cores.  Two kernels,
-// chosen by the wrapper (kernels/wkv6/ops.py, plan_wkv6):
+// CUDA cores' 67 TFLOP/s, so they go to the tensor cores.  Two kernels for
+// D <= 256, chosen by the wrapper (kernels/wkv6/ops.py, plan_wkv6):
 //
 // 1. wkv6_chunk_kernel -- T >= 16.  Column j of S, y and v forms a closed
 //    recurrence, so the value columns are split: a warp owns 16 columns
@@ -72,7 +72,11 @@
 // where they are not); u (H, D), s0 and S (B, H, D, D) are contiguous.
 // Head dims 16, 32, 64, 128 and 256; the wrapper zero-pads any other D
 // up to 256 (padded channels carry r = k = v = 0, lw = 0, which add
-// nothing).  Exponentials are exp2f of log2(e)-scaled prefixes.  The
+// nothing).  D above 256 runs a third kernel, wkv6_wide_kernel: the
+// recurrence for any T, a block per (b, h) and 32 value columns, with
+// the state in device memory (s_out), so no D is too wide.  It is off
+// every model's path and right first: each step reads and writes the
+// block's columns of the state through L2.  Exponentials are exp2f of log2(e)-scaled prefixes.  The
 // build's -fmad=false forbids only contraction the compiler would choose;
 // the kernels spell their multiply-adds with fmaf.
 
@@ -552,6 +556,66 @@ __global__ void __launch_bounds__(StepLayout<D>::NT) wkv6_step_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// 3. D > 256: the recurrence with the state in device memory
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_GROUPS = 8;  // warps of a block: row groups
+constexpr int WIDE_THREADS = 32 * WIDE_GROUPS;
+
+// A block per (b, h) and 32 value columns, a lane per column, a warp per
+// row group (rows g, g + 8, ...).  The block's columns of the state stay
+// in s_out, which each thread reads and writes at its own (row, column)
+// elements only, so no D is too wide; y_j is the row groups' sums added
+// through shared memory.  Any T, D not padded (columns past D idle).
+__global__ void __launch_bounds__(WIDE_THREADS)
+    wkv6_wide_kernel(Args a, int D) {
+  __shared__ float red[WIDE_GROUPS][32];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int bh = blockIdx.x;
+  const long long b = bh / a.H;
+  const int h = bh % a.H;
+  const int j = blockIdx.y * 32 + lane;
+  const bool col = j < D;
+  const float* rg = a.r + b * a.sr[0] + h * a.sr[1];
+  const float* kg = a.k + b * a.sk[0] + h * a.sk[1];
+  const float* vg = a.v + b * a.sv[0] + h * a.sv[1];
+  const float* lg = a.lw + b * a.sl[0] + h * a.sl[1];
+  float* yg = a.y + b * a.sy[0] + h * a.sy[1];
+  const float* uh = a.u + (long long)h * D;
+  float* S = a.s_out + (long long)bh * D * D;
+  if (col) {
+    const float* S0 = a.s0 == nullptr ? nullptr : a.s0 + (long long)bh * D * D;
+    for (int i = g; i < D; i += WIDE_GROUPS)
+      S[(long long)i * D + j] = S0 == nullptr ? 0.0f : S0[(long long)i * D + j];
+  }
+  for (int t = 0; t < a.T; ++t) {
+    const float vj = col ? vg[t * a.sv[2] + j] : 0.0f;
+    float acc = 0.0f;
+    for (int i = g; i < D; i += WIDE_GROUPS) {
+      const float l = clamp_lw(lg[t * a.sl[2] + i]);
+      // l - l: lw's NaN reaches y, as in the other kernels
+      const float rr = rg[t * a.sr[2] + i] + (l - l);
+      const float kk = kg[t * a.sk[2] + i];
+      if (col) {
+        float* sp = S + (long long)i * D + j;
+        const float s = *sp;
+        acc = fmaf(rr, fmaf(uh[i] * kk, vj, s), acc);
+        *sp = fmaf(exp2f(l * LOG2E), s, kk * vj);
+      }
+    }
+    red[g][lane] = acc;
+    __syncthreads();
+    if (g == 0 && col) {
+      float y = red[0][lane];
+#pragma unroll
+      for (int x = 1; x < WIDE_GROUPS; ++x) y += red[x][lane];
+      yg[t * a.sy[2] + j] = y;
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -587,9 +651,10 @@ bool aligned(const float* p, const long long* st, int floats) {
 // state) and s_out: (B, H, D, D), contiguous.  variant 0 =
 // wkv6_chunk_kernel (16-byte aligned bases and strides of r, k, v, lw;
 // 8-byte ones of y), 1 = wkv6_step_kernel (T < 16; 16-byte aligned s0 and
-// s_out).  Returns a cudaError_t: cudaErrorInvalidValue for a D outside
-// {16, 32, 64, 128, 256}, a negative size, D not contiguous, a variant
-// that does not take T, or strides the variant cannot take.
+// s_out), 2 = wkv6_wide_kernel (any D and T).  Returns a cudaError_t:
+// cudaErrorInvalidValue for a D outside {16, 32, 64, 128, 256} (variants 0
+// and 1), a negative size, D not contiguous, a variant that does not take
+// T, or strides the variant cannot take.
 extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
                            const float* lw, const float* u, const float* s0,
                            float* y, float* s_out, int B, int H, int T, int D,
@@ -619,6 +684,11 @@ extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
   a.H = H;
   a.T = T;
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 2) {  // any D, any T
+    if (D < 1) return bad;
+    wkv6_wide_kernel<<<dim3(BH, (D + 31) / 32), WIDE_THREADS, 0, s>>>(a, D);
+    return (int)cudaGetLastError();
+  }
   if (variant == 1) {  // the state moves as float4
     if (T >= CHUNK || reinterpret_cast<uintptr_t>(s0) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(s_out) % 16 != 0)

@@ -4,7 +4,9 @@
   idempotent combine (min / max / or), the hot loop of the offline
   engine's windowed MIN / MAX / DISTINCT scan
   (:func:`repro_torch.core.windows.segmented_windowed_fold`).  CUDA
-  tensors launch ``kernels/csrc/fold_levels.cu``; CPU tensors run
+  tensors launch ``kernels/csrc/fold_levels.cu``, one cooperative launch
+  a call, cut into tiles by :func:`plan_fold_levels` (pure Python, so the
+  CPU tests can replay the kernel at tiny tiles); CPU tensors run
   :func:`.ref.fold_levels_ref`.  Exact combines, so both give the same bits.
 * ``window_stats(...)`` — (Q, NW, L, 5) stat vectors for a batch of
   request rows against an online store's state.  CUDA tensors launch
@@ -18,7 +20,7 @@
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -32,6 +34,10 @@ from repro_torch.kernels.window_agg.ref import (
 __all__ = [
     "fold_levels",
     "launch_fold_levels",
+    "plan_fold_levels",
+    "FoldPlan",
+    "FOLD_TILE",
+    "FOLD_HALO",
     "window_stats",
     "launch_window_stats",
 ]
@@ -57,21 +63,60 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# rows a block of the fold-levels kernel owns, and the rows before them it
+# reads as well: a segment up to FOLD_HALO + 1 rows long saturates inside
+# one tile (the main path's segments are Poisson(32)), and T + H rows of
+# x, seg and two levels take 51 KB of shared memory, four blocks an SM
+# (tiles of 2,048 and 8,192 rows timed slower on the H100)
+FOLD_TILE = 4096
+FOLD_HALO = 128
+
+
+class FoldPlan(NamedTuple):
+    """How the fold-levels kernel cuts N rows: ``tiles`` blocks' worth of
+    ``tile`` rows, each with the ``halo`` rows before it; a row whose
+    segment starts before its halo leaves the tile at some level
+    (``first_long`` is the lowest such level: 2^k > halo + 1) and is
+    finished level by level in device memory."""
+
+    levels: int
+    tile: int
+    halo: int
+    tiles: int
+    first_long: int
+
+
+def plan_fold_levels(n: int, tile: int = FOLD_TILE,
+                     halo: int = FOLD_HALO) -> FoldPlan:
+    """The kernel's tiling of ``n`` rows (the wrapper uses the defaults;
+    the CPU tests replay the kernel with tiny ones)."""
+    if tile < 1 or halo < 0:
+        raise ValueError(f"fold plan: needs tile >= 1 and halo >= 0, got "
+                         f"{tile} / {halo}")
+    return FoldPlan(fold_num_levels(n), tile, halo, -(-n // tile),
+                    (halo + 1).bit_length())
+
+
 def launch_fold_levels(
-    x: torch.Tensor, seg: torch.Tensor, out: torch.Tensor, op: str
+    x: torch.Tensor, seg: torch.Tensor, out: torch.Tensor, op: str,
+    plan: FoldPlan,
 ) -> None:
     """Launch the CUDA kernel: ``out`` (KL, N) is written on the current
-    stream (level 0 a copy of ``x``, then one kernel launch per level, each
-    counted); raises if a launch fails."""
+    stream by one cooperative launch (counted); raises if it fails."""
     fn = _fn("fold_levels", "fold_levels_launch",
-             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     dev = x.device
+    n = x.shape[0]
+    sync = torch.zeros(3, dtype=torch.int32, device=dev)
+    long_tiles = torch.empty(max(plan.tiles, 1), dtype=torch.int32,
+                             device=dev)
     err = fn(
-        x.data_ptr(), seg.data_ptr(), out.data_ptr(),
-        x.shape[0], out.shape[0], _FOLD_CODES[op], dev.index, _stream(dev),
+        x.data_ptr(), seg.data_ptr(), out.data_ptr(), sync.data_ptr(),
+        long_tiles.data_ptr(), n, plan.levels, _FOLD_CODES[op], plan.tile,
+        plan.halo, plan.first_long, dev.index, _stream(dev),
     )
-    if x.shape[0] > 0:
-        count_launch("fold_levels", out.shape[0] - 1)
+    if n > 0:
+        count_launch("fold_levels")
     if err != 0:
         raise RuntimeError(f"fold_levels kernel launch failed: CUDA error {err}")
 
@@ -110,8 +155,9 @@ def fold_levels(
     n = x.shape[0]
     if n >= 2**31:
         raise ValueError(f"fold_levels: {n} rows exceed int32 indexing")
-    out = torch.empty((fold_num_levels(n), n), dtype=x.dtype, device=x.device)
-    launch_fold_levels(x, seg, out, op)
+    plan = plan_fold_levels(n)
+    out = torch.empty((plan.levels, n), dtype=x.dtype, device=x.device)
+    launch_fold_levels(x, seg, out, op, plan)
     return out
 
 

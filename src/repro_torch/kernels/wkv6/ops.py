@@ -10,23 +10,26 @@ carried state untouched.  The reference's ``impl`` switch (Pallas or XLA,
 two lowerings of one function on the TPU) has no counterpart: where the
 tensors live decides.
 
-The kernel has two instantiations; :func:`plan_wkv6` picks one from the
-shapes alone (pure Python, so the CPU tests reach it):
+The kernel has three instantiations; :func:`plan_wkv6` picks one from
+the shapes alone (pure Python, so the CPU tests reach it):
 
-* ``"chunk"``: T >= 16 -- chunks of 16 rows, the value columns split
-  across blocks, the chunk products on the tensor cores in 3xTF32;
-* ``"step"``: T < 16 (a decode step) -- the recurrence, one pass over the
-  state per step.
+* ``"chunk"``: D <= 256, T >= 16 -- chunks of 16 rows, the value columns
+  split across blocks, the chunk products on the tensor cores in 3xTF32;
+* ``"step"``: D <= 256, T < 16 (a decode step) -- the recurrence, one
+  pass over the state per step;
+* ``"wide"``: D > 256, any T -- the recurrence with the state in device
+  memory, 32 value columns a block; off every model's path.
 
-Both read r, k, v, lw through their (b, h, t) strides with D contiguous
+All read r, k, v, lw through their (b, h, t) strides with D contiguous
 and write y with ``r``'s strides, so a model hands over its (B, T, H, D)
 projections as ``transpose(1, 2)`` views and takes y back the same way,
 with no copy.  :func:`wkv6` copies an input only where the kernel cannot
 take it: another dtype than float32, D not contiguous, or (``"chunk"``,
 whose ``cp.async`` moves 16 bytes) a base or stride that is not 16-byte
-aligned.  Head dims are built at 16, 32, 64, 128 and 256; any other D up
-to 256 is zero-padded to the next one (padded channels carry r = k = v =
-0 and lw = 0, which add nothing to y or S), and D above 256 raises.
+aligned.  ``"chunk"`` and ``"step"`` are built at head dims 16, 32, 64,
+128 and 256; any other D up to 256 is zero-padded to the next one (padded
+channels carry r = k = v = 0 and lw = 0, which add nothing to y or S).
+``"wide"`` takes any D as it is.
 
 Tolerances (``tests/test_torch_rwkv6.py``): :func:`wkv6_chunked` and the
 recurrence :func:`~repro_torch.kernels.wkv6.ref.wkv6_ref` are held to the
@@ -59,10 +62,11 @@ __all__ = [
 ]
 
 CHUNK = 16
-# head dims the CUDA kernel is built for; others are zero-padded up to one
+# head dims the tiled instantiations ("chunk", "step") are built for;
+# others up to MAX_HEAD_DIM are zero-padded up to one, wider ones run "wide"
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-_VARIANT_CODE = {"chunk": 0, "step": 1}
+_VARIANT_CODE = {"chunk": 0, "step": 1, "wide": 2}
 # the (b, h, t, d) strides of r, k, v, lw and y, as the launcher reads them
 _pack_strides = struct.Struct("20q").pack
 
@@ -125,8 +129,11 @@ class WKV6Plan(NamedTuple):
     copy: Tuple[bool, bool, bool, bool]
 
 
-def _variant(T: int) -> str:
-    """The instantiation for T rows: the recurrence below one chunk."""
+def _variant(T: int, D: int) -> str:
+    """The instantiation for T rows of head dim D: the recurrence below
+    one chunk, and above the tiled head dims."""
+    if D > MAX_HEAD_DIM:
+        return "wide"
     return "step" if T < CHUNK else "chunk"
 
 
@@ -153,16 +160,11 @@ def _takes(x: torch.Tensor, floats: int) -> bool:
 def plan_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               lw: torch.Tensor) -> WKV6Plan:
     """The plan for ``wkv6(r, k, v, lw, ...)`` on the card; reads only
-    shapes, strides, dtypes and base addresses.  Raises ``ValueError`` for
-    D above :data:`MAX_HEAD_DIM`."""
+    shapes, strides, dtypes and base addresses."""
     T, D = r.shape[2], r.shape[3]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(
-            f"wkv6: the kernel takes head dims up to {MAX_HEAD_DIM}, got {D}"
-        )
-    head_dim = D if D in KERNEL_HEAD_DIMS else next(
+    variant = _variant(T, D)
+    head_dim = D if D in KERNEL_HEAD_DIMS or variant == "wide" else next(
         d for d in KERNEL_HEAD_DIMS if d >= D)
-    variant = _variant(T)
     floats = 4 if variant == "chunk" else 1
     return WKV6Plan(variant, head_dim, tuple(
         head_dim != D or not _takes(x, floats) for x in (r, k, v, lw)))
@@ -178,10 +180,10 @@ def launch_wkv6(
     y: torch.Tensor,    # (B, H, T, D) float32 out, D contiguous
     s_out: torch.Tensor,  # (B, H, D, D) float32 out, contiguous
 ) -> None:
-    """Launch the CUDA kernel (``"step"`` for T < 16, else ``"chunk"``):
-    ``y`` and ``s_out`` are written on the current stream; raises if the
-    launch fails (a D the kernel is not built for, strides the
-    instantiation cannot take)."""
+    """Launch the CUDA kernel (``"wide"`` for D > 256, else ``"step"``
+    for T < 16 and ``"chunk"`` above): ``y`` and ``s_out`` are written on
+    the current stream; raises if the launch fails (a D the tiled kernels
+    are not built for, strides the instantiation cannot take)."""
     global _launch_fn
     if _launch_fn is None:
         from repro_torch.kernels.build import library
@@ -192,7 +194,7 @@ def launch_wkv6(
         fn.restype = ctypes.c_int
         _launch_fn = fn
     B, H, T, D = r.shape
-    variant = _variant(T)
+    variant = _variant(T, D)
     index = r.get_device()
     # a decode launch takes less device time than its host work: the raw
     # stream handle costs a tenth of torch.cuda.current_stream(...)

@@ -30,7 +30,7 @@ prefill -- on the weights and prompts of each seed (drawn as
 ``RWKV_SCAN_STEPS`` comes from it::
 
     PYTHONPATH=src python tests/rwkv6_bf16_gap.py --device cuda \
-        --layers 32 --prompt 1024 --batch 8 --scans 0 1 2 3 4
+        --layers 32 --prompt 1024 --batch 8 --scans 0 1 2 3 4 5 6 7 8 9
 """
 
 import argparse

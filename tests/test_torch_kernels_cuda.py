@@ -129,6 +129,43 @@ def test_fused_ingest_kernel_matches_ref(cuda):
         _assert_same(sk, sr, f"step {step}")
 
 
+def test_fused_ingest_kernel_hot_key_and_distinct_keys(cuda):
+    """One key with 20,000 rows over 16 buckets in one batch (its warp's
+    path: a 32-way end search, ring writes 32 at a time, each bucket
+    folded in row order), then a batch of 65,536 distinct keys (a run of
+    one row each) into a 65,536-key state: six arrays bit-exact."""
+    rng = np.random.default_rng(3)
+    sk, sr = _state(cuda), _state(cuda)
+    n = 30_000
+    key = rng.integers(0, K, n).astype(np.int32)
+    key[:20_000] = 17
+    ts = rng.integers(6000, 7000, n).astype(np.int32)
+    o = np.lexsort((ts, key))
+    vals = rng.gamma(1.5, 60.0, (n, F)).astype(np.float32)
+    k, t, v = (torch.as_tensor(x, device=cuda)
+               for x in (key[o], ts[o], vals[o]))
+    kernels.reset_launches()
+    fused_ingest(*sk, k, t, v, bucket_size=BS)
+    assert kernels.LAUNCHES["fused_ingest"] == 1
+    fused_ingest_ref(*sr, k, t, v, bucket_size=BS)
+    torch.cuda.synchronize()
+    _assert_same(sk, sr, "hot key of 20,000 rows")
+    keys = 1 << 16
+    big = [st.ring_init(keys, 8, F, cuda), pg.bucket_init(keys, 4, F, BS, cuda)]
+    sk = [big[0].ts, big[0].vals, big[0].cursor, big[1].stats,
+          big[1].bitmap, big[1].bucket]
+    sr = [x.clone() for x in sk]
+    k = torch.randperm(keys, device=cuda).sort().values.to(torch.int32)
+    t = torch.as_tensor(rng.integers(0, 200, keys).astype(np.int32),
+                        device=cuda)
+    v = torch.as_tensor(rng.gamma(1.5, 60.0, (keys, F)).astype(np.float32),
+                        device=cuda)
+    fused_ingest(*sk, k, t, v, bucket_size=BS)
+    fused_ingest_ref(*sr, k, t, v, bucket_size=BS)
+    torch.cuda.synchronize()
+    _assert_same(sk, sr, "65,536 distinct keys")
+
+
 def test_fused_ingest_kernel_counts_launches(cuda):
     rng = np.random.default_rng(1)
     s = _state(cuda)
@@ -236,12 +273,58 @@ def test_fold_levels_kernel_matches_ref(cuda, op, n, layout):
     st = torch.as_tensor(_seg(key), device=cuda)
     before = kernels.LAUNCHES["fold_levels"]
     got = fold_levels(xt, st, op=op)
-    # one launch per doubling level (level 0 is a copy)
-    assert kernels.LAUNCHES["fold_levels"] == before + fold_num_levels(n) - 1
+    # one cooperative launch a call, long rows included
+    assert kernels.LAUNCHES["fold_levels"] == before + 1
     want = fold_levels_ref(xt, st, op)
     torch.cuda.synchronize()
-    assert got.shape == want.shape
+    assert got.shape == want.shape == (fold_num_levels(n), n)
     _assert_same([got], [want], f"fold_levels {op} n={n} {layout}")
+
+
+def _poisson_keys(rng, n, cards):
+    return np.sort(rng.integers(0, cards, n)).astype(np.int32)
+
+
+@pytest.mark.parametrize("op,case", [
+    *[(op, case) for op in ("min", "max", "or")
+      for case in ("halo_edges", "hot_key")],
+    ("min", "special_long"), ("max", "special_long"),  # float specials
+])
+def test_fold_levels_kernel_halo_and_hot_key(cuda, op, case):
+    """Segments just shorter and just longer than the halo (FOLD_HALO - 1
+    ... FOLD_HALO + 2 rows, crossing tile starts), a hot key of 2^20 rows
+    among Poisson(32) segments, and NaN / ±0 / ±inf in segments longer
+    than the halo: bit-exact, one launch."""
+    from repro_torch.kernels.window_agg.ops import FOLD_HALO
+
+    rng = np.random.default_rng(len(op) * 31 + len(case))
+    if case == "halo_edges":
+        n = 1 << 20
+        lens = rng.choice([FOLD_HALO - 1, FOLD_HALO, FOLD_HALO + 1,
+                           FOLD_HALO + 2], n // FOLD_HALO)
+        key = np.repeat(np.arange(len(lens)), lens)[:n].astype(np.int32)
+    elif case == "hot_key":
+        n = 1 << 22
+        key = _poisson_keys(rng, n, n // 32)
+        key[1_000_000:1_000_000 + (1 << 20)] = key[1_000_000]
+        key = np.sort(key)
+    else:
+        n = (1 << 20) + 17
+        key = _poisson_keys(rng, n, 512)  # ~2,048 rows a segment
+    if op == "or":
+        x = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    else:
+        x = rng.normal(size=n).astype(np.float32)
+        special = rng.random(n) < (0.3 if case == "special_long" else 0.05)
+        x[special] = rng.choice(_SPECIAL, int(special.sum()))
+    xt = torch.as_tensor(x, device=cuda)
+    st = torch.as_tensor(_seg(key), device=cuda)
+    kernels.reset_launches()
+    got = fold_levels(xt, st, op=op)
+    assert kernels.LAUNCHES["fold_levels"] == 1
+    want = fold_levels_ref(xt, st, op)
+    torch.cuda.synchronize()
+    _assert_same([got], [want], f"fold_levels {op} {case}")
 
 
 def _gpu_store(cuda, rng, keys=512, rows=20_000):
@@ -514,6 +597,28 @@ def test_wkv6_kernel_matches_plain_versions(cuda, shape, with_s0, edge,
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("D", [288, 512, 1000])
+@pytest.mark.parametrize("T", [1, 16, 100])
+@pytest.mark.parametrize("layout", ["bhtd", "bthd"])
+def test_wkv6_kernel_wide_head_dims(cuda, D, T, layout):
+    """Head dims above 256 run "wide" at any T (decode, one chunk, a
+    ragged sequence), on contiguous inputs and the model's views: within
+    1e-4 of the chunked plain version, one launch, no copy."""
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 2, T, D), D + T, None, layout)
+    plan = plan_wkv6(r, k, v, lw)
+    assert plan.variant == "wide" and plan.head_dim == D
+    assert plan.copy == (False,) * 4
+    kernels.reset_launches()
+    y, s = wkv6(r, k, v, lw, u, s0)
+    assert kernels.VARIANT_LAUNCHES["wkv6"]["wide"] == 1
+    assert kernels.LAUNCHES["wkv6"] == 1
+    yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert y.stride() == r.stride()
+    torch.testing.assert_close(y, yc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sc, atol=1e-4, rtol=1e-4)
+
+
 def test_wkv6_kernel_dtypes_and_refusals(cuda):
     r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 2, 20, 64), 5)
     y, s = wkv6(r.bfloat16(), k, v, lw, u, s0)
@@ -539,9 +644,12 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
     torch.testing.assert_close(
         y3, wkv6_chunked(base[..., 1:], k, v, lw, u, s0)[0], atol=1e-4,
         rtol=1e-4)
-    bad = _wkv_case(cuda, (1, 2, 20, 272), 5)
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        wkv6(*bad)
+    # D above 256 runs "wide" (it raised before)
+    r272, k272, v272, lw272, u272, s272 = _wkv_case(cuda, (1, 2, 20, 272), 5)
+    y272, st272 = wkv6(r272, k272, v272, lw272, u272, s272)
+    yc272, sc272 = wkv6_chunked(r272, k272, v272, lw272, u272, s272)
+    torch.testing.assert_close(y272, yc272, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st272, sc272, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="mixed devices"):
         wkv6(r, k, v, lw, u.cpu(), s0)
     with pytest.raises(NotImplementedError, match="training slice"):
@@ -588,7 +696,8 @@ def test_time_mix_hands_b7_its_views_without_copies(cuda, monkeypatch):
     _, state = model.prefill({"tokens": tokens.to(cuda)})
     model.decode_step(state, tokens[:, :1].to(cuda))
     assert kernels.VARIANT_LAUNCHES["wkv6"] == {"chunk": cfg.n_layers,
-                                                "step": cfg.n_layers}
+                                                "step": cfg.n_layers,
+                                                "wide": 0}
     assert len(calls) == 2 * cfg.n_layers
     for c in calls:
         assert c["launched"] == c["given"]

@@ -201,6 +201,19 @@ def test_wkv6_zero_padded_head_dim_is_exact():
     _close(s[..., :48, :48], out["jax_xla"][1], 2e-5, "S")
 
 
+@pytest.mark.parametrize("T,with_s0", [(1, True), (5, False), (20, True)])
+def test_wkv6_plain_versions_match_jax_above_256(T, with_s0):
+    """A head dim above 256 (D = 272, the ``"wide"`` kernel's range on the
+    card): the port's recurrence and chunked plain version against JAX's
+    recurrence (``5e-4``) and ``impl="xla"`` (``2e-5``), as at D <= 256."""
+    out = _port_and_jax(_wkv_inputs((1, 2, T, 272), 272 + T), with_s0,
+                        pallas=False)
+    for i, what in enumerate(("y", "S")):
+        _close(out["ref"][i], out["jax_ref"][i], 5e-4, f"recurrence {what}")
+        _close(out["chunked"][i], out["jax_ref"][i], 5e-4, f"chunked {what}")
+        _close(out["chunked"][i], out["jax_xla"][i], 2e-5, f"xla {what}")
+
+
 @pytest.mark.parametrize("T", [1, 37])
 def test_wkv6_model_strided_views_match_contiguous(T):
     """r, k, v, lw as ``_time_mix`` hands them over -- (B, T, H, D)
@@ -223,7 +236,8 @@ def test_wkv6_model_strided_views_match_contiguous(T):
 def test_wkv6_plan_takes_the_model_views_as_they_are():
     """``plan_wkv6`` (what the card would run): the model's (B, T, H, 64)
     views need no copy in either instantiation; D = 48 is padded to 64,
-    bf16 and a view off the 16-byte grid are copied, D > 256 raises."""
+    bf16 and a view off the 16-byte grid are copied; D > 256 plans
+    ``"wide"`` at any T, unpadded, copying only bf16 or a D stride."""
     B, H, D = 2, 40, 64
     for T, variant in ((1, "step"), (15, "step"), (16, "chunk"), (1024, "chunk")):
         x = torch.zeros(B, T, H, D).transpose(1, 2)
@@ -257,8 +271,23 @@ def test_wkv6_plan_takes_the_model_views_as_they_are():
                          torch.zeros(2, 64), state)[5]
     assert s_in.data_ptr() % 16 == 0 and torch.equal(s_in, state)
     assert not plan_wkv6(base[:, :, :3, 1:], *(t[:, :, :3] for t in (x, x, x))).copy[0]
-    with pytest.raises(ValueError, match="head dims up to 256"):
-        plan_wkv6(*[torch.zeros(1, 1, 4, 272)] * 4)
+    for T in (1, 15, 16, 100):
+        x = torch.zeros(2, T, 3, 272).transpose(1, 2)
+        assert plan_wkv6(x, x, x, x) == WKV6Plan("wide", 272, (False,) * 4)
+    x = torch.zeros(1, 2, 20, 1000)
+    assert plan_wkv6(x.bfloat16(), x, x[..., ::1], x) == WKV6Plan(
+        "wide", 1000, (True, False, False, False))
+    base = torch.zeros(1, 2, 20, 1001)
+    assert plan_wkv6(base[..., 1:], x, x, x).copy == (False,) * 4  # no cp.async
+    strided = torch.zeros(1, 2, 1000, 20).transpose(2, 3)   # D not contiguous
+    assert plan_wkv6(strided, x, x, x) == WKV6Plan(
+        "wide", 1000, (True, False, False, False))
+    # what "wide" launches: nothing padded, u and s0 contiguous float32
+    ins = kernel_inputs(plan_wkv6(x.bfloat16(), x, x, x), x.bfloat16(), x,
+                        x, x, torch.zeros(2, 1000, dtype=torch.float64),
+                        torch.zeros(1, 2, 1000, 1000))
+    assert [t.shape[-1] for t in ins] == [1000] * 6
+    assert ins[0].dtype == ins[4].dtype == torch.float32 and ins[1] is x
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,13 @@ Tolerances:
 * window stats: count, min and max bit for bit; sum and sumsq within
   ``rtol=1e-5, atol=1e-3`` — masked sums reduce in a framework-chosen
   order (the tolerance of the reference's own kernel test).
+
+The fold-levels CUDA kernel cannot run here, so :func:`_emulate_fold`
+replays ``kernels/csrc/fold_levels.cu`` in numpy from the wrapper's own
+plan (:func:`plan_fold_levels`) at tiny tiles and halos: the tile phase
+in "shared memory", the saturated stores, the list of tiles with long
+rows and the level-by-level passes over them.  It must write every (level,
+row) exactly once and equal ``fold_levels_ref`` bit for bit.
 """
 
 import zlib
@@ -28,8 +35,17 @@ from repro.kernels.window_agg.ops import fold_levels as jax_fold_levels
 from repro.kernels.window_agg.ops import window_stats as jax_window_stats
 from repro_torch import kernels
 from repro_torch.convert import online_state_from_numpy
-from repro_torch.kernels.window_agg.ops import fold_levels, window_stats
+from repro_torch.kernels.window_agg.ops import (
+    FOLD_HALO,
+    FOLD_TILE,
+    fold_levels,
+    plan_fold_levels,
+    window_stats,
+)
 from repro_torch.kernels.window_agg.ref import (
+    NEG_INF,
+    POS_INF,
+    fold_levels_ref,
     fold_max,
     fold_min,
     fold_num_levels,
@@ -115,6 +131,158 @@ def test_fold_levels_cpu_dispatch_counts_no_launch():
     assert kernels.LAUNCHES == before
     with pytest.raises(ValueError, match="unknown fold op"):
         fold_levels(torch.as_tensor(x), seg, op="sum")
+
+
+# ---------------------------------------------------------------------------
+# the fold-levels kernel's tiles, halos and long rows, replayed in numpy
+# ---------------------------------------------------------------------------
+
+_IDENT_BITS = {"min": np.float32(POS_INF).view(np.uint32),
+               "max": np.float32(NEG_INF).view(np.uint32),
+               "or": np.uint32(0)}
+
+
+def _combine_bits(op, a, b):
+    """The kernel's combine on uint32 bit patterns (min_bits / max_bits:
+    order by a's sign, ordered compare, a NaN first-ordered wins)."""
+    if op == "or":
+        return a | b
+    neg = (a >> 31) != 0
+    if op == "min":
+        nx, ny = np.where(neg, b, a), np.where(neg, a, b)
+    else:
+        nx, ny = np.where(neg, a, b), np.where(neg, b, a)
+    fx, fy = nx.view(np.float32), ny.view(np.float32)
+    with np.errstate(invalid="ignore"):
+        better = fx < fy if op == "min" else fx > fy
+    pick = np.where(better, nx, ny)
+    return np.where((nx & 0x7FFFFFFF) > 0x7F800000, nx, pick)
+
+
+def _in_tile(i, s, k, lo):
+    """Row i's level-k window [max(i - 2^k + 1, s), i] starts at or after
+    the halo's first row lo (every window does when the halo reaches 0)."""
+    return np.full(np.shape(i), lo <= 0) | (np.maximum(i - 2**k + 1, s) >= lo)
+
+
+def _emulate_fold(x, seg, op, plan):
+    """fold_levels.cu in numpy: returns (levels as bit patterns, how often
+    each (level, row) was written, the tiles listed as holding long rows)."""
+    n = len(x)
+    bits = x.view(np.uint32)
+    ident = _IDENT_BITS[op]
+    L, T, H = plan.levels, plan.tile, plan.halo
+    out = np.zeros((L, n), np.uint32)
+    writes = np.zeros((L, n), np.int64)
+
+    def store(k, rows, vals, mask):
+        out[k, rows[mask]] = vals[mask]
+        writes[k, rows[mask]] += 1
+
+    listed = []
+    for t in range(plan.tiles):                 # 1. the tile phase
+        t0 = t * T
+        lo = t0 - H
+        g = lo + np.arange(H + min(T, n - t0))  # the tile and its halo
+        cur = np.where(g >= 0, bits[np.clip(g, 0, None)], ident)
+        sseg = np.where(g >= 0, seg[np.clip(g, 0, None)], 0)
+        i, s = g[H:], sseg[H:]
+        store(0, i, cur[H:], np.ones(len(i), bool))
+        k = 0
+        while k + 1 < L:
+            if not ((i - s >= 2**k) & _in_tile(i, s, k, lo)).any():
+                break                           # saturated or gone
+            half = 2**k
+            r = np.arange(len(g))
+            take = (g - half >= sseg) & (g - half >= 0) & (r >= half)
+            cur = _combine_bits(
+                op, cur, np.where(take, cur[np.clip(r - half, 0, None)], ident))
+            k += 1
+            store(k, i, cur[H:], _in_tile(i, s, k, lo))
+        sat = _combine_bits(op, cur[H:], ident)
+        for kk in range(k + 1, L):
+            store(kk, i, sat, _in_tile(i, s, k, lo))
+        if (~_in_tile(i, s, L - 1, lo)).any():
+            listed.append(t)
+    if plan.first_long < L:                     # 2. the long rows
+        for k in range(plan.first_long, L):
+            prev = out[k - 1].copy()
+            for t in listed:
+                i = np.arange(t * T, min((t + 1) * T, n))
+                s = seg[i]
+                j = i - 2**(k - 1)
+                b = np.where((j >= s) & (j >= 0), prev[np.clip(j, 0, None)],
+                             ident)
+                store(k, i, _combine_bits(op, prev[i], b),
+                      ~_in_tile(i, s, k, t * T - H))
+    return out, writes, listed
+
+
+def _seg_of(key):
+    n = len(key)
+    start = np.ones(n, bool)
+    start[1:] = key[1:] != key[:-1]
+    return np.maximum.accumulate(np.where(start, np.arange(n), 0)).astype(
+        np.int32)
+
+
+def _layout_keys(rng, n, layout):
+    if layout == "short":          # segments of 1-3 rows: inside one halo
+        return np.cumsum(rng.random(n) < 0.6).astype(np.int32)
+    if layout == "halo_edges":     # segments of halo, halo + 1, halo + 2 rows
+        return np.repeat(np.arange(n), rng.choice([4, 5, 6], n))[:n]
+    if layout == "long":           # segments longer than the halo and tiles
+        return np.sort(rng.integers(0, 1 + n // 20, n)).astype(np.int32)
+    if layout == "one_segment":
+        return np.zeros(n, np.int32)
+    return np.arange(n, dtype=np.int32)  # all starts
+
+
+def test_plan_fold_levels_main_path():
+    plan = plan_fold_levels(1 << 24)
+    assert (plan.levels, plan.tile, plan.halo) == (25, FOLD_TILE, FOLD_HALO)
+    assert plan.tiles == (1 << 24) // FOLD_TILE
+    # 2^8 = 256 > halo + 1 = 129: level 8 is the first a row can leave
+    assert plan.first_long == 8
+    assert plan_fold_levels(5, 8, 4) == (3, 8, 4, 1, 3)
+    with pytest.raises(ValueError):
+        plan_fold_levels(5, 0, 4)
+
+
+@pytest.mark.parametrize("op,special", [("min", False), ("max", False),
+                                        ("or", False), ("min", True),
+                                        ("max", True)])
+@pytest.mark.parametrize("layout", ["short", "halo_edges", "long",
+                                    "one_segment", "all_starts"])
+@pytest.mark.parametrize("n,tile,halo", [(61, 8, 4), (200, 16, 3),
+                                         (7, 8, 4), (64, 4, 0)])
+def test_fold_kernel_tiles_emulated_bit_exact(op, special, layout, n, tile,
+                                              halo):
+    """The kernel's tile / halo / saturation logic at tiny tiles (numpy
+    replay) equals the plain version bit for bit, every (level, row)
+    written once; long rows are listed only where a segment starts
+    before a tile's halo.  Special values: NaN payloads of both signs,
+    ±0.0 and ±inf, also in segments longer than the halo."""
+    rng = _rng(f"emu-{op}-{special}-{layout}-{n}-{tile}-{halo}")
+    key = _layout_keys(rng, n, layout)
+    seg = _seg_of(key)
+    if op == "or":
+        x = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    elif special:
+        x = rng.choice(SPECIAL, n)
+    else:
+        x = rng.normal(size=n).astype(np.float32)
+    plan = plan_fold_levels(n, tile, halo)
+    got, writes, listed = _emulate_fold(x, seg, op, plan)
+    assert (writes == 1).all()
+    want = fold_levels_ref(torch.as_tensor(x), torch.as_tensor(seg), op)
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  _bits(want.numpy()).view(np.int32))
+    starts = np.arange(plan.tiles) * tile
+    expect = [t for t, t0 in enumerate(starts)
+              if t0 > halo and (seg[t0:t0 + tile] < t0 - halo).any()
+              and plan.first_long < plan.levels]
+    assert sorted(listed) == expect
 
 
 # ---------------------------------------------------------------------------
