@@ -19,24 +19,32 @@ Phases, in order; any failure exits non-zero:
    ~15.6 GB, plus a second copy for the plain version) — all six arrays
    bit-exact through a key with more rows than the ring holds, bucket-slot
    reuse, trailing pads, an all-pad batch, one key with 20,000 rows over
-   22 buckets and a batch of 65,536 distinct keys; the route-rank kernel on
-   4,096-row batches at S = 8 and on an all-one-shard batch — exact; the
-   fold-levels kernel for min, max and or at N = 2^24 rows sorted over
+   22 buckets and a batch of 65,536 distinct keys; the route kernel (B2)
+   from keys -- the Feistel walk, shard, local id, rank and the two
+   per-shard counts in one launch -- against the host permutation and the
+   rank's plain version on 4,096-key batches over the 2^19 cards at S = 8,
+   a 200-key domain (long walks), all rows on one shard and invalid rows
+   with keys outside the domain, and from shard ids on 4,096-row batches
+   (one shard, pad ids) — exact; the fold-levels kernel for min, max and or at N = 2^24 rows sorted over
    2^19 cards and at the edges (N = 1, N not a power of two, one segment
    over all rows, every row its own segment, NaN / ±0.0 values, segments
    just shorter and longer than its halo, a hot key of 2^20 rows among
    the 2^24, NaN / ±inf in segments longer than the halo) — bit for bit.
-   Ingest and fold levels must launch once a call.  Each is timed with
-   CUDA events beside its plain version (the ingest kernel also inside a
-   CUDA graph, without the host's launch time).
+   Ingest, route and fold levels must launch once a call.  Each is timed
+   with CUDA events beside its plain version (the ingest kernel also
+   inside a CUDA graph, without the host's launch time; the route kernel
+   also by its device time in a profile, beside an empty kernel launched
+   through the same ctypes path: the launch floor).
 4. **Main path.**  ``FeatureService.build(fraud_view(), sharded=True,
    num_shards=8)`` on the GPU; a day of ~4.2M transactions ingested in
    65,536-row time slices; 8 request batches of 4,096 rows served through
    ``ShardRouter`` in preagg mode with ingest on.  Each batch's answers
-   must equal, bit for bit, the same state queried with ranks from the
-   route kernel's plain version; afterwards the store state must equal the
-   ingest kernel's plain version replayed over the same batches.  Both
-   kernels' launch counters must have gone up during this phase.
+   must equal, bit for bit, the same state queried with the route
+   kernel's plain composition (eager Feistel walk, rank plain version)
+   swapped in; afterwards the store state must equal the ingest kernel's
+   plain version replayed over the same batches.  The ingest kernel's
+   launch counter must have gone up, and the route kernel must have
+   launched exactly once (from keys) for each of the 8 route dispatches.
 5. **Window stats.**  On the main path's warm state (flat keys), the
    window-stats kernel for one 4,096-row request batch, windows 1 h and
    6 h: count, min and max bit-exact against its plain version, sums
@@ -45,21 +53,27 @@ Phases, in order; any failure exits non-zero:
    the bytes this batch's data needs (``_window_stats_bytes``).
 6. **Trace.**  One more request batch (no ingest) under
    ``torch.profiler``: device kernels launched, device busy time and the
-   device's idle share of the batch, the largest device items.
-7. **Signature-embedding kernel** against its plain version at the
-   scoring shapes: 4,096 rows, k = 2, a 2^18 x 512 float32 table (512 MB,
-   larger than L2) over 8 batches of real multi-hash ids; and a bf16
-   table, k = 1 and 3, D = 510 (not a multiple of 4 floats or 8 bf16) —
-   all bit for bit.  Timed with CUDA events beside its plain version and
-   ``F.embedding_bag`` (the library call), cycling over the 8 id batches
-   so repeated launches do not find their rows in L2.  Its bound counts
-   the distinct table rows each batch probes.
+   device's idle share of the batch, the largest device items, the route
+   kernel's launches and device time in it.
+7. **Signature-embedding kernel** (B5) against its plain version at the
+   scoring shapes, from signatures (the ids hashed in the kernel, one
+   launch a call) and from ids already hashed: 4,096 rows, k = 2, a 2^18
+   x 512 float32 table (512 MB, larger than L2) over 8 batches; a bf16
+   table; k = 1, 2, 3 and 32 on signatures anywhere in int32 (INT32_MIN
+   and -1 among them) at D = 512 and D = 510 (not a multiple of 4 floats
+   or 8 bf16), float32 and bf16 — all bit for bit against
+   ``multi_hash_ids`` + the plain version.  Timed with CUDA events
+   (eager, and inside a CUDA graph) beside the plain composition and
+   ``F.embedding_bag`` on the ids (the library call), cycling over the 8
+   batches so repeated launches do not find their rows in L2.  Its bound
+   counts the distinct table rows each batch probes.
 8. **Scoring path.**  ``ScoringService`` on the main path's warm sharded
    service (reused) with ``DecoderLM(featinsight_fraud.config())`` — 8
    layers, d_model 512, bf16, weights from a seeded generator on the
    card — and the 2^18 x 512 table: one warm-up batch, then 8 scored
    batches of 4,096 rows.  Scores must be finite and in [0, 1]; the
-   signature-embedding kernel must have launched once a batch; the
+   signature-embedding kernel must have launched once a batch, from the
+   signatures; the
    embeddings and scores must equal, bit for bit, the same batches served
    with the kernel's plain version swapped in (a score difference is
    checked against the kernel path's own run-to-run difference); flash
@@ -198,6 +212,10 @@ VERIFY_ROWS = 1 << 20
 VERIFY_RUNS = ((1 << 17, 3600), (1 << 11, DAY))
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# int32 operations a second on the H100 SXM's CUDA cores: 132 SMs x 64
+# INT32 lanes x 1.98 GHz boost (NVIDIA's Hopper white paper; the published
+# tables give no int32 rate): the route kernel's Feistel walk runs there
+INT32_OP_PER_S = 132 * 64 * 1.98e9
 # the scoring path's signature-embedding table and probes
 SIG_ROWS, SIG_DIM, SIG_PROBES = 1 << 18, 512, 2
 SIG_BATCHES = 8
@@ -497,48 +515,162 @@ def check_ingest_kernel(results) -> None:
     torch.cuda.empty_cache()
 
 
+def _kernel_device_ms(fn, reps: int, name: str) -> float:
+    """Mean device time of one launch of the kernels whose name holds
+    ``name``, over ``reps`` calls of ``fn`` under ``torch.profiler`` (the
+    kernel alone, whatever the host spends around it); NaN when the
+    profiler records no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and name in e.key]
+    n = sum(e.count for e in hits)
+    return (sum(e.self_device_time_total for e in hits) / 1e3 / n
+            if n else float("nan"))
+
+
+def _route_cost(keys, valid, perm, S):
+    """(bytes, int32 operations) the fused route of one batch must move and
+    do on this data: keys (4 B) and valid flags (1 B) read, local, shard
+    and rank (4 B each) written, two (S,) counts; per key its walk's
+    passes (counted here with the host permutation) x (rounds x 13 + 5)
+    operations (a round: mix32's 11, the mask and the xor; a pass: split,
+    join and the domain test), plus 2 for % S and // S."""
+    x = perm._once(keys.astype(np.int64))
+    passes = np.ones(len(keys), np.int64)
+    bad = x >= perm.upper
+    while bad.any():
+        x[bad] = perm._once(x[bad])
+        passes[bad] += 1
+        bad = x >= perm.upper
+    nbytes = len(keys) * (4 + 1 + 3 * 4) + 2 * S * 4
+    ops = int(passes.sum()) * (perm.rounds * 13 + 5) + 2 * len(keys)
+    return nbytes, ops, float(passes.mean()), int(passes.max())
+
+
 def check_route_kernel(results) -> None:
+    """B2 from keys (the Feistel walk and the rank in one launch) against
+    the host permutation + the rank's plain version, and from shard ids
+    against the rank's plain version; then timed beside the plain
+    composition and an empty kernel's launch (the launch floor)."""
+    from repro_torch import kernels
     from repro_torch.core.hashing import KeyPermutation
-    from repro_torch.kernels.route.ops import route_rank
-    from repro_torch.kernels.route.ref import route_rank_ref
+    from repro_torch.kernels.route.ops import launch_empty, route_keys, route_rank
+    from repro_torch.kernels.route.ref import route_keys_ref, route_rank_ref
 
     dev = torch.device("cuda")
+    S = NUM_SHARDS
     rng = np.random.default_rng(SEED + 2)
-    perm = KeyPermutation(NUM_CARDS)
-    batches = []
-    for _ in range(4):
-        keys = rng.integers(0, NUM_CARDS, REQ_ROWS)
-        batches.append(("feistel S=8", torch.as_tensor(
-            (perm(keys) % NUM_SHARDS).astype(np.int32), device=dev)))
-    batches.append(("all on one shard", torch.full(
-        (REQ_ROWS,), 3, dtype=torch.int32, device=dev)))
-    pad = torch.as_tensor(
-        (perm(rng.integers(0, NUM_CARDS, REQ_ROWS)) % NUM_SHARDS).astype(np.int32),
-        device=dev)
-    pad[-100:] = NUM_SHARDS
-    batches.append(("100 pad ids", pad))
+    perm = KeyPermutation(NUM_CARDS)   # the main path's domain: 8 x 2^16
+    ones = np.ones(REQ_ROWS, bool)
+    cases = [(f"main-path batch {b}", perm,
+              rng.integers(0, NUM_CARDS, REQ_ROWS).astype(np.int32), ones)
+             for b in range(4)]
+    cases.append(("a 200-key domain (long walks)", KeyPermutation(200),
+                  rng.integers(0, 200, REQ_ROWS).astype(np.int32), ones))
+    pool = np.arange(1 << 16, dtype=np.int32)
+    cases.append(("all rows on one shard", perm,
+                  pool[perm(pool) % S == 3][:REQ_ROWS], ones))
+    keys = rng.integers(0, NUM_CARDS, REQ_ROWS).astype(np.int32)
+    keys[:50] = -1
+    keys[50:100] = NUM_CARDS
+    invalid = rng.random(REQ_ROWS) < 0.8
+    cases.append(("invalid rows and keys outside the domain", perm, keys,
+                  invalid))
     worst = 0.0
-    for name, shard in batches:
-        rk, ck = route_rank(shard, num_shards=NUM_SHARDS)
-        rr, cr = route_rank_ref(shard, NUM_SHARDS)
+    for name, pm, keys, valid in cases:
+        k = torch.as_tensor(keys, device=dev)
+        v = torch.as_tensor(valid, device=dev)
+        kernels.reset_launches()
+        got = route_keys(k, v, pm, num_shards=S)
+        per_call = kernels.LAUNCHES["route_rank"]
+        inside = (keys >= 0) & (keys < pm.upper)
+        routed = np.where(inside, pm(np.where(inside, keys, 0)), -1)
+        shard = np.where(inside, routed % S, -1).astype(np.int32)
+        local = np.where(inside, routed // S, -1).astype(np.int32)
+        rank, counts = route_rank_ref(torch.as_tensor(shard, device=dev), S)
+        vcounts = np.bincount(shard[inside & valid], minlength=S)
+        want = [torch.as_tensor(local, device=dev),
+                torch.as_tensor(shard, device=dev), rank, counts,
+                torch.as_tensor(vcounts.astype(np.int32), device=dev)]
+        plain = route_keys_ref(k, v, pm, S)
+        torch.cuda.synchronize()
+        err = max(max(_max_abs_err(a, b) for a, b in zip(got, want)),
+                  max(_max_abs_err(a, b) for a, b in zip(plain, want)))
+        if err != 0.0:
+            _fail(f"route_keys differs from the host permutation + the rank's "
+                  f"plain version on '{name}'")
+        if per_call != 1:
+            _fail(f"route_keys on '{name}': {per_call} launches a call")
+        worst = max(worst, err)
+        print(f"route_keys == host permutation + route_rank_ref on '{name}' "
+              f"({len(keys)} rows, S={S}, domain {pm.upper}): five outputs "
+              "exact; 1 launch", flush=True)
+    shards = [("feistel S=8", torch.as_tensor(
+        (perm(rng.integers(0, NUM_CARDS, REQ_ROWS)) % S).astype(np.int32),
+        device=dev))]
+    shards.append(("all on one shard", torch.full(
+        (REQ_ROWS,), 3, dtype=torch.int32, device=dev)))
+    pad = shards[0][1].clone()
+    pad[-100:] = S
+    shards.append(("100 pad ids", pad))
+    for name, shard in shards:
+        rk, ck = route_rank(shard, num_shards=S)
+        rr, cr = route_rank_ref(shard, S)
         torch.cuda.synchronize()
         err = max(_max_abs_err(rk, rr), _max_abs_err(ck, cr))
         if err != 0.0:
             _fail(f"route_rank differs from its plain version on '{name}'")
-        worst = max(worst, err)
-        print(f"route_rank == plain on '{name}' ({REQ_ROWS} rows, "
-              f"S={NUM_SHARDS}): exact", flush=True)
-    shard = batches[0][1]
-    ms = _time_ms(lambda: route_rank(shard, num_shards=NUM_SHARDS), 200, 5)
-    plain_ms = _time_ms(lambda: route_rank_ref(shard, NUM_SHARDS), 200, 5)
-    nbytes = REQ_ROWS * 4 * 2 + NUM_SHARDS * 4
+        print(f"route_rank == plain on '{name}' ({REQ_ROWS} rows, S={S}): "
+              "exact", flush=True)
+
+    keys = cases[0][2]
+    k = torch.as_tensor(keys, device=dev)
+    v = torch.ones(REQ_ROWS, dtype=torch.bool, device=dev)
+    shard = shards[0][1]
+    ms = _time_ms(lambda: route_keys(k, v, perm, num_shards=S), 200, 5)
+    kernel_ms = _kernel_device_ms(
+        lambda: route_keys(k, v, perm, num_shards=S), 50, "route_kernel")
+    rank_ms = _time_ms(lambda: route_rank(shard, num_shards=S), 200, 5)
+    rank_kernel_ms = _kernel_device_ms(
+        lambda: route_rank(shard, num_shards=S), 50, "route_kernel")
+    plain_ms = _time_ms(lambda: route_keys_ref(k, v, perm, S), 20, 2)
+    floor_ms = _time_ms(lambda: launch_empty(dev), 200, 5)
+    floor_graph_ms = _graph_time_ms(lambda: launch_empty(dev), 50)
+    floor_kernel_ms = _kernel_device_ms(lambda: launch_empty(dev), 50,
+                                        "empty_kernel")
+    nbytes, ops, mean_passes, max_passes = _route_cost(keys, ones, perm, S)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops / INT32_OP_PER_S
     results["route_rank"] = dict(
-        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
-        shape=f"{REQ_ROWS} rows, S={NUM_SHARDS}",
+        max_abs_err=worst, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+        rank_ms=rank_ms, rank_kernel_ms=rank_kernel_ms,
+        floor_ms=floor_ms, floor_graph_ms=floor_graph_ms,
+        floor_kernel_ms=floor_kernel_ms,
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        bytes=nbytes, int32_ops=ops, walk_passes_mean=mean_passes,
+        walk_passes_max=max_passes, launches_per_call=1,
+        shape=f"{REQ_ROWS} keys over {NUM_CARDS} cards, S={S} (Feistel walk "
+              f"+ rank, one launch)",
     )
-    print(f"route_rank {REQ_ROWS} rows: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {results['route_rank']['bound_ms']:.6f} ms", flush=True)
+    r = results["route_rank"]
+    print(f"route_keys {REQ_ROWS} keys: wrapper {ms:.4f} ms eager, kernel "
+          f"{kernel_ms:.4f} ms device time; route_rank from shard ids "
+          f"{rank_ms:.4f} ms eager ({rank_kernel_ms:.4f} ms device); plain "
+          f"composition {plain_ms:.4f} ms; launch floor (empty kernel, same "
+          f"ctypes path) {floor_ms:.4f} ms eager, {floor_graph_ms:.4f} ms in a "
+          f"CUDA graph, {floor_kernel_ms:.4f} ms device; bound "
+          f"{r['bound_ms']:.6f} ms by {r['bound_by']} ({nbytes} bytes, {ops} "
+          f"int32 operations; walk passes mean {mean_passes:.3f}, max "
+          f"{max_passes})", flush=True)
 
 
 def _fold_inputs(rng, n, op, segments, special=False, hot=0):
@@ -662,7 +794,7 @@ def main_path(results):
     from repro_torch.core import shard as shard_mod
     from repro_torch.data.synthetic import fraud_transactions
     from repro_torch.kernels.ingest.ref import fused_ingest_ref
-    from repro_torch.kernels.route.ref import route_rank_ref
+    from repro_torch.kernels.route.ref import route_keys_ref
     from repro_torch.obs import Telemetry, get_telemetry, use_telemetry
     from repro_torch.scenarios import fraud_view
     from repro_torch.serve.router import ShardRouter
@@ -688,21 +820,22 @@ def main_path(results):
     store._apply_ingest = recording_apply
 
     # the expected answers: the same state queried with the route kernel's
-    # plain version in place of the kernel
-    def route_rank_plain(shard, *, num_shards):
-        return route_rank_ref(shard, num_shards)
+    # plain composition (the eager Feistel walk, % S, // S, the rank's plain
+    # version, the masked count) in place of the kernel
+    def route_keys_plain(key, valid, perm, *, num_shards):
+        return route_keys_ref(key, valid, perm, num_shards)
 
     def expected_answers(rows):
         # its own telemetry, so the served path's spans stay its own
-        shard_mod.route_rank = route_rank_plain
+        shard_mod.route_keys = route_keys_plain
         try:
             with use_telemetry(Telemetry()):
                 out = store.query(dict(rows), mode="preagg")
             return {f: v.cpu().numpy() for f, v in out.items()}
         finally:
-            shard_mod.route_rank = kernels_route_rank
+            shard_mod.route_keys = kernels_route_keys
 
-    kernels_route_rank = shard_mod.route_rank
+    kernels_route_keys = shard_mod.route_keys
     rng = np.random.default_rng(SEED)
     slices = [
         fraud_transactions(rng, SLICE_ROWS, NUM_CARDS,
@@ -745,9 +878,16 @@ def main_path(results):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     print(f"served {REQ_BATCHES} batches x {REQ_ROWS} rows: answers == "
-          "route plain version's, bit for bit", flush=True)
-    if launches["fused_ingest"] <= ingest_launches or launches["route_rank"] < REQ_BATCHES:
+          "the route plain composition's, bit for bit; launches "
+          f"{launches}", flush=True)
+    if launches["fused_ingest"] <= ingest_launches:
         _fail(f"kernel launch counts on the main path: {launches}")
+    # one route dispatch a batch, one B2 launch (from keys) a dispatch
+    if (launches["route_rank"] != REQ_BATCHES
+            or kernels.VARIANT_LAUNCHES["route_rank"]["keys"] != REQ_BATCHES):
+        _fail(f"the main path's {REQ_BATCHES} route dispatches launched B2 "
+              f"{launches['route_rank']} times "
+              f"({kernels.VARIANT_LAUNCHES['route_rank']}), expected one each")
     # window_stats sits beside the preagg query (not on this path): 0
     for k in ("fused_ingest", "route_rank", "window_stats"):
         results.setdefault(k, {})["launches"] = launches[k]
@@ -782,7 +922,7 @@ def main_path(results):
     del ref, ref_flat, applied
     torch.cuda.empty_cache()
     check_window_stats(results, store, _request_rows(rng, DAY + 60 * REQ_BATCHES))
-    trace_request(svc, _request_rows(rng, DAY + 60 * REQ_BATCHES))
+    trace_request(svc, _request_rows(rng, DAY + 60 * REQ_BATCHES), results)
     return svc
 
 
@@ -884,8 +1024,9 @@ def check_window_stats(results, store, rows) -> None:
           f" ms ({nbytes} bytes)", flush=True)
 
 
-def trace_request(svc, rows) -> None:
-    """Profile one request batch: device kernels, busy time, idle share."""
+def trace_request(svc, rows, results) -> None:
+    """Profile one request batch: device kernels, busy time, idle share,
+    and B2's launches and device time in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,34 +1050,53 @@ def trace_request(svc, rows) -> None:
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
               f"x{e.count} {e.key[:90]}", flush=True)
+    b2 = [e for e in dev if "route_kernel" in e.key]
+    b2_n = sum(e.count for e in b2)
+    b2_ms = sum(e.self_device_time_total for e in b2) / 1e3
+    print(f"  B2 (route kernel) in the trace: x{b2_n}, {b2_ms:.4f} ms device "
+          "time", flush=True)
+    results["route_rank"].update(
+        trace_request_kernels=n_kernels, trace_request_busy_ms=busy_ms,
+        trace_request_idle_share=1 - busy_ms / wall_ms,
+        trace_request_b2_launches=b2_n)
 
 
-def _sig_ids(rng, n, k, V):
-    """(N, k) multi-hash ids of ``n`` random 20-bit signatures, as the
-    scoring path computes them."""
+def _sig_ids(rng, n, k, V, signed=False):
+    """(sig (N,), ids (N, k)) on the card: ``n`` random 20-bit signatures
+    (``signed``: any int32, INT32_MIN and -1 first) and their multi-hash
+    ids, as the scoring path computes them."""
     from repro_torch.core.signature import multi_hash_ids
 
-    sig = torch.as_tensor(rng.integers(0, 2**20, n).astype(np.int32),
-                          device="cuda")
-    return multi_hash_ids(sig, k, V)
+    if signed:
+        raw = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64)
+        raw[:2] = [-2**31, -1]
+    else:
+        raw = rng.integers(0, 2**20, n)
+    sig = torch.as_tensor(raw.astype(np.int32), device="cuda")
+    return sig, multi_hash_ids(sig, k, V)
 
 
 def _sig_bytes(ids, D, esize) -> int:
-    """Bytes one signature-embedding call must move on these ids: each
-    distinct probed table row once, the ids, the weights and the output."""
+    """Bytes one signature-embedding call from signatures must move on
+    these ids: each distinct probed table row once, the signatures, the
+    weights and the output."""
     n, k = ids.shape
     rows = int(torch.unique(ids).numel())
-    return rows * D * esize + n * k * 4 + k * 4 + n * D * esize
+    return rows * D * esize + n * 4 + k * 4 + n * D * esize
 
 
 def check_signature_kernel(results):
     """The signature-embedding kernel against its plain version, bit for
-    bit, then timed at the scoring shapes.  Returns the float32 table the
-    scoring phase uses."""
+    bit -- from signatures (the ids hashed in the kernel, as the scoring
+    path calls it) and from ids already hashed -- then timed at the
+    scoring shapes.  Returns the float32 table the scoring phase uses."""
     import torch.nn.functional as F
 
+    from repro_torch import kernels
+    from repro_torch.core.signature import multi_hash_ids
     from repro_torch.kernels.signature.ops import (
         launch_signature_embed,
+        launch_signature_embed_sig,
         signature_embed,
     )
     from repro_torch.kernels.signature.ref import signature_embed_ref
@@ -947,10 +1107,19 @@ def check_signature_kernel(results):
     table = torch.randn((SIG_ROWS, SIG_DIM), generator=g, device=dev) * 0.02
     w = torch.full((SIG_PROBES,), 1.0 / SIG_PROBES, device=dev)
 
-    def check(name, tab, ids, wts):
-        out = torch.empty((ids.shape[0], tab.shape[1]), dtype=tab.dtype,
-                          device=dev)
-        launch_signature_embed(tab, ids, wts, out)
+    def check(name, tab, ids, wts, sig=None):
+        k = ids.shape[1]
+        if sig is None:
+            out = torch.empty((ids.shape[0], tab.shape[1]), dtype=tab.dtype,
+                              device=dev)
+            launch_signature_embed(tab, ids, wts, out)
+        else:
+            kernels.reset_launches()
+            out = signature_embed(tab, sig, wts, num_hashes=k)
+            if kernels.VARIANT_LAUNCHES["signature_embed"]["sig"] != 1 or \
+                    kernels.LAUNCHES["signature_embed"] != 1:
+                _fail(f"signature_embed from signatures on '{name}': "
+                      f"{kernels.LAUNCHES['signature_embed']} launches a call")
         want = signature_embed_ref(tab, ids, wts).to(tab.dtype)
         torch.cuda.synchronize()
         bits = torch.int32 if tab.dtype == torch.float32 else torch.int16
@@ -958,35 +1127,39 @@ def check_signature_kernel(results):
             err = float((out.float() - want.float()).abs().max())
             _fail(f"signature_embed differs from its plain version on "
                   f"'{name}' (max |diff| {err})")
-        print(f"signature_embed == plain on '{name}' ({ids.shape[0]} rows, "
-              f"k={ids.shape[1]}, table {tuple(tab.shape)} {tab.dtype}): "
+        src = "ids" if sig is None else "signatures, 1 launch"
+        print(f"signature_embed ({src}) == plain on '{name}' ({ids.shape[0]} "
+              f"rows, k={k}, table {tuple(tab.shape)} {tab.dtype}): "
               "bit-exact", flush=True)
 
-    batches = [_sig_ids(rng, REQ_ROWS, SIG_PROBES, SIG_ROWS)
-               for _ in range(SIG_BATCHES)]
-    for b, ids in enumerate(batches):
+    pairs = [_sig_ids(rng, REQ_ROWS, SIG_PROBES, SIG_ROWS)
+             for _ in range(SIG_BATCHES)]
+    sigs = [p[0] for p in pairs]
+    batches = [p[1] for p in pairs]
+    for b, (sig, ids) in enumerate(pairs):
         check(f"scoring batch {b}", table, ids, w)
+        check(f"scoring batch {b}", table, ids, w, sig)
     bf16 = table.to(torch.bfloat16)
     check("bf16 table", bf16, batches[0], w)
-    for k in (1, 3):
-        wk = torch.randn((k,), generator=g, device=dev)
-        ids = _sig_ids(rng, REQ_ROWS, k, SIG_ROWS)
-        check(f"k={k}", table, ids, wk)
-        check(f"k={k} bf16", bf16, ids, wk)
     odd = table[: 1 << 16, :510].contiguous()
-    ids = _sig_ids(rng, REQ_ROWS, SIG_PROBES, odd.shape[0])
-    check("D=510 f32", odd, ids, w)
-    check("D=510 bf16", odd.to(torch.bfloat16), ids, w)
-    del bf16, odd
+    tables = {512: (table, bf16), 510: (odd, odd.to(torch.bfloat16))}
+    for k in (1, 2, 3, 32):
+        wk = torch.randn((k,), generator=g, device=dev)
+        for D, (f32, b16) in tables.items():
+            sig, ids = _sig_ids(rng, REQ_ROWS, k, f32.shape[0], signed=True)
+            for tab in (f32, b16):
+                name = f"k={k} D={D} {str(tab.dtype)[6:]} signed signatures"
+                if k in (1, 3):
+                    check(name, tab, ids, wk)
+                check(name, tab, ids, wk, sig)
+    del bf16, odd, tables
 
-    # timing: each repetition takes the next of the 8 id batches (8 x 8,192
+    # timing: each repetition takes the next of the 8 batches (8 x 8,192
     # probed rows of 2 KB = 128 MB, so a launch does not find its rows in
     # the 50 MB L2)
     out = torch.empty((REQ_ROWS, SIG_DIM), device=dev)
     wide = w.expand(REQ_ROWS, SIG_PROBES).contiguous()
     ids_long = [ids.long() for ids in batches]
-    sigs = [torch.as_tensor(rng.integers(0, 2**20, REQ_ROWS).astype(np.int32),
-                            device=dev) for _ in range(SIG_BATCHES)]
     step = itertools.count()
 
     def nxt():
@@ -997,11 +1170,23 @@ def check_signature_kernel(results):
         return F.embedding_bag(ids_long[i], table, per_sample_weights=wide,
                                mode="sum")
 
+    def from_sig():
+        launch_signature_embed_sig(table, sigs[nxt()], w, out)
+
+    def from_ids():
+        launch_signature_embed(table, batches[nxt()], w, out)
+
+    def plain():
+        i = nxt()
+        return signature_embed_ref(
+            table, multi_hash_ids(sigs[i], SIG_PROBES, SIG_ROWS), w)
+
     reps = 10 * SIG_BATCHES
-    ms = _time_ms(lambda: launch_signature_embed(
-        table, batches[nxt()], w, out), reps, SIG_BATCHES)
-    plain_ms = _time_ms(lambda: signature_embed_ref(
-        table, batches[nxt()], w), reps, SIG_BATCHES)
+    ms = _time_ms(from_sig, reps, SIG_BATCHES)
+    graph_ms = _graph_time_ms(from_sig, reps)
+    ids_ms = _time_ms(from_ids, reps, SIG_BATCHES)
+    ids_graph_ms = _graph_time_ms(from_ids, reps)
+    plain_ms = _time_ms(plain, reps, SIG_BATCHES)
     library_ms = _time_ms(library_call, reps, SIG_BATCHES)
     wrapper_ms = _time_ms(lambda: signature_embed(
         table, sigs[nxt()], w, num_hashes=SIG_PROBES), reps, SIG_BATCHES)
@@ -1011,18 +1196,21 @@ def check_signature_kernel(results):
     lib_err = float((lib - want).abs().max())
     nbytes = sum(_sig_bytes(ids, SIG_DIM, 4) for ids in batches) / SIG_BATCHES
     results["signature_embed"] = dict(
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        max_abs_err=0.0, ms=ms, graph_ms=graph_ms, ids_ms=ids_ms,
+        ids_graph_ms=ids_graph_ms, plain_ms=plain_ms, library_ms=library_ms,
         wrapper_ms=wrapper_ms, bound_ms=1e3 * nbytes / HBM_BYTES_PER_S,
-        bytes=nbytes, library_max_abs_diff=lib_err,
+        bytes=nbytes, library_max_abs_diff=lib_err, launches_per_call=1,
         shape=f"{REQ_ROWS} rows, k={SIG_PROBES}, table {SIG_ROWS} x "
-              f"{SIG_DIM} f32 (mean over {SIG_BATCHES} id batches)",
+              f"{SIG_DIM} f32, from signatures (mean over {SIG_BATCHES} "
+              "batches)",
     )
-    print(f"signature_embed {REQ_ROWS} rows k={SIG_PROBES}: kernel {ms:.4f} "
-          f"ms (wrapper with the id hashing {wrapper_ms:.4f} ms), plain "
-          f"{plain_ms:.4f} ms, F.embedding_bag {library_ms:.4f} ms (max "
-          f"|diff| {lib_err:.3e}), bound "
-          f"{results['signature_embed']['bound_ms']:.5f} ms ({nbytes:.0f} "
-          "bytes)", flush=True)
+    print(f"signature_embed {REQ_ROWS} rows k={SIG_PROBES} from signatures: "
+          f"kernel {ms:.4f} ms eager, {graph_ms:.4f} ms in a CUDA graph "
+          f"(from ids {ids_ms:.4f} / {ids_graph_ms:.4f}); wrapper "
+          f"{wrapper_ms:.4f} ms; plain (multi_hash_ids + ref) {plain_ms:.4f}"
+          f" ms; F.embedding_bag on the ids {library_ms:.4f} ms (max |diff| "
+          f"{lib_err:.3e}); bound {results['signature_embed']['bound_ms']:.5f}"
+          f" ms ({nbytes:.0f} bytes)", flush=True)
     return table
 
 
@@ -1099,9 +1287,12 @@ def scoring_path(results, svc, table) -> None:
         scores, emb_k, spans, walls = serve_all()
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        if launches["signature_embed"] < REQ_BATCHES:
+        # one launch a batch, from the signatures (no eager id hashing)
+        if (launches["signature_embed"] != REQ_BATCHES or kernels.
+                VARIANT_LAUNCHES["signature_embed"]["sig"] != REQ_BATCHES):
             _fail(f"the scoring path did not launch the signature-embedding "
-                  f"kernel once a batch: {launches}")
+                  f"kernel once a batch from the signatures: {launches}, "
+                  f"{kernels.VARIANT_LAUNCHES['signature_embed']}")
         results["signature_embed"]["launches"] = launches["signature_embed"]
         if launches["flash_attention"] != cfg.n_layers * REQ_BATCHES:
             _fail(f"the scoring path launched flash attention "
@@ -2314,7 +2505,7 @@ def main() -> None:
         dict(name="route_rank", route="cuda",
              source="src/repro_torch/kernels/csrc/route_rank.cu",
              replaces="src/repro/kernels/route/route.py:57",
-             bound_by="bytes", library_ms=None, **results["route_rank"]),
+             library_ms=None, **results["route_rank"]),
         dict(name="fold_levels", route="cuda",
              source="src/repro_torch/kernels/csrc/fold_levels.cu",
              replaces="src/repro/kernels/window_agg/window_agg.py:288",

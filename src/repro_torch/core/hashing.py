@@ -16,7 +16,11 @@ the host every pass, so ``device_call`` runs a fixed number of walk passes
 (enough that a batch is rarely left with an out-of-domain id) and returns
 a device-side "still walking" flag.  The caller reads that flag in the
 same host read as its other per-batch flags and calls
-:meth:`KeyPermutation.finish_walk` only when it is set.
+:meth:`KeyPermutation.finish_walk` only when it is set.  On the card the
+request path does not use it: the route kernel
+(:func:`repro_torch.kernels.route.ops.route_keys`) walks each key to the
+end in one launch; ``device_call`` is the CPU path and the kernel's plain
+version.
 """
 
 from __future__ import annotations

@@ -18,14 +18,17 @@ that key's rows and their order, so
   keys — still (key, ts)-sorted — and applies them with ONE fused-ingest
   kernel launch for all shards;
 * **the device-routed request path** keeps the reference's dataflow:
-  Feistel shard id on the device, then the route-rank kernel (rank within
-  shard), then the scatter into the ``(S, B)`` per-shard grid, then the
-  per-shard query — the single-store query over the ``S·B`` grid rows with
-  flat keys — then the gather back to request order.  The optimistic
-  per-shard capacity ``B ≈ 2·ceil(N/S)`` is checked by an on-device
-  overflow flag; pathological skew re-dispatches once at the always-safe
-  ``B = N``.  The overflow flag and the Feistel walk's "still walking"
-  flag come back in one host read per batch.
+  Feistel shard id and rank within the shard on the device (on the card
+  one launch of the route kernel, which walks every key home; on the CPU
+  a fixed number of walk passes and the rank's plain version), then the
+  scatter into the ``(S, B)`` per-shard grid, then the per-shard query —
+  the single-store query over the ``S·B`` grid rows with flat keys — then
+  the gather back to request order.  The optimistic per-shard capacity
+  ``B ≈ 2·ceil(N/S)`` is checked by an on-device overflow flag;
+  pathological skew re-dispatches once at the always-safe ``B = N``.  The
+  overflow flag (and on the CPU the walk's "still walking" flag, which
+  re-dispatches once the walk is finished) comes back in one host read
+  per batch.
 
 Answers do not depend on the shard count: per-key state depends only on
 that key's rows and their order.  The host-routed oracle path, the
@@ -45,7 +48,7 @@ from repro_torch.core.layout import StoreLayout, plan_layout
 from repro_torch.core.online import OnlineFeatureStore, OnlineState
 from repro_torch.core import preagg as pg
 from repro_torch.core import storage as st
-from repro_torch.kernels.route.ops import route_rank
+from repro_torch.kernels.route.ops import route_keys, route_rank
 from repro_torch.obs import get_telemetry
 
 __all__ = ["ShardedOnlineStore"]
@@ -177,22 +180,31 @@ class ShardedOnlineStore(OnlineFeatureStore):
         cap = 1 << max(m - 1, 0).bit_length()
         return int(min(max(16, b), max(cap, 1)))
 
-    def _route_query(self, routed, ts_q, lanes, valid, *, bucket: int,
-                     use_preagg: bool):
-        """Route, scatter, answer, gather — all on the device.
-
-        Returns (answers in request order, per-shard valid-row counts,
-        overflow flag).  Unscattered grid slots hold zeros — local key 0
-        of each shard, a read-only recompute that no row gathers.
-        """
-        S, B = self.num_shards, bucket
-        dev = routed.device
+    def _route_routed(self, routed, valid):
+        """The CPU's routing of walked ids: (local, shard, rank, counts,
+        valid counts).  An unfinished walk leaves ids past the domain;
+        ``local`` is clamped so the state is never addressed out of bounds
+        (that dispatch's answers are recomputed once the walk finishes)."""
+        S = self.num_shards
         shard = routed % S
-        # an unfinished Feistel walk leaves ids past the domain; clamp them
-        # so the state is never addressed out of bounds (that dispatch's
-        # answers are recomputed once the walk finishes)
         local = torch.clamp(routed // S, max=self.num_keys - 1)
         rank, counts = route_rank(shard, num_shards=S)
+        scounts = torch.zeros(S, dtype=torch.int32, device=routed.device)
+        scounts.index_add_(0, shard.long(), valid.to(torch.int32))
+        return local, shard, rank, counts, scounts
+
+    def _route_query(self, route, ts_q, lanes, *, bucket: int,
+                     use_preagg: bool):
+        """Scatter, answer, gather — all on the device, from a routed batch
+        (``route_keys`` on the card, ``_route_routed`` on the CPU).
+
+        Returns (answers in request order, overflow flag).  Unscattered
+        grid slots hold zeros — local key 0 of each shard, a read-only
+        recompute that no row gathers.
+        """
+        S, B = self.num_shards, bucket
+        local, shard, rank, counts = route[:4]
+        dev = shard.device
         overflow = (counts > B).any()
         slot = torch.clamp(rank, max=B - 1)
         # grid row of each request row; rows past the capacity go to a
@@ -211,11 +223,7 @@ class ShardedOnlineStore(OnlineFeatureStore):
             use_preagg=use_preagg, groups=S,
         )
         back = (shard * B + slot).long()
-        out = tuple(v[back] for v in vals)
-        scounts = torch.zeros(S, dtype=torch.int32, device=dev).index_add_(
-            0, shard.long(), valid.to(torch.int32)
-        )
-        return out, scounts, overflow
+        return tuple(v[back] for v in vals), overflow
 
     def _note_route(self, tel, n_rows: int, q: int, bucket: int) -> None:
         """Routing telemetry: rows routed plus the shard-layer padding."""
@@ -259,26 +267,36 @@ class ShardedOnlineStore(OnlineFeatureStore):
             "route.device", kind="device", mode=mode, program="",
             rows=q, padded=m, bucket=B, shards=self.num_shards,
         ) as sp:
-            routed, walking = self._perm.device_call(key)
-            vals, scounts, ovf = self._route_query(
-                routed, ts_q, lanes, valid, bucket=B, use_preagg=use_preagg
+            if key.is_cuda:
+                # one launch: every key walked home, shard, local, ranks,
+                # counts (no walk flag)
+                route = route_keys(key, valid, self._perm,
+                                   num_shards=self.num_shards)
+                walking = None
+            else:
+                # the fixed device walk passes and a "still walking" flag
+                routed, walking = self._perm.device_call(key)
+                route = self._route_routed(routed, valid)
+            vals, ovf = self._route_query(
+                route, ts_q, lanes, bucket=B, use_preagg=use_preagg
             )
-            # the one host read of the batch: overflow + walk flags
-            ovf_h, walking_h = torch.stack([ovf, walking]).tolist()
-            if walking_h:
-                routed = self._perm.finish_walk(routed)
-                vals, scounts, ovf = self._route_query(
-                    routed, ts_q, lanes, valid, bucket=B,
-                    use_preagg=use_preagg,
+            # the one host read of the batch: the overflow flag (and on the
+            # CPU the walk's)
+            flags = [ovf] if walking is None else [ovf, walking]
+            ovf_h, *walking_h = torch.stack(flags).tolist()
+            if any(walking_h):
+                route = self._route_routed(
+                    self._perm.finish_walk(routed), valid)
+                vals, ovf = self._route_query(
+                    route, ts_q, lanes, bucket=B, use_preagg=use_preagg,
                 )
                 ovf_h = bool(ovf)
             if ovf_h:
                 B = 1 << max(m - 1, 0).bit_length()
-                vals, scounts, _ = self._route_query(
-                    routed, ts_q, lanes, valid, bucket=B,
-                    use_preagg=use_preagg,
+                vals, _ = self._route_query(
+                    route, ts_q, lanes, bucket=B, use_preagg=use_preagg,
                 )
-            vals, scounts = sp.fence(vals, scounts)
+            vals, scounts = sp.fence(vals, route[4])
         scounts_h = scounts.cpu().numpy().astype(np.int64)
         self._note_route(tel, int(scounts_h.sum()), q, B)
         self._note_query(tel, mode)

@@ -46,6 +46,10 @@ LAUNCHES: Dict[str, int] = {
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide": 0},
+    # B2 from keys (the Feistel walk and the rank) or from shard ids
+    "route_rank": {"keys": 0, "shards": 0},
+    # B5 from signatures (the ids hashed in the kernel) or from ids
+    "signature_embed": {"sig": 0, "ids": 0},
 }
 
 

@@ -1,30 +1,39 @@
-// Signature embedding: out[i] = sum_j w_j * f32(table[ids[i, j]]), the k
+// Signature embedding: out[i] = sum_j w_j * f32(table[h_j(sig[i])]), the k
 // probes of a multi-hash embedding combined in probe order.
 //
 // Replaces the Pallas TPU kernel signature_embed_pallas
-// (src/repro/kernels/signature/signature.py, body _sig_embed_kernel).  On
-// the TPU the row ids are scalar-prefetched into SMEM and each (row, probe)
-// grid step DMAs one (1, D) table row into VMEM, the k probes of a row
-// accumulating into a VMEM-resident output row.  On Hopper one warp owns
-// one output row: lanes 0..k-1 load the row's ids and the weights once
-// into shared memory, where the whole warp reads them; the lanes then
-// cover D with 16-byte loads (4 floats or 8 bf16 values; scalar loads when
-// D or an address does not allow that) and keep the sums in registers.  Within each element the
-// probes are added in order, starting from 0.0f, with __fmul_rn and
+// (src/repro/kernels/signature/signature.py, body _sig_embed_kernel),
+// together with the id hashing its wrapper runs in front of it
+// (multi_hash_ids, src/repro/kernels/signature/ops.py).  On the TPU the row
+// ids are scalar-prefetched into SMEM and each (row, probe) grid step DMAs
+// one (1, D) table row into VMEM, the k probes of a row accumulating into
+// a VMEM-resident output row.
+//
+// On Hopper one warp owns one output row.  Lanes 0..k-1 compute the row's
+// k ids from its signature in registers -- h_j = mix64(sig, salt = 0x85EB
+// (j + 1) + 17, bits = 31) % V, as repro_torch/core/signature.py's
+// multi_hash_ids: the multiplies on uint32 (wrap-around), the shifts
+// arithmetic on int32, and abs on uint32 (INT32_MIN & 0x7FFFFFFF = 0, as
+// torch's abs wraps) -- and put them and the weights in shared memory,
+// where the whole warp reads them.  A second instantiation takes the ids
+// already hashed, (N, k) int32; an id outside [0, V) there makes its row
+// NaN instead of reading outside the table.
+//
+// The lanes cover D with 16-byte loads (4 floats or 8 bf16 values; scalar
+// loads when D or an address does not allow that).  A lane issues all of a
+// step's loads -- GROUP_CHUNKS 16-byte chunks x GROUP_PROBES probes, 8 in
+// flight, which at D = 512 float32 and k = 2 is the whole row -- before the
+// adds, so the random table rows' latencies overlap.  Within each element
+// the probes are added in order, starting from 0.0f, with __fmul_rn and
 // __fadd_rn (never a fused multiply-add), so the result equals the plain
 // version (kernels/signature/ref.py) bit for bit.  A bf16 table is widened
-// to float, and the float sum is rounded once with __float2bfloat16_rn,
-// as the reference's astype does.  No atomics, no host synchronization.
+// to float, and the float sum is rounded once with __float2bfloat16_rn, as
+// the reference's astype does.  No atomics, no host synchronization.
 //
-// An id outside [0, V) makes its row NaN instead of reading outside the
-// table (the dispatcher's ids come from multi_hash_ids and are always in
-// range).
-//
-// Bound on the H100: bytes moved — each distinct table row the batch
-// probes (D x the element size), the ids, the weights and the output,
-// over 3.35 TB/s.  A probe is a random row, so the table reads miss L2 on
-// a large table; a warp keeps k independent 16-byte loads in flight per
-// lane and chunk.
+// Bound on the H100: bytes moved -- each distinct table row the batch
+// probes (D x the element size), the signatures, the weights and the
+// output, over 3.35 TB/s.  A probe is a random row, so the table reads
+// miss L2 on a large table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -34,6 +43,29 @@ namespace {
 
 constexpr int WARPS_PER_BLOCK = 8;
 constexpr int MAX_PROBES = 32;
+constexpr int GROUP_CHUNKS = 4;  // 16-byte chunks a lane loads per step
+constexpr int GROUP_PROBES = 2;  // probes a lane loads per step
+
+// mix32 of repro_torch/core/hashing.py: the murmur3 finalizer on int32
+__device__ __forceinline__ int32_t mix32(int32_t x, uint32_t salt) {
+  int32_t h = x ^ (int32_t)(salt & 0x7FFFFFFFu);
+  h ^= h >> 16;
+  h = (int32_t)((uint32_t)h * 0x85EBCA6Bu);
+  h ^= (h >> 13) & 0x0007FFFF;
+  h = (int32_t)((uint32_t)h * 0xC2B2AE35u);
+  h ^= (h >> 16) & 0x0000FFFF;
+  return h;
+}
+
+// probe j's id of signature s in a table of V rows: multi_hash_ids
+__device__ __forceinline__ int32_t probe_id(int32_t s, int j, uint32_t V) {
+  const uint32_t salt = 0x85EBu * (uint32_t)(j + 1) + 17u;
+  const int32_t h1 = mix32(s, salt);
+  const int32_t h2 = mix32(h1 ^ 0x5BD1E995, salt ^ 0x27D4EB2Fu);
+  const int32_t h = h1 ^ (int32_t)((uint32_t)h2 * 5u + 0x38495AB5u);
+  const uint32_t a = (h < 0 ? 0u - (uint32_t)h : (uint32_t)h) & 0x7FFFFFFFu;
+  return (int32_t)(a % V);
+}
 
 template <typename T>
 struct Vec16;  // 16 bytes of T
@@ -41,9 +73,11 @@ struct Vec16;  // 16 bytes of T
 template <>
 struct Vec16<float> {
   static constexpr int N = 4;
-  __device__ static void load(const float* p, float* x) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  __device__ static void widen(const uint4& v, float* x) {
+    x[0] = __uint_as_float(v.x);
+    x[1] = __uint_as_float(v.y);
+    x[2] = __uint_as_float(v.z);
+    x[3] = __uint_as_float(v.w);
   }
   __device__ static void store(float* p, const float* x) {
     *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
@@ -53,8 +87,7 @@ struct Vec16<float> {
 template <>
 struct Vec16<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* x) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
+  __device__ static void widen(const uint4& v, float* x) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -82,11 +115,12 @@ __device__ __forceinline__ void narrow(__nv_bfloat16* p, float x) {
 }
 
 // VEC: 16-byte chunks (D a multiple of Vec16<T>::N, pointers aligned) or
-// one element per lane step
-template <typename T, bool VEC>
+// one element per lane step.  HASH: ids from the signatures, else from ids.
+template <typename T, bool VEC, bool HASH>
 __global__ void __launch_bounds__(WARPS_PER_BLOCK * 32)
 signature_embed_kernel(const T* __restrict__ table,
                        const int32_t* __restrict__ ids,
+                       const int32_t* __restrict__ sig,
                        const float* __restrict__ weights,
                        T* __restrict__ out, int n, int k, int D, int V) {
   __shared__ int32_t s_id[WARPS_PER_BLOCK][MAX_PROBES];
@@ -96,18 +130,20 @@ signature_embed_kernel(const T* __restrict__ table,
   const int row = blockIdx.x * WARPS_PER_BLOCK + warp;
   if (row >= n) return;  // the whole warp: one warp, one row
 
-  // the row's ids and the weights, read once by lanes 0..k-1
+  // the row's ids and the weights, by lanes 0..k-1
   bool bad = false;
-  if (lane < k) {
+  if (HASH) {
+    const int32_t s = sig[row];
+    if (lane < k) s_id[warp][lane] = probe_id(s, lane, (uint32_t)V);
+  } else if (lane < k) {
     const int32_t id = ids[(size_t)row * k + lane];
     s_id[warp][lane] = id;
-    s_w[warp][lane] = weights[lane];
     bad = id < 0 || id >= V;
   }
+  if (lane < k) s_w[warp][lane] = weights[lane];
   __syncwarp();  // the shared writes are seen by the whole warp
-  bad = __any_sync(0xFFFFFFFFu, bad);
   T* o = out + (size_t)row * D;
-  if (bad) {
+  if (!HASH && __any_sync(0xFFFFFFFFu, bad)) {
     for (int d = lane; d < D; d += 32) narrow(o + d, __int_as_float(0x7FC00000));
     return;
   }
@@ -116,18 +152,49 @@ signature_embed_kernel(const T* __restrict__ table,
 
   if (VEC) {
     constexpr int W = Vec16<T>::N;
-    for (int c = lane * W; c < D; c += 32 * W) {
-      float acc[W];
+    const int chunks = D / W;
+    for (int cb = 0; cb < chunks; cb += 32 * GROUP_CHUNKS) {
+      float acc[GROUP_CHUNKS][W];
 #pragma unroll
-      for (int e = 0; e < W; ++e) acc[e] = 0.0f;
-      for (int j = 0; j < k; ++j) {
-        const float w = rw[j];
-        float x[W];
-        Vec16<T>::load(table + (size_t)rid[j] * D + c, x);
+      for (int a = 0; a < GROUP_CHUNKS; ++a)
 #pragma unroll
-        for (int e = 0; e < W; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(w, x[e]));
+        for (int e = 0; e < W; ++e) acc[a][e] = 0.0f;
+      for (int j0 = 0; j0 < k; j0 += GROUP_PROBES) {
+        uint4 raw[GROUP_CHUNKS][GROUP_PROBES];
+#pragma unroll
+        for (int b = 0; b < GROUP_PROBES; ++b) {
+          if (j0 + b < k) {
+            const uint4* src = reinterpret_cast<const uint4*>(
+                table + (size_t)rid[j0 + b] * D);
+#pragma unroll
+            for (int a = 0; a < GROUP_CHUNKS; ++a) {
+              const int c = cb + 32 * a + lane;
+              if (c < chunks) raw[a][b] = __ldg(src + c);
+            }
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < GROUP_PROBES; ++b) {
+          if (j0 + b < k) {
+            const float w = rw[j0 + b];
+#pragma unroll
+            for (int a = 0; a < GROUP_CHUNKS; ++a) {
+              if (cb + 32 * a + lane < chunks) {
+                float x[W];
+                Vec16<T>::widen(raw[a][b], x);
+#pragma unroll
+                for (int e = 0; e < W; ++e)
+                  acc[a][e] = __fadd_rn(acc[a][e], __fmul_rn(w, x[e]));
+              }
+            }
+          }
+        }
       }
-      Vec16<T>::store(o + c, acc);
+#pragma unroll
+      for (int a = 0; a < GROUP_CHUNKS; ++a) {
+        const int c = cb + 32 * a + lane;
+        if (c < chunks) Vec16<T>::store(o + (size_t)c * W, acc[a]);
+      }
     }
   } else {
     for (int d = lane; d < D; d += 32) {
@@ -139,41 +206,60 @@ signature_embed_kernel(const T* __restrict__ table,
   }
 }
 
-template <typename T>
-int launch(const void* table, const int32_t* ids, const float* weights,
-           void* out, int n, int k, int D, int V, int vec,
-           cudaStream_t stream) {
+template <typename T, bool HASH>
+int launch(const void* table, const int32_t* ids, const int32_t* sig,
+           const float* weights, void* out, int n, int k, int D, int V,
+           int vec, cudaStream_t stream) {
   const int blocks = (n + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
   const dim3 threads(WARPS_PER_BLOCK * 32);
   if (vec) {
-    signature_embed_kernel<T, true><<<blocks, threads, 0, stream>>>(
-        static_cast<const T*>(table), ids, weights, static_cast<T*>(out), n,
-        k, D, V);
+    signature_embed_kernel<T, true, HASH><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(table), ids, sig, weights,
+        static_cast<T*>(out), n, k, D, V);
   } else {
-    signature_embed_kernel<T, false><<<blocks, threads, 0, stream>>>(
-        static_cast<const T*>(table), ids, weights, static_cast<T*>(out), n,
-        k, D, V);
+    signature_embed_kernel<T, false, HASH><<<blocks, threads, 0, stream>>>(
+        static_cast<const T*>(table), ids, sig, weights,
+        static_cast<T*>(out), n, k, D, V);
   }
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch(const void* table, const int32_t* ids, const int32_t* sig,
+           const float* weights, void* out, int n, int k, int D, int V,
+           int vec, cudaStream_t stream) {
+  return sig != nullptr
+             ? launch<T, true>(table, ids, sig, weights, out, n, k, D, V, vec,
+                               stream)
+             : launch<T, false>(table, ids, sig, weights, out, n, k, D, V,
+                                vec, stream);
+}
+
 }  // namespace
 
-// dtype: 0 = float32 table and output, 1 = bfloat16 table and output.
-// vec: 1 when D is a multiple of 16 bytes' worth of elements and the
-// table and output pointers are 16-byte aligned.  Returns a cudaError_t
-// (cudaErrorInvalidValue for k outside [1, 32] or an unknown dtype).
+// Exactly one of ids ((n, k) int32) and sig ((n,) int32) is non-null: the
+// ids given, or hashed from the signatures in the kernel.  dtype: 0 =
+// float32 table and output, 1 = bfloat16 table and output.  vec: 1 when D
+// is a multiple of 16 bytes' worth of elements and the table and output
+// pointers are 16-byte aligned.  Returns a cudaError_t
+// (cudaErrorInvalidValue for k outside [1, 32], V < 1, an unknown dtype or
+// not exactly one of ids and sig).
 extern "C" int signature_embed_launch(const void* table, const int32_t* ids,
+                                      const int32_t* sig,
                                       const float* weights, void* out, int n,
                                       int k, int D, int V, int dtype, int vec,
                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (k < 1 || k > MAX_PROBES || D < 1) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > MAX_PROBES || D < 1 || V < 1 ||
+      (ids == nullptr) == (sig == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch<float>(table, ids, weights, out, n, k, D, V, vec, s);
+  if (dtype == 0)
+    return launch<float>(table, ids, sig, weights, out, n, k, D, V, vec, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(table, ids, weights, out, n, k, D, V, vec, s);
+    return launch<__nv_bfloat16>(table, ids, sig, weights, out, n, k, D, V,
+                                 vec, s);
   return (int)cudaErrorInvalidValue;
 }

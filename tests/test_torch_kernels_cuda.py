@@ -9,11 +9,14 @@ the JAX package, so it runs where only PyTorch is installed.
 Tolerances: the ingest, route and fold-levels kernels must equal their
 plain versions exactly — the ingest kernel on all six state arrays (f32
 compared as int32 bit patterns), the route kernel on ranks and counts
-(integers), the fold-levels kernel on every level (NaN payloads and
+(integers; from keys also on local ids, shard ids and valid counts, and
+the ids equal the host permutation's), the fold-levels kernel on every
+level (NaN payloads and
 ``±0.0`` included).  The window-stats kernel's count, min and max are
 exact; its sum and sumsq reduce in the kernel's tree order, within
 ``rtol=1e-5, atol=1e-3``.  The signature-embedding kernel equals its
-plain version bit for bit (float32 and bfloat16 tables).  The WKV6
+plain version bit for bit (float32 and bfloat16 tables; from
+signatures, ``multi_hash_ids`` + the plain version).  The WKV6
 kernel is held to its chunked plain version at ``atol = rtol = 1e-4`` and
 to the recurrence at ``5e-4`` (float32 products summed in another order);
 ``RWKV6LM`` on the card to the same model on the CPU at ``1e-3`` on
@@ -46,13 +49,15 @@ from repro_torch.kernels.flash_attention.ops import (
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.ingest.ops import fused_ingest
 from repro_torch.kernels.ingest.ref import fused_ingest_ref
-from repro_torch.kernels.route.ops import route_rank
+from repro_torch.core.hashing import KeyPermutation
+from repro_torch.core.signature import multi_hash_ids
+from repro_torch.kernels.route.ops import route_keys, route_rank
 from repro_torch.kernels.signature.ops import (
     launch_signature_embed,
     signature_embed,
 )
 from repro_torch.kernels.signature.ref import signature_embed_ref
-from repro_torch.kernels.route.ref import route_rank_ref
+from repro_torch.kernels.route.ref import route_keys_ref, route_rank_ref
 from repro_torch.kernels.window_agg.ops import fold_levels, window_stats
 from repro_torch.kernels.window_agg.ref import (
     fold_levels_ref,
@@ -197,6 +202,73 @@ def test_route_rank_all_rows_one_shard(cuda):
     rk, ck = route_rank(x, num_shards=8)
     assert torch.equal(rk.cpu(), torch.arange(4096, dtype=torch.int32))
     assert ck.cpu().tolist() == [0, 0, 0, 0, 0, 4096, 0, 0]
+
+
+def _route_keys_case(cuda, n, num_shards, upper, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, upper, n).astype(np.int32)
+    valid = rng.random(n) < 0.9
+    return (keys, torch.as_tensor(keys, device=cuda),
+            torch.as_tensor(valid, device=cuda))
+
+
+def _assert_route_keys(cuda, keys, k, v, perm, num_shards):
+    before = kernels.LAUNCHES["route_rank"]
+    got = route_keys(k, v, perm, num_shards=num_shards)
+    assert kernels.LAUNCHES["route_rank"] == before + 1
+    want = route_keys_ref(k, v, perm, num_shards)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("local", "shard", "rank", "counts", "valid counts"),
+                          got, want):
+        assert torch.equal(a, b), name
+    inside = (keys >= 0) & (keys < perm.upper)
+    routed = perm(keys[inside])
+    np.testing.assert_array_equal(got[1].cpu().numpy()[inside],
+                                  routed % num_shards)
+    np.testing.assert_array_equal(got[0].cpu().numpy()[inside],
+                                  routed // num_shards)
+
+
+@pytest.mark.parametrize("upper", [200, 1 << 19])
+@pytest.mark.parametrize("num_shards", [1, 8, 64])
+@pytest.mark.parametrize("n", [1, 31, 1024, 1025, 4096, 10_000, 65_536])
+def test_route_keys_kernel_matches_plain(cuda, n, num_shards, upper):
+    """The Feistel walk and the rank in one launch: the five outputs equal
+    the plain composition's exactly, the ids the host permutation's.  The
+    200-key domain (size 256) walks long; 2^19 + the valid mask is the
+    main path's."""
+    keys, k, v = _route_keys_case(cuda, n, num_shards, upper,
+                                  n + num_shards + upper)
+    _assert_route_keys(cuda, keys, k, v, KeyPermutation(upper), num_shards)
+
+
+def test_route_keys_kernel_edges(cuda):
+    """Keys outside the domain count nowhere; every row on one shard; a
+    batch spread over several tiles a block (more tiles than resident
+    blocks); an empty batch."""
+    perm = KeyPermutation(1 << 19)
+    keys = np.random.default_rng(3).integers(0, 1 << 19, 5000).astype(np.int32)
+    keys[[0, 17, 4999]] = [-1, 1 << 19, 2**31 - 1]
+    _assert_route_keys(cuda, keys, torch.as_tensor(keys, device=cuda),
+                       torch.ones(5000, dtype=torch.bool, device=cuda), perm, 8)
+    pool = np.arange(1 << 15, dtype=np.int32)
+    one = pool[perm(pool) % 8 == 3][:3000]
+    got = route_keys(torch.as_tensor(one, device=cuda),
+                     torch.ones(3000, dtype=torch.bool, device=cuda), perm,
+                     num_shards=8)
+    assert torch.equal(got[2].cpu(), torch.arange(3000, dtype=torch.int32))
+    assert got[3].cpu().tolist() == [0, 0, 0, 3000, 0, 0, 0, 0]
+    keys, k, v = _route_keys_case(cuda, 700_000, 8, 1 << 19, 9)
+    _assert_route_keys(cuda, keys, k, v, perm, 8)
+    shard = torch.as_tensor(
+        np.random.default_rng(4).integers(-1, 9, 700_000).astype(np.int32),
+        device=cuda)
+    rk, ck = route_rank(shard, num_shards=8)
+    rr, cr = route_rank_ref(shard, 8)
+    assert torch.equal(rk, rr) and torch.equal(ck, cr)
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    got = route_keys(empty, empty.bool(), perm, num_shards=8)
+    assert got[3].cpu().tolist() == [0] * 8 and got[0].numel() == 0
 
 
 def test_sharded_store_on_gpu_matches_cpu(cuda):
@@ -491,6 +563,30 @@ def test_signature_embed_dispatch_counts_launches(cuda):
         signature_embed(table.half(), sig, w, num_hashes=2)
     with pytest.raises(ValueError, match="mixed devices"):
         signature_embed(table, sig.cpu(), w, num_hashes=2)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 32])
+@pytest.mark.parametrize("D", [510, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_signature_embed_from_sig_matches_plain(cuda, dtype, D, k):
+    """One launch from the signatures (ids hashed in the kernel) equals
+    multi_hash_ids + the plain version bit for bit; negative signatures and
+    INT32_MIN (whose abs wraps) included."""
+    g = torch.Generator().manual_seed(D + k)
+    V = 5000
+    table = torch.randn((V, D), generator=g).to(dtype).to(cuda)
+    sig = torch.randint(-2**31, 2**31 - 1, (1500,), generator=g,
+                        dtype=torch.int64).to(torch.int32)
+    sig[:5] = torch.tensor([-2**31, -1, 0, 2**31 - 1, 1], dtype=torch.int32)
+    sig = sig.to(cuda)
+    w = torch.randn((k,), generator=g).to(cuda)
+    before = kernels.LAUNCHES["signature_embed"]
+    out = signature_embed(table, sig, w, num_hashes=k)
+    assert kernels.LAUNCHES["signature_embed"] == before + 1
+    want = signature_embed_ref(table, multi_hash_ids(sig, k, V), w).to(dtype)
+    torch.cuda.synchronize()
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), want.view(bits))
 
 
 def test_scoring_service_on_gpu_matches_cpu(cuda):

@@ -192,3 +192,56 @@ def test_cpu_dispatch_counts_no_launch():
     with pytest.raises(ValueError, match="weights"):
         signature_embed(torch.as_tensor(table), torch.as_tensor(sig),
                         torch.as_tensor(w), num_hashes=3)
+
+
+# -- the kernel's id hashing, replayed in numpy as signature_embed.cu
+# writes it: multiplies on uint32, shifts arithmetic on int32, abs on uint32
+
+
+def _mix32_kernel(x, salt):
+    h = np.asarray(x, np.int32) ^ np.int32(salt & 0x7FFFFFFF)
+    h = h ^ (h >> 16)
+    h = (h.view(np.uint32) * np.uint32(0x85EBCA6B)).view(np.int32)
+    h = h ^ ((h >> 13) & np.int32(0x0007FFFF))
+    h = (h.view(np.uint32) * np.uint32(0xC2B2AE35)).view(np.int32)
+    return h ^ ((h >> 16) & np.int32(0x0000FFFF))
+
+
+def _abs31_kernel(h):
+    """``(h < 0 ? 0u - (uint32)h : (uint32)h) & 0x7FFFFFFF``."""
+    u = np.asarray(h, np.int32).view(np.uint32)
+    neg = np.asarray(h, np.int32) < 0
+    a = np.where(neg, np.uint32(0) - u, u)
+    return (a & np.uint32(0x7FFFFFFF)).astype(np.int64)
+
+
+def _probe_id_kernel(sig, j, V):
+    salt = (0x85EB * (j + 1) + 17) & 0xFFFFFFFF
+    h1 = _mix32_kernel(sig, salt)
+    h2 = _mix32_kernel(h1 ^ np.int32(0x5BD1E995), salt ^ 0x27D4EB2F)
+    t = (h2.view(np.uint32) * np.uint32(5) + np.uint32(0x38495AB5)).view(
+        np.int32)
+    return (_abs31_kernel(h1 ^ t) % V).astype(np.int32)
+
+
+def test_kernel_abs_wraps_as_the_reference():
+    """The abs step alone: INT32_MIN & 0x7FFFFFFF = 0, as jnp.abs wraps."""
+    h = np.array([-2**31, -2**31 + 1, -1, 0, 1, 2**31 - 1, -12345], np.int32)
+    want = np.asarray(jnp.abs(jnp.asarray(h)) & 0x7FFFFFFF)
+    np.testing.assert_array_equal(_abs31_kernel(h), want)
+    assert _abs31_kernel(h)[0] == 0
+
+
+@pytest.mark.parametrize("table_size", [1, 1000, 1 << 18, 2**31 - 1])
+@pytest.mark.parametrize("k", [1, 2, 3, 32])
+def test_kernel_multi_hash_matches_jax(k, table_size):
+    rng = np.random.default_rng(k + table_size % 997)
+    sig = np.concatenate([
+        np.array([0, 1, -1, -2**31, 2**31 - 1, -2**31 + 1, -7], np.int32),
+        rng.integers(-2**31, 2**31 - 1, 3000, dtype=np.int64).astype(
+            np.int32),
+    ])
+    want = np.asarray(jax_multi_hash_ids(jnp.asarray(sig), k, table_size))
+    got = np.stack([_probe_id_kernel(sig, j, table_size) for j in range(k)],
+                   axis=-1)
+    np.testing.assert_array_equal(got, want)
