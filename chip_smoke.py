@@ -45,12 +45,20 @@ Phases, in order; any failure exits non-zero:
    plain version replayed over the same batches.  The ingest kernel's
    launch counter must have gone up, and the route kernel must have
    launched exactly once (from keys) for each of the 8 route dispatches.
-5. **Window stats.**  On the main path's warm state (flat keys), the
-   window-stats kernel for one 4,096-row request batch, windows 1 h and
-   6 h: count, min and max bit-exact against its plain version, sums
-   within ``rtol=1e-5, atol=1e-3``; SUM 1 h, COUNT 1 h and MAX 6 h agree
-   with the store's own preagg query on the same rows.  Its bound counts
-   the bytes this batch's data needs (``_window_stats_bytes``).
+5. **Window stats** (B3, on no path: its launches on the main path stay
+   0).  At two shapes: the main path's warm state (flat keys over the 8
+   shards) and a dense day (``DENSE_CARDS`` = 2^11 cards, 2^20
+   transactions over a day in an unsharded store of the same sizes), 8
+   request batches of 4,096 rows each, windows 1 h and 6 h.  On the first
+   batch: one launch of the register instantiation, count, min and max
+   bit-exact against its plain version, sums within ``rtol=1e-5,
+   atol=1e-3``; SUM 1 h, COUNT 1 h and MAX 6 h agree with the store's own
+   preagg query on the same rows.  Then timed four ways, cycling over the
+   8 batches: the wrapper ``window_stats`` eager (its key-range guard reads
+   the card), ``launch_window_stats`` eager and inside a CUDA graph, and
+   the kernel's device time under ``torch.profiler``; beside the plain
+   version.  Each shape's bound counts the bytes its batches' data need
+   (``_window_stats_bytes``).
 6. **Trace.**  One more request batch (no ingest) under
    ``torch.profiler``: device kernels launched, device busy time and the
    device's idle share of the batch, the largest device items, the route
@@ -210,6 +218,13 @@ VERIFY_ROWS = 1 << 20
 #   every bucket slot is reused (1,350 bucket ids over 512 slots), while a
 #   6 h window still fits in the ring.
 VERIFY_RUNS = ((1 << 17, 3600), (1 << 11, DAY))
+# B3's second shape, a dense history: the second run's traffic (2^20
+# transactions over a day on 2^11 cards, 512 a card) in an unsharded store
+# of the main path's sizes; a 6 h window then holds ~128 ring rows and ~100
+# filled middle buckets.  B3 is timed over WS_BATCHES request batches in
+# turn at each shape (at the main path's, 8 x ~12 MB of key rows > L2).
+DENSE_CARDS = 1 << 11
+WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # int32 operations a second on the H100 SXM's CUDA cores: 132 SMs x 64
@@ -777,9 +792,9 @@ def check_fold_kernel(results) -> None:
     torch.cuda.empty_cache()
 
 
-def _request_rows(rng, t_lo):
+def _request_rows(rng, t_lo, cards=NUM_CARDS):
     cols = dict(
-        card=rng.integers(0, NUM_CARDS, REQ_ROWS).astype(np.int32),
+        card=rng.integers(0, cards, REQ_ROWS).astype(np.int32),
         ts=rng.integers(t_lo, t_lo + 60, REQ_ROWS).astype(np.int32),
         amount=rng.gamma(1.5, 60.0, REQ_ROWS).astype(np.float32),
         mcc=rng.integers(0, 32, REQ_ROWS).astype(np.int32),
@@ -921,19 +936,21 @@ def main_path(results):
           flush=True)
     del ref, ref_flat, applied
     torch.cuda.empty_cache()
-    check_window_stats(results, store, _request_rows(rng, DAY + 60 * REQ_BATCHES))
+    check_window_stats(results, store, rng, DAY + 60 * REQ_BATCHES)
     trace_request(svc, _request_rows(rng, DAY + 60 * REQ_BATCHES), results)
     return svc
 
 
 def _window_stats_bytes(ring_ts, bagg_bucket, qk, q_ts, L, B):
-    """(distinct keys, bytes) the window-stats call must move on this data:
-    per distinct key its C ring timestamps (to find the raw rows), the lane
-    values of the ring rows some window folds raw (head or tail bucket),
-    the stored ids of the bucket slots that can hold a middle bucket of the
-    widest window (id mod NB for b_lo < id < b_q) and the stats of the
-    slots whose id is a middle bucket of some window; per request its key,
-    ts and lanes in and its (NW, L, 5) stats out."""
+    """(distinct keys, bytes, raw rows, middle slots) of one window-stats
+    call on this data: the bytes it must move are, per distinct key, its C
+    ring timestamps (to find the raw rows), the lane values of the ring
+    rows some window folds raw (head or tail bucket), the stored ids of the
+    bucket slots that can hold a middle bucket of the widest window (id
+    mod NB for b_lo < id < b_q) and the stats of the slots whose id is a
+    middle bucket of some window; per request its key, ts and lanes in and
+    its (NW, L, 5) stats out.  Raw rows and middle slots: means a request
+    (union over the windows)."""
     NB = bagg_bucket.shape[1]
     uk, inv = torch.unique(qk, return_inverse=True)
     ts, bids = ring_ts[qk.long()], bagg_bucket[qk.long()]
@@ -959,40 +976,110 @@ def _window_stats_bytes(ring_ts, bagg_bucket, qk, q_ts, L, B):
     nbytes = (uk.numel() * ring_ts.shape[1] * 4 + raw_u * 4 * L
               + cand_u * 4 + mid_u * 20 * L
               + Q * ((8 + 4 * L) + NW * L * 20))
-    return int(uk.numel()), nbytes
+    return (int(uk.numel()), nbytes, float(raw.sum()) / Q,
+            float(mid.sum()) / Q)
 
 
-def check_window_stats(results, store, rows) -> None:
-    """The window-stats kernel on the main path's warm state: against its
-    plain version, and against the store's own preagg answers."""
+def _dense_store():
+    """B3's dense shape: an unsharded fraud store of DENSE_CARDS cards with
+    the main path's sizes after VERIFY_ROWS transactions over a day."""
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.service import FeatureService
+
+    svc = FeatureService.build(
+        "fraud_dense", fraud_view(), num_keys=DENSE_CARDS, mode="preagg",
+        device="cuda", **STORE_KW,
+    )
+    rng = np.random.default_rng(SEED + 7)
+    svc.store.ingest(fraud_transactions(rng, VERIFY_ROWS, DENSE_CARDS, 0, DAY))
+    torch.cuda.synchronize()
+    return svc.store
+
+
+def _ws_batches(store, rng, cards, t_lo, n=WS_BATCHES):
+    """``n`` request batches of REQ_ROWS rows (batch b at [t_lo + 60 b, +
+    60) s) as (rows, window_stats arguments) on ``store``'s flat state
+    (flat keys of a sharded store)."""
+    dev = torch.device("cuda")
+    fs = store._flat_state()
+    out = []
+    for b in range(n):
+        rows = _request_rows(rng, t_lo + 60 * b, cards)
+        key = rows["card"]
+        if hasattr(store, "_route_ids"):
+            shard, local = store._route_ids(key)
+            key = (shard * store.num_keys + local).astype(np.int32)
+        cols = store._columns(rows)
+        out.append((rows, (fs.ring.ts, fs.ring.vals, fs.bagg.stats,
+                           fs.bagg.bucket, torch.as_tensor(key, device=dev),
+                           cols["ts"], store._lanes(cols))))
+    return out
+
+
+def _ws_times(batches, launch, wrapper, bucket_size) -> dict:
+    """B3 timed four ways, each repetition on the next batch: the wrapper
+    ``window_stats`` eager (key-range guard and allocation included), the
+    kernel's launches eager (``launch(args, out)``: the host's launch path
+    included) and captured in one CUDA graph, and its device time a launch
+    under ``torch.profiler``."""
+    n = len(batches)
+    L = batches[0][1][6].shape[1]
+    outs = [torch.empty((REQ_ROWS, len(WINDOWS), L, 5), device="cuda")
+            for _ in range(n)]
+    step = itertools.count()
+
+    def run_launch():
+        i = next(step) % n
+        launch(batches[i][1], outs[i])
+
+    def run_wrapper():
+        return wrapper(*batches[next(step) % n][1], windows=WINDOWS,
+                       bucket_size=bucket_size)
+
+    reps = 10 * n
+    return dict(
+        wrapper_ms=_time_ms(run_wrapper, reps, n),
+        ms=_time_ms(run_launch, 25 * n, n),
+        graph_ms=_graph_time_ms(run_launch, reps),
+        device_ms=_kernel_device_ms(run_launch, reps, "window_stats"),
+    )
+
+
+def _ws_check(store, rows, args, tag) -> float:
+    """B3 on one batch against its plain version (count / min / max bit for
+    bit, sums within rtol 1e-5 / atol 1e-3) and against the store's preagg
+    query (SUM 1 h, COUNT 1 h, MAX 6 h); one launch of the register
+    instantiation.  Returns the sums' max |diff|."""
+    from repro_torch import kernels
     from repro_torch.core.expr import Col
     from repro_torch.kernels.window_agg.ops import window_stats
     from repro_torch.kernels.window_agg.ref import window_stats_ref
     from repro_torch.obs import Telemetry, use_telemetry
 
-    dev = torch.device("cuda")
-    fs = store._flat_state()
-    shard, local = store._route_ids(rows["card"])
-    qk = torch.as_tensor((shard * store.num_keys + local).astype(np.int32),
-                         device=dev)
-    cols = store._columns(rows)
-    args = (fs.ring.ts, fs.ring.vals, fs.bagg.stats, fs.bagg.bucket, qk,
-            cols["ts"], store._lanes(cols))
     kw = dict(windows=WINDOWS, bucket_size=store.bucket_size)
+    before = (kernels.LAUNCHES["window_stats"],
+              kernels.VARIANT_LAUNCHES["window_stats"]["small"])
     got = window_stats(*args, **kw)
+    after = (kernels.LAUNCHES["window_stats"],
+             kernels.VARIANT_LAUNCHES["window_stats"]["small"])
+    if (after[0] - before[0], after[1] - before[1]) != (1, 1):
+        _fail(f"window_stats ({tag}): {after[0] - before[0]} launches a "
+              "call, expected one of the register instantiation")
     want = window_stats_ref(*args, **kw)
     torch.cuda.synchronize()
     if got.shape != (REQ_ROWS, len(WINDOWS), store.num_lanes, 5):
-        _fail(f"window_stats shape {tuple(got.shape)}")
+        _fail(f"window_stats ({tag}) shape {tuple(got.shape)}")
     exact = max(_max_abs_err(got[..., i].contiguous(), want[..., i].contiguous())
                 for i in (1, 2, 3))
     if exact != 0.0:
-        _fail(f"window_stats count/min/max differ from the plain version "
-              f"(max |diff| {exact})")
+        _fail(f"window_stats ({tag}) count/min/max differ from the plain "
+              f"version (max |diff| {exact})")
     sums = [(got[..., i] - want[..., i]).abs().max().item() for i in (0, 4)]
     if not all(torch.allclose(got[..., i], want[..., i], rtol=1e-5, atol=1e-3)
                for i in (0, 4)):
-        _fail(f"window_stats sums outside rtol 1e-5 / atol 1e-3: {sums}")
+        _fail(f"window_stats ({tag}) sums outside rtol 1e-5 / atol 1e-3: "
+              f"{sums}")
     with use_telemetry(Telemetry()):
         res = store.query(dict(rows), mode="preagg")
     lane = store._lane_of[Col("amount").key]
@@ -1000,28 +1087,83 @@ def check_window_stats(results, store, rows) -> None:
     s1h, c1h, m6h = g[:, 0, lane, 0], g[:, 0, lane, 1], g[:, 1, lane, 3]
     if not np.allclose(s1h, res["amt_sum_1h"].cpu().numpy(), rtol=1e-5,
                        atol=1e-3):
-        _fail("window_stats SUM 1h disagrees with the store's preagg query")
+        _fail(f"window_stats ({tag}) SUM 1h disagrees with the store's "
+              "preagg query")
     for name, v in (("tx_count_1h", c1h), ("amt_max_6h", m6h)):
         if not np.array_equal(v, res[name].cpu().numpy()):
-            _fail(f"window_stats {name} differs from the store's preagg query")
-    print(f"window_stats == plain on {REQ_ROWS} requests x {len(WINDOWS)} "
-          f"windows x {store.num_lanes} lanes: count/min/max bit-exact, sums "
-          f"max |diff| {max(sums):.3e}; SUM 1h / COUNT 1h / MAX 6h agree with "
-          "the store's preagg query", flush=True)
-    ms = _time_ms(lambda: window_stats(*args, **kw), 50, 3)
-    plain_ms = _time_ms(lambda: window_stats_ref(*args, **kw), 5)
-    C, L, NB = store.capacity, store.num_lanes, store.num_buckets
-    keys, nbytes = _window_stats_bytes(fs.ring.ts, fs.bagg.bucket, qk,
-                                       cols["ts"], L, store.bucket_size)
-    results["window_stats"].update(
-        max_abs_err=max(sums), ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
-        shape=f"{REQ_ROWS} requests ({keys} keys), C={C}, NB={NB}, L={L}, "
-              f"windows {WINDOWS}",
+            _fail(f"window_stats ({tag}) {name} differs from the store's "
+                  "preagg query")
+    print(f"window_stats ({tag}) == plain on {REQ_ROWS} requests x "
+          f"{len(WINDOWS)} windows x {store.num_lanes} lanes, one launch: "
+          f"count/min/max bit-exact, sums max |diff| {max(sums):.3e}; SUM "
+          "1h / COUNT 1h / MAX 6h agree with the store's preagg query",
+          flush=True)
+    return max(sums)
+
+
+def check_window_stats(results, store, rng, t_lo) -> None:
+    """The window-stats kernel (B3) at two shapes -- the main path's warm
+    state (flat keys over 8 shards) and a dense day on 2^11 cards --
+    against its plain version and the store's preagg answers, then timed
+    four ways beside the plain version, with each shape's byte bound."""
+    from repro_torch.kernels.window_agg.ops import (
+        launch_window_stats,
+        window_stats,
     )
-    print(f"window_stats {REQ_ROWS} requests: {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {results['window_stats']['bound_ms']:.5f}"
-          f" ms ({nbytes} bytes)", flush=True)
+    from repro_torch.kernels.window_agg.ref import window_stats_ref
+
+    def launch(args, out):
+        launch_window_stats(*args, WINDOWS, out, STORE_KW["bucket_size"])
+
+    dense = _dense_store()
+    per_card = VERIFY_ROWS // DENSE_CARDS
+    shapes = (
+        ("", store, NUM_CARDS, t_lo,
+         f"main path's warm state, {NUM_SHARDS} shards x {store.num_keys} "
+         "cards"),
+        ("dense_", dense, DENSE_CARDS, DAY,
+         f"dense day: {DENSE_CARDS} cards, {VERIFY_ROWS} transactions over "
+         f"{DAY} s ({per_card} a card)"),
+    )
+    worst = 0.0
+    for prefix, st, cards, t0, what in shapes:
+        tag = prefix.rstrip("_") or "main"
+        batches = _ws_batches(st, rng, cards, t0)
+        worst = max(worst, _ws_check(st, *batches[0], tag))
+        times = _ws_times(batches, launch, window_stats, st.bucket_size)
+        args0 = batches[0][1]
+        plain_ms = _time_ms(lambda: window_stats_ref(
+            *args0, windows=WINDOWS, bucket_size=st.bucket_size), 5)
+        costs = [_window_stats_bytes(a[0], a[3], a[4], a[5], st.num_lanes,
+                                     st.bucket_size) for _, a in batches]
+        nbytes = sum(c[1] for c in costs) / len(costs)
+        keys = sum(c[0] for c in costs) / len(costs)
+        raw_q = sum(c[2] for c in costs) / len(costs)
+        mid_q = sum(c[3] for c in costs) / len(costs)
+        fs = st._flat_state()
+        state_gb = sum(t.numel() * t.element_size()
+                       for t in fs.arrays()) / 1e9
+        entry = dict(
+            times, plain_ms=plain_ms,
+            bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bytes=nbytes,
+            raw_rows_per_request=raw_q, middle_slots_per_request=mid_q,
+            shape=f"{what}; {REQ_ROWS} requests ({keys:.0f} keys, mean over "
+                  f"{len(batches)} batches), C={st.capacity}, "
+                  f"NB={st.num_buckets}, L={st.num_lanes}, windows "
+                  f"{WINDOWS}, state {state_gb:.3f} GB")
+        results["window_stats"].update(
+            {prefix + k: v for k, v in entry.items()})
+        print(f"window_stats ({tag}) {REQ_ROWS} requests, state "
+              f"{state_gb:.3f} GB, {raw_q:.2f} raw rows and {mid_q:.2f} "
+              f"middle slots a request: device {times['device_ms']:.5f} ms a "
+              f"launch, CUDA graph {times['graph_ms']:.5f} ms, eager launch "
+              f"{times['ms']:.5f} ms, wrapper {times['wrapper_ms']:.5f} ms; "
+              f"plain {plain_ms:.4f} ms; bound "
+              f"{1e3 * nbytes / HBM_BYTES_PER_S:.5f} ms ({nbytes:.0f} bytes)",
+              flush=True)
+    results["window_stats"].update(max_abs_err=worst, launches_per_call=1)
+    del dense
+    torch.cuda.empty_cache()
 
 
 def trace_request(svc, rows, results) -> None:

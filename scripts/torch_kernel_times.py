@@ -1,20 +1,28 @@
-"""Time the port's route kernel (B2) and signature-embedding kernel (B5)
-alone, at the main path's shapes, in one checkout of this repository.
+"""Time the port's route kernel (B2), signature-embedding kernel (B5)
+and window-stats kernel (B3) alone, at the main path's shapes, in one
+checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
 running the script once per tree, in turns (a, b, b, a, ...).  Shapes:
 4,096 keys over 2^19 cards at 8 shards (B2); 4,096 signatures, k = 2, a
 2^18 x 512 float32 table, cycling over 8 batches so that launches do not
-find their rows in L2 (B5).  Each kernel is timed three ways: eager
-launches (CUDA events over many calls: the host's launch path included),
-the same launches captured in a CUDA graph, and its device time per launch
-under ``torch.profiler``.  Entries a tree does not have (the route kernel
-from keys, B5 from signatures) are left out.  Prints one JSON line.
+find their rows in L2 (B5); for B3 the two shapes of ``chip_smoke.py``'s
+window-stats phase, built and timed by that script's own helpers (this
+repository's ``chip_smoke.py``, whatever the checkout): the main path's
+warm state (2^19 cards over 8 shards after a day of 4,194,304
+transactions) and the dense day (2^11 cards, 2^20 transactions), 8
+batches of 4,096 requests each, windows 1 h and 6 h (on a tree with
+B3's two instantiations also the shared-memory one forced at 2 x 2).
+Each kernel is timed three ways: eager launches (CUDA events over many
+calls: the host's launch path included), the same launches captured in a
+CUDA graph, and the device time per launch under ``torch.profiler``; B3
+also through its wrapper.  Entries a tree does not have (the route kernel from keys, B5
+from signatures) are left out.  Prints one JSON line.
 """
 
 import json
@@ -71,39 +79,108 @@ def _device_ms(fn, name, reps=50):
             if n else float("nan"))
 
 
+def _b3(out) -> None:
+    """B3 at chip_smoke.py's two shapes, timed by its helpers; a tree from
+    before B3 took its windows by value hands them over as a tensor."""
+    import chip_smoke as cs
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.kernels.window_agg import ops as wops
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.service import FeatureService
+
+    B = cs.STORE_KW["bucket_size"]
+    if hasattr(wops, "plan_window_stats"):
+        def launch(args, o):
+            wops.launch_window_stats(*args, cs.WINDOWS, o, B)
+    else:
+        wt = torch.tensor(cs.WINDOWS, dtype=torch.int32, device="cuda")
+
+        def launch(args, o):
+            wops.launch_window_stats(*args, wt, o, B)
+
+    svc = FeatureService.build(
+        "fraud", fraud_view(), num_keys=cs.NUM_CARDS, sharded=True,
+        num_shards=cs.NUM_SHARDS, mode="preagg", device="cuda", **cs.STORE_KW,
+    )
+    rng = np.random.default_rng(cs.SEED)
+    for i in range(cs.WARM_SLICES):
+        svc.store.ingest(fraud_transactions(
+            rng, cs.SLICE_ROWS, cs.NUM_CARDS, i * cs.DAY // cs.WARM_SLICES,
+            (i + 1) * cs.DAY // cs.WARM_SLICES))
+    dense = cs._dense_store()
+    for tag, st, cards, t0 in (("main", svc.store, cs.NUM_CARDS, cs.DAY),
+                               ("dense", dense, cs.DENSE_CARDS, cs.DAY)):
+        batches = cs._ws_batches(st, rng, cards, t0)
+        times = cs._ws_times(batches, launch, wops.window_stats, B)
+        out.update({f"b3_{tag}_{k}": v for k, v in times.items()})
+        if hasattr(wops, "WindowStatsLaunch"):
+            # the shared-memory instantiation at the fraud view's 2 x 2: it
+            # folds each slot as it loads it
+            plan = wops.plan_window_stats
+            wops.plan_window_stats = lambda nw, lanes: (wops.WindowStatsLaunch(
+                0, nw, 0, lanes, False, 8, 8 * 9 * nw * lanes * 128),)
+            try:
+                times = cs._ws_times(batches, launch, wops.window_stats, B)
+            finally:
+                wops.plan_window_stats = plan
+            out.update({f"b3_{tag}_general_{k}": v for k, v in times.items()})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_times: needs an NVIDIA GPU")
-    root = Path(sys.argv[1] if len(sys.argv) > 1 else
-                Path(__file__).resolve().parents[1])
+    argv = sys.argv[1:]
+    todo = {"b2", "b5", "b3"}
+    if "--kernels" in argv:
+        i = argv.index("--kernels")
+        todo = set(argv[i + 1].split(","))
+        del argv[i:i + 2]
+    repo = Path(__file__).resolve().parents[1]
+    root = Path(argv[0]) if argv else repo
     sys.path.insert(0, str(root / "src"))
+    sys.path.insert(1, str(repo))  # chip_smoke.py's helpers, for B3
+    from repro_torch.kernels import build
+    names = {"b2": ["route_rank"], "b5": ["signature_embed"],
+             "b3": ["window_stats", "fused_ingest", "route_rank"]}
+    build.build(sorted({n for k in todo for n in names[k]}))
+    out = {"tree": str(root)}
+    if "b3" in todo:
+        _b3(out)
+    if todo & {"b2", "b5"}:
+        _b2_b5(out, todo)
+    print(json.dumps(out))
+
+
+def _b2_b5(out, todo) -> None:
     from repro_torch.core.hashing import KeyPermutation
     from repro_torch.core.signature import multi_hash_ids
     from repro_torch.kernels.route import ops as rops
     from repro_torch.kernels.signature import ops as sops
 
     dev = torch.device("cuda", 0)
-    out = {}
     rng = np.random.default_rng(0)
     perm = KeyPermutation(1 << 19)
     keys = rng.integers(0, 1 << 19, 4096).astype(np.int32)
-    shard = torch.as_tensor((perm(keys) % 8).astype(np.int32), device=dev)
+    if "b2" in todo:
+        shard = torch.as_tensor((perm(keys) % 8).astype(np.int32), device=dev)
 
-    def rank():
-        return rops.route_rank(shard, num_shards=8)
+        def rank():
+            return rops.route_rank(shard, num_shards=8)
 
-    out["route_rank_eager"] = _events_ms(rank)
-    out["route_rank_device"] = _device_ms(rank, "route")
-    if hasattr(rops, "route_keys"):
-        k = torch.as_tensor(keys, device=dev)
-        v = torch.ones(4096, dtype=torch.bool, device=dev)
+        out["route_rank_eager"] = _events_ms(rank)
+        out["route_rank_device"] = _device_ms(rank, "route")
+        if hasattr(rops, "route_keys"):
+            k = torch.as_tensor(keys, device=dev)
+            v = torch.ones(4096, dtype=torch.bool, device=dev)
 
-        def route():
-            return rops.route_keys(k, v, perm, num_shards=8)
+            def route():
+                return rops.route_keys(k, v, perm, num_shards=8)
 
-        out["route_keys_eager"] = _events_ms(route)
-        out["route_keys_device"] = _device_ms(route, "route_kernel")
+            out["route_keys_eager"] = _events_ms(route)
+            out["route_keys_device"] = _device_ms(route, "route_kernel")
 
+    if "b5" not in todo:
+        return
     g = torch.Generator(device=dev).manual_seed(6)
     table = torch.randn((1 << 18, 512), generator=g, device=dev) * 0.02
     w = torch.full((2,), 0.5, device=dev)
@@ -132,7 +209,6 @@ def main() -> None:
         out["b5_sig_eager"] = _events_ms(from_sig, 80, 8)
         out["b5_sig_graph"] = _graph_ms(from_sig, 80)
         out["b5_sig_device"] = _device_ms(from_sig, "signature_embed", 80)
-    print(json.dumps(out))
 
 
 if __name__ == "__main__":

@@ -50,6 +50,9 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "route_rank": {"keys": 0, "shards": 0},
     # B5 from signatures (the ids hashed in the kernel) or from ids
     "signature_embed": {"sig": 0, "ids": 0},
+    # B3 with its accumulators in registers (NW <= 2, L <= 2) or in
+    # shared memory
+    "window_stats": {"small": 0, "general": 0},
 }
 
 

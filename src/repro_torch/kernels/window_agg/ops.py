@@ -10,11 +10,18 @@
   :func:`.ref.fold_levels_ref`.  Exact combines, so both give the same bits.
 * ``window_stats(...)`` — (Q, NW, L, 5) stat vectors for a batch of
   request rows against an online store's state.  CUDA tensors launch
-  ``kernels/csrc/window_stats.cu``; CPU tensors run
-  :func:`.ref.window_stats_ref`.  Count, min and max are exact; sum and
-  sumsq reduce in the kernel's own order.  It sits beside the store's
-  preagg query, which folds in another order (request ⊕ rows ⊕ buckets),
-  and is not called by it — as in the reference package.
+  ``kernels/csrc/window_stats.cu`` (a warp per request, one pass over the
+  key's ring and bucket slots for every window and lane), one launch per
+  entry of :func:`plan_window_stats` (one at NW <= 2 and L <= 2, its
+  register instantiation); CPU tensors run :func:`.ref.window_stats_ref`.
+  Count, min and max are exact; sum and sumsq reduce in the kernel's
+  fixed order (lane by lane in slot order, then a butterfly across the
+  warp; the header of the ``.cu`` file and the CPU tests' replay).  The
+  wrapper's one wait on the device is its key-range guard;
+  :func:`launch_window_stats` takes the windows by value and never waits.
+  It sits beside the store's preagg query, which folds in another order
+  (request ⊕ rows ⊕ buckets), and is not called by it — as in the
+  reference package.
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ __all__ = [
     "FOLD_HALO",
     "window_stats",
     "launch_window_stats",
+    "plan_window_stats",
+    "WindowStatsLaunch",
 ]
 
 # op name -> the kernel's op code (kernels/csrc/fold_levels.cu)
@@ -161,29 +170,101 @@ def fold_levels(
     return out
 
 
+# windows one window-stats launch takes (``WindowsArg`` in the kernel,
+# passed by value); larger NW is cut into chunks of this many windows
+WS_MAX_WINDOWS = 8
+# the register instantiation (``small``) takes NW <= 2 windows x L <= 2
+# lanes: 9 * NW * L + NW accumulators a lane (38 at the fraud view's 2 x 2)
+WS_SMALL = (2, 2)
+# requests (warps) a block: ``small`` always, ``general`` at most
+WS_WARPS = 8
+# shared memory a block of ``general`` may take on the H100 (227 KB); a
+# warp keeps 9 accumulators of 32 lanes x 4 B per (window, lane) there
+WS_SMEM = 232_448
+
+
+class WindowStatsLaunch(NamedTuple):
+    """One launch of the window-stats kernel: windows ``[w0, w0 + nw)``
+    and lanes ``[l0, l0 + lc)`` of the output; ``small`` the register
+    instantiation, else ``general`` with ``warps`` requests a block and
+    ``smem`` bytes of shared memory."""
+
+    w0: int
+    nw: int
+    l0: int
+    lc: int
+    small: bool
+    warps: int
+    smem: int
+
+
+def plan_window_stats(num_windows: int, lanes: int):
+    """The launches that cover ``num_windows`` x ``lanes`` (pure Python,
+    so the CPU tests can check the cover): one ``small`` launch when both
+    fit :data:`WS_SMALL`, else ``general`` launches over chunks of at most
+    :data:`WS_MAX_WINDOWS` windows and as many lanes as one warp's
+    accumulators leave room for in :data:`WS_SMEM`."""
+    if num_windows < 1 or lanes < 1:
+        raise ValueError(f"window stats plan: needs windows and lanes, got "
+                         f"{num_windows} / {lanes}")
+    if num_windows <= WS_SMALL[0] and lanes <= WS_SMALL[1]:
+        return (WindowStatsLaunch(0, num_windows, 0, lanes, True, WS_WARPS,
+                                  0),)
+    per_entry = 9 * 32 * 4  # one (window, lane) group of one warp
+    nw = min(num_windows, WS_MAX_WINDOWS)
+    lc = min(lanes, WS_SMEM // (per_entry * nw))
+    out = []
+    for w0 in range(0, num_windows, nw):
+        for l0 in range(0, lanes, lc):
+            cw, cl = min(nw, num_windows - w0), min(lc, lanes - l0)
+            warp_bytes = per_entry * cw * cl
+            warps = max(1, min(WS_WARPS, WS_SMEM // warp_bytes))
+            out.append(WindowStatsLaunch(w0, cw, l0, cl, False, warps,
+                                         warps * warp_bytes))
+    return tuple(out)
+
+
+class _WindowsArg(ctypes.Structure):
+    _fields_ = [("t", ctypes.c_int32 * WS_MAX_WINDOWS)]
+
+
 def launch_window_stats(
     ring_ts, ring_lanes, bagg_stats, bagg_bucket, q_key, q_ts, q_lanes,
-    windows: torch.Tensor, out: torch.Tensor, bucket_size: int,
+    windows: Sequence[int], out: torch.Tensor, bucket_size: int,
 ) -> None:
     """Launch the CUDA kernel: ``out`` (Q, NW, L, 5) is written on the
-    current stream; raises if the launch fails."""
+    current stream, one launch per :func:`plan_window_stats` entry (each
+    counted), the windows passed by value; no host<->device copy and no
+    synchronisation, so a CUDA graph can capture it.  Raises if a launch
+    fails."""
     fn = _fn("window_stats", "window_stats_launch",
-             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    K, C = ring_ts.shape
+             [ctypes.c_void_p] * 8 + [_WindowsArg] + [ctypes.c_int] * 14
+             + [ctypes.c_void_p])
+    C = ring_ts.shape[1]
     NB = bagg_bucket.shape[1]
     Q, NW, L = out.shape[0], out.shape[1], out.shape[2]
+    if len(windows) != NW:
+        raise ValueError(f"window_stats: {len(windows)} windows for an "
+                         f"output of {NW}")
     dev = ring_ts.device
-    err = fn(
-        ring_ts.data_ptr(), ring_lanes.data_ptr(), bagg_stats.data_ptr(),
-        bagg_bucket.data_ptr(), q_key.data_ptr(), q_ts.data_ptr(),
-        q_lanes.data_ptr(), windows.data_ptr(), out.data_ptr(),
-        Q, C, NB, L, NW, int(bucket_size), dev.index, _stream(dev),
-    )
-    count_launch("window_stats")
-    if err != 0:
-        raise RuntimeError(
-            f"window_stats kernel launch failed: CUDA error {err}"
+    for step in plan_window_stats(NW, L):
+        arg = _WindowsArg()
+        for i, t in enumerate(windows[step.w0:step.w0 + step.nw]):
+            arg.t[i] = int(t)
+        err = fn(
+            ring_ts.data_ptr(), ring_lanes.data_ptr(), bagg_stats.data_ptr(),
+            bagg_bucket.data_ptr(), q_key.data_ptr(), q_ts.data_ptr(),
+            q_lanes.data_ptr(), out.data_ptr(), arg, Q, C, NB, L, NW,
+            step.w0, step.nw, step.l0, step.lc, int(bucket_size),
+            int(step.small), step.warps, step.smem, dev.index, _stream(dev),
         )
+        if Q > 0:
+            count_launch("window_stats",
+                         variant="small" if step.small else "general")
+        if err != 0:
+            raise RuntimeError(
+                f"window_stats kernel launch failed: CUDA error {err}"
+            )
 
 
 def window_stats(
@@ -200,7 +281,13 @@ def window_stats(
 ) -> torch.Tensor:
     """(Q, NW, L, 5) (sum, count, min, max, sumsq) per (query, RANGE
     window, lane) over the window ending at the request, request row
-    included.  Finalization (mean, std, ...) is the caller's."""
+    included.  Finalization (mean, std, ...) is the caller's.
+
+    On CUDA tensors: checks types, shapes and contiguity, reads the key
+    range back once (the guard below: the kernel gathers the rows of
+    ``q_key``, so a key outside [0, K) would read past the state), then
+    :func:`launch_window_stats`.  That read is the call's one wait on the
+    device; the launch itself is sync-free."""
     args = (ring_ts, ring_lanes, bagg_stats, bagg_bucket, q_key, q_ts,
             q_lanes)
     if not use_cuda_kernel("window_stats", *args):
@@ -231,13 +318,11 @@ def window_stats(
             raise ValueError(f"window_stats: {name} must be contiguous")
     if bucket_size <= 0 or not windows:
         raise ValueError("window_stats: needs bucket_size > 0 and windows")
-    # the kernel gathers the rows of q_key: keys outside [0, K) would read
-    # past the state (one host read of the key range)
-    if Q and not bool(((q_key >= 0) & (q_key < K)).all()):
-        raise ValueError(f"window_stats: q_key outside [0, {K})")
-    w = torch.tensor([int(t) for t in windows], dtype=torch.int32,
-                     device=ring_ts.device)
+    if Q:  # one reduction, one read of its two ints
+        lo, hi = torch.stack(torch.aminmax(q_key)).tolist()
+        if lo < 0 or hi >= K:
+            raise ValueError(f"window_stats: q_key outside [0, {K})")
     out = torch.empty((Q, len(windows), L, 5), dtype=torch.float32,
                       device=ring_ts.device)
-    launch_window_stats(*args, w, out, bucket_size)
+    launch_window_stats(*args, [int(t) for t in windows], out, bucket_size)
     return out

@@ -13,8 +13,9 @@ compared as int32 bit patterns), the route kernel on ranks and counts
 the ids equal the host permutation's), the fold-levels kernel on every
 level (NaN payloads and
 ``±0.0`` included).  The window-stats kernel's count, min and max are
-exact; its sum and sumsq reduce in the kernel's tree order, within
-``rtol=1e-5, atol=1e-3``.  The signature-embedding kernel equals its
+exact; its sum and sumsq reduce in the kernel's fixed order, within
+``rtol=1e-5, atol=1e-3`` of the plain version and bit for bit equal to
+the numpy replay of the kernel (``tests/window_stats_replay.py``).  The signature-embedding kernel equals its
 plain version bit for bit (float32 and bfloat16 tables; from
 signatures, ``multi_hash_ids`` + the plain version).  The WKV6
 kernel is held to its chunked plain version at ``atol = rtol = 1e-4`` and
@@ -414,26 +415,81 @@ def _gpu_store(cuda, rng, keys=512, rows=20_000):
     return svc.store
 
 
-@pytest.mark.parametrize("t_lo,t_hi", [(30_000, 40_000), (0, 300)])
-def test_window_stats_kernel_matches_ref(cuda, t_lo, t_hi):
+def _dense_store(rng):
+    """The dense history: an unsharded fraud store of 2^11 cards (ring 256,
+    512 buckets of 64 s) after 2^20 transactions over a day, 512 a card."""
+    from repro_torch.data.synthetic import fraud_transactions
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.service import FeatureService
+
+    svc = FeatureService.build(
+        "d", fraud_view(), num_keys=1 << 11, capacity=256, num_buckets=512,
+        bucket_size=64, device="cuda",
+    )
+    svc.store.ingest(fraud_transactions(rng, 1 << 20, 1 << 11, 0, 86_400))
+    return svc.store
+
+
+def _extra_lanes(x, lanes, dim):
+    """``x`` with lanes appended along ``dim`` (copies of lane 0 scaled by
+    3, 5, ...), for lane counts the fraud view does not have."""
+    first = x.narrow(dim, 0, 1)
+    extra = [first * float(2 * i + 3) for i in range(lanes - x.shape[dim])]
+    return torch.cat([x, *extra], dim=dim).contiguous()
+
+
+# (t_lo, t_hi, dense, windows, lanes): late and early requests on a
+# sharded store; requests just after the dense day; NW * L beyond the
+# register instantiation (3 windows; 3 lanes; 10 windows: two launches)
+_WS_CASES = [
+    (30_000, 40_000, False, (3600, 21600), 2),
+    (0, 300, False, (3600, 21600), 2),
+    (86_400, 86_460, True, (3600, 21600), 2),
+    (30_000, 40_000, False, (3600, 21600, 600), 2),
+    (86_400, 86_460, True, (3600, 21600), 3),
+    (30_000, 40_000, False,
+     (60, 300, 600, 900, 1800, 3600, 7200, 10800, 21600, 43200), 1),
+]
+
+
+@pytest.mark.parametrize("t_lo,t_hi,dense,windows,lanes", _WS_CASES)
+def test_window_stats_kernel_matches_ref(cuda, t_lo, t_hi, dense, windows,
+                                         lanes):
     """On a sharded fraud store's flat state (2 lanes), late and early
-    requests: count, min, max exact; sums within rtol 1e-5."""
-    rng = np.random.default_rng(t_lo + 3)
-    store = _gpu_store(cuda, rng)
-    s = store._flat_state()
-    keys = rng.integers(0, 512, 1000)
-    shard, local = store._route_ids(keys)
-    qk = torch.as_tensor((shard * store.num_keys + local).astype(np.int32),
+    requests, and on the dense day's store; also at NW * L beyond the
+    register instantiation: count, min, max exact; sums within rtol 1e-5;
+    one launch per plan entry."""
+    from repro_torch.kernels.window_agg.ops import plan_window_stats
+
+    rng = np.random.default_rng(t_lo + 3 + len(windows) + lanes)
+    if dense:
+        store = _dense_store(rng)
+        s = store.state
+        qk = torch.as_tensor(rng.integers(0, 1 << 11, 4096).astype(np.int32),
+                             device=cuda)
+    else:
+        store = _gpu_store(cuda, rng)
+        s = store._flat_state()
+        keys = rng.integers(0, 512, 1000)
+        shard, local = store._route_ids(keys)
+        qk = torch.as_tensor((shard * store.num_keys + local).astype(np.int32),
+                             device=cuda)
+    Q = qk.shape[0]
+    qt = torch.as_tensor(rng.integers(t_lo, t_hi, Q).astype(np.int32),
                          device=cuda)
-    qt = torch.as_tensor(rng.integers(t_lo, t_hi, 1000).astype(np.int32),
+    ql = torch.as_tensor(rng.gamma(1.5, 60.0, (Q, lanes)).astype(np.float32),
                          device=cuda)
-    ql = torch.as_tensor(rng.gamma(1.5, 60.0, (1000, 2)).astype(np.float32),
-                         device=cuda)
-    args = (s.ring.ts, s.ring.vals, s.bagg.stats, s.bagg.bucket, qk, qt, ql)
+    vals, bstats = s.ring.vals[..., :lanes], s.bagg.stats[:, :, :lanes]
+    if lanes > vals.shape[-1]:
+        vals = _extra_lanes(s.ring.vals, lanes, 2)
+        bstats = _extra_lanes(s.bagg.stats, lanes, 2)
+    args = (s.ring.ts, vals.contiguous(), bstats.contiguous(), s.bagg.bucket,
+            qk, qt, ql)
     before = kernels.LAUNCHES["window_stats"]
-    got = window_stats(*args, windows=(3600, 21600), bucket_size=64)
-    assert kernels.LAUNCHES["window_stats"] == before + 1
-    want = window_stats_ref(*args, windows=(3600, 21600), bucket_size=64)
+    got = window_stats(*args, windows=windows, bucket_size=64)
+    assert kernels.LAUNCHES["window_stats"] == \
+        before + len(plan_window_stats(len(windows), lanes))
+    want = window_stats_ref(*args, windows=windows, bucket_size=64)
     torch.cuda.synchronize()
     got, want = got.cpu().numpy(), want.cpu().numpy()
     for i in (1, 2, 3):
@@ -442,6 +498,64 @@ def test_window_stats_kernel_matches_ref(cuda, t_lo, t_hi):
     for i in (0, 4):
         np.testing.assert_allclose(got[..., i], want[..., i], rtol=1e-5,
                                    atol=1e-3)
+
+
+@pytest.mark.parametrize("NW,L", [(1, 1), (2, 2), (1, 2), (3, 3), (10, 1)])
+def test_window_stats_kernel_equals_replay_bit_for_bit(cuda, NW, L):
+    """On a small random state (TS_EMPTY and id -1 slots, bucket ids
+    anywhere in the row, timestamps before 0, a ragged C and NB that
+    load slot by slot, C and NB that load int4 vectors): all five stats,
+    sums included, equal the numpy replay of the kernel
+    (tests/window_stats_replay.py) bit for bit."""
+    from window_stats_replay import replay_window_stats
+
+    rng = np.random.default_rng(100 * NW + L)
+    for K, C, NB in ((6, 128, 64), (5, 70, 37)):
+        ts = rng.integers(-400, 3000, (K, C)).astype(np.int32)
+        ts[rng.random((K, C)) < 0.15] = -2**31
+        vals = rng.gamma(1.5, 60.0, (K, C, L)).astype(np.float32)
+        bids = rng.integers(-10, 50, (K, NB)).astype(np.int32)
+        bids[rng.random((K, NB)) < 0.15] = -1
+        bst = rng.gamma(1.5, 60.0, (K, NB, L, 5)).astype(np.float32)
+        bst[..., 1] = rng.integers(0, 9, (K, NB, L))
+        qk = rng.integers(0, K, 300).astype(np.int32)
+        qt = rng.integers(-100, 3200, 300).astype(np.int32)
+        ql = rng.gamma(1.5, 60.0, (300, L)).astype(np.float32)
+        windows = (600, 100, 3000, 64, 7, 1000, 2000, 40, 5000, 2**31 - 1)[:NW]
+        args = [torch.as_tensor(a, device=cuda)
+                for a in (ts, vals, bst, bids, qk, qt, ql)]
+        got = window_stats(*args, windows=windows, bucket_size=64)
+        want = replay_window_stats(ts, vals, bst, bids, qk, qt, ql, windows,
+                                   64)
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_window_stats_launch_captures_in_a_cuda_graph(cuda):
+    """``launch_window_stats`` waits on nothing and copies nothing to the
+    card: a CUDA graph captures it, and its replay writes what the eager
+    launch wrote."""
+    from repro_torch.kernels.window_agg.ops import launch_window_stats
+
+    rng = np.random.default_rng(7)
+    store = _gpu_store(cuda, rng)
+    s = store._flat_state()
+    Q = 1000
+    qk = torch.as_tensor(rng.integers(0, s.ring.ts.shape[0], Q)
+                         .astype(np.int32), device=cuda)
+    qt = torch.as_tensor(rng.integers(30_000, 40_000, Q).astype(np.int32),
+                         device=cuda)
+    ql = torch.as_tensor(rng.gamma(1.5, 60.0, (Q, 2)).astype(np.float32),
+                         device=cuda)
+    args = (s.ring.ts, s.ring.vals, s.bagg.stats, s.bagg.bucket, qk, qt, ql)
+    want = window_stats(*args, windows=(3600, 21600), bucket_size=64)
+    out = torch.full_like(want, float("nan"))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch_window_stats(*args, (3600, 21600), out, 64)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 def test_window_stats_rejects_out_of_range_keys(cuda):

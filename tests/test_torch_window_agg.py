@@ -14,6 +14,14 @@ Tolerances:
   ``rtol=1e-5, atol=1e-3`` — masked sums reduce in a framework-chosen
   order (the tolerance of the reference's own kernel test).
 
+The window-stats CUDA kernel cannot run here either: its arithmetic is
+replayed in numpy (``tests/window_stats_replay.py``: the lanes' slot
+order, the per-window raw masks, the all-slot middle test, the butterfly
+and the composition) and held to JAX's ``window_stats(impl="xla")`` and
+to the port's plain version on a JAX store's state, at the same
+tolerances; the card tests hold the kernel's sums to the replay bit for
+bit.
+
 The fold-levels CUDA kernel cannot run here, so :func:`_emulate_fold`
 replays ``kernels/csrc/fold_levels.cu`` in numpy from the wrapper's own
 plan (:func:`plan_fold_levels`) at tiny tiles and halos: the tile phase
@@ -38,8 +46,11 @@ from repro_torch.convert import online_state_from_numpy
 from repro_torch.kernels.window_agg.ops import (
     FOLD_HALO,
     FOLD_TILE,
+    WS_MAX_WINDOWS,
+    WS_SMEM,
     fold_levels,
     plan_fold_levels,
+    plan_window_stats,
     window_stats,
 )
 from repro_torch.kernels.window_agg.ref import (
@@ -50,6 +61,7 @@ from repro_torch.kernels.window_agg.ref import (
     fold_min,
     fold_num_levels,
 )
+from window_stats_replay import replay_window_stats
 
 # float32 bit patterns: ±0, quiet / signalling NaNs of both signs and
 # payloads, ±inf, ±1, ±max, the smallest normal
@@ -425,3 +437,144 @@ def test_window_stats_agrees_with_port_preagg_query():
     np.testing.assert_array_equal(stats[:, 0, big, 1], res["c"])
     np.testing.assert_array_equal(stats[:, 1, lane, 3], res["mx"])
     np.testing.assert_array_equal(stats[:, 1, big, 3], res["big_mx"])
+
+
+# ---------------------------------------------------------------------------
+# the window-stats kernel's arithmetic, replayed in numpy
+# ---------------------------------------------------------------------------
+
+_WS_STATE = {}
+
+
+def _ws_state():
+    """A JAX store's carried state with three lanes (amount, 2 * amount,
+    amount + 1) over 9 keys, 800 rows in [0, 4000) s, ring 128, 64
+    buckets of 64 s: (ring ts, ring lanes, bucket stats, bucket ids) as
+    numpy, built once."""
+    if not _WS_STATE:
+        from repro.core import (
+            Col, FeatureView, TableSchema, range_window, w_max, w_sum,
+        )
+        from repro.core.online import OnlineFeatureStore
+
+        rng = _rng("ws-replay-store")
+        schema = TableSchema(name="tx", key="uid", ts="ts",
+                             numeric=("amount",))
+        win = range_window(600, bucket=64)
+        view = FeatureView("v", schema, {
+            "s": w_sum(Col("amount"), win),
+            "d": w_sum(Col("amount") * 2.0, win),
+            "p": w_max(Col("amount") + 1.0, win),
+        })
+        store = OnlineFeatureStore(view, num_keys=9, capacity=128,
+                                   num_buckets=64, bucket_size=64)
+        key = np.sort(rng.integers(0, 9, 800)).astype(np.int32)
+        ts = rng.integers(0, 4000, 800).astype(np.int32)
+        order = np.lexsort((ts, key))
+        store.ingest(dict(uid=key[order], ts=ts[order],
+                          amount=rng.gamma(2.0, 50.0, 800).astype(np.float32)))
+        s = store.state
+        assert s.ring.vals.shape[-1] == 3
+        _WS_STATE["s"] = tuple(np.array(a) for a in (
+            s.ring.ts, s.ring.vals, s.bagg.stats, s.bagg.bucket))
+    return tuple(a.copy() for a in _WS_STATE["s"])
+
+
+def _ws_oracles(state, qk, qt, ql, windows):
+    """The port's plain version, and JAX's ``impl="xla"`` where it runs
+    (L = 1: the reference stacks a (Q, 1) raw count with (Q, L) stats)."""
+    T = torch.as_tensor
+    plain = window_stats(*(T(a) for a in state), T(qk), T(qt), T(ql),
+                         windows=windows, bucket_size=64).numpy()
+    out = [plain]
+    if ql.shape[1] == 1:
+        out.append(np.asarray(jax_window_stats(
+            *(jnp.asarray(a) for a in state), jnp.asarray(qk),
+            jnp.asarray(qt), jnp.asarray(ql), windows=windows,
+            bucket_size=64, impl="xla")))
+    return out
+
+
+@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("NW", [1, 2, 3])
+def test_window_stats_kernel_replay_matches_jax(NW, L):
+    """The kernel's arithmetic (numpy replay) on a JAX store's state, NW
+    windows x L lanes -- the register instantiation at NW, L <= 2, the
+    shared-memory one beyond -- against JAX's XLA path at L = 1 and the
+    port's plain version: count, min, max bit for bit, sums within
+    rtol 1e-5 / atol 1e-3."""
+    ts, vals, bst, bids = _ws_state()
+    state = (ts, np.ascontiguousarray(vals[..., :L]),
+             np.ascontiguousarray(bst[:, :, :L]), bids)
+    rng = _rng(f"ws-replay-{NW}-{L}")
+    qk = rng.integers(0, 9, 20).astype(np.int32)
+    qt = rng.integers(2500, 4200, 20).astype(np.int32)
+    ql = rng.gamma(2.0, 50.0, (20, L)).astype(np.float32)
+    windows = (600, 100, 1500)[:NW]
+    (step,) = plan_window_stats(NW, L)
+    assert step.small == (NW <= 2 and L <= 2)
+    got = replay_window_stats(*state, qk, qt, ql, windows, 64)
+    for want in _ws_oracles(state, qk, qt, ql, windows):
+        _assert_stats_close(got, want)
+
+
+@pytest.mark.parametrize("case", ["early", "empty", "misplaced", "wide"])
+def test_window_stats_kernel_replay_edges(case):
+    """Edges of the kernel's tests, replayed at L = 1 against JAX and the
+    plain version: negative b_lo (requests in the first buckets, ids of
+    -1 then between b_lo and b_q); TS_EMPTY ring slots and id -1 bucket
+    slots holding stale stats; bucket ids moved out of slot id mod NB
+    (membership is over all NB slots); windows wider than the NB buckets,
+    up to 2^31 - 1 with requests before 0 (ts_q - T wraps as int32)."""
+    ts, vals, bst, bids = _ws_state()
+    vals, bst = vals[..., :1].copy(), bst[:, :, :1].copy()
+    rng = _rng(f"ws-replay-edge-{case}")
+    qk = rng.integers(0, 9, 24).astype(np.int32)
+    qt = rng.integers(2500, 4200, 24).astype(np.int32)
+    windows = (600, 100)
+    if case == "early":
+        qt = rng.integers(0, 300, 24).astype(np.int32)
+    elif case == "empty":
+        qk[:12] = 0
+        qt[:6] = rng.integers(0, 300, 6)
+        ts[0, ::3] = -2**31
+        bids[0, ::2] = -1  # stats left as they were: stale
+        assert (bst[0, ::2, 0, 1] > 0).any()
+    elif case == "misplaced":
+        for k in (1, 2, 3):
+            bids[k] = np.roll(bids[k], 7 * k)
+            bst[k] = np.roll(bst[k], 7 * k, axis=0)
+        assert (bids[1] >= 0).any() and \
+            (bids[1][bids[1] >= 0] % 64 != np.flatnonzero(bids[1] >= 0)).all()
+    else:  # wide
+        windows = (5000, 100_000, 2**31 - 1)
+        qt[:4] = -rng.integers(1, 500, 4)
+    ql = rng.gamma(2.0, 50.0, (24, 1)).astype(np.float32)
+    state = (ts, vals, bst, bids)
+    got = replay_window_stats(*state, qk, qt, ql, windows, 64)
+    oracles = _ws_oracles(state, qk, qt, ql, windows)
+    assert len(oracles) == 2
+    for want in oracles:
+        _assert_stats_close(got, want)
+
+
+@pytest.mark.parametrize("NW,L", [(1, 1), (2, 2), (2, 3), (3, 1), (20, 1),
+                                  (1, 100), (9, 30)])
+def test_plan_window_stats_covers_each_window_lane_once(NW, L):
+    """One register launch at NW, L <= 2; beyond, shared-memory launches
+    of at most WS_MAX_WINDOWS windows whose accumulators fit WS_SMEM,
+    together covering every (window, lane) exactly once."""
+    plan = plan_window_stats(NW, L)
+    seen = np.zeros((NW, L), int)
+    for s in plan:
+        seen[s.w0:s.w0 + s.nw, s.l0:s.l0 + s.lc] += 1
+        assert 1 <= s.nw <= WS_MAX_WINDOWS
+        if s.small:
+            assert len(plan) == 1 and s.smem == 0
+        else:
+            assert s.smem == s.warps * 9 * s.nw * s.lc * 32 * 4 <= WS_SMEM
+            assert 1 <= s.warps <= 8
+    assert (seen == 1).all()
+    assert plan[0].small == (NW <= 2 and L <= 2)
+    with pytest.raises(ValueError):
+        plan_window_stats(0, L)
