@@ -1,6 +1,6 @@
 """GPU smoke run of the PyTorch port: the sharded online request path, the
-fraud scoring path on top of it, RWKV6 serving (rwkv6-3b prefill and
-decode), dense LM serving (nemotron-4-15b prefill and decode), and the
+fraud scoring path on top of it, multi-table sharded serving, RWKV6
+serving (rwkv6-3b prefill and decode), dense LM serving (nemotron-4-15b prefill and decode), and the
 offline feature path with its offline<->online consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
@@ -90,7 +90,41 @@ Phases, in order; any failure exits non-zero:
    the fenced batch wall p50 / p99 split into features, embedding and
    model, the peak device memory and one traced batch; then runs
    ``repro_torch.launch.serve.main`` once on the card at its defaults.
-9. **WKV6 kernel** against its plain versions, float32 inputs from a
+9. **Multi-table sharded serving** (after the scoring phase has freed
+   the main path's service).  ``FeatureService.build(sharded_view(),
+   sharded=True, num_shards=8)`` at the main path's sizes (2^19 accounts,
+   ring 256, 512 buckets of 64 s; ``secondary_num_keys={"merchants":
+   2^16}``): two LAST JOINs (``accounts``, ``merchants``), WINDOW UNION
+   sums / counts over ``wires`` and one single-table MEAN; beside it a
+   single-device ``OnlineFeatureStore`` of the same view.  A day of
+   ``multitable_stream`` traffic (4,194,304 transactions, ~1.05 M wires,
+   786,432 account and 98,304 merchant rows): ``accounts`` and
+   ``merchants`` first through ``ingest_table``, then 64 time slices, each
+   its wires through ``ingest_table`` and its transactions through
+   ``ingest`` (B1).  Then 8 request batches of 4,096 rows (accounts
+   uniform over 2^19, merchants over 2^16, ts after the day) through
+   ``FeatureService.request``, preagg, ingest on.  Before each is
+   ingested, its device-routed answers must equal, bit for bit, the
+   host-routed answers of the same store (``device_routing=False``), the
+   single-device store's and the device-routed answers with B2's plain
+   composition swapped in; both paths' per-shard counts must be equal;
+   B2 must launch once a dispatch (from keys) and B1's count must rise;
+   afterwards the served store's primary state must equal B1's plain
+   version replayed over its batches.  Prints the bytes of each ring,
+   ingest rows/s per table, request p50 / p99, the device path's
+   ``route.device`` / ``query.route`` / ``query.scatter`` beside the host
+   path's ``query.route`` / ``query.compute`` / ``query.scatter``, the
+   peak device memory and one traced device-routed batch.  Then modulo
+   routing (``hash_routing=False``) at 2^16 accounts, the same view and
+   sizes, a day of 2^19 transactions: 8 batches device == host ==
+   single-device == B2-plain, B2 launched once a dispatch from shard ids
+   and never from keys, and one batch of accounts all ≡ 0 mod 8 that
+   overflows the optimistic grid and re-dispatches at B = N with its
+   answers still equal.  Then ``verify_view(multi_table_view(), ...,
+   secondary=...)`` on 2^20 transactions over a day on 2^11 accounts
+   (merchants 256), 8 shards: preagg on the device-routed path and naive
+   on the host-routed path must both pass.
+10. **WKV6 kernel** against its plain versions, float32 inputs from a
    seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
    D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
@@ -108,7 +142,7 @@ Phases, in order; any failure exits non-zero:
    apart, and the chunked plain version; its bound is the larger of its
    bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
    version.
-10. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+11. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
    depth cut).  A prefill and a decode step with a spy on B7's entry
@@ -130,7 +164,7 @@ Phases, in order; any failure exits non-zero:
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
    run, within ``LM_F32_TOL``.
-11. **Flash attention kernel (B6)**: each instantiation's registers and
+12. **Flash attention kernel (B6)**: each instantiation's registers and
    spills (``ptxas -v``) and its ``HGMMA`` / ``HMMA`` count in the built
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
@@ -149,7 +183,7 @@ Phases, in order; any failure exits non-zero:
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
    short-sequence threshold), and float32 at nemotron's shape.
-12. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+13. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
    15,628,376,064 parameters drawn on the card from a seeded generator);
@@ -165,20 +199,21 @@ Phases, in order; any failure exits non-zero:
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-13. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+14. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-14. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+15. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-15. **Summary.**  One ``kernels`` JSON line, then the card line, then the
-    ``ok`` line last.
+16. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+    count on its own path; B1's and B2's counts on phase 9 under their
+    own keys), then the card line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
 """
@@ -224,6 +259,17 @@ VERIFY_RUNS = ((1 << 17, 3600), (1 << 11, DAY))
 # filled middle buckets.  B3 is timed over WS_BATCHES request batches in
 # turn at each shape (at the main path's, 8 x ~12 MB of key rows > L2).
 DENSE_CARDS = 1 << 11
+# the multi-table phase: sharded_view() on the main path's store sizes, a
+# day of 4,194,304 transactions (~1.05 M wires, 786,432 account and 98,304
+# merchant rows); modulo routing at 2^16 accounts over a day of 2^19
+# transactions (16 slices); verify_view of multi_table_view() on 2^20
+# transactions over a day on 2^11 accounts (~128 wires a ring of 256)
+MT_MERCHANTS = 1 << 16
+MT_ROWS = WARM_SLICES * SLICE_ROWS
+MT_MOD_ACCOUNTS = 1 << 16
+MT_MOD_ROWS = 1 << 19
+MT_MOD_SLICES = 16
+MT_VERIFY_ACCOUNTS, MT_VERIFY_MERCHANTS = 1 << 11, 256
 WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -1166,9 +1212,10 @@ def check_window_stats(results, store, rng, t_lo) -> None:
     torch.cuda.empty_cache()
 
 
-def trace_request(svc, rows, results) -> None:
+def trace_request(svc, rows, results, key="trace_request") -> None:
     """Profile one request batch: device kernels, busy time, idle share,
-    and B2's launches and device time in it."""
+    and B2's launches and device time in it (kept in B2's results under
+    ``key``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1197,10 +1244,10 @@ def trace_request(svc, rows, results) -> None:
     b2_ms = sum(e.self_device_time_total for e in b2) / 1e3
     print(f"  B2 (route kernel) in the trace: x{b2_n}, {b2_ms:.4f} ms device "
           "time", flush=True)
-    results["route_rank"].update(
-        trace_request_kernels=n_kernels, trace_request_busy_ms=busy_ms,
-        trace_request_idle_share=1 - busy_ms / wall_ms,
-        trace_request_b2_launches=b2_n)
+    results["route_rank"].update({
+        f"{key}_kernels": n_kernels, f"{key}_busy_ms": busy_ms,
+        f"{key}_idle_share": 1 - busy_ms / wall_ms,
+        f"{key}_b2_launches": b2_n})
 
 
 def _sig_ids(rng, n, k, V, signed=False):
@@ -1573,6 +1620,348 @@ def trace_scoring(scoring, rows) -> None:
         print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
               f"x{e.count} {e.key[:90]}", flush=True)
     _print_b6_share(dev, busy_ms)
+
+
+# ---------------------------------------------------------------------------
+# multi-table sharded serving
+# ---------------------------------------------------------------------------
+
+
+def _mt_requests(rng, t_lo, accounts):
+    """A request batch of the multi-table view: accounts uniform over
+    ``accounts``, merchants over ``MT_MERCHANTS``, ts in a minute."""
+    return dict(
+        account=rng.integers(0, accounts, REQ_ROWS).astype(np.int32),
+        ts=rng.integers(t_lo, t_lo + 60, REQ_ROWS).astype(np.int32),
+        amount=rng.gamma(1.5, 60.0, REQ_ROWS).astype(np.float32),
+        merchant=rng.integers(0, MT_MERCHANTS, REQ_ROWS).astype(np.int32),
+    )
+
+
+def _by_key(cols, key):
+    o = np.lexsort((cols["ts"], cols[key]))
+    return {c: v[o] for c, v in cols.items()}
+
+
+def _mt_ingest(served, others, tables, slices, launches):
+    """``accounts`` and ``merchants`` (key, ts)-sorted, then the day in
+    ``slices`` time slices: each slice's ``wires`` rows through
+    ``ingest_table``, then its transactions through ``ingest`` (B1), into
+    the served store and into each of ``others``.  Returns the served
+    store's seconds and rows per table; ``launches`` gains the served
+    store's B1 launches."""
+    from repro_torch import kernels
+
+    secs, rows = {}, {}
+
+    def put(table, cols):
+        kernels_before = kernels.LAUNCHES["fused_ingest"]
+        t0 = time.perf_counter()
+        served.ingest_table(table, dict(cols))
+        secs[table] = secs.get(table, 0.0) + time.perf_counter() - t0
+        rows[table] = rows.get(table, 0) + len(cols["ts"])
+        launches["fused_ingest"] += (kernels.LAUNCHES["fused_ingest"]
+                                     - kernels_before)
+        for s in others:
+            s.ingest_table(table, dict(cols))
+
+    put("accounts", _by_key(tables["accounts"], "account"))
+    put("merchants", _by_key(tables["merchants"], "merchant"))
+    tx, wires = tables["transactions"], tables["wires"]
+    for i in range(slices):
+        lo, hi = i * DAY // slices, (i + 1) * DAY // slices
+        for table, cols in (("wires", wires), ("transactions", tx)):
+            a, b = np.searchsorted(cols["ts"], [lo, hi])
+            put(table, _by_key({c: v[a:b] for c, v in cols.items()},
+                               "account"))
+    return secs, rows
+
+
+def _ring_bytes(store):
+    """Bytes held by each ring of a store (a replicated ring's one copy)."""
+    def nbytes(ring):
+        return sum(t.untyped_storage().nbytes()
+                   for t in (ring.ts, ring.vals, ring.cursor))
+
+    s = store.state
+    out = {"primary ring": nbytes(s.ring),
+           "buckets": sum(t.untyped_storage().nbytes()
+                          for t in (s.bagg.stats, s.bagg.bitmap, s.bagg.bucket))}
+    for p, ring in zip(store.layout.tables, s.sec):
+        role = "partitioned" if p.partitioned else "replicated"
+        out[f"{p.table} ({role}, {'/'.join(p.serves)})"] = nbytes(ring)
+    return out
+
+
+def _np_answers(out):
+    return {f: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+            for f, v in out.items()}
+
+
+def _same_bits(a, b):
+    """Every feature of two answer dicts bit for bit."""
+    for f in a:
+        x, y = np.asarray(a[f]), np.asarray(b[f])
+        if x.shape != y.shape or x.dtype != y.dtype:
+            return f
+        if not np.array_equal(x.view(np.uint8), y.view(np.uint8)):
+            return f
+    return None
+
+
+def _mt_serve(svc, single, rng, t_lo, accounts, batches, launches, tels,
+              variant, strided=False):
+    """Serve ``batches`` request batches through ``svc`` (device-routed,
+    ingest on); before each is ingested its answers must equal, bit for
+    bit, the host-routed answers of the same store, the single-device
+    store's and the answers with B2's plain composition swapped in; both
+    paths' per-shard counts must be equal, and B2 (``variant``) must
+    launch exactly once a dispatch.  ``strided`` makes every account
+    ≡ 0 mod S.  Returns the last batch's per-shard counts and each
+    ``request``'s wall seconds (query + ingest, answers on the host)."""
+    from repro_torch import kernels
+    from repro_torch.core import shard as shard_mod
+    from repro_torch.kernels.route.ref import route_keys_ref, route_rank_ref
+    from repro_torch.obs import Telemetry, use_telemetry
+
+    store = svc.store
+    S = store.num_shards
+    kernel_fns = (shard_mod.route_keys, shard_mod.route_rank)
+
+    def plain_route_keys(key, valid, perm, *, num_shards):
+        return route_keys_ref(key, valid, perm, num_shards)
+
+    def plain_route_rank(shard, *, num_shards):
+        return route_rank_ref(shard, num_shards)
+
+    walls = []
+    for b in range(batches):
+        rows = _mt_requests(rng, t_lo + 60 * b, accounts)
+        if strided:
+            rows["account"] = (rows["account"] // S * S).astype(np.int32)
+        b2_before = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+        ri_host = {}
+        store.device_routing = False
+        with use_telemetry(tels["host"]):
+            host = _np_answers(store.query(dict(rows), mode="preagg",
+                                           route_info=ri_host))
+        store.device_routing = True
+        shard_mod.route_keys, shard_mod.route_rank = (plain_route_keys,
+                                                      plain_route_rank)
+        try:
+            with use_telemetry(Telemetry()):
+                plain = _np_answers(store.query(dict(rows), mode="preagg"))
+        finally:
+            shard_mod.route_keys, shard_mod.route_rank = kernel_fns
+        with use_telemetry(Telemetry()):
+            one = _np_answers(single.query(dict(rows), mode="preagg"))
+        if kernels.VARIANT_LAUNCHES["route_rank"] != b2_before:
+            _fail("the host-routed, plain and single-device answers "
+                  "launched B2")
+        ri_dev = {}
+        b1 = kernels.LAUNCHES["fused_ingest"]
+        t0 = time.perf_counter()
+        with use_telemetry(tels["device"]):
+            got = svc.request(dict(rows), ingest=True, route_info=ri_dev)
+        walls.append(time.perf_counter() - t0)
+        launches["fused_ingest"] += kernels.LAUNCHES["fused_ingest"] - b1
+        after = kernels.VARIANT_LAUNCHES["route_rank"]
+        n_b2 = {v: after[v] - b2_before[v] for v in after}
+        launches[variant] += n_b2[variant]
+        if n_b2[variant] != 1 or sum(n_b2.values()) != 1:
+            _fail(f"batch {b}: B2 launched {n_b2} in one device-routed "
+                  f"dispatch, expected one from {variant}")
+        for name, want in (("host-routed", host), ("single-device", one),
+                           ("B2-plain", plain)):
+            bad = _same_bits(want, got)
+            if bad is not None:
+                x, y = np.asarray(want[bad]), np.asarray(got[bad])
+                i = int(np.flatnonzero(x.view(np.uint8) != y.view(np.uint8))[0]
+                        // x.itemsize) if x.shape == y.shape else 0
+                _fail(f"batch {b} feature {bad}: device-routed answers differ "
+                      f"from the {name} answers (first at row {i}: "
+                      f"{y.reshape(-1)[i]!r} vs {x.reshape(-1)[i]!r})")
+        for f, v in got.items():
+            if v.shape != (REQ_ROWS,) or not np.all(np.isfinite(v)):
+                _fail(f"batch {b} feature {f}: shape {v.shape} or non-finite")
+        if not (got["outflow_cnt_1h"] >= 1).all():
+            _fail("every request counts at least itself in its window")
+        if not np.array_equal(ri_dev["shard_counts"], ri_host["shard_counts"]):
+            _fail(f"batch {b}: per-shard counts differ: device "
+                  f"{ri_dev['shard_counts']} host {ri_host['shard_counts']}")
+        single.ingest(_by_key(rows, "account"))
+    return ri_dev["shard_counts"], walls
+
+
+def multitable_path(results) -> None:
+    """Multi-table sharded serving at deployment size: ``sharded_view()``
+    (two LAST JOINs, WINDOW UNION over wires) on 2^19 accounts x 8 shards,
+    device == host == single-device == the B2-plain composition, bit for
+    bit; then modulo routing at 2^16 accounts; then ``verify_view`` of
+    ``multi_table_view()`` on the card in both routings."""
+    from repro_torch import kernels
+    from repro_torch.core.consistency import verify_view
+    from repro_torch.core.online import OnlineFeatureStore
+    from repro_torch.core.shard import ShardedOnlineStore
+    from repro_torch.data.synthetic import multitable_stream
+    from repro_torch.kernels.ingest.ref import fused_ingest_ref
+    from repro_torch.obs import Telemetry
+    from repro_torch.scenarios import multi_table_view, sharded_view
+    from repro_torch.serve.service import FeatureService
+
+    dev = "cuda"
+    kw = dict(secondary_num_keys={"merchants": MT_MERCHANTS}, **STORE_KW)
+    rng = np.random.default_rng(SEED + 5)
+    torch.cuda.reset_peak_memory_stats()
+    svc = FeatureService.build(
+        "multitable", sharded_view(), num_keys=NUM_CARDS, sharded=True,
+        num_shards=NUM_SHARDS, mode="preagg", device=dev, **kw)
+    store = svc.store
+    single = OnlineFeatureStore(sharded_view(), num_keys=NUM_CARDS,
+                                device=dev, **kw)
+    for name, nbytes in _ring_bytes(store).items():
+        print(f"multi-table store: {name} {nbytes / 1e9:.4f} GB", flush=True)
+    print(f"multi-table store: {sum(_ring_bytes(store).values()) / 1e9:.3f} "
+          f"GB in all ({NUM_SHARDS} shards x {store.num_keys} accounts; the "
+          f"single-device store beside it "
+          f"{sum(_ring_bytes(single).values()) / 1e9:.3f} GB)", flush=True)
+
+    # every flat batch the served store hands to B1, kept to replay
+    # through its plain version afterwards
+    applied = []
+    apply_kernel = store._apply_ingest
+
+    def recording_apply(key, ts, lanes):
+        applied.append((key, ts, lanes))
+        apply_kernel(key, ts, lanes)
+
+    store._apply_ingest = recording_apply
+    tables = multitable_stream(rng, MT_ROWS, num_accounts=NUM_CARDS,
+                               num_merchants=MT_MERCHANTS, t_max=DAY)
+    print("multi-table traffic: " + ", ".join(
+        f"{t} {len(c['ts'])} rows" for t, c in tables.items()), flush=True)
+    kernels.reset_launches()
+    launches = {"fused_ingest": 0, "keys": 0, "shards": 0}
+    secs, rows = _mt_ingest(store, (single,), tables, WARM_SLICES, launches)
+    for t in rows:
+        print(f"multi-table ingest {t}: {rows[t]} rows in {secs[t]:.3f} s = "
+              f"{rows[t] / secs[t]:.0f} rows/s (served store, fenced)",
+              flush=True)
+    del tables
+    tels = {"host": Telemetry(), "device": Telemetry()}
+    _, walls = _mt_serve(svc, single, rng, DAY, NUM_CARDS, REQ_BATCHES,
+                         launches, tels, "keys")
+    print(f"multi-table: served {REQ_BATCHES} batches x {REQ_ROWS} rows: "
+          "device-routed == host-routed == single-device == B2-plain, bit "
+          f"for bit; per-shard counts equal; B2 launches {launches['keys']} "
+          f"(from keys), B1 {launches['fused_ingest']}", flush=True)
+    if launches["keys"] != REQ_BATCHES or launches["fused_ingest"] == 0:
+        _fail(f"multi-table launches {launches}")
+    # every request of a batch waits the batch's wall time
+    lat = 1e3 * np.repeat(walls, REQ_ROWS)
+    print(f"multi-table request latency (device-routed, {lat.size} requests "
+          f"in {len(walls)} batches, query + ingest): p50 "
+          f"{np.percentile(lat, 50):.3f} ms, p99 {np.percentile(lat, 99):.3f} "
+          f"ms; batch walls {[round(1e3 * w, 3) for w in walls]}", flush=True)
+    for path, names in (("device", ("query.route", "route.device",
+                                    "query.scatter", "ingest", "request")),
+                        ("host", ("query.route", "query.compute",
+                                  "query.scatter"))):
+        spans = tels[path].metrics.histogram(
+            "span_seconds", unit="s", labels=("name", "kind"))
+        for name in names:
+            kind = "device" if name in ("route.device", "query.compute",
+                                        "ingest") else "host"
+            print(f"multi-table {path} path span {name}: mean "
+                  f"{1e3 * spans.mean(name=name, kind=kind):.3f} ms over "
+                  f"{int(spans.count(name=name, kind=kind))}", flush=True)
+
+    # the served store's primary state == B1's plain version over the same
+    # batches
+    del store._apply_ingest
+    ref = store._init_state()
+    ref_flat = [t.flatten(0, 1) for t in ref.arrays()]
+    for key, ts, lanes in applied:
+        fused_ingest_ref(*ref_flat, key, ts, lanes,
+                         bucket_size=store.bucket_size)
+    errs = [_max_abs_err(a, b) for a, b in zip(store.state.arrays(),
+                                               ref.arrays())]
+    if any(e != 0.0 for e in errs):
+        _fail(f"multi-table primary state differs from B1's plain version: "
+              f"{errs}")
+    print(f"multi-table primary state ({len(applied)} batches) == B1's plain "
+          "version: six arrays bit-exact", flush=True)
+    del ref, ref_flat, applied
+    print(f"multi-table peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    trace_request(svc, _mt_requests(rng, DAY + 3600, NUM_CARDS), results,
+                  key="trace_multitable")
+    del svc, store, single
+    torch.cuda.empty_cache()
+
+    # modulo routing at 2^16 accounts: B2 ranks from the shard ids
+    svc = FeatureService.build(
+        "multitable_mod", sharded_view(), num_keys=MT_MOD_ACCOUNTS,
+        sharded=True, num_shards=NUM_SHARDS, hash_routing=False,
+        mode="preagg", device=dev, **kw)
+    single = OnlineFeatureStore(sharded_view(), num_keys=MT_MOD_ACCOUNTS,
+                                device=dev, **kw)
+    tables = multitable_stream(rng, MT_MOD_ROWS, num_accounts=MT_MOD_ACCOUNTS,
+                               num_merchants=MT_MERCHANTS, t_max=DAY)
+    _mt_ingest(svc.store, (single,), tables, MT_MOD_SLICES, launches)
+    del tables
+    _mt_serve(svc, single, rng, DAY, MT_MOD_ACCOUNTS, REQ_BATCHES, launches,
+              tels, "shards")
+    pad = tels["device"].metrics.counter(
+        "padding_rows_total", unit="1", labels=("layer",))
+    pad_before = pad.value(layer="shard")
+    counts, _ = _mt_serve(svc, single, rng, DAY + 60 * REQ_BATCHES,
+                          MT_MOD_ACCOUNTS, 1, launches, tels, "shards",
+                          strided=True)
+    B = svc.store._route_bucket(REQ_ROWS)
+    if counts[0] != REQ_ROWS or counts[0] <= B:
+        _fail(f"the strided batch did not collapse onto shard 0: {counts}")
+    # the re-dispatch at B = N pads every shard to N rows
+    if pad.value(layer="shard") - pad_before != NUM_SHARDS * REQ_ROWS - REQ_ROWS:
+        _fail("the strided batch did not re-dispatch at B = N")
+    print(f"modulo routing ({MT_MOD_ACCOUNTS} accounts, {NUM_SHARDS} shards): "
+          f"{REQ_BATCHES} batches + 1 strided batch (all accounts ≡ 0 mod "
+          f"{NUM_SHARDS}: {counts[0]} rows on shard 0 > optimistic B = {B}, "
+          f"re-dispatched at B = {REQ_ROWS}) device-routed == host-routed == "
+          f"single-device == B2-plain, bit for bit; B2 from shard ids "
+          f"{launches['shards']} launches, from keys {launches['keys']} in "
+          "all", flush=True)
+    if launches["shards"] != REQ_BATCHES + 1 or launches["keys"] != REQ_BATCHES:
+        _fail(f"modulo routing launches {launches}")
+    del svc, single
+    torch.cuda.empty_cache()
+
+    # each path's own counts: ``launches`` stays the main path's
+    results["fused_ingest"]["launches_multitable"] = launches["fused_ingest"]
+    results["route_rank"]["launches_multitable_keys"] = launches["keys"]
+    results["route_rank"]["launches_modulo_shards"] = launches["shards"]
+
+    # offline <-> online consistency of the multi-table view on the card
+    tables = multitable_stream(rng, VERIFY_ROWS, num_accounts=MT_VERIFY_ACCOUNTS,
+                               num_merchants=MT_VERIFY_MERCHANTS, t_max=DAY)
+    tx = tables.pop("transactions")
+    per = np.bincount(tables["wires"]["account"], minlength=MT_VERIFY_ACCOUNTS)
+    print(f"multi-table consistency: {len(tx['ts'])} transactions on "
+          f"{MT_VERIFY_ACCOUNTS} accounts over a day, wires {per.max()} on "
+          f"the busiest account (ring {STORE_KW['capacity']})", flush=True)
+    for mode, routing in (("preagg", True), ("naive", False)):
+        t0 = time.perf_counter()
+        rep = verify_view(
+            multi_table_view(), tx, num_keys=MT_VERIFY_ACCOUNTS,
+            secondary=tables,
+            secondary_num_keys={"merchants": MT_VERIFY_MERCHANTS},
+            num_shards=NUM_SHARDS, mode=mode, device_routing=routing,
+            device=dev, **STORE_KW)
+        print(f"{rep.summary()} in {time.perf_counter() - t0:.1f} s: "
+              f"per feature {rep.per_feature}", flush=True)
+        if not rep.passed:
+            _fail(f"verify_view of the multi-table view ({rep.mode}) failed")
+
 
 
 def _wkv6_cost(shape, with_s0):
@@ -2632,6 +3021,7 @@ def main() -> None:
     scoring_path(results, svc, table)
     del svc, table
     torch.cuda.empty_cache()
+    multitable_path(results)
     check_wkv6_kernel(results)
     rwkv6_path(results)
     check_flash_attention_kernel(results)

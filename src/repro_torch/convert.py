@@ -1,10 +1,11 @@
 """Carry state and weights between this package and the JAX reference.
 
 * Online-store state: the six primary arrays of an online store — ring
-  ts / vals / cursor and bucket stats / bitmap / ids — as numpy, either
-  single-device ``(K, ...)`` or sharded ``(S, K_local, ...)``.  The tests
-  seed both packages' stores from the same warm state with these, and read
-  states back to compare them bit for bit.
+  ts / vals / cursor and bucket stats / bitmap / ids — and the secondary
+  rings (ts / vals / cursor of each ring of ``layout.tables``) as numpy,
+  either single-device ``(K, ...)`` or sharded ``(S, K_local, ...)``.  The
+  tests seed both packages' stores from the same warm state with these,
+  and read states back to compare them bit for bit.
 * Model weights: :func:`decoder_from_numpy` builds a
   :class:`~repro_torch.models.transformer.DecoderLM`, and
   :func:`rwkv6_from_numpy` a :class:`~repro_torch.models.rwkv6.RWKV6LM`,
@@ -25,6 +26,7 @@ from repro_torch.core.online import OnlineState
 
 __all__ = [
     "STATE_ARRAYS",
+    "SEC_ARRAYS",
     "online_state_from_numpy",
     "online_state_to_numpy",
     "decoder_from_numpy",
@@ -43,41 +45,101 @@ STATE_ARRAYS = (
 )
 
 
+# fields and dtypes of each secondary ring, named ``sec{i}_<field>``
+SEC_ARRAYS = (("ts", np.int32), ("vals", np.float32), ("cursor", np.int32))
+
+
+def _sec_names(n_rings: int):
+    return [f"sec{i}_{f}" for i in range(n_rings) for f, _ in SEC_ARRAYS]
+
+
 def online_state_from_numpy(
     arrays: Union[Mapping[str, np.ndarray], Sequence[np.ndarray]],
     device="cuda",
     *,
     bucket_size: int,
+    layout=None,
 ) -> OnlineState:
-    """An :class:`OnlineState` on ``device`` holding copies of ``arrays``
-    (a mapping keyed by :data:`STATE_ARRAYS` names, or the six arrays in
-    that order).  ``bucket_size`` is the bucket width the states were
-    aggregated with."""
+    """An :class:`OnlineState` on ``device`` holding copies of ``arrays``:
+    a mapping keyed by :data:`STATE_ARRAYS` names, or the six arrays in
+    that order; ``bucket_size`` is the bucket width the states were
+    aggregated with.
+
+    With ``layout`` (the store's :class:`~repro_torch.core.layout.
+    StoreLayout`), ``arrays`` also holds every secondary ring of
+    ``layout.tables`` — ``sec{i}_ts``, ``sec{i}_vals``, ``sec{i}_cursor``
+    (:data:`SEC_ARRAYS`; a sequence gives them after the six, ring by
+    ring).  On a sharded layout a replicated ring arrives as the
+    reference's S replicas ``(S, K_t, ...)``: they must be equal (else
+    ``ValueError``), and one copy is kept, seen as S replicas through a
+    view with stride 0, as the port's sharded store holds it."""
+    n_sec = len(layout.tables) if layout is not None else 0
+    names = [name for name, _ in STATE_ARRAYS] + _sec_names(n_sec)
+    dtypes = [d for _, d in STATE_ARRAYS] + [d for _, d in SEC_ARRAYS] * n_sec
     if isinstance(arrays, Mapping):
-        arrays = [arrays[name] for name, _ in STATE_ARRAYS]
-    if len(arrays) != len(STATE_ARRAYS):
-        raise ValueError(f"need {len(STATE_ARRAYS)} arrays, got {len(arrays)}")
+        extra = sorted(set(arrays) - set(names))
+        if extra:
+            raise ValueError(f"unexpected arrays {extra} (secondary rings "
+                             "need the store's layout=)")
+        arrays = [arrays[name] for name in names]
+    if len(arrays) != len(names):
+        raise ValueError(f"need {len(names)} arrays, got {len(arrays)}")
     dev = resolve_device(device)
-    t = []
-    for (name, dtype), a in zip(STATE_ARRAYS, arrays):
+    host = []
+    for name, dtype, a in zip(names, dtypes, arrays):
         a = np.asarray(a)
         if a.dtype != dtype:
             raise TypeError(f"{name}: expected {np.dtype(dtype)}, got {a.dtype}")
-        t.append(torch.from_numpy(np.array(a, copy=True)).to(dev))
-    ring_ts, ring_vals, cursor, bstats, bbitmap, bbucket = t
+        host.append(a)
+
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+    ring_ts, ring_vals, cursor, bstats, bbitmap, bbucket = (
+        put(a) for a in host[:6])
+    sec = []
+    sharded = layout is not None and layout.num_shards is not None
+    for i, p in enumerate(layout.tables if layout is not None else ()):
+        parts = host[6 + 3 * i: 9 + 3 * i]
+        if sharded and not p.partitioned:
+            S = int(layout.num_shards)
+            for (f, _), a in zip(SEC_ARRAYS, parts):
+                if a.shape[0] != S:
+                    raise ValueError(
+                        f"sec{i}_{f} ({p.table}, replicated): expected {S} "
+                        f"replicas, got shape {a.shape}")
+                bits = a.view(np.int32)
+                for s in range(1, S):
+                    if not np.array_equal(bits[s], bits[0]):
+                        raise ValueError(
+                            f"sec{i}_{f} ({p.table}, replicated): replica "
+                            f"{s} differs from replica 0")
+            ring = st.RingStore(*(
+                put(a[0]).unsqueeze(0).expand(a.shape) for a in parts))
+        else:
+            ring = st.RingStore(*(put(a) for a in parts))
+        sec.append(ring)
     return OnlineState(
         ring=st.RingStore(ts=ring_ts, vals=ring_vals, cursor=cursor),
         bagg=pg.BucketAgg(
             stats=bstats, bitmap=bbitmap, bucket=bbucket, size=bucket_size
         ),
+        sec=tuple(sec),
     )
 
 
 def online_state_to_numpy(state: OnlineState) -> Dict[str, np.ndarray]:
-    """The six primary arrays of ``state`` as host numpy copies."""
+    """The six primary arrays and the secondary rings of ``state``
+    (``sec{i}_ts`` / ``sec{i}_vals`` / ``sec{i}_cursor``, in ``state.sec``
+    order) as host numpy copies; a replicated ring of a sharded store comes
+    back as its S replicas, the reference's shape."""
+    tensors = list(state.arrays())
+    for ring in state.sec:
+        tensors += [ring.ts, ring.vals, ring.cursor]
+    names = [name for name, _ in STATE_ARRAYS] + _sec_names(len(state.sec))
     return {
-        name: t.detach().cpu().numpy()
-        for (name, _), t in zip(STATE_ARRAYS, state.arrays())
+        name: np.array(t.detach().cpu().numpy(), copy=True)
+        for name, t in zip(names, tensors)
     }
 
 

@@ -17,10 +17,9 @@ The replay is batched in rounds in which no key appears twice: within a
 round every query is answered against state that excludes the whole
 round, which matches offline semantics because windows are per key.
 
-The port's online store serves single-table views, so this check covers
-single-table views; a view that reads secondary tables raises
-``NotImplementedError`` when its store is built (the offline engine
-itself computes multi-table views).
+Multi-table views pass their secondary tables through ``secondary``; the
+replay then interleaves secondary ingest by timestamp before each round,
+as the reference does.
 """
 
 from __future__ import annotations
@@ -92,14 +91,30 @@ def verify_view(
     rtol: float = 2e-4,
     atol_scale: float = 1e-3,
     engine: Optional[OfflineEngine] = None,
+    secondary: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+    secondary_num_keys: Optional[Dict[str, int]] = None,
     num_shards: Optional[int] = None,
+    device_routing: bool = True,
     device="cuda",
 ) -> ConsistencyReport:
     """Run the full offline-vs-online verification for one view on
     ``device``.  ``num_shards`` replays against a
     :class:`~repro_torch.core.shard.ShardedOnlineStore` of that many shards
-    (its answers equal the single store's, so one tolerance serves both).
+    (its answers equal the single store's, so one tolerance serves both);
+    ``device_routing=False`` replays it through the host-routed oracle
+    (ignored for a single-device replay).
+
+    Multi-table views pass their secondary tables via ``secondary``
+    ({table: {col: (M,) array}}).  Before each primary round, every
+    secondary row with ``ts <= max(round ts)`` not yet ingested goes into
+    its table's rings, so LAST JOIN lookups and union windows see exactly
+    the secondary state a live service would hold at that point of the
+    stream (early arrivals are invisible: every online path masks
+    ``ts <= request ts``).  Capacity contract: a round's early-ingested
+    secondary rows must not wrap a key's ring, so size ``capacity`` to the
+    per-key secondary row count, as with the primary.
     """
+    secondary = secondary or {}
     store = OnlineFeatureStore.create(
         view,
         num_keys=num_keys,
@@ -107,11 +122,14 @@ def verify_view(
         capacity=capacity,
         num_buckets=num_buckets,
         bucket_size=bucket_size,
+        secondary_num_keys=secondary_num_keys,
+        device_routing=device_routing,
         device=device,
     )
     engine = engine or OfflineEngine(device=device)
     offline = {
-        k: v.cpu().numpy() for k, v in engine.compute(view, columns).items()
+        k: v.cpu().numpy()
+        for k, v in engine.compute(view, columns, secondary).items()
     }
 
     schema = view.schema
@@ -120,8 +138,34 @@ def verify_view(
     n = len(key)
     host = {c: np.asarray(v) for c, v in columns.items()}
 
+    # per-table event cursors over the rows stably sorted by ts
+    sec_events: Dict[str, Dict] = {}
+    for t in store._sec_names:
+        tsch = view.database.table(t)
+        tcols = {c: np.asarray(v) for c, v in secondary[t].items()}
+        order = np.argsort(tcols[tsch.ts], kind="stable")
+        sec_events[t] = {
+            "cols": {c: v[order] for c, v in tcols.items()},
+            "ts": tcols[tsch.ts][order],
+            "keycol": tsch.key,
+            "tscol": tsch.ts,
+            "pos": 0,
+        }
+
+    def ingest_secondary_upto(tmax: int) -> None:
+        for t, ev in sec_events.items():
+            hi = int(np.searchsorted(ev["ts"], tmax, side="right"))
+            if hi <= ev["pos"]:
+                continue
+            sl = slice(ev["pos"], hi)
+            ev["pos"] = hi
+            batch = {c: v[sl] for c, v in ev["cols"].items()}
+            sort = np.lexsort((batch[ev["tscol"]], batch[ev["keycol"]]))
+            store.ingest_table(t, {c: v[sort] for c, v in batch.items()})
+
     online = {f: np.zeros(n, np.float32) for f in view.features}
     for idx in replay_rounds(key, ts):
+        ingest_secondary_upto(int(ts[idx].max()))
         batch = {c: v[idx] for c, v in host.items()}
         res = store.query(batch, mode=mode)
         for f, v in res.items():
@@ -157,5 +201,10 @@ def verify_view(
         max_rel_err=max_rel,
         per_feature=per_feature,
         passed=ok,
-        mode=mode if num_shards is None else f"{mode}/shards={num_shards}",
+        mode=(
+            mode
+            if num_shards is None
+            else f"{mode}/shards={num_shards}"
+            + ("" if device_routing else "/host")
+        ),
     )

@@ -9,9 +9,13 @@ offline batch answer at row i.
 Every aggregate's semantics come from the one registry in
 :mod:`repro_torch.core.aggregates`; a query is one generic dataflow:
 
-    lift(request row) ⊕ fold(window rows) → finalize
+    lift(request row)
+      ⊕ fold(primary window rows)            [raw ring, or raw boundary
+                                              rows ⊕ bucket states]
+      ⊕ fold(each union table's window rows) [raw secondary rings]
+    → finalize
 
-with two ways to fold a RANGE window:
+with two ways to fold a primary RANGE window:
 
 * ``naive``  — masked fold over the raw ring (O(C) per query);
 * ``preagg`` — raw boundary rows ⊕ per-bucket partial states
@@ -21,12 +25,21 @@ Ingest applies a (key, ts)-sorted batch to the ring and the bucket store in
 one call of the fused ingest kernel (:mod:`repro_torch.kernels.ingest`),
 updating the device state in place.
 
-This is the single-table slice of the reference package's
-``repro.core.online``: views with LAST JOIN or WINDOW UNION, and layouts
-that persist the merge-order bucket families (FIRST / LAST / TOPN_FREQ
-over RANGE windows), raise ``NotImplementedError`` at construction.
-State lives on ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain
-PyTorch versions of the kernels).
+Multi-table views keep one ring store per secondary ring of the layout
+(``OnlineState.sec``): point-in-time LAST JOIN lookups (the newest row of
+the join key with ``ts <= request ts``) and WINDOW UNION windows (the
+primary window combined with each union table's masked ring) are
+answered from them in the same query.  Secondary rows arrive through
+:meth:`OnlineFeatureStore.ingest_table`, which writes every ring of the
+table (a dual-use table on a sharded plane has two); secondary rings hold
+no pre-aggregates, so their ingest is plain PyTorch, as in the reference.
+
+The port of the reference package's ``repro.core.online`` without live
+layout adoption, per-scenario ``QueryProgram`` s and the merge-order
+bucket families (FIRST / LAST / TOPN_FREQ over RANGE windows, which raise
+``NotImplementedError`` at construction).  State lives on ``device``
+(default ``"cuda"``; ``"cpu"`` runs the plain PyTorch versions of the
+kernels).
 """
 
 from __future__ import annotations
@@ -55,16 +68,19 @@ from repro_torch.obs import get_telemetry
 __all__ = ["OnlineState", "OnlineFeatureStore"]
 
 _POS_MAX = 2147483647
+_TS_MIN = -2147483648
 
 
 @dataclasses.dataclass
 class OnlineState:
-    """All device state of one view's online store: the primary ring and
-    its bucket pre-aggregates.  A sharded store keeps a leading shard axis
-    on every tensor, ``(S, K_local, ...)``."""
+    """All device state of one view's online store: the primary ring, its
+    bucket pre-aggregates and ``sec``, one ring store per secondary ring
+    plan in ``layout.tables`` order.  A sharded store keeps a leading
+    shard axis on every tensor, ``(S, K_local, ...)``."""
 
     ring: st.RingStore
     bagg: pg.BucketAgg
+    sec: Tuple[st.RingStore, ...] = ()
 
     def arrays(self) -> Tuple[torch.Tensor, ...]:
         """The six primary arrays, in the kernel's argument order."""
@@ -82,6 +98,8 @@ class OnlineFeatureStore:
         capacity: int = 256,
         num_buckets: int = 64,
         bucket_size: int = 64,
+        secondary_num_keys: Optional[Dict[str, int]] = None,
+        secondary_capacity: Optional[int] = None,
         ttl: Optional[int] = None,
         table_capacity: Optional[Dict[str, int]] = None,
         table_ttl: Optional[Dict[str, int]] = None,
@@ -98,6 +116,8 @@ class OnlineFeatureStore:
                 capacity=capacity,
                 num_buckets=num_buckets,
                 bucket_size=bucket_size,
+                secondary_num_keys=secondary_num_keys,
+                secondary_capacity=secondary_capacity,
                 ttl=ttl,
                 table_capacity=table_capacity,
                 table_ttl=table_ttl,
@@ -108,13 +128,8 @@ class OnlineFeatureStore:
     # -- layout consumption ---------------------------------------------------
 
     def _apply_layout(self, view, layout: StoreLayout) -> None:
-        """Derive every layout-dependent attribute from the plan."""
-        exprs = list(view.features.values())
-        if layout.tables or collect_last_joins(exprs):
-            raise NotImplementedError(
-                f"view {view.name!r} reads secondary tables (LAST JOIN / "
-                "WINDOW UNION); multi-table views are not ported yet"
-            )
+        """Derive every layout-dependent attribute from the plan: lane ids,
+        ring indices and placement flags live here, nowhere else."""
         self.view = view
         self.schema = view.schema
         self.layout = layout
@@ -124,8 +139,11 @@ class OnlineFeatureStore:
         self.bucket_size = layout.bucket.bucket_size
         self._ttl = layout.primary.ttl
 
+        exprs = list(view.features.values())
         self.waggs: Dict[Tuple, WindowAgg] = collect_window_aggs(exprs)
         self._wagg_order: List[Tuple] = list(self.waggs.keys())
+        self.ljoins = collect_last_joins(exprs)
+        self._ljoin_order: List[Tuple] = list(self.ljoins.keys())
         if layout.bucket.extreme or layout.bucket.tail:
             names = sorted({
                 wa.agg.value for wa in self.waggs.values()
@@ -149,10 +167,14 @@ class OnlineFeatureStore:
                     "must be planned from (a superset of) this view"
                 )
         self.num_lanes = max(len(self._lane_exprs), 1)
+
+        # union waggs whose *primary-stream* part can compose from bucket
+        # pre-aggregates (union rows always fold from their raw rings)
+        self._union_preagg: Dict[Tuple, bool] = {}
         for wk, wa in self.waggs.items():
             if wa.window.mode == "range":
                 need = self._window_span(wa) // self.bucket_size + 2
-                if need > self.num_buckets:
+                if not wa.union and need > self.num_buckets:
                     feats = [
                         f for f, e in view.features.items()
                         if wk in collect_window_aggs([e])
@@ -163,22 +185,70 @@ class OnlineFeatureStore:
                         f"{need} buckets of {self.bucket_size}, store "
                         f"layout has num_buckets={self.num_buckets}"
                     )
+                self._union_preagg[wk] = bool(
+                    wa.union
+                    and need <= self.num_buckets
+                    and agg_spec(wa.agg).bucket_composable
+                )
+
+        # -- secondary-ring plane (LAST JOIN + WINDOW UNION sources) --------
+        self._ring_plans = layout.tables
+        self._sec_names: Tuple[str, ...] = layout.table_names
+        # first ring of each table
+        self._sec_index = {t: layout.rings_of(t)[0] for t in self._sec_names}
+        self._sec_schemas = {
+            t: view.database.table(t) for t in self._sec_names
+        }
+        self._ring_lane_exprs: List[List[Expr]] = [
+            [s.expr for s in p.lanes] for p in layout.tables
+        ]
+        self._ring_lane_of: List[Dict[Tuple, int]] = [
+            {s.key: i for i, s in enumerate(p.lanes)} for p in layout.tables
+        ]
+        self._union_tables: Tuple[str, ...] = ()
+        for wa in self.waggs.values():
+            for t in wa.union:
+                if t not in self._union_tables:
+                    self._union_tables += (t,)
+        self._union_ring_ix = {
+            t: layout.union_ring(t) for t in self._union_tables
+        }
+        self._join_ring_ix = {
+            lj.table: layout.join_ring(lj.table)
+            for lj in self.ljoins.values()
+        }
+        self.secondary_num_keys = {
+            t: layout.tables[self._sec_index[t]].num_keys
+            for t in self._sec_names
+        }
+        # request-time join-key columns (primary columns named by LAST JOINs)
+        self._join_cols: Tuple[str, ...] = ()
+        for lj in self.ljoins.values():
+            if lj.on not in self._join_cols:
+                self._join_cols += (lj.on,)
+        self._join_col_index = {c: i for i, c in enumerate(self._join_cols)}
 
     @property
     def _flat_keys(self) -> int:
         """Rows of the flat (key-addressed) state: all keys of all shards."""
         return self.num_keys
 
+    def _ring_flat_keys(self, index: int) -> int:
+        """Rows of secondary ring ``index``'s flat state."""
+        return self._ring_plans[index].ring_keys
+
     @property
     def _key_upper(self) -> int:
         """Size of the key domain callers address."""
         return self.num_keys
 
-    def _check_range(self, key: np.ndarray) -> np.ndarray:
-        """Keys outside [0, K) are rejected: they would address another
-        key's state (or none)."""
+    def _check_range(self, key: np.ndarray,
+                     upper: Optional[int] = None) -> np.ndarray:
+        """Keys outside [0, upper) are rejected: they would address another
+        key's state (or none).  ``upper`` defaults to the primary's key
+        domain; a secondary table's ingest passes its own."""
         key = np.asarray(key)
-        upper = self._key_upper
+        upper = self._key_upper if upper is None else upper
         if key.size and (key.min() < 0 or key.max() >= upper):
             raise ValueError(
                 f"key out of range [0, {upper}): [{key.min()}, {key.max()}]"
@@ -187,6 +257,13 @@ class OnlineFeatureStore:
 
     def _init_state(self) -> OnlineState:
         lay = self.layout
+        sec = tuple(
+            st.ring_init(
+                self._ring_flat_keys(i), p.capacity, max(len(p.lanes), 1),
+                self.device,
+            )
+            for i, p in enumerate(lay.tables)
+        )
         return self._shape_state(OnlineState(
             ring=st.ring_init(
                 self._flat_keys, lay.primary.capacity, self.num_lanes,
@@ -195,6 +272,7 @@ class OnlineFeatureStore:
             bagg=pg.bucket_init_plan(
                 lay.bucket, self._flat_keys, self.num_lanes, self.device
             ),
+            sec=sec,
         ))
 
     def _shape_state(self, flat: OnlineState) -> OnlineState:
@@ -213,15 +291,17 @@ class OnlineFeatureStore:
         """Request / ingest columns as canonical tensors on the device."""
         return {c: as_tensor(v, self.device) for c, v in columns.items()}
 
-    def _lanes(self, cols: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """(N, L) materialized window-arg lanes from raw columns."""
-        if not self._lane_exprs:
-            n = cols[self.schema.key].shape[0]
+    def _lanes(self, cols: Dict[str, torch.Tensor],
+               exprs: Optional[List[Expr]] = None,
+               n: Optional[int] = None) -> torch.Tensor:
+        """(N, L) materialized lanes from raw columns: the primary's
+        window-arg lanes, or ``exprs`` (a secondary ring's) over ``n``
+        rows; a ring with no lanes gets one zero lane."""
+        exprs = self._lane_exprs if exprs is None else exprs
+        if not exprs:
+            n = cols[self.schema.key].shape[0] if n is None else n
             return torch.zeros((n, 1), dtype=torch.float32, device=self.device)
-        vals = [
-            eval_rowlevel(e, cols, {}).to(torch.float32)
-            for e in self._lane_exprs
-        ]
+        vals = [eval_rowlevel(e, cols, {}).to(torch.float32) for e in exprs]
         return torch.stack(vals, dim=-1)
 
     # -- ingest -----------------------------------------------------------------
@@ -296,7 +376,8 @@ class OnlineFeatureStore:
             )
         return key, ts, lanes
 
-    def _route_ingest(self, key_h: np.ndarray, ts_h: np.ndarray):
+    def _route_ingest(self, key_h: np.ndarray, ts_h: np.ndarray,
+                      upper: Optional[int] = None):
         """(flat keys, ts, row order) of one (key, ts)-sorted chunk; the
         single-device store keeps the rows as they are."""
         return key_h, ts_h, None
@@ -318,28 +399,154 @@ class OnlineFeatureStore:
             bucket_size=self.bucket_size,
         )
 
+    # -- secondary-table ingest ----------------------------------------------
+
+    def ingest_table(self, table: str, columns: Dict) -> None:
+        """Ingest a (key, ts)-sorted batch of rows into every ring of a
+        secondary table (no pre-aggregates: secondary state serves LAST
+        JOIN lookups and union windows, both answered from raw rings).  A
+        dual-use table on a sharded plane writes its partitioned union
+        ring *and* its replicated join slice, each with that ring's own
+        lane subset.  Keys outside the table's key domain raise."""
+        if table == self.schema.name:
+            return self.ingest(columns)
+        if table not in self._sec_index:
+            raise KeyError(
+                f"view {self.view.name!r} does not reference table {table!r}"
+            )
+        tel = get_telemetry()
+        t0 = tel.clock.now()
+        sch = self._sec_schemas[table]
+        key_h = self._check_range(
+            np.asarray(columns[sch.key]).astype(np.int32),
+            self.secondary_num_keys[table],
+        )
+        n = int(key_h.shape[0])
+        if n == 0:
+            return
+        ts_h = np.asarray(columns[sch.ts]).astype(np.int32)
+        cols = self._columns(columns)
+        rings = self.layout.rings_of(table)
+        with tel.tracer.span(
+            "ingest", kind="device", table=table, rows=n
+        ) as sp:
+            for i in rings:
+                lanes = self._lanes(cols, self._ring_lane_exprs[i], n)
+                self._sec_ring_ingest_padded(i, key_h, ts_h, lanes)
+            sp.fence(tuple(self.state.sec[i].cursor for i in rings))
+        self._note_freshness(tel, table, n, t0)
+
+    def _route_sec_ingest(self, index: int, key_h: np.ndarray,
+                          ts_h: np.ndarray):
+        """(flat keys, ts, row order) of a secondary chunk for ring
+        ``index``; the single-device store keeps the rows as they are."""
+        return key_h, ts_h, None
+
+    def _sec_ring_ingest_padded(self, index: int, key_h, ts_h, lanes) -> None:
+        """One ring's ingest of a (key, ts)-sorted chunk, in place."""
+        key_h, ts_h, order = self._route_sec_ingest(index, key_h, ts_h)
+        if order is not None:
+            lanes = lanes[torch.as_tensor(order, device=self.device)]
+        key, ts, lanes = self._pad_batch(
+            as_tensor(key_h, self.device), as_tensor(ts_h, self.device),
+            lanes, self._ring_flat_keys(index),
+        )
+        st.ring_ingest(self._flat_state().sec[index], key, ts, lanes)
+
     # -- window masks -------------------------------------------------------------
 
-    def _window_span(self, wa: WindowAgg) -> int:
-        """Effective RANGE lookback: the window size, clamped by the TTL."""
-        if self._ttl is not None:
-            return min(wa.window.size, self._ttl)
+    def _window_span(self, wa: WindowAgg, ttl: Optional[int] = None) -> int:
+        """Effective RANGE lookback: the window size, clamped by the TTL
+        of the governing ring (``ttl``; ``None`` falls back to the
+        primary's)."""
+        ttl = self._ttl if ttl is None else ttl
+        if ttl is not None:
+            return min(wa.window.size, ttl)
         return wa.window.size
 
-    def _window_mask(self, wa: WindowAgg, ts_buf, valid, ts_q) -> torch.Tensor:
+    def _window_mask(self, wa: WindowAgg, ts_buf, valid, ts_q,
+                     ttl: Optional[int] = None) -> torch.Tensor:
+        ttl = self._ttl if ttl is None else ttl
         not_future = ts_buf <= ts_q[:, None]
         if wa.window.mode == "range":
-            lo = ts_q - self._window_span(wa) + 1
+            lo = ts_q - self._window_span(wa, ttl) + 1
             return valid & not_future & (ts_buf >= lo[:, None])
         # rows mode: the last (size-1) eligible rows; the request row is the
         # size-th.  TTL-expired rows are not eligible.
         eligible = valid & not_future
-        if self._ttl is not None:
-            eligible &= ts_buf > (ts_q - self._ttl)[:, None]
+        if ttl is not None:
+            eligible &= ts_buf > (ts_q - ttl)[:, None]
         e32 = eligible.to(torch.int32)
         newer = torch.cumsum(e32.flip(1), 1, dtype=torch.int32).flip(1)
         rank_from_new = newer - e32  # 0 == newest
         return eligible & (rank_from_new < wa.window.size - 1)
+
+    # -- secondary-state lookups ---------------------------------------------
+
+    def _union_gathers(self, state, key, gkey, tables=None):
+        """Gather each union table's ring at the request key (shared across
+        every union wagg touching that table).
+
+        ``key`` addresses the primary's flat state (shard-major on the
+        sharded store), ``gkey`` is the global key: key-partitioned union
+        rings are read at ``key``, replicated ones at ``gkey``, with the
+        reference's gather semantics (:func:`~repro_torch.core.storage.
+        gather_index`: a union table may have fewer keys than the
+        primary).  On the single-device store both are the same keys.
+        """
+        out = {}
+        for t in (self._union_tables if tables is None else tables):
+            i = self._union_ring_ix[t]
+            ring = state.sec[i]
+            k = (key if self._ring_plans[i].partitioned
+                 else st.gather_index(gkey, ring.num_keys).long())
+            out[t] = st.ring_gather(ring, k)
+        return out
+
+    def _last_join_vals(
+        self, state, ts_q, join_keys, ljoin_order=None, join_col_index=None
+    ) -> List[torch.Tensor]:
+        """Point-in-time LAST JOIN answers, one (Q,) vector per join.
+
+        The newest secondary row with key == the request's join key and
+        ``ts <= request ts``; ties on ts resolve to the latest-ingested row
+        (the offline stable (key, ts) sort); no such row gives the join's
+        default.  Join keys are not range-checked: they index the join
+        ring with the reference's gather semantics.  Joins always read the
+        table's replicated join ring (the join slice of a split dual-use
+        table).
+        """
+        out = []
+        gathers = {}
+        order = self._ljoin_order if ljoin_order is None else ljoin_order
+        col_ix = (
+            self._join_col_index if join_col_index is None else join_col_index
+        )
+        for lk in order:
+            lj = self.ljoins[lk]
+            jk = join_keys[col_ix[lj.on]]
+            ring_ix = self._join_ring_ix[lj.table]
+            gk = (ring_ix, lj.on)
+            if gk not in gathers:
+                ring = state.sec[ring_ix]
+                gathers[gk] = st.ring_gather(
+                    ring, st.gather_index(jk, ring.num_keys).long()
+                )
+            ts_t, lanes_t, valid_t = gathers[gk]
+            g = lanes_t[..., self._ring_lane_of[ring_ix][lj.arg.key]]
+            m = valid_t & (ts_t <= ts_q[:, None])
+            mx = torch.where(m, ts_t, _TS_MIN).amax(dim=1)
+            cand = m & (ts_t == mx[:, None])
+            C = ts_t.shape[1]
+            pos = C - 1 - torch.argmax(cand.flip(1).to(torch.int32), dim=1)
+            val = torch.gather(g, 1, pos[:, None])[:, 0]
+            found = m.any(dim=1)
+            out.append(torch.where(
+                found, val,
+                torch.tensor(lj.default, dtype=torch.float32,
+                             device=val.device),
+            ))
+        return out
 
     # -- the one query path -----------------------------------------------------
 
@@ -388,39 +595,83 @@ class OnlineFeatureStore:
         return raw, ms, mb, ok
 
     def _query_pure(self, state: OnlineState, key, ts_q, req_lanes,
-                    use_preagg: bool, groups: int = 1):
-        """Generic fold-then-finalize over every window aggregation of the
-        view: lift the request row, combine with the window's fold (raw
-        ring rows, or boundary rows ⊕ bucket states on the pre-agg path),
-        finalize.  ``state`` has one key axis; ``key`` indexes it."""
+                    join_keys, gkey, use_preagg: bool, wagg_order=None,
+                    ljoin_order=None, req_lane_of=None, join_col_index=None,
+                    groups: int = 1):
+        """Generic fold-then-finalize over every window aggregation, then
+        the LAST JOINs.
+
+        For each wagg: lift the request row, combine with the primary
+        window's fold (raw ring rows, or boundary rows ⊕ bucket states on
+        the pre-agg path), combine with each union table's fold, finalize.
+        ``state`` has one key axis; ``key`` indexes it, ``gkey`` is the
+        global key (replicated union rings) and ``join_keys`` the request's
+        join-key columns.  ``wagg_order`` / ``ljoin_order`` restrict the
+        aggregations and joins computed, and ``req_lane_of`` /
+        ``join_col_index`` map window args and join columns into
+        ``req_lanes`` / ``join_keys`` (the reference's per-scenario
+        program arguments); ``groups`` as in ``AggSpec.finalize``.
+        """
+        wagg_order = self._wagg_order if wagg_order is None else wagg_order
+        req_lane_of = self._lane_of if req_lane_of is None else req_lane_of
         key = key.long()
         ts_buf, lanes_buf, valid = st.ring_gather(state.ring, key)
+        union_tables = tuple(
+            t for t in self._union_tables
+            if any(t in self.waggs[wk].union for wk in wagg_order)
+        )
+        sec_gathers = self._union_gathers(
+            state, key, gkey, tables=union_tables
+        )
         out = []
-        for wk in self._wagg_order:
+        for wk in wagg_order:
             wa = self.waggs[wk]
             spec = agg_spec(wa.agg)
             lane = self._lane_of[wa.arg.key]
             g = lanes_buf[..., lane]
-            r = req_lanes[:, lane]
-            # merge-order coordinate of the request row: primary stream,
-            # newer than any stored row of the same ts
-            acc = spec.lift(r, ts_q, 0, _POS_MAX)
+            r = req_lanes[:, req_lane_of[wa.arg.key]]
+            # merge-order coordinate of the request row: the primary
+            # stream (rank = len(union), after every union table), newer
+            # than any stored row of the same (ts, stream)
+            prim_rank = len(wa.union)
+            acc = spec.lift(r, ts_q, prim_rank, _POS_MAX)
             use_buckets = (
                 use_preagg
                 and spec.bucket_composable
                 and spec.state in ("lanes", "bitmap")
                 and wa.window.mode == "range"
+                and (not wa.union or self._union_preagg.get(wk, False))
             )
             if use_buckets:
                 raw, ms, mb, ok = self._preagg_parts(
                     wa, state, key, ts_q, ts_buf, valid, lane
                 )
-                acc = spec.combine(acc, spec.fold_rows(g, ts_buf, raw, 0))
+                acc = spec.combine(
+                    acc, spec.fold_rows(g, ts_buf, raw, prim_rank)
+                )
                 acc = spec.combine(acc, spec.fold_buckets(ms, mb, ok))
             else:
                 m = self._window_mask(wa, ts_buf, valid, ts_q)
-                acc = spec.combine(acc, spec.fold_rows(g, ts_buf, m, 0))
+                acc = spec.combine(
+                    acc, spec.fold_rows(g, ts_buf, m, prim_rank)
+                )
+            for rank, t in enumerate(wa.union):
+                ts_t, lanes_t, valid_t = sec_gathers[t]
+                ring_ix = self._union_ring_ix[t]
+                g_t = lanes_t[..., self._ring_lane_of[ring_ix][wa.arg.key]]
+                # union rows expire on their own ring's TTL when the layout
+                # sets one; else the primary's
+                m_t = self._window_mask(
+                    wa, ts_t, valid_t, ts_q,
+                    ttl=self._ring_plans[ring_ix].ttl,
+                )
+                acc = spec.combine(acc, spec.fold_rows(g_t, ts_t, m_t, rank))
             out.append(spec.finalize(acc, n=wa.n, groups=groups))
+        out.extend(
+            self._last_join_vals(
+                state, ts_q, join_keys, ljoin_order, join_col_index
+            )
+        )
         return tuple(out)
 
     # -- public query -------------------------------------------------------------
@@ -447,17 +698,32 @@ class OnlineFeatureStore:
                 view, num_keys=num_keys, num_shards=num_shards,
                 layout=layout, **store_kwargs,
             )
+        # the routing flavour exists on the sharded store only; a
+        # single-device deployment accepts (and ignores) it, so build(**kw)
+        # is uniform
+        store_kwargs.pop("device_routing", None)
         return OnlineFeatureStore(
             view, num_keys=num_keys, layout=layout, **store_kwargs
         )
 
+    def _validate_join_cols(self, columns: Dict) -> None:
+        for c in self._join_cols:
+            if c not in columns:
+                raise KeyError(
+                    f"request rows must carry join-key column {c!r} "
+                    f"(LAST JOIN on {c!r} in view {self.view.name!r})"
+                )
+
     def _request_arrays(self, cols: Dict[str, torch.Tensor]):
-        """(key, ts, lanes) request tensors."""
-        return cols[self.schema.key], cols[self.schema.ts], self._lanes(cols)
+        """(key, ts, lanes, join_keys) request tensors."""
+        join_keys = tuple(cols[c].to(torch.int32) for c in self._join_cols)
+        return (cols[self.schema.key], cols[self.schema.ts],
+                self._lanes(cols), join_keys)
 
     def _finish_query(self, cols, vals) -> Dict[str, torch.Tensor]:
-        """Window answers -> named features via row-level post-expressions."""
-        pre_values = dict(zip(self._wagg_order, vals))
+        """Window and join answers -> named features via row-level
+        post-expressions."""
+        pre_values = dict(zip(self._wagg_order + self._ljoin_order, vals))
         return {
             fname: eval_rowlevel(fexpr, cols, pre_values)
             for fname, fexpr in self.view.features.items()
@@ -472,13 +738,14 @@ class OnlineFeatureStore:
     ) -> Dict[str, torch.Tensor]:
         """Compute all view features for a batch of request rows.
 
-        columns: raw request columns incl. key and ts; (Q,) each.  Returns
-        {feature_name: (Q,) tensor on the store's device}.  ``valid``
-        optionally masks scheduler padding rows and ``route_info`` (dict,
-        filled in place) reports per-shard request counts — one shard
-        here.
+        columns: raw request columns incl. key, ts and every LAST JOIN key
+        column; (Q,) each.  Returns {feature_name: (Q,) tensor on the
+        store's device}.  ``valid`` optionally masks scheduler padding rows
+        and ``route_info`` (dict, filled in place) reports per-shard
+        request counts — one shard here.
         """
         tel = get_telemetry()
+        self._validate_join_cols(columns)
         self._check_range(np.asarray(columns[self.schema.key]))
         if route_info is not None:
             n_real = (
@@ -488,7 +755,7 @@ class OnlineFeatureStore:
             )
             route_info["shard_counts"] = np.array([n_real], np.int64)
         cols = self._columns(columns)
-        key, ts_q, req_lanes = self._request_arrays(cols)
+        key, ts_q, req_lanes, join_keys = self._request_arrays(cols)
         # pad the request to a power-of-two row count (a fixed set of
         # shapes), repeating the last row
         q = int(key.shape[0])
@@ -504,8 +771,11 @@ class OnlineFeatureStore:
                 req_lanes = torch.cat(
                     [req_lanes, req_lanes[-1:].expand(pad, -1)]
                 )
+                join_keys = tuple(
+                    torch.cat([j, j[-1:].expand(pad)]) for j in join_keys
+                )
             vals = self._query_pure(
-                self._flat_state(), key, ts_q, req_lanes,
+                self._flat_state(), key, ts_q, req_lanes, join_keys, key,
                 use_preagg=(mode != "naive"),
             )
             vals = sp.fence(tuple(v[:q] for v in vals))
@@ -513,7 +783,9 @@ class OnlineFeatureStore:
         return self._finish_query(cols, vals)
 
     def _note_query(self, tel, mode: str) -> None:
-        """Pre-agg hit / fallback counters, one per window aggregation."""
+        """Pre-agg hit / fallback counters, one per window aggregation; a
+        union aggregation hits only where its primary stream composes from
+        the buckets."""
         hits = tel.metrics.counter(
             "preagg_hits_total",
             "window aggs answered from bucket pre-aggregates", "1",
@@ -524,12 +796,13 @@ class OnlineFeatureStore:
             "window aggs falling back to the raw ring fold", "1",
             labels=("agg",),
         )
-        for wa in self.waggs.values():
+        for wk, wa in self.waggs.items():
             spec = agg_spec(wa.agg)
             hit = (
                 mode != "naive"
                 and spec.bucket_composable
                 and spec.state in ("lanes", "bitmap")
                 and wa.window.mode == "range"
+                and (not wa.union or self._union_preagg.get(wk, False))
             )
             (hits if hit else falls).inc(agg=wa.agg.value)

@@ -126,12 +126,17 @@ def bucket_ingest(
     Constraint (callers ensure it): a batch spans fewer than NB buckets, so
     each (key, slot) receives at most one new bucket id.  A slot holding a
     stale bucket id is reset to identity first (ring reuse).  Pad rows
-    (key == K) form their own segments and write nothing.
+    (key == K) write nothing.
     """
+    K, nb = agg.bucket.shape
+    # pad rows write nothing: drop them before the sequential fold, where
+    # a padded batch's one pad segment would cost a step per pad row
+    real = key < K
+    if not bool(real.all()):
+        key, ts, vals = key[real], ts[real], vals[real]
     n = key.shape[0]
     if n == 0:
         return agg
-    K, nb = agg.bucket.shape
     dev = key.device
     bucket_id = torch.div(ts, agg.size, rounding_mode="floor")
     slot = bucket_id % nb
@@ -154,13 +159,10 @@ def bucket_ingest(
         torch.bitwise_or,
     )
 
-    # one representative (= last) row per segment; pad segments drop out
-    rep_key = key[ends]
-    keep = rep_key < K
-    k = rep_key[keep].long()
-    s = slot[ends][keep].long()
-    b = bucket_id[ends][keep]
-    seg_stats, seg_bm = seg_stats[keep], seg_bm[keep]
+    # one representative (= last) row per segment
+    k = key[ends].long()
+    s = slot[ends].long()
+    b = bucket_id[ends]
 
     stored = agg.bucket[k, s]
     stale = (stored != b) & (stored != -1)

@@ -1,44 +1,72 @@
 """Sharded online serving plane — key-partitioned feature state.
 
-A :class:`ShardedOnlineStore` keeps one primary ring + bucket store *per
-shard*, as tensors with a leading shard axis ``(S, K_local, ...)`` on one
-device (the public shape, the same as the reference package's
-``repro.core.shard`` state).  Keys route through a
-:class:`~repro_torch.core.hashing.KeyPermutation` (Feistel bijection):
-``shard = perm(key) % S``, ``local = perm(key) // S``.
+A :class:`ShardedOnlineStore` keeps one primary ring + bucket store, and
+one ring per secondary ring plan, *per shard*, as tensors with a leading
+shard axis ``(S, K_local, ...)`` on one device (the public shape, the same
+as the reference package's ``repro.core.shard`` state).  By default keys
+route through a :class:`~repro_torch.core.hashing.KeyPermutation`
+(Feistel bijection): ``shard = perm(key) % S``, ``local = perm(key) // S``;
+``hash_routing=False`` routes raw keys, ``shard = key % S``,
+``local = key // S``.
+
+Placement comes from the layout plan (:mod:`repro_torch.core.layout`):
+
+* the primary and every union-stream ring (a union-only table, the union
+  half of a split dual-use table) are partitioned: a key's rows live on
+  the shard that answers its requests;
+* LAST JOIN rings (a join-only table, the join slice of a dual-use table)
+  are replicated: join keys are arbitrary request columns.  The reference
+  holds S identical replicas, one per device; on one device that costs S
+  times the memory and buys nothing, so this store keeps **one** copy and
+  shows the reference's ``(S, K_t, ...)`` shape as a view expanded with
+  stride 0.  Each ingest writes it once.
 
 The reference vmaps one per-shard program over the shard axis.  Here the
 shard axis is folded into the key axis instead: the state tensors are
 contiguous, so ``state.flatten(0, 1)`` addresses key ``local`` of shard
-``s`` as flat key ``s * K_local + local``.  Per-key state depends only on
-that key's rows and their order, so
+``s`` as flat key ``s * K_local + local`` (partitioned rings share that
+flat key space; the one copy of a replicated ring is addressed by its
+global key).  Per-key state depends only on that key's rows and their
+order, so
 
 * **ingest** routes a (key, ts)-sorted chunk on the host (shard, local id,
-  per-shard (local, ts) sort), lays the shards' rows end to end with flat
-  keys — still (key, ts)-sorted — and applies them with ONE fused-ingest
-  kernel launch for all shards;
-* **the device-routed request path** keeps the reference's dataflow:
-  Feistel shard id and rank within the shard on the device (on the card
-  one launch of the route kernel, which walks every key home; on the CPU
-  a fixed number of walk passes and the rank's plain version), then the
-  scatter into the ``(S, B)`` per-shard grid, then the per-shard query —
-  the single-store query over the ``S·B`` grid rows with flat keys — then
-  the gather back to request order.  The optimistic per-shard capacity
-  ``B ≈ 2·ceil(N/S)`` is checked by an on-device overflow flag;
-  pathological skew re-dispatches once at the always-safe ``B = N``.  The
-  overflow flag (and on the CPU the walk's "still walking" flag, which
-  re-dispatches once the walk is finished) comes back in one host read
+  each shard's rows in (local, ts) order), lays the shards' rows end to
+  end with flat keys — still (key, ts)-sorted — and applies them with ONE
+  fused-ingest kernel launch for all shards.  A partitioned secondary
+  ring routes the same way, range-checked against its own table's key
+  count; a replicated ring takes the rows as they are.
+* **the device-routed request path** (``device_routing=True``, the
+  default) keeps the reference's dataflow: shard id and rank within the
+  shard on the device — on the card one launch of the route kernel, from
+  keys under hash routing (it walks every key home) or from the shard ids
+  ``key % S`` under modulo routing; on the CPU a fixed number of walk
+  passes and the rank's plain version — then the scatter into the
+  ``(S, B)`` per-shard grid (flat local keys, ts, lanes, the join keys
+  that join rings read, and the global key where a replicated union ring
+  reads it),
+  the single-store query over the ``S·B`` grid rows, and the gather back
+  to request order.  The optimistic per-shard capacity ``B ≈ 2·ceil(N/S)``
+  is checked by an on-device overflow flag; pathological skew
+  re-dispatches once at the always-safe ``B = N``.  The overflow flag (and
+  on the CPU the walk's "still walking" flag) comes back in one host read
   per batch.
+* **the host-routed request path** (``device_routing=False``, the
+  correctness oracle) buckets rows by shard on the host
+  (:func:`build_route`), pads every shard to one power-of-two bucket,
+  answers the ``S·B`` grid rows in one query and scatters the answers back
+  to request order on the host.  Only a caller picks it: nothing falls
+  back to it.
 
-Answers do not depend on the shard count: per-key state depends only on
-that key's rows and their order.  The host-routed oracle path, the
-multi-scenario ``route_and_query`` and raw-modulo routing
-(``hash_routing=False``) are not ported yet.
+Answers do not depend on the shard count or the routing path: per-key
+state depends only on that key's rows and their order, and each answer
+only on its own row.  The multi-scenario ``route_and_query`` is not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import dataclasses
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +79,35 @@ from repro_torch.core import storage as st
 from repro_torch.kernels.route.ops import route_keys, route_rank
 from repro_torch.obs import get_telemetry
 
-__all__ = ["ShardedOnlineStore"]
+__all__ = ["RoutePlan", "build_route", "ShardedOnlineStore"]
+
+
+@dataclasses.dataclass
+class RoutePlan:
+    """Host-side routing of one request/ingest batch across shards.
+
+    ``idx[s]`` holds the batch row indices owned by shard ``s`` (in batch
+    order, so per-key row order is preserved); ``bucket`` is the padded
+    per-shard batch size (a shared power of two).
+    """
+
+    idx: List[np.ndarray]
+    bucket: int
+
+    @property
+    def counts(self) -> np.ndarray:
+        return np.array([len(ix) for ix in self.idx], np.int64)
+
+
+def build_route(
+    shard: np.ndarray, num_shards: int, min_bucket: int = 16
+) -> RoutePlan:
+    """Bucket batch rows by shard id and pick the padded shape bucket."""
+    shard = np.asarray(shard)
+    idx = [np.nonzero(shard == s)[0] for s in range(num_shards)]
+    longest = max((len(ix) for ix in idx), default=0)
+    bucket = max(min_bucket, 1 << max(longest - 1, 0).bit_length())
+    return RoutePlan(idx=idx, bucket=bucket)
 
 
 def _split(t: torch.Tensor, S: int) -> torch.Tensor:
@@ -60,8 +116,9 @@ def _split(t: torch.Tensor, S: int) -> torch.Tensor:
 
 class ShardedOnlineStore(OnlineFeatureStore):
     """Drop-in :class:`OnlineFeatureStore` whose state is key-partitioned
-    across ``num_shards`` shards.  ``num_keys`` is the *global* key count;
-    per-shard tables hold ``ceil(K/S)`` keys."""
+    across ``num_shards`` shards.  ``num_keys`` and
+    ``secondary_num_keys`` are *global* key counts; per-shard tables hold
+    ``ceil(K/S)`` keys."""
 
     def __init__(
         self,
@@ -71,12 +128,17 @@ class ShardedOnlineStore(OnlineFeatureStore):
         capacity: int = 256,
         num_buckets: int = 64,
         bucket_size: int = 64,
+        secondary_num_keys: Optional[Dict[str, int]] = None,
+        secondary_capacity: Optional[int] = None,
         ttl: Optional[int] = None,
         table_capacity: Optional[Dict[str, int]] = None,
         table_ttl: Optional[Dict[str, int]] = None,
+        hash_routing: bool = True,
         layout: Optional[StoreLayout] = None,
+        device_routing: bool = True,
         device="cuda",
     ):
+        self.device_routing = bool(device_routing)
         if layout is None:
             if num_keys is None:
                 raise ValueError("ShardedOnlineStore needs num_keys or layout")
@@ -87,6 +149,9 @@ class ShardedOnlineStore(OnlineFeatureStore):
                 num_buckets=num_buckets,
                 bucket_size=bucket_size,
                 num_shards=num_shards,
+                hash_routing=hash_routing,
+                secondary_num_keys=secondary_num_keys,
+                secondary_capacity=secondary_capacity,
                 ttl=ttl,
                 table_capacity=table_capacity,
                 table_ttl=table_ttl,
@@ -105,40 +170,80 @@ class ShardedOnlineStore(OnlineFeatureStore):
             raise ValueError(
                 f"sharded store needs num_shards >= 1, got {layout.num_shards}"
             )
-        if not layout.hash_routing:
-            raise NotImplementedError(
-                "raw modulo routing (hash_routing=False) is not ported yet"
-            )
         self.num_shards = int(layout.num_shards)
         self.global_num_keys = layout.num_keys
-        self._perm = KeyPermutation(layout.perm_domain)
+        self.hash_routing = layout.hash_routing
+        self._perm: Optional[KeyPermutation] = (
+            KeyPermutation(layout.perm_domain)
+            if layout.perm_domain is not None else None
+        )
         super()._apply_layout(view, layout)
+        # only a replicated union ring reads the global key (plan_layout
+        # partitions every union ring of a sharded plane)
+        self._reads_gkey = any(
+            not self._ring_plans[i].partitioned
+            for i in self._union_ring_ix.values()
+        )
 
     @property
     def _flat_keys(self) -> int:
         return self.num_shards * self.num_keys
 
+    def _ring_flat_keys(self, index: int) -> int:
+        p = self._ring_plans[index]
+        return self.num_shards * p.ring_keys if p.partitioned else p.ring_keys
+
+    def _shape_ring(self, ring: st.RingStore, partitioned: bool) -> st.RingStore:
+        S = self.num_shards
+        if partitioned:
+            return st.RingStore(*(_split(t, S) for t in (
+                ring.ts, ring.vals, ring.cursor)))
+        # one copy, seen as S replicas (stride 0 on the shard axis)
+        return st.RingStore(*(
+            t.unsqueeze(0).expand((S,) + tuple(t.shape))
+            for t in (ring.ts, ring.vals, ring.cursor)
+        ))
+
+    def _flat_ring(self, ring: st.RingStore, partitioned: bool) -> st.RingStore:
+        if partitioned:
+            return st.RingStore(*(t.flatten(0, 1) for t in (
+                ring.ts, ring.vals, ring.cursor)))
+        if self.num_shards > 1 and any(
+            t.stride(0) != 0 for t in (ring.ts, ring.vals, ring.cursor)
+        ):
+            raise ValueError(
+                "a replicated ring must be one copy seen as S replicas "
+                "(convert.online_state_from_numpy(..., layout=) makes it)"
+            )
+        return st.RingStore(ring.ts[0], ring.vals[0], ring.cursor[0])
+
     def _shape_state(self, flat: OnlineState) -> OnlineState:
         S = self.num_shards
         return OnlineState(
-            ring=st.RingStore(*(_split(t, S) for t in (
-                flat.ring.ts, flat.ring.vals, flat.ring.cursor))),
+            ring=self._shape_ring(flat.ring, True),
             bagg=pg.BucketAgg(
                 *(_split(t, S) for t in (
                     flat.bagg.stats, flat.bagg.bitmap, flat.bagg.bucket)),
                 size=flat.bagg.size,
+            ),
+            sec=tuple(
+                self._shape_ring(r, p.partitioned)
+                for r, p in zip(flat.sec, self._ring_plans)
             ),
         )
 
     def _flat_state(self) -> OnlineState:
         s = self.state
         return OnlineState(
-            ring=st.RingStore(*(t.flatten(0, 1) for t in (
-                s.ring.ts, s.ring.vals, s.ring.cursor))),
+            ring=self._flat_ring(s.ring, True),
             bagg=pg.BucketAgg(
                 *(t.flatten(0, 1) for t in (
                     s.bagg.stats, s.bagg.bitmap, s.bagg.bucket)),
                 size=s.bagg.size,
+            ),
+            sec=tuple(
+                self._flat_ring(r, p.partitioned)
+                for r, p in zip(s.sec, self._ring_plans)
             ),
         )
 
@@ -148,28 +253,198 @@ class ShardedOnlineStore(OnlineFeatureStore):
     def _key_upper(self) -> int:
         return self.global_num_keys
 
-    def _route_ids(self, key: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """Deterministic key -> (shard id, shard-local id), host-side."""
-        routed = self._perm(self._check_range(key))
+    def _route_ids(
+        self, key: np.ndarray, upper: Optional[int] = None
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Deterministic key -> (shard id, shard-local id), host-side,
+        range-checked against ``upper`` (default: the primary's domain)."""
+        key = self._check_range(key, upper)
+        routed = self._perm(key) if self._perm is not None else key
         return routed % self.num_shards, routed // self.num_shards
 
     def shard_of(self, key: np.ndarray) -> np.ndarray:
         """Deterministic key -> shard id (host-side; range-checked)."""
         return self._route_ids(key)[0]
 
+    def _route_rows(
+        self,
+        plan: RoutePlan,
+        arr: np.ndarray,
+        pad: str = "repeat",
+        sentinel: int = 0,
+    ) -> np.ndarray:
+        """Scatter (N, ...) batch rows into a padded (S, bucket, ...) grid.
+
+        ``pad='repeat'`` repeats the shard's last real row (query padding:
+        a read-only recompute, dropped on scatter-back); ``pad='sentinel'``
+        fills with ``sentinel`` (an out-of-range key writes nothing).
+        """
+        arr = np.asarray(arr)
+        S, B = self.num_shards, plan.bucket
+        out = np.zeros((S, B) + arr.shape[1:], arr.dtype)
+        if pad == "sentinel":
+            out[...] = sentinel
+        for s, ix in enumerate(plan.idx):
+            n = len(ix)
+            if not n:
+                continue
+            out[s, :n] = arr[ix]
+            if n < B and pad == "repeat":
+                out[s, n:] = arr[ix[-1]]
+        return out
+
+    @staticmethod
+    def _scatter_back(plan: RoutePlan, vals, q: int) -> Tuple[np.ndarray, ...]:
+        """(S, bucket) per-shard answer tensors -> (Q,) host arrays in
+        request order."""
+        outs = []
+        for v in vals:
+            vh = v.cpu().numpy()
+            o = np.zeros((q,), vh.dtype)
+            for s, ix in enumerate(plan.idx):
+                o[ix] = vh[s, : len(ix)]
+            outs.append(o)
+        return tuple(outs)
+
     # -- ingest ----------------------------------------------------------------
 
-    def _route_ingest(self, key_h: np.ndarray, ts_h: np.ndarray):
+    def _route_ingest(self, key_h: np.ndarray, ts_h: np.ndarray,
+                      upper: Optional[int] = None):
         """Flat keys, ts and row order of one (key, ts)-sorted chunk: the
         shards' rows end to end, each shard's in (local key, ts) order (a
         stable sort, so same-key rows keep their arrival order; the
-        Feistel permutation scrambles key order, so each shard re-sorts)."""
-        shard, local = self._route_ids(key_h)
+        Feistel permutation scrambles key order, so each shard re-sorts).
+        ``upper`` is the range the keys are checked against (default: the
+        primary's domain)."""
+        shard, local = self._route_ids(key_h, upper)
         order = np.lexsort((ts_h, local, shard))
         flat = shard[order] * self.num_keys + local[order]
         return flat.astype(np.int32), ts_h[order], order
 
-    # -- fused device-resident request path ------------------------------------
+    def _route_sec_ingest(self, index: int, key_h: np.ndarray,
+                          ts_h: np.ndarray):
+        """A partitioned ring routes as the primary does, within its own
+        table's key count; a replicated ring takes the rows as they are."""
+        p = self._ring_plans[index]
+        if not p.partitioned:
+            return key_h, ts_h, None
+        return self._route_ingest(key_h, ts_h, p.num_keys)
+
+    # -- query -----------------------------------------------------------------
+
+    def query(
+        self,
+        columns: Dict,
+        mode: str = "preagg",
+        valid: Optional[np.ndarray] = None,
+        route_info: Optional[Dict] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Answer a request batch in input row order (same contract as the
+        base store).
+
+        ``device_routing=True`` (the default) serves the batch through the
+        device-routed path (:meth:`_query_device_routed`);
+        ``device_routing=False`` through the host-routed oracle
+        (:meth:`_query_host_routed`).  ``route_info`` (dict, filled in
+        place) receives the batch's valid-masked per-shard request counts
+        (``"shard_counts"``).
+        """
+        if self.device_routing:
+            return self._query_device_routed(columns, mode, valid, route_info)
+        return self._query_host_routed(columns, mode, valid, route_info)
+
+    def _note_route(self, tel, path: str, n_rows: int, q: int,
+                    bucket: int) -> None:
+        """Routing telemetry shared by both paths: rows routed per path plus
+        the shard-layer padding."""
+        pad_rows = self.num_shards * bucket - q
+        m = tel.metrics
+        m.counter(
+            "route_rows_total",
+            "request rows routed to shards, per routing path", "1",
+            labels=("path",),
+        ).inc(int(n_rows), path=path)
+        m.counter(
+            "padding_rows_total", "filler rows added to reach shape bucket",
+            "1", labels=("layer",),
+        ).inc(pad_rows, layer="shard")
+        m.gauge(
+            "padding_waste_ratio", "filler rows / bucket rows, last batch",
+            "1", labels=("layer",),
+        ).set(pad_rows / max(self.num_shards * bucket, 1), layer="shard")
+
+    # -- host-routed request path (the oracle) ---------------------------------
+
+    def _query_host_routed(
+        self,
+        columns: Dict,
+        mode: str,
+        valid: Optional[np.ndarray] = None,
+        route_info: Optional[Dict] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Host-routed request path (the ``device_routing=False`` oracle).
+
+        Three stages, each its own span: ``query.route`` (host: shard
+        bucketing, padding, upload), ``query.compute`` (device, fenced),
+        ``query.scatter`` (host: answers back to request order, then the
+        post-expressions).
+        """
+        tel = get_telemetry()
+        self._validate_join_cols(columns)
+        key_h = self._check_range(
+            np.asarray(columns[self.schema.key]).astype(np.int32, copy=False)
+        )
+        q = int(key_h.shape[0])
+        S = self.num_shards
+        with tel.tracer.span("query.route", mode=mode, program="", rows=q):
+            cols = self._columns(columns)
+            _, ts_q, lanes, jks = self._request_arrays(cols)
+            shard, local = self._route_ids(key_h)
+            plan = build_route(shard, S, min_bucket=16)
+            B = plan.bucket
+
+            def up(arr):
+                g = self._route_rows(plan, arr, pad="repeat")
+                return torch.as_tensor(
+                    g.reshape((S * B,) + g.shape[2:]), device=self.device)
+
+            base = np.repeat(np.arange(S, dtype=np.int64) * self.num_keys, B)
+            fkey = up(local.astype(np.int64)) + torch.as_tensor(
+                base, device=self.device)
+            args = (
+                fkey,
+                up(ts_q.cpu().numpy()),
+                up(lanes.cpu().numpy()),
+                tuple(up(j.cpu().numpy()) for j in jks),
+                up(key_h) if self._reads_gkey else None,     # global key
+            )
+        vmask = (
+            np.ones(q, bool) if valid is None else np.asarray(valid, bool)[:q]
+        )
+        self._note_route(tel, "host", int(vmask.sum()), q, B)
+        if route_info is not None:
+            route_info["shard_counts"] = np.bincount(
+                shard[vmask], minlength=S
+            ).astype(np.int64)
+        with tel.tracer.span(
+            "query.compute", kind="device", mode=mode, program="",
+            rows=q, padded=S * B,
+        ) as sp:
+            vals = self._query_pure(
+                self._flat_state(), *args, use_preagg=(mode != "naive"),
+                groups=S,
+            )
+            vals = sp.fence(vals)
+        self._note_query(tel, mode)
+        with tel.tracer.span("query.scatter", rows=q):
+            back = self._scatter_back(
+                plan, tuple(v.view(S, B) for v in vals), q)
+            out = self._finish_query(
+                cols, tuple(torch.as_tensor(v, device=self.device)
+                            for v in back))
+        return out
+
+    # -- device-routed request path ----------------------------------------------
 
     def _route_bucket(self, m: int) -> int:
         """Optimistic per-shard grid capacity for an m-row batch: twice
@@ -181,10 +456,13 @@ class ShardedOnlineStore(OnlineFeatureStore):
         return int(min(max(16, b), max(cap, 1)))
 
     def _route_routed(self, routed, valid):
-        """The CPU's routing of walked ids: (local, shard, rank, counts,
-        valid counts).  An unfinished walk leaves ids past the domain;
-        ``local`` is clamped so the state is never addressed out of bounds
-        (that dispatch's answers are recomputed once the walk finishes)."""
+        """Routing of routed ids on the device: (local, shard, rank, counts,
+        valid counts), the rank from the shard ids (``route_rank``; on the
+        card one launch of the route kernel).  Under modulo routing the
+        routed ids are the keys.  On the CPU an unfinished Feistel walk
+        leaves ids past the domain; ``local`` is clamped so the state is
+        never addressed out of bounds (that dispatch's answers are
+        recomputed once the walk finishes)."""
         S = self.num_shards
         shard = routed % S
         local = torch.clamp(routed // S, max=self.num_keys - 1)
@@ -193,10 +471,9 @@ class ShardedOnlineStore(OnlineFeatureStore):
         scounts.index_add_(0, shard.long(), valid.to(torch.int32))
         return local, shard, rank, counts, scounts
 
-    def _route_query(self, route, ts_q, lanes, *, bucket: int,
-                     use_preagg: bool):
-        """Scatter, answer, gather — all on the device, from a routed batch
-        (``route_keys`` on the card, ``_route_routed`` on the CPU).
+    def _route_query(self, route, ts_q, lanes, join_keys, gkey, *,
+                     bucket: int, use_preagg: bool):
+        """Scatter, answer, gather — all on the device, from a routed batch.
 
         Returns (answers in request order, overflow flag).  Unscattered
         grid slots hold zeros — local key 0 of each shard, a read-only
@@ -220,31 +497,15 @@ class ShardedOnlineStore(OnlineFeatureStore):
         fkey = base * self.num_keys + to_grid(local)
         vals = self._query_pure(
             self._flat_state(), fkey, to_grid(ts_q), to_grid(lanes),
+            tuple(to_grid(j) for j in join_keys),
+            to_grid(gkey) if self._reads_gkey else None,
             use_preagg=use_preagg, groups=S,
         )
         back = (shard * B + slot).long()
         return tuple(v[back] for v in vals), overflow
 
-    def _note_route(self, tel, n_rows: int, q: int, bucket: int) -> None:
-        """Routing telemetry: rows routed plus the shard-layer padding."""
-        pad_rows = self.num_shards * bucket - q
-        m = tel.metrics
-        m.counter(
-            "route_rows_total",
-            "request rows routed to shards, per routing path", "1",
-            labels=("path",),
-        ).inc(int(n_rows), path="device")
-        m.counter(
-            "padding_rows_total", "filler rows added to reach shape bucket",
-            "1", labels=("layer",),
-        ).inc(pad_rows, layer="shard")
-        m.gauge(
-            "padding_waste_ratio", "filler rows / bucket rows, last batch",
-            "1", labels=("layer",),
-        ).set(pad_rows / max(self.num_shards * bucket, 1), layer="shard")
-
     @staticmethod
-    def _pad_request(key, ts_q, lanes, valid):
+    def _pad_request(key, ts_q, lanes, join_keys, valid):
         """Pad request tensors to a power-of-two row count (at least 16) by
         repeating the last row; ``valid`` marks the filler False."""
         q = int(key.shape[0])
@@ -254,31 +515,40 @@ class ShardedOnlineStore(OnlineFeatureStore):
             key = torch.cat([key, key[-1:].expand(pad)])
             ts_q = torch.cat([ts_q, ts_q[-1:].expand(pad)])
             lanes = torch.cat([lanes, lanes[-1:].expand(pad, -1)])
+            join_keys = tuple(
+                torch.cat([j, j[-1:].expand(pad)]) for j in join_keys
+            )
             valid = torch.cat([valid, valid.new_zeros(pad)])
-        return key, ts_q, lanes, valid, m
+        return key, ts_q, lanes, join_keys, valid, m
 
-    def _route_dispatch(self, tel, mode, key, ts_q, lanes, valid, m, q):
+    def _route_dispatch(self, tel, mode, key, ts_q, lanes, join_keys, valid,
+                        m, q):
         """One device-routed dispatch under the ``route.device`` span, plus
         the rare re-dispatches (Feistel walk not finished, per-shard
         capacity overflow) inside the same span."""
         B = self._route_bucket(m)
         use_preagg = mode != "naive"
+        routed = walking = None
         with tel.tracer.span(
             "route.device", kind="device", mode=mode, program="",
             rows=q, padded=m, bucket=B, shards=self.num_shards,
         ) as sp:
-            if key.is_cuda:
+            if self._perm is None:
+                # modulo routing: shard = key % S, ranked from the shard ids
+                # (one launch of the route kernel on the card)
+                route = self._route_routed(key, valid)
+            elif key.is_cuda:
                 # one launch: every key walked home, shard, local, ranks,
                 # counts (no walk flag)
                 route = route_keys(key, valid, self._perm,
                                    num_shards=self.num_shards)
-                walking = None
             else:
                 # the fixed device walk passes and a "still walking" flag
                 routed, walking = self._perm.device_call(key)
                 route = self._route_routed(routed, valid)
             vals, ovf = self._route_query(
-                route, ts_q, lanes, bucket=B, use_preagg=use_preagg
+                route, ts_q, lanes, join_keys, key, bucket=B,
+                use_preagg=use_preagg,
             )
             # the one host read of the batch: the overflow flag (and on the
             # CPU the walk's)
@@ -288,54 +558,61 @@ class ShardedOnlineStore(OnlineFeatureStore):
                 route = self._route_routed(
                     self._perm.finish_walk(routed), valid)
                 vals, ovf = self._route_query(
-                    route, ts_q, lanes, bucket=B, use_preagg=use_preagg,
+                    route, ts_q, lanes, join_keys, key, bucket=B,
+                    use_preagg=use_preagg,
                 )
                 ovf_h = bool(ovf)
             if ovf_h:
                 B = 1 << max(m - 1, 0).bit_length()
                 vals, _ = self._route_query(
-                    route, ts_q, lanes, bucket=B, use_preagg=use_preagg,
+                    route, ts_q, lanes, join_keys, key, bucket=B,
+                    use_preagg=use_preagg,
                 )
             vals, scounts = sp.fence(vals, route[4])
         scounts_h = scounts.cpu().numpy().astype(np.int64)
-        self._note_route(tel, int(scounts_h.sum()), q, B)
+        self._note_route(tel, "device", int(scounts_h.sum()), q, B)
         self._note_query(tel, mode)
         return vals, scounts_h
 
-    def query(
+    def _query_device_routed(
         self,
         columns: Dict,
-        mode: str = "preagg",
+        mode: str,
         valid: Optional[np.ndarray] = None,
         route_info: Optional[Dict] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Answer a request batch in input row order through the
-        device-routed path (same contract as the base store).
-
-        ``route_info`` (dict, filled in place) receives the batch's
-        valid-masked per-shard request counts (``"shard_counts"``),
-        computed on the device while routing.
-        """
+        """The device-routed request path: host work is array conversion
+        (``query.route``) and the post-expressions (``query.scatter``);
+        routing, the grid, the query and the gather back are the fenced
+        ``route.device`` span."""
         tel = get_telemetry()
+        self._validate_join_cols(columns)
         key_h = self._check_range(
             np.asarray(columns[self.schema.key]).astype(np.int32, copy=False)
         )
         q = int(key_h.shape[0])
         with tel.tracer.span("query.route", mode=mode, program="", rows=q):
             cols = self._columns(columns)
-            key, ts_q, lanes = self._request_arrays(cols)
+            key, ts_q, lanes, jks = self._request_arrays(cols)
             vmask = (
                 np.ones(q, bool) if valid is None
                 else np.asarray(valid, bool)[:q]
             )
-            key_p, ts_p, lanes_p, valid_p, m = self._pad_request(
-                key, ts_q, lanes, torch.as_tensor(vmask, device=self.device)
+            key_p, ts_p, lanes_p, jks_p, valid_p, m = self._pad_request(
+                key, ts_q, lanes, jks,
+                torch.as_tensor(vmask, device=self.device),
             )
         vals, scounts = self._route_dispatch(
-            tel, mode, key_p, ts_p, lanes_p, valid_p, m, q
+            tel, mode, key_p, ts_p, lanes_p, jks_p, valid_p, m, q
         )
         if route_info is not None:
             route_info["shard_counts"] = scounts
         with tel.tracer.span("query.scatter", rows=q):
             out = self._finish_query(cols, tuple(v[:q] for v in vals))
         return out
+
+    # -- observability ---------------------------------------------------------
+
+    def shard_row_counts(self) -> np.ndarray:
+        """Total primary rows ever ingested per shard (from ring cursors)."""
+        return self.state.ring.cursor.sum(dim=1).cpu().numpy()

@@ -25,7 +25,7 @@ from repro_torch.core.hashing import fold_hash
 
 __all__ = [
     "TableSchema", "Database", "RowCodec", "RingStore",
-    "ring_init", "ring_ingest", "ring_gather",
+    "ring_init", "ring_ingest", "ring_gather", "gather_index",
 ]
 
 TS_EMPTY = -2147483648
@@ -187,6 +187,16 @@ def ring_ingest(
         0, key[valid], torch.ones_like(key[valid])
     )
     return store
+
+
+def gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Row indices into an ``n``-row table with the reference's gather
+    semantics, for indices nothing range-checks (a LAST JOIN's join key):
+    a negative index wraps once (``idx + n``), then every index clamps to
+    ``[0, n - 1]`` — ``jnp.arange(5)[[7, -1, -9]]`` is ``[4, 4, 0]``.
+    Torch's indexing would raise (or fault on the device) instead."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.clamp(idx, 0, n - 1)
 
 
 def ring_gather(

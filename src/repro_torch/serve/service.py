@@ -10,8 +10,11 @@ micro-batcher: requests coalesce up to ``max_batch`` or ``max_wait_us``
 signature embedding of the key, then the model.
 
 The single-scenario slice of the reference package's ``repro.serve.
-service`` (``MultiScenarioService`` is not ported yet).  Answers come back
-as numpy arrays on the host.
+service``: a service deploys any view, multi-table ones included (its
+store takes ``secondary_num_keys`` / ``table_capacity`` / ``table_ttl`` /
+``device_routing`` through ``build``; request rows carry the LAST JOIN
+key columns).  ``MultiScenarioService`` is not ported yet.  Answers come
+back as numpy arrays on the host.
 """
 
 from __future__ import annotations
@@ -168,7 +171,10 @@ class FeatureService:
         ``sharded=True`` deploys on a :class:`~repro_torch.core.shard.
         ShardedOnlineStore` with ``num_shards`` key-partitioned shards
         (required: one GPU holds every shard, so there is no device count
-        to default from); answers equal the single-device store's.
+        to default from); answers equal the single-device store's.  The
+        other ``store_kwargs`` (sizes, ``secondary_num_keys``,
+        ``table_capacity``, ``table_ttl``, ``hash_routing``,
+        ``device_routing``) go to the store.
         """
         if not sharded and num_shards is not None:
             raise ValueError("num_shards requires sharded=True")

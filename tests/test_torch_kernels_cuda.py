@@ -312,6 +312,71 @@ def test_sharded_store_on_gpu_matches_cpu(cuda):
         )
 
 
+@pytest.mark.parametrize("hash_routing", [False, True])
+def test_multitable_store_device_host_single_on_gpu(cuda, hash_routing):
+    """A small multi-table sharded store on the card: the device-routed
+    path launches B2 once a dispatch — from shard ids under modulo
+    routing, from keys under hash routing — and its answers equal, bit for
+    bit, the host-routed path's and a single-device store's, with equal
+    per-shard counts; a strided batch (all accounts = 0 mod 8) overflows
+    the optimistic grid and stays equal."""
+    from repro_torch.core.online import OnlineFeatureStore
+    from repro_torch.core.shard import ShardedOnlineStore
+    from repro_torch.data.synthetic import multitable_stream
+    from repro_torch.scenarios import sharded_view
+
+    accounts, merchants = 4096, 256
+    kw = dict(num_keys=accounts, capacity=64, num_buckets=512,
+              bucket_size=64, secondary_num_keys={"merchants": merchants},
+              device="cuda")
+    store = ShardedOnlineStore(sharded_view(), num_shards=8,
+                               hash_routing=hash_routing, **kw)
+    single = OnlineFeatureStore(sharded_view(), **kw)
+    rng = np.random.default_rng(12)
+    tables = multitable_stream(rng, 20_000, num_accounts=accounts,
+                               num_merchants=merchants, t_max=20_000)
+    for t, kc in (("accounts", "account"), ("merchants", "merchant"),
+                  ("wires", "account"), ("transactions", "account")):
+        cols = tables[t]
+        o = np.lexsort((cols["ts"], cols[kc]))
+        for s in (store, single):
+            s.ingest_table(t, {c: v[o] for c, v in cols.items()})
+    variant = "keys" if hash_routing else "shards"
+    for strided in (False, False, True):
+        n = 1000
+        req = dict(
+            account=rng.integers(0, accounts, n).astype(np.int32),
+            ts=np.full(n, 20_100, np.int32),
+            amount=rng.gamma(1.5, 60.0, n).astype(np.float32),
+            merchant=rng.integers(0, merchants, n).astype(np.int32),
+        )
+        if strided:
+            req["account"] = (req["account"] // 8 * 8).astype(np.int32)
+        store.device_routing = False
+        ri_h = {}
+        host = store.query(dict(req), route_info=ri_h)
+        before = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+        store.device_routing = True
+        ri_d = {}
+        got = store.query(dict(req), route_info=ri_d)
+        after = kernels.VARIANT_LAUNCHES["route_rank"]
+        assert {v: after[v] - before[v] for v in after} == {
+            "keys": int(hash_routing), "shards": int(not hash_routing)}
+        one = single.query(dict(req))
+        np.testing.assert_array_equal(ri_h["shard_counts"],
+                                      ri_d["shard_counts"])
+        if strided and not hash_routing:
+            assert ri_d["shard_counts"][0] == n
+        for f in got:
+            g = got[f].cpu().numpy()
+            np.testing.assert_array_equal(
+                g.view(np.int32), host[f].cpu().numpy().view(np.int32),
+                err_msg=f"host {f}")
+            np.testing.assert_array_equal(
+                g.view(np.int32), one[f].cpu().numpy().view(np.int32),
+                err_msg=f"single {f}")
+
+
 # float32 patterns: ±0, NaNs of both signs and payloads, ±inf, ±1
 _SPECIAL = np.array(
     [0x0, 0x80000000, 0x7FC00000, 0xFFC00000, 0x7FC00001, 0x7F800001,

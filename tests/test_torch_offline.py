@@ -500,8 +500,3 @@ def test_verify_view_fraud_span(case):
                                  "repro_torch/preagg": 0.25,
                                  "repro/preagg": 0.1191}, abs=5e-4), std
 
-
-def test_verify_view_multi_table_not_served_yet():
-    with pytest.raises(NotImplementedError, match="multi-table"):
-        verify_view(multi_table_view(), {}, num_keys=8, num_buckets=512,
-                    device="cpu")
