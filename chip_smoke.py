@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch port: the sharded online request path, the
-fraud scoring path on top of it, multi-table sharded serving, RWKV6
+fraud scoring path on top of it, multi-table sharded serving, the
+multi-scenario plane (mixed batches through one store), RWKV6
 serving (rwkv6-3b prefill and decode), dense LM serving (nemotron-4-15b prefill and decode), and the
 offline feature path with its offline<->online consistency check.
 
@@ -124,7 +125,33 @@ Phases, in order; any failure exits non-zero:
    secondary=...)`` on 2^20 transactions over a day on 2^11 accounts
    (merchants 256), 8 shards: preagg on the device-routed path and naive
    on the host-routed path must both pass.
-10. **WKV6 kernel** against its plain versions, float32 inputs from a
+10. **Multi-scenario plane** (after phase 9 has freed its stores).
+   ``FeatureService.build_multi("plane", multi_scenario_views(),
+   sharded=True, num_shards=8)`` at the main path's sizes (2^19 accounts,
+   ring 256, 512 buckets of 64 s, merchants 2^16): the three scenarios'
+   views on one store (``raw_lanes``: two primary lanes), ~18.5 GB.  The
+   day of phase 9's traffic, ingested once for all scenarios; then 8 mixed
+   batches of 4,096 rows (scenario tags uniform over the three, accounts
+   uniform over 2^19, merchants over 2^16) and one batch of one scenario
+   alone, each submitted row by row with its tag to ``ShardRouter`` and
+   served by one ``pump`` (``request_mixed``: preagg, ingest on).  Before
+   each is ingested, its answers must equal, bit for bit, a host-routed
+   router's over the same store (``device_routing=False``: one program a
+   scenario group, ingest off) and the mixed answers with B2's plain
+   composition swapped in; both routers' per-(scenario, shard) histograms
+   must be equal; the pump must be one ``route.device`` span with one B2
+   launch (from keys), and B1's count must rise.  ``ingest_row_counts``
+   must count transactions and wires once and accounts and merchants x 8.
+   Then each scenario's dedicated single-device store, built one at a
+   time and fed the same day and request rows in the same order, must
+   answer the 9 batches as the plane did, bit for bit.  Prints the plane's
+   bytes beside the dedicated stores', ingest rows/s, request p50 / p99
+   (``ServiceStats`` over all the phase's requests, and the fenced pump
+   walls), the device path's spans beside the host path's, the peak
+   device memory and one traced mixed batch.  Then modulo routing
+   (``hash_routing=False``) at 2^16 accounts: ``MS_MOD_BATCHES`` mixed
+   batches, device == host == B2-plain, B2 from shard ids once a pump.
+11. **WKV6 kernel** against its plain versions, float32 inputs from a
    seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
    D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
@@ -142,7 +169,7 @@ Phases, in order; any failure exits non-zero:
    apart, and the chunked plain version; its bound is the larger of its
    bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
    version.
-11. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+12. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
    depth cut).  A prefill and a decode step with a spy on B7's entry
@@ -164,7 +191,7 @@ Phases, in order; any failure exits non-zero:
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
    run, within ``LM_F32_TOL``.
-12. **Flash attention kernel (B6)**: each instantiation's registers and
+13. **Flash attention kernel (B6)**: each instantiation's registers and
    spills (``ptxas -v``) and its ``HGMMA`` / ``HMMA`` count in the built
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
@@ -183,7 +210,7 @@ Phases, in order; any failure exits non-zero:
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
    short-sequence threshold), and float32 at nemotron's shape.
-13. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+14. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
    15,628,376,064 parameters drawn on the card from a seeded generator);
@@ -199,21 +226,22 @@ Phases, in order; any failure exits non-zero:
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-14. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+15. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-15. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+16. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-16. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+17. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
-    own keys), then the card line, then the ``ok`` line last.
+    own keys, phase 10's under ``launches_multiscenario``), then the card
+    line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
 """
@@ -270,6 +298,8 @@ MT_MOD_ACCOUNTS = 1 << 16
 MT_MOD_ROWS = 1 << 19
 MT_MOD_SLICES = 16
 MT_VERIFY_ACCOUNTS, MT_VERIFY_MERCHANTS = 1 << 11, 256
+# the multi-scenario phase's modulo-routing run: mixed batches served
+MS_MOD_BATCHES = 2
 WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -920,7 +950,9 @@ def main_path(results):
     router = ShardRouter(
         svc, BatchScheduler(buckets=(REQ_ROWS,), max_batch=REQ_ROWS)
     )
-    svc.stats = type(svc.stats)()
+    # a window over all the phase's requests: the percentiles cover every
+    # batch, not the last 1,024 samples
+    svc.stats = type(svc.stats)(window=REQ_BATCHES * REQ_ROWS)
     for b in range(REQ_BATCHES):
         rows = _request_rows(rng, DAY + 60 * b)
         want = expected_answers(rows)
@@ -1212,18 +1244,24 @@ def check_window_stats(results, store, rng, t_lo) -> None:
     torch.cuda.empty_cache()
 
 
-def trace_request(svc, rows, results, key="trace_request") -> None:
-    """Profile one request batch: device kernels, busy time, idle share,
-    and B2's launches and device time in it (kept in B2's results under
-    ``key``)."""
+def trace_request(svc, rows, results, key="trace_request",
+                  serve=None) -> None:
+    """Profile one request batch (``serve(rows)``, by default
+    ``svc.request`` without ingest): device kernels, busy time, idle
+    share, and B2's launches and device time in it (kept in B2's results
+    under ``key``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    svc.request(dict(rows), ingest=False)
+    if serve is None:
+        def serve(cols):
+            return svc.request(cols, ingest=False)
+
+    serve(dict(rows))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svc.request(dict(rows), ingest=False)
+        serve(dict(rows))
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -1647,14 +1685,22 @@ def _mt_ingest(served, others, tables, slices, launches):
     """``accounts`` and ``merchants`` (key, ts)-sorted, then the day in
     ``slices`` time slices: each slice's ``wires`` rows through
     ``ingest_table``, then its transactions through ``ingest`` (B1), into
-    the served store and into each of ``others``.  Returns the served
-    store's seconds and rows per table; ``launches`` gains the served
-    store's B1 launches."""
+    the served store and into each of ``others`` (each store takes the
+    tables its view reads).  Returns the served store's seconds and rows
+    per table; ``launches`` gains the served store's B1 launches."""
     from repro_torch import kernels
 
     secs, rows = {}, {}
 
+    def reads(store, table):
+        return table == store.schema.name or table in store._sec_names
+
     def put(table, cols):
+        for s in others:
+            if reads(s, table):
+                s.ingest_table(table, dict(cols))
+        if not reads(served, table):
+            return
         kernels_before = kernels.LAUNCHES["fused_ingest"]
         t0 = time.perf_counter()
         served.ingest_table(table, dict(cols))
@@ -1662,8 +1708,6 @@ def _mt_ingest(served, others, tables, slices, launches):
         rows[table] = rows.get(table, 0) + len(cols["ts"])
         launches["fused_ingest"] += (kernels.LAUNCHES["fused_ingest"]
                                      - kernels_before)
-        for s in others:
-            s.ingest_table(table, dict(cols))
 
     put("accounts", _by_key(tables["accounts"], "account"))
     put("merchants", _by_key(tables["merchants"], "merchant"))
@@ -1962,6 +2006,324 @@ def multitable_path(results) -> None:
         if not rep.passed:
             _fail(f"verify_view of the multi-table view ({rep.mode}) failed")
 
+
+
+# ---------------------------------------------------------------------------
+# multi-scenario plane
+# ---------------------------------------------------------------------------
+
+
+def _ms_batch(rng, t_lo, accounts, names, only=None):
+    """A mixed request batch: ``_mt_requests`` rows and per-row scenario
+    tags, uniform over ``names`` (all ``only`` when given)."""
+    rows = _mt_requests(rng, t_lo, accounts)
+    pick = rng.integers(0, len(names), REQ_ROWS)
+    tags = np.array([names[i] for i in pick]) if only is None else \
+        np.full(REQ_ROWS, only)
+    return rows, tags
+
+
+def _ms_groups(rows, tags, names):
+    """Each scenario's rows of a mixed batch, in submission order, and the
+    batch's ingest groups as ``request_mixed`` ingests them: scenario
+    order, each group (key, ts)-sorted."""
+    per = {s: {c: v[tags == s] for c, v in rows.items()} for s in names
+           if (tags == s).any()}
+    return per, [_by_key(g, "account") for g in per.values()]
+
+
+def _ms_serve(svc, routers, rng, t_lo, accounts, batches, launches, tels,
+              variant, saved=None, only=None):
+    """Serve ``batches`` mixed batches through ``routers["device"]``
+    (``svc``: device-routed, ingest on).  Before each is ingested, its
+    answers must equal, bit for bit, ``routers["host"]``'s (a second
+    service over the same plane, served with ``device_routing=False``:
+    one program a scenario group, ingest off) and the mixed answers with
+    B2's plain composition swapped in; both routers' per-(scenario,
+    shard) histograms must stay equal; the pump must be one
+    ``route.device`` span and one B2 launch (``variant``), and B1's count
+    must rise.  ``saved`` (a list) gains each batch's rows, tags and
+    answers.  Returns each pump's wall seconds."""
+    from repro_torch import kernels
+    from repro_torch.core import shard as shard_mod
+    from repro_torch.kernels.route.ref import route_keys_ref, route_rank_ref
+    from repro_torch.obs import Telemetry, use_telemetry
+
+    plane, store = svc.plane, svc.store
+    names = plane.scenarios
+    kernel_fns = (shard_mod.route_keys, shard_mod.route_rank)
+
+    def plain_route_keys(key, valid, perm, *, num_shards):
+        return route_keys_ref(key, valid, perm, num_shards)
+
+    def plain_route_rank(shard, *, num_shards):
+        return route_rank_ref(shard, num_shards)
+
+    def submit(router, rows, tags):
+        for i in range(REQ_ROWS):
+            router.submit({c: v[i] for c, v in rows.items()},
+                          scenario=str(tags[i]))
+
+    dspans = tels["device"].metrics.histogram(
+        "span_seconds", unit="s", labels=("name", "kind"))
+    walls = []
+    for b in range(batches):
+        rows, tags = _ms_batch(rng, t_lo + 60 * b, accounts, names, only)
+        b2_before = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+        store.device_routing = False
+        try:
+            with use_telemetry(tels["host"]):
+                submit(routers["host"], rows, tags)
+                host = routers["host"].pump(flush=True)
+        finally:
+            store.device_routing = True
+        shard_mod.route_keys, shard_mod.route_rank = (plain_route_keys,
+                                                      plain_route_rank)
+        try:
+            with use_telemetry(Telemetry()):
+                plain = {s: _np_answers(o) for s, o in plane.query_mixed(
+                    dict(rows), tags, mode="preagg").items()}
+        finally:
+            shard_mod.route_keys, shard_mod.route_rank = kernel_fns
+        if kernels.VARIANT_LAUNCHES["route_rank"] != b2_before:
+            _fail("the host-routed and plain answers launched B2")
+        with use_telemetry(tels["device"]):
+            submit(routers["device"], rows, tags)
+        n_dev = dspans.count(name="route.device", kind="device")
+        b1 = kernels.LAUNCHES["fused_ingest"]
+        t0 = time.perf_counter()
+        with use_telemetry(tels["device"]):
+            got = routers["device"].pump(flush=True)
+        walls.append(time.perf_counter() - t0)
+        n_dev = dspans.count(name="route.device", kind="device") - n_dev
+        if n_dev != 1:
+            _fail(f"batch {b}: {n_dev} route.device spans in one mixed pump")
+        n_b1 = kernels.LAUNCHES["fused_ingest"] - b1
+        launches["fused_ingest"] += n_b1
+        if n_b1 == 0:
+            _fail(f"batch {b}: the mixed pump's ingest did not launch B1")
+        after = kernels.VARIANT_LAUNCHES["route_rank"]
+        n_b2 = {v: after[v] - b2_before[v] for v in after}
+        launches[variant] += n_b2[variant]
+        if n_b2[variant] != 1 or sum(n_b2.values()) != 1:
+            _fail(f"batch {b}: B2 launched {n_b2} in one mixed dispatch, "
+                  f"expected one from {variant}")
+        present = sorted(set(tags.tolist()))
+        for name, want in (("host-routed", host), ("B2-plain", plain)):
+            if sorted(want) != present or sorted(got) != present:
+                _fail(f"batch {b}: scenarios answered: device {sorted(got)}, "
+                      f"{name} {sorted(want)}, sent {present}")
+            for sc in present:
+                bad = _same_bits(want[sc], got[sc])
+                if bad is not None:
+                    x, y = np.asarray(want[sc][bad]), np.asarray(got[sc][bad])
+                    i = int(np.flatnonzero(
+                        x.view(np.uint8) != y.view(np.uint8))[0]
+                        // x.itemsize) if x.shape == y.shape else 0
+                    _fail(f"batch {b} {sc}/{bad}: mixed answers differ from "
+                          f"the {name} answers (first at row {i}: "
+                          f"{y.reshape(-1)[i]!r} vs {x.reshape(-1)[i]!r})")
+        for sc, feats in got.items():
+            n = int((tags == sc).sum())
+            for f, v in feats.items():
+                if v.shape != (n,) or not np.all(np.isfinite(v)):
+                    _fail(f"batch {b} {sc}/{f}: shape {v.shape} or "
+                          "non-finite")
+        hd = routers["device"].scenario_shard_histogram()
+        hh = routers["host"].scenario_shard_histogram()
+        if any(not np.array_equal(hd[sc], hh[sc]) for sc in names):
+            _fail(f"batch {b}: (scenario, shard) histograms differ: device "
+                  f"{hd} host {hh}")
+        if saved is not None:
+            saved.append((rows, tags, got))
+    return walls
+
+
+def _ms_routers(svc, host_svc):
+    from repro_torch.serve.router import ShardRouter
+    from repro_torch.serve.service import BatchScheduler
+
+    def sched():
+        return BatchScheduler(buckets=(REQ_ROWS,), max_batch=REQ_ROWS)
+
+    return {"device": ShardRouter(svc, sched()),
+            "host": ShardRouter(host_svc, sched(), ingest=False)}
+
+
+def multiscenario_path(results) -> None:
+    """The multi-scenario plane at deployment size: the three views of
+    ``multi_scenario_views()`` on one sharded store (2^19 accounts x 8
+    shards), mixed batches through the scenario-aware ``ShardRouter``
+    (one device-routed dispatch a pump) == the host-routed oracle == the
+    B2-plain composition, bit for bit; then each scenario's dedicated
+    store, fed the same stream, == the plane's saved answers; then modulo
+    routing at 2^16 accounts."""
+    from repro_torch import kernels
+    from repro_torch.core.online import OnlineFeatureStore
+    from repro_torch.data.synthetic import multitable_stream
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.scenarios import multi_scenario_views
+    from repro_torch.serve.service import (
+        SCENARIO_COL,
+        FeatureService,
+        MultiScenarioService,
+        ServiceStats,
+    )
+
+    dev = "cuda"
+    kw = dict(secondary_num_keys={"merchants": MT_MERCHANTS}, **STORE_KW)
+    rng = np.random.default_rng(SEED + 7)
+    torch.cuda.reset_peak_memory_stats()
+    views = multi_scenario_views()
+    svc = FeatureService.build_multi(
+        "plane", views, num_keys=NUM_CARDS, sharded=True,
+        num_shards=NUM_SHARDS, mode="preagg", device=dev, **kw)
+    store = svc.store
+    names = svc.scenarios
+    host_svc = MultiScenarioService("plane_host", svc.plane, mode="preagg")
+    plane_bytes = _ring_bytes(store)
+    for name, nbytes in plane_bytes.items():
+        print(f"multi-scenario plane: {name} {nbytes / 1e9:.4f} GB",
+              flush=True)
+    print(f"multi-scenario plane: {sum(plane_bytes.values()) / 1e9:.3f} GB "
+          f"in all ({len(names)} scenarios {names}, {NUM_SHARDS} shards x "
+          f"{store.num_keys} accounts, {store.num_lanes} primary lanes)",
+          flush=True)
+
+    tables = multitable_stream(rng, MT_ROWS, num_accounts=NUM_CARDS,
+                               num_merchants=MT_MERCHANTS, t_max=DAY)
+    kernels.reset_launches()
+    launches = {"fused_ingest": 0, "keys": 0, "shards": 0}
+    secs, rows_in = _mt_ingest(store, (), tables, WARM_SLICES, launches)
+    for t in rows_in:
+        print(f"multi-scenario ingest {t}: {rows_in[t]} rows in "
+              f"{secs[t]:.3f} s = {rows_in[t] / secs[t]:.0f} rows/s "
+              "(fenced; once for all scenarios)", flush=True)
+
+    batches = REQ_BATCHES + 1
+    svc.stats = ServiceStats(window=batches * REQ_ROWS)
+    tels = {"host": Telemetry(), "device": Telemetry()}
+    routers = _ms_routers(svc, host_svc)
+    saved = []
+    walls = _ms_serve(svc, routers, rng, DAY, NUM_CARDS, REQ_BATCHES,
+                      launches, tels, "keys", saved)
+    # one more batch of one scenario: the other two are absent
+    walls += _ms_serve(svc, routers, rng, DAY + 60 * REQ_BATCHES, NUM_CARDS,
+                       1, launches, tels, "keys", saved, only=names[1])
+    print(f"multi-scenario: served {batches} mixed batches x {REQ_ROWS} rows "
+          f"({REQ_BATCHES} over {len(names)} scenarios, 1 of {names[1]} "
+          "alone): device-routed == host-routed oracle == B2-plain, bit for "
+          "bit; (scenario, shard) histograms equal; one route.device span "
+          f"and one B2 launch a pump; B2 {launches['keys']} (from keys), B1 "
+          f"{launches['fused_ingest']}", flush=True)
+    if launches["keys"] != batches:
+        _fail(f"multi-scenario launches {launches}")
+    hist = routers["device"].scenario_shard_histogram()
+    print("multi-scenario (scenario, shard) histogram: " + "; ".join(
+        f"{s} {h.tolist()}" for s, h in hist.items()), flush=True)
+    st = svc.stats
+    if st.requests != batches * REQ_ROWS or st.batches != batches:
+        _fail(f"service stats count {st.requests} requests in {st.batches} "
+              "batches")
+    lat = 1e3 * np.repeat(walls, REQ_ROWS)
+    print(f"multi-scenario request latency ({st.requests} requests in "
+          f"{st.batches} mixed batches, query + ingest): ServiceStats p50 "
+          f"{st.request_p50_ms:.3f} ms, p99 {st.request_p99_ms:.3f} ms; "
+          f"fenced pump walls p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms "
+          f"{[round(1e3 * w, 3) for w in walls]}", flush=True)
+    for path, names_ in (("device", ("query.route", "route.device",
+                                     "query.scatter", "ingest", "request")),
+                         ("host", ("query.route", "query.compute",
+                                   "query.scatter", "request"))):
+        spans = tels[path].metrics.histogram(
+            "span_seconds", unit="s", labels=("name", "kind"))
+        for name in names_:
+            kind = "device" if name in ("route.device", "query.compute",
+                                        "ingest") else "host"
+            print(f"multi-scenario {path} path span {name}: mean "
+                  f"{1e3 * spans.mean(name=name, kind=kind):.3f} ms over "
+                  f"{int(spans.count(name=name, kind=kind))}", flush=True)
+
+    counts = svc.plane.ingest_row_counts()
+    n_tx = len(tables["transactions"]["ts"]) + batches * REQ_ROWS
+    want = {"transactions": n_tx, "wires": len(tables["wires"]["ts"]),
+            "accounts": NUM_SHARDS * len(tables["accounts"]["ts"]),
+            "merchants": NUM_SHARDS * len(tables["merchants"]["ts"])}
+    if counts != want:
+        _fail(f"ingest_row_counts {counts}, expected {want}")
+    print(f"multi-scenario ingest_row_counts {counts}: transactions and "
+          f"wires once, accounts and merchants x {NUM_SHARDS} (replicated, "
+          "one copy on the card)", flush=True)
+    print(f"multi-scenario peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    rows, tags = _ms_batch(rng, DAY + 3600, NUM_CARDS, names)
+    rows[SCENARIO_COL] = tags
+    trace_request(svc, rows, results, key="trace_multiscenario",
+                  serve=lambda cols: svc.request_mixed(cols, ingest=False))
+
+    # each scenario's dedicated store, one at a time: the same day and the
+    # same request rows in the same order; its answers == the plane's
+    ded_bytes = {}
+    for v in views:
+        ded = OnlineFeatureStore(v, num_keys=NUM_CARDS, device=dev, **kw)
+        ded_bytes[v.name] = sum(_ring_bytes(ded).values())
+        _mt_ingest(ded, (), tables, WARM_SLICES, {"fused_ingest": 0})
+        n_rows = 0
+        for b, (rows_b, tags_b, got) in enumerate(saved):
+            per, groups = _ms_groups(rows_b, tags_b, names)
+            if v.name in per:
+                with use_telemetry(Telemetry()):
+                    one = _np_answers(ded.query(dict(per[v.name]),
+                                                mode="preagg"))
+                bad = _same_bits(one, got[v.name])
+                if bad is not None:
+                    _fail(f"batch {b} {v.name}/{bad}: the plane's answers "
+                          "differ from the dedicated store's")
+                n_rows += len(per[v.name]["ts"])
+            for g in groups:
+                ded.ingest(g)
+        print(f"multi-scenario: dedicated {v.name} store "
+              f"({ded_bytes[v.name] / 1e9:.3f} GB) == the plane, bit for "
+              f"bit, on {n_rows} requests in {len(saved)} batches",
+              flush=True)
+        del ded
+        torch.cuda.empty_cache()
+    total = sum(plane_bytes.values())
+    print(f"multi-scenario bytes: plane {total / 1e9:.3f} GB against "
+          f"{sum(ded_bytes.values()) / 1e9:.3f} GB for the "
+          f"{len(views)} dedicated stores "
+          f"({', '.join(f'{n} {b / 1e9:.3f}' for n, b in ded_bytes.items())})"
+          f"; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del tables, saved, svc, host_svc, routers, store
+    torch.cuda.empty_cache()
+
+    # modulo routing at 2^16 accounts: B2 ranks from the shard ids
+    svc = FeatureService.build_multi(
+        "plane_mod", views, num_keys=MT_MOD_ACCOUNTS, sharded=True,
+        num_shards=NUM_SHARDS, hash_routing=False, mode="preagg", device=dev,
+        **kw)
+    host_svc = MultiScenarioService("plane_mod_host", svc.plane,
+                                    mode="preagg")
+    tables = multitable_stream(rng, MT_MOD_ROWS, num_accounts=MT_MOD_ACCOUNTS,
+                               num_merchants=MT_MERCHANTS, t_max=DAY)
+    _mt_ingest(svc.store, (), tables, MT_MOD_SLICES, launches)
+    del tables
+    _ms_serve(svc, _ms_routers(svc, host_svc), rng, DAY, MT_MOD_ACCOUNTS,
+              MS_MOD_BATCHES, launches, tels, "shards")
+    print(f"multi-scenario modulo routing ({MT_MOD_ACCOUNTS} accounts): "
+          f"{MS_MOD_BATCHES} mixed batches device == host == B2-plain; B2 "
+          f"from shard ids {launches['shards']}, from keys "
+          f"{launches['keys']} in all", flush=True)
+    if launches["shards"] != MS_MOD_BATCHES or launches["keys"] != batches:
+        _fail(f"multi-scenario modulo routing launches {launches}")
+    del svc, host_svc
+    torch.cuda.empty_cache()
+    results["fused_ingest"]["launches_multiscenario"] = launches["fused_ingest"]
+    results["route_rank"]["launches_multiscenario"] = launches["keys"]
+    results["route_rank"]["launches_multiscenario_shards"] = launches["shards"]
 
 
 def _wkv6_cost(shape, with_s0):
@@ -3022,6 +3384,7 @@ def main() -> None:
     del svc, table
     torch.cuda.empty_cache()
     multitable_path(results)
+    multiscenario_path(results)
     check_wkv6_kernel(results)
     rwkv6_path(results)
     check_flash_attention_kernel(results)

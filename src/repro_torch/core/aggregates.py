@@ -92,11 +92,26 @@ def _lane_reduce(lane: str, x: torch.Tensor, dim: int) -> torch.Tensor:
 def lane_masked_reduce(
     lane: str, lifted: torch.Tensor, mask: torch.Tensor, dim: int
 ) -> torch.Tensor:
-    """Fold lifted states over ``dim``, masked rows contributing identity."""
+    """Fold lifted states over ``dim`` (the last), masked rows
+    contributing identity.
+
+    On the card a row is summed in 16-byte vectors, and a row that does
+    not start 16-byte aligned is begun with a scalar head: where the row
+    length is not a multiple of 4 values, a row's summation order would
+    depend on its address, i.e. on its position in the batch, and the
+    same request would get other bits in another grid (device-routed,
+    host-routed, single-device).  Such rows are padded with the identity
+    to a multiple of 4."""
     ident = torch.tensor(
         _LANE_IDENT[lane], dtype=lifted.dtype, device=lifted.device
     )
-    return _lane_reduce(lane, torch.where(mask, lifted, ident), dim)
+    x = torch.where(mask, lifted, ident)
+    n = x.shape[dim]
+    if x.is_cuda and n % 4:
+        shape = list(x.shape)
+        shape[dim] = 4 - n % 4
+        x = torch.cat([x, ident.expand(shape)], dim)
+    return _lane_reduce(lane, x, dim)
 
 
 def lanes_lift_stack(v: torch.Tensor) -> torch.Tensor:

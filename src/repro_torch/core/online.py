@@ -34,17 +34,23 @@ answered from them in the same query.  Secondary rows arrive through
 table (a dual-use table on a sharded plane has two); secondary rings hold
 no pre-aggregates, so their ingest is plain PyTorch, as in the reference.
 
+A :class:`QueryProgram` is one scenario's slice of a store shared by
+many (:mod:`repro_torch.core.scenario`): that view's window aggregations
+and joins as subsets of the store's, answering requests that carry only
+that view's columns.
+
 The port of the reference package's ``repro.core.online`` without live
-layout adoption, per-scenario ``QueryProgram`` s and the merge-order
-bucket families (FIRST / LAST / TOPN_FREQ over RANGE windows, which raise
-``NotImplementedError`` at construction).  State lives on ``device``
-(default ``"cuda"``; ``"cpu"`` runs the plain PyTorch versions of the
-kernels).
+layout adoption and the merge-order bucket families (FIRST / LAST /
+TOPN_FREQ over RANGE windows, which raise ``NotImplementedError`` at
+construction).  Programs run eagerly: there is no per-shape compile, so
+no ``query_compile_seconds``.  State lives on ``device`` (default
+``"cuda"``; ``"cpu"`` runs the plain PyTorch versions of the kernels).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,7 +71,7 @@ from repro_torch.core.layout import StoreLayout, plan_layout
 from repro_torch.kernels.ingest.ops import fused_ingest
 from repro_torch.obs import get_telemetry
 
-__all__ = ["OnlineState", "OnlineFeatureStore"]
+__all__ = ["OnlineState", "OnlineFeatureStore", "QueryProgram"]
 
 _POS_MAX = 2147483647
 _TS_MIN = -2147483648
@@ -551,14 +557,19 @@ class OnlineFeatureStore:
     # -- the one query path -----------------------------------------------------
 
     def _max_mid(self, wa: WindowAgg) -> int:
-        """Static bound on middle-bucket count for a window."""
-        return max(
+        """Static bound on middle-bucket count for a window, rounded up to
+        a multiple of 4 (the extra middles lie past the request's bucket
+        and are masked out): every (Q, M) row the bucket fold sums is then
+        16-byte aligned, so it needs no padding
+        (:func:`~repro_torch.core.aggregates.lane_masked_reduce`)."""
+        m = max(
             1,
             min(
                 self.num_buckets,
                 self._window_span(wa) // self.bucket_size + 1,
             ),
         )
+        return -(-m // 4) * 4
 
     def _preagg_parts(self, wa, state, key, ts_q, ts_buf, valid, lane):
         """Raw boundary-row mask + gathered middle-bucket states for a RANGE
@@ -706,33 +717,68 @@ class OnlineFeatureStore:
             view, num_keys=num_keys, layout=layout, **store_kwargs
         )
 
-    def _validate_join_cols(self, columns: Dict) -> None:
-        for c in self._join_cols:
+    def compile_program(self, view) -> "QueryProgram":
+        """A per-scenario query program for ``view`` against this store's
+        (possibly shared, multi-scenario) state."""
+        return QueryProgram(self, view)
+
+    def _validate_join_cols(
+        self, columns: Dict, program: Optional["QueryProgram"] = None
+    ) -> None:
+        cols = self._join_cols if program is None else program.join_cols
+        view = self.view if program is None else program.view
+        for c in cols:
             if c not in columns:
                 raise KeyError(
                     f"request rows must carry join-key column {c!r} "
-                    f"(LAST JOIN on {c!r} in view {self.view.name!r})"
+                    f"(LAST JOIN on {c!r} in view {view.name!r})"
                 )
 
-    def _request_arrays(self, cols: Dict[str, torch.Tensor]):
-        """(key, ts, lanes, join_keys) request tensors."""
-        join_keys = tuple(cols[c].to(torch.int32) for c in self._join_cols)
+    def _request_arrays(
+        self, cols: Dict[str, torch.Tensor],
+        program: Optional["QueryProgram"] = None,
+    ):
+        """(key, ts, lanes, join_keys) request tensors.  With a
+        ``program``, lanes and join keys are that scenario's: requests need
+        only the columns its view references."""
+        if program is None:
+            lane_exprs, join_cols = None, self._join_cols
+        else:
+            lane_exprs, join_cols = program.lane_exprs, program.join_cols
+        join_keys = tuple(cols[c].to(torch.int32) for c in join_cols)
         return (cols[self.schema.key], cols[self.schema.ts],
-                self._lanes(cols), join_keys)
+                self._lanes(cols, lane_exprs), join_keys)
 
-    def _finish_query(self, cols, vals) -> Dict[str, torch.Tensor]:
+    def _query_fn(self, mode: str, program: Optional["QueryProgram"] = None):
+        """``_query_pure`` in ``mode`` over the program's subset (none: the
+        store's whole view)."""
+        if program is not None:
+            return program.fn(mode)
+        return functools.partial(self._query_pure,
+                                 use_preagg=(mode != "naive"))
+
+    def _finish_query(
+        self, cols, vals, program: Optional["QueryProgram"] = None
+    ) -> Dict[str, torch.Tensor]:
         """Window and join answers -> named features via row-level
-        post-expressions."""
-        pre_values = dict(zip(self._wagg_order + self._ljoin_order, vals))
+        post-expressions (named as in the program's view)."""
+        if program is None:
+            keys = self._wagg_order + self._ljoin_order
+            features = self.view.features
+        else:
+            keys = list(program.wagg_order) + list(program.ljoin_order)
+            features = program.view.features
+        pre_values = dict(zip(keys, vals))
         return {
             fname: eval_rowlevel(fexpr, cols, pre_values)
-            for fname, fexpr in self.view.features.items()
+            for fname, fexpr in features.items()
         }
 
     def query(
         self,
         columns: Dict,
         mode: str = "preagg",
+        program: Optional["QueryProgram"] = None,
         valid: Optional[np.ndarray] = None,
         route_info: Optional[Dict] = None,
     ) -> Dict[str, torch.Tensor]:
@@ -740,12 +786,14 @@ class OnlineFeatureStore:
 
         columns: raw request columns incl. key, ts and every LAST JOIN key
         column; (Q,) each.  Returns {feature_name: (Q,) tensor on the
-        store's device}.  ``valid`` optionally masks scheduler padding rows
-        and ``route_info`` (dict, filled in place) reports per-shard
+        store's device}.  ``program`` answers with a per-scenario
+        :class:`QueryProgram` (:meth:`compile_program`) instead of the
+        store's whole view.  ``valid`` optionally masks scheduler padding
+        rows and ``route_info`` (dict, filled in place) reports per-shard
         request counts — one shard here.
         """
         tel = get_telemetry()
-        self._validate_join_cols(columns)
+        self._validate_join_cols(columns, program)
         self._check_range(np.asarray(columns[self.schema.key]))
         if route_info is not None:
             n_real = (
@@ -755,13 +803,14 @@ class OnlineFeatureStore:
             )
             route_info["shard_counts"] = np.array([n_real], np.int64)
         cols = self._columns(columns)
-        key, ts_q, req_lanes, join_keys = self._request_arrays(cols)
+        key, ts_q, req_lanes, join_keys = self._request_arrays(cols, program)
         # pad the request to a power-of-two row count (a fixed set of
         # shapes), repeating the last row
         q = int(key.shape[0])
         m = max(16, 1 << (q - 1).bit_length())
         with tel.tracer.span(
-            "query.compute", kind="device", mode=mode, program="",
+            "query.compute", kind="device", mode=mode,
+            program=program.view.name if program is not None else "",
             rows=q, padded=m,
         ) as sp:
             if m != q:
@@ -774,18 +823,18 @@ class OnlineFeatureStore:
                 join_keys = tuple(
                     torch.cat([j, j[-1:].expand(pad)]) for j in join_keys
                 )
-            vals = self._query_pure(
+            vals = self._query_fn(mode, program)(
                 self._flat_state(), key, ts_q, req_lanes, join_keys, key,
-                use_preagg=(mode != "naive"),
             )
             vals = sp.fence(tuple(v[:q] for v in vals))
-        self._note_query(tel, mode)
-        return self._finish_query(cols, vals)
+        self._note_query(tel, mode, program)
+        return self._finish_query(cols, vals, program)
 
-    def _note_query(self, tel, mode: str) -> None:
-        """Pre-agg hit / fallback counters, one per window aggregation; a
-        union aggregation hits only where its primary stream composes from
-        the buckets."""
+    def _note_query(self, tel, mode: str,
+                    program: Optional["QueryProgram"] = None) -> None:
+        """Pre-agg hit / fallback counters, one per window aggregation of
+        the query (the program's, or the store's); a union aggregation hits
+        only where its primary stream composes from the buckets."""
         hits = tel.metrics.counter(
             "preagg_hits_total",
             "window aggs answered from bucket pre-aggregates", "1",
@@ -796,7 +845,9 @@ class OnlineFeatureStore:
             "window aggs falling back to the raw ring fold", "1",
             labels=("agg",),
         )
-        for wk, wa in self.waggs.items():
+        order = self._wagg_order if program is None else program.wagg_order
+        for wk in order:
+            wa = self.waggs[wk]
             spec = agg_spec(wa.agg)
             hit = (
                 mode != "naive"
@@ -806,3 +857,151 @@ class OnlineFeatureStore:
                 and (not wa.union or self._union_preagg.get(wk, False))
             )
             (hits if hit else falls).inc(agg=wa.agg.value)
+
+    # -- accounting ---------------------------------------------------------------
+
+    def _rings(self, state: Optional[OnlineState] = None):
+        """(ring, plan) of the primary and every secondary ring of
+        ``state`` (default: the public state)."""
+        state = self.state if state is None else state
+        yield state.ring, self.layout.primary
+        yield from zip(state.sec, self._ring_plans)
+
+    def ingest_row_counts(self) -> Dict[str, int]:
+        """Rows stored per table, summed over all state (from ring
+        cursors, so counts are rows *ever ingested*, not current capacity).
+
+        On a sharded store a key-partitioned table counts each row once
+        (rows live on exactly one shard) while a replicated LAST JOIN
+        target counts ``num_shards`` x, the reference's one copy per shard:
+        the counts read the ``(S, K)`` view of the cursors, although the
+        card holds one copy of a replicated ring.  A split dual-use table
+        counts its partitioned union part once plus ``num_shards`` x its
+        replicated join slice.
+        """
+        counts: Dict[str, int] = {}
+        for ring, plan in self._rings():
+            counts[plan.table] = counts.get(plan.table, 0) + int(
+                ring.cursor.sum())
+        return counts
+
+    def ring_row_counts(self) -> Dict[Tuple[str, str], np.ndarray]:
+        """Per-ring stored row totals, keyed ``(table, placement)``: one
+        total per ring on a single-device store, a per-shard vector on a
+        sharded one (a replicated ring's S entries read its one copy)."""
+        return {
+            (plan.table, "partitioned" if plan.partitioned else "replicated"):
+                ring.cursor.sum(-1).cpu().numpy()
+            for ring, plan in self._rings()
+        }
+
+    def _copies(self, plan) -> int:
+        """Copies of a ring the reference holds: one on a single device."""
+        return 1
+
+    def record_gauges(self) -> None:
+        """Publish pull-style state gauges into the installed telemetry:
+        per-ring occupancy (stored rows / capacity), capacity-evicted row
+        totals, and — where the layout sets a TTL — how many stored rows
+        are already past it (logically expired, serving no window).
+
+        The values are the reference's, whose sharded store holds a
+        replicated ring once per shard: they are taken on the one copy
+        (``_flat_state``) and scaled by :meth:`_copies`.  Call at scrape
+        time; gauges reflect the store *now*.
+        """
+        m = get_telemetry().metrics
+        for ring, plan in self._rings(self._flat_state()):
+            table = plan.table
+            placement = "partitioned" if plan.partitioned else "replicated"
+            copies = self._copies(plan)
+            cur = ring.cursor.long()                 # (K,)
+            C = int(ring.ts.shape[-1])
+            stored = copies * int(cur.clamp(max=C).sum())
+            cap = copies * cur.numel() * C
+            m.gauge(
+                "ring_occupancy_ratio", "stored rows / ring capacity", "1",
+                labels=("table", "placement"),
+            ).set(float(stored) / max(cap, 1),
+                  table=table, placement=placement)
+            m.gauge(
+                "ring_evicted_rows_total",
+                "rows overwritten by ring wraparound (capacity eviction)",
+                "1", labels=("table", "placement"),
+            ).set(float(copies * int((cur - C).clamp(min=0).sum())),
+                  table=table, placement=placement)
+            if plan.ttl:
+                valid = (torch.arange(C, device=cur.device)
+                         < cur[:, None])             # (K, C)
+                expired = 0
+                if bool(valid.any()):
+                    now_ts = int(ring.ts[valid].max())
+                    expired = copies * int(
+                        (valid & (ring.ts < now_ts - int(plan.ttl))).sum())
+                m.gauge(
+                    "ring_ttl_expired_rows",
+                    "stored rows older than the layout TTL", "1",
+                    labels=("table",),
+                ).set(float(expired), table=table)
+
+
+class QueryProgram:
+    """One scenario's query against a shared store.
+
+    The multi-scenario plane (:mod:`repro_torch.core.scenario`) deploys N
+    feature views on ONE store whose lane plan is the union of every
+    view's window arguments.  A QueryProgram is the per-view slice of that
+    store: the view's window aggregations and LAST JOINs as subsets of the
+    store's, so a query through it gathers and folds only the lanes its
+    view references.  Requests carry only that view's columns: its lanes
+    and join keys get their own request layout, while stored-state lane
+    ids stay the shared layout's.
+
+    Every (wagg, ljoin) key of the view must exist in the store; the
+    store's answers through a program equal, bit for bit, a dedicated
+    single-view store fed the same stream.  The port runs programs
+    eagerly: :meth:`fn` is the store's ``_query_pure`` with the subset
+    bound, where the reference jits it.
+    """
+
+    def __init__(self, store: OnlineFeatureStore, view):
+        exprs = list(view.features.values())
+        self.view = view
+        waggs = collect_window_aggs(exprs)
+        ljoins = collect_last_joins(exprs)
+        self.wagg_order: Tuple[Tuple, ...] = tuple(waggs.keys())
+        self.ljoin_order: Tuple[Tuple, ...] = tuple(ljoins.keys())
+        missing = [k for k in self.wagg_order if k not in store.waggs]
+        missing += [k for k in self.ljoin_order if k not in store.ljoins]
+        if missing:
+            raise ValueError(
+                f"view {view.name!r} is not a sub-view of store view "
+                f"{store.view.name!r}: {len(missing)} aggregation(s)/join(s) "
+                f"missing from the shared lane plan (first: {missing[0]!r})"
+            )
+        self.lane_exprs: List[Expr] = []
+        self.req_lane_of: Dict[Tuple, int] = {}
+        for wa in waggs.values():
+            if wa.arg.key not in self.req_lane_of:
+                self.req_lane_of[wa.arg.key] = len(self.lane_exprs)
+                self.lane_exprs.append(wa.arg)
+        self.join_cols: Tuple[str, ...] = ()
+        for lj in ljoins.values():
+            if lj.on not in self.join_cols:
+                self.join_cols += (lj.on,)
+        self.join_col_index = {c: i for i, c in enumerate(self.join_cols)}
+        subset = dict(
+            wagg_order=self.wagg_order,
+            ljoin_order=self.ljoin_order,
+            req_lane_of=self.req_lane_of,
+            join_col_index=self.join_col_index,
+        )
+        self._fns = {
+            use_preagg: functools.partial(
+                store._query_pure, use_preagg=use_preagg, **subset)
+            for use_preagg in (False, True)
+        }
+
+    def fn(self, mode: str):
+        """The store's query over this program's subset, in ``mode``."""
+        return self._fns[mode != "naive"]

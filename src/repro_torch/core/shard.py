@@ -57,10 +57,17 @@ order, so
   to request order on the host.  Only a caller picks it: nothing falls
   back to it.
 
+Both paths serve a per-scenario :class:`~repro_torch.core.online.
+QueryProgram` (``query(..., program=)``).  A MIXED multi-scenario batch
+takes the device-routed path through :meth:`ShardedOnlineStore.
+route_and_query`: one dispatch computes the merged view's whole
+aggregation set for every row, and the rows' scenario ids give the
+valid-masked per-(scenario, shard) counts, an int32 scatter-add over
+``scen * S + shard`` beside the route kernel.
+
 Answers do not depend on the shard count or the routing path: per-key
 state depends only on that key's rows and their order, and each answer
-only on its own row.  The multi-scenario ``route_and_query`` is not
-ported yet.
+only on its own row.
 """
 
 from __future__ import annotations
@@ -192,6 +199,10 @@ class ShardedOnlineStore(OnlineFeatureStore):
     def _ring_flat_keys(self, index: int) -> int:
         p = self._ring_plans[index]
         return self.num_shards * p.ring_keys if p.partitioned else p.ring_keys
+
+    def _copies(self, plan) -> int:
+        """The reference holds a replicated ring once per shard."""
+        return 1 if plan.partitioned else self.num_shards
 
     def _shape_ring(self, ring: st.RingStore, partitioned: bool) -> st.RingStore:
         S = self.num_shards
@@ -336,11 +347,12 @@ class ShardedOnlineStore(OnlineFeatureStore):
         self,
         columns: Dict,
         mode: str = "preagg",
+        program=None,
         valid: Optional[np.ndarray] = None,
         route_info: Optional[Dict] = None,
     ) -> Dict[str, torch.Tensor]:
         """Answer a request batch in input row order (same contract as the
-        base store).
+        base store, ``program`` included).
 
         ``device_routing=True`` (the default) serves the batch through the
         device-routed path (:meth:`_query_device_routed`);
@@ -350,8 +362,10 @@ class ShardedOnlineStore(OnlineFeatureStore):
         (``"shard_counts"``).
         """
         if self.device_routing:
-            return self._query_device_routed(columns, mode, valid, route_info)
-        return self._query_host_routed(columns, mode, valid, route_info)
+            return self._query_device_routed(columns, mode, program, valid,
+                                             route_info)
+        return self._query_host_routed(columns, mode, program, valid,
+                                       route_info)
 
     def _note_route(self, tel, path: str, n_rows: int, q: int,
                     bucket: int) -> None:
@@ -379,6 +393,7 @@ class ShardedOnlineStore(OnlineFeatureStore):
         self,
         columns: Dict,
         mode: str,
+        program=None,
         valid: Optional[np.ndarray] = None,
         route_info: Optional[Dict] = None,
     ) -> Dict[str, torch.Tensor]:
@@ -390,15 +405,16 @@ class ShardedOnlineStore(OnlineFeatureStore):
         post-expressions).
         """
         tel = get_telemetry()
-        self._validate_join_cols(columns)
+        self._validate_join_cols(columns, program)
         key_h = self._check_range(
             np.asarray(columns[self.schema.key]).astype(np.int32, copy=False)
         )
         q = int(key_h.shape[0])
         S = self.num_shards
-        with tel.tracer.span("query.route", mode=mode, program="", rows=q):
+        pname = program.view.name if program is not None else ""
+        with tel.tracer.span("query.route", mode=mode, program=pname, rows=q):
             cols = self._columns(columns)
-            _, ts_q, lanes, jks = self._request_arrays(cols)
+            _, ts_q, lanes, jks = self._request_arrays(cols, program)
             shard, local = self._route_ids(key_h)
             plan = build_route(shard, S, min_bucket=16)
             B = plan.bucket
@@ -427,21 +443,19 @@ class ShardedOnlineStore(OnlineFeatureStore):
                 shard[vmask], minlength=S
             ).astype(np.int64)
         with tel.tracer.span(
-            "query.compute", kind="device", mode=mode, program="",
+            "query.compute", kind="device", mode=mode, program=pname,
             rows=q, padded=S * B,
         ) as sp:
-            vals = self._query_pure(
-                self._flat_state(), *args, use_preagg=(mode != "naive"),
-                groups=S,
-            )
+            vals = self._query_fn(mode, program)(
+                self._flat_state(), *args, groups=S)
             vals = sp.fence(vals)
-        self._note_query(tel, mode)
+        self._note_query(tel, mode, program)
         with tel.tracer.span("query.scatter", rows=q):
             back = self._scatter_back(
                 plan, tuple(v.view(S, B) for v in vals), q)
             out = self._finish_query(
                 cols, tuple(torch.as_tensor(v, device=self.device)
-                            for v in back))
+                            for v in back), program)
         return out
 
     # -- device-routed request path ----------------------------------------------
@@ -472,8 +486,9 @@ class ShardedOnlineStore(OnlineFeatureStore):
         return local, shard, rank, counts, scounts
 
     def _route_query(self, route, ts_q, lanes, join_keys, gkey, *,
-                     bucket: int, use_preagg: bool):
-        """Scatter, answer, gather — all on the device, from a routed batch.
+                     bucket: int, fn):
+        """Scatter, answer (``fn``: a ``_query_fn``), gather — all on the
+        device, from a routed batch.
 
         Returns (answers in request order, overflow flag).  Unscattered
         grid slots hold zeros — local key 0 of each shard, a read-only
@@ -495,19 +510,19 @@ class ShardedOnlineStore(OnlineFeatureStore):
 
         base = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(B)
         fkey = base * self.num_keys + to_grid(local)
-        vals = self._query_pure(
+        vals = fn(
             self._flat_state(), fkey, to_grid(ts_q), to_grid(lanes),
             tuple(to_grid(j) for j in join_keys),
-            to_grid(gkey) if self._reads_gkey else None,
-            use_preagg=use_preagg, groups=S,
+            to_grid(gkey) if self._reads_gkey else None, groups=S,
         )
         back = (shard * B + slot).long()
         return tuple(v[back] for v in vals), overflow
 
     @staticmethod
-    def _pad_request(key, ts_q, lanes, join_keys, valid):
+    def _pad_request(key, ts_q, lanes, join_keys, valid, scen=None):
         """Pad request tensors to a power-of-two row count (at least 16) by
-        repeating the last row; ``valid`` marks the filler False."""
+        repeating the last row; ``valid`` marks the filler False (the
+        scenario ids repeat the last row's tag too)."""
         q = int(key.shape[0])
         m = max(16, 1 << max(q - 1, 0).bit_length())
         if m != q:
@@ -519,18 +534,32 @@ class ShardedOnlineStore(OnlineFeatureStore):
                 torch.cat([j, j[-1:].expand(pad)]) for j in join_keys
             )
             valid = torch.cat([valid, valid.new_zeros(pad)])
-        return key, ts_q, lanes, join_keys, valid, m
+            if scen is not None:
+                scen = torch.cat([scen, scen[-1:].expand(pad)])
+        return key, ts_q, lanes, join_keys, valid, scen, m
 
-    def _route_dispatch(self, tel, mode, key, ts_q, lanes, join_keys, valid,
-                        m, q):
+    def _scenario_counts(self, shard, scen, valid, num_scen: int):
+        """(num_scen, S) valid-masked rows per (scenario, shard): an int32
+        scatter-add over ``scen * S + shard`` (integer adds are exact in
+        any order)."""
+        S = self.num_shards
+        out = torch.zeros(num_scen * S, dtype=torch.int32, device=shard.device)
+        out.index_add_(0, (scen * S + shard).long(), valid.to(torch.int32))
+        return out.view(num_scen, S)
+
+    def _route_dispatch(self, tel, mode, program, key, ts_q, lanes,
+                        join_keys, scen, valid, m, num_scen, q):
         """One device-routed dispatch under the ``route.device`` span, plus
         the rare re-dispatches (Feistel walk not finished, per-shard
-        capacity overflow) inside the same span."""
+        capacity overflow) inside the same span.  Returns the answers (m
+        rows, request order) and the host's (num_scen, S) valid counts;
+        ``scen=None`` is one scenario, counted by the routing itself."""
         B = self._route_bucket(m)
-        use_preagg = mode != "naive"
+        fn = self._query_fn(mode, program)
         routed = walking = None
         with tel.tracer.span(
-            "route.device", kind="device", mode=mode, program="",
+            "route.device", kind="device", mode=mode,
+            program=program.view.name if program is not None else "",
             rows=q, padded=m, bucket=B, shards=self.num_shards,
         ) as sp:
             if self._perm is None:
@@ -547,9 +576,7 @@ class ShardedOnlineStore(OnlineFeatureStore):
                 routed, walking = self._perm.device_call(key)
                 route = self._route_routed(routed, valid)
             vals, ovf = self._route_query(
-                route, ts_q, lanes, join_keys, key, bucket=B,
-                use_preagg=use_preagg,
-            )
+                route, ts_q, lanes, join_keys, key, bucket=B, fn=fn)
             # the one host read of the batch: the overflow flag (and on the
             # CPU the walk's)
             flags = [ovf] if walking is None else [ovf, walking]
@@ -558,26 +585,51 @@ class ShardedOnlineStore(OnlineFeatureStore):
                 route = self._route_routed(
                     self._perm.finish_walk(routed), valid)
                 vals, ovf = self._route_query(
-                    route, ts_q, lanes, join_keys, key, bucket=B,
-                    use_preagg=use_preagg,
-                )
+                    route, ts_q, lanes, join_keys, key, bucket=B, fn=fn)
                 ovf_h = bool(ovf)
             if ovf_h:
                 B = 1 << max(m - 1, 0).bit_length()
                 vals, _ = self._route_query(
-                    route, ts_q, lanes, join_keys, key, bucket=B,
-                    use_preagg=use_preagg,
-                )
-            vals, scounts = sp.fence(vals, route[4])
+                    route, ts_q, lanes, join_keys, key, bucket=B, fn=fn)
+            scounts = (route[4][None] if scen is None else
+                       self._scenario_counts(route[1], scen, valid, num_scen))
+            vals, scounts = sp.fence(vals, scounts)
         scounts_h = scounts.cpu().numpy().astype(np.int64)
         self._note_route(tel, "device", int(scounts_h.sum()), q, B)
-        self._note_query(tel, mode)
+        self._note_query(tel, mode, program)
         return vals, scounts_h
+
+    def _device_request(self, tel, columns, mode, program, valid, scen=None):
+        """The host part of the device-routed path (``query.route``): the
+        request tensors, padded; returns them with ``cols``, ``m`` and
+        ``q``."""
+        key_h = self._check_range(
+            np.asarray(columns[self.schema.key]).astype(np.int32, copy=False)
+        )
+        q = int(key_h.shape[0])
+        with tel.tracer.span(
+            "query.route", mode=mode,
+            program=program.view.name if program is not None else "", rows=q,
+        ):
+            cols = self._columns(columns)
+            key, ts_q, lanes, jks = self._request_arrays(cols, program)
+            vmask = (
+                np.ones(q, bool) if valid is None
+                else np.asarray(valid, bool)[:q]
+            )
+            if scen is not None:
+                scen = torch.as_tensor(scen, device=self.device)
+            padded = self._pad_request(
+                key, ts_q, lanes, jks,
+                torch.as_tensor(vmask, device=self.device), scen,
+            )
+        return cols, padded, q
 
     def _query_device_routed(
         self,
         columns: Dict,
         mode: str,
+        program=None,
         valid: Optional[np.ndarray] = None,
         route_info: Optional[Dict] = None,
     ) -> Dict[str, torch.Tensor]:
@@ -586,30 +638,67 @@ class ShardedOnlineStore(OnlineFeatureStore):
         routing, the grid, the query and the gather back are the fenced
         ``route.device`` span."""
         tel = get_telemetry()
-        self._validate_join_cols(columns)
-        key_h = self._check_range(
-            np.asarray(columns[self.schema.key]).astype(np.int32, copy=False)
-        )
-        q = int(key_h.shape[0])
-        with tel.tracer.span("query.route", mode=mode, program="", rows=q):
-            cols = self._columns(columns)
-            key, ts_q, lanes, jks = self._request_arrays(cols)
-            vmask = (
-                np.ones(q, bool) if valid is None
-                else np.asarray(valid, bool)[:q]
-            )
-            key_p, ts_p, lanes_p, jks_p, valid_p, m = self._pad_request(
-                key, ts_q, lanes, jks,
-                torch.as_tensor(vmask, device=self.device),
-            )
+        self._validate_join_cols(columns, program)
+        cols, (key, ts_q, lanes, jks, valid_p, _, m), q = (
+            self._device_request(tel, columns, mode, program, valid))
         vals, scounts = self._route_dispatch(
-            tel, mode, key_p, ts_p, lanes_p, jks_p, valid_p, m, q
-        )
+            tel, mode, program, key, ts_q, lanes, jks, None, valid_p, m, 1, q)
         if route_info is not None:
-            route_info["shard_counts"] = scounts
+            route_info["shard_counts"] = scounts[0]
         with tel.tracer.span("query.scatter", rows=q):
-            out = self._finish_query(cols, tuple(v[:q] for v in vals))
+            out = self._finish_query(cols, tuple(v[:q] for v in vals),
+                                     program)
         return out
+
+    def route_and_query(
+        self,
+        columns: Dict,
+        scen: np.ndarray,
+        num_scen: int,
+        mode: str = "preagg",
+        valid: Optional[np.ndarray] = None,
+        route_info: Optional[Dict] = None,
+    ):
+        """Route and answer a MIXED multi-scenario batch in one device
+        dispatch: rows tagged with ``scen`` (scenario ids in
+        ``[0, num_scen)``), against the merged store's FULL aggregation
+        set.
+
+        Every scenario of a plane shares the primary schema, so a mixed
+        batch carries every column the merged view needs; the full (wagg
+        + ljoin) set per row equals each scenario's own program bit for
+        bit (an answer depends only on its own row).  Returns
+        ``(vals, q)``: the merged-order answers on the device, (m,)
+        tensors to slice to ``[:q]``; the caller
+        (:meth:`repro_torch.core.scenario.ScenarioPlane.query_mixed`)
+        picks each scenario's features from them.  ``route_info`` gains
+        the valid-masked ``"scenario_shard_counts"`` (num_scen, S) and
+        their sum over scenarios, ``"shard_counts"``.
+        """
+        if not self.device_routing:
+            raise RuntimeError(
+                "route_and_query is the device-routed path; this store was "
+                "built with device_routing=False (host-routed oracle)"
+            )
+        tel = get_telemetry()
+        self._validate_join_cols(columns, None)
+        scen_h = np.asarray(scen, np.int32)
+        if scen_h.size and (scen_h.min() < 0 or scen_h.max() >= num_scen):
+            raise ValueError(
+                f"scenario ids out of range [0, {num_scen}): "
+                f"[{scen_h.min()}, {scen_h.max()}]"
+            )
+        _, (key, ts_q, lanes, jks, valid_p, scen_p, m), q = (
+            self._device_request(tel, columns, mode, None, valid, scen_h))
+        # padding repeats the last row's scenario tag with valid=False, so
+        # the counts never include it
+        vals, scounts = self._route_dispatch(
+            tel, mode, None, key, ts_q, lanes, jks, scen_p, valid_p, m,
+            int(num_scen), q)
+        if route_info is not None:
+            route_info["scenario_shard_counts"] = scounts
+            route_info["shard_counts"] = scounts.sum(axis=0)
+        return vals, q
 
     # -- observability ---------------------------------------------------------
 

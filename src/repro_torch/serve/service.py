@@ -9,12 +9,16 @@ micro-batcher: requests coalesce up to ``max_batch`` or ``max_wait_us``
 ``ScoringService`` turns request rows into fraud scores: features, a
 signature embedding of the key, then the model.
 
-The single-scenario slice of the reference package's ``repro.serve.
-service``: a service deploys any view, multi-table ones included (its
-store takes ``secondary_num_keys`` / ``table_capacity`` / ``table_ttl`` /
+A service deploys any view, multi-table ones included (its store takes
+``secondary_num_keys`` / ``table_capacity`` / ``table_ttl`` /
 ``device_routing`` through ``build``; request rows carry the LAST JOIN
-key columns).  ``MultiScenarioService`` is not ported yet.  Answers come
-back as numpy arrays on the host.
+key columns).  ``FeatureService.build_multi`` deploys N scenario views as
+one :class:`MultiScenarioService` on one shared
+:class:`~repro_torch.core.scenario.ScenarioPlane`: requests name their
+scenario (``scenario=``), and a mixed batch tagged per row
+(:data:`SCENARIO_COL`) is answered in one device-routed dispatch
+(:meth:`MultiScenarioService.request_mixed`).  Hot deploy onto a live
+plane is not ported yet.  Answers come back as numpy arrays on the host.
 """
 
 from __future__ import annotations
@@ -29,7 +33,18 @@ from repro_torch.core.online import OnlineFeatureStore
 from repro_torch.core.view import FeatureRegistry, FeatureView
 from repro_torch.obs import get_telemetry
 
-__all__ = ["ServiceStats", "FeatureService", "BatchScheduler", "ScoringService"]
+__all__ = [
+    "ServiceStats",
+    "FeatureService",
+    "MultiScenarioService",
+    "BatchScheduler",
+    "ScoringService",
+    "SCENARIO_COL",
+]
+
+# meta column carrying the per-row scenario tag of a mixed batch (set by
+# ShardRouter.submit, read by MultiScenarioService.request_mixed)
+SCENARIO_COL = "__scenario__"
 
 
 @dataclasses.dataclass
@@ -186,8 +201,79 @@ class FeatureService:
         )
         return cls(name, view, store, registry=registry, mode=mode)
 
+    @classmethod
+    def build_multi(
+        cls,
+        name: str,
+        views: Sequence[FeatureView],
+        *,
+        num_keys: int,
+        registry: Optional[FeatureRegistry] = None,
+        mode: str = "preagg",
+        sharded: bool = False,
+        num_shards: Optional[int] = None,
+        device="cuda",
+        **store_kwargs,
+    ) -> "MultiScenarioService":
+        """Deploy N scenario views as ONE service on ONE shared store on
+        ``device``.
+
+        The views are fused into a :class:`~repro_torch.core.scenario.
+        ScenarioPlane`: shared tables are ingested and stored once (per
+        shard placement, with ``sharded=True``, which needs an explicit
+        ``num_shards``), and each view queries through its own program,
+        bit for bit a dedicated single-view store's answers.  Requests
+        carry a ``scenario=`` tag: ``svc.request(rows, scenario="fraud")``;
+        per-scenario latency / QPS lands in ``svc.scenario_stats[...]``
+        beside the aggregate ``svc.stats``.
+        """
+        from repro_torch.core.scenario import ScenarioPlane
+
+        if not sharded and num_shards is not None:
+            raise ValueError("num_shards requires sharded=True")
+        if sharded and num_shards is None:
+            raise ValueError("sharded=True needs an explicit num_shards")
+        plane = ScenarioPlane(
+            views, num_keys=num_keys, num_shards=num_shards, name=name,
+            device=device, **store_kwargs,
+        )
+        return MultiScenarioService(name, plane, registry=registry, mode=mode)
+
+    # -- per-request hooks (MultiScenarioService overrides them) --------------
+
+    def _compute(
+        self,
+        rows: Dict[str, np.ndarray],
+        scenario: Optional[str],
+        valid: Optional[np.ndarray] = None,
+        route_info: Optional[Dict] = None,
+    ) -> Dict[str, torch.Tensor]:
+        if scenario is not None:
+            raise ValueError(
+                f"service {self.name!r} is single-scenario; scenario= tags "
+                "need a FeatureService.build_multi deployment"
+            )
+        return self.store.query(
+            rows, mode=self.mode, valid=valid, route_info=route_info
+        )
+
+    def _observe(
+        self,
+        latency_s: float,
+        n_requests: int,
+        scenario: Optional[str],
+        request_latencies_s: Optional[np.ndarray] = None,
+    ) -> None:
+        self.stats.observe(latency_s, n_requests)
+        if request_latencies_s is not None:
+            self.stats.observe_requests(request_latencies_s)
+
+    def _scenario_features(self, scenario: Optional[str]) -> Sequence[str]:
+        return self.view.features
+
     def request(self, rows: Dict[str, np.ndarray],
                 ingest: bool = True,
+                scenario: Optional[str] = None,
                 route_info: Optional[Dict] = None) -> Dict[str, np.ndarray]:
         """Compute features for a batch of request rows; optionally ingest
         them afterwards (the online-learning pattern of the paper).
@@ -201,9 +287,12 @@ class FeatureService:
         The wait column attributes per-request latency: each request's
         sample is its queue wait plus this batch's wall time.
 
-        ``route_info`` (dict, filled in place) surfaces the store's
-        per-shard routing counts to the caller — the router's skew
-        histograms read them instead of re-hashing keys.
+        ``scenario`` selects which view answers on a multi-scenario
+        deployment (see :meth:`build_multi`); ingested rows land in the
+        shared store once, serving every scenario.  ``route_info`` (dict,
+        filled in place) surfaces the store's per-shard routing counts to
+        the caller — the router's skew histograms read them instead of
+        re-hashing keys.
         """
         tel = get_telemetry()
         t0 = tel.clock.now()
@@ -213,10 +302,11 @@ class FeatureService:
         n_rows = len(next(iter(rows.values())))
         n_real = int(np.asarray(valid, bool).sum()) if valid is not None else n_rows
         with tel.tracer.span(
-            "request", service=self.name, scenario="", rows=n_real,
+            "request", service=self.name, scenario=scenario or "",
+            rows=n_real,
         ):
-            out = self.store.query(
-                rows, mode=self.mode, valid=valid, route_info=route_info
+            out = self._compute(
+                rows, scenario, valid=valid, route_info=route_info
             )
             out = {k: v.cpu().numpy() for k, v in out.items()}
             if ingest:
@@ -246,7 +336,7 @@ class FeatureService:
         m.counter(
             "service_requests_total", "requests served", "1",
             labels=("service", "scenario"),
-        ).inc(n_real, service=self.name, scenario="")
+        ).inc(n_real, service=self.name, scenario=scenario or "")
         m.histogram(
             "request_latency_seconds",
             "per-request latency (queue wait + batch wall)", "s",
@@ -263,15 +353,188 @@ class FeatureService:
                 "real rows / padded batch rows, last batch", "1",
                 labels=("service",),
             ).set(n_real / n_rows, service=self.name)
-        self.stats.observe(dt, n_real)
-        self.stats.observe_requests(req_lat)
+        self._observe(dt, n_real, scenario, req_lat)
         return out
 
-    def feature_matrix(self, rows: Dict[str, np.ndarray]) -> np.ndarray:
-        """(B, F) float32 features of ``rows`` in ``view.features`` order,
-        without ingesting them."""
-        out = self.request(rows, ingest=False)
-        return np.stack([out[f] for f in self.view.features], axis=-1)
+    def feature_matrix(
+        self, rows: Dict[str, np.ndarray], scenario: Optional[str] = None
+    ) -> np.ndarray:
+        """(B, F) float32 features of ``rows`` in the (scenario's) view's
+        feature order, without ingesting them."""
+        out = self.request(rows, ingest=False, scenario=scenario)
+        feats = self._scenario_features(scenario)
+        return np.stack([out[f] for f in feats], axis=-1)
+
+
+class MultiScenarioService(FeatureService):
+    """One deployment serving N scenarios from one shared store.
+
+    ``view`` / ``store`` are the plane's merged view and shared store, so
+    everything written against :class:`FeatureService` (routers, stats
+    consumers, ingest paths) keeps working; queries additionally take the
+    ``scenario=`` tag and answer with that view's features by their own
+    (un-prefixed) names.  Deploy records land in the registry as
+    ``"<service>:<scenario>"`` per scenario.
+    """
+
+    def __init__(
+        self,
+        name: str,
+        plane,  # repro_torch.core.scenario.ScenarioPlane
+        registry: Optional[FeatureRegistry] = None,
+        mode: str = "preagg",
+    ):
+        self.plane = plane
+        super().__init__(name, plane.merged, plane.store, mode=mode)
+        self.registry = registry
+        self.scenario_stats: Dict[str, ServiceStats] = {
+            s: ServiceStats() for s in plane.scenarios
+        }
+        if registry is not None:
+            for s, v in plane.views.items():
+                registry.deploy(f"{name}:{s}", v.name, v.version)
+
+    @property
+    def scenarios(self) -> List[str]:
+        return self.plane.scenarios
+
+    def hot_deploy(self, view: FeatureView, backfill=None, **plan_overrides):
+        """Deploying a scenario onto the live plane needs
+        :meth:`ScenarioPlane.evolve`, not ported yet."""
+        raise NotImplementedError(
+            "MultiScenarioService.hot_deploy needs ScenarioPlane.evolve "
+            "(ROADMAP A6), not ported yet"
+        )
+
+    def _compute(self, rows, scenario, valid=None, route_info=None):
+        if scenario is None:
+            raise ValueError(
+                f"multi-scenario service {self.name!r} needs scenario= "
+                f"(one of {self.scenarios})"
+            )
+        return self.plane.query(
+            scenario, rows, mode=self.mode, valid=valid, route_info=route_info
+        )
+
+    def _observe(self, latency_s, n_requests, scenario,
+                 request_latencies_s=None):
+        self.stats.observe(latency_s, n_requests)
+        self.scenario_stats[scenario].observe(latency_s, n_requests)
+        if request_latencies_s is not None:
+            self.stats.observe_requests(request_latencies_s)
+            self.scenario_stats[scenario].observe_requests(
+                request_latencies_s
+            )
+
+    def _scenario_features(self, scenario: Optional[str]) -> Sequence[str]:
+        if scenario is None:
+            raise ValueError("feature_matrix needs scenario= on a "
+                             "multi-scenario service")
+        return self.plane.views[scenario].features
+
+    def request_mixed(
+        self,
+        rows: Dict[str, np.ndarray],
+        ingest: bool = True,
+        route_info: Optional[Dict] = None,
+    ) -> Dict[str, Dict[str, np.ndarray]]:
+        """Serve one mixed multi-scenario batch with ONE device-routed
+        dispatch.
+
+        The batch carries a per-row ``__scenario__`` tag
+        (:data:`SCENARIO_COL`, set by ``ShardRouter.submit``) beside the
+        usual ``__valid__`` / ``__wait_us__`` meta columns.  The whole
+        batch goes through :meth:`~repro_torch.core.scenario.ScenarioPlane.
+        query_mixed`, and the answer comes back as ``{scenario: {feature:
+        rows}}`` with each scenario's rows in submission order, bit for
+        bit the per-group path's.
+
+        Ingest keeps the per-group stream order: real rows are grouped by
+        scenario (scenario order), each group sorted by (key, ts) and
+        ingested group by group.  Stats and metrics are recorded per
+        scenario (each request's latency sample is its queue wait plus
+        this batch's wall time) and in the aggregate, where ``batches``
+        counts ONE batch: the single dispatch.
+        """
+        if SCENARIO_COL not in rows:
+            raise ValueError(
+                f"request_mixed needs a {SCENARIO_COL!r} tag column "
+                "(per-row scenario names; ShardRouter.submit sets it)"
+            )
+        tel = get_telemetry()
+        t0 = tel.clock.now()
+        tags = np.asarray(rows[SCENARIO_COL])
+        valid = rows.get("__valid__")
+        wait_us = rows.get("__wait_us__")
+        data = {c: v for c, v in rows.items() if not c.startswith("__")}
+        n_rows = len(next(iter(data.values())))
+        vmask = (
+            np.asarray(valid, bool)[:n_rows]
+            if valid is not None
+            else np.ones(n_rows, bool)
+        )
+        n_real = int(vmask.sum())
+        with tel.tracer.span(
+            "request", service=self.name, scenario="mixed", rows=n_real
+        ):
+            out = self.plane.query_mixed(
+                data, tags, mode=self.mode, valid=vmask,
+                route_info=route_info,
+            )
+            out = {s: {f: v.cpu().numpy() for f, v in feats.items()}
+                   for s, feats in out.items()}
+            if ingest and n_real:
+                key_c = self.view.schema.key
+                ts_c = self.view.schema.ts
+                for s in self.scenarios:
+                    m = vmask & (tags == s)
+                    if not m.any():
+                        continue
+                    grp = {c: np.asarray(v)[m] for c, v in data.items()}
+                    order = np.lexsort(
+                        (np.asarray(grp[ts_c]), np.asarray(grp[key_c]))
+                    )
+                    self.store.ingest({c: v[order] for c, v in grp.items()})
+        dt = tel.clock.now() - t0
+        if wait_us is not None:
+            waits_s = np.asarray(wait_us, np.float64)[:n_rows] / 1e6
+        else:
+            waits_s = np.zeros(n_rows, np.float64)
+        agg_waits = waits_s[vmask]
+        req_lat = agg_waits + dt
+        m = tel.metrics
+        sreq = m.counter(
+            "service_requests_total", "requests served", "1",
+            labels=("service", "scenario"),
+        )
+        m.histogram(
+            "request_latency_seconds",
+            "per-request latency (queue wait + batch wall)", "s",
+            labels=("service",),
+        ).observe_array(req_lat, service=self.name)
+        if wait_us is not None and len(agg_waits):
+            m.histogram(
+                "queue_wait_seconds", "scheduler queue wait per request",
+                "s", labels=("service",),
+            ).observe_array(agg_waits, service=self.name)
+        if valid is not None and n_rows:
+            m.gauge(
+                "batch_occupancy_ratio",
+                "real rows / padded batch rows, last batch", "1",
+                labels=("service",),
+            ).set(n_real / n_rows, service=self.name)
+        self.stats.observe(dt, n_real)
+        self.stats.observe_requests(req_lat)
+        for s in self.scenarios:
+            msk = vmask & (tags == s)
+            n_s = int(msk.sum())
+            if not n_s:
+                continue
+            sreq.inc(n_s, service=self.name, scenario=s)
+            st = self.scenario_stats[s]
+            st.observe(dt, n_s)
+            st.observe_requests(waits_s[msk] + dt)
+        return out
 
 
 class BatchScheduler:

@@ -377,6 +377,93 @@ def test_multitable_store_device_host_single_on_gpu(cuda, hash_routing):
                 err_msg=f"single {f}")
 
 
+@pytest.mark.parametrize("lane", ["sum", "sumsq", "min", "max"])
+@pytest.mark.parametrize("n", [57, 256, 338, 340, 1001])
+def test_lane_reduce_is_independent_of_row_position(cuda, lane, n):
+    """A row's fold gives the same bits wherever the row sits in the
+    batch: the same rows reduced at offsets 0 and 1..3 of a larger batch
+    (other row addresses, other 16-byte alignments when n is not a
+    multiple of 4)."""
+    from repro_torch.core.aggregates import lane_masked_reduce
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    rows = torch.rand((64, n), generator=gen, device=cuda) * 1000.0
+    mask = torch.rand((64, n), generator=gen, device=cuda) < 0.8
+    want = lane_masked_reduce(lane, rows, mask, 1)
+    for shift in (1, 2, 3):
+        pad = torch.zeros((shift, n), device=cuda)
+        got = lane_masked_reduce(
+            lane, torch.cat([pad, rows]),
+            torch.cat([pad.bool(), mask]), 1)[shift:]
+        np.testing.assert_array_equal(
+            got.cpu().numpy().view(np.int32), want.cpu().numpy().view(np.int32),
+            err_msg=f"shift {shift}")
+
+
+@pytest.mark.parametrize("hash_routing", [False, True])
+def test_route_and_query_mixed_batches_on_gpu(cuda, hash_routing):
+    """A small three-scenario plane on the card: each mixed batch (pad
+    rows masked) is one device-routed dispatch with one B2 launch — from
+    keys under hash routing, from shard ids under modulo routing — and
+    its answers equal, bit for bit, the host-routed plane's per-scenario
+    programs, with equal per-(scenario, shard) counts."""
+    from repro_torch.core.scenario import ScenarioPlane
+    from repro_torch.data.synthetic import multitable_stream
+    from repro_torch.scenarios import multi_scenario_views
+
+    accounts, merchants = 4096, 256
+    kw = dict(num_keys=accounts, num_shards=8, capacity=64, num_buckets=512,
+              bucket_size=64, secondary_num_keys={"merchants": merchants},
+              hash_routing=hash_routing, device="cuda")
+    views = multi_scenario_views()
+    dev = ScenarioPlane(views, **kw)
+    host = ScenarioPlane(views, device_routing=False, **kw)
+    rng = np.random.default_rng(13)
+    tables = multitable_stream(rng, 20_000, num_accounts=accounts,
+                               num_merchants=merchants, t_max=30_000)
+    for t, kc in (("accounts", "account"), ("merchants", "merchant"),
+                  ("wires", "account"), ("transactions", "account")):
+        cols = tables[t]
+        o = np.lexsort((cols["ts"], cols[kc]))
+        for p in (dev, host):
+            p.ingest_table(t, {c: v[o] for c, v in cols.items()})
+    names = dev.scenarios
+    variant = "keys" if hash_routing else "shards"
+    for n in (1000, 4096):
+        req = dict(
+            account=rng.integers(0, accounts, n).astype(np.int32),
+            ts=np.full(n, 30_100, np.int32),
+            amount=rng.gamma(1.5, 60.0, n).astype(np.float32),
+            merchant=rng.integers(0, merchants, n).astype(np.int32),
+        )
+        tags = np.array([names[i] for i in rng.integers(0, 3, n)])
+        valid = np.ones(n, bool)
+        valid[-7:] = False
+        for mode in ("naive", "preagg"):
+            before = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+            ri = {}
+            got = dev.query_mixed(dict(req), tags, mode=mode, valid=valid,
+                                  route_info=ri)
+            after = kernels.VARIANT_LAUNCHES["route_rank"]
+            assert {v: after[v] - before[v] for v in after} == {
+                "keys": int(hash_routing), "shards": int(not hash_routing)}
+            assert kernels.VARIANT_LAUNCHES["route_rank"][variant] > 0
+            assert ri["scenario_shard_counts"].sum() == valid.sum()
+            for i, s in enumerate(names):
+                sel = valid & (tags == s)
+                ri_h = {}
+                want = host.query(s, {c: v[sel] for c, v in req.items()},
+                                  mode=mode, route_info=ri_h)
+                np.testing.assert_array_equal(
+                    ri["scenario_shard_counts"][i], ri_h["shard_counts"])
+                assert sorted(want) == sorted(got[s])
+                for f in want:
+                    np.testing.assert_array_equal(
+                        got[s][f].cpu().numpy().view(np.int32),
+                        want[f].cpu().numpy().view(np.int32),
+                        err_msg=f"{mode} {s} {f}")
+
+
 # float32 patterns: ±0, NaNs of both signs and payloads, ±inf, ±1
 _SPECIAL = np.array(
     [0x0, 0x80000000, 0x7FC00000, 0xFFC00000, 0x7FC00001, 0x7F800001,
