@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port: the sharded online request path, the
 fraud scoring path on top of it, multi-table sharded serving, the
-multi-scenario plane (mixed batches through one store), RWKV6
+multi-scenario plane (mixed batches through one store), hot deploy onto a
+live plane and the offline bridge (backfill, training-set export), RWKV6
 serving (rwkv6-3b prefill and decode), dense LM serving (nemotron-4-15b prefill and decode), and the
 offline feature path with its offline<->online consistency check.
 
@@ -151,7 +152,36 @@ Phases, in order; any failure exits non-zero:
    device memory and one traced mixed batch.  Then modulo routing
    (``hash_routing=False``) at 2^16 accounts: ``MS_MOD_BATCHES`` mixed
    batches, device == host == B2-plain, B2 from shard ids once a pump.
-11. **WKV6 kernel** against its plain versions, float32 inputs from a
+11. **Hot deploy and the offline bridge** (after phase 10 has freed its
+   stores; phase 10's sizes and day, regenerated from its seed).  (a)
+   ``build_multi("hot", multi_scenario_views()[:2])`` takes the day and 2
+   mixed warm-up batches; ``hot_deploy(views[2])`` must be exact, keep
+   ``ingest_row_counts`` and every buffer's ``data_ptr()``; a cold
+   ``ScenarioPlane(views)`` replaying the same stream must equal it buffer
+   by buffer, bit for bit; then 8 mixed batches through ``ShardRouter`` on
+   the hot plane (== a host-routed router == the B2-plain swap, one B2
+   launch a pump, B1 rising) and the same rows on the cold plane, bit for
+   bit.  (b) ``[va] -> [va, vb]`` (derived lanes ``amount * 2.0``,
+   ``amount > 20.0``) with the ring grown 256 -> 384 at the full 2^19
+   accounts: exact, synthesized lanes, hot == cold; bucket cells may differ
+   only at (account, bucket) pairs outside the exactness contract (rows in
+   two or more slices, two or more in a later one), whose count is printed.
+   (c) ``views[:2]`` on rings of 4 (most wrap): deploying the
+   ``merchant_mix`` Signature view on rings of 16 without a source must
+   raise ``ValueError`` naming backfill and leave the plane's buffers and
+   answers as they were; with ``BackfillSource(MULTITABLE_DB, day)`` it is
+   exact with ``backfilled`` deficits, B1 re-folds the new lane's buckets,
+   and hot == a cold plane on rings of 16.  (d) ``export_training_set`` of
+   ``multi_table_view()`` and of ``merchant_watch`` (whose MAX and
+   DISTINCT reach B4), 65,536 labels over the day, == the same exports
+   with B4's plain version swapped in, bit for bit; ``verify_export`` at
+   the consistency shape (2^20 transactions over a day on 2^11 accounts,
+   4,096 labels, most beyond the rings' horizon) passes single-device and
+   at 8 shards.  Prints the reports' carried / migrated / fresh lists, the
+   fenced ``hot_deploy`` walls with their ``migrate.*`` / ``backfill``
+   spans beside the cold build + replay walls, the peak memory, the
+   export's rows/s.
+12. **WKV6 kernel** against its plain versions, float32 inputs from a
    seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
    D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
@@ -169,7 +199,7 @@ Phases, in order; any failure exits non-zero:
    apart, and the chunked plain version; its bound is the larger of its
    bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
    version.
-12. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+13. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
    depth cut).  A prefill and a decode step with a spy on B7's entry
@@ -191,7 +221,7 @@ Phases, in order; any failure exits non-zero:
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
    run, within ``LM_F32_TOL``.
-13. **Flash attention kernel (B6)**: each instantiation's registers and
+14. **Flash attention kernel (B6)**: each instantiation's registers and
    spills (``ptxas -v``) and its ``HGMMA`` / ``HMMA`` count in the built
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
@@ -210,7 +240,7 @@ Phases, in order; any failure exits non-zero:
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
    short-sequence threshold), and float32 at nemotron's shape.
-14. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+15. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
    15,628,376,064 parameters drawn on the card from a seeded generator);
@@ -226,21 +256,22 @@ Phases, in order; any failure exits non-zero:
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-15. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+16. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-16. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+17. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-17. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+18. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
-    own keys, phase 10's under ``launches_multiscenario``), then the card
+    own keys, phase 10's under ``launches_multiscenario``, phase 11's B1,
+    B2 and B4 under ``launches_deploy``), then the card
     line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -300,6 +331,25 @@ MT_MOD_SLICES = 16
 MT_VERIFY_ACCOUNTS, MT_VERIFY_MERCHANTS = 1 << 11, 256
 # the multi-scenario phase's modulo-routing run: mixed batches served
 MS_MOD_BATCHES = 2
+# the hot-deploy phase: (a) 2 warm-up mixed batches, then 8 after the
+# deploy; (b) va -> [va, vb] with the ring grown 256 -> 384 at the full 2^19
+# accounts (hot plane 16.6 -> 32.5 GB, the cold plane 32.5 GB: ~65 GB at the
+# peak, below the card's 80); (c) rings of 4 rows grown to 16 with a
+# Signature lane from a BackfillSource; (d) 65,536 labels over the day and
+# verify_export at the consistency shape (2^20 transactions over a day on
+# 2^11 accounts, merchants 256, 4,096 labels).  Its rings hold 256 rows, as
+# phase 9's verify_view: 512 rows an account still put most labels beyond
+# the horizon, while the replay's early-ingested wires (a round reaches
+# ~6,600 s past a key's row, ~10 wires) and a 1 h union window (~5 wires)
+# overflow a ring of 16 — the replay's capacity contract, broken in both
+# packages at 16 (the reference's verify_export fails there as the port's)
+DEPLOY_WARM_BATCHES = 2
+DEPLOY_B_ACCOUNTS = NUM_CARDS
+DEPLOY_B_CAPACITY = 384
+DEPLOY_C_CAPACITY, DEPLOY_C_GROWN = 4, 16
+EXPORT_LABELS = 1 << 16
+EXPORT_CHECK_LABELS = 4_096
+EXPORT_CHECK_CAPACITY = STORE_KW["capacity"]
 WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -2326,6 +2376,465 @@ def multiscenario_path(results) -> None:
     results["route_rank"]["launches_multiscenario_shards"] = launches["shards"]
 
 
+# ---------------------------------------------------------------------------
+# hot deploy and the offline bridge
+# ---------------------------------------------------------------------------
+
+
+def _flat_tensors(store):
+    """(name, tensor) of every state buffer of a store, flat (a
+    replicated ring's one copy)."""
+    s = store._flat_state()
+    out = [("ring_ts", s.ring.ts), ("ring_vals", s.ring.vals),
+           ("cursor", s.ring.cursor), ("bstats", s.bagg.stats),
+           ("bbitmap", s.bagg.bitmap), ("bbucket", s.bagg.bucket)]
+    for i, (p, r) in enumerate(zip(store.layout.tables, s.sec)):
+        out += [(f"{p.table}[{i}].ts", r.ts), (f"{p.table}[{i}].vals", r.vals),
+                (f"{p.table}[{i}].cursor", r.cursor)]
+    return out
+
+
+def _outside_contract(store, tx, slices):
+    """Flat (key, bucket slot) cells whose (account, bucket) pair the
+    migration's exactness contract does not cover: its rows arrive over
+    two or more of the day's ingest slices, and a later slice brings two
+    or more (the fold then associates per batch, not per row)."""
+    ts = tx["ts"].astype(np.int64)
+    batch = np.searchsorted(np.array([(i + 1) * DAY // slices
+                                      for i in range(slices)]), ts,
+                            side="right")
+    bucket = ts // store.bucket_size
+    pair = tx["account"].astype(np.int64) * (int(bucket.max()) + 1) + bucket
+    o = np.lexsort((batch, pair))
+    p, b = pair[o], batch[o]
+    grp = np.ones(len(p), bool)
+    grp[1:] = (p[1:] != p[:-1]) | (b[1:] != b[:-1])
+    starts = np.flatnonzero(grp)
+    n = np.diff(np.append(starts, len(p)))
+    gp, gb = p[starts], b[starts]
+    first = np.ones(len(gp), bool)
+    first[1:] = gp[1:] != gp[:-1]
+    bad = np.unique(gp[~first & (n >= 2)])
+    acct = bad // (int(bucket.max()) + 1)
+    bk = bad % (int(bucket.max()) + 1)
+    if not len(bad):
+        return set(), 0
+    s_ids, l_ids = store._route_ids(acct)
+    flat = s_ids * store.num_keys + l_ids
+    return set((flat * store.num_buckets + bk % store.num_buckets).tolist()), \
+        len(bad)
+
+
+def _hot_equals_cold(hot, cold, tag, outside=frozenset()):
+    """Every state buffer of two stores bit for bit; bucket cells may
+    differ only where ``outside`` (cells outside the exactness contract)
+    says so.  Returns the number of differing bucket cells."""
+    nb = hot.num_buckets
+    cells = 0
+    for (name, a), (_, b) in zip(_flat_tensors(hot), _flat_tensors(cold)):
+        if a.shape != b.shape:
+            _fail(f"{tag}: {name} shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+        av = a.view(torch.int32) if a.dtype == torch.float32 else a
+        bv = b.view(torch.int32) if b.dtype == torch.float32 else b
+        if torch.equal(av, bv):
+            continue
+        if name not in ("bstats", "bbitmap"):
+            _fail(f"{tag}: hot and cold {name} differ")
+        ne = (av != bv).reshape(a.shape[0] * nb, -1).any(dim=1)
+        bad = torch.nonzero(ne)[:, 0].cpu().numpy()
+        inside = [int(c) for c in bad if int(c) not in outside]
+        if inside:
+            c = inside[0]
+            _fail(f"{tag}: hot and cold {name} differ at {len(inside)} "
+                  f"(key, bucket) cells inside the exactness contract (first:"
+                  f" flat key {c // nb}, slot {c % nb})")
+        cells += len(bad)
+    return cells
+
+
+def _span_line(tel, names, tag):
+    spans = tel.metrics.histogram("span_seconds", unit="s",
+                                  labels=("name", "kind"))
+    parts = []
+    for name, kind in names:
+        n = int(spans.count(name=name, kind=kind))
+        if n:
+            parts.append(f"{name} {1e3 * spans.mean(name=name, kind=kind) * n:.3f}"
+                         f" ms" + (f" ({n})" if n > 1 else ""))
+    print(f"{tag}: " + ", ".join(parts), flush=True)
+
+
+_MIGRATE_SPANS = (
+    ("hot_deploy", "host"), ("hot_deploy.plan", "host"),
+    ("migrate.diff", "host"), ("migrate", "host"), ("migrate.carry", "host"),
+    ("migrate.relane", "host"), ("migrate.relay", "host"),
+    ("migrate.synthesize", "host"), ("migrate.bucket", "host"),
+    ("migrate.reroute", "host"), ("migrate.fresh", "host"),
+    ("backfill", "device"), ("backfill.ring", "host"),
+    ("backfill.bucket", "host"), ("migrate.place", "device"),
+    ("hot_deploy.compile", "host"),
+)
+
+
+def _deploy(deploy, tag, *args, **kw):
+    """Run a fenced hot deploy (a service's ``hot_deploy`` or a plane's
+    ``evolve``) under its own telemetry; returns (report, seconds, tel)."""
+    from repro_torch.obs import Telemetry, use_telemetry
+
+    tel = Telemetry()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with use_telemetry(tel):
+        report = deploy(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _span_line(tel, _MIGRATE_SPANS, f"{tag} spans")
+    return report, wall, tel
+
+
+def _cold(views, accounts, tables, extra, kw, tag):
+    """A cold plane of ``views`` fed the day (and ``extra`` primary ingest
+    batches after it); returns (plane, fenced seconds)."""
+    from repro_torch.core.scenario import ScenarioPlane
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = ScenarioPlane(views, num_keys=accounts, num_shards=NUM_SHARDS,
+                         device="cuda", **kw)
+    _mt_ingest(cold.store, (), tables, WARM_SLICES, {"fused_ingest": 0})
+    for g in extra:
+        cold.ingest(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"{tag}: cold build + replay of the day {wall:.3f} s", flush=True)
+    return cold, wall
+
+
+def _state_gb(store):
+    return sum(t.untyped_storage().nbytes()
+               for _, t in _flat_tensors(store)) / 1e9
+
+
+def deploy_path(results) -> None:
+    """Hot deploy and the offline bridge at deployment size: (a) scenario
+    #3 hot-added to a warm 2^19-account plane, == a cold plane replaying
+    the day, bit for bit, then 8 mixed batches on both; (b) derived lanes
+    with a capacity grow; (c) a Signature lane beyond the rings' horizon,
+    refused without a source and exact with one; (d) the training-set
+    export against the B4-plain swap, and verify_export in both
+    routings."""
+    from repro_torch import kernels
+    from repro_torch.core import windows as win
+    from repro_torch.core.expr import (
+        Col, Signature, collect_window_aggs, range_window, w_count, w_max,
+        w_mean, w_sum,
+    )
+    from repro_torch.core.scenario import ScenarioPlane
+    from repro_torch.core.view import FeatureView
+    from repro_torch.data.synthetic import MULTITABLE_DB, multitable_stream
+    from repro_torch.kernels.window_agg.ref import fold_levels_ref
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.offline import (
+        BackfillSource, export_training_set, verify_export,
+    )
+    from repro_torch.scenarios import multi_scenario_views, multi_table_view
+    from repro_torch.serve.router import ShardRouter
+    from repro_torch.serve.service import (
+        BatchScheduler, FeatureService, MultiScenarioService,
+    )
+
+    kw = dict(secondary_num_keys={"merchants": MT_MERCHANTS}, **STORE_KW)
+    tables = multitable_stream(np.random.default_rng(SEED + 7), MT_ROWS,
+                               num_accounts=NUM_CARDS,
+                               num_merchants=MT_MERCHANTS, t_max=DAY)
+    tx = tables["transactions"]
+    rng = np.random.default_rng(SEED + 8)
+    views = multi_scenario_views()
+    launches = {"fused_ingest": 0, "keys": 0, "shards": 0}
+    phase_t0 = time.perf_counter()
+
+    # -- (a) hot add of scenario #3 -------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    svc = FeatureService.build_multi(
+        "hot", views[:2], num_keys=NUM_CARDS, sharded=True,
+        num_shards=NUM_SHARDS, mode="preagg", device="cuda", **kw)
+    store = svc.store
+    _mt_ingest(store, (), tables, WARM_SLICES, launches)
+    sched = (lambda: BatchScheduler(buckets=(REQ_ROWS,), max_batch=REQ_ROWS))
+    warm_groups = []
+    router = ShardRouter(svc, sched())
+    names2 = svc.scenarios
+    for b in range(DEPLOY_WARM_BATCHES):
+        rows, tags = _ms_batch(rng, DAY + 60 * b, NUM_CARDS, names2)
+        for i in range(REQ_ROWS):
+            router.submit({c: v[i] for c, v in rows.items()},
+                          scenario=str(tags[i]))
+        b1 = kernels.LAUNCHES["fused_ingest"]
+        b2 = kernels.VARIANT_LAUNCHES["route_rank"]["keys"]
+        with use_telemetry(Telemetry()):
+            router.pump(flush=True)
+        launches["fused_ingest"] += kernels.LAUNCHES["fused_ingest"] - b1
+        launches["keys"] += kernels.VARIANT_LAUNCHES["route_rank"]["keys"] - b2
+        warm_groups += _ms_groups(rows, tags, names2)[1]
+    before = svc.plane.ingest_row_counts()
+    bufs = {n: t.data_ptr() for n, t in _flat_tensors(store)}
+    plane_gb = _state_gb(store)
+    report, hot_s, _ = _deploy(svc.hot_deploy, "deploy (a)", views[2])
+    if not report.exact:
+        _fail(f"deploy (a) inexact: {report.describe()}")
+    if svc.plane.ingest_row_counts() != before:
+        _fail(f"deploy (a) re-ingested: {svc.plane.ingest_row_counts()} vs "
+              f"{before}")
+    kept = [n for n, t in _flat_tensors(store) if bufs.get(n) == t.data_ptr()]
+    print(f"deploy (a): hot_deploy({views[2].name}) onto {names2} at "
+          f"{NUM_CARDS} accounts x {NUM_SHARDS} shards ({plane_gb:.3f} GB): "
+          f"exact; fenced wall {1e3 * hot_s:.3f} ms; carried {report.carried}"
+          f"; migrated {report.migrated}; fresh {report.fresh}; new programs "
+          f"{report.new_programs}; {len(kept)} of {len(bufs)} buffers kept "
+          f"their data_ptr(); ingest_row_counts unchanged {before}",
+          flush=True)
+    cold, cold_s = _cold(views, NUM_CARDS, tables, warm_groups, kw,
+                         "deploy (a)")
+    cells = _hot_equals_cold(store, cold.store, "deploy (a)")
+    print(f"deploy (a): hot == cold, {len(_flat_tensors(store))} buffers bit "
+          f"for bit ({cells} differing cells); hot_deploy "
+          f"{1e3 * hot_s:.3f} ms against the cold build + replay "
+          f"{1e3 * cold_s:.3f} ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    # 8 mixed batches over all three scenarios: hot (== host-routed router
+    # == B2-plain), then the same rows on the cold plane
+    host_svc = MultiScenarioService("hot_host", svc.plane, mode="preagg")
+    routers = _ms_routers(svc, host_svc)
+    saved = []
+    tels = {"host": Telemetry(), "device": Telemetry()}
+    _ms_serve(svc, routers, rng, DAY + 3600, NUM_CARDS, REQ_BATCHES,
+              launches, tels, "keys", saved)
+    cold_svc = MultiScenarioService("cold", cold, mode="preagg")
+    cold_router = ShardRouter(cold_svc, sched())
+    names = cold_svc.scenarios
+    for b, (rows, tags, got) in enumerate(saved):
+        for i in range(REQ_ROWS):
+            cold_router.submit({c: v[i] for c, v in rows.items()},
+                               scenario=str(tags[i]))
+        b2 = kernels.VARIANT_LAUNCHES["route_rank"]["keys"]
+        b1 = kernels.LAUNCHES["fused_ingest"]
+        with use_telemetry(Telemetry()):
+            want = cold_router.pump(flush=True)
+        n_b2 = kernels.VARIANT_LAUNCHES["route_rank"]["keys"] - b2
+        launches["keys"] += n_b2
+        launches["fused_ingest"] += kernels.LAUNCHES["fused_ingest"] - b1
+        if n_b2 != 1 or kernels.LAUNCHES["fused_ingest"] == b1:
+            _fail(f"deploy (a) cold batch {b}: B2 {n_b2}, B1 did not rise")
+        if sorted(want) != sorted(got):
+            _fail(f"deploy (a) batch {b}: scenarios {sorted(got)} vs "
+                  f"{sorted(want)}")
+        for sc in got:
+            bad = _same_bits(want[sc], got[sc])
+            if bad is not None:
+                _fail(f"deploy (a) batch {b} {sc}/{bad}: hot != cold")
+    _hot_equals_cold(store, cold.store, "deploy (a) after serving")
+    print(f"deploy (a): {REQ_BATCHES} mixed batches over {names}: hot == "
+          "host-routed router == B2-plain == cold plane, bit for bit; one "
+          "B2 launch a pump; states still equal after their ingest",
+          flush=True)
+    del svc, host_svc, router, routers, cold_svc, cold_router, cold, store
+    del saved
+    torch.cuda.empty_cache()
+
+    # -- (b) derived lanes with a capacity grow -------------------------------
+    amt, w1h = Col("amount"), range_window(3600, bucket=64)
+    va = FeatureView("va", features={
+        "out": w_sum(amt, w1h, union=("wires",)), "cnt": w_count(amt, w1h)},
+        database=MULTITABLE_DB)
+    vb = FeatureView("vb", features={
+        "dbl": w_sum(amt * 2.0, w1h), "mx": w_max(amt * 2.0, w1h),
+        "big": w_mean(amt > 20.0, w1h)}, database=MULTITABLE_DB)
+    from repro_torch.core.scenario import ScenarioPlane
+
+    acc_b = DEPLOY_B_ACCOUNTS
+    tables_b = tables if acc_b == NUM_CARDS else multitable_stream(
+        np.random.default_rng(SEED + 9), MT_ROWS * acc_b // NUM_CARDS,
+        num_accounts=acc_b, num_merchants=MT_MERCHANTS, t_max=DAY)
+    torch.cuda.reset_peak_memory_stats()
+    hot = ScenarioPlane([va], num_keys=acc_b, num_shards=NUM_SHARDS,
+                        device="cuda", **kw)
+    _mt_ingest(hot.store, (), tables_b, WARM_SLICES, launches)
+    old_gb = _state_gb(hot.store)
+    report, hot_s, _ = _deploy(hot.evolve, "deploy (b)", [va, vb],
+                               capacity=DEPLOY_B_CAPACITY)
+    if not report.exact or not report.synthesized_lanes:
+        _fail(f"deploy (b): {report.describe()}")
+    torch.cuda.empty_cache()
+    new_gb = _state_gb(hot.store)
+    mig_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"deploy (b): [va] -> [va, vb] at {acc_b} accounts (the full "
+          f"count: no cut), ring {STORE_KW['capacity']} -> "
+          f"{DEPLOY_B_CAPACITY}: exact; synthesized "
+          f"{report.synthesized_lanes}; migrated {report.migrated}; carried "
+          f"{report.carried}; state {old_gb:.3f} -> {new_gb:.3f} GB, peak in "
+          f"the migration {mig_peak:.2f} GB; fenced wall {1e3 * hot_s:.3f} ms",
+          flush=True)
+    cold, cold_s = _cold([va, vb], acc_b, tables_b, (),
+                         dict(kw, capacity=DEPLOY_B_CAPACITY), "deploy (b)")
+    outside, n_pairs = _outside_contract(hot.store, tables_b["transactions"],
+                                         WARM_SLICES)
+    cells = _hot_equals_cold(hot.store, cold.store, "deploy (b)", outside)
+    print(f"deploy (b): hot == cold bit for bit but {cells} bucket cells "
+          f"(of the {n_pairs} (account, bucket) pairs outside the exactness "
+          f"contract); hot {1e3 * hot_s:.3f} ms against cold "
+          f"{1e3 * cold_s:.3f} ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del hot, cold
+    torch.cuda.empty_cache()
+
+    # -- (c) backfill beyond the horizon --------------------------------------
+    sig = Signature((Col("merchant"),), bits=8)
+    mix = FeatureView("merchant_mix", features={
+        "sig_cnt_1h": w_count(sig, w1h), "sig_sum_1h": w_sum(sig, w1h)},
+        database=MULTITABLE_DB)
+    kw_c = dict(kw, capacity=DEPLOY_C_CAPACITY)
+    torch.cuda.reset_peak_memory_stats()
+    hot = ScenarioPlane(views[:2], num_keys=NUM_CARDS, num_shards=NUM_SHARDS,
+                        device="cuda", **kw_c)
+    _mt_ingest(hot.store, (), tables, WARM_SLICES, launches)
+    wrapped = int((hot.store.state.ring.cursor > DEPLOY_C_CAPACITY).sum())
+    probe, _ = _ms_batch(rng, DAY + 7200, NUM_CARDS, hot.scenarios)
+    with use_telemetry(Telemetry()):
+        before = _np_answers(hot.query(views[0].name, dict(probe)))
+    snap = {n: t.data_ptr() for n, t in _flat_tensors(hot.store)}
+    try:
+        hot.evolve(views[:2] + [mix], capacity=DEPLOY_C_GROWN)
+        _fail("deploy (c): the Signature lane deployed without a source")
+    except ValueError as e:
+        if "backfill" not in str(e):
+            _fail(f"deploy (c): refusal does not name backfill: {e}")
+        refusal = str(e)
+    with use_telemetry(Telemetry()):
+        after = _np_answers(hot.query(views[0].name, dict(probe)))
+    if _same_bits(before, after) is not None or hot.scenarios != [
+            v.name for v in views[:2]] or snap != {
+            n: t.data_ptr() for n, t in _flat_tensors(hot.store)}:
+        _fail("deploy (c): the refused deploy changed the serving plane")
+    print(f"deploy (c): {wrapped} of {NUM_CARDS} account rings of "
+          f"{DEPLOY_C_CAPACITY} wrapped; deploying {mix.name} with rings of "
+          f"{DEPLOY_C_GROWN} and no source refused ({refusal[:96]}...); the "
+          "plane kept its buffers and answers", flush=True)
+    src = BackfillSource(MULTITABLE_DB, tables)
+    b1 = kernels.LAUNCHES["fused_ingest"]
+    report, hot_s, tel = _deploy(hot.evolve, "deploy (c)", views[:2] + [mix],
+                                 backfill=src, capacity=DEPLOY_C_GROWN)
+    launches["fused_ingest"] += kernels.LAUNCHES["fused_ingest"] - b1
+    if not report.exact or not report.backfilled:
+        _fail(f"deploy (c): {report.describe()}")
+    spans = tel.metrics.histogram("span_seconds", unit="s",
+                                  labels=("name", "kind"))
+    bf_ms = 1e3 * spans.mean(name="backfill", kind="device")
+    print(f"deploy (c): with BackfillSource exact; backfilled "
+          f"{len(report.backfilled)} deficits ({[b[:60] for b in report.backfilled]}); "
+          f"B1 {kernels.LAUNCHES['fused_ingest'] - b1} launches in the "
+          f"splice; peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    torch.cuda.empty_cache()
+    cold, cold_s = _cold(views[:2] + [mix], NUM_CARDS, tables, (),
+                         dict(kw, capacity=DEPLOY_C_GROWN), "deploy (c)")
+    outside, n_pairs = _outside_contract(hot.store, tx, WARM_SLICES)
+    cells = _hot_equals_cold(hot.store, cold.store, "deploy (c)", outside)
+    print(f"deploy (c): hot == cold bit for bit but {cells} bucket cells "
+          f"(of the {n_pairs} pairs outside the contract); backfill span "
+          f"{bf_ms:.3f} ms, hot_deploy {1e3 * hot_s:.3f} ms against the cold "
+          f"build + replay {1e3 * cold_s:.3f} ms", flush=True)
+    del hot, cold, src
+    torch.cuda.empty_cache()
+
+    # -- (d) export ------------------------------------------------------------
+    secondary = {t: tables[t] for t in ("wires", "accounts", "merchants")}
+    kernel_fold = win.fold_levels
+
+    def fold_levels_plain(x, seg, *, op):
+        return fold_levels_ref(x, seg, op)
+
+    b4_total = 0
+    for view in (multi_table_view(), views[2]):
+        b4 = kernels.LAUNCHES["fold_levels"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_telemetry(Telemetry()):
+            ts_k = export_training_set(view, tx, n=EXPORT_LABELS, seed=5,
+                                       secondary=secondary, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_b4 = kernels.LAUNCHES["fold_levels"] - b4
+        b4_total += n_b4
+        win.fold_levels = fold_levels_plain
+        try:
+            with use_telemetry(Telemetry()):
+                ts_p = export_training_set(view, tx, label_rows=ts_k.rows,
+                                           secondary=secondary, device="cuda")
+        finally:
+            win.fold_levels = kernel_fold
+        bad = _same_bits(ts_k.features, ts_p.features)
+        if bad is not None:
+            _fail(f"export {view.name}/{bad} differs from the B4-plain run")
+        for f, v in ts_k.features.items():
+            if v.shape != (EXPORT_LABELS,) or not np.all(np.isfinite(v)):
+                _fail(f"export {view.name}/{f}: shape {v.shape} or non-finite")
+        folds = [f for f, e in view.features.items() if any(
+            wa.agg.value in ("min", "max", "distinct_approx")
+            for wa in collect_window_aggs([e]).values())]
+        print(f"export {view.name}: {EXPORT_LABELS} labels of {len(tx['ts'])} "
+              f"rows in {wall:.3f} s = {len(tx['ts']) / wall:.0f} history "
+              f"rows/s ({EXPORT_LABELS / wall:.0f} labels/s); == the B4-plain "
+              f"run bit for bit; B4 launched {n_b4} times (features through "
+              f"it: {folds or 'none'})", flush=True)
+    if b4_total == 0:
+        _fail("export: B4 never launched")
+    rng_v = np.random.default_rng(SEED + 10)
+    vt = multitable_stream(rng_v, VERIFY_ROWS, num_accounts=MT_VERIFY_ACCOUNTS,
+                           num_merchants=MT_VERIFY_MERCHANTS, t_max=DAY)
+    sec_v = {t: vt[t] for t in ("wires", "accounts", "merchants")}
+    view = multi_table_view()
+    training = export_training_set(view, vt["transactions"],
+                                   n=EXPORT_CHECK_LABELS, seed=3,
+                                   secondary=sec_v, device="cuda")
+    key_v, ts_v = vt["transactions"]["account"], vt["transactions"]["ts"]
+    o = np.lexsort((ts_v, key_v))
+    ks, tss = key_v[o], ts_v[o]
+    newer = []
+    for i in training.rows:
+        lo, hi = np.searchsorted(ks, key_v[i], "left"), np.searchsorted(
+            ks, key_v[i], "right")
+        newer.append(hi - lo - np.searchsorted(tss[lo:hi], ts_v[i], "right"))
+    beyond = int((np.asarray(newer) >= EXPORT_CHECK_CAPACITY).sum())
+    print(f"verify_export: {beyond} of {len(training)} label rows lie beyond "
+          f"the rings' {EXPORT_CHECK_CAPACITY}-row horizon by the end of the "
+          "replay", flush=True)
+    if beyond == 0 or beyond == len(training):
+        _fail("verify_export: the labels do not straddle the horizon")
+    for shards in (None, NUM_SHARDS):
+        t0 = time.perf_counter()
+        with use_telemetry(Telemetry()):
+            chk = verify_export(
+                view, vt["transactions"], training,
+                num_keys=MT_VERIFY_ACCOUNTS, capacity=EXPORT_CHECK_CAPACITY,
+                num_buckets=STORE_KW["num_buckets"],
+                bucket_size=STORE_KW["bucket_size"], secondary=sec_v,
+                secondary_num_keys={"merchants": MT_VERIFY_MERCHANTS},
+                num_shards=shards, device="cuda")
+        print(f"{chk.summary()} in {time.perf_counter() - t0:.1f} s; per "
+              f"feature {chk.per_feature}", flush=True)
+        if not chk.passed:
+            _fail(f"verify_export (num_shards={shards}) failed")
+    print(f"deploy phase: {time.perf_counter() - phase_t0:.1f} s; B1 "
+          f"{launches['fused_ingest']}, B2 {launches['keys']} (from keys), "
+          f"B4 {b4_total} launches", flush=True)
+    results["fused_ingest"]["launches_deploy"] = launches["fused_ingest"]
+    results["route_rank"]["launches_deploy"] = launches["keys"]
+    results["fold_levels"]["launches_deploy"] = b4_total
+    torch.cuda.empty_cache()
+
+
 def _wkv6_cost(shape, with_s0):
     """(bytes, FLOP) one WKV6 call must move and compute: r, k, v, lw read
     and y written once, u, s0 (when given) and the final state; per
@@ -3385,6 +3894,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     multitable_path(results)
     multiscenario_path(results)
+    deploy_path(results)
     check_wkv6_kernel(results)
     rwkv6_path(results)
     check_flash_attention_kernel(results)

@@ -12,8 +12,9 @@
 
 A copy of the reference package's ``repro.core.layout`` planner (it is
 framework-free); plans computed by either package for the same views are
-equal field for field.  Layout diffing for live migration
-(``diff_layouts``) belongs to the hot-deploy slice and is not here yet.
+equal field for field.  :func:`diff_layouts` matches a new plan's rings to
+a running plan's state sources — what a live migration
+(:mod:`repro_torch.core.migrate`) carries, transforms or starts fresh.
 """
 
 from __future__ import annotations
@@ -38,7 +39,9 @@ __all__ = [
     "RingPlan",
     "BucketPlan",
     "StoreLayout",
+    "LayoutDiff",
     "plan_layout",
+    "diff_layouts",
     "synthesizable",
 ]
 
@@ -479,4 +482,124 @@ def plan_layout(
         bucket=bucket,
         tables=tuple(rings),
         raw_lanes=bool(raw_lanes),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Diffing — what a migration must do to get from layout A to layout B
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class LayoutDiff:
+    """Plan-level diff: how each ring of the *new* layout is sourced.
+
+    ``ring_sources[i]`` (indices into ``old.tables``, or ``"primary"``):
+      - int / "primary": carried or transformed from that old ring
+      - None: no old state — the ring starts fresh
+
+    ``carried`` marks rings whose :meth:`RingPlan.identity` is unchanged —
+    their buffers move over verbatim (zero-copy).
+    """
+
+    old: StoreLayout
+    new: StoreLayout
+    primary_carried: bool
+    bucket_carried: bool
+    ring_sources: List[Optional[object]]
+    carried: List[bool]
+    dropped: List[int]  # old ring indices with no consumer in new
+
+    def summary(self) -> str:
+        n_carry = sum(self.carried) + int(self.primary_carried)
+        n_mig = sum(
+            1
+            for s, c in zip(self.ring_sources, self.carried)
+            if s is not None and not c
+        ) + int(not self.primary_carried)
+        n_new = sum(1 for s in self.ring_sources if s is None)
+        return (
+            f"carried={n_carry} migrated={n_mig} new={n_new} "
+            f"dropped={len(self.dropped)}"
+        )
+
+
+def _best_source(
+    old: StoreLayout, plan: RingPlan
+) -> Optional[int]:
+    """Pick the old ring a new secondary ring migrates from: exact
+    identity first, then same (table, placement), then any ring of the
+    table whose lanes can cover the new ring's needs."""
+    cands = old.rings_of(plan.table)
+    if not cands:
+        return None
+    for i in cands:
+        if old.tables[i].identity() == plan.identity():
+            return i
+    for i in cands:
+        if old.tables[i].partitioned == plan.partitioned:
+            return i
+    # placement change (e.g. a dual-use split's new replicated join slice
+    # sourced from the old partitioned union ring): prefer the widest ring
+    return max(cands, key=lambda i: len(old.tables[i].lanes))
+
+
+def diff_layouts(old: StoreLayout, new: StoreLayout) -> LayoutDiff:
+    """Match new rings to old state sources by plan identity.
+
+    Unsupported diffs (shard count, routing mode, bucket width, key-domain
+    changes) raise — those require a rebuild, and failing loudly here is
+    what keeps the hot-deploy path's bit-exactness contract honest.
+    """
+    if (old.num_shards or 1) != (new.num_shards or 1):
+        raise ValueError(
+            f"cannot migrate across shard counts "
+            f"({old.num_shards} -> {new.num_shards}); rebuild the plane"
+        )
+    if old.hash_routing != new.hash_routing:
+        raise ValueError("cannot migrate across routing modes; rebuild")
+    if old.perm_domain != new.perm_domain:
+        raise ValueError(
+            f"routing permutation domain changed "
+            f"({old.perm_domain} -> {new.perm_domain}): the key -> shard "
+            "map itself moved; rebuild the plane"
+        )
+    if old.bucket.bucket_size != new.bucket.bucket_size:
+        raise ValueError(
+            f"bucket_size changed ({old.bucket.bucket_size} -> "
+            f"{new.bucket.bucket_size}): persisted bucket states do not "
+            "re-partition; rebuild the plane"
+        )
+    if old.num_keys != new.num_keys or (
+        old.primary.ring_keys != new.primary.ring_keys
+    ):
+        raise ValueError(
+            f"primary key domain changed ({old.num_keys} -> "
+            f"{new.num_keys}); rebuild the plane"
+        )
+
+    primary_carried = old.primary.identity() == new.primary.identity()
+    bucket_carried = (
+        primary_carried and old.bucket == new.bucket
+    )
+    sources: List[Optional[object]] = []
+    carried: List[bool] = []
+    used: set = set()
+    for plan in new.tables:
+        src = _best_source(old, plan)
+        sources.append(src)
+        if src is not None:
+            used.add(src)
+        carried.append(
+            src is not None and old.tables[src].identity() == plan.identity()
+        )
+    dropped = [i for i in range(len(old.tables)) if i not in used]
+    return LayoutDiff(
+        old=old,
+        new=new,
+        primary_carried=primary_carried,
+        bucket_carried=bucket_carried,
+        ring_sources=sources,
+        carried=carried,
+        dropped=dropped,
     )

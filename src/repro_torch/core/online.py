@@ -39,10 +39,14 @@ many (:mod:`repro_torch.core.scenario`): that view's window aggregations
 and joins as subsets of the store's, answering requests that carry only
 that view's columns.
 
-The port of the reference package's ``repro.core.online`` without live
-layout adoption and the merge-order bucket families (FIRST / LAST /
-TOPN_FREQ over RANGE windows, which raise ``NotImplementedError`` at
-construction).  Programs run eagerly: there is no per-shape compile, so
+:meth:`OnlineFeatureStore.adopt_layout` evolves a live store to a new
+(view, layout) in place: the state migrates (:mod:`repro_torch.core.
+migrate`) instead of being rebuilt, and query programs compiled before
+keep answering.
+
+The port of the reference package's ``repro.core.online`` without the
+merge-order bucket families (FIRST / LAST / TOPN_FREQ over RANGE windows,
+which raise ``NotImplementedError`` at construction).  Programs run eagerly: there is no per-shape compile, so
 no ``query_compile_seconds``.  State lives on ``device`` (default
 ``"cuda"``; ``"cpu"`` runs the plain PyTorch versions of the kernels).
 """
@@ -135,7 +139,8 @@ class OnlineFeatureStore:
 
     def _apply_layout(self, view, layout: StoreLayout) -> None:
         """Derive every layout-dependent attribute from the plan: lane ids,
-        ring indices and placement flags live here, nowhere else."""
+        ring indices and placement flags live here, nowhere else.  Called
+        at construction and again by :meth:`adopt_layout`."""
         self.view = view
         self.schema = view.schema
         self.layout = layout
@@ -281,15 +286,65 @@ class OnlineFeatureStore:
             sec=sec,
         ))
 
+    # -- live evolution -------------------------------------------------------
+
+    def adopt_layout(self, view, layout: StoreLayout, backfill=None):
+        """Evolve this live store to a new (view, layout) in place.
+
+        Diffs the old plan against ``layout`` (:func:`~repro_torch.core.
+        layout.diff_layouts`), migrates every state buffer on the device
+        (carried verbatim where ring identity is unchanged — the same
+        tensors; re-laid / lane-synthesized otherwise, see
+        :mod:`repro_torch.core.migrate`), and re-derives all
+        layout-dependent attributes.  :class:`QueryProgram` s compiled
+        against this store keep answering: their subsets are structural
+        keys, looked up in the store's attributes at each call.
+
+        ``backfill`` (a :class:`repro_torch.offline.backfill.
+        BackfillSource`) closes the retention horizon: state the migration
+        could not reconstruct is re-derived from offline history and
+        spliced in *before* the new layout goes live.
+
+        Atomic: the migration and the splice run against the untouched
+        store and write nothing of its state, so a refusal (an
+        unsynthesizable lane, an unsupported diff, an uncovered deficit)
+        leaves the plane serving exactly as before.  Returns the
+        :class:`~repro_torch.core.migrate.MigrationReport`.
+        """
+        from repro_torch.core import migrate
+        from repro_torch.core.layout import diff_layouts
+
+        tracer = get_telemetry().tracer
+        with tracer.span("migrate.diff"):
+            diff = diff_layouts(self.layout, layout)
+        # the routing attributes migrate_state and the splice read
+        # (permutation, shard count, local key count) are invariant across
+        # any diff diff_layouts accepts
+        state, report = migrate.migrate_state(
+            diff, self.state, self, backfill=backfill)
+        if backfill is not None and report.deficits:
+            state = backfill.splice(diff, state, report, self, view)
+        self._apply_layout(view, layout)
+        with tracer.span("migrate.place", kind="device") as sp:
+            self.state = self._place_state(state)
+            sp.fence(self.state.ring.cursor)
+        return report
+
+    def _place_state(self, flat: OnlineState) -> OnlineState:
+        """The public state of a migrated flat state (views, no copy): the
+        sharded store splits the key axis and shows a replicated ring's
+        one copy as S replicas."""
+        return self._shape_state(flat)
+
     def _shape_state(self, flat: OnlineState) -> OnlineState:
         """The public state shape of a flat state (identity here; the
         sharded store splits the key axis into (S, K_local))."""
         return flat
 
-    def _flat_state(self) -> OnlineState:
-        """The state with one key axis over all keys: the tensors the
-        kernels and the query address (views of ``self.state``)."""
-        return self.state
+    def _flat_state(self, state: Optional[OnlineState] = None) -> OnlineState:
+        """``state`` (default: ``self.state``) with one key axis over all
+        keys: the tensors the kernels and the query address (views)."""
+        return self.state if state is None else state
 
     # -- columns and lanes ------------------------------------------------------
 

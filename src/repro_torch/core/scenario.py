@@ -30,12 +30,18 @@ compute.  :class:`ScenarioPlane` is that consolidation layer:
 * **Mixed batches.**  :meth:`query_mixed` answers rows of every scenario
   in one device-routed dispatch
   (:meth:`~repro_torch.core.shard.ShardedOnlineStore.route_and_query`).
+* **Live evolution.**  :meth:`ScenarioPlane.evolve` re-plans the layout
+  for a new view list and migrates the running store's state to it on the
+  device (:meth:`~repro_torch.core.online.OnlineFeatureStore.
+  adopt_layout`): unchanged rings carry over as the same tensors, new
+  lanes are synthesized from the raw-column lanes, and only the *new*
+  views get query programs.  Adding scenario #N+1 neither rebuilds the
+  plane nor re-ingests shared tables (``MultiScenarioService.hot_deploy``
+  is the serving-layer entry).
 
-The port of the reference package's ``repro.core.scenario`` without live
-evolution (:meth:`ScenarioPlane.evolve` raises: layout diffs and state
-migration are still to be ported).  The serving front end lives in
-:mod:`repro_torch.serve` (``FeatureService.build_multi``, the
-scenario-aware ``ShardRouter``).
+The port of the reference package's ``repro.core.scenario``.  The serving
+front end lives in :mod:`repro_torch.serve` (``FeatureService.
+build_multi``, the scenario-aware ``ShardRouter``).
 """
 
 from __future__ import annotations
@@ -112,7 +118,8 @@ class ScenarioPlane:
     :class:`~repro_torch.core.shard.ShardedOnlineStore` with that many
     shards.  ``store_kwargs`` (capacity, num_buckets, bucket_size,
     secondary_num_keys, hash_routing, ...) are planner knobs shared by
-    every scenario: they size the one state all scenarios live in.
+    every scenario: they size the one state all scenarios live in, and are
+    remembered so :meth:`evolve` re-plans with the same policy.
     """
 
     def __init__(
@@ -128,9 +135,11 @@ class ScenarioPlane:
     ):
         views = list(views)
         self.views: Dict[str, FeatureView] = {v.name: v for v in views}
+        self._plan_kwargs = dict(
+            num_keys=num_keys, num_shards=num_shards, **store_kwargs
+        )
         self.layout: StoreLayout = plan_layout(
-            views, raw_lanes=True, num_keys=num_keys, num_shards=num_shards,
-            **store_kwargs,
+            views, raw_lanes=True, **self._plan_kwargs
         )
         self.merged = merge_views(views, name=name)
         if num_shards is not None:
@@ -147,13 +156,66 @@ class ScenarioPlane:
             v.name: self.store.compile_program(v) for v in views
         }
 
-    def evolve(self, new_views, backfill=None, **plan_overrides):
-        """Live evolution (the reference's hot-swap to a new view list)
-        needs layout diffs and state migration, not ported yet."""
-        raise NotImplementedError(
-            "ScenarioPlane.evolve needs diff_layouts / adopt_layout / "
-            "migrate (ROADMAP A6), not ported yet"
+    # -- live evolution ----------------------------------------------------------
+
+    def evolve(
+        self,
+        new_views: Iterable[FeatureView],
+        backfill=None,
+        **plan_overrides,
+    ):
+        """Hot-swap the plane to serve ``new_views`` — a state migration,
+        not a rebuild.
+
+        Re-plans the :class:`~repro_torch.core.layout.StoreLayout` for the
+        new view list (same planner policy; ``plan_overrides`` may adjust
+        knobs like ``capacity``), diffs it against the running plan and
+        migrates the live store in place: unchanged rings carry over as
+        the same tensors (no shared table is re-ingested —
+        :meth:`ingest_row_counts` is unchanged for carried tables), new
+        lanes are synthesized from the raw-column lanes, split or added
+        rings are rebuilt from per-key rows.  Only views *not already
+        deployed* get a new :class:`~repro_torch.core.online.QueryProgram`;
+        the others keep theirs (structural subsets: they answer against
+        the evolved layout).
+
+        Returns the :class:`~repro_torch.core.migrate.MigrationReport`;
+        within the retention horizon the migrated plane equals a cold
+        rebuild + full replay bit for bit (``report.exact``).  ``backfill``
+        (a :class:`repro_torch.offline.backfill.BackfillSource`) extends
+        that beyond the horizon: aged-out ring rows and bucket states are
+        re-derived from offline history and spliced into the migrating
+        state before the new layout goes live.  A refused evolution (an
+        unsupported diff, an unsynthesizable lane without a covering
+        source) raises ``ValueError`` and leaves the plane as it was.
+        """
+        tracer = get_telemetry().tracer
+        new_views = list(new_views)
+        kwargs = dict(self._plan_kwargs)
+        kwargs.update(plan_overrides)
+        with tracer.span("hot_deploy.plan", views=len(new_views)):
+            new_layout = plan_layout(new_views, raw_lanes=True, **kwargs)
+            new_merged = merge_views(new_views, name=self.merged.name)
+        report = self.store.adopt_layout(
+            new_merged, new_layout, backfill=backfill
         )
+        old_views = self.views
+        self._plan_kwargs = kwargs
+        self.layout = new_layout
+        self.views = {v.name: v for v in new_views}
+        self.merged = new_merged
+        # programs only for the NEW views; identical deployed views keep
+        # theirs
+        self.programs = {
+            n: p for n, p in self.programs.items()
+            if self.views.get(n) is old_views.get(n)
+        }
+        with tracer.span("hot_deploy.compile"):
+            for v in new_views:
+                if v.name not in self.programs:
+                    self.programs[v.name] = self.store.compile_program(v)
+                    report.new_programs.append(v.name)
+        return report
 
     # -- introspection ---------------------------------------------------------
 

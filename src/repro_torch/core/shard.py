@@ -243,8 +243,8 @@ class ShardedOnlineStore(OnlineFeatureStore):
             ),
         )
 
-    def _flat_state(self) -> OnlineState:
-        s = self.state
+    def _flat_state(self, state: Optional[OnlineState] = None) -> OnlineState:
+        s = self.state if state is None else state
         return OnlineState(
             ring=self._flat_ring(s.ring, True),
             bagg=pg.BucketAgg(

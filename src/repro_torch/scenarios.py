@@ -16,8 +16,9 @@
   :data:`MULTITABLE_DB` (shared union stream, shared join targets), the
   scenarios of one multi-scenario plane.
 
-The online stores serve every one of them; the multi-scenario plane that
-deploys ``multi_scenario_views()`` on one shared store is not ported yet.
+The online stores serve every one of them, and the multi-scenario plane
+(:class:`~repro_torch.core.scenario.ScenarioPlane`) deploys
+``multi_scenario_views()`` on one shared store.
 """
 
 from __future__ import annotations

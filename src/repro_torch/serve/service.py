@@ -17,8 +17,9 @@ one :class:`MultiScenarioService` on one shared
 :class:`~repro_torch.core.scenario.ScenarioPlane`: requests name their
 scenario (``scenario=``), and a mixed batch tagged per row
 (:data:`SCENARIO_COL`) is answered in one device-routed dispatch
-(:meth:`MultiScenarioService.request_mixed`).  Hot deploy onto a live
-plane is not ported yet.  Answers come back as numpy arrays on the host.
+(:meth:`MultiScenarioService.request_mixed`);
+:meth:`MultiScenarioService.hot_deploy` adds a scenario to the live plane
+without a rebuild.  Answers come back as numpy arrays on the host.
 """
 
 from __future__ import annotations
@@ -399,12 +400,57 @@ class MultiScenarioService(FeatureService):
         return self.plane.scenarios
 
     def hot_deploy(self, view: FeatureView, backfill=None, **plan_overrides):
-        """Deploying a scenario onto the live plane needs
-        :meth:`ScenarioPlane.evolve`, not ported yet."""
-        raise NotImplementedError(
-            "MultiScenarioService.hot_deploy needs ScenarioPlane.evolve "
-            "(ROADMAP A6), not ported yet"
-        )
+        """Deploy one more scenario onto the LIVE plane — no rebuild, no
+        re-ingest, no downtime for the scenarios already serving.
+
+        Drives :meth:`~repro_torch.core.scenario.ScenarioPlane.evolve`: the
+        layout planner re-plans for ``views + [view]``, the running store's
+        state migrates to the new plan on the device (carried buffers
+        verbatim, new lanes synthesized from history), and only the new
+        view gets a :class:`~repro_torch.core.online.QueryProgram`.  The
+        deployment is recorded in the registry as
+        ``"<service>:<scenario>"`` with a ``hot deploy`` description (the
+        view is registered first if the registry does not know it), and a
+        fresh per-scenario :class:`ServiceStats` starts counting.
+
+        ``backfill`` (a :class:`repro_torch.offline.backfill.
+        BackfillSource`) lets the deployment reach beyond the rings'
+        retention horizon: aged-out state is re-derived from offline
+        history and spliced in, keeping ``report.exact``.
+
+        Returns the :class:`~repro_torch.core.migrate.MigrationReport`.
+        """
+        if view.name in self.plane.views:
+            raise ValueError(
+                f"scenario {view.name!r} is already deployed on "
+                f"{self.name!r}; hot_deploy adds new scenarios"
+            )
+        tel = get_telemetry()
+        with tel.tracer.span(
+            "hot_deploy", service=self.name, scenario=view.name
+        ):
+            report = self.plane.evolve(
+                list(self.plane.views.values()) + [view],
+                backfill=backfill, **plan_overrides,
+            )
+        tel.metrics.counter(
+            "hot_deploys_total", "scenarios hot-deployed onto live planes",
+            "1", labels=("service",),
+        ).inc(service=self.name)
+        self.view = self.plane.merged
+        self.scenario_stats.setdefault(view.name, ServiceStats())
+        if self.registry is not None:
+            try:
+                self.registry.get(view.name, view.version)
+            except KeyError:
+                self.registry.register(view)
+            self.registry.deploy(
+                f"{self.name}:{view.name}",
+                view.name,
+                view.version,
+                description="hot deploy (live plane evolution)",
+            )
+        return report
 
     def _compute(self, rows, scenario, valid=None, route_info=None):
         if scenario is None:

@@ -464,6 +464,121 @@ def test_route_and_query_mixed_batches_on_gpu(cuda, hash_routing):
                         err_msg=f"{mode} {s} {f}")
 
 
+def _plane_state(plane):
+    """Every state tensor of a plane's store as host bytes (a replicated
+    ring's one copy)."""
+    s = plane.store._flat_state()
+    ts = [s.ring.ts, s.ring.vals, s.ring.cursor, s.bagg.stats,
+          s.bagg.bitmap, s.bagg.bucket]
+    for r in s.sec:
+        ts += [r.ts, r.vals, r.cursor]
+    return [t.contiguous().cpu().numpy().view(np.uint8) for t in ts]
+
+
+def test_hot_deploy_on_gpu_equals_cold_rebuild(cuda):
+    """Live evolution of a small sharded plane on the card: a hot-deployed
+    scenario keeps every buffer (``data_ptr``); new derived lanes with a
+    capacity grow (ring relaid, bucket lanes re-folded on the device) and
+    a Signature lane spliced from a ``BackfillSource`` (B1 re-folds its
+    buckets) each equal a cold rebuild + replay bit for bit; a refused
+    deploy leaves every state tensor's bytes and buffers unchanged."""
+    from repro_torch.core.consistency import replay_rounds
+    from repro_torch.core.expr import (
+        Col, Hash, Signature, range_window, w_count, w_max, w_mean, w_sum,
+    )
+    from repro_torch.core.scenario import ScenarioPlane
+    from repro_torch.core.view import FeatureView
+    from repro_torch.data.synthetic import MULTITABLE_DB, multitable_stream
+    from repro_torch.offline import BackfillSource
+    from repro_torch.scenarios import multi_scenario_views
+    from repro_torch.serve.service import FeatureService
+
+    accounts, merchants = 4096, 256
+    kw = dict(num_keys=accounts, capacity=64, num_buckets=512,
+              bucket_size=64, secondary_num_keys={"merchants": merchants},
+              device="cuda")
+    rng = np.random.default_rng(21)
+    tables = multitable_stream(rng, 20_000, num_accounts=accounts,
+                               num_merchants=merchants, t_max=30_000)
+
+    def warm(plane):
+        for t, kc in (("accounts", "account"), ("merchants", "merchant"),
+                      ("wires", "account")):
+            if t in plane.store._sec_names:
+                cols = tables[t]
+                o = np.lexsort((cols["ts"], cols[kc]))
+                plane.ingest_table(t, {c: v[o] for c, v in cols.items()})
+        tx = tables["transactions"]
+        for idx in replay_rounds(tx["account"], tx["ts"]):
+            o = idx[np.lexsort((tx["ts"][idx], tx["account"][idx]))]
+            plane.ingest({c: v[o] for c, v in tx.items()})
+
+    def same(a, b, where):
+        for i, (x, y) in enumerate(zip(_plane_state(a), _plane_state(b))):
+            assert np.array_equal(x, y), f"{where}: state tensor {i}"
+
+    views = multi_scenario_views()
+    svc = FeatureService.build_multi("p", views[:2], sharded=True,
+                                     num_shards=4, **kw)
+    warm(svc.plane)
+    s = svc.plane.store.state
+    ptrs = [t.data_ptr() for t in (s.ring.ts, s.ring.vals, s.bagg.stats,
+                                   *(r.vals for r in s.sec))]
+    assert svc.hot_deploy(views[2]).exact
+    s = svc.plane.store.state
+    assert [t.data_ptr() for t in (s.ring.ts, s.ring.vals, s.bagg.stats,
+                                   *(r.vals for r in s.sec))] == ptrs
+    cold = ScenarioPlane(views, num_shards=4, **kw)
+    warm(cold)
+    same(svc.plane, cold, "hot deploy")
+    del svc, cold
+
+    amt, w1h = Col("amount"), range_window(3600, bucket=64)
+    va = FeatureView("va", features={
+        "out": w_sum(amt, w1h, union=("wires",)), "cnt": w_count(amt, w1h)},
+        database=MULTITABLE_DB)
+    vb = FeatureView("vb", features={
+        "dbl": w_sum(amt * 2.0, w1h), "mx": w_max(amt * 2.0, w1h),
+        "big": w_mean(amt > 20.0, w1h)}, database=MULTITABLE_DB)
+    hot = ScenarioPlane([va], num_shards=4, **kw)
+    warm(hot)
+    before = _plane_state(hot)
+    s = hot.store.state
+    ptrs = [t.data_ptr() for t in (s.ring.ts, s.ring.vals, s.bagg.stats)]
+    hashed = FeatureView("vh", features={
+        "h": w_count(Hash(Col("merchant"), bits=8), w1h)},
+        database=MULTITABLE_DB)
+    with pytest.raises(ValueError, match="rebuild"):
+        hot.evolve([va, hashed])
+    for i, (x, y) in enumerate(zip(before, _plane_state(hot))):
+        assert np.array_equal(x, y), f"refused deploy moved state {i}"
+    s = hot.store.state
+    assert [t.data_ptr() for t in (s.ring.ts, s.ring.vals,
+                                   s.bagg.stats)] == ptrs
+    rep = hot.evolve([va, vb], capacity=96)
+    assert rep.exact and rep.synthesized_lanes, rep.describe()
+    cold = ScenarioPlane([va, vb], num_shards=4, **dict(kw, capacity=96))
+    warm(cold)
+    same(hot, cold, "derived lanes + capacity")
+    del hot, cold
+
+    sig = FeatureView("merchant_mix", features={
+        "sig_cnt_1h": w_count(Signature((Col("merchant"),), bits=8), w1h)},
+        database=MULTITABLE_DB)
+    small = dict(kw, capacity=2)
+    hot = ScenarioPlane(views[:2], num_shards=4, **small)
+    warm(hot)
+    b1 = kernels.LAUNCHES["fused_ingest"]
+    rep = hot.evolve(views[:2] + [sig], capacity=16,
+                     backfill=BackfillSource(MULTITABLE_DB, tables))
+    assert rep.exact and rep.backfilled, rep.describe()
+    assert kernels.LAUNCHES["fused_ingest"] > b1
+    cold = ScenarioPlane(views[:2] + [sig], num_shards=4,
+                         **dict(kw, capacity=16))
+    warm(cold)
+    same(hot, cold, "backfilled Signature lane")
+
+
 # float32 patterns: ±0, NaNs of both signs and payloads, ±inf, ±1
 _SPECIAL = np.array(
     [0x0, 0x80000000, 0x7FC00000, 0xFFC00000, 0x7FC00001, 0x7F800001,

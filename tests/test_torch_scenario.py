@@ -657,9 +657,9 @@ def test_refusals():
         router.submit({c: v[0] for c, v in req.items()})
     with pytest.raises(KeyError, match="unknown scenario"):
         router.submit({c: v[0] for c, v in req.items()}, scenario="nope")
-    with pytest.raises(NotImplementedError, match="A6"):
-        svc.plane.evolve(views)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="rebuild"):
+        svc.plane.evolve(views, bucket_size=32, num_buckets=1024)
+    with pytest.raises(ValueError, match="already deployed"):
         svc.hot_deploy(views[0])
     assert svc.scenarios == names
 
