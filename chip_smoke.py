@@ -1,9 +1,11 @@
 """GPU smoke run of the PyTorch port: the sharded online request path, the
 fraud scoring path on top of it, multi-table sharded serving, the
 multi-scenario plane (mixed batches through one store), hot deploy onto a
-live plane and the offline bridge (backfill, training-set export), RWKV6
-serving (rwkv6-3b prefill and decode), dense LM serving (nemotron-4-15b prefill and decode), and the
-offline feature path with its offline<->online consistency check.
+live plane and the offline bridge (backfill, training-set export), the
+merge-order bucket families (FIRST / LAST / TOPN_FREQ over RANGE
+windows), RWKV6 serving (rwkv6-3b prefill and decode), dense LM serving
+(nemotron-4-15b prefill and decode), and the offline feature path with its
+offline<->online consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -181,7 +183,32 @@ Phases, in order; any failure exits non-zero:
    fenced ``hot_deploy`` walls with their ``migrate.*`` / ``backfill``
    spans beside the cold build + replay walls, the peak memory, the
    export's rows/s.
-12. **WKV6 kernel** against its plain versions, float32 inputs from a
+12. **Merge-order bucket families** (after phase 11 has freed its
+   planes; a day of ``multitable_stream`` from its own seed).
+   ``sharded_view()`` plus FIRST / LAST of ``amount`` and TOPN_FREQ
+   (n = 0, 1) of ``merchant`` over its 1 h window (the view is built
+   here), 2^19 accounts x 8 shards, ring 256, 64 buckets of 64 s (the
+   tail family costs 32 (9 + 4F) bytes a (key, bucket): ~146 GB at 512
+   buckets); the family bytes reckoned must equal those allocated.  (a)
+   The day in 64 slices, B1 once a slice; every state tensor, the
+   families included, == a replay of the same batches through the split
+   ``ring_ingest`` + ``bucket_ingest``, and ``seq`` == the cursor; the
+   warm ingest rate beside the same store without the four features.
+   (b) 8 batches of 4,096 through ``ShardRouter`` (preagg, ingest on):
+   == the host-routed path, the B2-plain swap (every feature) and naive
+   mode (the family features), bit for bit; B2 once a pump;
+   ``preagg_hits_total{agg=first|last|topn_freq}`` hits and no
+   fallbacks; then a single-device store fed the same stream == the
+   saved answers.  (c) ``verify_view`` of the view on 2^20 transactions
+   over a day on 2^11 accounts, preagg, device-routed: PASS with err 0
+   on the family features.  (d) ``hot_deploy`` of the view onto a warm
+   ``[sharded_view()]`` plane, from the rings (rings of 256) and with a
+   ``BackfillSource`` (rings of 4, most wrapped): exact, == a cold plane
+   replaying the day buffer by buffer.  Prints the card line's numbers
+   beside the ingest rates, request p50 / p99 (fenced pump walls), the
+   ``route.device`` span, the ``hot_deploy`` walls against the cold
+   builds, the peaks and the phase's seconds.
+13. **WKV6 kernel** against its plain versions, float32 inputs from a
    seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
    D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
@@ -199,7 +226,7 @@ Phases, in order; any failure exits non-zero:
    apart, and the chunked plain version; its bound is the larger of its
    bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
    version.
-13. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+14. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
    depth cut).  A prefill and a decode step with a spy on B7's entry
@@ -221,7 +248,7 @@ Phases, in order; any failure exits non-zero:
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
    run, within ``LM_F32_TOL``.
-14. **Flash attention kernel (B6)**: each instantiation's registers and
+15. **Flash attention kernel (B6)**: each instantiation's registers and
    spills (``ptxas -v``) and its ``HGMMA`` / ``HMMA`` count in the built
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
@@ -240,7 +267,7 @@ Phases, in order; any failure exits non-zero:
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
    short-sequence threshold), and float32 at nemotron's shape.
-15. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+16. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
    15,628,376,064 parameters drawn on the card from a seeded generator);
@@ -256,22 +283,23 @@ Phases, in order; any failure exits non-zero:
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-16. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+17. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-17. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+18. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-18. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+19. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
     own keys, phase 10's under ``launches_multiscenario``, phase 11's B1,
-    B2 and B4 under ``launches_deploy``), then the card
+    B2 and B4 under ``launches_deploy``, phase 12's B1 and B2 under
+    ``launches_families``), then the card
     line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -350,6 +378,16 @@ DEPLOY_C_CAPACITY, DEPLOY_C_GROWN = 4, 16
 EXPORT_LABELS = 1 << 16
 EXPORT_CHECK_LABELS = 4_096
 EXPORT_CHECK_CAPACITY = STORE_KW["capacity"]
+# the merge-order families phase: sharded_view() plus FIRST / LAST /
+# TOPN_FREQ over its 1 h window at the main path's 2^19 accounts x 8 shards,
+# ring 256, but 64 buckets of 64 s (the planner's default: the 1 h
+# window's 57 middle buckets, a day's slices of 21 buckets each).  The
+# tail family costs 32 (9 + 4F) bytes a (key, bucket): at STORE_KW's 512
+# buckets and F = 2 that is ~146 GB, at 64 ~18 GB.  verify_view at the
+# consistency shape of phase 9 (2^11 accounts over a day)
+FAM_STORE_KW = dict(capacity=256, num_buckets=64, bucket_size=64)
+FAM_FEATURES = ("first_amount_1h", "last_amount_1h", "top_merchant_1h",
+                "second_merchant_1h")
 WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -2383,11 +2421,12 @@ def multiscenario_path(results) -> None:
 
 def _flat_tensors(store):
     """(name, tensor) of every state buffer of a store, flat (a
-    replicated ring's one copy)."""
+    replicated ring's one copy), the merge-order families included."""
     s = store._flat_state()
     out = [("ring_ts", s.ring.ts), ("ring_vals", s.ring.vals),
            ("cursor", s.ring.cursor), ("bstats", s.bagg.stats),
            ("bbitmap", s.bagg.bitmap), ("bbucket", s.bagg.bucket)]
+    out += [(f"b{f}", t) for f, t in s.bagg.families().items()]
     for i, (p, r) in enumerate(zip(store.layout.tables, s.sec)):
         out += [(f"{p.table}[{i}].ts", r.ts), (f"{p.table}[{i}].vals", r.vals),
                 (f"{p.table}[{i}].cursor", r.cursor)]
@@ -2833,6 +2872,322 @@ def deploy_path(results) -> None:
     results["route_rank"]["launches_deploy"] = launches["keys"]
     results["fold_levels"]["launches_deploy"] = b4_total
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the merge-order bucket families
+# ---------------------------------------------------------------------------
+
+
+def _family_view():
+    """``sharded_view()`` plus FIRST / LAST / TOPN_FREQ (n = 0, 1) over its
+    1 h window: a layout with both merge-order bucket families."""
+    from repro_torch.core.expr import (
+        Col, range_window, w_first, w_last, w_topn_freq,
+    )
+    from repro_torch.core.view import FeatureView
+    from repro_torch.scenarios import sharded_view
+
+    base = sharded_view()
+    w1h = range_window(3600, bucket=64)
+    return FeatureView("families", features={
+        **base.features,
+        "first_amount_1h": w_first(Col("amount"), w1h),
+        "last_amount_1h": w_last(Col("amount"), w1h),
+        "top_merchant_1h": w_topn_freq(Col("merchant"), w1h, n=0),
+        "second_merchant_1h": w_topn_freq(Col("merchant"), w1h, n=1),
+    }, database=base.database)
+
+
+def _family_bytes(store):
+    """(reckoned, allocated) bytes of a store's merge-order families: a
+    (key, bucket) holds 18 + 8F (extreme) and 32 (9 + 4F) (tail), a key
+    4 (seq)."""
+    b = store._flat_state().bagg
+    K, NB = b.bucket.shape
+    F = b.stats.shape[2]
+    cell = ((18 + 8 * F if b.xts is not None else 0)
+            + (32 * (9 + 4 * F) if b.tts is not None else 0))
+    alloc = sum(t.untyped_storage().nbytes() for t in b.families().values())
+    return 4 * K + K * NB * cell, alloc
+
+
+def _plain_routes():
+    """The route module's kernel entry points and their plain versions."""
+    from repro_torch.core import shard as shard_mod
+    from repro_torch.kernels.route.ref import route_keys_ref, route_rank_ref
+
+    def plain_route_keys(key, valid, perm, *, num_shards):
+        return route_keys_ref(key, valid, perm, num_shards)
+
+    def plain_route_rank(shard, *, num_shards):
+        return route_rank_ref(shard, num_shards)
+
+    return (shard_mod.route_keys, shard_mod.route_rank), (plain_route_keys,
+                                                         plain_route_rank)
+
+
+def families_path(results) -> None:
+    """The merge-order bucket families at deployment size: (a) a day into
+    a sharded family store, B1 once a slice, state == the split replay;
+    (b) 8 batches through ``ShardRouter`` == host-routed == single-device
+    == naive (family features) == B2-plain; (c) ``verify_view`` err 0;
+    (d) ``hot_deploy`` of the family view from the rings and with a
+    ``BackfillSource``, each == a cold plane."""
+    from repro_torch import kernels
+    from repro_torch.core import preagg as pg
+    from repro_torch.core import shard as shard_mod
+    from repro_torch.core import storage as st
+    from repro_torch.core.consistency import verify_view
+    from repro_torch.core.online import OnlineFeatureStore
+    from repro_torch.data.synthetic import MULTITABLE_DB, multitable_stream
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.offline import BackfillSource
+    from repro_torch.scenarios import sharded_view
+    from repro_torch.serve.router import ShardRouter
+    from repro_torch.serve.service import BatchScheduler, FeatureService
+
+    phase_t0 = time.perf_counter()
+    kw = dict(secondary_num_keys={"merchants": MT_MERCHANTS}, **FAM_STORE_KW)
+    fam = _family_view()
+    rng = np.random.default_rng(SEED + 11)
+    tables = multitable_stream(rng, MT_ROWS, num_accounts=NUM_CARDS,
+                               num_merchants=MT_MERCHANTS, t_max=DAY)
+    launches = {"fused_ingest": 0, "keys": 0}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # -- (a) a day into the family store, against the split replay -----------
+    rate = {}
+    for name, view in (("without the families", sharded_view()),
+                       ("with the families", fam)):
+        svc = FeatureService.build(
+            "families", view, num_keys=NUM_CARDS, sharded=True,
+            num_shards=NUM_SHARDS, mode="preagg", device="cuda", **kw)
+        store = svc.store
+        if view is not fam:
+            secs, rows = _mt_ingest(store, (), tables, WARM_SLICES,
+                                    {"fused_ingest": 0})
+            rate[name] = rows["transactions"] / secs["transactions"]
+            del svc, store
+            torch.cuda.empty_cache()
+    reck, alloc = _family_bytes(store)
+    state_b = sum(t.untyped_storage().nbytes() for _, t in
+                  _flat_tensors(store))
+    print(f"families store: {NUM_CARDS} accounts x {NUM_SHARDS} shards, "
+          f"{FAM_STORE_KW['num_buckets']} buckets of "
+          f"{FAM_STORE_KW['bucket_size']} s, F = {store.num_lanes}: families "
+          f"reckoned {reck / 1e9:.4f} GB, allocated {alloc / 1e9:.4f} GB "
+          f"(tail {store.state.bagg.tval.untyped_storage().nbytes() / 1e9:.4f}"
+          f" GB of tval); whole state {state_b / 1e9:.3f} GB", flush=True)
+    if reck != alloc:
+        _fail(f"families: reckoned {reck} bytes, allocated {alloc}")
+    applied = []
+    apply_kernel = store._apply_ingest
+
+    def recording_apply(key, ts, lanes):
+        applied.append((key, ts, lanes))
+        apply_kernel(key, ts, lanes)
+
+    store._apply_ingest = recording_apply
+    secs, rows = _mt_ingest(store, (), tables, WARM_SLICES, launches)
+    # the bound method holds the store: drop it with the store, not later
+    del store._apply_ingest, apply_kernel, recording_apply
+    rate["with the families"] = rows["transactions"] / secs["transactions"]
+    if launches["fused_ingest"] != WARM_SLICES or len(applied) != WARM_SLICES:
+        _fail(f"families ingest: B1 {launches['fused_ingest']} launches for "
+              f"{len(applied)} batches, expected one a slice ({WARM_SLICES})")
+    print("families ingest (transactions, fenced, 64 slices of the day): "
+          + "; ".join(f"{n} {r:.0f} rows/s" for n, r in rate.items())
+          + f"; B1 {launches['fused_ingest']} launches", flush=True)
+    t0 = time.perf_counter()
+    ref = store._flat_state(store._init_state())
+    for key, ts, lanes in applied:
+        st.ring_ingest(ref.ring, key, ts, lanes)
+        pg.bucket_ingest(ref.bagg, key, ts, lanes)
+    got_t = dict(_flat_tensors(store))
+    names = [n for n, _ in _flat_tensors(store)][:6] + [
+        f"b{f}" for f in ref.bagg.families()]
+    want_t = dict(zip(
+        names, [ref.ring.ts, ref.ring.vals, ref.ring.cursor, ref.bagg.stats,
+                ref.bagg.bitmap, ref.bagg.bucket,
+                *ref.bagg.families().values()]))
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+    for n in names:
+        if not torch.equal(bits(got_t[n]), bits(want_t[n])):
+            _fail(f"families: {n} differs from the split replay")
+    if not torch.equal(got_t["bseq"], got_t["cursor"]):
+        _fail("families: seq differs from the ring cursor")
+    print(f"families state ({len(applied)} batches) == the split replay "
+          f"(ring_ingest + bucket_ingest): {len(names)} tensors bit for bit "
+          f"({', '.join(names[6:])}); seq == cursor; replay "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del ref, applied, got_t, want_t
+    torch.cuda.empty_cache()
+
+    # -- (b) request batches through ShardRouter ------------------------------
+    kernel_fns, plain_fns = _plain_routes()
+    router = ShardRouter(svc, BatchScheduler(buckets=(REQ_ROWS,),
+                                             max_batch=REQ_ROWS))
+    tels = {"host": Telemetry(), "device": Telemetry()}
+    saved, walls = [], []
+    for b in range(REQ_BATCHES):
+        rows = _mt_requests(rng, DAY + 60 * b, NUM_CARDS)
+        b2_before = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+        store.device_routing = False
+        try:
+            with use_telemetry(tels["host"]):
+                host = _np_answers(store.query(dict(rows), mode="preagg"))
+        finally:
+            store.device_routing = True
+        shard_mod.route_keys, shard_mod.route_rank = plain_fns
+        try:
+            with use_telemetry(Telemetry()):
+                plain = _np_answers(store.query(dict(rows), mode="preagg"))
+        finally:
+            shard_mod.route_keys, shard_mod.route_rank = kernel_fns
+        if kernels.VARIANT_LAUNCHES["route_rank"] != b2_before:
+            _fail("families: the host-routed and plain answers launched B2")
+        with use_telemetry(Telemetry()):
+            naive = _np_answers(store.query(dict(rows), mode="naive"))
+        for i in range(REQ_ROWS):
+            router.submit({c: v[i] for c, v in rows.items()})
+        b2_before = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+        b1 = kernels.LAUNCHES["fused_ingest"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_telemetry(tels["device"]):
+            got = router.pump(flush=True)
+        walls.append(time.perf_counter() - t0)
+        n_b1 = kernels.LAUNCHES["fused_ingest"] - b1
+        launches["fused_ingest"] += n_b1
+        after = kernels.VARIANT_LAUNCHES["route_rank"]
+        n_b2 = {v: after[v] - b2_before[v] for v in after}
+        launches["keys"] += n_b2["keys"]
+        if n_b2["keys"] != 1 or sum(n_b2.values()) != 1 or n_b1 != 1:
+            _fail(f"families batch {b}: B2 {n_b2}, B1 {n_b1} in one pump")
+        checks = (("host-routed", host, None), ("B2-plain", plain, None),
+                  ("naive", naive, FAM_FEATURES))
+        for name, want, feats in checks:
+            pick = {f: want[f] for f in (feats or want)}
+            bad = _same_bits(pick, {f: got[f] for f in pick})
+            if bad is not None:
+                _fail(f"families batch {b} feature {bad}: device-routed "
+                      f"answers differ from the {name} answers")
+        for f, v in got.items():
+            if v.shape != (REQ_ROWS,) or not np.all(np.isfinite(v)):
+                _fail(f"families batch {b} {f}: shape {v.shape} or "
+                      "non-finite")
+        saved.append((rows, got))
+    counter = tels["device"].metrics.counter
+    hits = {a: counter("preagg_hits_total", unit="1",
+                       labels=("agg",)).value(agg=a)
+            for a in ("first", "last", "topn_freq")}
+    falls = {a: counter("preagg_fallback_total", unit="1",
+                        labels=("agg",)).value(agg=a)
+             for a in ("first", "last", "topn_freq")}
+    if min(hits.values()) < REQ_BATCHES or any(falls.values()):
+        _fail(f"families: preagg hits {hits}, fallbacks {falls}")
+    second = np.concatenate([g["second_merchant_1h"] for _, g in saved])
+    lat = 1e3 * np.repeat(walls, REQ_ROWS)
+    spans = tels["device"].metrics.histogram(
+        "span_seconds", unit="s", labels=("name", "kind"))
+    print(f"families: {REQ_BATCHES} batches x {REQ_ROWS} through ShardRouter"
+          ": device-routed == host-routed == B2-plain (every feature) == "
+          f"naive ({len(FAM_FEATURES)} family features), bit for bit; B2 "
+          f"{launches['keys']} launches (one a pump); preagg hits {hits}, "
+          f"fallbacks {falls}; second most frequent merchant nonzero in "
+          f"{int((second != 0).sum())} of {second.size}", flush=True)
+    print(f"families request latency ({lat.size} requests, fenced pump "
+          f"walls, query + ingest): p50 {np.percentile(lat, 50):.3f} ms, "
+          f"p99 {np.percentile(lat, 99):.3f} ms; route.device span mean "
+          f"{1e3 * spans.mean(name='route.device', kind='device'):.3f} ms "
+          f"over {int(spans.count(name='route.device', kind='device'))}; "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del svc, store, router
+    torch.cuda.empty_cache()
+
+    # the single-device store, built after the sharded one's answers are
+    # saved: the day, then each batch queried and ingested in turn
+    single = OnlineFeatureStore(fam, num_keys=NUM_CARDS, device="cuda", **kw)
+    _mt_ingest(single, (), tables, WARM_SLICES, {"fused_ingest": 0})
+    for b, (rows, got) in enumerate(saved):
+        with use_telemetry(Telemetry()):
+            one = _np_answers(single.query(dict(rows), mode="preagg"))
+        bad = _same_bits(one, got)
+        if bad is not None:
+            _fail(f"families batch {b} feature {bad}: device-routed answers "
+                  "differ from the single-device store's")
+        single.ingest(_by_key(rows, "account"))
+    print(f"families: the single-device store == the saved device-routed "
+          f"answers, {REQ_BATCHES} batches bit for bit; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del single, saved
+    torch.cuda.empty_cache()
+
+    # -- (c) verify_view --------------------------------------------------
+    vt = multitable_stream(rng, VERIFY_ROWS, num_accounts=MT_VERIFY_ACCOUNTS,
+                           num_merchants=MT_VERIFY_MERCHANTS, t_max=DAY)
+    vtx = vt.pop("transactions")
+    t0 = time.perf_counter()
+    rep = verify_view(
+        fam, vtx, num_keys=MT_VERIFY_ACCOUNTS, secondary=vt,
+        secondary_num_keys={"merchants": MT_VERIFY_MERCHANTS},
+        num_shards=NUM_SHARDS, mode="preagg", device_routing=True,
+        device="cuda", **FAM_STORE_KW)
+    errs = {f: rep.per_feature[f] for f in FAM_FEATURES}
+    print(f"families {rep.summary()} in {time.perf_counter() - t0:.1f} s: "
+          f"family features {errs}", flush=True)
+    if not rep.passed or any(e != 0.0 for e in errs.values()):
+        _fail(f"families verify_view: passed {rep.passed}, errors {errs}")
+    del vt, vtx
+
+    # -- (d) hot deploy onto a warm plane that lacks the families ----------
+    for tag, cap, backfill in (
+            ("deploy from the rings", FAM_STORE_KW["capacity"], None),
+            ("deploy with a BackfillSource", DEPLOY_C_CAPACITY,
+             BackfillSource(MULTITABLE_DB, tables))):
+        kw_d = dict(kw, capacity=cap)
+        torch.cuda.reset_peak_memory_stats()
+        hot = FeatureService.build_multi(
+            "fam_hot", [sharded_view()], num_keys=NUM_CARDS, sharded=True,
+            num_shards=NUM_SHARDS, mode="preagg", device="cuda", **kw_d)
+        _mt_ingest(hot.store, (), tables, WARM_SLICES, launches)
+        b1 = kernels.LAUNCHES["fused_ingest"]
+        report, hot_s, _ = _deploy(hot.hot_deploy, f"families {tag}", fam,
+                                   backfill=backfill)
+        launches["fused_ingest"] += kernels.LAUNCHES["fused_ingest"] - b1
+        if not report.exact or (backfill is not None) != bool(
+                report.backfilled):
+            _fail(f"families {tag}: {report.describe()}")
+        cold, cold_s = _cold([sharded_view(), fam], NUM_CARDS, tables, (),
+                             kw_d, f"families {tag}")
+        outside, n_pairs = ((frozenset(), 0) if backfill is None else
+                            _outside_contract(hot.store,
+                                              tables["transactions"],
+                                              WARM_SLICES))
+        cells = _hot_equals_cold(hot.store, cold.store, f"families {tag}",
+                                 outside)
+        print(f"families {tag} (rings of {cap}, "
+              f"{int((hot.store.state.ring.cursor > cap).sum())} wrapped): "
+              f"exact; migrated {report.migrated}; backfilled "
+              f"{len(report.backfilled)}; hot == cold, "
+              f"{len(_flat_tensors(hot.store))} buffers bit for bit but "
+              f"{cells} bucket cells (of the {n_pairs} pairs outside the "
+              f"contract); hot_deploy {1e3 * hot_s:.3f} ms against the cold "
+              f"build + replay {1e3 * cold_s:.3f} ms; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+        del hot, cold
+        torch.cuda.empty_cache()
+    print(f"families phase: {time.perf_counter() - phase_t0:.1f} s; B1 "
+          f"{launches['fused_ingest']}, B2 {launches['keys']} launches",
+          flush=True)
+    results["fused_ingest"]["launches_families"] = launches["fused_ingest"]
+    results["route_rank"]["launches_families"] = launches["keys"]
 
 
 def _wkv6_cost(shape, with_s0):
@@ -3895,6 +4250,7 @@ def main() -> None:
     multitable_path(results)
     multiscenario_path(results)
     deploy_path(results)
+    families_path(results)
     check_wkv6_kernel(results)
     rwkv6_path(results)
     check_flash_attention_kernel(results)

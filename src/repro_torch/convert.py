@@ -1,7 +1,8 @@
 """Carry state and weights between this package and the JAX reference.
 
 * Online-store state: the six primary arrays of an online store — ring
-  ts / vals / cursor and bucket stats / bitmap / ids — and the secondary
+  ts / vals / cursor and bucket stats / bitmap / ids — the merge-order
+  bucket families where the layout persists them, and the secondary
   rings (ts / vals / cursor of each ring of ``layout.tables``) as numpy,
   either single-device ``(K, ...)`` or sharded ``(S, K_local, ...)``.  The
   tests seed both packages' stores from the same warm state with these,
@@ -26,6 +27,7 @@ from repro_torch.core.online import OnlineState
 
 __all__ = [
     "STATE_ARRAYS",
+    "FAMILY_ARRAYS",
     "SEC_ARRAYS",
     "online_state_from_numpy",
     "online_state_to_numpy",
@@ -43,6 +45,26 @@ STATE_ARRAYS = (
     ("bbitmap", np.int32),
     ("bbucket", np.int32),
 )
+
+
+# the merge-order bucket families (``BucketAgg`` fields), named
+# ``b<field>``: ``bseq`` with either family, ``bx*`` with the extreme one
+# (FIRST / LAST), ``bt*`` with the tail (TOPN_FREQ)
+FAMILY_ARRAYS = (
+    ("bseq", np.int32),
+    ("bxts", np.int32), ("bxpos", np.int32), ("bxval", np.float32),
+    ("bxhas", np.bool_),
+    ("btts", np.int32), ("btpos", np.int32), ("btval", np.float32),
+    ("btvalid", np.bool_),
+)
+
+
+def _family_arrays(extreme: bool, tail: bool):
+    """The :data:`FAMILY_ARRAYS` a bucket plan with these families has."""
+    return [(n, d) for n, d in FAMILY_ARRAYS
+            if (n == "bseq" and (extreme or tail))
+            or (n.startswith("bx") and extreme)
+            or (n.startswith("bt") and tail)]
 
 
 # fields and dtypes of each secondary ring, named ``sec{i}_<field>``
@@ -66,21 +88,28 @@ def online_state_from_numpy(
     aggregated with.
 
     With ``layout`` (the store's :class:`~repro_torch.core.layout.
-    StoreLayout`), ``arrays`` also holds every secondary ring of
-    ``layout.tables`` — ``sec{i}_ts``, ``sec{i}_vals``, ``sec{i}_cursor``
-    (:data:`SEC_ARRAYS`; a sequence gives them after the six, ring by
-    ring).  On a sharded layout a replicated ring arrives as the
-    reference's S replicas ``(S, K_t, ...)``: they must be equal (else
-    ``ValueError``), and one copy is kept, seen as S replicas through a
-    view with stride 0, as the port's sharded store holds it."""
+    StoreLayout`), ``arrays`` also holds the merge-order families its
+    bucket plan persists (:data:`FAMILY_ARRAYS`; a sequence gives them
+    after the six) and every secondary ring of ``layout.tables`` —
+    ``sec{i}_ts``, ``sec{i}_vals``, ``sec{i}_cursor`` (:data:`SEC_ARRAYS`;
+    a sequence gives them last, ring by ring).  On a sharded layout a
+    replicated ring arrives as the reference's S replicas ``(S, K_t,
+    ...)``: they must be equal (else ``ValueError``), and one copy is
+    kept, seen as S replicas through a view with stride 0, as the port's
+    sharded store holds it."""
     n_sec = len(layout.tables) if layout is not None else 0
-    names = [name for name, _ in STATE_ARRAYS] + _sec_names(n_sec)
-    dtypes = [d for _, d in STATE_ARRAYS] + [d for _, d in SEC_ARRAYS] * n_sec
+    fams = (_family_arrays(layout.bucket.extreme, layout.bucket.tail)
+            if layout is not None else [])
+    names = ([name for name, _ in STATE_ARRAYS] + [n for n, _ in fams]
+             + _sec_names(n_sec))
+    dtypes = ([d for _, d in STATE_ARRAYS] + [d for _, d in fams]
+              + [d for _, d in SEC_ARRAYS] * n_sec)
     if isinstance(arrays, Mapping):
         extra = sorted(set(arrays) - set(names))
         if extra:
-            raise ValueError(f"unexpected arrays {extra} (secondary rings "
-                             "need the store's layout=)")
+            raise ValueError(f"unexpected arrays {extra} (merge-order "
+                             "families and secondary rings need the "
+                             "store's layout=)")
         arrays = [arrays[name] for name in names]
     if len(arrays) != len(names):
         raise ValueError(f"need {len(names)} arrays, got {len(arrays)}")
@@ -97,10 +126,12 @@ def online_state_from_numpy(
 
     ring_ts, ring_vals, cursor, bstats, bbitmap, bbucket = (
         put(a) for a in host[:6])
+    family = {n[1:]: put(a) for (n, _), a in zip(fams, host[6:])}
     sec = []
     sharded = layout is not None and layout.num_shards is not None
+    first = 6 + len(fams)
     for i, p in enumerate(layout.tables if layout is not None else ()):
-        parts = host[6 + 3 * i: 9 + 3 * i]
+        parts = host[first + 3 * i: first + 3 * i + 3]
         if sharded and not p.partitioned:
             S = int(layout.num_shards)
             for (f, _), a in zip(SEC_ARRAYS, parts):
@@ -122,21 +153,25 @@ def online_state_from_numpy(
     return OnlineState(
         ring=st.RingStore(ts=ring_ts, vals=ring_vals, cursor=cursor),
         bagg=pg.BucketAgg(
-            stats=bstats, bitmap=bbitmap, bucket=bbucket, size=bucket_size
+            stats=bstats, bitmap=bbitmap, bucket=bbucket, size=bucket_size,
+            **family,
         ),
         sec=tuple(sec),
     )
 
 
 def online_state_to_numpy(state: OnlineState) -> Dict[str, np.ndarray]:
-    """The six primary arrays and the secondary rings of ``state``
-    (``sec{i}_ts`` / ``sec{i}_vals`` / ``sec{i}_cursor``, in ``state.sec``
-    order) as host numpy copies; a replicated ring of a sharded store comes
-    back as its S replicas, the reference's shape."""
-    tensors = list(state.arrays())
+    """The six primary arrays, the merge-order families present
+    (``bseq``, ``bxts``, ... of :data:`FAMILY_ARRAYS`) and the secondary
+    rings of ``state`` (``sec{i}_ts`` / ``sec{i}_vals`` / ``sec{i}_cursor``,
+    in ``state.sec`` order) as host numpy copies; a replicated ring of a
+    sharded store comes back as its S replicas, the reference's shape."""
+    fam = state.bagg.families()
+    tensors = list(state.arrays()) + list(fam.values())
     for ring in state.sec:
         tensors += [ring.ts, ring.vals, ring.cursor]
-    names = [name for name, _ in STATE_ARRAYS] + _sec_names(len(state.sec))
+    names = ([name for name, _ in STATE_ARRAYS] + [f"b{f}" for f in fam]
+             + _sec_names(len(state.sec)))
     return {
         name: np.array(t.detach().cpu().numpy(), copy=True)
         for name, t in zip(names, tensors)

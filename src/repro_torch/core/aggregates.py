@@ -245,7 +245,9 @@ def topn_rank(
     vmax = vmax.repeat_interleave(vals.shape[0] // groups)[:, None]
     composite = score * (2.0 * vmax + 1.0) - vals
     order = torch.argsort(-composite, dim=-1, stable=True)
-    pick = order[..., nth]
+    # an ``nth`` past the tail's width reads its last entry, as the
+    # reference's clamped gather does
+    pick = order[..., min(nth, tail - 1)]
     picked_score = torch.gather(score, -1, pick[..., None])[..., 0]
     val = torch.gather(vals, -1, pick[..., None])[..., 0]
     return torch.where(picked_score >= 0.0, val, 0.0)
@@ -417,12 +419,18 @@ class AggSpec:
             "valid": mask[:, sl].flip(1),
         }
 
-    def fold_buckets(self, stats, bitmap, ok) -> Dict[str, torch.Tensor]:
-        """Fold pre-aggregated bucket states (lanes / bitmap specs): the
-        bucket store persists full stat vectors and bitmaps, i.e. lifted
-        and combined states of this algebra.  The merge-order families
-        (extreme / tail) are not persisted by this package's bucket store
-        yet (see :mod:`repro_torch.core.preagg`)."""
+    def fold_buckets(self, stats, bitmap, ok, ext=None,
+                     rank=None) -> Dict[str, torch.Tensor]:
+        """Fold pre-aggregated bucket states (Q, M): the bucket store
+        persists full stat vectors and bitmaps, i.e. lifted and combined
+        states of this algebra.  Extreme / tail specs read the persisted
+        merge-order states from ``ext`` instead: for extreme ``{ts, pos,
+        val, has}`` each (Q, M, 2), the trailing axis the direction (0 =
+        oldest, 1 = newest); for tail ``{ts, pos, val, valid}`` each
+        (Q, M, T) newest-first per bucket; ``rank`` (an int) is the stream
+        rank stamped on the result.  Buckets cover disjoint ts ranges, so
+        the stored per-key arrival ``pos`` only breaks ties within one
+        bucket, where it is exact."""
         if self.state == "lanes":
             return {
                 l: lane_masked_reduce(l, stats[..., LANES.index(l)], ok, 1)
@@ -430,10 +438,47 @@ class AggSpec:
             }
         if self.state == "bitmap":
             return {"bits": _or_reduce(torch.where(ok, bitmap, 0), 1)}
-        raise NotImplementedError(
-            f"{self.agg.value}: bucket states of the {self.state!r} family "
-            "are not persisted by this package yet"
-        )
+        if ext is None:
+            raise ValueError(
+                f"{self.agg} bucket states need the store's extreme/tail "
+                "arrays (layout planned without them)"
+            )
+        if self.state == "extreme":
+            d = 1 if self.newest else 0
+            ts, pos = ext["ts"][..., d], ext["pos"][..., d]
+            val = ext["val"][..., d]
+            has = ext["has"][..., d] & ok
+            if self.newest:
+                best_ts = torch.where(has, ts, _TS_MIN).amax(dim=1)
+                cand = has & (ts == best_ts[:, None])
+                best_pos = torch.where(cand, pos, _TS_MIN).amax(dim=1)
+            else:
+                best_ts = torch.where(has, ts, _TS_MAX).amin(dim=1)
+                cand = has & (ts == best_ts[:, None])
+                best_pos = torch.where(cand, pos, _TS_MAX).amin(dim=1)
+            # the first true index, as jnp.argmax of a mask picks
+            pick = torch.argmax(
+                (cand & (pos == best_pos[:, None])).to(torch.int32), dim=1)
+            return {
+                "ts": best_ts,
+                "rank": torch.full_like(best_ts, int(rank)),
+                "pos": best_pos,
+                "val": torch.gather(val, 1, pick[:, None])[:, 0],
+                "has": has.any(dim=1),
+            }
+        # tail: every gathered bucket's tail entries, newest TOPN_TAIL kept
+        Q = ok.shape[0]
+        valid = (ext["valid"] & ok[..., None]).reshape(Q, -1)
+        merged = _sort_tail_desc({
+            "ts": ext["ts"].reshape(Q, -1),
+            "rank": torch.full_like(valid, int(rank), dtype=torch.int32),
+            "pos": ext["pos"].reshape(Q, -1),
+            "val": ext["val"].reshape(Q, -1),
+            "valid": valid,
+        })
+        if merged["ts"].shape[-1] > TOPN_TAIL:
+            merged = {k: v[..., :TOPN_TAIL] for k, v in merged.items()}
+        return merged
 
     # -- finalize -----------------------------------------------------------
 

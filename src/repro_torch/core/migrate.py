@@ -45,9 +45,13 @@ ring's ``(S, K_local, ...)`` folded into ``S * K_local`` rows, shard-major;
 the one copy of a replicated ring).  The store shapes it for its new
 layout when it places it (:meth:`~repro_torch.core.online.
 OnlineFeatureStore._place_state`); a replicated ring never becomes S
-copies.  The merge-order bucket families (FIRST / LAST / TOPN_FREQ over
-RANGE windows) are not ported: a diff that needs them raises
-``NotImplementedError`` before anything is computed.
+copies.
+
+The merge-order bucket families (FIRST / LAST / TOPN_FREQ over RANGE
+windows) carry with the bucket store, remapped with it on a
+``num_buckets`` change; a plan that gains them, or a lane they hold,
+re-derives them from the ring's retained rows
+(:func:`_rebuild_bucket_order`).  ``seq`` is the ring cursor.
 """
 
 from __future__ import annotations
@@ -544,10 +548,11 @@ def _rebuild_bucket_lane(
     bitmap_out.copy_(bm.view(K, NB))
 
 
-def _remap_buckets(bagg: pg.BucketAgg, NB_n: int):
+def _remap_buckets(bagg: pg.BucketAgg, NB_n: int) -> pg.BucketAgg:
     """Move each bucket state to slot ``id % NB_n`` of a ring of ``NB_n``
     slots; where ids collide the larger (newer) id wins, as the ring keeps
-    the newest bucket of a slot.  Returns (stats, bitmap, bucket)."""
+    the newest bucket of a slot.  The merge-order families move with their
+    cells (a slot no id lands in is empty); ``seq`` stays."""
     stats, bitmap, bucket = bagg.stats, bagg.bitmap, bagg.bucket
     K, NB_o = bucket.shape
     dev = bucket.device
@@ -565,8 +570,57 @@ def _remap_buckets(bagg: pg.BucketAgg, NB_n: int):
     stats_n[rows, tgt] = stats
     bitmap_n = torch.zeros((K, NB_n + 1, F), dtype=torch.int32, device=dev)
     bitmap_n[rows, tgt] = bitmap
-    return (stats_n[:, :NB_n].contiguous(), bitmap_n[:, :NB_n].contiguous(),
-            bucket_n[:, :NB_n].contiguous())
+
+    def move(field: str, t: torch.Tensor) -> torch.Tensor:
+        if field == "seq":
+            return t
+        out = torch.full((K, NB_n + 1) + tuple(t.shape[2:]),
+                         pg.FAMILY_EMPTY[field], dtype=t.dtype, device=dev)
+        out[rows, tgt] = t
+        return out[:, :NB_n].contiguous()
+
+    return pg.BucketAgg(
+        stats=stats_n[:, :NB_n].contiguous(),
+        bitmap=bitmap_n[:, :NB_n].contiguous(),
+        bucket=bucket_n[:, :NB_n].contiguous(), size=bagg.size,
+        **{f: move(f, t) for f, t in bagg.families().items()},
+    )
+
+
+def _rebuild_bucket_order(
+    ring: st.RingStore,         # the new primary ring, flat (K, C, ...)
+    bucket_ids: torch.Tensor,   # (K, NB)
+    bsize: int, extreme: bool, tail: bool,
+) -> dict:
+    """Merge-order families re-derived from the ring's retained rows.
+
+    The absolute arrival index of ring slot ``j`` is
+    ``cur-1-((cur-1-j) % C)`` (the newest arrival mapped to that slot),
+    so the rebuilt ``(ts, pos)`` coordinates equal having persisted the
+    families all along, for every row the ring retains.  A written row
+    belongs to the cell ``(key, (ts // bsize) % NB)`` when that slot holds
+    its bucket id.  The reference masks a (S, K, NB, C) array on the host;
+    here the matching rows are picked from the (K, C) ring and ranked in
+    their cells by one sort on the device
+    (:func:`~repro_torch.core.preagg.families_from_rows`)."""
+    K, C = ring.ts.shape
+    NB = bucket_ids.shape[1]
+    dev = ring.ts.device
+    cur = ring.cursor.to(torch.int64)[:, None]
+    j = torch.arange(C, dtype=torch.int64, device=dev)[None, :]
+    rowb = torch.div(ring.ts.to(torch.int64), bsize, rounding_mode="floor")
+    cell = (torch.arange(K, dtype=torch.int64, device=dev)[:, None] * NB
+            + torch.remainder(rowb, NB))
+    stored = bucket_ids.reshape(-1)[cell].to(torch.int64)
+    match = (j < cur) & (stored == rowb) & (stored >= 0)
+    hit = torch.nonzero(match.reshape(-1))[:, 0]
+    del rowb, stored, match
+    pos = (cur - 1 - torch.remainder(cur - 1 - j, C)).reshape(-1)[hit]
+    return pg.families_from_rows(
+        cell.reshape(-1)[hit], ring.ts.reshape(-1)[hit], pos,
+        ring.vals.reshape(K * C, -1)[hit], K, NB,
+        extreme=extreme, tail=tail,
+    )
 
 
 def _migrate_bucket(
@@ -594,7 +648,8 @@ def _migrate_bucket(
                     "different buckets"
                 ),
             ))
-        stats, bitmap, bucket = _remap_buckets(bagg, NB_n)
+        bagg = _remap_buckets(bagg, NB_n)
+        stats, bitmap, bucket = bagg.stats, bagg.bitmap, bagg.bucket
 
     # lane remap / rebuild
     K = bucket.shape[0]
@@ -648,11 +703,46 @@ def _migrate_bucket(
                         "had aged out)"
                     ),
                 ))
+    # merge-order families: carried (lane-gathered) when the source has
+    # every family and lane the new plan needs, else re-derived from the
+    # new ring
+    want_ext, want_tail = diff.new.bucket.extreme, diff.new.bucket.tail
+    fam = {}
+    if want_ext or want_tail:
+        # the per-key arrival counter is the ring cursor (both count every
+        # arrival); its own tensor, since ingest advances both
+        fam["seq"] = cur.clone()
+        fam_src = ((not want_ext or bagg.xts is not None)
+                   and (not want_tail or bagg.tts is not None))
+        lanes_ok = bool(dst_p.lanes) and all(
+            s.key in src_p.lane_keys for s in dst_p.lanes)
+        if fam_src and lanes_ok:
+            li = [src_p.lane_of(s.key) for s in dst_p.lanes]
+            same = li == list(range(F_o))
+            names = ((("xts", "xpos", "xval", "xhas") if want_ext else ())
+                     + (("tts", "tpos", "tval", "tvalid") if want_tail
+                        else ()))
+            for f in names:
+                t = getattr(bagg, f)
+                lane_axis = f in ("xval", "tval")
+                fam[f] = t[:, :, li] if lane_axis and not same else t
+        else:
+            fam.update(_rebuild_bucket_order(
+                new_ring, bucket, bsize, want_ext, want_tail))
+            if ring_lost:
+                report.add_deficit(Deficit(
+                    target="bucket", table=dst_p.table, lanes=None,
+                    reason=(
+                        "primary: merge-order bucket states (extreme/tail)"
+                        " rebuilt from ring-retained rows only (older rows"
+                        " had aged out)"
+                    ),
+                ))
     report.migrated.append(
         f"bucket[{NB_o}->{NB_n} x {bsize}, lanes {F_o}->{F_n}]"
     )
     return pg.BucketAgg(stats=stats_out, bitmap=bitmap_out, bucket=bucket,
-                        size=bsize)
+                        size=bsize, **fam)
 
 
 # ---------------------------------------------------------------------------
@@ -707,12 +797,6 @@ def migrate_state(
     recorded in ``report.deficits``) when the source covers their table.
     The splice happens in the caller, against the full report.
     """
-    if diff.new.bucket.extreme or diff.new.bucket.tail:
-        raise NotImplementedError(
-            "the new layout persists the merge-order bucket families "
-            "(FIRST / LAST / TOPN_FREQ over RANGE windows), whose migration "
-            "and backfill are ROADMAP A5, not ported yet"
-        )
     sharded = diff.new.num_shards is not None
     S = diff.new.num_shards or 1
     old = store._flat_state(old_state)

@@ -23,7 +23,10 @@ with two ways to fold a primary RANGE window:
 
 Ingest applies a (key, ts)-sorted batch to the ring and the bucket store in
 one call of the fused ingest kernel (:mod:`repro_torch.kernels.ingest`),
-updating the device state in place.
+updating the device state in place.  A layout with FIRST / LAST /
+TOPN_FREQ over a RANGE window also persists the merge-order bucket
+families (:mod:`repro_torch.core.preagg`); their update runs just before
+the kernel, which keeps the six core arrays.
 
 Multi-table views keep one ring store per secondary ring of the layout
 (``OnlineState.sec``): point-in-time LAST JOIN lookups (the newest row of
@@ -44,11 +47,10 @@ that view's columns.
 migrate`) instead of being rebuilt, and query programs compiled before
 keep answering.
 
-The port of the reference package's ``repro.core.online`` without the
-merge-order bucket families (FIRST / LAST / TOPN_FREQ over RANGE windows,
-which raise ``NotImplementedError`` at construction).  Programs run eagerly: there is no per-shape compile, so
-no ``query_compile_seconds``.  State lives on ``device`` (default
-``"cuda"``; ``"cpu"`` runs the plain PyTorch versions of the kernels).
+The port of the reference package's ``repro.core.online``.  Programs run
+eagerly: there is no per-shape compile, so no ``query_compile_seconds``.
+State lives on ``device`` (default ``"cuda"``; ``"cpu"`` runs the plain
+PyTorch versions of the kernels).
 """
 
 from __future__ import annotations
@@ -155,16 +157,6 @@ class OnlineFeatureStore:
         self._wagg_order: List[Tuple] = list(self.waggs.keys())
         self.ljoins = collect_last_joins(exprs)
         self._ljoin_order: List[Tuple] = list(self.ljoins.keys())
-        if layout.bucket.extreme or layout.bucket.tail:
-            names = sorted({
-                wa.agg.value for wa in self.waggs.values()
-                if wa.window.mode == "range"
-                and agg_spec(wa.agg).state in ("extreme", "tail")
-            })
-            raise NotImplementedError(
-                f"view {view.name!r}: {names} over RANGE windows need the "
-                "merge-order bucket families, which are not ported yet"
-            )
 
         self._lane_exprs: List[Expr] = [s.expr for s in layout.primary.lanes]
         self._lane_of: Dict[Tuple, int] = {
@@ -454,10 +446,13 @@ class OnlineFeatureStore:
         self._apply_ingest(key, ts, lanes)
 
     def _apply_ingest(self, key, ts, lanes) -> None:
-        """One fused-ingest call on the flat state (updated in place)."""
+        """One fused-ingest call on the flat state (updated in place).  The
+        merge-order families go first: their stale-slot reset reads the
+        bucket ids from before the batch, which the kernel overwrites."""
+        flat = self._flat_state()
+        pg.bucket_families_ingest(flat.bagg, key, ts, lanes)
         fused_ingest(
-            *self._flat_state().arrays(), key, ts, lanes,
-            bucket_size=self.bucket_size,
+            *flat.arrays(), key, ts, lanes, bucket_size=self.bucket_size,
         )
 
     # -- secondary-table ingest ----------------------------------------------
@@ -626,11 +621,32 @@ class OnlineFeatureStore:
         )
         return -(-m // 4) * 4
 
+    def _uses_buckets(self, wk, bagg: pg.BucketAgg) -> bool:
+        """Whether the pre-agg path folds wagg ``wk``'s primary window from
+        bucket states: a RANGE window of a bucket-composable spec whose
+        state family ``bagg`` persists (extreme / tail need their
+        merge-order arrays), and for a union wagg only where its window
+        fits the bucket ring."""
+        wa = self.waggs[wk]
+        spec = agg_spec(wa.agg)
+        family_ok = (
+            spec.state in ("lanes", "bitmap")
+            or (spec.state == "extreme" and bagg.xts is not None)
+            or (spec.state == "tail" and bagg.tts is not None)
+        )
+        return (
+            spec.bucket_composable
+            and family_ok
+            and wa.window.mode == "range"
+            and (not wa.union or self._union_preagg.get(wk, False))
+        )
+
     def _preagg_parts(self, wa, state, key, ts_q, ts_buf, valid, lane):
         """Raw boundary-row mask + gathered middle-bucket states for a RANGE
         window: [raw head rows in the oldest partial bucket] + [full
         buckets strictly inside] + [raw tail rows in the request's
-        bucket]."""
+        bucket].  An extreme / tail spec also gets its merge-order family
+        states gathered (``ext``, else ``None``)."""
         B = self.bucket_size
         nb = self.num_buckets
         bucket_buf = torch.div(ts_buf, B, rounding_mode="floor")
@@ -656,9 +672,20 @@ class OnlineFeatureStore:
         kk = key[:, None]
         stored = state.bagg.bucket[kk, slots]
         ok = mvalid & (stored == mids)
-        ms = state.bagg.stats[kk, slots, lane]   # (Q, M, NUM_STATS)
-        mb = state.bagg.bitmap[kk, slots, lane]  # (Q, M)
-        return raw, ms, mb, ok
+        bagg = state.bagg
+        ms = bagg.stats[kk, slots, lane]   # (Q, M, NUM_STATS)
+        mb = bagg.bitmap[kk, slots, lane]  # (Q, M)
+        ext = None
+        fam = agg_spec(wa.agg).state
+        if fam == "extreme":
+            ext = {"ts": bagg.xts[kk, slots], "pos": bagg.xpos[kk, slots],
+                   "val": bagg.xval[kk, slots, lane],      # (Q, M, 2)
+                   "has": bagg.xhas[kk, slots]}
+        elif fam == "tail":
+            ext = {"ts": bagg.tts[kk, slots], "pos": bagg.tpos[kk, slots],
+                   "val": bagg.tval[kk, slots, lane],      # (Q, M, T)
+                   "valid": bagg.tvalid[kk, slots]}
+        return raw, ms, mb, ok, ext
 
     def _query_pure(self, state: OnlineState, key, ts_q, req_lanes,
                     join_keys, gkey, use_preagg: bool, wagg_order=None,
@@ -701,21 +728,15 @@ class OnlineFeatureStore:
             # than any stored row of the same (ts, stream)
             prim_rank = len(wa.union)
             acc = spec.lift(r, ts_q, prim_rank, _POS_MAX)
-            use_buckets = (
-                use_preagg
-                and spec.bucket_composable
-                and spec.state in ("lanes", "bitmap")
-                and wa.window.mode == "range"
-                and (not wa.union or self._union_preagg.get(wk, False))
-            )
-            if use_buckets:
-                raw, ms, mb, ok = self._preagg_parts(
+            if use_preagg and self._uses_buckets(wk, state.bagg):
+                raw, ms, mb, ok, ext = self._preagg_parts(
                     wa, state, key, ts_q, ts_buf, valid, lane
                 )
                 acc = spec.combine(
                     acc, spec.fold_rows(g, ts_buf, raw, prim_rank)
                 )
-                acc = spec.combine(acc, spec.fold_buckets(ms, mb, ok))
+                acc = spec.combine(acc, spec.fold_buckets(
+                    ms, mb, ok, ext=ext, rank=prim_rank))
             else:
                 m = self._window_mask(wa, ts_buf, valid, ts_q)
                 acc = spec.combine(
@@ -902,16 +923,8 @@ class OnlineFeatureStore:
         )
         order = self._wagg_order if program is None else program.wagg_order
         for wk in order:
-            wa = self.waggs[wk]
-            spec = agg_spec(wa.agg)
-            hit = (
-                mode != "naive"
-                and spec.bucket_composable
-                and spec.state in ("lanes", "bitmap")
-                and wa.window.mode == "range"
-                and (not wa.union or self._union_preagg.get(wk, False))
-            )
-            (hits if hit else falls).inc(agg=wa.agg.value)
+            hit = mode != "naive" and self._uses_buckets(wk, self.state.bagg)
+            (hits if hit else falls).inc(agg=self.waggs[wk].agg.value)
 
     # -- accounting ---------------------------------------------------------------
 

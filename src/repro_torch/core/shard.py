@@ -81,7 +81,6 @@ import torch
 from repro_torch.core.hashing import KeyPermutation
 from repro_torch.core.layout import StoreLayout, plan_layout
 from repro_torch.core.online import OnlineFeatureStore, OnlineState
-from repro_torch.core import preagg as pg
 from repro_torch.core import storage as st
 from repro_torch.kernels.route.ops import route_keys, route_rank
 from repro_torch.obs import get_telemetry
@@ -232,11 +231,7 @@ class ShardedOnlineStore(OnlineFeatureStore):
         S = self.num_shards
         return OnlineState(
             ring=self._shape_ring(flat.ring, True),
-            bagg=pg.BucketAgg(
-                *(_split(t, S) for t in (
-                    flat.bagg.stats, flat.bagg.bitmap, flat.bagg.bucket)),
-                size=flat.bagg.size,
-            ),
+            bagg=flat.bagg.map(lambda t: _split(t, S)),
             sec=tuple(
                 self._shape_ring(r, p.partitioned)
                 for r, p in zip(flat.sec, self._ring_plans)
@@ -247,11 +242,7 @@ class ShardedOnlineStore(OnlineFeatureStore):
         s = self.state if state is None else state
         return OnlineState(
             ring=self._flat_ring(s.ring, True),
-            bagg=pg.BucketAgg(
-                *(t.flatten(0, 1) for t in (
-                    s.bagg.stats, s.bagg.bitmap, s.bagg.bucket)),
-                size=s.bagg.size,
-            ),
+            bagg=s.bagg.map(lambda t: t.flatten(0, 1)),
             sec=tuple(
                 self._flat_ring(r, p.partitioned)
                 for r, p in zip(s.sec, self._ring_plans)

@@ -22,7 +22,9 @@ ingested online, any order), it
   slot's surviving bucket, in the canonical ``lexsort((ts, key))`` order,
   folded left to right from the identity by the fused ingest kernel (B1)
   into a fresh bucket store — the association the reference's unbuffered
-  ``np.add.at`` folds give, over *all* history rows;
+  ``np.add.at`` folds give, over *all* history rows; the merge-order
+  families (FIRST / LAST / TOPN_FREQ) from the same rows, each row's
+  ``pos`` its per-key arrival index in the canonical stream;
 * **splices** the re-derived state over every structured
   :class:`~repro_torch.core.migrate.Deficit` a migration recorded,
   restoring ``report.exact``.
@@ -33,9 +35,7 @@ no live tensor, and checks the re-derived per-key row counts against the
 store's cursors — a history that does not reproduce the online stream
 raises and leaves the plane serving the old layout.
 
-The port of the reference package's ``repro.offline.backfill`` without
-the merge-order families' derivation (FIRST / LAST / TOPN_FREQ; a
-migration that needs them raises before a splice is planned).  The
+The port of the reference package's ``repro.offline.backfill``.  The
 history stays on the host until a derivation uploads the columns it needs
 to the store's device; the derived state is made there.
 """
@@ -443,6 +443,11 @@ class BackfillSource:
         fresh bucket store of the re-folded lanes: every (key, bucket)
         state is then the left fold of its rows from the identity, the
         association of the reference's ``np.add.at`` folds.
+
+        The merge-order families, where the new plan persists them, are
+        re-derived whole from the same surviving rows (the winners' rows
+        are shared by every lane): a row's ``pos`` is its per-(flat) key
+        count in the canonical stream, the order the online store saw.
         """
         dst_p = diff.new.primary
         NB = diff.new.bucket.num_buckets
@@ -453,8 +458,11 @@ class BackfillSource:
             lane_js = list(range(len(dst_p.lanes))) or [0]
         else:
             lane_js = [dst_p.lane_of(k) for k in lane_keys]
+        want_ext, want_tail = diff.new.bucket.extreme, diff.new.bucket.tail
+        eval_js = ((list(range(len(dst_p.lanes))) or [0])
+                   if want_ext or want_tail else lane_js)
         lanes = self._lane_values(
-            dst_p, cols, device, lane_js=[j for j in lane_js if dst_p.lanes]
+            dst_p, cols, device, lane_js=[j for j in eval_js if dst_p.lanes]
         )
         K = _flat_keys(dst_p, S)
         live_state = store._flat_state().bagg
@@ -494,8 +502,24 @@ class BackfillSource:
         for jj, j in enumerate(lane_js):
             stats[:, :, j] = fresh.stats[:, :, jj]
             bitmap[:, :, j] = fresh.bitmap[:, :, jj]
+        fam = {}
+        if want_ext or want_tail:
+            # pos: each row's rank among its flat key's rows, in stream order
+            n = flat.numel()
+            o_g = torch.sort(flat, stable=True).indices
+            go = flat[o_g]
+            first_of = torch.ones(n, dtype=torch.bool, device=device)
+            first_of[1:] = go[1:] != go[:-1]
+            first = torch.nonzero(first_of)[:, 0]
+            pos = torch.empty(n, dtype=torch.int64, device=device)
+            pos[o_g] = (torch.arange(n, device=device)
+                        - first[torch.cumsum(first_of, 0) - 1])
+            fam["seq"] = torch.bincount(flat, minlength=K).to(torch.int32)
+            fam.update(pg.families_from_rows(
+                cell[rows], ts_t[rows], pos[rows], lanes[rows], K, NB,
+                extreme=want_ext, tail=want_tail))
         return pg.BucketAgg(stats=stats, bitmap=bitmap, bucket=bucket,
-                            size=bsize)
+                            size=bsize, **fam)
 
     # -- the splice ---------------------------------------------------------
 

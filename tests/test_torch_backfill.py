@@ -15,8 +15,11 @@ Two contracts, as in the reference's ``tests/test_backfill.py``:
   full replay, its report equals JAX's field by field.  Uncoverable
   backfills refuse with the reference's messages.
 
-The merge-order families' backfill is ROADMAP A5: the port refuses such a
-deployment with ``NotImplementedError`` before touching the plane.
+The merge-order families (FIRST / TOPN_FREQ over RANGE windows)
+backfill too: deployed onto a plane whose rings aged out history, they are
+re-derived from the full stream, and the port's state equals JAX's (run
+with the ``jax_families`` fixture, see ``tests/torch_deploy_common.py``)
+and a cold rebuild + replay bit for bit.
 """
 
 import numpy as np
@@ -41,6 +44,7 @@ from torch_deploy_common import (
     assert_reports_equal,
     assert_states_equal,
     check_answers,
+    jax_families,  # noqa: F401  (a fixture)
     state,
     tables,
     warm,
@@ -239,25 +243,66 @@ def test_refused_hash_lane_backfill_bit_exact(tabs):
                   _probe(tabs), _amax(tabs))
 
 
-def test_merge_order_family_refused_until_a5(tabs):
-    """FIRST / TOPN_FREQ over RANGE windows persist merge-order bucket
-    families, whose migration and backfill are ROADMAP A5: the port says
-    so and leaves the plane as it was."""
-    x = TORCH.x
+def _order_view(x):
+    """The reference's ``order_view``: a view whose bucket state is the
+    merge-order families, deployed onto a warm plane whose rings have
+    already aged out history."""
     w1h = x.range_window(3600, bucket=64)
-    order = TORCH.view("order_mix", {
-        "amt_first_1h": x.w_first(x.Col("amount"), w1h),
-        "amt_top_1h": x.w_topn_freq(x.Col("amount"), w1h, n=0),
-    })
+    return {"amt_first_1h": x.w_first(x.Col("amount"), w1h),
+            "amt_top_1h": x.w_topn_freq(x.Col("amount"), w1h, n=0)}
+
+
+def test_merge_order_family_backfill_matches_jax(tabs, jax_families):
+    """FIRST / TOPN_FREQ over RANGE windows deployed with a
+    ``BackfillSource``: the report and every state array (the families
+    included) equal JAX's, the state equals a cold rebuild + replay, and
+    the answers equal the cold plane's and JAX's bit for bit."""
+    def target(k):
+        return k.views()[:2] + [k.view("order_mix", _order_view(k.x))]
+
+    out = _both(tabs, lambda k: k.views()[:2], target, capacity=GROWN_CAP)
+    plane, report = out["torch"]
+    assert report.exact, report.notes
+    assert report.backfilled
+    assert state(plane)["btvalid"].any() and state(plane)["bxhas"].any()
+    cold = TORCH.plane(target(TORCH), num_shards=4,
+                       **dict(KW, capacity=GROWN_CAP))
+    warm(cold, tabs)
+    assert_states_equal(plane, cold, "backfilled vs rebuild + replay")
+    check_answers(out["jax"][0], plane, cold, target(TORCH)[2:],
+                  _probe(tabs), _amax(tabs))
+
+
+@pytest.mark.parametrize("shards", [None, 4])
+def test_merge_order_family_backfill_bit_exact(tabs, shards):
+    """The reference's test of the same name, on the port: without a
+    source the families are rebuilt from ring-retained rows only (a bucket
+    deficit, not silence); with one, full-history re-derivation equals a
+    cold rebuild + replay bit for bit, answers included."""
     views = TORCH.views()
-    plane = TORCH.plane(views[:2], num_shards=4, **KW)
+    target = views[:2] + [TORCH.view("order_mix", _order_view(TORCH.x))]
+    plane = TORCH.plane(views[:2], num_shards=shards, **KW)
     warm(plane, tabs)
-    before = state(plane)
+    report = plane.evolve(target, capacity=GROWN_CAP)
+    assert not report.exact
+    assert any(d.target == "bucket" for d in report.deficits), (
+        report.deficits)
+
+    plane2 = TORCH.plane(views[:2], num_shards=shards, **KW)
+    warm(plane2, tabs)
     src = BackfillSource(TORCH.db, tabs)
-    with pytest.raises(NotImplementedError, match="A5"):
-        plane.evolve(views[:2] + [order], backfill=src, capacity=GROWN_CAP)
-    assert plane.scenarios == [v.name for v in views[:2]]
-    assert_states_equal(before, plane, "after a refused evolve")
+    report2 = plane2.evolve(target, backfill=src, capacity=GROWN_CAP)
+    assert report2.exact, report2.notes
+    assert report2.backfilled
+    cold = TORCH.plane(target, num_shards=shards,
+                       **dict(KW, capacity=GROWN_CAP))
+    warm(cold, tabs)
+    assert_states_equal(plane2, cold, "backfilled vs rebuild + replay")
+    probe = _probe(tabs)
+    for mode in ("preagg", "naive"):
+        assert_bit_equal(plane2.query("order_mix", dict(probe), mode=mode),
+                         cold.query("order_mix", dict(probe), mode=mode),
+                         mode)
 
 
 # ---------------------------------------------------------------------------

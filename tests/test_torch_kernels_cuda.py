@@ -469,7 +469,7 @@ def _plane_state(plane):
     ring's one copy)."""
     s = plane.store._flat_state()
     ts = [s.ring.ts, s.ring.vals, s.ring.cursor, s.bagg.stats,
-          s.bagg.bitmap, s.bagg.bucket]
+          s.bagg.bitmap, s.bagg.bucket, *s.bagg.families().values()]
     for r in s.sec:
         ts += [r.ts, r.vals, r.cursor]
     return [t.contiguous().cpu().numpy().view(np.uint8) for t in ts]
@@ -577,6 +577,133 @@ def test_hot_deploy_on_gpu_equals_cold_rebuild(cuda):
                          **dict(kw, capacity=16))
     warm(cold)
     same(hot, cold, "backfilled Signature lane")
+
+
+def test_fused_ingest_with_families_matches_split_on_gpu(cuda):
+    """The online store's ingest of a family layout on the card —
+    ``bucket_families_ingest`` then B1 on the six core arrays — equals
+    the split ring + ``bucket_ingest`` pass on the card, every tensor bit
+    for bit, through a hot key with more rows than the tail, slot reuse,
+    pads and an all-pad batch, then 100 rows of one key in a minute
+    (full tails); ``seq`` is the cursor, B1 launches once a batch."""
+    rng = np.random.default_rng(3)
+
+    def state():
+        return (st.ring_init(K, C, F, cuda),
+                pg.bucket_init(K, NB, F, BS, cuda, extreme=True, tail=True))
+
+    (r_k, b_k), (r_s, b_s) = state(), state()
+    plan = [(8192, 0, 1500, 0, 0), (8192, 1500, 1900, 150, 100),
+            (3000, 1900, 3000, 0, 1096), (0, 3000, 3000, 0, 64),
+            (8192, 4000, 5500, 0, 0), (2000, 5500, 5560, 100, 0)]
+    for step, (n, lo, hi, hot, pad) in enumerate(plan):
+        k, t, v = (torch.as_tensor(x, device=cuda)
+                   for x in _batch(rng, n, lo, hi, hot, pad))
+        before = kernels.LAUNCHES["fused_ingest"]
+        pg.bucket_families_ingest(b_k, k, t, v)
+        fused_ingest(r_k.ts, r_k.vals, r_k.cursor, b_k.stats, b_k.bitmap,
+                     b_k.bucket, k, t, v, bucket_size=BS)
+        assert kernels.LAUNCHES["fused_ingest"] == before + 1
+        st.ring_ingest(r_s, k, t, v)
+        pg.bucket_ingest(b_s, k, t, v)
+        _assert_same(
+            [r_k.ts, r_k.vals, r_k.cursor, b_k.stats, b_k.bitmap,
+             b_k.bucket, *b_k.families().values()],
+            [r_s.ts, r_s.vals, r_s.cursor, b_s.stats, b_s.bitmap,
+             b_s.bucket, *b_s.families().values()], f"step {step}")
+        assert torch.equal(b_k.seq, r_k.cursor), f"step {step}"
+    assert bool(b_k.tvalid.all(-1).any()), "no tail filled"
+
+
+def _family_view():
+    """``sharded_view()`` plus FIRST / LAST / TOPN_FREQ over its 1 h
+    window: a layout with both merge-order bucket families."""
+    from repro_torch.core.expr import (
+        Col, range_window, w_first, w_last, w_topn_freq,
+    )
+    from repro_torch.core.view import FeatureView
+    from repro_torch.scenarios import sharded_view
+
+    base = sharded_view()
+    w1h = range_window(3600, bucket=64)
+    return FeatureView("families", features={
+        **base.features,
+        "first_amount_1h": w_first(Col("amount"), w1h),
+        "last_amount_1h": w_last(Col("amount"), w1h),
+        "top_merchant_1h": w_topn_freq(Col("merchant"), w1h, n=0),
+        "second_merchant_1h": w_topn_freq(Col("merchant"), w1h, n=1),
+    }, database=base.database)
+
+
+def test_sharded_family_store_device_equals_host_on_gpu(cuda):
+    """A sharded store of a family layout on the card: device-routed
+    answers (one B2 launch a query) equal the host-routed ones bit for
+    bit in both modes, and the family features equal across the modes;
+    the families planned mid-flight on a warm plane (rebuilt from the
+    rings on the card) equal a cold plane's."""
+    from repro_torch.core.consistency import replay_rounds
+    from repro_torch.core.scenario import ScenarioPlane
+    from repro_torch.data.synthetic import multitable_stream
+    from repro_torch.scenarios import sharded_view
+
+    accounts, merchants = 4096, 256
+    kw = dict(num_keys=accounts, num_shards=8, capacity=64, num_buckets=64,
+              bucket_size=64, secondary_num_keys={"merchants": merchants},
+              device="cuda")
+    rng = np.random.default_rng(14)
+    tables = multitable_stream(rng, 20_000, num_accounts=accounts,
+                               num_merchants=merchants, t_max=20_000)
+
+    def warm(plane):
+        for t, kc in (("accounts", "account"), ("merchants", "merchant"),
+                      ("wires", "account")):
+            cols = tables[t]
+            o = np.lexsort((cols["ts"], cols[kc]))
+            plane.ingest_table(t, {c: v[o] for c, v in cols.items()})
+        tx = tables["transactions"]
+        # one row a key a batch: the bucket re-fold's exactness contract
+        for idx in replay_rounds(tx["account"], tx["ts"]):
+            o = idx[np.lexsort((tx["ts"][idx], tx["account"][idx]))]
+            plane.ingest({c: v[o] for c, v in tx.items()})
+
+    fam = _family_view()
+    plane = ScenarioPlane([fam], **kw)
+    warm(plane)
+    store = plane.store
+    assert store.state.bagg.tts.shape == (8, accounts // 8, 64, 32)
+    req = dict(
+        account=rng.integers(0, accounts, 1000).astype(np.int32),
+        ts=np.full(1000, 20_100, np.int32),
+        amount=rng.gamma(1.5, 60.0, 1000).astype(np.float32),
+        merchant=rng.integers(0, merchants, 1000).astype(np.int32),
+    )
+    got = {}
+    for mode in ("naive", "preagg"):
+        store.device_routing = False
+        host = plane.query(fam.name, dict(req), mode=mode)
+        store.device_routing = True
+        before = kernels.LAUNCHES["route_rank"]
+        got[mode] = plane.query(fam.name, dict(req), mode=mode)
+        assert kernels.LAUNCHES["route_rank"] == before + 1
+        for f in host:
+            np.testing.assert_array_equal(
+                got[mode][f].cpu().numpy().view(np.int32),
+                host[f].cpu().numpy().view(np.int32), err_msg=f"{mode} {f}")
+    for f in ("first_amount_1h", "last_amount_1h", "top_merchant_1h",
+              "second_merchant_1h"):
+        np.testing.assert_array_equal(got["naive"][f].cpu().numpy(),
+                                      got["preagg"][f].cpu().numpy(),
+                                      err_msg=f)
+    assert (got["preagg"]["second_merchant_1h"] != 0).any()
+
+    hot = ScenarioPlane([sharded_view()], **kw)
+    warm(hot)
+    rep = hot.evolve([sharded_view(), fam])
+    assert rep.exact, rep.describe()
+    cold = ScenarioPlane([sharded_view(), fam], **kw)
+    warm(cold)
+    for i, (x, y) in enumerate(zip(_plane_state(hot), _plane_state(cold))):
+        assert np.array_equal(x, y), f"families rebuilt on the card: {i}"
 
 
 # float32 patterns: ±0, NaNs of both signs and payloads, ±inf, ±1

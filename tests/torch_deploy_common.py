@@ -19,6 +19,7 @@ import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
+import pytest
 import torch
 
 import repro.core as jcore
@@ -112,10 +113,32 @@ def state(plane):
     out = {"ring_ts": s.ring.ts, "ring_vals": s.ring.vals,
            "cursor": s.ring.cursor, "bstats": s.bagg.stats,
            "bbitmap": s.bagg.bitmap, "bbucket": s.bagg.bucket}
+    for f in FAMILY_FIELDS:
+        if getattr(s.bagg, f) is not None:
+            out[f"b{f}"] = getattr(s.bagg, f)
     for i, r in enumerate(s.sec):
         for f in ("ts", "vals", "cursor"):
             out[f"sec{i}_{f}"] = getattr(r, f)
     return {k: np.asarray(v) for k, v in out.items()}
+
+
+FAMILY_FIELDS = ("seq", "xts", "xpos", "xval", "xhas",
+                 "tts", "tpos", "tval", "tvalid")
+
+
+@pytest.fixture
+def jax_families(monkeypatch):
+    """Run the JAX package's merge-order bucket families in this
+    container.  ``repro.core.preagg._TS_EMPTY`` is a JAX array passed as
+    ``fill_value=`` to ``.at[].get(mode="fill")``; jax 0.9.0 requires
+    hashable primitive parameters and raises ``TypeError ... fill_value
+    was not hashable`` for an array.  The same value as a Python int is
+    hashable and gives the same bits.  Scoped to each test by
+    ``monkeypatch``: nothing of the JAX package changes on disk, and its
+    own tests see the module as it is."""
+    import repro.core.preagg as jax_preagg
+
+    monkeypatch.setattr(jax_preagg, "_TS_EMPTY", -2147483648)
 
 
 def _bits(a):
