@@ -3,7 +3,9 @@ fraud scoring path on top of it, multi-table sharded serving, the
 multi-scenario plane (mixed batches through one store), hot deploy onto a
 live plane and the offline bridge (backfill, training-set export), the
 merge-order bucket families (FIRST / LAST / TOPN_FREQ over RANGE
-windows), RWKV6 serving (rwkv6-3b prefill and decode), dense LM serving
+windows), the platform surface (data import at a day's scale, the
+telemetry gate, the dashboard, the catalog, the example twins), RWKV6
+serving (rwkv6-3b prefill and decode), dense LM serving
 (nemotron-4-15b prefill and decode), and the offline feature path with its
 offline<->online consistency check.
 
@@ -208,7 +210,31 @@ Phases, in order; any failure exits non-zero:
    beside the ingest rates, request p50 / p99 (fenced pump walls), the
    ``route.device`` span, the ``hot_deploy`` walls against the cold
    builds, the peaks and the phase's seconds.
-13. **WKV6 kernel** against its plain versions, float32 inputs from a
+13. **Platform surface** (after phase 12 has freed its planes).  (a) The
+   main path's day (phase 4's 64 slices of 65,536 rows from ``SEED``)
+   written as one ``.npz`` a slice and, for the first
+   ``PLATFORM_CSV_SLICES`` = 16 slices (2^20 rows), as CSV (float32 as
+   ``repr(float(v))``) under a temporary directory; loaded back with
+   ``data.ingest.load_table(..., "npz")`` / ``(..., "csv")``: every column
+   equal to the generated one, dtype and bytes.  The loaded day ingested
+   into ``FeatureService.build(fraud_view(), sharded=True, num_shards=8)``
+   at the main path's sizes (~15.6 GB), B1 once a slice; then 8 batches of
+   4,096 through ``ShardRouter`` (preagg, ingest on), each equal bit for
+   bit to the host-routed path of the same store
+   (``device_routing=False``), B2 once a pump.  Prints the npz and CSV
+   load rates, the ingest rate and the state's bytes.  (b)
+   ``repro_torch.obs.check.main(["all", "--device", "cuda"])``: the golden
+   metric catalog, every span name, every device span fenced,
+   ``kernel_dispatch_total`` with ``impl="cuda"`` for ``fused_ingest``
+   and ``route_rank`` and no ``impl="ref"``, and the overhead bound
+   (2.5x + 2 ms, medians of 40 requests, printed).  (c) ``render_markdown``
+   of (b)'s snapshot names every golden metric; ``obs.report --prom`` of
+   the demo names every family the demo records.  (d)
+   ``repro_torch.catalog.main(["--check"])`` against
+   ``docs/CATALOG_TORCH.md``.  (e) The five example twins
+   (``repro_torch.examples``), each ``main(device="cuda")`` at its own
+   sizes with its own assertions; seconds and B1 / B2 / B4 launches each.
+14. **WKV6 kernel** against its plain versions, float32 inputs from a
    seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
    D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
@@ -226,7 +252,7 @@ Phases, in order; any failure exits non-zero:
    apart, and the chunked plain version; its bound is the larger of its
    bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
    version.
-14. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+15. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
    depth cut).  A prefill and a decode step with a spy on B7's entry
@@ -248,7 +274,7 @@ Phases, in order; any failure exits non-zero:
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
    run, within ``LM_F32_TOL``.
-15. **Flash attention kernel (B6)**: each instantiation's registers and
+16. **Flash attention kernel (B6)**: each instantiation's registers and
    spills (``ptxas -v``) and its ``HGMMA`` / ``HMMA`` count in the built
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
@@ -267,7 +293,7 @@ Phases, in order; any failure exits non-zero:
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
    short-sequence threshold), and float32 at nemotron's shape.
-16. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+17. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
    15,628,376,064 parameters drawn on the card from a seeded generator);
@@ -283,23 +309,24 @@ Phases, in order; any failure exits non-zero:
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-17. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+18. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-18. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+19. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-19. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+20. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
     own keys, phase 10's under ``launches_multiscenario``, phase 11's B1,
     B2 and B4 under ``launches_deploy``, phase 12's B1 and B2 under
-    ``launches_families``), then the card
+    ``launches_families``, phase 13's (a), (b) and (e) under
+    ``launches_platform``), then the card
     line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -388,6 +415,9 @@ EXPORT_CHECK_CAPACITY = STORE_KW["capacity"]
 FAM_STORE_KW = dict(capacity=256, num_buckets=64, bucket_size=64)
 FAM_FEATURES = ("first_amount_1h", "last_amount_1h", "top_merchant_1h",
                 "second_merchant_1h")
+# the platform phase: the main path's day written as npz (all 64 slices) and
+# as CSV (the first 16 slices, 2^20 rows), loaded back through data.ingest
+PLATFORM_CSV_SLICES = 16
 WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -3190,6 +3220,244 @@ def families_path(results) -> None:
     results["route_rank"]["launches_families"] = launches["keys"]
 
 
+
+def _write_csv(path, cols) -> None:
+    """A columns dict as CSV: a float32 as ``repr(float(v))`` (its exact
+    float64 widening, so ``load_csv``'s float64 parse and float32 cast
+    give the same bits back), an int as ``str``."""
+    text = [list(map(repr, v.astype(np.float64).tolist()))
+            if v.dtype.kind == "f" else list(map(str, v.tolist()))
+            for v in cols.values()]
+    with open(path, "w") as fh:
+        fh.write(",".join(cols) + "\n")
+        fh.write("\n".join(map(",".join, zip(*text))))
+        fh.write("\n")
+
+
+def _same_columns(want, got, where) -> None:
+    for c, v in want.items():
+        g = got[c]
+        if g.dtype != v.dtype or g.tobytes() != v.tobytes():
+            _fail(f"{where}: column {c!r} ({g.dtype}) differs from the "
+                  f"generated one ({v.dtype})")
+
+
+def _launch_delta(before):
+    from repro_torch import kernels
+
+    return {k: kernels.LAUNCHES[k] - before[k]
+            for k in ("fused_ingest", "route_rank", "fold_levels")}
+
+
+def platform_path(results) -> None:
+    """The platform surface at deployment size: (a) the main path's day
+    written as npz (64 slices) and CSV (the first ``PLATFORM_CSV_SLICES``),
+    loaded back through ``data.ingest`` bit for bit, ingested into the
+    sharded fraud store and served (device-routed == host-routed); (b) the
+    telemetry gate ``obs.check`` on the card; (c) the dashboard;
+    (d) the catalog's staleness check; (e) the five example twins."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch import catalog
+    from repro_torch.data import load_table
+    from repro_torch.data.synthetic import FRAUD_SCHEMA, fraud_transactions
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.obs import check as obs_check
+    from repro_torch.obs import report as obs_report
+    from repro_torch.scenarios import fraud_view
+    from repro_torch.serve.router import ShardRouter
+    from repro_torch.serve.service import BatchScheduler, FeatureService
+
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    # -- (a) import a day: npz and CSV back to the generated bits ------------
+    rng = np.random.default_rng(SEED)
+    slices = [
+        fraud_transactions(rng, SLICE_ROWS, NUM_CARDS,
+                           i * DAY // WARM_SLICES, (i + 1) * DAY // WARM_SLICES)
+        for i in range(WARM_SLICES)
+    ]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_import_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        for i, cols in enumerate(slices):
+            np.savez(tmp / f"day_{i:02d}.npz", **cols)
+        npz_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for i, cols in enumerate(slices[:PLATFORM_CSV_SLICES]):
+            _write_csv(tmp / f"day_{i:02d}.csv", cols)
+        csv_write_s = time.perf_counter() - t0
+        npz_bytes = sum(p.stat().st_size for p in tmp.glob("*.npz"))
+        csv_bytes = sum(p.stat().st_size for p in tmp.glob("*.csv"))
+        t0 = time.perf_counter()
+        day = [load_table(tmp / f"day_{i:02d}.npz", FRAUD_SCHEMA, "npz")
+               for i in range(WARM_SLICES)]
+        npz_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        day_csv = [load_table(tmp / f"day_{i:02d}.csv", FRAUD_SCHEMA, "csv")
+                   for i in range(PLATFORM_CSV_SLICES)]
+        csv_s = time.perf_counter() - t0
+    for i, cols in enumerate(slices):
+        _same_columns(cols, day[i], f"npz slice {i}")
+    for i, cols in enumerate(day_csv):
+        _same_columns(slices[i], cols, f"CSV slice {i}")
+    npz_rows = WARM_SLICES * SLICE_ROWS
+    csv_rows = PLATFORM_CSV_SLICES * SLICE_ROWS
+    print(f"platform import: {npz_rows} rows from {WARM_SLICES} npz files "
+          f"({npz_bytes / 1e6:.1f} MB, written in {npz_write_s:.2f} s) in "
+          f"{npz_s:.3f} s = {npz_rows / npz_s:.0f} rows/s; {csv_rows} rows "
+          f"from {PLATFORM_CSV_SLICES} CSV files ({csv_bytes / 1e6:.1f} MB, "
+          f"written in {csv_write_s:.2f} s) in {csv_s:.3f} s = "
+          f"{csv_rows / csv_s:.0f} rows/s; every column == the generated "
+          "day, dtype and bytes", flush=True)
+    del slices, day_csv
+
+    svc = FeatureService.build(
+        "platform", fraud_view(), num_keys=NUM_CARDS, sharded=True,
+        num_shards=NUM_SHARDS, mode="preagg", device="cuda", **STORE_KW,
+    )
+    store = svc.store
+    state_b = sum(t.numel() * t.element_size() for t in store.state.arrays())
+    torch.cuda.synchronize()
+    b1 = kernels.LAUNCHES["fused_ingest"]
+    t0 = time.perf_counter()
+    for cols in day:
+        store.ingest(cols)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    if kernels.LAUNCHES["fused_ingest"] - b1 != WARM_SLICES:
+        _fail(f"platform: the loaded day's {WARM_SLICES} slices launched B1 "
+              f"{kernels.LAUNCHES['fused_ingest'] - b1} times")
+    print(f"platform ingest of the loaded day: {npz_rows} rows in "
+          f"{ingest_s:.3f} s = {npz_rows / ingest_s:.0f} rows/s into "
+          f"{state_b / 1e9:.3f} GB of state ({NUM_SHARDS} shards x "
+          f"{store.num_keys} cards)", flush=True)
+    del day
+
+    router = ShardRouter(
+        svc, BatchScheduler(buckets=(REQ_ROWS,), max_batch=REQ_ROWS))
+    b2 = kernels.LAUNCHES["route_rank"]
+    for b in range(REQ_BATCHES):
+        rows = _request_rows(rng, DAY + 60 * b, NUM_CARDS)
+        store.device_routing = False
+        with use_telemetry(Telemetry()):
+            want = _np_answers(store.query(dict(rows), mode="preagg"))
+        store.device_routing = True
+        for i in range(REQ_ROWS):
+            router.submit({c: v[i] for c, v in rows.items()})
+        got = router.pump(flush=True)
+        bad = _same_bits(want, got)
+        if bad is not None:
+            _fail(f"platform batch {b}: {bad} of the device-routed path "
+                  "differs from the host-routed path")
+        if not (got["tx_count_1h"] >= 1).all():
+            _fail("platform: a request does not count itself")
+    if kernels.LAUNCHES["route_rank"] - b2 != REQ_BATCHES:
+        _fail(f"platform: {REQ_BATCHES} pumps launched B2 "
+              f"{kernels.LAUNCHES['route_rank'] - b2} times")
+    st = svc.stats
+    print(f"platform serving: {REQ_BATCHES} batches x {REQ_ROWS} rows == the "
+          f"host-routed path bit for bit; batch wall p50 {st.p50_ms:.3f} ms, "
+          f"p99 {st.p99_ms:.3f} ms; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    del svc, store, router
+    torch.cuda.empty_cache()
+    counted = _launch_delta(before)
+
+    # -- (b) the telemetry gate on the card ------------------------------------
+    at = dict(kernels.LAUNCHES)
+    seen = {}
+    gates = {"schema_check": obs_check.schema_check,
+             "overhead_check": obs_check.overhead_check}
+
+    def spy(name):
+        def run(**kw):
+            seen[name] = gates[name](**kw)
+            return seen[name]
+        return run
+
+    t0 = time.perf_counter()
+    try:
+        for name in gates:
+            setattr(obs_check, name, spy(name))
+        rc = obs_check.main(["all", "--device", "cuda"])
+    except AssertionError as e:
+        _fail(f"platform: the telemetry gate failed: {e}")
+    finally:
+        for name, fn in gates.items():
+            setattr(obs_check, name, fn)
+    if rc != 0 or set(seen) != set(gates):
+        _fail(f"platform: obs.check main returned {rc}, ran {sorted(seen)}")
+    ovh = seen["overhead_check"]
+    snap = seen["schema_check"]
+    disp = {(s["labels"]["kernel"], s["labels"]["impl"]): s["value"]
+            for s in snap["metrics"]["kernel_dispatch_total"]["series"]}
+    print(f"platform gate (obs.check all --device cuda) passed in "
+          f"{time.perf_counter() - t0:.1f} s: {len(snap['metrics'])} metrics, "
+          f"dispatches {disp}; request medians instrumented "
+          f"{1e3 * ovh['instrumented_s']:.3f} ms, disabled "
+          f"{1e3 * ovh['disabled_s']:.3f} ms (limit "
+          f"{1e3 * ovh['limit_s']:.3f} ms)", flush=True)
+    counted = {k: v + _launch_delta(at)[k] for k, v in counted.items()}
+
+    # -- (c) the dashboard (its demo's launches are not counted) -----------------
+    md = obs_report.render_markdown(snap)
+    missing = [n for n in obs_check.EXPECTED_METRICS if f"`{n}`" not in md]
+    demo = Telemetry()
+    demo_snap = obs_report.demo_snapshot(demo, device="cuda")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = obs_report.main(["--prom", "--device", "cuda"])
+    prom = buf.getvalue()
+    missing += [f"prom:{n}" for n, m in demo_snap["metrics"].items()
+                if f"# TYPE {n} {m['type']}" not in prom]
+    if rc != 0 or missing:
+        _fail(f"platform dashboard: missing {missing}")
+    print(f"platform dashboard: {len(md.splitlines())} markdown lines naming "
+          f"all {len(obs_check.EXPECTED_METRICS)} golden metrics; --prom "
+          f"names all {len(demo_snap['metrics'])} families of the demo",
+          flush=True)
+
+    # -- (d) the catalog ---------------------------------------------------------
+    if catalog.main(["--check"]) != 0:
+        _fail("platform: docs/CATALOG_TORCH.md is stale")
+
+    # -- (e) the example twins at their own sizes --------------------------------
+    for name in ("quickstart", "recommendation", "multi_table_fraud",
+                 "sharded_serving", "multi_scenario"):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        at = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_telemetry(Telemetry()):
+            mod.main(device="cuda")
+        torch.cuda.synchronize()
+        d = _launch_delta(at)
+        counted = {k: v + d[k] for k, v in counted.items()}
+        print(f"platform example {name}: passed in "
+              f"{time.perf_counter() - t0:.2f} s; B1 {d['fused_ingest']}, "
+              f"B2 {d['route_rank']}, B4 {d['fold_levels']} launches",
+              flush=True)
+
+    d = counted
+    print(f"platform phase: {time.perf_counter() - phase_t0:.1f} s; B1 "
+          f"{d['fused_ingest']}, B2 {d['route_rank']}, B4 {d['fold_levels']} "
+          f"launches over (a), (b) and (e); the whole phase "
+          f"{_launch_delta(before)}", flush=True)
+    if d["fused_ingest"] <= 0 or d["route_rank"] <= 0:
+        _fail(f"platform: B1 / B2 never launched: {d}")
+    results["fused_ingest"]["launches_platform"] = d["fused_ingest"]
+    results["route_rank"]["launches_platform"] = d["route_rank"]
+    if d["fold_levels"]:
+        results["fold_levels"]["launches_platform"] = d["fold_levels"]
+
 def _wkv6_cost(shape, with_s0):
     """(bytes, FLOP) one WKV6 call must move and compute: r, k, v, lw read
     and y written once, u, s0 (when given) and the final state; per
@@ -4251,6 +4519,7 @@ def main() -> None:
     multiscenario_path(results)
     deploy_path(results)
     families_path(results)
+    platform_path(results)
     check_wkv6_kernel(results)
     rwkv6_path(results)
     check_flash_attention_kernel(results)

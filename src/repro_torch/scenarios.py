@@ -1,5 +1,13 @@
-"""Example scenarios of this package, copies of the reference package's
-``repro.scenarios`` views of the same names.
+"""Canonical example scenarios — the mirror of FeatInsight's "100+
+real-world scenarios on one platform" claim, copied from the reference
+package's ``repro.scenarios``.
+
+One module owns every example feature view so the docs stay honest: the
+feature catalog (``python -m repro_torch.catalog`` →
+``docs/CATALOG_TORCH.md``), the examples (``repro_torch.examples``) and
+the tests build their views from here.  Each :class:`Scenario` records
+what a platform catalog would: the view definition(s), the workload it
+models, and the command that runs it.
 
 * ``fraud_view()`` (§3.3): trailing spend windows over card transactions —
   SUM, MEAN, STD, COUNT and MAX over 1 h and 6 h RANGE windows, one
@@ -14,16 +22,19 @@
   sharded serving plane;
 * ``multi_scenario_views()``: three overlapping views over
   :data:`MULTITABLE_DB` (shared union stream, shared join targets), the
-  scenarios of one multi-scenario plane.
+  scenarios of one multi-scenario plane
+  (:class:`~repro_torch.core.scenario.ScenarioPlane`), shared tables
+  ingested once, answers bit-identical to three dedicated stores.
 
-The online stores serve every one of them, and the multi-scenario plane
-(:class:`~repro_torch.core.scenario.ScenarioPlane`) deploys
-``multi_scenario_views()`` on one shared store.
+:data:`SCENARIOS` and :data:`GENERATED` hold the same names, titles,
+descriptions, deploy history and seeds as the reference's registry; their
+``run`` lines name this package's commands.
 """
 
 from __future__ import annotations
 
-from typing import List
+import dataclasses
+from typing import Callable, Dict, List
 
 from repro_torch.core.expr import (
     Col,
@@ -42,7 +53,14 @@ from repro_torch.core.view import FeatureView
 from repro_torch.data.synthetic import FRAUD_SCHEMA, MULTITABLE_DB, RECO_SCHEMA
 
 __all__ = [
-    "fraud_view", "reco_view", "multi_table_view", "sharded_view",
+    "Scenario",
+    "SCENARIOS",
+    "GeneratedFamily",
+    "GENERATED",
+    "fraud_view",
+    "reco_view",
+    "multi_table_view",
+    "sharded_view",
     "multi_scenario_views",
 ]
 
@@ -197,3 +215,158 @@ def multi_scenario_views() -> List[FeatureView]:
         database=MULTITABLE_DB,
     )
     return [acct_risk, spend_profile, merchant_watch]
+
+
+# ---------------------------------------------------------------------------
+# The scenario registry (what a platform catalog page lists)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Scenario:
+    """One deployed example scenario: its views, workload, and run command.
+
+    ``hot_deployed`` names the views this scenario deploys onto the LIVE
+    plane via ``MultiScenarioService.hot_deploy`` (rather than at launch)
+    — the catalog's deploy history records them as hot deploys, matching
+    what the example actually does.  ``exported`` names the views whose
+    example also exports a point-in-time training set from the same
+    definitions (``repro_torch.offline.export_training_set``) — the catalog's
+    deploy history records that lineage under an ``export:`` service,
+    exactly as a registry-carrying export call would.
+    """
+
+    name: str
+    title: str
+    description: str
+    run: str
+    views: Callable[[], List[FeatureView]]
+    hot_deployed: tuple = ()
+    exported: tuple = ()
+
+
+def _one(builder: Callable[[], FeatureView]) -> Callable[[], List[FeatureView]]:
+    return lambda: [builder()]
+
+
+SCENARIOS: Dict[str, Scenario] = {
+    s.name: s
+    for s in (
+        Scenario(
+            name="fraud",
+            title="Online fraud detection",
+            description=(
+                "Card-transaction stream; trailing spend windows feed a "
+                "scoring transformer (paper §3.3)."
+            ),
+            run="PYTHONPATH=src python -m repro_torch.examples.fraud_detection",
+            views=_one(fraud_view),
+        ),
+        Scenario(
+            name="recommendation",
+            title="Product recommendation",
+            description=(
+                "Minute-level order events; one-click design→verify→deploy "
+                "with version evolution (paper §3.2)."
+            ),
+            run="PYTHONPATH=src python -m repro_torch.examples.recommendation",
+            views=_one(reco_view),
+        ),
+        Scenario(
+            name="multi_table_fraud",
+            title="Multi-table fraud features",
+            description=(
+                "4-table database: point-in-time LAST JOINs + WINDOW UNION "
+                "outflows, verified offline↔online."
+            ),
+            run="PYTHONPATH=src python -m repro_torch.examples.multi_table_fraud",
+            views=_one(multi_table_view),
+            exported=("fraud_multitable",),
+        ),
+        Scenario(
+            name="sharded_serving",
+            title="Sharded online serving",
+            description=(
+                "The multi-table view key-partitioned across a ('shard',) "
+                "device mesh behind a micro-batching router."
+            ),
+            run="PYTHONPATH=src python -m repro_torch.examples.sharded_serving",
+            views=_one(sharded_view),
+        ),
+        Scenario(
+            name="multi_scenario",
+            title="Multi-scenario plane",
+            description=(
+                "Three views (acct_risk, spend_profile, merchant_watch) on "
+                "ONE store/mesh; shared tables ingested once, answers "
+                "bit-identical to dedicated stores; merchant_watch is "
+                "hot-deployed onto the warm plane."
+            ),
+            run="PYTHONPATH=src python -m repro_torch.examples.multi_scenario",
+            views=multi_scenario_views,
+            hot_deployed=("merchant_watch",),
+        ),
+    )
+}
+
+
+# ---------------------------------------------------------------------------
+# Generated scenario families (the stress suite's registry hook)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratedFamily:
+    """A seeded family of GENERATED scenario views — the catalog entry for
+    the paper's "100+ scenarios" scale claim.
+
+    Unlike :class:`Scenario`, the views are not hand-written: they come
+    from the deterministic generator in :mod:`repro_torch.stress.generate`, so
+    the catalog renders a scale-aware structural census instead of 100+
+    full entries.  ``(seed, n, profile)`` pins the family byte-exactly.
+    """
+
+    name: str
+    title: str
+    description: str
+    run: str
+    seed: int
+    n: int
+    profile: str
+
+    def views(self) -> List[FeatureView]:
+        from repro_torch.stress.generate import gen_views
+
+        return gen_views(self.seed, self.n, self.profile)
+
+    def summary_md(self) -> str:
+        from repro_torch.stress.generate import render_summary_md
+
+        return render_summary_md(
+            self.views(), seed=self.seed, n=self.n, profile=self.profile
+        )
+
+
+GENERATED: Dict[str, GeneratedFamily] = {
+    f.name: f
+    for f in (
+        GeneratedFamily(
+            name="stress",
+            title="Scenario explosion (generated stress suite)",
+            description=(
+                "128 seeded, deterministic feature views sampling the "
+                "entire expr IR surface — every Agg, both window modes, "
+                "WINDOW UNIONs over shared streams, multi-table LAST "
+                "JOINs, Signature/Hash lanes, evolve chains — deployed "
+                "onto one sharded plane and churned by the stress "
+                "harness (hot-deploy waves, mixed traffic under both "
+                "routing flavours, continuous sampled verification with "
+                "failure shrinking)."
+            ),
+            run="PYTHONPATH=src python -m repro_torch.stress --smoke",
+            seed=0,
+            n=128,
+            profile="default",
+        ),
+    )
+}
