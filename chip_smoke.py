@@ -4,7 +4,9 @@ multi-scenario plane (mixed batches through one store), hot deploy onto a
 live plane and the offline bridge (backfill, training-set export), the
 merge-order bucket families (FIRST / LAST / TOPN_FREQ over RANGE
 windows), the platform surface (data import at a day's scale, the
-telemetry gate, the dashboard, the catalog, the example twins), RWKV6
+telemetry gate, the dashboard, the catalog, the example twins), the
+stress harness (its CLI, and 128 generated scenarios on one plane at a
+deployment's size, with a hot-deploy wave), RWKV6
 serving (rwkv6-3b prefill and decode), dense LM serving
 (nemotron-4-15b prefill and decode), and the offline feature path with its
 offline<->online consistency check.
@@ -234,7 +236,46 @@ Phases, in order; any failure exits non-zero:
    ``docs/CATALOG_TORCH.md``.  (e) The five example twins
    (``repro_torch.examples``), each ``main(device="cuda")`` at its own
    sizes with its own assertions; seconds and B1 / B2 / B4 launches each.
-14. **WKV6 kernel** against its plain versions, float32 inputs from a
+14. **Stress harness** (after phase 13 has freed its stores).  First the
+   count-min sketch (``core.signature``): ``CMS_ITEMS`` uniform ids plus
+   ``CMS_HOT`` ids of ``CMS_HOT_ROWS`` copies into a (4, 2^14) sketch, unit
+   and float weights (six magnitudes), the card's counts and queries ==
+   the CPU's, bit for bit.  (a) ``repro_torch.stress.__main__.main(
+   ["--smoke", "--device", "cuda"])`` in this process, its answer
+   comparisons held to the bits (dtype and bytes; the harness itself
+   compares values): exit 0, 16 views deployed, 2 waves, 3
+   flavour-parity probes (device-routed == host-routed), 6 verified, 3
+   spot checks (plane == a dedicated store).  (b) ``--smoke
+   --force-fail`` of the first view (a) verified: exit 1, exactly one
+   ``verify`` failure, shrunk to 60 rows, one repro script naming ``python -m repro_torch.stress
+   --repro``, whose command, run as a subprocess from the repository
+   root, exits 0 on the card.  (c) ``--n 128`` at the defaults (8
+   shards, 2 waves of 3, 1,200 rows): 128 deployed, 2 waves, 3 probes, 6
+   verified; ``deploy_wall_s``, ``qps`` and B1 / B2 / B4 launches.
+   Repro scripts go to a temporary directory.  (d)
+   ``bench_stress.py``'s ladder: N in ``STRESS_LADDER`` generated views
+   on one 8-shard ``ScenarioPlane``, 900 rows, 8 mixed ``query_mixed``
+   batches of 64: ``deploy_s``, ``lanes_primary`` / ``lanes_shared``,
+   ``mixed_qps``, the telemetry registry's size (printed, no file).  (e)
+   Deployment size: the 128 views of ``gen_views(0, 128)``, 122 deployed
+   by ``build_multi(..., sharded=True, num_shards=8)`` at
+   ``STRESS_ENTITIES`` = 2^15 entities (items 2^14) with the generator's
+   other knobs; a day of ``STRESS_ROWS`` = 2^22 events
+   (``stress_stream``), the tracked secondary tables first, then 64
+   (entity, ts)-sorted slices, B1 at least once a slice; 8 mixed batches
+   of 4,096 event rows (after the day, tags drawn over all live
+   scenarios) through ``ShardRouter`` (ingest off), device-routed ==
+   host-routed bit for bit, B2 once a pump from keys; two views'
+   answers == a dedicated single-view store replaying the ingest log,
+   bit for bit; one traced mixed batch; one hot-deploy wave of the 6
+   held views under the harness's protocol (without a backfill first; a
+   refusal naming backfill is retried with a ``BackfillSource`` of the
+   ingest log; every migration exact), then one more mixed batch over
+   all 128, device == host.  Prints the build seconds, ingest rows/s,
+   pump p50 / p99, ``route.device``, the trace's kernel count and idle
+   share, each deploy's seconds and spans, the state's bytes and peaks,
+   and B1 / B2 / B4 launches over the phase.
+15. **WKV6 kernel** against its plain versions, float32 inputs from a
    seeded generator, r, k, v, lw as the model hands them over ((B, T, H,
    D) tensors viewed as (B, H, T, D)): (8, 40, 1024, 64) with a random s0
    and the decode step (8, 40, 1, 64) with and without s0, T = 15, a
@@ -252,7 +293,7 @@ Phases, in order; any failure exits non-zero:
    apart, and the chunked plain version; its bound is the larger of its
    bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
    version.
-15. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
+16. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
    depth cut).  A prefill and a decode step with a spy on B7's entry
@@ -274,7 +315,7 @@ Phases, in order; any failure exits non-zero:
    init sets to constants, randomized): decode after 1 and 8 steps equals
    prefill over the longer prompt, and the kernel run the chunked-plain
    run, within ``LM_F32_TOL``.
-16. **Flash attention kernel (B6)**: each instantiation's registers and
+17. **Flash attention kernel (B6)**: each instantiation's registers and
    spills (``ptxas -v``) and its ``HGMMA`` / ``HMMA`` count in the built
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
@@ -293,7 +334,7 @@ Phases, in order; any failure exits non-zero:
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
    short-sequence threshold), and float32 at nemotron's shape.
-17. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
+18. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
    15,628,376,064 parameters drawn on the card from a seeded generator);
@@ -309,24 +350,25 @@ Phases, in order; any failure exits non-zero:
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-18. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+19. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-19. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+20. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-20. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+21. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
     own keys, phase 10's under ``launches_multiscenario``, phase 11's B1,
     B2 and B4 under ``launches_deploy``, phase 12's B1 and B2 under
     ``launches_families``, phase 13's (a), (b) and (e) under
-    ``launches_platform``), then the card
+    ``launches_platform``, phase 14's under ``launches_stress``), then
+    the card
     line, then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
@@ -418,6 +460,30 @@ FAM_FEATURES = ("first_amount_1h", "last_amount_1h", "top_merchant_1h",
 # the platform phase: the main path's day written as npz (all 64 slices) and
 # as CSV (the first 16 slices, 2^20 rows), loaded back through data.ingest
 PLATFORM_CSV_SLICES = 16
+# the stress phase: the harness's N = 128 sweep; bench_stress.py's ladder
+# (N views on one 8-shard plane, 900 rows, 8 mixed batches of 64); the
+# generated views of (0, 128) at a deployment's size: 122 on the plane and
+# 6 held back for one hot-deploy wave, 2^15 entities (items 2^14), a day of
+# 2^22 events in 64 slices (busiest entity under the ring of 256), 8 mixed
+# batches of REQ_ROWS; the count-min sketch over 2^20 uniform ids plus
+# CMS_HOT ids of CMS_HOT_ROWS copies each (its per-cell fold runs one step
+# per copy on the busiest cell)
+STRESS_N = 128
+STRESS_HELD = 6
+STRESS_LADDER = (16, 64, 128)
+STRESS_LADDER_ROWS = 900
+STRESS_LADDER_BATCH = 64
+STRESS_LADDER_BATCHES = 8
+STRESS_ENTITIES = 1 << 15
+STRESS_ITEMS = 1 << 14
+STRESS_ROWS = 1 << 22
+STRESS_SLICES = 64
+STRESS_BATCHES = 8
+CMS_ITEMS = 1 << 20
+CMS_HOT = 4
+CMS_HOT_ROWS = 512
+CMS_DEPTH = 4
+CMS_WIDTH = 1 << 14
 WS_BATCHES = 8
 WINDOWS = (3600, 21600)   # the fraud view's 1 h and 6 h RANGE windows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -3458,6 +3524,549 @@ def platform_path(results) -> None:
     if d["fold_levels"]:
         results["fold_levels"]["launches_platform"] = d["fold_levels"]
 
+
+# ---------------------------------------------------------------------------
+# the stress harness and 128 generated scenarios
+# ---------------------------------------------------------------------------
+
+
+def _answer_bytes(v) -> np.ndarray:
+    """An answer column as its dtype's name and its bytes: two of these
+    are ``np.array_equal`` exactly when the answers are bit for bit the
+    same."""
+    a = np.ascontiguousarray(
+        v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+    return np.frombuffer(f"{a.dtype.str}{a.shape}".encode() + a.tobytes(),
+                         np.uint8)
+
+
+def _stress_cli(argv, tag):
+    """``python -m repro_torch.stress`` in this process, from a temporary
+    working directory (its repro scripts land there), with the harness's
+    answer comparisons (flavour parity, spot checks) held to the bits
+    (``_answer_bytes``); returns (exit code, the report, the directory's
+    files)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from repro_torch.stress import __main__ as stress_main
+    from repro_torch.stress import harness
+
+    seen = []
+    run_stress = stress_main.run_stress
+    host = harness._host
+
+    def spy(*a, **kw):
+        seen.append(run_stress(*a, **kw))
+        return seen[-1]
+
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stress_") as tmp:
+        os.chdir(tmp)
+        stress_main.run_stress = spy
+        harness._host = _answer_bytes
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = stress_main.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            stress_main.run_stress = run_stress
+            harness._host = host
+            os.chdir(cwd)
+        files = {p.name: p.read_text() for p in Path(tmp).iterdir()}
+    for ln in buf.getvalue().splitlines():
+        if not ln.startswith("  verify [PASS]"):
+            print(f"{tag}: {ln}", flush=True)
+    if len(seen) != 1:
+        _fail(f"{tag}: main ran run_stress {len(seen)} times")
+    print(f"{tag}: exit {rc} in {wall:.1f} s", flush=True)
+    return rc, seen[0], files
+
+
+def _stress_report_is(rep, tag, deployed, verified):
+    """The harness's counts at its defaults: ``deployed`` views, 2 waves,
+    3 flavour-parity probes (a probe that differs is a failure), 3 spot
+    checks, 576 requests."""
+    got = (rep.deployed, rep.waves_survived, rep.parity_batches,
+           len(rep.verified), len(rep.spot_checked), rep.requests)
+    want = (deployed, 2, 3, verified, 3, 576)
+    if got != want:
+        _fail(f"{tag}: (deployed, waves, parity probes, verified, spot "
+              f"checks, requests) {got}, expected {want}")
+
+
+def _cms_check(dev) -> None:
+    """The count-min sketch on the card == on the CPU, bit for bit: unit
+    weights, and float weights over six magnitudes with heavy hitters."""
+    from repro_torch.core.signature import cms_init, cms_query, cms_update
+
+    rng = np.random.default_rng(SEED + 14)
+    items = np.concatenate([
+        rng.integers(0, 1 << 20, CMS_ITEMS).astype(np.int32),
+        np.repeat(np.arange(CMS_HOT, dtype=np.int32) * 7919, CMS_HOT_ROWS),
+    ])
+    rng.shuffle(items)
+    w = (rng.standard_normal(items.size)
+         * rng.choice([1e-3, 1.0, 1e3], items.size)).astype(np.float32)
+    probe = torch.from_numpy(np.unique(items[:4096]))
+    for kind, weights in (("unit", None), ("float", torch.from_numpy(w))):
+        got = {}
+        t0 = time.perf_counter()
+        for d in ("cpu", dev):
+            sk = cms_init(CMS_DEPTH, CMS_WIDTH, device=d)
+            sk = cms_update(sk, torch.from_numpy(items), weights)
+            got[d] = (sk.counts.cpu().numpy(),
+                      cms_query(sk, probe).cpu().numpy())
+        (c0, q0), (c1, q1) = got["cpu"], got[dev]
+        if not (np.array_equal(c0.view(np.int32), c1.view(np.int32))
+                and np.array_equal(q0.view(np.int32), q1.view(np.int32))):
+            _fail(f"stress: count-min sketch ({kind} weights) differs "
+                  "between the card and the CPU")
+        print(f"stress count-min sketch ({kind} weights): {items.size} items "
+              f"(hot ids x{CMS_HOT_ROWS}) into ({CMS_DEPTH}, {CMS_WIDTH}), "
+              f"card == CPU bit for bit (counts and {probe.numel()} queries) "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def _stress_ladder(dev) -> None:
+    """``bench_stress.py``'s ladder on the card: N generated views on one
+    8-shard ``ScenarioPlane`` (deploy seconds, lane packing), 900 rows
+    ingested, 8 mixed ``query_mixed`` batches of 64 tagged over all N
+    (requests/s), the telemetry registry's size."""
+    from repro_torch.core.expr import collect_window_aggs
+    from repro_torch.core.scenario import ScenarioPlane
+    from repro_torch.data.synthetic import STRESS_DB, stress_stream
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.stress.generate import (
+        NUM_ENTITIES, NUM_ITEMS, T_MAX, filter_table_knobs, gen_store_kwargs,
+        gen_views, stress_rng)
+    from repro_torch.stress.harness import _sorted_batch
+
+    rows, batch = STRESS_LADDER_ROWS, STRESS_LADDER_BATCH
+    for n in STRESS_LADDER:
+        views = gen_views(0, n)
+        kw = filter_table_knobs(gen_store_kwargs(0, n), views)
+        tel = Telemetry()
+        with use_telemetry(tel):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plane = ScenarioPlane(views, num_keys=NUM_ENTITIES,
+                                  num_shards=NUM_SHARDS, name=f"stress{n}",
+                                  device=dev, **kw)
+            torch.cuda.synchronize()
+            deploy_s = time.perf_counter() - t0
+            exprs = [e for v in views for e in v.features.values()]
+            distinct = len(collect_window_aggs(exprs))
+            per_view = sum(len(collect_window_aggs(list(v.features.values())))
+                           for v in views)
+            tabs = stress_stream(stress_rng(0, n, "default", "data"), rows,
+                                 num_entities=NUM_ENTITIES,
+                                 num_items=NUM_ITEMS, t_max=T_MAX)
+            for t in plane.store._sec_names:
+                sch = STRESS_DB.table(t)
+                plane.ingest_table(t, _sorted_batch(tabs[t], sch.key, sch.ts))
+            ev = tabs["events"]
+            plane.ingest(_sorted_batch(ev, "entity", "ts"))
+            scens = plane.scenarios
+            rng = stress_rng(0, n, "default", "bench-traffic")
+
+            def probe(i):
+                lo = (i * batch) % (rows - batch)
+                cols = {c: v[lo:lo + batch] for c, v in ev.items()}
+                tags = np.array([scens[int(t)] for t in
+                                 rng.integers(len(scens), size=batch)])
+                return cols, tags
+
+            plane.query_mixed(*probe(0))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(STRESS_LADDER_BATCHES):
+                plane.query_mixed(*probe(i + 1))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        metrics = tel.metrics.snapshot()
+        series = sum(len(m["series"]) for m in metrics.values())
+        print(f"stress ladder N={n}: deploy_s {deploy_s!r}; lanes_primary "
+              f"{len(plane.store.layout.primary.lanes)}; lanes_shared "
+              f"{per_view - distinct} ({per_view} per-view window aggs -> "
+              f"{distinct} packed); mixed_qps "
+              f"{STRESS_LADDER_BATCHES * batch / dt!r} "
+              f"({STRESS_LADDER_BATCHES} x {batch} rows over {len(scens)} "
+              f"scenarios, fenced); telemetry registry {len(metrics)} "
+              f"metrics, {series} series", flush=True)
+        del plane
+    torch.cuda.empty_cache()
+
+
+def _stress_serve(svc, routers, tels, rows, tags, tag):
+    """One mixed batch through the device-routed ``ShardRouter`` (one
+    pump, ingest off) and through the host-routed one over the same plane:
+    every scenario's answers bit for bit, B2 once (from keys) on the
+    device path and never on the host path.  Returns (answers, fenced
+    seconds of the device pump)."""
+    from repro_torch import kernels
+    from repro_torch.obs import use_telemetry
+
+    store = svc.store
+    n = len(tags)
+
+    def submit(router):
+        for i in range(n):
+            router.submit({c: v[i] for c, v in rows.items()},
+                          scenario=str(tags[i]))
+
+    b2 = dict(kernels.VARIANT_LAUNCHES["route_rank"])
+    store.device_routing = False
+    try:
+        with use_telemetry(tels["host"]):
+            submit(routers["host"])
+            host = routers["host"].pump(flush=True)
+    finally:
+        store.device_routing = True
+    if kernels.VARIANT_LAUNCHES["route_rank"] != b2:
+        _fail(f"{tag}: the host-routed pump launched B2")
+    with use_telemetry(tels["device"]):
+        submit(routers["device"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = routers["device"].pump(flush=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    after = kernels.VARIANT_LAUNCHES["route_rank"]
+    n_b2 = {v: after[v] - b2[v] for v in after}
+    if n_b2["keys"] != 1 or sum(n_b2.values()) != 1:
+        _fail(f"{tag}: B2 launched {n_b2} in one mixed pump, expected one "
+              "from keys")
+    present = sorted(set(tags.tolist()))
+    if sorted(got) != present or sorted(host) != present:
+        _fail(f"{tag}: scenarios answered: device {len(got)}, host "
+              f"{len(host)}, sent {len(present)}")
+    for sc in present:
+        bad = _same_bits(host[sc], got[sc])
+        if bad is not None:
+            x, y = np.asarray(host[sc][bad]), np.asarray(got[sc][bad])
+            i = int(np.flatnonzero(x.view(np.uint8) != y.view(np.uint8))[0]
+                    // x.itemsize) if x.shape == y.shape else 0
+            _fail(f"{tag} {sc}/{bad}: device-routed answers differ from the "
+                  f"host-routed ones (first at row {i}: {y.reshape(-1)[i]!r} "
+                  f"vs {x.reshape(-1)[i]!r})")
+        m = int((tags == sc).sum())
+        for f, v in got[sc].items():
+            if v.shape != (m,) or not np.all(np.isfinite(v)):
+                _fail(f"{tag} {sc}/{f}: shape {v.shape} or non-finite")
+    return got, wall
+
+
+def _stress_deployment(results, dev) -> None:
+    """The 128 generated views of (0, 128) at a deployment's size: 122 on
+    one 8-shard plane of ``STRESS_ENTITIES`` entities, a day of
+    ``STRESS_ROWS`` events, mixed batches device == host, two dedicated
+    stores, one hot-deploy wave of the 6 held back, one more batch."""
+    from repro_torch import kernels
+    from repro_torch.core.online import OnlineFeatureStore
+    from repro_torch.data.synthetic import STRESS_DB, stress_stream
+    from repro_torch.obs import Telemetry, use_telemetry
+    from repro_torch.offline.backfill import BackfillSource
+    from repro_torch.serve.service import (
+        SCENARIO_COL, FeatureService, MultiScenarioService)
+    from repro_torch.stress.generate import (
+        filter_table_knobs, gen_store_kwargs, gen_views, stress_rng)
+    from repro_torch.stress.harness import _sorted_batch
+
+    views = gen_views(0, STRESS_N)
+    initial, held = views[:-STRESS_HELD], views[-STRESS_HELD:]
+    kw = gen_store_kwargs(0, STRESS_N)
+    kw["secondary_num_keys"] = {"items": STRESS_ITEMS}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = FeatureService.build_multi(
+        "stress_deploy", initial, num_keys=STRESS_ENTITIES, sharded=True,
+        num_shards=NUM_SHARDS, device=dev, **filter_table_knobs(kw, initial))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    plane, store = svc.plane, svc.store
+    print(f"stress deployment: build_multi of {len(initial)} views on "
+          f"{NUM_SHARDS} shards x {STRESS_ENTITIES} entities (items "
+          f"{STRESS_ITEMS}) in {build_s!r} s; {store.num_lanes} primary "
+          f"lanes, tables {list(store._sec_names)}; state "
+          f"{_state_gb(store)!r} GB", flush=True)
+
+    tabs = stress_stream(stress_rng(0, STRESS_N, "default", "data"),
+                         STRESS_ROWS, num_entities=STRESS_ENTITIES,
+                         num_items=STRESS_ITEMS, t_max=DAY)
+    ev = tabs["events"]
+    per_entity = np.bincount(ev["entity"], minlength=STRESS_ENTITIES)
+    print(f"stress deployment: {STRESS_ROWS} events over {DAY} s, "
+          f"{per_entity.max()} on the busiest entity (ring "
+          f"{kw['capacity']}); " + ", ".join(
+              f"{t} {len(c['ts'])}" for t, c in tabs.items() if t != "events"),
+          flush=True)
+    if per_entity.max() > kw["capacity"]:
+        _fail("stress deployment: the busiest entity overflows its ring")
+
+    log = []
+    seen_tables = set()
+    rows_in = {}
+    secs = {}
+
+    def ingest(table, cols):
+        sch = STRESS_DB.table(table)
+        b = _sorted_batch(cols, sch.key, sch.ts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if table == "events":
+            plane.ingest(b)
+        else:
+            plane.ingest_table(table, b)
+        torch.cuda.synchronize()
+        secs[table] = secs.get(table, 0.0) + time.perf_counter() - t0
+        rows_in[table] = rows_in.get(table, 0) + len(b["ts"])
+        log.append((table, b))
+
+    def ingest_new_tables():
+        for t in store._sec_names:
+            if t not in seen_tables:
+                seen_tables.add(t)
+                ingest(t, tabs[t])
+
+    def backfill_from_log():
+        hist = {}
+        for t, b in log:
+            hist.setdefault(t, []).append(b)
+        return BackfillSource(STRESS_DB, {
+            t: {c: np.concatenate([b[c] for b in bs]) for c in bs[0]}
+            for t, bs in hist.items()})
+
+    b1 = kernels.LAUNCHES["fused_ingest"]
+    ingest_new_tables()
+    for idx in np.array_split(np.arange(STRESS_ROWS), STRESS_SLICES):
+        ingest("events", {c: v[idx] for c, v in ev.items()})
+    n_b1 = kernels.LAUNCHES["fused_ingest"] - b1
+    for t in rows_in:
+        print(f"stress deployment ingest {t}: {rows_in[t]} rows in "
+              f"{secs[t]!r} s = {rows_in[t] / secs[t]!r} rows/s (fenced)",
+              flush=True)
+    print(f"stress deployment: B1 {n_b1} launches over the ingest; state "
+          f"{_state_gb(store)!r} GB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9!r} GB", flush=True)
+    if n_b1 < STRESS_SLICES:
+        _fail(f"stress deployment: B1 launched {n_b1} times over "
+              f"{STRESS_SLICES} event slices")
+
+    def host_routers():
+        """The device-routed router over ``svc`` and a host-routed one
+        over the same plane, ingest off (the log owns every mutation)."""
+        routers = _ms_routers(svc, MultiScenarioService("stress_host", plane))
+        for r in routers.values():
+            r.ingest = False
+        return routers
+
+    routers = host_routers()
+    tels = {"host": Telemetry(), "device": Telemetry()}
+    rng = stress_rng(0, STRESS_N, "default", "chip-traffic")
+
+    def batch(b, t_lo):
+        idx = rng.choice(STRESS_ROWS, size=REQ_ROWS, replace=False)
+        rows = {c: v[idx] for c, v in ev.items()}
+        rows["ts"] = (t_lo + 60 * b
+                      + rng.integers(0, 60, REQ_ROWS)).astype(np.int32)
+        names = plane.scenarios
+        tags = np.array([names[int(i)] for i in
+                         rng.integers(len(names), size=REQ_ROWS)])
+        return rows, tags
+
+    saved, walls = [], []
+    for b in range(STRESS_BATCHES):
+        rows, tags = batch(b, DAY)
+        got, wall = _stress_serve(svc, routers, tels, rows, tags,
+                                  f"stress deployment batch {b}")
+        saved.append((rows, tags, got))
+        walls.append(wall)
+    spans = tels["device"].metrics.histogram("span_seconds", unit="s",
+                                             labels=("name", "kind"))
+    print(f"stress deployment: {STRESS_BATCHES} mixed batches x {REQ_ROWS} "
+          f"rows over {len(plane.scenarios)} scenarios, device-routed == "
+          f"host-routed bit for bit, B2 once a pump; fenced pump p50 "
+          f"{1e3 * float(np.percentile(walls, 50))!r} ms, p99 "
+          f"{1e3 * float(np.percentile(walls, 99))!r} ms; route.device mean "
+          f"{1e3 * spans.mean(name='route.device', kind='device')!r} ms over "
+          f"{int(spans.count(name='route.device', kind='device'))}",
+          flush=True)
+
+    # two views against a dedicated single-view store replaying the log
+    first = next(v for v in initial if "items" in v.tables)
+    pick = [first, next(v for v in initial if v is not first
+                        and {"refunds", "clicks"} & set(v.tables))]
+    for view in pick:
+        ded = OnlineFeatureStore.create(
+            view, num_keys=STRESS_ENTITIES, device=dev,
+            **filter_table_knobs(kw, [view]))
+        for t, b in log:
+            if t == "events":
+                ded.ingest(b)
+            elif t in ded._sec_names:
+                ded.ingest_table(t, b)
+        n = 0
+        for b, (rows, tags, got) in enumerate(saved):
+            sel = tags == view.name
+            if not sel.any():
+                continue
+            one = _np_answers(ded.query({c: v[sel] for c, v in rows.items()}))
+            bad = _same_bits(one, got[view.name])
+            if bad is not None:
+                _fail(f"stress deployment batch {b} {view.name}/{bad}: the "
+                      "plane's answers differ from a dedicated store's")
+            n += int(sel.sum())
+        if n == 0:
+            _fail(f"stress deployment: no request was tagged {view.name}")
+        print(f"stress deployment: dedicated {view.name} store (tables "
+              f"{view.tables}, {_state_gb(ded)!r} GB) == the plane, bit for "
+              f"bit, on {n} requests", flush=True)
+        del ded
+    torch.cuda.empty_cache()
+
+    rows, tags = batch(STRESS_BATCHES, DAY)
+    rows[SCENARIO_COL] = tags
+    trace_request(svc, rows, results, key="trace_stress",
+                  serve=lambda cols: svc.request_mixed(cols, ingest=False))
+
+    # one hot-deploy wave of the held views, under the harness's protocol
+    torch.cuda.reset_peak_memory_stats()
+    refused, wave_s = 0, []
+    for v in held:
+        knobs = filter_table_knobs(
+            {k: kw[k] for k in ("table_capacity", "table_ttl",
+                                "secondary_num_keys")},
+            list(plane.views.values()) + [v])
+        try:
+            mig, wall, _ = _deploy(svc.hot_deploy, f"stress wave {v.name}",
+                                   v, **knobs)
+        except ValueError as e:
+            if "backfill" not in str(e):
+                _fail(f"stress wave {v.name}: hot deploy raised {e}")
+            refused += 1
+            print(f"stress wave {v.name}: refused without a backfill ({e}); "
+                  "retried with a BackfillSource of the ingest log",
+                  flush=True)
+            mig, wall, _ = _deploy(svc.hot_deploy, f"stress wave {v.name}",
+                                   v, backfill=backfill_from_log(), **knobs)
+        wave_s.append(wall)
+        if not mig.exact:
+            _fail(f"stress wave {v.name}: inexact migration: "
+                  f"{'; '.join(mig.notes) or mig.diff_summary}")
+        print(f"stress wave {v.name}: exact in {wall!r} s", flush=True)
+    ingest_new_tables()
+    print(f"stress wave: +{len(held)} views ({refused} refused then "
+          f"backfilled), {float(np.mean(wave_s))!r} s a view, every migration "
+          f"exact; state {_state_gb(store)!r} GB, peak during the wave "
+          f"{torch.cuda.max_memory_allocated() / 1e9!r} GB", flush=True)
+    if len(plane.scenarios) != STRESS_N:
+        _fail(f"stress wave: {len(plane.scenarios)} live scenarios")
+    rows, tags = batch(STRESS_BATCHES + 1, DAY)
+    _stress_serve(svc, host_routers(), tels, rows, tags,
+                  "stress after the wave")
+    print(f"stress after the wave: one mixed batch over {STRESS_N} "
+          "scenarios, device-routed == host-routed bit for bit", flush=True)
+    del svc, routers, plane, store, saved, log
+    torch.cuda.empty_cache()
+
+
+def stress_path(results) -> None:
+    """The stress harness on the card: (a) ``--smoke``; (b) its shrink and
+    repro with one view forced to fail, the repro script run as a
+    subprocess; (c) the N = 128 sweep; (d) ``bench_stress.py``'s ladder;
+    (e) the 128 generated views at a deployment's size, with a hot-deploy
+    wave.  Also the count-min sketch, card == CPU."""
+    import os
+    import shlex
+
+    from repro_torch import kernels
+
+    dev = "cuda"
+    phase_t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _cms_check(dev)
+    before = dict(kernels.LAUNCHES)
+
+    # -- (a) the smoke run ---------------------------------------------------
+    at = dict(kernels.LAUNCHES)
+    rc, rep, files = _stress_cli(["--smoke", "--device", dev],
+                                    "stress (a) --smoke")
+    if rc != 0 or not rep.passed or files:
+        _fail(f"stress (a): --smoke exit {rc}, files {sorted(files)}: "
+              f"{rep.summary()}")
+    _stress_report_is(rep, "stress (a)", 16, 6)
+    d = _launch_delta(at)
+    print(f"stress (a): B1 {d['fused_ingest']}, B2 {d['route_rank']}, B4 "
+          f"{d['fold_levels']} launches", flush=True)
+
+    # -- (b) shrink and repro --------------------------------------------------
+    view = rep.verified[0].split(":")[0]
+    rc, rep, files = _stress_cli(
+        ["--smoke", "--force-fail", view, "--device", dev],
+        "stress (b) --force-fail")
+    fails = [(f.view, f.stage, f.shrunk_rows) for f in rep.failures]
+    name = f"stress_repro_{view}.sh"
+    if rc != 1 or fails != [(view, "verify", 60)] or list(files) != [name]:
+        _fail(f"stress (b): exit {rc}, failures {fails}, files {list(files)}")
+    cmd = files[name].strip().splitlines()[-1]
+    if not cmd.startswith("PYTHONPATH=src python -m repro_torch.stress "
+                          "--repro "):
+        _fail(f"stress (b): the repro script runs {cmd!r}")
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    sub = subprocess.run(
+        [sys.executable, "-m", "repro_torch.stress", *shlex.split(cmd)[4:]],
+        cwd=root, env=dict(os.environ, PYTHONPATH="src"),
+        capture_output=True, text=True, timeout=600)
+    print(f"stress (b): `{cmd}` exit {sub.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s (a subprocess on the card): "
+          f"{sub.stdout.strip()}", flush=True)
+    if sub.returncode != 0 or not sub.stdout.startswith(f"[PASS] view={view} "):
+        _fail(f"stress (b): the repro command failed: {sub.stderr[-2000:]}")
+
+    # -- (c) the N = 128 sweep --------------------------------------------------
+    at = dict(kernels.LAUNCHES)
+    rc, rep, files = _stress_cli(["--n", str(STRESS_N), "--device", dev],
+                                    "stress (c) --n 128")
+    if rc != 0 or not rep.passed or files:
+        _fail(f"stress (c): exit {rc}: {rep.summary()}")
+    _stress_report_is(rep, "stress (c)", STRESS_N, 6)
+    d = _launch_delta(at)
+    print(f"stress (c): deploy_wall_s {rep.deploy_wall_s!r}, qps "
+          f"{rep.qps!r}; B1 {d['fused_ingest']}, B2 {d['route_rank']}, B4 "
+          f"{d['fold_levels']} launches", flush=True)
+    abc = _launch_delta(before)
+    print(f"stress (a)-(c): B1 {abc['fused_ingest']}, B2 "
+          f"{abc['route_rank']}, B4 {abc['fold_levels']} launches in-process",
+          flush=True)
+
+    # -- (d) the ladder ------------------------------------------------------
+    _stress_ladder(dev)
+
+    # -- (e) deployment size --------------------------------------------------
+    _stress_deployment(results, dev)
+
+    d = _launch_delta(before)
+    print(f"stress phase: {time.perf_counter() - phase_t0:.1f} s; B1 "
+          f"{d['fused_ingest']}, B2 {d['route_rank']}, B4 {d['fold_levels']} "
+          "launches", flush=True)
+    if min(d.values()) <= 0:
+        _fail(f"stress: a kernel of the path never launched: {d}")
+    results["fused_ingest"]["launches_stress"] = d["fused_ingest"]
+    results["route_rank"]["launches_stress"] = d["route_rank"]
+    results["fold_levels"]["launches_stress"] = d["fold_levels"]
+
+
 def _wkv6_cost(shape, with_s0):
     """(bytes, FLOP) one WKV6 call must move and compute: r, k, v, lw read
     and y written once, u, s0 (when given) and the final state; per
@@ -4520,6 +5129,7 @@ def main() -> None:
     deploy_path(results)
     families_path(results)
     platform_path(results)
+    stress_path(results)
     check_wkv6_kernel(results)
     rwkv6_path(results)
     check_flash_attention_kernel(results)

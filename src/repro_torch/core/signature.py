@@ -8,20 +8,34 @@ independent re-hashes probe a shared ``(V, D)`` table and the probed rows
 combine with weights.  The gather itself is the signature-embedding kernel
 (:mod:`repro_torch.kernels.signature`).
 
+Also here: a count-min sketch (the streaming top-N support structure)
+for global heavy hitters, complementary to the exact per-key window
+TOPN_FREQ in the engine.
+
 The same functions as the reference package's ``repro.core.signature``,
-bit for bit on the ids.  Its count-min sketch is not on the scoring path
-and is not ported yet.
+bit for bit on the ids and on the sketch's counts.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Optional, Sequence
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.hashing import fold_hash, mix64
+from repro_torch.core.preagg import segment_fold
 
-__all__ = ["signature_ids", "multi_hash_ids", "hash_embedding_lookup_ref"]
+__all__ = [
+    "signature_ids",
+    "multi_hash_ids",
+    "hash_embedding_lookup_ref",
+    "CountMinSketch",
+    "cms_init",
+    "cms_update",
+    "cms_query",
+]
 
 
 def signature_ids(
@@ -61,3 +75,81 @@ def hash_embedding_lookup_ref(
     vecs = table[ids.long()]
     w = torch.broadcast_to(weights, ids.shape).to(vecs.dtype)
     return torch.einsum("...k,...kd->...d", w, vecs)
+
+
+# ---------------------------------------------------------------------------
+# Count-min sketch (streaming heavy hitters)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CountMinSketch:
+    counts: torch.Tensor  # (depth, width) float32
+
+
+def cms_init(depth: int = 4, width: int = 1024,
+             device="cuda") -> CountMinSketch:
+    return CountMinSketch(
+        torch.zeros((depth, width), dtype=torch.float32,
+                    device=resolve_device(device))
+    )
+
+
+def _cms_slots(items: torch.Tensor, depth: int, width: int) -> torch.Tensor:
+    """(depth, N) int64 slot of each item in each row."""
+    return torch.stack(
+        [
+            mix64(items, salt=0x1234 + 31 * d, bits=31) % width
+            for d in range(depth)
+        ],
+        dim=0,
+    ).long()
+
+
+def cms_update(
+    sk: CountMinSketch, items: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+) -> CountMinSketch:
+    """The sketch with ``items`` ((N,) int) added, each weighted by
+    ``weights`` ((N,), default 1).
+
+    The reference scatter-adds all (row, slot) updates at once, and XLA
+    adds a cell's updates one after another in item order.  A CUDA
+    scatter-add (atomics) adds them in no fixed order, which float
+    weights would show; here the updates are stably sorted by cell and
+    each cell folds its weights in item order
+    (:func:`~repro_torch.core.preagg.segment_fold`), the same bits on
+    every device.
+    """
+    depth, width = sk.counts.shape
+    dev = sk.counts.device
+    items = torch.as_tensor(items, device=dev)
+    slots = _cms_slots(items, depth, width)
+    w = (
+        torch.ones(items.shape, dtype=torch.float32, device=dev)
+        if weights is None
+        else torch.as_tensor(weights, device=dev).to(torch.float32)
+    )
+    cell = (slots + width * torch.arange(depth, device=dev)[:, None]
+            ).reshape(-1)
+    cell, order = torch.sort(cell, stable=True)
+    w = w.expand(depth, -1).reshape(-1)[order]
+    uniq, lengths = torch.unique_consecutive(cell, return_counts=True)
+    starts = torch.cumsum(lengths, 0) - lengths
+    flat = sk.counts.reshape(-1).clone()
+    flat[uniq] = segment_fold(
+        starts, lengths, w, flat[uniq], lambda a, b: a + b
+    )
+    return CountMinSketch(flat.reshape(depth, width))
+
+
+def cms_query(sk: CountMinSketch, items: torch.Tensor) -> torch.Tensor:
+    """(N,) float32 estimate of each (N,) item's count: the least of its
+    ``depth`` cells (never below the true count for non-negative
+    weights)."""
+    depth, width = sk.counts.shape
+    dev = sk.counts.device
+    items = torch.as_tensor(items, device=dev)
+    slots = _cms_slots(items, depth, width)
+    rows = torch.arange(depth, device=dev)[:, None]
+    return sk.counts[rows, slots].min(dim=0).values
