@@ -8,8 +8,10 @@ telemetry gate, the dashboard, the catalog, the example twins), the
 stress harness (its CLI, and 128 generated scenarios on one plane at a
 deployment's size, with a hot-deploy wave), RWKV6
 serving (rwkv6-3b prefill and decode), dense LM serving
-(nemotron-4-15b prefill and decode), and the offline feature path with its
-offline<->online consistency check.
+(nemotron-4-15b prefill and decode), the other model families' serving
+(moonshot-v1-16b-a3b's MoE, recurrentgemma-9b, seamless-m4t-medium's
+encoder-decoder), and the offline feature path with its offline<->online
+consistency check.
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -324,8 +326,11 @@ Phases, in order; any failure exits non-zero:
    over 8, 2,048, 128, causal), mixtral-8x7b's sliding window (1, 32 over
    8, 8,192, 128, window 4,096), phi3's head dim (8, 32, 32, 1,024, 96),
    the fraud scorer's (4,096, 8, 8, 65, 64), recurrentgemma-9b's head
-   dim 256 (2, 16 over 1, 4,096, 256, window 2,048) and D = 512 (2, 8
-   over 2, 1,024, 512); head dims above 256 (288, 320, 512, 1000, the
+   dim 256 (2, 16 over 1, 4,096, 256, window 2,048), D = 512 (2, 8
+   over 2, 1,024, 512), and the model phases' prefill shapes: moonshot's
+   (8, 16, 2,048, 128) causal, recurrentgemma's (8, 16 over 1, 4,096,
+   256, window 2,048) and seamless's encoder (8, 16, 2,048, 64) not
+   causal; head dims above 256 (288, 320, 512, 1000, the
    ``wide`` instantiation) in float32 and bf16; tolerances ``FA_TOL``,
    each shape's instantiation launched once.  Every path
    shape is timed with CUDA events beside the plain version and
@@ -343,33 +348,80 @@ Phases, in order; any failure exits non-zero:
    times per prefill (its ``wgmma`` instantiation) and never in decode;
    logits finite; the prefill of 2 of the prompts equals a run with
    ``gqa_attention`` swapped in within ``LM_BF16_STEPS`` bf16 steps of the
-   largest logit.  Prints the fenced prefill tokens/s, decode step p50 /
-   p99 and tokens/s, the memory held before the phase and the peak, and
-   one traced prefill (with B6's share of device time) and decode step.
+   largest logit.  Prints the fenced
+   prefill tokens/s, decode step p50 / p99 and tokens/s, the memory held
+   before the phase and the peak, and one traced prefill (with B6's share
+   of device time) and decode step.
    Then a float32 model at full width and 4 layers: the kernel run equals
    the plain-attention run within ``NEMO_F32_REL`` of the largest logit,
    and decode after 1 and 8 steps equals prefill over the longer prompt
    within the reference's ``LM_F32_TOL``.
-19. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
+19. **moonshot-v1-16b-a3b serving.**  ``build_model(moonshot_v1_16b_a3b.
+   config())`` at full width and depth (48 layers, d_model 2,048, 16 heads
+   of 128 (MHA), 64 experts top-6 of swiglu d_ff 1,408, vocab 163,840
+   tied, bf16: 27,722,450,944 parameters with the norm scales, drawn on
+   the card); each layer's dropped fraction over the prompts; 8 prompts
+   of 2,048 tokens into a FullKV of 2,080 (capacity 2,000 a layer), 32
+   greedy decode steps (capacity 8).  B6 exactly 48 times per prefill
+   (``wgmma``), never in decode; logits finite.  The prefill of 2 prompts
+   against a ``gqa_attention`` run with every layer's routing recorded in
+   both: a top-k decision that differs where its sequence was routed
+   alike so far must come from the rounding of the router input (the two
+   inputs within ``MOE_X_STEPS`` bf16 steps of that token's largest
+   |x|); every flip is printed.  Then a ``gqa_attention`` run that
+   replays the kernel run's top-k sets: its distance from the kernel run
+   printed (logits and cache).  One MoE layer on 16,384 tokens run twice:
+   the same bits; its combine == the plain sequential fold on the CPU bit
+   for bit.  A traced prefill and decode step.  Then the same comparison
+   at ``MOE_CHECK_LAYERS`` = 4 layers (full width), where the replayed
+   run's logits are held: bf16 within ``LM_BF16_STEPS`` of the largest
+   logit; float32 within ``NEMO_F32_REL``, flips only below
+   ``MOE_F32_FLIP``.
+20. **recurrentgemma-9b serving.**  ``build_model(recurrentgemma_9b.
+   config())`` at full width and depth (12 super-blocks of (RG-LRU,
+   RG-LRU, local attention) + 2 tails, d_model 4,096, d_rnn 4,096, MQA 16
+   over 1 of 256, window 2,048, geglu d_ff 12,288, vocab 256,000 tied,
+   softcap 30, bf16; its parameter count equal to the reference's init
+   shapes); 8 prompts of 4,096 tokens (the window binds), 32 greedy
+   decode steps (the ring wraps).  B6 exactly 12 times per prefill, never
+   in decode; the prefill of 2 prompts with B6 no farther from the
+   float32 run of the same weights (a float32 copy) than
+   ``GRIFFIN_F32_RATIO`` times the ``gqa_attention`` run (their distance
+   from each other printed); a traced prefill and decode step; then
+   float32 at one super-block + 2 tails: kernel == plain within
+   ``NEMO_F32_REL``, decode after 1 and 8 steps == prefill over the
+   longer prompt within ``LM_F32_TOL``.
+21. **seamless-m4t-medium serving.**  ``build_model(seamless_m4t_medium.
+   config())`` at full width and depth (12 + 12 layers, d_model 1,024, 16
+   heads of 64, relu d_ff 4,096, layernorm, vocab 256,206 padded to
+   256,256, tied, bf16); frames (8, 2,048, 1,024) float32 encoded and 8 x
+   2,048 decoder tokens prefilled into a FullKV of 2,080, 32 greedy decode
+   steps.  B6 12 times not causal (encoder) and 12 causal (decoder
+   self-attention) per prefill, never in decode (cross-attention is
+   ``gqa_attention``); the bf16 prefill of 2 prompts == the
+   ``gqa_attention`` run within ``LM_BF16_STEPS``, and phase 20's float32
+   checks at full depth.
+22. **Offline path.**  ``OfflineEngine(device="cuda").compute(fraud_view(),
    ...)`` over 2^24 transactions (four days of the main path's traffic)
    on 2^19 cards, cold then warm; every feature must equal, bit for bit,
    a run with the fold-levels kernel's plain version swapped in, and the
    kernel's launch counter must have gone up.  Warm rows/s and peak
    device memory are printed, then one more warm export under
    ``torch.profiler`` (device busy time, idle share, largest items).
-20. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
+23. **Consistency.**  ``verify_view(fraud_view(), ..., device="cuda")`` on
    2^20 transactions over 2^17 cards in one hour, and on 2^20 over 2^11
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-21. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+24. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
     own keys, phase 10's under ``launches_multiscenario``, phase 11's B1,
     B2 and B4 under ``launches_deploy``, phase 12's B1 and B2 under
     ``launches_families``, phase 13's (a), (b) and (e) under
-    ``launches_platform``, phase 14's under ``launches_stress``), then
-    the card
-    line, then the ``ok`` line last.
+    ``launches_platform``, phase 14's under ``launches_stress``; B6's
+    prefill launches on phases 19, 20 and 21 under ``launches_moe``,
+    ``launches_griffin`` and ``launches_encdec``), then the card line,
+    then the ``ok`` line last.
 
 The weights of this system are its data: made here from a fixed seed.
 """
@@ -557,7 +609,8 @@ FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # B, H, Hkv, S, D, causal, window, dtype: the reference's six kernel-test
 # shapes (tests/test_kernels.py) in both dtypes, then the paths' shapes:
 # nemotron-4-15b's prefill, mixtral-8x7b's sliding window (the attention
-# shape only; its MoE model waits), phi3's head dim, the fraud scorer's
+# shape only: its weights, 93 GB in bf16, do not fit the card), phi3's head
+# dim, the fraud scorer's
 FA_TEST_SHAPES = [
     (2, 4, 2, 256, 64, True, None), (1, 8, 8, 128, 128, True, 64),
     (2, 4, 1, 192, 80, False, None), (1, 2, 2, 100, 32, True, 32),
@@ -570,6 +623,12 @@ FA_PATH_SHAPES = {
     "scorer": (4096, 8, 8, 65, 64, True, None),
     # recurrentgemma-9b's local attention: head dim 256, MQA, window 2,048
     "d256": (2, 16, 1, 4096, 256, True, 2048),
+    # the model phases' prefill shapes: moonshot-v1-16b-a3b's MHA,
+    # recurrentgemma-9b's local MQA at batch 8, seamless-m4t-medium's
+    # encoder (not causal)
+    "moonshot": (8, 16, 16, 2048, 128, True, None),
+    "recurrentgemma": (8, 16, 1, 4096, 256, True, 2048),
+    "seamless_enc": (8, 16, 16, 2048, 64, False, None),
     # above the tiled instantiations ("wide"): no registry config has it
     "d512": (2, 8, 2, 1024, 512, True, None),
 }
@@ -604,6 +663,51 @@ NEMO_F32_LAYERS = 4
 # float32 model, kernel vs plain attention: max |diff| within this share
 # of the largest logit (the two attentions differ only in summation order)
 NEMO_F32_REL = 1e-4
+# the moonshot-v1-16b-a3b serving phase: 8 prompts of 2,048 tokens into a
+# FullKV of 2,080, 32 greedy decode steps (each layer's capacity: 2,000 in
+# prefill, 8 in decode)
+MOE_BATCH, MOE_PROMPT, MOE_DECODE = 8, 2048, 32
+MOE_MAX_LEN = MOE_PROMPT + MOE_DECODE
+# the depth (full width) at which the MoE model's logits are held to the
+# plain run, bf16 and float32.  With the kernel run's routing replayed the
+# bf16 runs part by 2.2-2.4 bf16 steps of the largest logit at 1 layer,
+# 3.6-4.4 at 2, 5.4-6.8 at 4, 10.3-12.1 at 8, 16.9-21.8 at 16 (seeds 0-4)
+# and 42-69 at 48 (seeds 0-9): the experts' init (fan-in the expert count)
+# makes each layer's output large, and the rounding grows with depth
+# (``tests/model_bf16_gap.py --model moonshot --layers``); at full depth it
+# is printed
+MOE_CHECK_LAYERS = 4
+# one full-width MoE layer run twice on this many seeded tokens
+MOE_DET_TOKENS = 16_384
+# float32 model: a top-k decision may differ between the kernel and the
+# plain run only where the k-th and the (k+1)-th router probability lie
+# within this share of the k-th
+MOE_F32_FLIP = 1e-4
+# flips at positions routed alike so far printed in full (all go to a file)
+MOE_FLIPS_SHOWN = 12
+# recurrentgemma-9b in bf16: its 38 layers part the kernel and the plain
+# run by more than LM_BF16_STEPS (9.1-11.8 bf16 steps of the largest logit
+# over seeds 0-9: the two round the attention weights at different
+# places).  The kernel run's max |diff| from the float32 run of the same
+# weights may be this many times the plain run's: measured 0.874-1.072
+# over seeds 0-9 (``tests/model_bf16_gap.py --model recurrentgemma``)
+GRIFFIN_F32_RATIO = 1.2
+# bf16 MoE: a top-k decision may differ between the kernel and the plain
+# run, at a position routed alike so far, only where the two router
+# inputs lie within this many bf16 steps (2^-8) of that token's largest
+# |x|: 1.5 x the largest such distance at a flip over seeds 0-9 at full
+# depth (20.20, seed 1, layer 14; median 2.0), rounded up.  It grows with
+# the layer as the rounding does (at most 2.6-3.3 in layer 0, 3.2-4.2 in
+# layer 1; ``tests/model_bf16_gap.py --model moonshot``)
+MOE_X_STEPS = 31
+# the recurrentgemma-9b serving phase: 8 prompts of 4,096 tokens, so the
+# window of 2,048 binds in prefill and the ring wraps in decode
+GRIFFIN_BATCH, GRIFFIN_PROMPT, GRIFFIN_DECODE = 8, 4096, 32
+# the seamless-m4t-medium serving phase: frames (8, 2,048, d_model) and 8
+# x 2,048 decoder tokens (the encdec prefill shapes of
+# src/repro/launch/specs.py:57-60) into a FullKV of 2,080, 32 decode steps
+ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_DECODE = 8, 2048, 2048, 32
+ENCDEC_MAX_LEN = ENCDEC_PROMPT + ENCDEC_DECODE
 
 
 def _fail(msg: str) -> None:
@@ -4787,26 +4891,34 @@ def check_flash_attention_kernel(results) -> None:
     )
 
 
-def _prefill_plain_attention(model, prompts, **kw):
-    """``model.prefill`` with ``gqa_attention`` (the reference model's own
-    attention) swapped in for B6; fails if the kernel launched."""
+def _plain_self_attention(q, k, v, positions, *, causal=True, window=None):
+    """B6's plain stand-in in a model: ``gqa_attention``, the reference
+    model's own attention."""
+    from repro_torch.models import layers
+
+    return layers.gqa_attention(q, k, v, positions, positions, causal=causal,
+                                window=window)
+
+
+def _prefill_plain_attention(model, batch, *args, **kw):
+    """``model.prefill(batch, ...)`` with ``gqa_attention`` swapped in for
+    B6 (every model family calls ``layers.self_attention``); fails if the
+    kernel launched."""
     from repro_torch import kernels
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import layers
 
-    def plain(q, k, v, positions, *, window):
-        return layers.gqa_attention(q, k, v, positions, positions,
-                                    causal=True, window=window)
-
-    kernel_attention = transformer.causal_self_attention
-    transformer.causal_self_attention = plain
+    if not isinstance(batch, dict):
+        batch = {"tokens": batch}
+    kernel_attention = layers.self_attention
+    layers.self_attention = _plain_self_attention
     try:
         before = kernels.LAUNCHES["flash_attention"]
-        out = model.prefill({"tokens": prompts}, **kw)
+        out = model.prefill(batch, *args, **kw)
         torch.cuda.synchronize()
         if kernels.LAUNCHES["flash_attention"] != before:
             _fail("the plain-attention run launched the kernel")
     finally:
-        transformer.causal_self_attention = kernel_attention
+        layers.self_attention = kernel_attention
     return out
 
 
@@ -4814,8 +4926,7 @@ def nemotron_path(results) -> None:
     """nemotron-4-15b at full width and depth: 8 x 2,048-token prefill, 32
     greedy decode steps, every prefill attention through B6; the check
     against the plain-attention run, one traced prefill and decode step;
-    then the float32 checks."""
-    from repro_torch import kernels
+    then the float32 checks at 4 layers."""
     from repro_torch.configs import nemotron_4_15b
     from repro_torch.models import build_model
 
@@ -4826,25 +4937,63 @@ def nemotron_path(results) -> None:
     cfg = nemotron_4_15b.config()
     t0 = time.perf_counter()
     model = build_model(cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    print(f"dense LM {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, "
-          f"{cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}; "
-          f"{n_params} parameters ({wbytes / 1e9:.2f} GB) drawn in "
-          f"{time.perf_counter() - t0:.1f} s; {held / 1e9:.2f} GB held "
-          "before the phase", flush=True)
+    n_params, wbytes = _built("dense LM", cfg, model, t0, held)
     if n_params != NEMO_PARAMS:
         _fail(f"nemotron-4-15b has {n_params} parameters, expected {NEMO_PARAMS}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     prompts = torch.randint(0, cfg.vocab, (NEMO_BATCH, NEMO_PROMPT),
                             generator=gen, device="cuda", dtype=torch.int32)
-
-    # warm-up at the same shapes: cuBLAS heuristics, the allocator
-    _, cache = model.prefill({"tokens": prompts}, max_len=NEMO_MAX_LEN)
-    model.decode_step(cache, prompts[:, :1])
+    batch = {"tokens": prompts}
+    cache, generated, launches = _serve(
+        "nemotron", cfg, model, batch, NEMO_MAX_LEN, NEMO_DECODE,
+        cfg.n_layers, "wgmma", held, wbytes)
+    results["flash_attention"]["launches"] = launches
+    if not bool((cache.pos == NEMO_MAX_LEN).all()):
+        _fail(f"nemotron: pos {cache.pos.tolist()} after {NEMO_DECODE} steps")
     del cache
+    torch.cuda.empty_cache()
+    _plain_check_bf16("nemotron", model, {"tokens": prompts[:NEMO_PLAIN_BATCH]})
+    _, cache = model.prefill(batch, NEMO_MAX_LEN)
+    tok = generated[:, :1]
+    trace_lm("nemotron", lambda: model.prefill(batch, NEMO_MAX_LEN),
+             lambda: model.decode_step(cache, tok))
+    del model, cache
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(n_layers=NEMO_F32_LAYERS, param_dtype="float32",
+                        compute_dtype="float32")
+    model = build_model(cfg32, seed=SEED, device="cuda")
+    seq = torch.cat([prompts, generated[:, :max(LM_CHECK_STEPS)]], dim=1)
+    _float32_checks(f"nemotron ({NEMO_F32_LAYERS} layers)", model, batch, seq,
+                    NEMO_PROMPT)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _built(tag, cfg, model, t0, held):
+    """Print a model's size; returns (parameters, bytes)."""
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads of {cfg.hd}, "
+          f"{cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_dtype}; "
+          f"{n_params} parameters ({wbytes / 1e9:.2f} GB) drawn in "
+          f"{time.perf_counter() - t0:.1f} s; {held / 1e9:.2f} GB held "
+          "before the phase", flush=True)
+    return n_params, wbytes
+
+
+def _serve(tag, cfg, model, batch, max_len, steps, b6, variant, held, wbytes):
+    """A warm-up, then one fenced prefill of ``batch`` and ``steps``
+    greedy decode steps.  B6 must launch exactly ``b6`` times in the
+    prefill (all in ``variant``) and never in decode; logits finite.
+    Returns (state, the generated tokens, prefill launches)."""
+    from repro_torch import kernels
+
+    _, state = model.prefill(batch, max_len)
+    model.decode_step(state, batch["tokens"][:, :1])
+    del state
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -4852,7 +5001,7 @@ def nemotron_path(results) -> None:
 
     kernels.reset_launches()
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": prompts}, max_len=NEMO_MAX_LEN)
+    logits, state = model.prefill(batch, max_len)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     after_prefill = kernels.LAUNCHES["flash_attention"]
@@ -4860,9 +5009,9 @@ def nemotron_path(results) -> None:
     finite = torch.isfinite(logits).all()
     tok = logits[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
     generated, step_ms = [tok], []
-    for _ in range(NEMO_DECODE):
+    for _ in range(steps):
         t1 = time.perf_counter()
-        lg, cache = model.decode_step(cache, tok)
+        lg, state = model.decode_step(state, tok)
         tok = lg[:, -1, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t1))
@@ -4870,96 +5019,546 @@ def nemotron_path(results) -> None:
         generated.append(tok)
     launches = kernels.LAUNCHES["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
-    if (after_prefill != cfg.n_layers or launches != cfg.n_layers
-            or by_variant["wgmma"] != cfg.n_layers):
-        _fail(f"the nemotron path launched flash attention {after_prefill} "
-              f"times in prefill ({by_variant}) and "
-              f"{launches - after_prefill} in {NEMO_DECODE} decode steps, "
-              f"expected {cfg.n_layers} (wgmma) and 0")
-    results["flash_attention"]["launches"] = launches
+    if (after_prefill != b6 or launches != b6
+            or by_variant[variant] != b6):
+        _fail(f"the {tag} path launched flash attention {after_prefill} times "
+              f"in prefill ({by_variant}) and {launches - after_prefill} in "
+              f"{steps} decode steps, expected {b6} ({variant}) and 0")
     if not bool(finite):
-        _fail("nemotron: non-finite logits")
-    pos = cache.pos.cpu()
-    if not bool((pos == NEMO_MAX_LEN).all()):
-        _fail(f"nemotron: pos {pos.tolist()} after {NEMO_DECODE} steps")
+        _fail(f"{tag}: non-finite logits")
+    B, S = batch["tokens"].shape
     ms = np.array(step_ms)
-    n_tok = NEMO_BATCH * NEMO_PROMPT
-    print(f"nemotron prefill {NEMO_BATCH} x {NEMO_PROMPT} tokens: "
-          f"{prefill_s:.3f} s fenced = {n_tok / prefill_s:.0f} tokens/s; "
-          f"decode {NEMO_DECODE} steps x {NEMO_BATCH}: p50 "
-          f"{np.percentile(ms, 50):.3f} ms, p99 {np.percentile(ms, 99):.3f} "
-          f"ms = {NEMO_BATCH / np.percentile(ms, 50) * 1e3:.1f} tokens/s at "
-          f"p50; flash_attention launches {after_prefill} in prefill "
-          f"({by_variant}), "
-          f"{launches - after_prefill} in decode; peak device memory "
-          f"{peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the "
-          f"{base / 1e9:.2f} GB held after the build, {wbytes / 1e9:.2f} GB "
-          f"of it weights); logits finite, pos {int(pos[0])}", flush=True)
-    seq = torch.cat([prompts] + generated, dim=1)
-    few = prompts[:NEMO_PLAIN_BATCH]
-    got, _ = model.prefill({"tokens": few})
-    want, _ = _prefill_plain_attention(model, few)
+    print(f"{tag} prefill {B} x {S} tokens: {prefill_s:.3f} s fenced = "
+          f"{B * S / prefill_s:.0f} tokens/s; decode {steps} steps x {B}: "
+          f"p50 {np.percentile(ms, 50):.3f} ms, p99 "
+          f"{np.percentile(ms, 99):.3f} ms = "
+          f"{B / np.percentile(ms, 50) * 1e3:.1f} tokens/s at p50; "
+          f"flash_attention launches {after_prefill} in prefill "
+          f"({by_variant}), {launches - after_prefill} in decode; peak "
+          f"device memory {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB "
+          f"above the {base / 1e9:.2f} GB held after the build, "
+          f"{wbytes / 1e9:.2f} GB of it weights; {held / 1e9:.2f} GB held "
+          f"before the phase); logits finite", flush=True)
+    return state, torch.cat(generated, dim=1), after_prefill
+
+
+def _float32_copy(model):
+    """The same model in float32 on the card, its weights the bf16 ones
+    upcast (exact)."""
+    from repro_torch.models import build_model
+
+    cfg32 = model.cfg.replace(param_dtype="float32", compute_dtype="float32")
+    m32 = build_model(cfg32, seed=SEED, device="cuda")
+    m32.load_state_dict(model.state_dict())
+    return m32
+
+
+def _plain_check_bf16(tag, model, batch, *args):
+    """The bf16 prefill of ``batch`` against the run with ``gqa_attention``
+    swapped in for B6: within ``LM_BF16_STEPS`` bf16 steps of the largest
+    logit."""
+    V = model.cfg.vocab  # padded entries are -1e30 in every run
+    got = model.prefill(batch, *args)[0][..., :V]
+    want = _prefill_plain_attention(model, batch, *args)[0][..., :V]
     err, allowed = _bf16_close(got, want)
     steps = err / allowed * LM_BF16_STEPS
     if err > allowed:
-        _fail(f"nemotron bf16 prefill differs from the plain-attention run "
-              f"by {steps:.2f} bf16 steps of the largest logit (max |diff| "
-              f"{err:.4f})")
-    print(f"nemotron bf16 prefill of {NEMO_PLAIN_BATCH} prompts == the "
+        _fail(f"{tag} bf16 prefill differs from the plain-attention run by "
+              f"{steps:.2f} bf16 steps of the largest logit (max |diff| "
+              f"{err:.4f}, allowed {LM_BF16_STEPS})")
+    print(f"{tag} bf16 prefill of {batch['tokens'].shape[0]} prompts == the "
           f"gqa_attention run: logits max |diff| {err:.4e} = {steps:.2f} bf16 "
           f"steps of max |logit| {float(want.abs().max()):.3f} (allowed "
           f"{LM_BF16_STEPS})", flush=True)
-    del got, want
-    trace_lm("nemotron", lambda: model.prefill({"tokens": prompts},
-                                               max_len=NEMO_MAX_LEN),
-             lambda: model.decode_step(cache, tok))
-    del model, cache, logits, lg
+
+
+def bf16_against_float32(model, batch, *args) -> dict:
+    """A bf16 model's prefill of ``batch`` with B6 and with
+    ``gqa_attention`` swapped in, each against the float32 run of the same
+    weights (a float32 copy on the card, built and freed here): ``steps``,
+    the kernel run against the plain run in bf16 steps of the largest
+    logit; ``kernel`` and ``plain``, each run's max |diff| from the
+    float32 run; ``ratio`` = kernel / plain."""
+    V = model.cfg.vocab  # padded entries are -1e30 in every run
+    got = model.prefill(batch, *args)[0][..., :V]
+    want = _prefill_plain_attention(model, batch, *args)[0][..., :V]
+    err, allowed = _bf16_close(got, want)
+    m32 = _float32_copy(model)
+    ref = m32.prefill(batch, *args)[0][..., :V]
+    del m32
     torch.cuda.empty_cache()
-    nemotron_float32_checks(cfg, prompts, seq)
+    kernel = float((got - ref).abs().max())
+    plain = float((want - ref).abs().max())
+    return dict(steps=err / allowed * LM_BF16_STEPS, kernel=kernel,
+                plain=plain, ratio=kernel / plain,
+                max_logit=float(ref.abs().max()))
 
 
-def nemotron_float32_checks(cfg, prompts, seq) -> None:
-    """nemotron-4-15b at full width, 4 layers, float32: the kernel run
-    against the plain-attention run, and decode after prefill against
-    prefill over the longer prompt."""
-    from repro_torch.models import build_model
+def _check_bf16_against_float32(tag, model, batch, *args):
+    """A deep bf16 model that parts the kernel and plain runs by more than
+    rounding inside one layer: the kernel run no farther from the float32
+    run of the same weights than ``GRIFFIN_F32_RATIO`` times the plain
+    run."""
+    r = bf16_against_float32(model, batch, *args)
+    if r["ratio"] > GRIFFIN_F32_RATIO:
+        _fail(f"{tag} bf16 prefill with B6 is {r['kernel']:.4e} from the "
+              f"float32 run, {r['ratio']:.3f} x the plain-attention run's "
+              f"{r['plain']:.4e} (allowed {GRIFFIN_F32_RATIO} x)")
+    print(f"{tag} bf16 prefill of {batch['tokens'].shape[0]} prompts: the "
+          f"kernel run {r['kernel']:.4e} from the float32 run of the same "
+          f"weights, the gqa_attention run {r['plain']:.4e}: ratio "
+          f"{r['ratio']:.4f} (allowed {GRIFFIN_F32_RATIO}); kernel vs plain "
+          f"{r['steps']:.2f} bf16 steps of max |logit| {r['max_logit']:.3f} "
+          "(printed)", flush=True)
 
-    cfg32 = cfg.replace(n_layers=NEMO_F32_LAYERS, param_dtype="float32",
-                        compute_dtype="float32")
-    model = build_model(cfg32, seed=SEED, device="cuda")
-    few = prompts[:NEMO_PLAIN_BATCH]
-    got, _ = model.prefill({"tokens": few})
-    want, _ = _prefill_plain_attention(model, few)
+
+def _float32_checks(tag, model, batch, seq, prompt_len, *args):
+    """A float32 model: the kernel run against the plain-attention run
+    within ``NEMO_F32_REL`` of the largest logit (on ``NEMO_PLAIN_BATCH``
+    prompts), and decode after 1 and 8 steps against prefill over the
+    longer prompt within ``LM_F32_TOL``."""
+    V = model.cfg.vocab  # padded entries are -1e30 in every run
+    few = {n: t[:NEMO_PLAIN_BATCH] for n, t in batch.items()}
+    got = model.prefill(few, *args)[0][..., :V]
+    want = _prefill_plain_attention(model, few, *args)[0][..., :V]
     err = float((got - want).abs().max())
     allowed = NEMO_F32_REL * float(want.abs().max())
     if err > allowed:
-        _fail(f"nemotron float32 prefill differs from the plain-attention run "
+        _fail(f"{tag} float32 prefill differs from the plain-attention run "
               f"(max |diff| {err:.3e} > {allowed:.3e})")
-    print(f"nemotron float32 ({NEMO_F32_LAYERS} layers) prefill of "
-          f"{NEMO_PLAIN_BATCH} prompts == the gqa_attention run: max |diff| "
-          f"{err:.3e} (allowed {allowed:.3e} = {NEMO_F32_REL} of max |logit|)",
-          flush=True)
+    print(f"{tag} float32 prefill of {NEMO_PLAIN_BATCH} prompts == the "
+          f"gqa_attention run: max |diff| {err:.3e} (allowed {allowed:.3e} = "
+          f"{NEMO_F32_REL} of max |logit|)", flush=True)
     del got, want
-    _, cache = model.prefill({"tokens": prompts}, max_len=NEMO_MAX_LEN)
+    max_len = prompt_len + max(LM_CHECK_STEPS)
+    _, state = model.prefill(batch, max_len)
     step_logits = []
     for i in range(max(LM_CHECK_STEPS)):
-        lg, cache = model.decode_step(
-            cache, seq[:, NEMO_PROMPT + i:NEMO_PROMPT + i + 1])
-        step_logits.append(lg)
+        lg, state = model.decode_step(
+            state, seq[:, prompt_len + i:prompt_len + i + 1])
+        step_logits.append(lg[..., :V])
+    del state
     for steps in LM_CHECK_STEPS:
-        ref, _ = model.prefill({"tokens": seq[:, :NEMO_PROMPT + steps]})
+        longer = dict(batch, tokens=seq[:, :prompt_len + steps])
+        ref = model.prefill(longer, max_len)[0][..., :V]
         got = step_logits[steps - 1]
         err = float((got - ref).abs().max())
         if not torch.allclose(got, ref, rtol=LM_F32_TOL, atol=LM_F32_TOL):
-            _fail(f"nemotron float32 decode after {steps} step(s) vs prefill "
-                  f"over {NEMO_PROMPT + steps} tokens: max |diff| {err:.3e} "
+            _fail(f"{tag} float32 decode after {steps} step(s) vs prefill "
+                  f"over {prompt_len + steps} tokens: max |diff| {err:.3e} "
                   f"outside atol = rtol = {LM_F32_TOL}")
-        print(f"nemotron float32 decode after {steps} step(s) vs prefill over "
-              f"{NEMO_PROMPT + steps} tokens: logits max |diff| {err:.3e} "
+        print(f"{tag} float32 decode after {steps} step(s) vs prefill over "
+              f"{prompt_len + steps} tokens: logits max |diff| {err:.3e} "
               f"(atol = rtol = {LM_F32_TOL}; largest value "
               f"{float(ref.abs().max()):.3f})", flush=True)
         del ref
-    del model, cache, step_logits
+
+
+# ---------------------------------------------------------------------------
+# moonshot-v1-16b-a3b (MoE)
+# ---------------------------------------------------------------------------
+
+
+class _RouteLog:
+    """Wraps ``moe.moe_parts`` while active: each call records the router
+    input (with ``keep_inputs``), the top-k experts (B, S, k), each
+    token's top-k margin (``moe.top_k_margin``), how many of its k slots
+    were kept, and the dropped fraction.  With ``replay`` (the recorded
+    calls of another run), ``moe.moe_route`` takes that run's top-k sets
+    instead of its own, the weights renormalized from its own
+    probabilities."""
+
+    def __init__(self, keep_inputs=True, replay=None):
+        self.calls, self.keep_inputs, self.replay = [], keep_inputs, replay
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._orig = moe.moe_parts, moe.moe_route
+        parts_fn, route_fn = self._orig
+
+        def recorded(p, x, cfg):
+            parts = parts_fn(p, x, cfg)
+            r, d = parts.route, parts.dispatch
+            B, S, k = x.shape[0], x.shape[1], cfg.top_k
+            keep = torch.empty_like(d.keep)
+            keep.scatter_(1, d.order, d.keep)
+            self.calls.append(dict(
+                x=x.detach().clone() if self.keep_inputs else None,
+                topi=r.topi.reshape(B, S, k),
+                margin=moe.top_k_margin(r.probs, k).reshape(B, S),
+                kept=keep.reshape(B, S, k).sum(-1),
+                dropped=float(1.0 - d.keep.float().mean())))
+            return parts
+
+        def replayed(router, xf, k):
+            r = route_fn(router, xf, k)
+            topi = self.replay[len(self.calls)]["topi"].reshape(r.topi.shape)
+            topw = torch.gather(r.probs, -1, topi)
+            topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+            return moe.Route(r.logits, r.probs, topw, topi)
+
+        moe.moe_parts = recorded
+        if self.replay is not None:
+            moe.moe_route = replayed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.moe_parts, moe.moe_route = self._orig
+
+
+def routing_flips(a, b, k):
+    """Two runs' routings of the same prompts (the kernel run ``a``, the
+    plain run ``b``, each a list of ``_RouteLog`` calls), walked by
+    ``moe.routing_flips``.  For each top-k difference at a position still
+    routed alike: the layer, sequence and position, the router inputs'
+    max |dx| there in bf16 steps (2^-8) of that token's own largest |x|
+    in the plain run, and both runs' margins.  Returns (flips, each
+    sequence's first rerouted position)."""
+    from repro_torch.models import moe
+
+    B, S = a[0]["topi"].shape[:2]
+    positions = [torch.arange(S)] * len(a)
+    found, first = moe.routing_flips(
+        [(c["topi"], c["kept"]) for c in a],
+        [(c["topi"], c["kept"]) for c in b], positions)
+    flips = []
+    for layer, seq, t in found:
+        xa, xb = a[layer]["x"][seq, t].float(), b[layer]["x"][seq, t].float()
+        dx = float((xa - xb).abs().max())
+        flips.append(dict(
+            layer=layer, seq=seq, pos=t, dx=dx,
+            dx_steps=dx / (2.0 ** -8 * float(xb.abs().max())),
+            margins=(float(a[layer]["margin"][seq, t]),
+                     float(b[layer]["margin"][seq, t])),
+            sets=(sorted(a[layer]["topi"][seq, t].tolist()),
+                  sorted(b[layer]["topi"][seq, t].tolist()))))
+    return flips, [first.get(seq, S) for seq in range(B)]
+
+
+def _check_flips(tag, flips, first, n_layers, bf16):
+    """A top-k flip at a position routed alike must come from the rounding
+    of the router input: the two runs' inputs there within
+    ``MOE_X_STEPS`` bf16 steps of that token's largest |x| in bf16
+    (``NEMO_F32_REL`` of it in float32, where the margin must also lie
+    below ``MOE_F32_FLIP``).  The first ``MOE_FLIPS_SHOWN`` are printed,
+    all of them go to ``build/chip_smoke/``."""
+    x_limit = MOE_X_STEPS if bf16 else NEMO_F32_REL * 2.0 ** 8
+    lines = []
+    for f in flips:
+        lines.append(
+            f"layer {f['layer']} sequence {f['seq']} position {f['pos']}: "
+            f"kernel {f['sets'][0]}, plain {f['sets'][1]}; margin kernel "
+            f"{f['margins'][0]:.3e} / plain {f['margins'][1]:.3e} relative; "
+            f"router input max |dx| {f['dx']:.3e} = {f['dx_steps']:.2f} bf16 "
+            f"steps of the token's max |x| (allowed {x_limit:.4g})")
+        if f["dx_steps"] > x_limit or (
+                not bf16 and max(f["margins"]) > MOE_F32_FLIP):
+            _fail(f"{tag}: a routing decision differs between the kernel and "
+                  f"the plain run beyond the router input's rounding: "
+                  f"{lines[-1]}")
+    out = Path("build") / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    name = out / f"moe_flips_{tag.replace(' ', '_')}.txt"
+    name.write_text("".join(f"{ln}\n" for ln in lines))
+    for ln in lines[:MOE_FLIPS_SHOWN]:
+        print(f"  {tag} flip: {ln}", flush=True)
+    by_layer = {}
+    for f in flips:
+        by_layer[f["layer"]] = max(by_layer.get(f["layer"], 0.0), f["dx_steps"])
+    worst = " ".join(f"{layer}: {v:.2f}" for layer, v in sorted(by_layer.items()))
+    print(f"{tag} routing, kernel vs plain run: {len(flips)} top-k decisions "
+          f"differ at positions routed alike so far, over {n_layers} layers "
+          f"(router inputs at most {{{worst}}} bf16 steps apart by layer, "
+          f"allowed {x_limit:.4g}; all in {name}); each sequence's first "
+          f"rerouted position {first}", flush=True)
+
+
+def moe_against_plain(model, prompts) -> dict:
+    """The kernel prefill of ``prompts`` against two plain-attention
+    prefills: one routed by itself (its flips, ``routing_flips``), one
+    replaying the kernel run's top-k sets.  Returns the flips, the first
+    rerouted positions, and the replayed run's distance from the kernel
+    run: ``logits`` and the cache's ``k`` / ``v`` (every layer and
+    position), max |diff| and in bf16 steps of the largest value."""
+    with _RouteLog() as ka:
+        got, cache = model.prefill({"tokens": prompts})
+    with _RouteLog() as kb:
+        _prefill_plain_attention(model, prompts)
+    flips, first = routing_flips(ka.calls, kb.calls, model.cfg.top_k)
+    del kb
+    with _RouteLog(keep_inputs=False, replay=ka.calls) as kc:
+        want, wcache = _prefill_plain_attention(model, prompts)
+    if any(not torch.equal(x["topi"], y["topi"])
+           for x, y in zip(ka.calls, kc.calls)):
+        _fail("the replayed plain run did not take the kernel run's routing")
+    del ka, kc
+    out = dict(flips=flips, first=first, n_layers=model.cfg.n_layers)
+    for name, g, w in (("logits", got, want), ("k", cache.k, wcache.k),
+                       ("v", cache.v, wcache.v)):
+        err, steps8 = _bf16_close(g, w)
+        out[name] = (err, err / steps8 * LM_BF16_STEPS, float(w.abs().max()))
+    del got, want, cache, wcache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_check(tag, model, prompts, bf16, hold=True):
+    """``moe_against_plain``: every flip explained by rounding
+    (``_check_flips``); with the kernel run's routing replayed, the plain
+    run's logits within ``LM_BF16_STEPS`` (bf16) or ``NEMO_F32_REL``
+    (float32) of the largest logit (printed only, without ``hold``); the
+    cache's distance printed."""
+    r = moe_against_plain(model, prompts)
+    _check_flips(tag, r["flips"], r["first"], r["n_layers"], bf16)
+    err, steps, big = r["logits"]
+    allowed = (LM_BF16_STEPS * 2.0 ** -8 if bf16 else NEMO_F32_REL) * big
+    if hold and err > allowed:
+        _fail(f"{tag} prefill differs from the plain-attention run with the "
+              f"kernel run's routing replayed: logits max |diff| {err:.4e} = "
+              f"{steps:.2f} bf16 steps > {allowed:.4e}")
+    kv = "; ".join(f"cache {n} max |diff| {r[n][0]:.4e} = {r[n][1]:.2f} bf16 "
+                   f"steps of {r[n][2]:.3f}" for n in ("k", "v"))
+    held = (f"allowed {allowed:.4e}" if hold else
+            f"printed: held at {MOE_CHECK_LAYERS} layers")
+    print(f"{tag} prefill vs the gqa_attention run with the kernel run's "
+          f"routing replayed, {prompts.shape[0]} prompts: logits max |diff| "
+          f"{err:.4e} = {steps:.2f} bf16 steps of max |logit| {big:.3f} "
+          f"({held}); {kv} (printed)", flush=True)
+
+
+@torch.inference_mode()
+def moe_determinism(moe_params, cfg) -> None:
+    """One full-width MoE layer on ``MOE_DET_TOKENS`` seeded tokens, twice:
+    the same bits; and the combine of the card's own contributions equals
+    the plain one-add-a-contribution fold on the CPU, bit for bit."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    x = torch.randn((MOE_BATCH, MOE_DET_TOKENS // MOE_BATCH, cfg.d_model),
+                    generator=gen, device="cuda").to(cfg.cdtype)
+    a, aux = moe.moe_apply(moe_params, x, cfg)
+    b, _ = moe.moe_apply(moe_params, x, cfg)
+    if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+        _fail("moonshot: one MoE layer run twice on the card gave other bits")
+    parts = moe.moe_parts(moe_params, x, cfg)
+    got = moe.moe_combine(parts.contrib, parts.dispatch.order, cfg.top_k)
+    t0 = time.perf_counter()
+    want = moe.moe_combine_ref(parts.contrib.cpu(),
+                               parts.dispatch.src_token.cpu(), got.shape[1])
+    plain_s = time.perf_counter() - t0
+    same = torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    if not same or not torch.equal(got.reshape(a.shape), a):
+        _fail("moonshot: the card's MoE combine differs from the plain "
+              "sequential fold")
+    print(f"moonshot MoE layer on {MOE_DET_TOKENS} tokens: two runs bit-equal; "
+          f"the combine of {parts.contrib.shape[1]} contributions == the plain "
+          f"sequential fold on the CPU ({plain_s:.1f} s) bit for bit; dropped "
+          f"{float(aux['moe_dropped_frac']):.4f}", flush=True)
+
+
+def moe_path(results) -> None:
+    """moonshot-v1-16b-a3b at full width and depth: 8 x 2,048-token prefill
+    (every layer's MoE at capacity 2,000), 32 greedy decode steps, B6 in
+    every prefill layer; the routing-aware check against the
+    plain-attention run, the layer's determinism, one traced prefill and
+    decode step; then the bf16 and the float32 model at 4 layers."""
+    from repro_torch.configs import moonshot_v1_16b_a3b
+    from repro_torch.models import build_model, moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cfg = moonshot_v1_16b_a3b.config()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SEED, device="cuda")
+    n_params, wbytes = _built("MoE LM", cfg, model, t0, held)
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    if n_params != cfg.param_count() + norms:
+        _fail(f"moonshot has {n_params} parameters, expected param_count() "
+              f"{cfg.param_count()} + {norms} norm scales")
+    print(f"moonshot: {cfg.num_experts} experts top-{cfg.top_k} of "
+          f"{cfg.mlp} d_ff {cfg.d_ff}; capacity {moe.capacity(MOE_BATCH * MOE_PROMPT, cfg)}"
+          f" a layer in prefill, {moe.capacity(MOE_BATCH, cfg)} in decode; "
+          f"param_count() {cfg.param_count()} + {norms} norm scales", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    prompts = torch.randint(0, cfg.vocab, (MOE_BATCH, MOE_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    with _RouteLog(keep_inputs=False) as log:
+        model.prefill(batch, MOE_MAX_LEN)
+    print("moonshot prefill, dropped fraction by layer: "
+          + " ".join(f"{c['dropped']:.4f}" for c in log.calls), flush=True)
+    del log
+    state, generated, launches = _serve(
+        "moonshot", cfg, model, batch, MOE_MAX_LEN, MOE_DECODE, cfg.n_layers,
+        "wgmma", held, wbytes)
+    results["flash_attention"]["launches_moe"] = launches
+    del state
+    torch.cuda.empty_cache()
+    _moe_check("moonshot bf16", model, prompts[:NEMO_PLAIN_BATCH], True,
+               hold=False)
+    moe_determinism(model.blocks[0].moe, cfg)
+    _, cache = model.prefill(batch, MOE_MAX_LEN)
+    tok = generated[:, :1]
+    trace_lm("moonshot", lambda: model.prefill(batch, MOE_MAX_LEN),
+             lambda: model.decode_step(cache, tok))
+    del model, cache
+    torch.cuda.empty_cache()
+
+    for dtype in ("bfloat16", "float32"):
+        cut = cfg.replace(n_layers=MOE_CHECK_LAYERS, param_dtype=dtype,
+                          compute_dtype=dtype)
+        model = build_model(cut, seed=SEED, device="cuda")
+        _moe_check(f"moonshot {dtype} ({MOE_CHECK_LAYERS} layers)", model,
+                   prompts[:NEMO_PLAIN_BATCH], dtype == "bfloat16")
+        del model
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma-9b (griffin)
+# ---------------------------------------------------------------------------
+
+
+def _griffin_params(cfg) -> int:
+    """GriffinLM's parameters by the reference's init shapes
+    (``src/repro/models/griffin.py:36-48, 120-155``)."""
+    D, R, F, CW = cfg.d_model, cfg.d_rnn, cfg.d_ff, cfg.conv_width
+    rec = 3 * D * R + CW * R + 2 * R * R + 3 * R
+    mlp = (3 if cfg.mlp in ("swiglu", "geglu") else 2) * D * F
+    attn = 2 * D * cfg.n_heads * cfg.hd + 2 * D * cfg.n_kv_heads * cfg.hd
+    n_super = cfg.n_layers // cfg.attn_every
+    n_tail = cfg.n_layers - n_super * cfg.attn_every
+    return (n_super * (2 * rec + 3 * mlp + attn + 6 * D)
+            + n_tail * (rec + mlp + 2 * D) + cfg.vocab_padded * D + D)
+
+
+def griffin_path(results) -> None:
+    """recurrentgemma-9b at full width and depth: 8 x 4,096-token prefill
+    (the window of 2,048 binds), 32 greedy decode steps (the ring wraps),
+    B6 in every super-block's local attention; the check against the
+    plain-attention run, one traced prefill and decode step; then the
+    float32 model at one super-block + 2 tails."""
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.models import build_model
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cfg = recurrentgemma_9b.config()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SEED, device="cuda")
+    n_params, wbytes = _built("griffin LM", cfg, model, t0, held)
+    if n_params != _griffin_params(cfg):
+        _fail(f"recurrentgemma has {n_params} parameters, the reference's "
+              f"init shapes give {_griffin_params(cfg)}")
+    print(f"recurrentgemma: {model.n_super} super-blocks + {model.n_tail} "
+          f"tails, d_rnn {cfg.d_rnn}, window {model.window}, softcap "
+          f"{cfg.logit_softcap}; param_count() gives {cfg.param_count()} (it "
+          f"counts no w_a / w_x)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    prompts = torch.randint(0, cfg.vocab, (GRIFFIN_BATCH, GRIFFIN_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"tokens": prompts}
+    state, generated, launches = _serve(
+        "recurrentgemma", cfg, model, batch, None, GRIFFIN_DECODE,
+        model.n_super, "wgmma", held, wbytes)
+    results["flash_attention"]["launches_griffin"] = launches
+    if int(state["pos"][0]) != GRIFFIN_PROMPT + GRIFFIN_DECODE:
+        _fail(f"recurrentgemma: pos {state['pos'].tolist()}")
+    del state
+    torch.cuda.empty_cache()
+    few = {"tokens": prompts[:NEMO_PLAIN_BATCH]}
+    _check_bf16_against_float32("recurrentgemma", model, few)
+    _, st = model.prefill(batch)
+    tok = generated[:, :1]
+    trace_lm("recurrentgemma", lambda: model.prefill(batch),
+             lambda: model.decode_step(st, tok))
+    del model, st
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(n_layers=cfg.attn_every + 2, param_dtype="float32",
+                        compute_dtype="float32")
+    model = build_model(cfg32, seed=SEED, device="cuda")
+    seq = torch.cat([prompts, generated[:, :max(LM_CHECK_STEPS)]], dim=1)
+    _float32_checks("recurrentgemma (1 super-block + 2 tails)", model, batch,
+                    seq, GRIFFIN_PROMPT)
+    del model
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# seamless-m4t-medium (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def encdec_path(results) -> None:
+    """seamless-m4t-medium at full width and depth: frames (8, 2,048,
+    1,024) encoded, 8 x 2,048 decoder tokens prefilled into a FullKV of
+    2,080, 32 greedy decode steps; B6 in each encoder layer (not causal)
+    and each decoder layer's self-attention (causal); the check against
+    the plain-attention run, one traced prefill and decode step; then the
+    float32 model at full depth."""
+    from repro_torch.configs import seamless_m4t_medium
+    from repro_torch.models import build_model, layers
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    cfg = seamless_m4t_medium.config()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=SEED, device="cuda")
+    n_params, wbytes = _built("enc-dec LM", cfg, model, t0, held)
+    norms = 2 * cfg.d_model * (2 * cfg.n_encoder_layers + 3 * cfg.n_layers + 2)
+    if n_params != cfg.param_count() + norms:
+        _fail(f"seamless has {n_params} parameters, expected param_count() "
+              f"{cfg.param_count()} + {norms} norm scales and biases")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    frames = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model),
+                         generator=gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (ENCDEC_BATCH, ENCDEC_PROMPT),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"frames": frames, "tokens": prompts}
+    calls = {True: 0, False: 0}
+    kernel_attention = layers.self_attention
+
+    def counted(q, k, v, positions, *, causal=True, window=None):
+        calls[causal] += 1
+        return kernel_attention(q, k, v, positions, causal=causal,
+                                window=window)
+
+    layers.self_attention = counted
+    try:
+        state, generated, launches = _serve(
+            "seamless", cfg, model, batch, ENCDEC_MAX_LEN, ENCDEC_DECODE,
+            cfg.n_encoder_layers + cfg.n_layers, "wgmma", held, wbytes)
+    finally:
+        layers.self_attention = kernel_attention
+    # _serve's warm-up and timed prefill each made these calls
+    if calls != {False: 2 * cfg.n_encoder_layers, True: 2 * cfg.n_layers}:
+        _fail(f"seamless: self-attention calls by causal flag {calls}")
+    print(f"seamless: B6 launches per prefill {cfg.n_encoder_layers} not "
+          f"causal (encoder) + {cfg.n_layers} causal (decoder)", flush=True)
+    results["flash_attention"]["launches_encdec"] = launches
+    if int(state["self"].pos[0]) != ENCDEC_MAX_LEN:
+        _fail(f"seamless: pos {state['self'].pos.tolist()}")
+    del state
+    torch.cuda.empty_cache()
+    few = {n: t[:NEMO_PLAIN_BATCH] for n, t in batch.items()}
+    _plain_check_bf16("seamless", model, few, ENCDEC_MAX_LEN)
+    _, st = model.prefill(batch, ENCDEC_MAX_LEN)
+    tok = generated[:, :1]
+    trace_lm("seamless", lambda: model.prefill(batch, ENCDEC_MAX_LEN),
+             lambda: model.decode_step(st, tok))
+    del model, st
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg32, seed=SEED, device="cuda")
+    seq = torch.cat([prompts, generated[:, :max(LM_CHECK_STEPS)]], dim=1)
+    _float32_checks("seamless", model, batch, seq, ENCDEC_PROMPT, ENCDEC_MAX_LEN)
+    del model
     torch.cuda.empty_cache()
 
 
@@ -5134,6 +5733,9 @@ def main() -> None:
     rwkv6_path(results)
     check_flash_attention_kernel(results)
     nemotron_path(results)
+    moe_path(results)
+    griffin_path(results)
+    encdec_path(results)
     offline_path(results)
     consistency()
 

@@ -8,9 +8,15 @@
   tests seed both packages' stores from the same warm state with these,
   and read states back to compare them bit for bit.
 * Model weights: :func:`decoder_from_numpy` builds a
-  :class:`~repro_torch.models.transformer.DecoderLM`, and
+  :class:`~repro_torch.models.transformer.DecoderLM` (dense or MoE),
   :func:`rwkv6_from_numpy` a :class:`~repro_torch.models.rwkv6.RWKV6LM`,
-  from the reference model's parameter tree as numpy arrays.
+  :func:`griffin_from_numpy` a :class:`~repro_torch.models.griffin.
+  GriffinLM` and :func:`encdec_from_numpy` an :class:`~repro_torch.models.
+  encdec.EncDecLM`, from the reference model's parameter tree as numpy
+  arrays.
+* Serving state: :func:`kv_cache_from_numpy` (the decoder's caches),
+  :func:`griffin_state_from_numpy` and :func:`encdec_state_from_numpy`
+  turn the reference's state into the port's, bf16 bits kept.
 """
 
 from __future__ import annotations
@@ -33,7 +39,11 @@ __all__ = [
     "online_state_to_numpy",
     "decoder_from_numpy",
     "rwkv6_from_numpy",
+    "griffin_from_numpy",
+    "encdec_from_numpy",
     "kv_cache_from_numpy",
+    "griffin_state_from_numpy",
+    "encdec_state_from_numpy",
 ]
 
 # names and dtypes of the six primary arrays, in kernel argument order
@@ -186,11 +196,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]
             yield f"{prefix}{name}", v
 
 
-def _load_numpy(model, params: Mapping, n_layers: int, layer_prefix: str,
+def _load_numpy(model, params: Mapping, stacked: Mapping[str, Tuple[str, int]],
                 who: str):
-    """Copy the reference's parameter tree (numpy leaves) into ``model``:
-    leaves under ``layers.*`` are stacked on a leading layer axis and go to
-    ``<layer_prefix>.<i>.*``, the others by their own name.  Every
+    """Copy the reference's parameter tree (numpy leaves) into ``model``.
+    ``stacked`` maps a top-level name of the tree to ``(module, n)``:
+    leaves under ``<name>.*`` are stacked on a leading axis of ``n`` and go
+    to ``<module>.<i>.*``; the others go by their own name.  Every
     parameter must be given, each with its parameter's shape; values pass
     through float32, so a bfloat16 tree arrives bit for bit in bfloat16
     parameters."""
@@ -213,14 +224,16 @@ def _load_numpy(model, params: Mapping, n_layers: int, layer_prefix: str,
 
     for name, a in _flatten(params):
         a = np.asarray(a)
-        if name.startswith("layers."):
-            if a.shape[0] != n_layers:
+        top, _, rest = name.partition(".")
+        if top in stacked:
+            module, n = stacked[top]
+            if a.shape[0] != n:
                 raise ValueError(
                     f"{who}: {name} stacks {a.shape[0]} layers, the config "
-                    f"has {n_layers}"
+                    f"has {n}"
                 )
-            for i in range(n_layers):
-                put(f"{layer_prefix}.{i}.{name[len('layers.'):]}", a[i])
+            for i in range(n):
+                put(f"{module}.{i}.{rest}", a[i])
         else:
             put(name, a)
     if unset:
@@ -235,12 +248,15 @@ def decoder_from_numpy(cfg, params: Mapping, device="cuda"):
     ``params`` is the reference's parameter tree with numpy leaves
     (``jax.tree.map(np.asarray, params)``): ``embed.table`` (and
     ``embed.head`` when untied), the per-layer parameters stacked on a
-    leading layer axis under ``layers.*``, and ``ln_out.scale``.
+    leading layer axis under ``layers.*`` (``layers.mlp.*`` or, in the
+    ``moe`` family, ``layers.moe.{router,w_in,w_gate,w_out}``), and
+    ``ln_out.scale``.
     """
     from repro_torch.models.transformer import DecoderLM
 
-    return _load_numpy(DecoderLM(cfg, device=device), params, cfg.n_layers,
-                       "blocks", "decoder_from_numpy")
+    return _load_numpy(DecoderLM(cfg, device=device), params,
+                       {"layers": ("blocks", cfg.n_layers)},
+                       "decoder_from_numpy")
 
 
 def rwkv6_from_numpy(cfg, params: Mapping, device="cuda"):
@@ -250,8 +266,64 @@ def rwkv6_from_numpy(cfg, params: Mapping, device="cuda"):
     ``ln_out.scale``, with numpy leaves."""
     from repro_torch.models.rwkv6 import RWKV6LM
 
-    return _load_numpy(RWKV6LM(cfg, device=device), params, cfg.n_layers,
-                       "layers", "rwkv6_from_numpy")
+    return _load_numpy(RWKV6LM(cfg, device=device), params,
+                       {"layers": ("layers", cfg.n_layers)}, "rwkv6_from_numpy")
+
+
+def griffin_from_numpy(cfg, params: Mapping, device="cuda"):
+    """A :class:`~repro_torch.models.griffin.GriffinLM` of ``cfg`` on
+    ``device`` holding the reference model's weights: ``embed.table``,
+    each super-block's parameters stacked on a leading axis under
+    ``supers.*``, the tail blocks under ``tails.t<i>.*`` (not stacked), and
+    ``ln_out.scale``, with numpy leaves."""
+    from repro_torch.models.griffin import GriffinLM
+
+    model = GriffinLM(cfg, device=device)
+    return _load_numpy(model, params, {"supers": ("supers", model.n_super)},
+                       "griffin_from_numpy")
+
+
+def encdec_from_numpy(cfg, params: Mapping, device="cuda"):
+    """An :class:`~repro_torch.models.encdec.EncDecLM` of ``cfg`` on
+    ``device`` holding the reference model's weights: ``embed.table``, the
+    encoder's and the decoder's layers stacked under ``enc_layers.*`` and
+    ``dec_layers.*``, ``ln_enc`` and ``ln_out``, with numpy leaves."""
+    from repro_torch.models.encdec import EncDecLM
+
+    return _load_numpy(EncDecLM(cfg, device=device), params,
+                       {"enc_layers": ("enc_layers", cfg.n_encoder_layers),
+                        "dec_layers": ("dec_layers", cfg.n_layers)},
+                       "encdec_from_numpy")
+
+
+def _array_to_tensor(a, dev: torch.device) -> torch.Tensor:
+    """A copy of ``a`` on ``dev`` in its own dtype (a numpy ``bfloat16``
+    arrives bit for bit in ``torch.bfloat16``)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(
+            device=dev, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(dev)
+
+
+def griffin_state_from_numpy(state: Mapping, device="cuda") -> Dict[str, torch.Tensor]:
+    """The port's griffin serving state on ``device`` from the
+    reference's (``GriffinLM.prefill`` / ``init_state`` / ``decode_step``):
+    every key kept, every leaf copied in its own dtype."""
+    dev = resolve_device(device)
+    return {name: _array_to_tensor(a, dev) for name, a in state.items()}
+
+
+def encdec_state_from_numpy(state: Mapping, device="cuda") -> Dict:
+    """The port's encoder-decoder serving state on ``device`` from the
+    reference's: ``self`` (its ``FullKV``, through
+    :func:`kv_cache_from_numpy`), ``cross_k``, ``cross_v`` and
+    ``enc_positions``, each in its own dtype."""
+    dev = resolve_device(device)
+    out = {name: _array_to_tensor(state[name], dev)
+           for name in ("cross_k", "cross_v", "enc_positions")}
+    out["self"] = kv_cache_from_numpy(state["self"], device=dev)
+    return out
 
 
 def kv_cache_from_numpy(cache_arrays, device="cuda"):
@@ -272,16 +344,10 @@ def kv_cache_from_numpy(cache_arrays, device="cuda"):
                         if hasattr(cache_arrays, n)}
     dev = resolve_device(device)
 
-    def kv(a) -> torch.Tensor:
-        a = np.asarray(a)
-        dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else None
-        t = torch.from_numpy(np.array(a, dtype=np.float32 if dtype else a.dtype))
-        return t.to(device=dev, dtype=dtype)
-
     def positions(a) -> torch.Tensor:
         return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
 
-    k, v = kv(cache_arrays["k"]), kv(cache_arrays["v"])
+    k, v = (_array_to_tensor(cache_arrays[n], dev) for n in ("k", "v"))
     pos = positions(cache_arrays["pos"])
     if "k_pos" in cache_arrays:
         return kvc.SlidingKV(k=k, v=v, k_pos=positions(cache_arrays["k_pos"]),

@@ -1,20 +1,20 @@
-"""Model stack: configuration, layers, caches, the dense decoder and
-RWKV6."""
+"""Model stack: configuration, layers, caches, and the model families —
+the dense and MoE decoder, RWKV6, RecurrentGemma (griffin) and the
+encoder-decoder."""
 
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["ModelConfig", "build_model"]
 
-# families of the reference package that are not ported yet
-_WAITING = {"moe": "MoE", "griffin": "other families",
-            "encdec": "other families"}
-
 
 def build_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
-    """The model of a config, weights drawn from ``seed`` on ``device``
-    (the dense and rwkv families; the others raise until they are
-    ported)."""
-    if cfg.family == "dense":
+    """The model of a config, weights drawn from ``seed`` on ``device``:
+    :class:`~repro_torch.models.transformer.DecoderLM` for the ``dense``
+    and ``moe`` families, :class:`~repro_torch.models.rwkv6.RWKV6LM` for
+    ``rwkv``, :class:`~repro_torch.models.griffin.GriffinLM` for
+    ``griffin``, :class:`~repro_torch.models.encdec.EncDecLM` for
+    ``encdec``; ``ValueError`` for any other family."""
+    if cfg.family in ("dense", "moe"):
         from repro_torch.models.transformer import DecoderLM
 
         return DecoderLM(cfg, seed=seed, device=device)
@@ -22,9 +22,12 @@ def build_model(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         from repro_torch.models.rwkv6 import RWKV6LM
 
         return RWKV6LM(cfg, seed=seed, device=device)
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"build_model: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP, next slices: {_WAITING[cfg.family]})"
-        )
+    if cfg.family == "griffin":
+        from repro_torch.models.griffin import GriffinLM
+
+        return GriffinLM(cfg, seed=seed, device=device)
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import EncDecLM
+
+        return EncDecLM(cfg, seed=seed, device=device)
     raise ValueError(f"unknown family {cfg.family!r}")

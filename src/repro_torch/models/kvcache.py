@@ -8,7 +8,10 @@ per-layer updates here write into the cache's tensors in place (a copy of
 a 2 GB cache per layer and step otherwise) and return them.
 :func:`rwkv6_state_init` is the recurrent state of ``RWKV6LM.init_state``
 (``repro.models.rwkv6``): a plain dict under the reference's keys, so a
-state carries across.  Griffin's state waits for its family.
+state carries across.  Griffin's state is its model's
+(:meth:`repro_torch.models.griffin.GriffinLM.init_state`), and the
+encoder-decoder's a :class:`FullKV` beside the cross-attention keys
+(:mod:`repro_torch.models.encdec`).
 """
 
 from __future__ import annotations

@@ -9,10 +9,11 @@ reference computes in float32 from bf16 operands — norms, RoPE, the
 attention scores and softmax, tied logits — the operands are upcast here
 too: a bf16 ``torch.matmul`` would round its result to bf16.
 
-:func:`causal_self_attention` is a block's attention over its own whole
-sequence (prefill, scoring): on CUDA tensors it launches flash attention
-kernel B6, on CPU tensors it is :func:`gqa_attention`, the reference
-model's own arithmetic.  The two differ in one rounding: B6 keeps the
+:func:`self_attention` is a block's attention over its own whole sequence,
+causal (prefill, scoring, a decoder's self-attention) or not (an
+encoder's): on CUDA tensors it launches flash attention kernel B6, on CPU
+tensors it is :func:`gqa_attention`, the reference model's own
+arithmetic.  The two differ in one rounding: B6 keeps the
 attention weights in float32 for the PV product, where ``gqa_attention``
 rounds them to the value dtype first (ROADMAP Queue C); in float32 they
 are the same function.
@@ -23,6 +24,7 @@ are the same function.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -32,10 +34,9 @@ from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
-    "norm_init", "norm_apply", "rope", "attention_qkv", "gqa_attention",
-    "causal_self_attention",
-    "mlp_apply", "embed_init", "embed_lookup", "logits_from_embedding",
-    "dense_init",
+    "norm_init", "norm_apply", "rope", "attention_init", "attention_qkv",
+    "gqa_attention", "self_attention", "mlp_init", "gelu_tanh", "mlp_apply",
+    "embed_init", "embed_lookup", "logits_from_embedding", "dense_init",
 ]
 
 Params = Mapping[str, torch.Tensor]
@@ -85,6 +86,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def attention_init(
+    cfg: ModelConfig, generator: torch.Generator
+) -> Dict[str, torch.Tensor]:
+    """An attention block's ``wq``, ``wk``, ``wv``, ``wo`` (and the
+    ``q_norm`` / ``k_norm`` scales with ``qk_norm``), as the reference's
+    ``attention_qkv_init`` shapes them."""
+    D, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    pd = cfg.pdtype
+    p = {
+        "wq": dense_init((D, H * hd), pd, generator),
+        "wk": dense_init((D, Hkv * hd), pd, generator),
+        "wv": dense_init((D, Hkv * hd), pd, generator),
+        "wo": dense_init((H * hd, D), pd, generator),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(cfg, generator.device, hd)
+        p["k_norm"] = norm_init(cfg, generator.device, hd)
+    return p
 
 
 def attention_qkv(
@@ -164,24 +185,60 @@ def gqa_attention(
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def causal_self_attention(
+def self_attention(
     q: torch.Tensor,          # (B, S, H, hd)
     k: torch.Tensor,          # (B, S, Hkv, hd)
     v: torch.Tensor,          # (B, S, Hkv, hd)
     positions: torch.Tensor,  # (B, S): 0 .. S - 1 in every row
     *,
-    window: Optional[int],
+    causal: bool = True,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Causal (optionally sliding-window) attention of a sequence over
-    itself, (B, S, H, hd) in ``q``'s dtype.  CUDA tensors go through kernel
-    B6 as transposed views (no copy; the kernel reads positions as the
-    sequence index), CPU tensors through :func:`gqa_attention`."""
+    """Attention of a sequence over itself — causal (optionally within a
+    sliding window) or, with ``causal=False``, over all of it — (B, S, H,
+    hd) in ``q``'s dtype.  CUDA tensors go through kernel B6 as transposed
+    views (no copy; the kernel reads positions as the sequence index), CPU
+    tensors through :func:`gqa_attention`."""
     if q.is_cuda:
         o = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      causal=True, window=window)
+                      causal=causal, window=window)
         return o.transpose(1, 2)
-    return gqa_attention(q, k, v, positions, positions, causal=True,
+    return gqa_attention(q, k, v, positions, positions, causal=causal,
                          window=window)
+
+
+def mlp_init(
+    cfg: ModelConfig, generator: torch.Generator
+) -> Dict[str, torch.Tensor]:
+    """A feed-forward block's ``w_in``, ``w_out`` (and ``w_gate`` for the
+    gated kinds), as the reference's ``mlp_init`` shapes them."""
+    D, F_, pd = cfg.d_model, cfg.d_ff, cfg.pdtype
+    p = {
+        "w_in": dense_init((D, F_), pd, generator),
+        "w_out": dense_init((F_, D), pd, generator),
+    }
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init((D, F_), pd, generator)
+    return p
+
+
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """The Python float ``v`` rounded to ``dtype``: a weakly typed
+    constant in the reference, which JAX casts to the array's dtype."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` op by op in ``x``'s dtype::
+
+        x * (0.5 * (1 + tanh(sqrt(2 / pi) * (x + 0.044715 * x * x * x))))
+
+    with every constant and every intermediate rounded to that dtype, as
+    the reference computes it (``F.gelu`` rounds only its result: in bf16
+    the two part in about four elements of ten)."""
+    c = _in_dtype(math.sqrt(2.0 / math.pi), x.dtype)
+    inner = x + _in_dtype(0.044715, x.dtype) * (x * x * x)
+    return x * (0.5 * (1.0 + torch.tanh(c * inner)))
 
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -190,7 +247,7 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.mlp == "swiglu":
         h = F.silu(x @ p["w_gate"]) * h
     elif cfg.mlp == "geglu":
-        h = F.gelu(x @ p["w_gate"], approximate="tanh") * h
+        h = gelu_tanh(x @ p["w_gate"]) * h
     elif cfg.mlp == "squared_relu":
         r = F.relu(h)
         h = r * r

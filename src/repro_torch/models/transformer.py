@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family.
+"""Decoder-only transformer LM, dense and MoE families.
 
 The reference package's ``repro.models.transformer.DecoderLM`` as an
 ``nn.Module`` that holds its weights: one :class:`DecoderBlock` per layer,
@@ -6,7 +6,10 @@ run in a Python loop (the reference's layer scan and rematerialization
 exist for compile size and gradients, neither of which applies here).
 Parameters keep the reference's names and layouts, so
 :func:`repro_torch.convert.decoder_from_numpy` can carry a JAX parameter
-tree across.
+tree across.  In the ``moe`` family a block holds ``moe``
+(:mod:`repro_torch.models.moe`) where the dense one holds ``mlp``; its
+auxiliary losses are dropped by ``prefill`` and ``decode_step``, as the
+reference's are.
 
 :meth:`DecoderLM.prefill` is split in two: :meth:`DecoderLM.forward`
 returns the last token's logits and builds no cache — the scoring path
@@ -15,39 +18,41 @@ on its own — and ``prefill`` builds the cache on top of the same pass:
 :class:`~repro_torch.models.kvcache.FullKV`, or the
 :class:`~repro_torch.models.kvcache.SlidingKV` ring when the config has a
 sliding window.  Both passes run each block's self-attention through
-:func:`~repro_torch.models.layers.causal_self_attention` (kernel B6 on the
-card).  :meth:`DecoderLM.decode_step` feeds one token per sequence against
+:func:`~repro_torch.models.layers.self_attention` (kernel B6 on the card),
+and ``prefill`` writes each layer's keys and values into the cache as the
+pass goes.  :meth:`DecoderLM.decode_step` feeds one token per sequence against
 either cache, through :func:`~repro_torch.models.layers.gqa_attention`
 (the reference computes it outside any Pallas kernel too), and updates
 the cache in place.  All three run under ``torch.inference_mode()``: the
 parameters build no autograd graph, and B6 has no backward.
 
-Not ported yet (each raises ``NotImplementedError``): the ``moe`` family
-and the training loss.
+The training loss is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import kvcache as kvc
+from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    attention_init,
     attention_qkv,
-    causal_self_attention,
-    dense_init,
     embed_init,
     embed_lookup,
     gqa_attention,
     logits_from_embedding,
     mlp_apply,
+    mlp_init,
     norm_apply,
     norm_init,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 
 __all__ = ["ParamTree", "DecoderBlock", "DecoderLM"]
 
@@ -75,33 +80,21 @@ class ParamTree(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm attention + MLP block (``ln_attn``, ``attn``, ``ln_mlp``,
-    ``mlp`` as in the reference's per-layer parameter tree)."""
+    """Pre-norm attention + FFN block (``ln_attn``, ``attn``, ``ln_mlp``,
+    and ``mlp`` or, in the ``moe`` family, ``moe``, as in the reference's
+    per-layer parameter tree)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
         self.cfg = cfg
-        D, F, hd, H, Hkv = cfg.d_model, cfg.d_ff, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-        pd, dev = cfg.pdtype, generator.device
-        attn = {
-            "wq": dense_init((D, H * hd), pd, generator),
-            "wk": dense_init((D, Hkv * hd), pd, generator),
-            "wv": dense_init((D, Hkv * hd), pd, generator),
-            "wo": dense_init((H * hd, D), pd, generator),
-        }
-        if cfg.qk_norm:
-            attn["q_norm"] = norm_init(cfg, dev, hd)
-            attn["k_norm"] = norm_init(cfg, dev, hd)
-        mlp = {
-            "w_in": dense_init((D, F), pd, generator),
-            "w_out": dense_init((F, D), pd, generator),
-        }
-        if cfg.mlp in ("swiglu", "geglu"):
-            mlp["w_gate"] = dense_init((D, F), pd, generator)
+        dev = generator.device
         self.ln_attn = ParamTree(norm_init(cfg, dev))
-        self.attn = ParamTree(attn)
+        self.attn = ParamTree(attention_init(cfg, generator))
         self.ln_mlp = ParamTree(norm_init(cfg, dev))
-        self.mlp = ParamTree(mlp)
+        if cfg.family == "moe":
+            self.moe = ParamTree(moe_init(cfg, generator))
+        else:
+            self.mlp = ParamTree(mlp_init(cfg, generator))
 
     def forward(
         self, x: torch.Tensor, positions: torch.Tensor
@@ -110,8 +103,7 @@ class DecoderBlock(nn.Module):
         cfg = self.cfg
         h = norm_apply(self.ln_attn, x, cfg.norm)
         q, k, v = attention_qkv(self.attn, h, positions, cfg)
-        o = causal_self_attention(q, k, v, positions,
-                                  window=cfg.sliding_window)
+        o = layers.self_attention(q, k, v, positions, window=cfg.sliding_window)
         return self._finish(x, o), k, v
 
     def decode(
@@ -140,25 +132,28 @@ class DecoderBlock(nn.Module):
         return self._finish(x, o)
 
     def _finish(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """The output projection and the MLP, each added to the residual."""
+        """The output projection and the FFN (the MLP, or the experts with
+        their auxiliary losses dropped), each added to the residual."""
         cfg = self.cfg
         B, S, H, hd = o.shape
         x = x + (o.reshape(B, S, H * hd) @ self.attn["wo"]).to(x.dtype)
         h = norm_apply(self.ln_mlp, x, cfg.norm)
-        return x + mlp_apply(self.mlp, h, cfg).to(x.dtype)
+        if cfg.family == "moe":
+            f, _ = moe_apply(self.moe, h, cfg)
+        else:
+            f = mlp_apply(self.mlp, h, cfg)
+        return x + f.to(x.dtype)
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder LM with a patch/frame frontend.  Weights are drawn on
-    ``device`` from a ``torch.Generator`` seeded with ``seed``."""
+    """Dense or MoE decoder LM with a patch/frame frontend.  Weights are
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device="cuda"):
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"DecoderLM: family {cfg.family!r} is not ported yet "
-                "(ROADMAP, next slices: MoE)"
-            )
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"DecoderLM: family {cfg.family!r} is not a "
+                             "decoder's (dense or moe)")
         self.cfg = cfg
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
@@ -184,19 +179,23 @@ class DecoderLM(nn.Module):
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         return x, positions.expand(B, S)
 
-    def last_hidden(
-        self, batch: Dict, kv: Optional[List] = None
-    ) -> torch.Tensor:
-        """The last position's hidden state after the final norm,
-        (B, 1, D); appends each layer's (k, v) to ``kv`` when given."""
-        x, positions = self._embed_inputs(batch)
-        for block in self.blocks:
+    def _layers(self, x: torch.Tensor, positions: torch.Tensor,
+                store=None) -> torch.Tensor:
+        """Every block over ``x``; ``store(i, k, v)`` takes each layer's
+        keys and values when given.  The last position's hidden state
+        after the final norm, (B, 1, D)."""
+        for i, block in enumerate(self.blocks):
             x, k, v = block(x, positions)
-            if kv is not None:
-                kv.append((k, v))
+            if store is not None:
+                store(i, k, v)
         # the norm is per position: normalizing the last one alone equals
         # the reference's norm over all positions followed by the slice
         return norm_apply(self.ln_out, x[:, -1:], self.cfg.norm)
+
+    def last_hidden(self, batch: Dict) -> torch.Tensor:
+        """The last position's hidden state after the final norm,
+        (B, 1, D)."""
+        return self._layers(*self._embed_inputs(batch))
 
     @torch.inference_mode()
     def forward(self, batch: Dict) -> torch.Tensor:
@@ -213,13 +212,11 @@ class DecoderLM(nn.Module):
         ``min(S, W)`` positions in slots ``position % W`` when the config
         has a sliding window ``W`` (``max_len`` is then not read), else a
         :class:`~repro_torch.models.kvcache.FullKV` of ``max(max_len, S)``
-        positions."""
+        positions.  The cache is allocated first and each layer's keys
+        and values are written into it as the pass reaches them."""
         cfg = self.cfg
-        kv: List = []
-        logits = logits_from_embedding(
-            self.embed, self.last_hidden(batch, kv), cfg
-        )
-        B, S = kv[0][0].shape[:2]
+        x, positions = self._embed_inputs(batch)
+        B, S = x.shape[:2]
         dev = self.device
         if cfg.sliding_window is not None:
             W = cfg.sliding_window
@@ -227,18 +224,23 @@ class DecoderLM(nn.Module):
             take = min(S, W)
             abs_pos = torch.arange(S - take, S, dtype=torch.int32, device=dev)
             slots = (abs_pos % W).long()
-            for i, (k, v) in enumerate(kv):
+
+            def store(i, k, v):
                 cache.k[i][:, slots] = k[:, S - take:]
                 cache.v[i][:, slots] = v[:, S - take:]
+
             cache.k_pos[:, slots] = abs_pos
         else:
             # a frontend extends the sequence past the token count: the
             # cache holds all of it
-            max_len = max(max_len or S, S)
-            cache = kvc.full_kv_init(cfg, B, max_len, dev)
-            for i, (k, v) in enumerate(kv):
+            cache = kvc.full_kv_init(cfg, B, max(max_len or S, S), dev)
+
+            def store(i, k, v):
                 cache.k[i, :, :S] = k
                 cache.v[i, :, :S] = v
+
+        logits = logits_from_embedding(
+            self.embed, self._layers(x, positions, store), cfg)
         cache.pos.fill_(S)
         return logits, cache
 

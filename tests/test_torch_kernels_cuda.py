@@ -1535,3 +1535,75 @@ def test_decoder_lm_on_gpu_matches_cpu(cuda, dtype, window):
         lg, cg = gpu.decode_step(cg, tok.to(cuda))
         assert kernels.LAUNCHES["flash_attention"] == before
         lc, cc = cpu.decode_step(cc, tok)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_on_gpu_is_deterministic_and_folds_in_order(cuda, dtype):
+    """One MoE layer (moonshot's smoke config at top_k = 6, a router
+    skewed so that tokens drop) run twice on the card gives the same bits
+    (no atomics), and its combine of the card's own contributions equals
+    the plain one-add-a-contribution fold on the CPU bit for bit."""
+    from repro_torch.configs.moonshot_v1_16b_a3b import smoke_config
+    from repro_torch.models import moe
+
+    cfg = smoke_config().replace(top_k=6, num_experts=16, param_dtype=dtype,
+                                 compute_dtype=dtype)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    p = moe.moe_init(cfg, g)
+    p["router"][:, 0] += 4.0
+    x = (torch.randn((4, 96, cfg.d_model), generator=g, device="cuda")
+         + 1.0).to(cfg.cdtype)
+    a, aux = moe.moe_apply(p, x, cfg)
+    b, _ = moe.moe_apply(p, x, cfg)
+    assert torch.equal(a.view(torch.int16 if dtype == "bfloat16" else torch.int32),
+                       b.view(torch.int16 if dtype == "bfloat16" else torch.int32))
+    assert float(aux["moe_dropped_frac"]) > 0
+    parts = moe.moe_parts(p, x, cfg)
+    got = moe.moe_combine(parts.contrib, parts.dispatch.order, cfg.top_k)
+    want = moe.moe_combine_ref(parts.contrib.cpu(), parts.dispatch.src_token.cpu(),
+                               got.shape[1])
+    assert torch.equal(got.cpu().float(), want.float())
+    assert torch.equal(got.reshape(a.shape), a)
+
+
+@pytest.mark.parametrize("family", ["moe", "griffin", "encdec"])
+def test_model_families_on_gpu_match_cpu(cuda, family):
+    """The moe, griffin and encdec smoke models (float32) on the card
+    against the same weights on the CPU, prefill then three decode steps
+    (logits ``atol = rtol = 1e-3``): B6 launches once per attention layer
+    per prefill (moe: every layer; griffin: each super-block; encdec: the
+    encoder's layers not causal, the decoder's causal) and never in
+    decode."""
+    import copy
+
+    from repro_torch.configs import (moonshot_v1_16b_a3b, recurrentgemma_9b,
+                                     seamless_m4t_medium)
+    from repro_torch.models import build_model
+
+    mod = {"moe": moonshot_v1_16b_a3b, "griffin": recurrentgemma_9b,
+           "encdec": seamless_m4t_medium}[family]
+    cfg = mod.smoke_config()
+    gpu = build_model(cfg, seed=2, device="cuda")
+    cpu = copy.deepcopy(gpu).to("cpu")
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 40), generator=g, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    if family == "encdec":
+        batch["frames"] = torch.randn((2, 24, cfg.d_model), generator=g)
+        launches = 2 * cfg.n_layers
+    else:
+        launches = gpu.n_super if family == "griffin" else cfg.n_layers
+    kernels.reset_launches()
+    lg, sg = gpu.prefill({n: t.to(cuda) for n, t in batch.items()}, 44)
+    assert kernels.LAUNCHES["flash_attention"] == launches
+    if family == "encdec":
+        assert kernels.VARIANT_LAUNCHES["flash_attention"]["simt"] == launches
+    lc, sc = cpu.prefill(batch, 44)
+    for step in range(4):
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+        if step == 3:
+            break
+        tok = torch.randint(0, cfg.vocab, (2, 1), generator=g, dtype=torch.int32)
+        lg, sg = gpu.decode_step(sg, tok.to(cuda))
+        lc, sc = cpu.decode_step(sc, tok)
+        assert kernels.LAUNCHES["flash_attention"] == launches

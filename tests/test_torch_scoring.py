@@ -303,17 +303,27 @@ def test_launch_serve_main_on_cpu():
     assert out["device"] == "cpu" and out["p50_ms"] > 0
 
 
-def test_unported_paths_raise():
+def test_build_model_builds_every_family():
+    """Every family of the reference has its model: ``DecoderLM`` for
+    dense and moe, ``GriffinLM``, ``EncDecLM``; an unknown family and a
+    non-decoder family handed to ``DecoderLM`` raise ``ValueError``."""
+    from repro_torch.configs.moonshot_v1_16b_a3b import smoke_config as moe_cfg
+    from repro_torch.configs.recurrentgemma_9b import smoke_config as griffin_cfg
+    from repro_torch.configs.seamless_m4t_medium import smoke_config as encdec_cfg
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.griffin import GriffinLM
+
+    for make, cls in ((moe_cfg, DecoderLM), (griffin_cfg, GriffinLM),
+                      (encdec_cfg, EncDecLM)):
+        model = build_model(make(), device="cpu")
+        assert type(model) is cls, (make().family, type(model))
+        assert model.device == torch.device("cpu")
+    assert "moe" in build_model(moe_cfg(), device="cpu").blocks[0]._modules
     _, cfg = _cfgs()
-    for family in ("moe", "griffin", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(cfg.replace(family=family), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg.replace(family="nope"), device="cpu")
-    # sliding-window attention and decode_step are ported
-    # (tests/test_torch_decoder_lm.py); the decoder itself still refuses MoE
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecoderLM(cfg.replace(family="moe"), device="cpu")
+    with pytest.raises(ValueError, match="not a decoder"):
+        DecoderLM(cfg.replace(family="griffin"), device="cpu")
 
 
 def test_seeded_init_is_deterministic_and_scaled():
