@@ -708,6 +708,51 @@ GRIFFIN_BATCH, GRIFFIN_PROMPT, GRIFFIN_DECODE = 8, 4096, 32
 # src/repro/launch/specs.py:57-60) into a FullKV of 2,080, 32 decode steps
 ENCDEC_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_DECODE = 8, 2048, 2048, 32
 ENCDEC_MAX_LEN = ENCDEC_PROMPT + ENCDEC_DECODE
+# B6's backward against attention_bwd_ref in float32: within this share of
+# each gradient's largest |value| (+ 1e-6: dQ and dK at S = 1 are 0 in
+# exact arithmetic); bf16 within FA_TOL
+FA_BWD_F32_REL = 1e-4
+# B, H, Hkv, S, D, causal, window: the training paths' shapes, bf16 --
+# the scorer's S = 72 (64 patches + 8 tokens), seamless-m4t-medium's
+# decoder (causal) and encoder (not causal) at 2 sequences a microbatch,
+# nemotron's GQA, a 2,048 window, recurrentgemma's MQA at D = 256
+FA_BWD_SHAPES = {
+    "scorer": (256, 8, 8, 72, 64, True, None),
+    "seamless_causal": (2, 16, 16, 1024, 64, True, None),
+    "seamless_enc": (2, 16, 16, 1024, 64, False, None),
+    "nemotron": (1, 48, 8, 2048, 128, True, None),
+    "window": (1, 32, 8, 4096, 128, True, 2048),
+    "recurrentgemma": (1, 16, 1, 4096, 256, True, 2048),
+}
+# S = 1 and S on either side of a 128-row boundary, both dtypes
+FA_BWD_EDGES = [(2, 4, 2, 1, 64, True, None), (2, 4, 2, 127, 64, True, None),
+                (2, 4, 2, 129, 96, False, 40)]
+# the training runs (launch.train's flags)
+TRAIN_SEAMLESS = ["--arch", "seamless-m4t-medium", "--batch", "8", "--seq",
+                  "1024", "--microbatches", "4", "--steps", "20"]
+TRAIN_FRAUD = ["--arch", "featinsight-fraud", "--batch", "256", "--seq", "8",
+               "--steps", "20"]
+# the kernel-vs-plain training comparison: one microbatch of this many
+# sequences
+TRAIN_PLAIN_BATCH = 2
+# seamless bf16 at full depth, B6 vs gqa_attention: the loss's |diff| and
+# the largest per-leaf gradient distance ||diff|| / ||g|| may reach these:
+# 1.5 x the largest over seeds 0-4, rounded up (tests/train_bf16_gap.py on
+# an H100 80GB HBM3 at 700 W: loss 6.30e-4, ||diff|| / ||g|| 0.0405 in
+# enc_layers.0.attn.wq, median over leaves 0.0035-0.0039)
+TRAIN_BF16_LOSS = 1e-3
+TRAIN_BF16_GRAD = 0.07
+# float32 at 1 + 1 layers, full width: the two attentions are one function
+# summed in other orders; the loss within this relative |diff|, each
+# leaf's ||diff|| / ||g|| within TRAIN_F32_REL (1.5 x the largest over
+# seeds 0-4, rounded up: a ReLU mask element flipped by a rounding
+# difference moves a few elements of the gradients it feeds; measured
+# 1.4e-6 at the seed without a flip, up to 1.76e-4 with,
+# tests/train_bf16_gap.py --float32)
+TRAIN_F32_LOSS_REL = 1e-5
+TRAIN_F32_REL = 3e-4
+# the training phase's time budget, printed beside its time
+TRAIN_BUDGET_S = 150
 
 
 def _fail(msg: str) -> None:
@@ -5562,6 +5607,418 @@ def encdec_path(results) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training: B6's backward, seamless-m4t-medium and featinsight-fraud at full
+# width, the training twins
+# ---------------------------------------------------------------------------
+
+
+def _fa_bwd_cost(shape, esize):
+    """(bytes, FLOP) of one backward call: q, k, v, o, dO read and dq, dk,
+    dv written once; 2.5 times the forward's 4 D FLOP per visible pair and
+    head (five products of 2 D against the forward's two)."""
+    B, H, Hkv, S, D = shape[:5]
+    _, fwd_flop = _fa_cost(shape, esize)
+    return esize * S * D * B * (4 * H + 4 * Hkv), int(2.5 * fwd_flop)
+
+
+def _sdpa_bwd(q, k, v, do, shape):
+    """SDPA's backward alone on the same inputs (its forward run once
+    outside the timing); timed only, the port never calls it."""
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    o = _fa_library_call(*leaves, shape)()
+    return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+
+def _fa_bwd_close(got, want, dtype) -> float:
+    """max |diff|; fails past the tolerance: float32 ``FA_BWD_F32_REL`` of
+    the gradient's largest |value| + 1e-6, bf16 ``FA_TOL``."""
+    err = float((got.float() - want.float()).abs().max())
+    if dtype == torch.float32:
+        ok = err <= FA_BWD_F32_REL * float(want.abs().max()) + 1e-6
+    else:
+        tol = FA_TOL[dtype]
+        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    return err if ok else -err
+
+
+def check_flash_attention_bwd(results) -> None:
+    """B6's backward kernel against ``attention_bwd_ref``: the reference's
+    six test shapes in float32, the edges (S = 1, 127, 129) in both dtypes,
+    the training paths' shapes in bf16; two runs the same bits; a D > 256
+    call under autograd raises; ``attention`` under autograd launches the
+    forward once and the backward once; each path shape timed beside the
+    plain version and SDPA's backward."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.ops import (
+        attention, attention_bwd, plan_attention_bwd,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    cases = [(f"test {sh[:5]}", sh, torch.float32) for sh in FA_TEST_SHAPES]
+    cases += [(f"edge {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
+              for sh in FA_BWD_EDGES]
+    cases += [(n, sh, torch.bfloat16) for n, sh in FA_BWD_SHAPES.items()]
+    worst = {}
+    for name, shape, dtype in cases:
+        causal, window = shape[5:]
+        kw = dict(causal=causal, window=window)
+        q, k, v = _fa_inputs(gen, shape, dtype)
+        with torch.no_grad():
+            o = attention(q, k, v, **kw)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        kernels.reset_launches()
+        got = attention_bwd(q, k, v, o, do, **kw)
+        if kernels.VARIANT_LAUNCHES["flash_attention_bwd"] != {"dq": 1, "dkdv": 1}:
+            _fail(f"B6 backward on {name}: launches "
+                  f"{kernels.VARIANT_LAUNCHES['flash_attention_bwd']}")
+        again = attention_bwd(q, k, v, o, do, **kw)
+        want = attention_bwd_ref(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        errs = []
+        for tag, a, b, w in zip("qkv", got, again, want):
+            if not torch.equal(a, b):
+                _fail(f"B6 backward on {name}: d{tag} differs between two runs")
+            e = _fa_bwd_close(a, w, dtype)
+            if e < 0:
+                _fail(f"B6 backward differs from attention_bwd_ref on {name} "
+                      f"{shape} {dtype}: d{tag} max |diff| {-e:.3e} (largest "
+                      f"|d{tag}| {float(w.float().abs().max()):.3e})")
+            errs.append(e)
+        worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+        print(f"flash_attention_bwd == attention_bwd_ref on {name} {shape} "
+              f"{dtype}: max |diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+              f"{errs[2]:.3e}; two runs bit-equal", flush=True)
+        del q, k, v, o, do, got, again, want
+    torch.cuda.empty_cache()
+
+    wide = torch.randn((1, 2, 16, 288), generator=gen, device="cuda")
+    wide = wide.to(torch.bfloat16).requires_grad_()
+    try:
+        attention(wide, wide, wide)
+        _fail("attention under autograd at D = 288 did not raise")
+    except NotImplementedError as e:
+        print(f"D = 288 under autograd raises: {e}", flush=True)
+
+    # through autograd on the model's (B, S, H, D) views: forward once,
+    # backward once, no copy
+    x = [torch.randn((2, 1024, 16, 64), generator=gen, device="cuda")
+         .to(torch.bfloat16).requires_grad_() for _ in range(3)]
+    q, k, v = (t.transpose(1, 2) for t in x)
+    kernels.reset_launches()
+    o = attention(q, k, v)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    if any(plan_attention_bwd(q, k, v, o, do).copy):
+        _fail("B6 backward copies the model's transposed views")
+    o.backward(do)
+    if (kernels.LAUNCHES["flash_attention"],
+            kernels.LAUNCHES["flash_attention_bwd"]) != (1, 2):
+        _fail(f"attention under autograd: launches {kernels.LAUNCHES}")
+    want = attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(), do)
+    for t, w in zip(x, want):
+        if not torch.equal(t.grad.transpose(1, 2), w):
+            _fail("attention's autograd gradient differs from attention_bwd")
+    print("attention under autograd on (B, S, H, D) views: 1 forward + 1 "
+          "backward call (dq, dkdv launches), no copy, gradients == "
+          "attention_bwd", flush=True)
+    del x, q, k, v, o, do, want
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for name, shape in FA_BWD_SHAPES.items():
+        causal, window = shape[5:]
+        kw = dict(causal=causal, window=window)
+        q, k, v = _fa_inputs(gen, shape, torch.bfloat16)
+        with torch.no_grad():
+            o = attention(q, k, v, **kw)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        kernel_ms = _time_ms(lambda: attention_bwd(q, k, v, o, do, **kw), 5, 1)
+        plain_ms = _time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw), 2, 1)
+        library_ms = _time_ms(_sdpa_bwd(q, k, v, do, shape), 5, 1)
+        nbytes, flop = _fa_bwd_cost(shape, 2)
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * flop / BF16_FLOP_PER_S
+        timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                           library_ms=library_ms,
+                           bound_ms=max(by_bytes, by_ops),
+                           bound_by="bytes" if by_bytes >= by_ops else "operations")
+        print(f"flash_attention_bwd {name} {shape} bf16: kernel "
+              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
+              f"{library_ms:.4f} ms, bound {max(by_bytes, by_ops):.5f} ms "
+              f"({nbytes} bytes -> {by_bytes:.5f} ms; {flop} FLOP -> "
+              f"{by_ops:.5f} ms; kernel at {flop / kernel_ms / 1e9:.1f} "
+              f"TFLOP/s; {max(by_bytes, by_ops) / kernel_ms:.4f} of the "
+              f"bound)", flush=True)
+        del q, k, v, o, do
+        torch.cuda.empty_cache()
+    main = timed["seamless_causal"]
+    results["flash_attention_bwd"] = dict(
+        max_abs_err=worst[torch.bfloat16],
+        max_abs_err_f32=worst[torch.float32], **main,
+        shape=f"{FA_BWD_SHAPES['seamless_causal'][:5]} bf16 causal "
+              "(seamless-m4t-medium's decoder at the training shape)",
+        shapes=timed)
+
+
+def _print_b6_bwd_share(dev, busy_ms) -> None:
+    """B6's backward kernels' device time in a trace and their share of
+    the device busy time."""
+    import re
+
+    by = {}
+    for e in dev:
+        m = re.search(r"bwd_(dq|dkdv)_kernel", e.key)
+        if m:
+            ms, n = by.get(m.group(1), (0.0, 0))
+            by[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if not by:
+        print("  B6 backward: no device time in the trace", flush=True)
+        return
+    total = sum(ms for ms, _ in by.values())
+    print(f"  B6 backward: {total:.4f} ms device time = "
+          f"{total / busy_ms:.4f} of device busy ("
+          + ", ".join(f"{v} {ms:.4f} ms x{n}" for v, (ms, n) in sorted(by.items()))
+          + ")", flush=True)
+
+
+def trace_train_step(tag, out) -> None:
+    """Profile one more train step of a ``launch.train.main`` run: wall,
+    device kernels, busy time, idle share, the largest device items, B6's
+    forward and backward shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = next(out["stream"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out["opt"], metrics = out["step_fn"](out["opt"], batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    if busy_ms <= 0:
+        print(f"{tag} train step trace: the profiler recorded no device time "
+              "(device busy share not measured)", flush=True)
+        return
+    print(f"{tag} train step trace (profiler on): wall {wall_ms:.3f} ms, "
+          f"{sum(e.count for e in dev)} device kernels, device busy "
+          f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f}",
+          flush=True)
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  device {e.self_device_time_total / 1e3:.4f} ms "
+              f"x{e.count} {e.key[:90]}", flush=True)
+    _print_b6_share(dev, busy_ms)
+    _print_b6_bwd_share(dev, busy_ms)
+
+
+def _train_run(tag, argv, per_step, variant):
+    """``launch.train.main(argv)`` on the card with the launch counts set
+    to 0 just before: the loss finite and falling (the mean of the last 5
+    steps below the first 5); every step launching B6's forward and
+    backward ``per_step`` times each (forward all in ``variant``).
+    Returns (the run's result, its launch counts)."""
+    from repro_torch import kernels
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    out = train.main(argv + ["--device", "cuda"])
+    launches = dict(kernels.LAUNCHES)
+    variants = {k: dict(v) for k, v in kernels.VARIANT_LAUNCHES.items()}
+    losses = np.array(out["losses"])
+    if not np.isfinite(losses).all():
+        _fail(f"{tag}: non-finite loss {losses.tolist()}")
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    if not last < first:
+        _fail(f"{tag}: the loss did not fall ({first:.4f} -> {last:.4f}: "
+              f"{losses.tolist()})")
+    for i, lc in enumerate(out["launches"]):
+        got = (lc.get("flash_attention", 0), lc.get("flash_attention_bwd", 0))
+        if got != per_step:
+            _fail(f"{tag} step {i}: B6 forward / backward launches {got}, "
+                  f"expected {per_step} ({lc})")
+    steps = len(losses)
+    if variants["flash_attention"][variant] != per_step[0] * steps:
+        _fail(f"{tag}: B6 forward instantiations {variants['flash_attention']}")
+    ms = 1e3 * np.array(out["step_s"])
+    args = dict(zip(argv[::2], argv[1::2]))
+    tokens = int(args["--batch"]) * int(args["--seq"])
+    print(f"{tag}: {steps} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"(mean of the first 5 {first:.4f}, of the last 5 {last:.4f}); "
+          f"step wall p50 {np.percentile(ms, 50):.1f} ms (first "
+          f"{ms[0]:.1f} ms, max of the rest {ms[1:].max():.1f} ms) = "
+          f"{tokens / np.percentile(ms, 50) * 1e3:.0f} tokens/s at p50, "
+          f"{out['tok_s']:.0f} tokens/s over the run; peak device memory "
+          f"{out['peak_bytes'] / 1e9:.2f} GB; B6 launches a step: forward "
+          f"{per_step[0]} ({variant}), backward {per_step[1]} (dq + dkdv); "
+          f"over the run {launches}", flush=True)
+    return out, launches
+
+
+def train_against_plain(model, batch) -> dict:
+    """``model.loss`` and its gradients on ``batch`` with B6 (forward and
+    backward kernels) and with ``gqa_attention`` swapped in at
+    ``layers.self_attention``: the loss difference and two per-leaf
+    gradient distances, each the largest over the leaves -- ``grad_rel``,
+    ||g_kernel - g_plain|| over ||g_plain|| (the one checked), and
+    ``grad_max_rel``, max |g_kernel - g_plain| over the leaf's largest
+    |g_plain|, which a single ReLU mask flipped by a rounding difference
+    moves by 1e-3 (printed)."""
+    from repro_torch import kernels
+    from repro_torch.convert import reference_names
+    from repro_torch.models import layers
+
+    own = dict(model.named_parameters())
+    names = reference_names(model)
+    params = [own[n] for n in names]
+
+    def run():
+        loss, _ = model.loss(batch)
+        gs = torch.autograd.grad(loss, params)
+        return float(loss.detach()), [g.float() for g in gs]
+
+    kernels.reset_launches()
+    lk, gk = run()
+    if not kernels.LAUNCHES["flash_attention_bwd"]:
+        _fail("the kernel run launched no B6 backward")
+    kernel_attention = layers.self_attention
+    layers.self_attention = _plain_self_attention
+    try:
+        kernels.reset_launches()
+        lp, gp = run()
+        if kernels.LAUNCHES["flash_attention"] or kernels.LAUNCHES["flash_attention_bwd"]:
+            _fail("the plain-attention training run launched B6")
+    finally:
+        layers.self_attention = kernel_attention
+    fro, top = {}, {}
+    for n, a, b in zip(names, gk, gp):
+        fro[n] = float(torch.linalg.vector_norm(a - b)) / max(
+            float(torch.linalg.vector_norm(b)), 1e-30)
+        top[n] = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    worst = max(fro, key=fro.get)
+    worst_top = max(top, key=top.get)
+    return dict(loss_kernel=lk, loss_plain=lp, loss_diff=abs(lk - lp),
+                grad_rel=fro[worst], worst_leaf=worst,
+                median_rel=float(np.median(list(fro.values()))),
+                grad_max_rel=top[worst_top], worst_max_leaf=worst_top)
+
+
+def _plain_batch(cfg, n):
+    """The first ``n`` sequences of ``launch.train``'s first seamless
+    batch (frames from ``default_rng(1)``), on the card."""
+    from repro_torch.launch.train import _stream
+
+    args = dict(zip(TRAIN_SEAMLESS[::2], TRAIN_SEAMLESS[1::2]))
+    b = next(_stream(cfg, int(args["--batch"]), int(args["--seq"]), "cuda"))
+    return {k: v[:n] for k, v in b.items()}
+
+
+def seamless_train_checks(cfg) -> None:
+    """One microbatch of ``TRAIN_PLAIN_BATCH`` sequences: bf16 at full
+    width and depth, B6 against the plain-attention run within the bounds
+    measured over seeds; float32 at 1 + 1 layers within
+    ``TRAIN_F32_REL``."""
+    from repro_torch.models import build_model
+
+    batch = _plain_batch(cfg, TRAIN_PLAIN_BATCH)
+    model = build_model(cfg, seed=SEED, device="cuda")
+    r = train_against_plain(model, batch)
+    print(f"seamless bf16 train pass, B6 vs gqa_attention on "
+          f"{TRAIN_PLAIN_BATCH} sequences: loss {r['loss_kernel']:.6f} vs "
+          f"{r['loss_plain']:.6f} (|diff| {r['loss_diff']:.3e}, bound "
+          f"{TRAIN_BF16_LOSS}); gradients: largest per-leaf ||diff|| / ||g|| "
+          f"{r['grad_rel']:.4e} ({r['worst_leaf']}; median "
+          f"{r['median_rel']:.3e}; bound {TRAIN_BF16_GRAD}); largest per-leaf "
+          f"max |diff| / max |g| {r['grad_max_rel']:.4e} "
+          f"({r['worst_max_leaf']})", flush=True)
+    if r["loss_diff"] > TRAIN_BF16_LOSS or r["grad_rel"] > TRAIN_BF16_GRAD:
+        _fail(f"seamless bf16 training: B6 vs the plain attention beyond the "
+              f"bounds measured over seeds: {r}")
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(n_layers=1, n_encoder_layers=1, param_dtype="float32",
+                        compute_dtype="float32")
+    model = build_model(cfg32, seed=SEED, device="cuda")
+    r = train_against_plain(model, batch)
+    rel = r["loss_diff"] / abs(r["loss_plain"])
+    print(f"seamless float32 (1 + 1 layers) train pass, B6 vs "
+          f"gqa_attention: loss relative |diff| {rel:.3e} (bound "
+          f"{TRAIN_F32_LOSS_REL}); largest per-leaf ||diff|| / ||g|| "
+          f"{r['grad_rel']:.4e} ({r['worst_leaf']}; median "
+          f"{r['median_rel']:.3e}; bound {TRAIN_F32_REL}); largest per-leaf "
+          f"max |diff| / max |g| {r['grad_max_rel']:.4e} "
+          f"({r['worst_max_leaf']})", flush=True)
+    if rel > TRAIN_F32_LOSS_REL or r["grad_rel"] > TRAIN_F32_REL:
+        _fail(f"seamless float32 training: B6 vs the plain attention: {r}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def train_path(results) -> None:
+    """The training phase: (a) B6's backward kernel; (b) seamless-m4t-medium
+    at full width and depth through ``launch.train``, a traced step, the
+    plain-attention comparisons; (c) featinsight-fraud at full width;
+    (d) the training twins on the card."""
+    from repro_torch import kernels
+    from repro_torch.configs import featinsight_fraud, seamless_m4t_medium
+
+    t_phase = time.perf_counter()
+    check_flash_attention_bwd(results)
+
+    cfg = seamless_m4t_medium.config()
+    nm = int(dict(zip(TRAIN_SEAMLESS[::2], TRAIN_SEAMLESS[1::2]))["--microbatches"])
+    # every block rematerialized: B6's forward twice a block (the pass and
+    # the recomputation), its backward once (two launches)
+    per_block = nm * (cfg.n_encoder_layers + cfg.n_layers)
+    out, launches = _train_run("seamless-m4t-medium train", TRAIN_SEAMLESS,
+                               (2 * per_block, 2 * per_block), "wgmma")
+    if out["n_params"] != cfg.param_count() + 2 * cfg.d_model * (
+            2 * cfg.n_encoder_layers + 3 * cfg.n_layers + 2):
+        _fail(f"seamless train: {out['n_params']} parameters")
+    results["flash_attention"]["launches_train"] = launches["flash_attention"]
+    results["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
+    results["flash_attention_bwd"]["launches_per_step"] = 2 * per_block
+    trace_train_step("seamless-m4t-medium", out)
+    del out
+    torch.cuda.empty_cache()
+    seamless_train_checks(cfg)
+
+    fcfg = featinsight_fraud.config()
+    out, launches = _train_run("featinsight-fraud train", TRAIN_FRAUD,
+                               (2 * fcfg.n_layers, 2 * fcfg.n_layers), "mma16")
+    results["flash_attention_bwd"]["launches_fraud_train"] = launches[
+        "flash_attention_bwd"]
+    del out
+    torch.cuda.empty_cache()
+
+    from repro_torch.examples import fraud_detection, train_lm
+
+    kernels.reset_launches()
+    fd = fraud_detection.main(device="cuda")
+    lc = dict(kernels.LAUNCHES)
+    for k in ("fused_ingest", "fold_levels", "flash_attention",
+              "flash_attention_bwd"):
+        if not lc[k]:
+            _fail(f"the fraud_detection twin launched no {k}: {lc}")
+    print(f"fraud_detection twin on the card: launches B1 {lc['fused_ingest']}, "
+          f"B2 {lc['route_rank']} (its single-device store routes nothing), "
+          f"B4 {lc['fold_levels']}, B6 forward {lc['flash_attention']}, "
+          f"B6 backward {lc['flash_attention_bwd']}; recall@{fd['k']} model "
+          f"{fd['recall_model']:.2f} vs amount baseline "
+          f"{fd['recall_baseline']:.2f}; {fd['qps']:.0f} QPS", flush=True)
+    lm = train_lm.main(device="cuda")
+    print(f"train_lm twin on the card: restored step {lm['restored_step']}, "
+          f"{lm['leaves']} leaves bit for bit, loss "
+          f"{np.mean(lm['losses'][:5]):.4f} -> {np.mean(lm['losses'][-5:]):.4f}"
+          f", {lm['tok_s']:.0f} tokens/s", flush=True)
+    torch.cuda.empty_cache()
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s (budget "
+          f"{TRAIN_BUDGET_S} s)", flush=True)
+
+
 def offline_path(results) -> None:
     """The offline export over 2^24 transactions, through the fold-levels
     kernel, and the same export with the kernel's plain version swapped
@@ -5696,6 +6153,7 @@ def consistency() -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         _fail("no CUDA GPU visible (this smoke run needs one)")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -5738,6 +6196,7 @@ def main() -> None:
     encdec_path(results)
     offline_path(results)
     consistency()
+    train_path(results)
 
     line = {"kernels": [
         dict(name="fused_ingest", route="cuda",
@@ -5769,7 +6228,13 @@ def main() -> None:
              replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
              scoring_launches=results["scoring_flash_attention_launches"],
              **results["flash_attention"]),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
+             **results["flash_attention_bwd"]),
     ]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

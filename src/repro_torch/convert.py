@@ -14,14 +14,28 @@
   GriffinLM` and :func:`encdec_from_numpy` an :class:`~repro_torch.models.
   encdec.EncDecLM`, from the reference model's parameter tree as numpy
   arrays.
+  Their inverses :func:`decoder_to_numpy`, :func:`rwkv6_to_numpy`,
+  :func:`griffin_to_numpy` and :func:`encdec_to_numpy` return the
+  reference's tree (per-layer parameters stacked on a leading axis);
+  :func:`reference_tree` builds that tree from any per-parameter mapping
+  (gradients, optimizer moments) and :func:`reference_names` lists the
+  parameters in the reference's leaf order (JAX's flatten: dict keys
+  sorted at every level, a stacked leaf's layers in order).
+* Optimizer state: :func:`adamw_state_to_numpy` /
+  :func:`adamw_state_from_numpy` carry AdamW's ``master`` / ``m`` / ``v``
+  (and ``ef_residual``) trees and ``step`` in the reference's layout.
 * Serving state: :func:`kv_cache_from_numpy` (the decoder's caches),
   :func:`griffin_state_from_numpy` and :func:`encdec_state_from_numpy`
   turn the reference's state into the port's, bf16 bits kept.
+
+numpy has no bfloat16 without a JAX dependency, so the ``*_to_numpy``
+functions return a bfloat16 parameter as float32 (exact: every bf16 value
+is a float32 value), which ``*_from_numpy`` takes back bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Mapping, Sequence, Tuple, Union
+from typing import Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -41,6 +55,16 @@ __all__ = [
     "rwkv6_from_numpy",
     "griffin_from_numpy",
     "encdec_from_numpy",
+    "decoder_to_numpy",
+    "rwkv6_to_numpy",
+    "griffin_to_numpy",
+    "encdec_to_numpy",
+    "reference_names",
+    "reference_tree",
+    "tree_to_numpy",
+    "load_reference_tree",
+    "adamw_state_to_numpy",
+    "adamw_state_from_numpy",
     "kv_cache_from_numpy",
     "griffin_state_from_numpy",
     "encdec_state_from_numpy",
@@ -294,6 +318,157 @@ def encdec_from_numpy(cfg, params: Mapping, device="cuda"):
                        {"enc_layers": ("enc_layers", cfg.n_encoder_layers),
                         "dec_layers": ("dec_layers", cfg.n_layers)},
                        "encdec_from_numpy")
+
+
+def _stacked(model) -> Dict[str, Tuple[str, int]]:
+    """The reference tree's stacked top-level names of ``model``'s family:
+    name -> (the port's module list, the number of layers)."""
+    from repro_torch.models.encdec import EncDecLM
+    from repro_torch.models.griffin import GriffinLM
+    from repro_torch.models.rwkv6 import RWKV6LM
+    from repro_torch.models.transformer import DecoderLM
+
+    cfg = model.cfg
+    if isinstance(model, DecoderLM):
+        return {"layers": ("blocks", cfg.n_layers)}
+    if isinstance(model, RWKV6LM):
+        return {"layers": ("layers", cfg.n_layers)}
+    if isinstance(model, GriffinLM):
+        return {"supers": ("supers", model.n_super)}
+    if isinstance(model, EncDecLM):
+        return {"enc_layers": ("enc_layers", cfg.n_encoder_layers),
+                "dec_layers": ("dec_layers", cfg.n_layers)}
+    raise TypeError(f"no reference tree layout for {type(model).__name__}")
+
+
+def _leaf_paths(model) -> Dict[Tuple[str, ...], List[str]]:
+    """Reference leaf path -> the port's parameter names that make it (one,
+    or one per layer in layer order), in the reference's leaf order."""
+    by_module = {module: top for top, (module, _) in _stacked(model).items()}
+    groups: Dict[Tuple[str, ...], List[Tuple[int, str]]] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] in by_module:
+            path, layer = (by_module[parts[0]], *parts[2:]), int(parts[1])
+        else:
+            path, layer = tuple(parts), 0
+        groups.setdefault(path, []).append((layer, name))
+    return {path: [n for _, n in sorted(groups[path])]
+            for path in sorted(groups)}
+
+
+def reference_names(model) -> List[str]:
+    """``model``'s parameter names in the reference's leaf order."""
+    return [n for names in _leaf_paths(model).values() for n in names]
+
+
+def reference_tree(model, tensors: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> Dict:
+    """The reference's nested parameter tree of ``tensors`` (port
+    parameter name -> tensor; default the model's parameters, detached),
+    per-layer tensors stacked on a leading axis."""
+    if tensors is None:
+        tensors = {n: p.detach() for n, p in model.named_parameters()}
+    stacked = _stacked(model)
+    tree: Dict = {}
+    for path, names in _leaf_paths(model).items():
+        leaf = (torch.stack([tensors[n] for n in names])
+                if path[0] in stacked else tensors[names[0]])
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return np.array(t.cpu().numpy(), copy=True)
+
+
+def tree_to_numpy(tree: Mapping) -> Dict:
+    """A nested mapping of tensors as numpy (bf16 as float32, exact; numpy
+    leaves pass through)."""
+    return {k: tree_to_numpy(v) if isinstance(v, Mapping)
+            else _numpy(v) if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in tree.items()}
+
+
+def _to_numpy(model) -> Dict:
+    return tree_to_numpy(reference_tree(model))
+
+
+def decoder_to_numpy(model) -> Dict:
+    """The reference's parameter tree of a :class:`~repro_torch.models.
+    transformer.DecoderLM` (the inverse of :func:`decoder_from_numpy`)."""
+    return _to_numpy(model)
+
+
+def rwkv6_to_numpy(model) -> Dict:
+    """The reference's parameter tree of an :class:`~repro_torch.models.
+    rwkv6.RWKV6LM` (the inverse of :func:`rwkv6_from_numpy`)."""
+    return _to_numpy(model)
+
+
+def griffin_to_numpy(model) -> Dict:
+    """The reference's parameter tree of a :class:`~repro_torch.models.
+    griffin.GriffinLM` (the inverse of :func:`griffin_from_numpy`)."""
+    return _to_numpy(model)
+
+
+def encdec_to_numpy(model) -> Dict:
+    """The reference's parameter tree of an :class:`~repro_torch.models.
+    encdec.EncDecLM` (the inverse of :func:`encdec_from_numpy`)."""
+    return _to_numpy(model)
+
+
+def load_reference_tree(model, tree: Mapping):
+    """Copy a reference-layout parameter tree (tensors or numpy leaves,
+    e.g. a restored checkpoint's ``params``) into ``model``'s parameters;
+    returns ``model``."""
+    return _load_numpy(model, tree_to_numpy(tree), _stacked(model),
+                       "load_reference_tree")
+
+
+_OPT_TREES = ("master", "m", "v", "ef_residual")
+
+
+def adamw_state_to_numpy(model, state: Mapping) -> Dict:
+    """AdamW's state (:mod:`repro_torch.optim.adamw`, keyed by the port's
+    parameter names) as the reference's tree: ``master``, ``m``, ``v``
+    (and ``ef_residual``) in the parameter tree's layout, ``step`` an
+    int32 scalar."""
+    out = {k: tree_to_numpy(reference_tree(model, state[k]))
+           for k in _OPT_TREES if k in state}
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out
+
+
+def adamw_state_from_numpy(model, tree: Mapping, device="cuda") -> Dict:
+    """The inverse of :func:`adamw_state_to_numpy`: float32 tensors on
+    ``device`` keyed by the port's parameter names, in the reference's
+    leaf order."""
+    dev = resolve_device(device)
+    stacked = _stacked(model)
+    out: Dict = {}
+    for k in _OPT_TREES:
+        if k not in tree:
+            continue
+        flat = {}
+        for path, names in _leaf_paths(model).items():
+            node = tree[k]
+            for part in path:
+                node = node[part]
+            a = np.asarray(node, dtype=np.float32)
+            parts = a if path[0] in stacked else [a]
+            for n, x in zip(names, parts):
+                flat[n] = torch.from_numpy(np.array(x, copy=True)).to(dev)
+        out[k] = flat
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                               device=dev)
+    return out
 
 
 def _array_to_tensor(a, dev: torch.device) -> torch.Tensor:

@@ -41,10 +41,13 @@ __all__ = [
 LAUNCHES: Dict[str, int] = {
     "fused_ingest": 0, "route_rank": 0, "fold_levels": 0, "window_stats": 0,
     "signature_embed": 0, "wkv6": 0, "flash_attention": 0,
+    "flash_attention_bwd": 0,
 }
 # kernel name -> instantiation -> CUDA launches since the last reset
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
+    # B6's backward: the dQ pass and the dK / dV pass of each call
+    "flash_attention_bwd": {"dq": 0, "dkdv": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide": 0},
     # B2 from keys (the Feistel walk and the rank) or from shard ids
     "route_rank": {"keys": 0, "shards": 0},

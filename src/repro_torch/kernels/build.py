@@ -39,6 +39,7 @@ SOURCES: Dict[str, str] = {
     "signature_embed": "signature_embed.cu",
     "wkv6": "wkv6.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = (

@@ -41,8 +41,21 @@ bfloat16 (``tests/test_kernels.py``).  The bf16 instantiations round the
 weights p to bf16 for the PV product, as the reference model's
 ``gqa_attention`` does (the reference's Pallas kernel keeps them float32).
 
-No gradient: the reference's kernel has no VJP, so ``attention`` raises
-when autograd would record it.
+**Gradient.**  The reference's kernel has no VJP (its models
+differentiate the XLA path).  Here, on CUDA tensors that need a gradient,
+``attention`` is a ``torch.autograd.Function``: its forward launches the
+forward kernel exactly as above (same plan, same instantiation, same
+bits) and saves q, k, v and o; its backward calls :func:`attention_bwd`,
+the hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``,
+two launches a call, counted in ``LAUNCHES["flash_attention_bwd"]`` and
+``VARIANT_LAUNCHES["flash_attention_bwd"]`` as ``dq`` and ``dkdv``).  The
+pad and slice of D stay inside the forward; the backward reads the
+unpadded views, any D up to :data:`MAX_HEAD_DIM`, with their strides (a
+tensor whose D is not contiguous is copied; :func:`plan_attention_bwd`
+says which).  Above it there is no backward kernel yet: a CUDA call that
+needs a gradient raises ``NotImplementedError``.  Under ``no_grad`` /
+``inference_mode`` nothing changes.  CPU tensors run ``attention_ref``,
+which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -57,13 +70,20 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import count_launch, note_dispatch, use_cuda_kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_ref,
+)
 
 __all__ = [
     "attention",
+    "attention_bwd",
     "launch_flash_attention",
+    "launch_flash_attention_bwd",
     "plan_attention",
+    "plan_attention_bwd",
     "AttentionPlan",
+    "AttentionBwdPlan",
     "MAX_HEAD_DIM",
     "SHORT_SEQ_MAX",
 ]
@@ -81,6 +101,7 @@ _VARIANT_CODE = {"simt": 0, "wgmma": 1, "mma16": 2, "wide": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _argtypes_set = False
+_bwd_fn = None
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -201,17 +222,7 @@ def launch_flash_attention(
         )
 
 
-def attention(
-    q: torch.Tensor,  # (B, H, S, D)
-    k: torch.Tensor,  # (B, Hkv, S, D)
-    v: torch.Tensor,  # (B, Hkv, S, D)
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """Causal / sliding-window GQA attention, (B, H, S, D) in ``q``'s
-    dtype."""
+def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"attention: q must be (B, H, S, D) and k, v one (B, Hkv, S, D) "
@@ -224,24 +235,20 @@ def attention(
             f"attention: k, v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
             "(same B, S, D; H a multiple of Hkv)"
         )
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError(
-            "attention: no backward (the reference's kernel has none; it "
-            "comes with the training slice, ROADMAP); call under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
-    if not use_cuda_kernel("flash_attention", q, k, v):
-        note_dispatch("flash_attention", "ref")
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             scale=scale)
-    note_dispatch("flash_attention", "cuda")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+
+
+def _check_dtypes(*xs: torch.Tensor) -> None:
+    if xs[0].dtype not in _DTYPES or any(x.dtype != xs[0].dtype for x in xs):
         raise TypeError(
             f"attention: the kernel takes float32 or bfloat16 q, k, v of one "
-            f"dtype, got {[x.dtype for x in (q, k, v)]}"
+            f"dtype, got {[x.dtype for x in xs]}"
         )
+
+
+def _forward_cuda(q, k, v, causal, window, scale) -> torch.Tensor:
+    """The forward kernel on CUDA tensors: the plan, the copies it asks
+    for, the launch, the padded head dim sliced off."""
+    D = q.shape[-1]
     plan = plan_attention(q, k, v)
     pad = plan.head_dim - D
     if any(plan.copy):
@@ -257,3 +264,170 @@ def attention(
         launch_flash_attention(q, k, v, o, causal=causal, window=window,
                                scale=scale, plan=plan)
     return o[..., :D] if pad else o
+
+
+class _Attention(torch.autograd.Function):
+    """The forward kernel with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        o = _forward_cuda(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (causal, window, scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = attention_bwd(q, k, v, o, do, causal=causal,
+                                   window=window, scale=scale)
+        return dq, dk, dv, None, None, None
+
+
+def attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Causal / sliding-window GQA attention, (B, H, S, D) in ``q``'s
+    dtype; differentiable (see the module's note on the gradient)."""
+    _check_shapes(q, k, v)
+    D = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if not use_cuda_kernel("flash_attention", q, k, v):
+        note_dispatch("flash_attention", "ref")
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    note_dispatch("flash_attention", "cuda")
+    _check_dtypes(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        if D > MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"attention: no backward kernel for head dim {D} > "
+                f"{MAX_HEAD_DIM} yet (ROADMAP Queue A: B6 backward for "
+                "D > 256); call under torch.no_grad() or "
+                "torch.inference_mode()"
+            )
+        return _Attention.apply(q, k, v, causal, window, scale)
+    return _forward_cuda(q, k, v, causal, window, scale)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class AttentionBwdPlan:
+    """How one backward call runs: the head-dim tile the kernels are built
+    for (D <= tile_d; the kernel takes 64-row tiles up to 128, 32-row
+    ones at 256) and which of q, k, v, o, dO need a copy (D not
+    contiguous)."""
+
+    tile_d: int
+    copy: Tuple[bool, bool, bool, bool, bool]
+
+
+def plan_attention_bwd(q, k, v, o, do) -> AttentionBwdPlan:
+    """The plan for ``attention_bwd`` on the card; reads only shapes and
+    strides."""
+    D = q.shape[-1]
+    if D > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"attention_bwd: head dim {D} > {MAX_HEAD_DIM} has no backward "
+            "kernel yet (ROADMAP Queue A: B6 backward for D > 256)"
+        )
+    return AttentionBwdPlan(next(t for t in (32, 64, 128, 256) if D <= t),
+                            tuple(x.stride(-1) != 1 for x in (q, k, v, o, do)))
+
+
+def launch_flash_attention_bwd(
+    q, k, v, o, do, dq, dk, dv, *, causal: bool, window: Optional[int],
+    scale: float, plan: Optional[AttentionBwdPlan] = None,
+) -> None:
+    """Launch the backward kernel (two launches, dQ then dK / dV) on the
+    current stream: ``dq``, ``dk``, ``dv`` written; every tensor with D
+    contiguous (:func:`attention_bwd` copies where it is not)."""
+    global _bwd_fn
+    plan = plan or plan_attention_bwd(q, k, v, o, do)
+    if any(plan.copy) or any(x.stride(-1) != 1 for x in (dq, dk, dv)):
+        raise ValueError(
+            "launch_flash_attention_bwd: every tensor needs D contiguous "
+            f"(copies {plan.copy}); attention_bwd() makes them"
+        )
+    if _bwd_fn is None:
+        from repro_torch.kernels.build import library
+
+        fn = library("flash_attention_bwd").flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    B, H, S, D = q.shape
+    strides = (ctypes.c_longlong * 24)(
+        *(s for x in (q, k, v, o, do, dq, dk, dv) for s in _strides(x)))
+    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    dev = q.device
+    err = _bwd_fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        int(q.dtype == torch.bfloat16), plan.tile_d, B, H, k.shape[1], S, D,
+        ctypes.cast(strides, ctypes.c_void_p), int(causal),
+        int(window is not None),
+        0 if window is None else max(-(S + 1), min(int(window), S + 1)),
+        float(scale), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    count_launch("flash_attention_bwd", variant="dq")
+    count_launch("flash_attention_bwd", variant="dkdv")
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel launch failed ({plan}): CUDA error "
+            f"{err}"
+        )
+
+
+def attention_bwd(
+    q: torch.Tensor,   # (B, H, S, D)
+    k: torch.Tensor,   # (B, Hkv, S, D)
+    v: torch.Tensor,
+    o: torch.Tensor,   # (B, H, S, D) the forward's output
+    do: torch.Tensor,  # (B, H, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of :func:`attention`, each with its input's shape and
+    dtype (and strides, where the input is dense): the backward kernel on
+    CUDA tensors, :func:`attention_bwd_ref` on CPU tensors."""
+    _check_shapes(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(
+            f"attention_bwd: o {tuple(o.shape)} and do {tuple(do.shape)} "
+            f"must have q's shape {tuple(q.shape)}"
+        )
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not use_cuda_kernel("flash_attention_bwd", q, k, v, o, do):
+        note_dispatch("flash_attention_bwd", "ref")
+        return attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                 window=window, scale=scale)
+    note_dispatch("flash_attention_bwd", "cuda")
+    _check_dtypes(q, k, v, o, do)
+    plan = plan_attention_bwd(q, k, v, o, do)
+    if any(plan.copy):
+        q, k, v, o, do = (x.contiguous() if c else x
+                          for x, c in zip((q, k, v, o, do), plan.copy))
+        plan = dataclasses.replace(plan, copy=(False,) * 5)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel():
+        launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, causal=causal,
+                                   window=window, scale=scale, plan=plan)
+    return dq, dk, dv

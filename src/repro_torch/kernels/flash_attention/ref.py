@@ -7,34 +7,31 @@ softmax denominator floored at ``1e-30`` (a fully masked row comes out 0),
 the weights kept in float32 for the PV product, the output in ``q``'s
 dtype.  Scores and weights are updated in place: at (8, 48, 2048, 2048)
 one float32 score tensor is 6.4 GB.
+
+:func:`attention_bwd_ref` is the plain version of the backward kernel
+(``kernels/csrc/flash_attention_bwd.cu``): the weights recomputed as above,
+then the explicit gradient formulas in float32, Δ taken from the stored
+output ``o`` (bf16 on bf16 paths, as the kernel and FlashAttention-2 take
+it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "MASKED"]
+__all__ = ["attention_ref", "attention_bwd_ref", "MASKED"]
 
 MASKED = -1e30
 
 
-def attention_ref(
-    q: torch.Tensor,  # (B, H, S, D)
-    k: torch.Tensor,  # (B, Hkv, S, D)
-    v: torch.Tensor,  # (B, Hkv, S, D)
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """(B, H, S, D) in ``q``'s dtype."""
-    B, H, S, D = q.shape
-    group = H // k.shape[1]
-    if scale is None:
-        scale = 1.0 / math.sqrt(D)
+def _weights(q, k, *, causal, window, scale) -> torch.Tensor:
+    """The float32 attention weights P (B, H, S, S): masked scores at
+    ``MASKED``, masked weights 0, the denominator floored at 1e-30."""
+    S = q.shape[2]
+    group = q.shape[1] // k.shape[1]
     f32 = torch.float32
     kk = k.to(f32).repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(f32), kk).mul_(scale)
@@ -47,10 +44,75 @@ def attention_ref(
     if window is not None:
         mask &= k_pos > q_pos - window
     masked = ~mask
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        # out of place: autograd keeps what each step's gradient reads
+        s = s.masked_fill(masked, MASKED)
+        p = (s - s.amax(dim=-1, keepdim=True)).exp().masked_fill(masked, 0.0)
+        return p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     s.masked_fill_(masked, MASKED)
     p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_().masked_fill_(masked, 0.0)
-    p.div_(torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30))
+    return p.div_(torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30))
+
+
+def attention_ref(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, H, S, D) in ``q``'s dtype."""
+    group = q.shape[1] // k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p = _weights(q, k, causal=causal, window=window, scale=scale)
     out = torch.einsum(
-        "bhqk,bhkd->bhqd", p, v.to(f32).repeat_interleave(group, dim=1)
+        "bhqk,bhkd->bhqd", p,
+        v.to(torch.float32).repeat_interleave(group, dim=1),
     )
     return out.to(q.dtype)
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,   # (B, H, S, D)
+    k: torch.Tensor,   # (B, Hkv, S, D)
+    v: torch.Tensor,   # (B, Hkv, S, D)
+    o: torch.Tensor,   # (B, H, S, D) the forward's output
+    do: torch.Tensor,  # (B, H, S, D) the output's gradient
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the inputs' dtypes and shapes::
+
+        dV = Pᵀ dO,  dP = dO Vᵀ,  Δ = rowsum(dO ∘ O),  dS = P ∘ (dP − Δ),
+        dQ = scale · dS K,  dK = scale · dSᵀ Q
+
+    in float32, dK and dV summed over each KV head's query heads."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    group = H // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    p = _weights(q, k, causal=causal, window=window, scale=scale)
+    dof = do.to(f32)
+    vv = v.to(f32).repeat_interleave(group, dim=1)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    ds = torch.einsum("bhqd,bhkd->bhqk", dof, vv)
+    del vv
+    delta = (dof * o.to(f32)).sum(-1, keepdim=True)
+    ds.sub_(delta).mul_(p)
+    del p
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds,
+                      k.to(f32).repeat_interleave(group, dim=1)).mul_(scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(f32)).mul_(scale)
+
+    def group_sum(x):
+        return x.reshape(B, Hkv, group, S, D).sum(2)
+
+    return (dq.to(q.dtype), group_sum(dk).to(k.dtype),
+            group_sum(dv).to(v.dtype))

@@ -39,8 +39,11 @@ reference's ``impl="xla"`` at ``atol = rtol = 2e-5`` (the same arithmetic,
 the matrix products summed in another order).  The kernel is held to
 :func:`wkv6_chunked` at ``1e-4`` (``tests/test_torch_kernels_cuda.py``).
 
-No gradient: the kernel's backward comes with the training slice, so
-``wkv6`` raises when autograd would record it.
+Gradient: on CPU tensors autograd differentiates :func:`wkv6_chunked`
+(``RWKV6LM.loss`` trains there).  The kernel has no backward yet (B7's
+backward is the next item of ROADMAP Queue A), so on CUDA tensors
+``wkv6`` raises when autograd would record it; it never falls back to the
+plain version on the card.
 """
 
 from __future__ import annotations
@@ -236,14 +239,16 @@ def wkv6(
             f"wkv6: s0 must be ({B}, {H}, {D}, {D}), got {tuple(s0.shape)}"
         )
     given = [x for x in (r, k, v, lw, u, s0) if x is not None]
-    if torch.is_grad_enabled() and any(x.requires_grad for x in given):
-        raise NotImplementedError(
-            "wkv6: no backward yet (it comes with the training slice, "
-            "ROADMAP); call under torch.inference_mode() or torch.no_grad()"
-        )
     if not use_cuda_kernel("wkv6", *given):
         note_dispatch("wkv6", "ref")
         return wkv6_chunked(r, k, v, lw, u, s0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in given):
+        raise NotImplementedError(
+            "wkv6: the kernel has no backward on the card yet (B7's "
+            "backward is the next item of ROADMAP Queue A; on the CPU the "
+            "chunked plain version is differentiated); call under "
+            "torch.inference_mode() or torch.no_grad()"
+        )
     note_dispatch("wkv6", "cuda")
     plan = plan_wkv6(r, k, v, lw)
     *ins, u_in, s0_in = kernel_inputs(plan, r, k, v, lw, u, s0)

@@ -24,7 +24,10 @@ them all outside Pallas.
 self-attention; ``cross_k`` / ``cross_v`` (L, B, S_enc, Hkv, hd), each
 layer's keys and values of the encoder output, computed once; and
 ``enc_positions`` (B, S_enc).  ``decode_step`` updates it in place.  Both
-run under ``torch.inference_mode()``; the training loss is not ported yet.
+run under ``torch.inference_mode()``.  :meth:`EncDecLM.loss` is the
+training loss: every encoder and decoder block rematerialized with
+``torch.utils.checkpoint``, as the reference's encoder and decoder scans
+are.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import kvcache as kvc
@@ -41,6 +45,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention_init,
     attention_qkv,
+    cross_entropy_loss,
     embed_init,
     embed_lookup,
     gqa_attention,
@@ -100,21 +105,67 @@ class EncDecLM(nn.Module):
         return x + mlp_apply(lp["mlp"], norm_apply(lp["ln_mlp"], x, cfg.norm),
                              cfg).to(x.dtype)
 
-    @torch.inference_mode()
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, S_enc, D) -> the normed encoder output in the compute
-        dtype."""
+    def _enc_block(self, lp, x: torch.Tensor, positions: torch.Tensor
+                   ) -> torch.Tensor:
+        cfg = self.cfg
+        q, k, v = attention_qkv(lp["attn"],
+                                norm_apply(lp["ln_attn"], x, cfg.norm),
+                                positions, cfg)
+        o = layers.self_attention(q, k, v, positions, causal=False)
+        return self._mlp(lp, self._out(lp["attn"]["wo"], x, o))
+
+    def _encode(self, frames: torch.Tensor, remat: bool) -> torch.Tensor:
         cfg = self.cfg
         x = frames.to(self.device, cfg.cdtype)
         B, S, _ = x.shape
         positions = _positions(B, S, x.device)
         for lp in self.enc_layers:
-            q, k, v = attention_qkv(lp["attn"],
-                                    norm_apply(lp["ln_attn"], x, cfg.norm),
-                                    positions, cfg)
-            o = layers.self_attention(q, k, v, positions, causal=False)
-            x = self._mlp(lp, self._out(lp["attn"]["wo"], x, o))
+            if remat:
+                x = checkpoint(self._enc_block, lp, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self._enc_block(lp, x, positions)
         return norm_apply(self.ln_enc, x, cfg.norm)
+
+    @torch.inference_mode()
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames (B, S_enc, D) -> the normed encoder output in the compute
+        dtype."""
+        return self._encode(frames, remat=False)
+
+    def _dec_block(self, lp, x, positions, enc_out, enc_positions
+                   ) -> torch.Tensor:
+        """A decoder block over the whole sequence (training)."""
+        cfg = self.cfg
+        B, Se, _ = enc_out.shape
+        q, k, v = attention_qkv(lp["self_attn"],
+                                norm_apply(lp["ln_self"], x, cfg.norm),
+                                positions, cfg)
+        o = layers.self_attention(q, k, v, positions, causal=True)
+        x = self._out(lp["self_attn"]["wo"], x, o)
+        ca = lp["cross_attn"]
+        shape = (B, Se, cfg.n_kv_heads, cfg.hd)
+        x = self._cross(lp, x, positions, (enc_out @ ca["wk"]).reshape(shape),
+                        (enc_out @ ca["wv"]).reshape(shape), enc_positions)
+        return self._mlp(lp, x)
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``frames`` (B, S_enc, D),
+        ``tokens``, ``labels`` (B, S)) and its metrics (``nll``,
+        ``tokens``)."""
+        cfg = self.cfg
+        enc_out = self._encode(batch["frames"], remat=True)
+        B, Se, _ = enc_out.shape
+        enc_positions = _positions(B, Se, enc_out.device)
+        tokens = batch["tokens"]
+        x = embed_lookup(self.embed, tokens, cfg)
+        positions = _positions(B, tokens.shape[1], x.device)
+        for lp in self.dec_layers:
+            x = checkpoint(self._dec_block, lp, x, positions, enc_out,
+                           enc_positions, use_reentrant=False)
+        x = norm_apply(self.ln_out, x, cfg.norm)
+        return cross_entropy_loss(logits_from_embedding(self.embed, x, cfg),
+                                  batch["labels"])
 
     def _cross(self, lp, x, positions, kc, vc, enc_positions):
         """Cross-attention to the encoder's keys and values, added to x."""

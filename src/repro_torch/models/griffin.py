@@ -35,8 +35,11 @@ dict under the reference's keys and layouts: ``conv1``, ``h1``, ``conv2``,
 ``h2`` (each super-block's two recurrent blocks), ``k``, ``v``, ``k_pos``
 (its ring), all with a leading super-block axis; ``tail_conv{t}``,
 ``tail_h{t}``; ``pos``.  ``decode_step`` updates it in place.
-``prefill`` and ``decode_step`` run under ``torch.inference_mode()``; the
-training loss is not ported yet.
+``prefill`` and ``decode_step`` run under ``torch.inference_mode()``.
+:meth:`GriffinLM.loss` is the training loss: the super-blocks
+rematerialized with ``torch.utils.checkpoint`` (the reference's
+``jax.checkpoint`` over its super-block scan), the tails not, the local
+attention's window ``cfg.sliding_window or S`` as in the reference's loss.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import kvcache as kvc
@@ -53,6 +57,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention_init,
     attention_qkv,
+    cross_entropy_loss,
     dense_init,
     embed_init,
     embed_lookup,
@@ -258,6 +263,34 @@ class GriffinLM(nn.Module):
         r_out, ns = _rec_apply(tp["rec"], norm_apply(tp["ln_r"], x, cfg.norm),
                                cfg, state)
         return _mlp_res(tp["ln_m"], tp["mlp"], x + r_out, cfg), ns
+
+    def _super_train(self, sp, x, positions, window: int) -> torch.Tensor:
+        """A super-block over the whole sequence from zero state."""
+        cfg = self.cfg
+        x, _ = self._recurrent_pair(sp, x, None)
+        q, k, v = attention_qkv(sp["attn"], norm_apply(sp["ln_a"], x, cfg.norm),
+                                positions, cfg)
+        o = layers.self_attention(q, k, v, positions, window=window)
+        return self._attn_out(sp, x, o)
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels`` (B, S))
+        and its metrics (``nll``, ``tokens``)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = embed_lookup(self.embed, tokens, cfg)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        window = cfg.sliding_window or S
+        for sp in self.supers:
+            x = checkpoint(self._super_train, sp, x, positions, window,
+                           use_reentrant=False)
+        for t in range(self.n_tail):
+            x, _ = self._tail_fwd(self.tails[f"t{t}"], x, None)
+        x = norm_apply(self.ln_out, x, cfg.norm)
+        return cross_entropy_loss(logits_from_embedding(self.embed, x, cfg),
+                                  batch["labels"])
 
     def init_state(self, batch_size: int) -> State:
         """The state at position 0 on the model's device: zeros, every

@@ -18,8 +18,9 @@ attention weights in float32 for the PV product, where ``gqa_attention``
 rounds them to the value dtype first (ROADMAP Queue C); in float32 they
 are the same function.
 
-``cross_entropy_loss`` waits for the training slice; the reference's
-``logical_constraint`` (mesh sharding hints) has no meaning on one GPU.
+:func:`cross_entropy_loss` is the training loss of every family.  The
+reference's ``logical_constraint`` (mesh sharding hints) has no meaning on
+one GPU.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ __all__ = [
     "norm_init", "norm_apply", "rope", "attention_init", "attention_qkv",
     "gqa_attention", "self_attention", "mlp_init", "gelu_tanh", "mlp_apply",
     "embed_init", "embed_lookup", "logits_from_embedding", "dense_init",
+    "cross_entropy_loss",
 ]
 
 Params = Mapping[str, torch.Tensor]
@@ -293,6 +295,30 @@ def logits_from_embedding(
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
     return logits
+
+
+def cross_entropy_loss(
+    logits: torch.Tensor,  # (B, S, V) float32
+    labels: torch.Tensor,  # (B, S) int, -1 = ignore
+    z_loss: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token NLL over the labelled positions (label -1 ignored,
+    the denominator ``max(valid, 1)``), plus ``z_loss`` times the mean
+    squared log-normalizer when it is positive.  Metrics: ``nll``,
+    ``tokens`` and, with a z-loss, ``z_loss``."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (lse - ll) * valid
+    denom = torch.clamp(valid.sum(), min=1)
+    loss = nll.sum() / denom
+    metrics = {"nll": loss, "tokens": denom}
+    if z_loss > 0:
+        zl = z_loss * ((lse * valid) ** 2).sum() / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl
+    return loss, metrics
 
 
 def dense_init(

@@ -29,8 +29,12 @@ never narrowed; the time mix's and channel mix's outputs are cast back to
 the residual stream's dtype, as in the reference.
 
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``: the
-parameters build no autograd graph, and the scan has no backward yet.
-``loss`` waits for the training slice.
+parameters build no autograd graph.  :meth:`RWKV6LM.loss` is the training
+loss, each layer rematerialized with ``torch.utils.checkpoint``.  It
+trains on CPU tensors, through the chunked plain WKV6 that autograd
+differentiates; on the card ``wkv6`` raises under autograd until B7 has
+its backward (ROADMAP Queue A) -- there is no fallback to the plain
+version.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.kernels.wkv6.ops import wkv6
@@ -48,6 +53,7 @@ from repro_torch.models import kvcache as kvc
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.kvcache import RWKV_HEAD_DIM
 from repro_torch.models.layers import (
+    cross_entropy_loss,
     dense_init,
     embed_init,
     embed_lookup,
@@ -255,7 +261,17 @@ class RWKV6LM(nn.Module):
         new_state["pos"] = state["pos"] + 1
         return logits, new_state
 
-    def loss(self, batch: Dict):
-        raise NotImplementedError(
-            "RWKV6LM.loss is not ported yet (ROADMAP, next slices: training)"
-        )
+    def _layer_x(self, lp, x: torch.Tensor) -> torch.Tensor:
+        return self._apply_layer(lp, x, None)[0]
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels`` (B, S))
+        and its metrics (``nll``, ``tokens``), each layer
+        rematerialized."""
+        cfg = self.cfg
+        x = embed_lookup(self.embed, batch["tokens"], cfg)
+        for lp in self.layers:
+            x = checkpoint(self._layer_x, lp, x, use_reentrant=False)
+        x = norm_apply(self.ln_out, x, cfg.norm)
+        return cross_entropy_loss(logits_from_embedding(self.embed, x, cfg),
+                                  batch["labels"])

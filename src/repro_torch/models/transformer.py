@@ -24,9 +24,15 @@ pass goes.  :meth:`DecoderLM.decode_step` feeds one token per sequence against
 either cache, through :func:`~repro_torch.models.layers.gqa_attention`
 (the reference computes it outside any Pallas kernel too), and updates
 the cache in place.  All three run under ``torch.inference_mode()``: the
-parameters build no autograd graph, and B6 has no backward.
+parameters build no autograd graph.
 
-The training loss is not ported yet.
+:meth:`DecoderLM.loss` is the training loss (the reference's
+``DecoderLM.loss``): every block rematerialized with
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``: a block's activations are recomputed in the
+backward pass, so B6's forward runs twice a block and its backward once),
+a frontend's positions labelled -1, and in the ``moe`` family
+``0.01·lb + 1e-3·z`` of the layers' mean auxiliary losses added.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.models import kvcache as kvc
@@ -43,6 +50,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     attention_init,
     attention_qkv,
+    cross_entropy_loss,
     embed_init,
     embed_lookup,
     gqa_attention,
@@ -104,7 +112,18 @@ class DecoderBlock(nn.Module):
         h = norm_apply(self.ln_attn, x, cfg.norm)
         q, k, v = attention_qkv(self.attn, h, positions, cfg)
         o = layers.self_attention(q, k, v, positions, window=cfg.sliding_window)
-        return self._finish(x, o), k, v
+        return self._finish(x, o)[0], k, v
+
+    def train_forward(
+        self, x: torch.Tensor, positions: torch.Tensor
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(x_out, aux) for the training pass: the MoE auxiliary losses
+        (empty for a dense block)."""
+        cfg = self.cfg
+        h = norm_apply(self.ln_attn, x, cfg.norm)
+        q, k, v = attention_qkv(self.attn, h, positions, cfg)
+        o = layers.self_attention(q, k, v, positions, window=cfg.sliding_window)
+        return self._finish(x, o)
 
     def decode(
         self,
@@ -129,20 +148,23 @@ class DecoderBlock(nn.Module):
         o = gqa_attention(q, k_layer, v_layer, positions, k_positions,
                           causal=True, window=cfg.sliding_window,
                           kv_valid=valid)
-        return self._finish(x, o)
+        return self._finish(x, o)[0]
 
-    def _finish(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """The output projection and the FFN (the MLP, or the experts with
-        their auxiliary losses dropped), each added to the residual."""
+    def _finish(self, x: torch.Tensor, o: torch.Tensor
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The output projection and the FFN (the MLP, or the experts),
+        each added to the residual; with the experts' auxiliary losses
+        (the serving passes drop them)."""
         cfg = self.cfg
         B, S, H, hd = o.shape
         x = x + (o.reshape(B, S, H * hd) @ self.attn["wo"]).to(x.dtype)
         h = norm_apply(self.ln_mlp, x, cfg.norm)
+        aux = {}
         if cfg.family == "moe":
-            f, _ = moe_apply(self.moe, h, cfg)
+            f, aux = moe_apply(self.moe, h, cfg)
         else:
             f = mlp_apply(self.mlp, h, cfg)
-        return x + f.to(x.dtype)
+        return x + f.to(x.dtype), aux
 
 
 class DecoderLM(nn.Module):
@@ -191,6 +213,37 @@ class DecoderLM(nn.Module):
         # the norm is per position: normalizing the last one alone equals
         # the reference's norm over all positions followed by the slice
         return norm_apply(self.ln_out, x[:, -1:], self.cfg.norm)
+
+    def loss(self, batch: Dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss of ``batch`` (``tokens``, ``labels`` (B, S),
+        optional ``frontend_embeds``) and its metrics: ``nll``, ``tokens``
+        and, in the ``moe`` family, ``moe_lb_loss``, ``moe_z_loss`` and
+        ``moe_dropped_frac`` averaged over the layers.  Runs outside
+        inference mode, each block rematerialized."""
+        cfg = self.cfg
+        x, positions = self._embed_inputs(batch)
+        aux_sum: Dict[str, torch.Tensor] = {}
+        for block in self.blocks:
+            x, aux = checkpoint(block.train_forward, x, positions,
+                                use_reentrant=False)
+            for name, val in aux.items():
+                aux_sum[name] = aux_sum[name] + val if name in aux_sum else val
+        x = norm_apply(self.ln_out, x, cfg.norm)
+        logits = logits_from_embedding(self.embed, x, cfg)
+        labels = batch["labels"]
+        if cfg.frontend is not None and "frontend_embeds" in batch:
+            P = batch["frontend_embeds"].shape[1]
+            pad = labels.new_full((labels.shape[0], P), -1)
+            labels = torch.cat([pad, labels], dim=1)
+        loss, metrics = cross_entropy_loss(logits, labels)
+        if cfg.family == "moe":
+            L = cfg.n_layers
+            lb = aux_sum["moe_lb_loss"] / L
+            zl = aux_sum["moe_z_loss"] / L
+            loss = loss + 0.01 * lb + 1e-3 * zl
+            metrics.update(moe_lb_loss=lb, moe_z_loss=zl,
+                           moe_dropped_frac=aux_sum["moe_dropped_frac"] / L)
+        return loss, metrics
 
     def last_hidden(self, batch: Dict) -> torch.Tensor:
         """The last position's hidden state after the final norm,

@@ -745,8 +745,13 @@ class ScoringService:
         )
 
     def _score(self, feats: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        """(B,) float32 scores from (B, d_model) features and embeddings."""
-        cfg = self.model.cfg
+        """(B,) float32 scores from (B, d_model) features and embeddings:
+        the model's cache-free forward, differentiable outside inference
+        mode (the fraud example trains the scorer through it; ``handle``
+        calls it under ``torch.inference_mode()``)."""
+        from repro_torch.models.layers import logits_from_embedding
+
+        model, cfg = self.model, self.model.cfg
         B = feats.shape[0]
         fe = torch.cat([feats[:, None, :], emb[:, None, :]], dim=1)
         fe = torch.nn.functional.pad(fe, (0, 0, 0, cfg.frontend_len - 2))
@@ -754,7 +759,8 @@ class ScoringService:
             "tokens": torch.zeros((B, 1), dtype=torch.int32, device=fe.device),
             "frontend_embeds": fe,
         }
-        logits = self.model(batch)
+        logits = logits_from_embedding(model.embed, model.last_hidden(batch),
+                                       cfg)
         return torch.sigmoid(logits[:, -1, 0])
 
     def handle(self, rows: Dict[str, np.ndarray]) -> np.ndarray:

@@ -106,8 +106,12 @@ def test_scale_and_fully_masked_rows():
 
 def test_refusals():
     _, (q, k, v) = _inputs(1, 4, 2, 16, 8, "float32", 6)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        attention(q.requires_grad_(), k, v)
+    # CPU tensors under autograd: the plain version, differentiated (the
+    # card's backward kernel and its D > 256 refusal are in
+    # tests/test_torch_kernels_cuda.py)
+    o = attention(q.requires_grad_(), k, v)
+    o.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
     with torch.no_grad():
         attention(q, k, v)          # no graph: runs
     q = q.detach()

@@ -160,3 +160,20 @@ def test_check_exits_1_on_a_stale_copy(tmp_path, catalogs, capsys):
     out.write_text(catalogs[1].replace("fraud_features", "fraud_feature", 1))
     assert tcat.main(["--check", "--out", str(out)]) == 1
     assert "STALE" in capsys.readouterr().err
+
+
+def test_every_catalog_run_line_names_a_module():
+    """Each scenario's ``run=`` command names a module of the port that
+    ``importlib.util.find_spec`` finds (``python -m <module>``)."""
+    import importlib.util
+    import re
+
+    from repro_torch import scenarios
+
+    src = Path(scenarios.__file__).read_text()
+    runs = re.findall(r'run="([^"]*)"', src)
+    assert runs
+    for run in runs:
+        mod = re.search(r"-m ([\w.]+)", run)
+        assert mod, run
+        assert importlib.util.find_spec(mod.group(1)) is not None, run

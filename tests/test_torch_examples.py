@@ -24,7 +24,7 @@ import torch
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 NAMES = ("quickstart", "recommendation", "multi_table_fraud",
-         "sharded_serving", "multi_scenario")
+         "sharded_serving", "multi_scenario", "fraud_detection", "train_lm")
 RTOL = 1e-6
 
 
@@ -150,3 +150,29 @@ def test_multi_scenario_example():
                                    "merchant_watch"}
     assert sum(len(next(iter(a.values())))
                for a in out["answers"].values()) == 180
+
+
+def test_train_lm_example():
+    out = _main("train_lm")(device="cpu")
+    assert out["restored_equal"] and out["restored_step"] == 19
+    assert out["leaves"] > 0 and len(out["losses"]) == 40
+    assert np.mean(out["losses"][-5:]) < np.mean(out["losses"][:5])
+
+
+def test_fraud_detection_example():
+    from repro.data.synthetic import fraud_stream as jax_fraud_stream
+
+    out = _main("fraud_detection")(device="cpu")
+    losses = out["losses"]
+    assert len(losses) == 150
+    assert np.mean(losses[-10:]) < np.mean(losses[:10])
+    assert 0.0 <= out["recall_model"] <= 1.0
+    cols, label = jax_fraud_stream(np.random.default_rng(42), 4000,
+                                   num_cards=64, t_max=40_000)
+    y_test = label[3200:]
+    k = max(1, int(y_test.sum()))
+    top = np.argsort(-cols["amount"][3200:])[:k]
+    assert out["k"] == k
+    assert out["recall_baseline"] == y_test[top].sum() / max(1, y_test.sum())
+    assert all(len(v) == 3200 for v in out["features"].values())
+    assert np.isfinite(out["probs"]).all()

@@ -24,7 +24,11 @@ to the recurrence at ``5e-4`` (float32 products summed in another order);
 logits and states (float32 smoke model; cuBLAS and the CPU's BLAS sum in
 different orders, over two layers and three decode steps).  The flash
 attention kernel is held to its plain version at the reference's
-``atol = rtol = 2e-5`` (float32) and ``3e-2`` (bf16); ``DecoderLM`` on the
+``atol = rtol = 2e-5`` (float32) and ``3e-2`` (bf16); its backward kernel
+to ``attention_bwd_ref`` within ``1e-4`` of each gradient's largest
+|value| (+ ``1e-6``) in float32 (the same float32 formulas summed in another order)
+and at ``atol = rtol = 3e-2`` in bf16, and two runs give the same bits;
+``DecoderLM`` on the
 card (B6 in every prefill) to the same model on the CPU (``gqa_attention``)
 at ``1e-3`` in float32, where the two attentions are one function, and at
 eight bf16 steps of the largest logit in bf16, where both round the
@@ -44,10 +48,15 @@ from repro_torch.core import preagg as pg
 from repro_torch.core import storage as st
 from repro_torch.kernels.flash_attention.ops import (
     attention,
+    attention_bwd,
     launch_flash_attention,
     plan_attention,
+    plan_attention_bwd,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_ref,
+)
 from repro_torch.kernels.ingest.ops import fused_ingest
 from repro_torch.kernels.ingest.ref import fused_ingest_ref
 from repro_torch.core.hashing import KeyPermutation
@@ -1256,7 +1265,7 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
     torch.testing.assert_close(st272, sc272, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="mixed devices"):
         wkv6(r, k, v, lw, u.cpu(), s0)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="B7's backward"):
         wkv6(r.requires_grad_(), k, v, lw, u, s0)
     out = torch.empty_like(r.detach()), torch.empty_like(s0)
     launch_wkv6(r.detach(), k, v, lw, u, None, *out)  # zero state from null
@@ -1479,8 +1488,9 @@ def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
         attention(q, k.to(torch.float64), v)
     with pytest.raises(ValueError, match="mixed devices"):
         attention(q, k.cpu(), v)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        attention(q.detach().requires_grad_(), k, v)
+    wide = torch.randn((1, 2, 16, 288), generator=g).to(cuda, dtype)
+    with pytest.raises(NotImplementedError, match="D > 256"):
+        attention(wide.requires_grad_(), wide, wide)
     q, k, v = (t.transpose(1, 2) for t in x)
     o = torch.empty_like(q)
     before = kernels.LAUNCHES["flash_attention"]
@@ -1489,6 +1499,89 @@ def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
                                atol=tol, rtol=tol)
+
+
+# (B, H, Hkv, S, D, causal, window): GQA 2:1, 4:1 and 16:1, not causal,
+# windows, S = 1 and S not a multiple of the 64- or 32-row tile, every
+# head-dim tile (32, 64, 128, 256) and D = 48 / 96 inside one
+FA_BWD_SHAPES = [
+    (2, 4, 2, 128, 64, True, None),
+    (2, 4, 4, 65, 64, False, None),
+    (1, 8, 2, 200, 128, True, 64),
+    (1, 4, 1, 129, 256, True, 50),
+    (1, 16, 1, 127, 32, True, None),
+    (2, 2, 2, 1, 64, True, None),
+    (1, 4, 2, 130, 96, True, None),
+    (1, 2, 1, 100, 48, False, 30),
+]
+
+
+def _fa_bwd_close(got, want, dtype):
+    """float32: within 1e-4 of the gradient's largest |value| plus 1e-6
+    (a gradient that is 0 in exact arithmetic -- dQ and dK at S = 1, where
+    dP = Δ -- is rounding noise of O(1) terms in both); bf16: the
+    forward's 3e-2."""
+    if dtype == torch.float32:
+        bound = 1e-4 * float(want.abs().max()) + 1e-6
+        assert float((got - want).abs().max()) <= bound
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", FA_BWD_SHAPES)
+def test_flash_attention_bwd_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
+                                                window, dtype):
+    """The backward kernel against ``attention_bwd_ref`` on the same q, k,
+    v, o (the forward kernel's) and dO; a second run gives the same bits;
+    two launches (dQ, dK / dV) a call."""
+    q, k, v = _fa_case(cuda, B, H, Hkv, S, D, dtype, 7 * S + D)
+    with torch.no_grad():
+        o = attention(q, k, v, causal=causal, window=window)
+    g = torch.Generator().manual_seed(S + D)
+    do = torch.randn(q.shape, generator=g).to(cuda, dtype)
+    kernels.reset_launches()
+    got = attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == {"dq": 1,
+                                                               "dkdv": 1}
+    again = attention_bwd(q, k, v, o, do, causal=causal, window=window)
+    want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b, w, x in zip(got, again, want, (q, k, v)):
+        assert a.shape == x.shape and a.dtype == dtype
+        assert torch.equal(a, b)
+        _fa_bwd_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_the_card(cuda, dtype):
+    """``attention`` under autograd on the model's (B, S, H, D) transposed
+    views: the forward kernel once (the same bits as under no_grad), the
+    backward kernel once, no copy, gradients with the views' shapes equal
+    to ``attention_bwd_ref``; a D > 256 call raises."""
+    g = torch.Generator().manual_seed(11)
+    for S, window in ((72, None), (300, 100)):
+        x = [torch.randn((2, S, h, 64), generator=g).to(cuda, dtype)
+             .requires_grad_() for h in (8, 2, 2)]
+        q, k, v = (t.transpose(1, 2) for t in x)
+        with torch.no_grad():
+            plain = attention(q, k, v, window=window)
+        kernels.reset_launches()
+        o = attention(q, k, v, window=window)
+        assert kernels.LAUNCHES["flash_attention"] == 1
+        assert torch.equal(o, plain)
+        do = torch.randn(o.shape, generator=g).to(cuda, dtype)
+        assert not any(plan_attention_bwd(q, k, v, o, do).copy)
+        o.backward(do)
+        assert kernels.LAUNCHES["flash_attention_bwd"] == 2
+        want = attention_bwd_ref(q, k, v, o, do, window=window)
+        for t, w in zip(x, want):
+            assert t.grad.shape == t.shape
+            _fa_bwd_close(t.grad.transpose(1, 2), w, dtype)
+    wide = torch.randn((1, 2, 16, 288), generator=g).to(cuda, dtype)
+    with pytest.raises(NotImplementedError, match="D > 256"):
+        attention(wide.requires_grad_(), wide, wide)
 
 
 @pytest.mark.parametrize("dtype,window", [

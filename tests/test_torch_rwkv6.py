@@ -167,8 +167,12 @@ def test_wkv6_state_chaining():
 def test_wkv6_refuses_gradients_and_bad_shapes():
     r, k, v, lw, u, s0 = (torch.from_numpy(a)
                           for a in _wkv_inputs((1, 2, 16, 16), 4))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        wkv6(r.requires_grad_(), k, v, lw, u)
+    # CPU tensors under autograd: the chunked plain version, differentiated
+    # (on the card the kernel raises until B7 has its backward:
+    # tests/test_torch_kernels_cuda.py)
+    y, s = wkv6(r.requires_grad_(), k, v, lw, u)
+    (y.sum() + s.sum()).backward()
+    assert r.grad is not None and bool(torch.isfinite(r.grad).all())
     with torch.no_grad():
         wkv6(r, k, v, lw, u)           # no graph: fine
     with pytest.raises(ValueError, match="share one"):
@@ -455,9 +459,17 @@ def test_rwkv6_seeded_init_is_deterministic_and_scaled():
 
 
 def test_rwkv6_loss_waits_for_training():
-    model = build_model(registry.get_smoke_config("rwkv6-3b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        model.loss({})
+    """The loss trains on the CPU (its parity with JAX's is in
+    tests/test_torch_train_loss.py): finite, near ln(vocab) at init; and
+    the serving state's layout."""
+    cfg = registry.get_smoke_config("rwkv6-3b")
+    model = build_model(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16))
+                                 .astype(np.int32)) for k in ("tokens", "labels")}
+    loss, metrics = model.loss(batch)
+    assert bool(torch.isfinite(loss)) and int(metrics["tokens"]) == 32
+    assert 0.3 * np.log(cfg.vocab) < float(metrics["nll"]) < 3 * np.log(cfg.vocab)
     state = model.init_state(3)
     assert set(state) == {"att_shift", "cm_shift", "wkv", "pos"}
     assert state["wkv"].shape == (2, 3, 2, 64, 64)
