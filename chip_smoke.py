@@ -10,8 +10,10 @@ deployment's size, with a hot-deploy wave), RWKV6
 serving (rwkv6-3b prefill and decode), dense LM serving
 (nemotron-4-15b prefill and decode), the other model families' serving
 (moonshot-v1-16b-a3b's MoE, recurrentgemma-9b, seamless-m4t-medium's
-encoder-decoder), and the offline feature path with its offline<->online
-consistency check.
+encoder-decoder), the offline feature path with its offline<->online
+consistency check, and training (B6's and B7's backward kernels,
+seamless-m4t-medium, featinsight-fraud and rwkv6-3b through
+``launch.train``, the training twins).
 
 Run from the repository root on a machine with one NVIDIA GPU and the CUDA
 toolkit::
@@ -21,8 +23,9 @@ toolkit::
 Phases, in order; any failure exits non-zero:
 
 1. **Card.**  The card's name and power limit (``nvidia-smi``).
-2. **Build.**  All seven CUDA kernels from ``src/repro_torch/kernels/csrc``,
-   one ``nvcc`` per source, started together.
+2. **Build.**  All nine CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (B1-B7 and the backward kernels of B6 and B7), one ``nvcc`` per
+   source, started together.
 3. **Kernels against their plain versions** at the main path's shapes: the
    fused ingest kernel over 65,536-row batches into the full 2^19-card,
    8-shard store state (ring 256 rows x 2 lanes, 512 buckets of 64 s:
@@ -413,15 +416,56 @@ Phases, in order; any failure exits non-zero:
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-24. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
+24. **Training.**  (a) B6's backward kernel against
+    ``attention_bwd_ref``: the reference's six kernel-test shapes in
+    float32, S = 1, 127, 129 in both dtypes, the training paths' shapes
+    in bf16 (``FA_BWD_SHAPES``); two runs the same bits; D = 288 under
+    autograd raises; ``attention`` under autograd on (B, S, H, D) views
+    launches the forward once and the backward once; each path shape
+    timed beside the plain version and SDPA's backward.  (b)
+    seamless-m4t-medium at full width and depth through
+    ``launch.train.main(TRAIN_SEAMLESS)``: 20 steps of 8 x 1,024 tokens
+    in 4 microbatches, the loss finite and falling, B6 forward 192
+    (``wgmma``) and backward 192 launches every step; step p50, tokens/s,
+    peak memory and one traced step; then one microbatch of 2 sequences
+    against ``gqa_attention``: bf16 at full depth within
+    ``TRAIN_BF16_LOSS`` / ``TRAIN_BF16_GRAD``, float32 at 1 + 1 layers
+    within ``TRAIN_F32_LOSS_REL`` / ``TRAIN_F32_REL``.  (c)
+    featinsight-fraud at full width (``TRAIN_FRAUD``, ``mma16``).  (d)
+    The training twins (``examples.fraud_detection``,
+    ``examples.train_lm``) on the card.  (e) B7's backward kernel against
+    ``wkv6_bwd_ref`` within ``WKV_BWD_REL`` of each gradient's largest
+    |value|: the training shape (2, 40, 1,024, 64) on the model's views
+    with and without s0 and ds_fin, T = 1, 15, 17, 100, D = 48 (padded),
+    lw above 0, below -3.5, at 0, a chunk at -3.5 and on both ends
+    (``torch.clamp``'s rule, against autograd of ``wkv6_ref``); two runs
+    the same bits, one launch a call, gradients written in the inputs'
+    layout; ``wkv6`` under autograd == ``wkv6_bwd``; D = 128 under
+    autograd raises; timed at the training shape (CUDA events) beside the
+    plain version, its bound the larger of 9 B·H·T·D floats over 3.35
+    TB/s and 12 D² FLOP a (b, h, t) over 67 TFLOP/s.  (f) rwkv6-3b at
+    full width and depth (2,900,298,240 parameters, bf16, float32 AdamW
+    state) through ``launch.train.main(TRAIN_RWKV)``: 12 steps of 4 x
+    1,024 tokens in 2 microbatches, the loss finite and falling, B7's
+    forward 128 (``chunk``: twice a layer, the pass and the
+    recomputation) and backward 64 launches every step; step p50,
+    tokens/s, peak memory and one traced step with B7's and B7-bwd's
+    shares.  (g) One microbatch of 2 sequences, ``mu``, ``u`` and ``w0``
+    randomized, against autograd of ``wkv6_chunked`` swapped in (no B7
+    launch): bf16 at full depth within ``TRAIN_RWKV_BF16_LOSS`` /
+    ``TRAIN_RWKV_BF16_GRAD``, float32 at ``TRAIN_RWKV_F32_LAYERS`` layers
+    within ``TRAIN_RWKV_F32_LOSS_REL`` / ``TRAIN_RWKV_F32_REL``.
+25. **Summary.**  One ``kernels`` JSON line (``launches``: each kernel's
     count on its own path; B1's and B2's counts on phase 9 under their
     own keys, phase 10's under ``launches_multiscenario``, phase 11's B1,
     B2 and B4 under ``launches_deploy``, phase 12's B1 and B2 under
     ``launches_families``, phase 13's (a), (b) and (e) under
     ``launches_platform``, phase 14's under ``launches_stress``; B6's
     prefill launches on phases 19, 20 and 21 under ``launches_moe``,
-    ``launches_griffin`` and ``launches_encdec``), then the card line,
-    then the ``ok`` line last.
+    ``launches_griffin`` and ``launches_encdec``; B6's backward over the
+    seamless run, B7's backward over the rwkv6-3b run and B7's forward
+    there under ``launches_train``), then the card line, then the ``ok``
+    line last.
 
 The weights of this system are its data: made here from a fixed seed.
 """
@@ -751,8 +795,37 @@ TRAIN_BF16_GRAD = 0.07
 # tests/train_bf16_gap.py --float32)
 TRAIN_F32_LOSS_REL = 1e-5
 TRAIN_F32_REL = 3e-4
+# the rwkv6-3b training run: 2 microbatches of 2 x 1,024 tokens a step
+TRAIN_RWKV = ["--arch", "rwkv6-3b", "--batch", "4", "--seq", "1024",
+              "--microbatches", "2", "--steps", "12"]
+# B7's backward against wkv6_bwd_ref in float32: within this share of each
+# gradient's largest |value| (+ 1e-6), the forward's WKV_TOL
+WKV_BWD_REL = 1e-4
+# B7's backward: head dims checked (48 zero-padded to 64) and the lengths
+# on both sides of its 8-row chunks and of the forward's 16
+WKV_BWD_LENGTHS = (1, 15, 17, 100)
+# rwkv6-3b bf16 at full depth (mu, u and w0 randomized), B7 forward and
+# backward vs autograd of wkv6_chunked: the loss's |diff| and the largest
+# per-leaf ||diff|| / ||g||, 1.5 x the largest over seeds 0-4, rounded up
+# (tests/train_bf16_gap.py --model rwkv6 on an H100 80GB HBM3 at 700 W:
+# loss 1.31e-3, ||diff|| / ||g|| 0.0991, median over leaves 0.066-0.068;
+# in float32 the same comparison gives 2.7e-5: bf16's rounding of the
+# residual stream over 32 layers carries the scans' float32 differences).
+# A sanity bound only: the two plain scans part by 0.082-0.091 here
+# themselves (--scans), so it cannot catch a wrong kernel; (e) at
+# WKV_BWD_REL and the float32 check at TRAIN_RWKV_F32_REL are the kernel's
+# checks
+TRAIN_RWKV_BF16_LOSS = 2e-3
+TRAIN_RWKV_BF16_GRAD = 0.15
+# float32 at TRAIN_RWKV_F32_LAYERS layers, full width: the loss's relative
+# |diff| (measured 0 at seeds 0-4) and each leaf's ||diff|| / ||g|| (1.5 x
+# the largest over seeds 0-4, 2.75e-5, rounded up; tests/train_bf16_gap.py
+# --model rwkv6 --float32)
+TRAIN_RWKV_F32_LAYERS = 2
+TRAIN_RWKV_F32_LOSS_REL = 1e-5
+TRAIN_RWKV_F32_REL = 5e-5
 # the training phase's time budget, printed beside its time
-TRAIN_BUDGET_S = 150
+TRAIN_BUDGET_S = 300
 
 
 def _fail(msg: str) -> None:
@@ -4635,6 +4708,20 @@ def _prefill_plain(model, prompts, recurrence=False):
     return out
 
 
+def randomize_rwkv6(model, seed) -> None:
+    """Seeded random shift mixes ``mu`` (uniform), bonus ``u`` (0.5 N) and
+    base decay ``w0`` (N - 0.5) in every layer, where the reference's init
+    sets constants (zeros, zeros, -1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for lp in model.layers:
+            for mu in (lp["tm"]["mu"], lp["cm"]["mu"]):
+                mu.copy_(torch.rand(mu.shape, generator=gen, device="cuda"))
+            u, w0 = lp["tm"]["u"], lp["tm"]["w0"]
+            u.copy_(0.5 * torch.randn(u.shape, generator=gen, device="cuda"))
+            w0.copy_(torch.randn(w0.shape, generator=gen, device="cuda") - 0.5)
+
+
 def rwkv6_float32_checks(cfg, prompts, seq) -> None:
     """rwkv6-3b at full width in float32 (weights from the same seed, the
     shift mixes, bonus and base decay randomized): decode after prefill
@@ -4647,14 +4734,7 @@ def rwkv6_float32_checks(cfg, prompts, seq) -> None:
     # the reference's init zeros the shift mixes and the bonus (with u = 0
     # the kernel and the chunked plain version agree bit for bit on the
     # H100): seeded random values drive the token shift and the bonus here
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    with torch.no_grad():
-        for lp in model.layers:
-            for mu in (lp["tm"]["mu"], lp["cm"]["mu"]):
-                mu.copy_(torch.rand(mu.shape, generator=gen, device="cuda"))
-            u, w0 = lp["tm"]["u"], lp["tm"]["w0"]
-            u.copy_(0.5 * torch.randn(u.shape, generator=gen, device="cuda"))
-            w0.copy_(torch.randn(w0.shape, generator=gen, device="cuda") - 0.5)
+    randomize_rwkv6(model, SEED + 10)
     logits, state = model.prefill({"tokens": prompts})
     wkv0 = state["wkv"]
     step_logits = []
@@ -5761,6 +5841,183 @@ def check_flash_attention_bwd(results) -> None:
         shapes=timed)
 
 
+def _wkv6_bwd_cost(shape):
+    """(bytes, FLOP) of the training call of B7's backward (no s0, no
+    ds_fin): r, k, v, lw, dy read and dr, dk, dv, dlw written once, u read
+    and du written; per (b, h) and row 12 D² FLOP -- the state's rebuild
+    and dS's update 3 D² each (a scaled state plus an outer product), dr,
+    dk and dv's sums over D² products 2 D² each.  dlw needs no sum of its
+    own: the telescoping P_t of wkv6_bwd.cu gives it in O(D) a row."""
+    B, H, T, D = shape
+    n = B * H * T * D
+    return 4 * (9 * n + 2 * H * D), 12 * B * H * T * D * D
+
+
+def _wkv_bwd_err(got, want):
+    """max |diff| over the gradient's largest |value|; fails past
+    ``WKV_BWD_REL`` (+ 1e-6 absolute)."""
+    if not want.numel():
+        return 0.0
+    err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    return err / max(top, 1e-30) if err <= WKV_BWD_REL * top + 1e-6 else -1.0
+
+
+def check_wkv6_bwd(results) -> None:
+    """B7's backward kernel against ``wkv6_bwd_ref`` in float32: the
+    training shape (2, 40, 1,024, 64) on the model's views with and without
+    s0 and ds_fin, T = 1, 15, 17 and 100, D = 48 (padded), lw inside, on
+    and beyond both clamp ends (``torch.clamp``'s rule, against autograd of
+    ``wkv6_ref``); two runs the same bits; one launch a call; ``wkv6``
+    under autograd == ``wkv6_bwd``; D = 128 under autograd raises; timed at
+    the training shape beside the plain version."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import (
+        launch_wkv6_bwd, plan_wkv6_bwd, wkv6, wkv6_bwd,
+    )
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref, wkv6_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    H = 40
+    train = (TRAIN_PLAIN_BATCH, H, 1024, 64)
+    cases = [("training shape", train, False, False, None),
+             ("training shape, s0 and ds_fin", train, True, True, None)]
+    cases += [(f"T={T}", (2, 8, T, 64), True, True, None)
+              for T in WKV_BWD_LENGTHS]
+    cases += [("D=48 (padded)", (2, 8, 100, 48), True, True, None)]
+    cases += [(e, (2, 8, 48, 64), True, True, e) for e in (
+        "lw > 0", "lw < -3.5", "lw = 0", "a chunk at -3.5 (e^56)",
+        "lw on both ends")]
+    worst, worst_abs = 0.0, 0.0
+    for name, shape, with_s0, with_dsf, edge in cases:
+        r, k, v, lw, u, s0 = _wkv6_inputs(
+            gen, shape, None if edge == "lw on both ends" else edge)
+        if edge == "lw on both ends":
+            lw[..., 0::4] = -3.5
+            lw[..., 1::4] = 0.0
+            lw[..., 2::4] = torch.where(lw[..., 2::4] < -1.0, -4.0, 0.5)
+        s0 = s0 if with_s0 else None
+        B_, H_, T_, D_ = shape
+        dy = torch.randn((B_, T_, H_, D_), generator=gen,
+                         device="cuda").transpose(1, 2)   # as autograd's
+        dsf = (0.1 * torch.randn((B_, H_, D_, D_), generator=gen, device="cuda")
+               if with_dsf else None)
+        plan = plan_wkv6_bwd(r, k, v, lw, dy)
+        if any(plan.copy) != (shape[3] != 64):
+            _fail(f"B7 backward on '{name}': plan {plan}")
+        kernels.reset_launches()
+        got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != {"d64": 1}:
+            _fail(f"B7 backward on '{name}': launches "
+                  f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}")
+        again = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+        want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
+        torch.cuda.synchronize()
+        errs = []
+        for tag, x, a, b, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
+                                   (r, k, v, lw, u, s0), got, again, want):
+            if w is None:
+                if a is not None:
+                    _fail(f"B7 backward on '{name}': {tag} without s0")
+                continue
+            if not torch.equal(a, b):
+                _fail(f"B7 backward on '{name}': {tag} differs between two runs")
+            e = _wkv_bwd_err(a, w)
+            if e < 0:
+                _fail(f"B7 backward differs from wkv6_bwd_ref on '{name}' "
+                      f"{shape}: {tag} max |diff| "
+                      f"{float((a - w).abs().max()):.3e} (largest |{tag}| "
+                      f"{float(w.abs().max()):.3e}, allowed {WKV_BWD_REL} of it)")
+            if x.dim() == 4 and not any(plan.copy) and a.stride() != x.stride():
+                _fail(f"B7 backward on '{name}': {tag} strides {a.stride()} "
+                      f"are not its input's {x.stride()}")
+            errs.append(f"{tag} {e:.2e}")
+            worst = max(worst, e)
+            worst_abs = max(worst_abs, float((a - w).abs().max()))
+        if edge is not None:
+            # torch.clamp's rule: autograd of the recurrence on two heads
+            leaves = [t[:, :2].detach().clone().requires_grad_()
+                      for t in (r, k, v, lw)]
+            y2, s2 = wkv6_ref(*leaves, u[:2], s0[:, :2])
+            torch.autograd.backward([y2, s2], [dy[:, :2], dsf[:, :2]])
+            e = _wkv_bwd_err(got[3][:, :2], leaves[3].grad)
+            if e < 0:
+                _fail(f"B7 backward's dlw on '{name}' is not torch.clamp's "
+                      "rule (autograd of wkv6_ref)")
+            ends = (lw[:, :2] == -3.5) | (lw[:, :2] == 0.0)
+            if ends.any() and not bool((got[3][:, :2][ends] != 0).all()):
+                _fail(f"B7 backward's dlw on '{name}' is 0 at a clamp end")
+            errs.append(f"dlw vs autograd of wkv6_ref {e:.2e}"
+                        + (f" ({int(ends.sum())} lw on an end)" if ends.any() else ""))
+        print(f"wkv6_bwd == wkv6_bwd_ref on '{name}' {shape} (copies "
+              f"{any(plan.copy)}): max |diff| / largest |value| "
+              + ", ".join(errs) + "; two runs bit-equal", flush=True)
+        del r, k, v, lw, u, s0, dy, dsf, got, again, want
+    torch.cuda.empty_cache()
+
+    # through autograd on the model's views: the forward once, the
+    # backward once, the gradients == wkv6_bwd's; a D > 64 call raises
+    r, k, v, lw, u, _ = _wkv6_inputs(gen, train)
+    leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, lw, u)]
+    kernels.reset_launches()
+    y, _ = wkv6(*leaves)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    y.backward(dy)
+    if (kernels.LAUNCHES["wkv6"], kernels.LAUNCHES["wkv6_bwd"]) != (1, 1):
+        _fail(f"wkv6 under autograd: launches {kernels.LAUNCHES}")
+    want = wkv6_bwd(r, k, v, lw, u, None, dy, None)
+    for t, w in zip(leaves, want):
+        if not torch.equal(t.grad, w):
+            _fail("wkv6's autograd gradient differs from wkv6_bwd")
+    print("wkv6 under autograd on the model's (B, T, H, D) views: 1 forward "
+          "+ 1 backward launch, gradients == wkv6_bwd bit for bit", flush=True)
+    wide = torch.randn((1, 2, 16, 128), generator=gen, device="cuda")
+    try:
+        wkv6(wide.requires_grad_(), wide, wide, -wide.abs(),
+             torch.zeros((2, 128), device="cuda"))
+        _fail("wkv6 under autograd at D = 128 did not raise")
+    except NotImplementedError as e:
+        print(f"D = 128 under autograd raises: {e}", flush=True)
+    del leaves, y, want
+
+    dy = torch.randn((train[0], train[2], H, 64), generator=gen,
+                     device="cuda").transpose(1, 2)
+    outs = [torch.empty_like(t) for t in (r, k, v, lw)]
+    du_part = torch.empty((train[0], H, 64), device="cuda")
+    kernel_ms = _time_ms(lambda: launch_wkv6_bwd(
+        r, k, v, lw, dy, u, None, None, *outs, du_part, None), 10, 2)
+    wrapper_ms = _time_ms(lambda: wkv6_bwd(r, k, v, lw, u, None, dy), 10, 2)
+    plain_ms = _time_ms(lambda: wkv6_bwd_ref(r, k, v, lw, u, None, dy, None), 2)
+    nbytes, flop = _wkv6_bwd_cost(train)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flop / FP32_FLOP_PER_S
+    bound = max(by_bytes, by_ops)
+    print(f"wkv6_bwd {train} on the model's views (the training call: no s0, "
+          f"no ds_fin): kernel {kernel_ms:.4f} ms (the wrapper wkv6_bwd "
+          f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.5f} "
+          f"ms ({nbytes} bytes -> {by_bytes:.5f} ms; {flop} FLOP -> "
+          f"{by_ops:.5f} ms; {bound / kernel_ms:.4f} of the bound)", flush=True)
+    results["wkv6_bwd"] = dict(
+        max_abs_err=worst_abs, max_rel_err=worst, ms=kernel_ms,
+        wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        shape=f"{train} float32 on the model's views, no s0 / ds_fin "
+              "(one rwkv6-3b layer of a training microbatch)")
+    del r, k, v, lw, u, dy, outs, du_part
+    torch.cuda.empty_cache()
+
+
+def _print_b7_bwd_share(dev, busy_ms) -> None:
+    """B7's backward kernel's device time in a trace and its share of the
+    device busy time."""
+    ms = sum(e.self_device_time_total for e in dev
+             if "wkv6_bwd_kernel" in e.key) / 1e3
+    n = sum(e.count for e in dev if "wkv6_bwd_kernel" in e.key)
+    if n:
+        print(f"  B7 backward: {ms:.4f} ms device time = {ms / busy_ms:.4f} "
+              f"of device busy (x{n})", flush=True)
+
+
 def _print_b6_bwd_share(dev, busy_ms) -> None:
     """B6's backward kernels' device time in a trace and their share of
     the device busy time."""
@@ -5812,17 +6069,25 @@ def trace_train_step(tag, out) -> None:
               f"x{e.count} {e.key[:90]}", flush=True)
     _print_b6_share(dev, busy_ms)
     _print_b6_bwd_share(dev, busy_ms)
+    _print_b7_share(dev, busy_ms)
+    _print_b7_bwd_share(dev, busy_ms)
 
 
-def _train_run(tag, argv, per_step, variant):
+# a training run's kernel pairs: (forward, backward, label)
+B6_PAIR = ("flash_attention", "flash_attention_bwd", "B6")
+B7_PAIR = ("wkv6", "wkv6_bwd", "B7")
+
+
+def _train_run(tag, argv, per_step, variant, pair=B6_PAIR):
     """``launch.train.main(argv)`` on the card with the launch counts set
     to 0 just before: the loss finite and falling (the mean of the last 5
-    steps below the first 5); every step launching B6's forward and
-    backward ``per_step`` times each (forward all in ``variant``).
+    steps below the first 5); every step launching the ``pair``'s forward
+    and backward kernels ``per_step`` times (forward all in ``variant``).
     Returns (the run's result, its launch counts)."""
     from repro_torch import kernels
     from repro_torch.launch import train
 
+    fwd, bwd, label = pair
     torch.cuda.empty_cache()
     kernels.reset_launches()
     out = train.main(argv + ["--device", "cuda"])
@@ -5836,13 +6101,13 @@ def _train_run(tag, argv, per_step, variant):
         _fail(f"{tag}: the loss did not fall ({first:.4f} -> {last:.4f}: "
               f"{losses.tolist()})")
     for i, lc in enumerate(out["launches"]):
-        got = (lc.get("flash_attention", 0), lc.get("flash_attention_bwd", 0))
+        got = (lc.get(fwd, 0), lc.get(bwd, 0))
         if got != per_step:
-            _fail(f"{tag} step {i}: B6 forward / backward launches {got}, "
-                  f"expected {per_step} ({lc})")
+            _fail(f"{tag} step {i}: {label} forward / backward launches "
+                  f"{got}, expected {per_step} ({lc})")
     steps = len(losses)
-    if variants["flash_attention"][variant] != per_step[0] * steps:
-        _fail(f"{tag}: B6 forward instantiations {variants['flash_attention']}")
+    if variants[fwd][variant] != per_step[0] * steps:
+        _fail(f"{tag}: {label} forward instantiations {variants[fwd]}")
     ms = 1e3 * np.array(out["step_s"])
     args = dict(zip(argv[::2], argv[1::2]))
     tokens = int(args["--batch"]) * int(args["--seq"])
@@ -5852,47 +6117,73 @@ def _train_run(tag, argv, per_step, variant):
           f"{ms[0]:.1f} ms, max of the rest {ms[1:].max():.1f} ms) = "
           f"{tokens / np.percentile(ms, 50) * 1e3:.0f} tokens/s at p50, "
           f"{out['tok_s']:.0f} tokens/s over the run; peak device memory "
-          f"{out['peak_bytes'] / 1e9:.2f} GB; B6 launches a step: forward "
-          f"{per_step[0]} ({variant}), backward {per_step[1]} (dq + dkdv); "
+          f"{out['peak_bytes'] / 1e9:.2f} GB; {label} launches a step: "
+          f"forward {per_step[0]} ({variant}), backward {per_step[1]}; "
           f"over the run {launches}", flush=True)
     return out, launches
 
 
-def train_against_plain(model, batch) -> dict:
-    """``model.loss`` and its gradients on ``batch`` with B6 (forward and
-    backward kernels) and with ``gqa_attention`` swapped in at
-    ``layers.self_attention``: the loss difference and two per-leaf
-    gradient distances, each the largest over the leaves -- ``grad_rel``,
-    ||g_kernel - g_plain|| over ||g_plain|| (the one checked), and
-    ``grad_max_rel``, max |g_kernel - g_plain| over the leaf's largest
-    |g_plain|, which a single ReLU mask flipped by a rounding difference
-    moves by 1e-3 (printed)."""
-    from repro_torch import kernels
-    from repro_torch.convert import reference_names
+def b6_plain():
+    """B6 swapped out: ``layers.self_attention`` -> ``gqa_attention``."""
     from repro_torch.models import layers
 
-    own = dict(model.named_parameters())
-    names = reference_names(model)
-    params = [own[n] for n in names]
+    return layers, "self_attention", _plain_self_attention, B6_PAIR
 
-    def run():
-        loss, _ = model.loss(batch)
-        gs = torch.autograd.grad(loss, params)
-        return float(loss.detach()), [g.float() for g in gs]
 
+def b7_plain():
+    """B7 swapped out: the model's ``wkv6`` -> ``wkv6_chunked``, which
+    autograd differentiates."""
+    from repro_torch.kernels.wkv6.ops import wkv6_chunked
+    from repro_torch.models import rwkv6
+
+    return rwkv6, "wkv6", wkv6_chunked, B7_PAIR
+
+
+def train_against_plain(model, batch, plain=None) -> dict:
+    """``model.loss`` and its gradients on ``batch`` with a kernel pair
+    (forward and backward kernels) and with its plain version swapped in
+    (``plain``: ``b6_plain()``, the default, or ``b7_plain()``): the loss
+    difference and two per-leaf gradient distances, each the largest over
+    the leaves -- ``grad_rel``, ||g_kernel - g_plain|| over ||g_plain||
+    (the one checked), and ``grad_max_rel``, max |g_kernel - g_plain| over
+    the leaf's largest |g_plain|, which a single ReLU mask flipped by a
+    rounding difference moves by 1e-3 (printed)."""
+    from repro_torch import kernels
+
+    module, attr, plain_fn, (fwd, bwd, label) = plain or b6_plain()
     kernels.reset_launches()
-    lk, gk = run()
-    if not kernels.LAUNCHES["flash_attention_bwd"]:
-        _fail("the kernel run launched no B6 backward")
-    kernel_attention = layers.self_attention
-    layers.self_attention = _plain_self_attention
+    lk, gk = loss_and_grads(model, batch)
+    if not kernels.LAUNCHES[bwd]:
+        _fail(f"the kernel run launched no {label} backward")
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain_fn)
     try:
         kernels.reset_launches()
-        lp, gp = run()
-        if kernels.LAUNCHES["flash_attention"] or kernels.LAUNCHES["flash_attention_bwd"]:
-            _fail("the plain-attention training run launched B6")
+        lp, gp = loss_and_grads(model, batch)
+        if kernels.LAUNCHES[fwd] or kernels.LAUNCHES[bwd]:
+            _fail(f"the plain training run launched {label}")
     finally:
-        layers.self_attention = kernel_attention
+        setattr(module, attr, kernel_fn)
+    return grad_gap(model, lk, gk, lp, gp)
+
+
+def loss_and_grads(model, batch):
+    """``model.loss`` on ``batch`` and its float32 gradients, in the
+    reference's leaf order."""
+    from repro_torch.convert import reference_names
+
+    own = dict(model.named_parameters())
+    loss, _ = model.loss(batch)
+    gs = torch.autograd.grad(loss, [own[n] for n in reference_names(model)])
+    return float(loss.detach()), [g.float() for g in gs]
+
+
+def grad_gap(model, lk, gk, lp, gp) -> dict:
+    """The distances ``train_against_plain`` returns between a run (loss
+    ``lk``, gradients ``gk``) and a plain one (``lp``, ``gp``)."""
+    from repro_torch.convert import reference_names
+
+    names = reference_names(model)
     fro, top = {}, {}
     for n, a, b in zip(names, gk, gp):
         fro[n] = float(torch.linalg.vector_norm(a - b)) / max(
@@ -5906,12 +6197,13 @@ def train_against_plain(model, batch) -> dict:
                 grad_max_rel=top[worst_top], worst_max_leaf=worst_top)
 
 
-def _plain_batch(cfg, n):
-    """The first ``n`` sequences of ``launch.train``'s first seamless
-    batch (frames from ``default_rng(1)``), on the card."""
+def _plain_batch(cfg, n, argv=TRAIN_SEAMLESS):
+    """The first ``n`` sequences of the first batch of ``launch.train``
+    run with ``argv`` (seamless: frames from ``default_rng(1)``), on the
+    card."""
     from repro_torch.launch.train import _stream
 
-    args = dict(zip(TRAIN_SEAMLESS[::2], TRAIN_SEAMLESS[1::2]))
+    args = dict(zip(argv[::2], argv[1::2]))
     b = next(_stream(cfg, int(args["--batch"]), int(args["--seq"]), "cuda"))
     return {k: v[:n] for k, v in b.items()}
 
@@ -5957,13 +6249,54 @@ def seamless_train_checks(cfg) -> None:
     torch.cuda.empty_cache()
 
 
+def rwkv6_train_checks(cfg) -> None:
+    """One microbatch of ``TRAIN_PLAIN_BATCH`` sequences of the rwkv6-3b
+    run's first batch, ``mu``, ``u`` and ``w0`` randomized: bf16 at full
+    width and depth, B7 (forward and backward kernels) against autograd of
+    ``wkv6_chunked`` within the bounds measured over seeds; float32 at
+    ``TRAIN_RWKV_F32_LAYERS`` layers within ``TRAIN_RWKV_F32_REL``."""
+    from repro_torch.models import build_model
+
+    batch = _plain_batch(cfg, TRAIN_PLAIN_BATCH, TRAIN_RWKV)
+    for tag, c in (("bf16", cfg),
+                   (f"float32 ({TRAIN_RWKV_F32_LAYERS} layers)",
+                    cfg.replace(n_layers=TRAIN_RWKV_F32_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32"))):
+        model = build_model(c, seed=SEED, device="cuda")
+        randomize_rwkv6(model, SEED + 10)
+        r = train_against_plain(model, batch, b7_plain())
+        rel = r["loss_diff"] / abs(r["loss_plain"])
+        loss_bound, grad_bound = ((TRAIN_RWKV_BF16_LOSS, TRAIN_RWKV_BF16_GRAD)
+                                  if tag == "bf16" else
+                                  (TRAIN_RWKV_F32_LOSS_REL, TRAIN_RWKV_F32_REL))
+        loss_err = r["loss_diff"] if tag == "bf16" else rel
+        print(f"rwkv6-3b {tag} train pass, B7 vs autograd of wkv6_chunked on "
+              f"{TRAIN_PLAIN_BATCH} sequences: loss {r['loss_kernel']:.6f} vs "
+              f"{r['loss_plain']:.6f} (|diff| {r['loss_diff']:.3e}, relative "
+              f"{rel:.3e}; bound {loss_bound}); gradients: largest per-leaf "
+              f"||diff|| / ||g|| {r['grad_rel']:.4e} ({r['worst_leaf']}; "
+              f"median {r['median_rel']:.3e}; bound {grad_bound}); largest "
+              f"per-leaf max |diff| / max |g| {r['grad_max_rel']:.4e} "
+              f"({r['worst_max_leaf']})", flush=True)
+        if loss_err > loss_bound or r["grad_rel"] > grad_bound:
+            _fail(f"rwkv6-3b {tag} training: B7 vs the plain scan beyond "
+                  f"the bounds: {r}")
+        del model
+        torch.cuda.empty_cache()
+
+
 def train_path(results) -> None:
     """The training phase: (a) B6's backward kernel; (b) seamless-m4t-medium
     at full width and depth through ``launch.train``, a traced step, the
     plain-attention comparisons; (c) featinsight-fraud at full width;
-    (d) the training twins on the card."""
+    (d) the training twins on the card; (e) B7's backward kernel; (f)
+    rwkv6-3b at full width and depth through ``launch.train``, a traced
+    step; (g) its kernel-against-plain comparisons."""
     from repro_torch import kernels
-    from repro_torch.configs import featinsight_fraud, seamless_m4t_medium
+    from repro_torch.configs import (
+        featinsight_fraud, rwkv6_3b, seamless_m4t_medium,
+    )
 
     t_phase = time.perf_counter()
     check_flash_attention_bwd(results)
@@ -6015,6 +6348,24 @@ def train_path(results) -> None:
           f"{np.mean(lm['losses'][:5]):.4f} -> {np.mean(lm['losses'][-5:]):.4f}"
           f", {lm['tok_s']:.0f} tokens/s", flush=True)
     torch.cuda.empty_cache()
+
+    check_wkv6_bwd(results)
+    rcfg = rwkv6_3b.config()
+    nm = int(dict(zip(TRAIN_RWKV[::2], TRAIN_RWKV[1::2]))["--microbatches"])
+    # every layer rematerialized: B7's forward twice a layer (the pass and
+    # the recomputation), its backward once
+    per_layer = nm * rcfg.n_layers
+    out, launches = _train_run("rwkv6-3b train", TRAIN_RWKV,
+                               (2 * per_layer, per_layer), "chunk", B7_PAIR)
+    if out["n_params"] != RWKV_PARAMS:
+        _fail(f"rwkv6-3b train: {out['n_params']} parameters")
+    results["wkv6"]["launches_train"] = launches["wkv6"]
+    results["wkv6_bwd"]["launches"] = launches["wkv6_bwd"]
+    results["wkv6_bwd"]["launches_per_step"] = per_layer
+    trace_train_step("rwkv6-3b", out)
+    del out
+    torch.cuda.empty_cache()
+    rwkv6_train_checks(rcfg)
     print(f"training phase: {time.perf_counter() - t_phase:.1f} s (budget "
           f"{TRAIN_BUDGET_S} s)", flush=True)
 
@@ -6232,6 +6583,10 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
              **results["flash_attention_bwd"]),
+        dict(name="wkv6_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+             replaces="src/repro/kernels/wkv6/wkv6.py:99",
+             library_ms=None, **results["wkv6_bwd"]),
     ]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

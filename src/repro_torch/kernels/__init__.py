@@ -41,7 +41,7 @@ __all__ = [
 LAUNCHES: Dict[str, int] = {
     "fused_ingest": 0, "route_rank": 0, "fold_levels": 0, "window_stats": 0,
     "signature_embed": 0, "wkv6": 0, "flash_attention": 0,
-    "flash_attention_bwd": 0,
+    "flash_attention_bwd": 0, "wkv6_bwd": 0,
 }
 # kernel name -> instantiation -> CUDA launches since the last reset
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
@@ -49,6 +49,9 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     # B6's backward: the dQ pass and the dK / dV pass of each call
     "flash_attention_bwd": {"dq": 0, "dkdv": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide": 0},
+    # B7's backward: one launch a call, built at head dim 64 (a smaller D
+    # zero-padded to it)
+    "wkv6_bwd": {"d64": 0},
     # B2 from keys (the Feistel walk and the rank) or from shard ids
     "route_rank": {"keys": 0, "shards": 0},
     # B5 from signatures (the ids hashed in the kernel) or from ids

@@ -12,8 +12,8 @@ Flags: ``sm_90a`` (Hopper), C++17, ``-O3`` and ``-fmad=false`` — the
 ingest kernel's float sums must round exactly like the plain version's
 separate multiply and add, so no fused multiply-add may form (the same
 holds for the window-stats kernel's sumsq lane).  A kernel that wants
-fused multiply-adds spells them with ``fmaf`` (the WKV6 scan and flash
-attention do).
+fused multiply-adds spells them with ``fmaf`` (the WKV6 scan, its
+backward and flash attention do).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ SOURCES: Dict[str, str] = {
     "wkv6": "wkv6.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "wkv6_bwd": "wkv6_bwd.cu",
 }
 
 NVCC_FLAGS = (

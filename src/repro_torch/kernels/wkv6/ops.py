@@ -39,11 +39,23 @@ reference's ``impl="xla"`` at ``atol = rtol = 2e-5`` (the same arithmetic,
 the matrix products summed in another order).  The kernel is held to
 :func:`wkv6_chunked` at ``1e-4`` (``tests/test_torch_kernels_cuda.py``).
 
-Gradient: on CPU tensors autograd differentiates :func:`wkv6_chunked`
-(``RWKV6LM.loss`` trains there).  The kernel has no backward yet (B7's
-backward is the next item of ROADMAP Queue A), so on CUDA tensors
-``wkv6`` raises when autograd would record it; it never falls back to the
-plain version on the card.
+Gradient: on CPU tensors autograd differentiates :func:`wkv6_chunked`.
+On CUDA tensors that autograd records, ``wkv6`` is a
+``torch.autograd.Function`` (:class:`_WKV6`): its forward launches the
+kernel above unchanged and saves only its inputs (a checkpoint's
+recomputation reproduces them), its backward launches B7's backward
+kernel (``kernels/csrc/wkv6_bwd.cu``, one launch a call, through
+:func:`wkv6_bwd`) for the gradients autograd asks for.  The backward
+kernel is built at head dim 64 (``BWD_HEAD_DIM``, every registry model's);
+a smaller D is zero-padded to it, a wider one raises
+``NotImplementedError`` (ROADMAP A11d) -- on the card nothing falls back
+to a plain version.  :func:`wkv6_bwd` runs
+:func:`~repro_torch.kernels.wkv6.ref.wkv6_bwd_ref` on CPU tensors, which
+follows ``torch.clamp``'s rule at the clamp's ends (gradient 1 on
+[LOG_W_MIN, 0], ends included; ``jnp.clip``'s is 0.5 there).  The
+backward kernel is held to ``wkv6_bwd_ref`` within ``1e-4`` of each
+gradient's largest |value| (+ ``1e-6``) in float32
+(``tests/test_torch_kernels_cuda.py``, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -56,12 +68,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import count_launch, note_dispatch, use_cuda_kernel
-from repro_torch.kernels.wkv6.ref import LOG_W_MIN
+from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_bwd_ref
 
 __all__ = [
     "wkv6", "wkv6_chunked", "launch_wkv6", "plan_wkv6", "kernel_inputs",
     "WKV6Plan", "CHUNK",
     "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
+    "wkv6_bwd", "launch_wkv6_bwd", "plan_wkv6_bwd", "WKV6BwdPlan",
+    "BWD_HEAD_DIM",
 ]
 
 CHUNK = 16
@@ -74,6 +88,10 @@ _VARIANT_CODE = {"chunk": 0, "step": 1, "wide": 2}
 _pack_strides = struct.Struct("20q").pack
 
 _launch_fn = None  # the library's wkv6_launch, bound at first launch
+_bwd_fn = None     # the library's wkv6_bwd_launch, likewise
+# the head dim B7's backward kernel is built for; a smaller D is
+# zero-padded up to it, a wider one refused (ROADMAP A11d)
+BWD_HEAD_DIM = 64
 
 
 def wkv6_chunked(
@@ -242,14 +260,18 @@ def wkv6(
     if not use_cuda_kernel("wkv6", *given):
         note_dispatch("wkv6", "ref")
         return wkv6_chunked(r, k, v, lw, u, s0)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in given):
-        raise NotImplementedError(
-            "wkv6: the kernel has no backward on the card yet (B7's "
-            "backward is the next item of ROADMAP Queue A; on the CPU the "
-            "chunked plain version is differentiated); call under "
-            "torch.inference_mode() or torch.no_grad()"
-        )
     note_dispatch("wkv6", "cuda")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in given):
+        if D > BWD_HEAD_DIM:
+            raise NotImplementedError(_bwd_wide("wkv6", D))
+        return _WKV6.apply(r, k, v, lw, u, s0)
+    return _forward_cuda(r, k, v, lw, u, s0)
+
+
+def _forward_cuda(r, k, v, lw, u, s0):
+    """The forward kernel on CUDA tensors: the plan, the copies it asks
+    for, the launch, the padded head dim sliced off."""
+    B, H, T, D = r.shape
     plan = plan_wkv6(r, k, v, lw)
     *ins, u_in, s0_in = kernel_inputs(plan, r, k, v, lw, u, s0)
     # r's strides when r goes in as it is (a transposed view stays one)
@@ -267,16 +289,189 @@ def kernel_inputs(plan: WKV6Plan, r, k, v, lw, u, s0=None):
     s0 contiguous float32 on a 16-byte base (the state moves as float4),
     padded likewise; the others as they are."""
     pad = plan.head_dim - r.shape[-1]
-
-    def padded(x, dims):
-        if pad:  # a new tensor, contiguous on a fresh base
-            return F.pad(x.to(torch.float32), (0, pad) * dims)
-        if (x.dtype == torch.float32 and x.is_contiguous()
-                and x.data_ptr() % 16 == 0):
-            return x
-        return x.to(torch.float32, memory_format=torch.contiguous_format,
-                    copy=True)
-
-    ins = [padded(x, 1) if c else x
+    ins = [_dense32(x, pad, 1) if c else x
            for x, c in zip((r, k, v, lw), plan.copy)]
-    return (*ins, padded(u, 1), None if s0 is None else padded(s0, 2))
+    return (*ins, _dense32(u, pad, 1),
+            None if s0 is None else _dense32(s0, pad, 2))
+
+
+def _dense32(x: torch.Tensor, pad: int, dims: int) -> torch.Tensor:
+    """``x`` as contiguous float32 on a 16-byte base, its last ``dims``
+    dims zero-padded by ``pad``; ``x`` itself where it already is."""
+    if pad:  # a new tensor, contiguous on a fresh base
+        return F.pad(x.to(torch.float32), (0, pad) * dims)
+    if (x.dtype == torch.float32 and x.is_contiguous()
+            and x.data_ptr() % 16 == 0):
+        return x
+    return x.to(torch.float32, memory_format=torch.contiguous_format,
+                copy=True)
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def _bwd_wide(name: str, D: int) -> str:
+    return (f"{name}: B7's backward kernel is built for head dims up to "
+            f"{BWD_HEAD_DIM}, not {D} (ROADMAP A11d: B7's backward for "
+            "D > 64); call under torch.no_grad() or torch.inference_mode()")
+
+
+class WKV6BwdPlan(NamedTuple):
+    """How one backward call runs on the card: the head dim the kernel is
+    built for (D zero-padded up to it) and which of r, k, v, lw, dy are
+    copied (converted to float32, padded, or made D-contiguous on a
+    16-byte base with strides of whole 16-byte pieces, as ``cp.async``
+    reads them)."""
+
+    head_dim: int
+    copy: Tuple[bool, bool, bool, bool, bool]
+
+
+def plan_wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lw: torch.Tensor, dy: torch.Tensor) -> WKV6BwdPlan:
+    """The plan for ``wkv6_bwd`` on the card; reads only shapes, strides,
+    dtypes and base addresses.  Raises ``NotImplementedError`` for
+    D > ``BWD_HEAD_DIM``."""
+    D = r.shape[-1]
+    if D > BWD_HEAD_DIM:
+        raise NotImplementedError(_bwd_wide("wkv6_bwd", D))
+    return WKV6BwdPlan(BWD_HEAD_DIM, tuple(
+        D != BWD_HEAD_DIM or not _takes(x, 4) for x in (r, k, v, lw, dy)))
+
+
+def launch_wkv6_bwd(
+    r: torch.Tensor,    # (B, H, T, 64) float32, D contiguous, 16-byte aligned
+    k: torch.Tensor,    # (as r, k, v, lw and dy)
+    v: torch.Tensor,
+    lw: torch.Tensor,
+    dy: torch.Tensor,
+    u: torch.Tensor,    # (H, 64) float32, contiguous
+    s0: Optional[torch.Tensor],      # (B, H, 64, 64) float32 contiguous / None
+    ds_fin: Optional[torch.Tensor],  # likewise
+    dr: Optional[torch.Tensor],      # (B, H, T, 64) float32 outs, D
+    dk: Optional[torch.Tensor],      # contiguous, or None: not computed
+    dv: Optional[torch.Tensor],
+    dlw: Optional[torch.Tensor],
+    du_part: Optional[torch.Tensor],  # (B, H, 64) float32 out, or None
+    ds0: Optional[torch.Tensor],      # (B, H, 64, 64) float32 out, or None
+) -> None:
+    """Launch B7's backward kernel on the current stream (one launch):
+    the outputs given are written; raises if the launch fails (a D other
+    than 64, an input the kernel cannot read)."""
+    global _bwd_fn
+    if _bwd_fn is None:
+        from repro_torch.kernels.build import library
+
+        fn = library("wkv6_bwd").wkv6_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                       + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    B, H, T, D = r.shape
+    index = r.get_device()
+    tensors = (r, k, v, lw, dy, dr, dk, dv, dlw)
+    strides = [s for x in tensors for s in (x.stride() if x is not None
+                                            else (0, 0, 0, 1))]
+    err = _bwd_fn(
+        *(0 if x is None else x.data_ptr()
+          for x in (r, k, v, lw, dy, u, s0, ds_fin, dr, dk, dv, dlw,
+                    du_part, ds0)),
+        B, H, T, D, _pack_bwd_strides(*strides),
+        index, torch._C._cuda_getCurrentRawStream(index),
+    )
+    count_launch("wkv6_bwd", variant="d64")
+    if err != 0:
+        raise RuntimeError(
+            f"wkv6_bwd kernel launch failed (D = {D}): CUDA error {err}")
+
+
+# the (b, h, t, d) strides of r, k, v, lw, dy, dr, dk, dv, dlw
+_pack_bwd_strides = struct.Struct("36q").pack
+
+
+def wkv6_bwd(
+    r: torch.Tensor,    # (B, H, T, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lw: torch.Tensor,   # (B, H, T, D) log decay, as given to wkv6
+    u: torch.Tensor,    # (H, D)
+    s0: Optional[torch.Tensor],      # (B, H, D, D) or None
+    dy: torch.Tensor,                # (B, H, T, D) gradient of y
+    ds_fin: Optional[torch.Tensor] = None,  # (B, H, D, D), or None: zero
+    needs: Optional[Tuple[bool, ...]] = None,
+) -> Tuple[Optional[torch.Tensor], ...]:
+    """(dr, dk, dv, dlw, du, ds0) of :func:`wkv6`, each in its input's
+    dtype (``ds0`` None when ``s0`` is): B7's backward kernel on CUDA
+    tensors, :func:`~repro_torch.kernels.wkv6.ref.wkv6_bwd_ref` on CPU
+    tensors.  ``needs`` (six flags, autograd's ``needs_input_grad``) leaves
+    the gradients not asked for None, and uncomputed on the card.  On the
+    card dr, dk, dv and dlw have their inputs' strides where those go in
+    uncopied (the model's transposed views take them in place)."""
+    B, H, T, D = r.shape
+    if (any(x.shape != r.shape for x in (k, v, lw, dy)) or u.shape != (H, D)
+            or any(x is not None and x.shape != (B, H, D, D)
+                   for x in (s0, ds_fin))):
+        shapes = [None if x is None else tuple(x.shape)
+                  for x in (r, k, v, lw, u, s0, dy, ds_fin)]
+        raise ValueError(
+            f"wkv6_bwd: shapes {shapes} are not (r, k, v, lw, dy) (B, H, T, "
+            "D), u (H, D), s0 and ds_fin (B, H, D, D)")
+    needs = (True,) * 6 if needs is None else tuple(needs)
+    given = [x for x in (r, k, v, lw, u, s0, dy, ds_fin) if x is not None]
+    if not use_cuda_kernel("wkv6_bwd", *given):
+        note_dispatch("wkv6_bwd", "ref")
+        grads = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, ds_fin)
+        return tuple(g if n else None for g, n in zip(grads, needs))
+    note_dispatch("wkv6_bwd", "cuda")
+    plan = plan_wkv6_bwd(r, k, v, lw, dy)
+    Dk = plan.head_dim
+    pad = Dk - D
+    ins = [_dense32(x, pad, 1) if c else x
+           for x, c in zip((r, k, v, lw, dy), plan.copy)]
+    want = needs[:5] + (needs[5] and s0 is not None,)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    # each gradient in its input's layout (a transposed view stays one)
+    outs = [torch.empty_like(x) if n else None
+            for x, n in zip((ins[0], ins[1], ins[2], ins[3]), want)]
+    du_part = torch.empty((B, H, Dk), **f32) if want[4] else None
+    ds0 = torch.empty((B, H, Dk, Dk), **f32) if want[5] else None
+    if B * H and any(want):
+        launch_wkv6_bwd(
+            *ins, _dense32(u, pad, 1),
+            None if s0 is None else _dense32(s0, pad, 2),
+            None if ds_fin is None else _dense32(ds_fin, pad, 2),
+            *outs, du_part, ds0)
+
+    def back(g, like, d):
+        if g is None:
+            return None
+        if pad:
+            g = g[(...,) + (slice(0, D),) * d]
+        return g if g.dtype == like.dtype else g.to(like.dtype)
+
+    dr, dk, dv, dlw = (back(g, x, 1) for g, x in zip(outs, (r, k, v, lw)))
+    du = None if du_part is None else back(du_part.sum(0), u, 1)
+    return dr, dk, dv, dlw, du, None if ds0 is None else back(ds0, s0, 2)
+
+
+class _WKV6(torch.autograd.Function):
+    """The forward kernel with B7's backward kernel as its gradient.  It
+    saves only its inputs, which a checkpoint's recomputation reproduces;
+    an output that autograd does not reach (the final state, in a loss)
+    brings no gradient (None, not zeros)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, lw, u, s0):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, lw, u, s0)
+        return _forward_cuda(r, k, v, lw, u, s0)
+
+    @staticmethod
+    def backward(ctx, dy, ds_fin):
+        r, k, v, lw, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        return wkv6_bwd(r, k, v, lw, u, s0, dy, ds_fin,
+                        needs=ctx.needs_input_grad)

@@ -30,11 +30,12 @@ the residual stream's dtype, as in the reference.
 
 ``prefill`` and ``decode_step`` run under ``torch.inference_mode()``: the
 parameters build no autograd graph.  :meth:`RWKV6LM.loss` is the training
-loss, each layer rematerialized with ``torch.utils.checkpoint``.  It
-trains on CPU tensors, through the chunked plain WKV6 that autograd
-differentiates; on the card ``wkv6`` raises under autograd until B7 has
-its backward (ROADMAP Queue A) -- there is no fallback to the plain
-version.
+loss, each layer rematerialized with ``torch.utils.checkpoint``.  On the
+card ``wkv6`` is then an autograd Function: B7's forward kernel twice a
+layer (the pass and the recomputation) and B7's backward kernel
+(``kernels/csrc/wkv6_bwd.cu``) once; the unused final state brings no
+gradient.  On CPU tensors autograd differentiates the chunked plain
+version, as the reference differentiates its XLA chunked scan.
 """
 
 from __future__ import annotations

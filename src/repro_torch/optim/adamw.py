@@ -16,6 +16,14 @@ enter rounded to float32, as JAX's weakly typed constants do.
 ``torch.optim.AdamW`` is not used: its weight decay multiplies the
 parameter before the Adam step and its ``eps`` sits elsewhere.  The
 reference's ZeRO-1 sharding of the state has no meaning on one card.
+
+:func:`adamw_update_` updates the state in place and writes the
+parameters, a group of leaves at a time: a model whose state fills most
+of the card needs that (rwkv6-3b: 35 GB of float32 state beside 5.8 GB of
+bf16 parameters and 11.6 GB of float32 gradients on an 80 GB H100), and
+the train step uses it.  :func:`adamw_update` is the reference's pure
+form -- a new state and new parameters -- run as :func:`adamw_update_`
+on a copy of the state.
 """
 
 from __future__ import annotations
@@ -26,8 +34,8 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_lr",
-           "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_update_",
+           "cosine_lr", "global_norm", "GROUP_ELEMS"]
 
 State = Dict[str, object]
 
@@ -98,21 +106,62 @@ def adamw_update(
 ) -> Tuple[Dict[str, torch.Tensor], State, Dict[str, torch.Tensor]]:
     """(new params in ``param_dtype``, new state, metrics ``grad_norm`` and
     ``lr``).  The state's tensors are new ones; ``opt_state`` is not
-    modified.
+    modified: :func:`adamw_update_` on a copy of it."""
+    names = list(grads)
+    state = {**opt_state, **{k: {n: opt_state[k][n].clone() for n in names}
+                             for k in ("master", "m", "v")}}
+    new_params = {n: torch.empty(state["master"][n].shape, dtype=param_dtype,
+                                 device=state["master"][n].device)
+                  for n in names}
+    metrics = adamw_update_(cfg, grads, state, new_params, param_dtype)
+    return new_params, state, metrics
+
+
+# the leaves an in-place update takes at once: consecutive leaves up to
+# this many elements (or one larger leaf), so that its float32
+# temporaries stay within a few times 0.5 GB
+GROUP_ELEMS = 1 << 27
+
+
+def _groups(names, tensors: Mapping[str, torch.Tensor]):
+    group, size = [], 0
+    for n in names:
+        if group and size + tensors[n].numel() > GROUP_ELEMS:
+            yield group
+            group, size = [], 0
+        group.append(n)
+        size += tensors[n].numel()
+    if group:
+        yield group
+
+
+def adamw_update_(
+    cfg: AdamWConfig,
+    grads: Mapping[str, torch.Tensor],     # any float dtype
+    opt_state: State,
+    params: Mapping[str, torch.Tensor],    # the model's parameters
+    param_dtype: torch.dtype,
+) -> Dict[str, torch.Tensor]:
+    """One AdamW step in place: ``opt_state``'s ``master``, ``m`` and
+    ``v`` tensors are updated and its ``step`` replaced, and each
+    parameter in ``params`` is written with its new master rounded to
+    ``param_dtype`` (then to its own dtype).  Returns the metrics
+    ``grad_norm`` and ``lr``.
 
     Per element, in the reference's order::
 
         g = g * scale;  m = b1 m + (1 - b1) g;  v = b2 v + ((1 - b2) g) g
         p = p - lr (m / bc1 / (sqrt(v / bc2) + eps) + wd p)
 
-    as ``torch._foreach_*`` ops over all leaves at once (the same float32
-    operations as one leaf at a time, a few launches instead of a dozen a
-    leaf)."""
+    as ``torch._foreach_*`` ops over one group of leaves (``GROUP_ELEMS``)
+    at a time -- the same float32 operations as one leaf at a time, a few
+    launches a group instead of a dozen a leaf -- so that beside the
+    state, the gradients and the parameters it holds only one group's
+    temporaries."""
     step = opt_state["step"] + 1
     dev = step.device
     stepf = step.to(torch.float32)
     lr = cosine_lr(cfg, stepf)
-
     gnorm = global_norm(grads)
     scale = torch.minimum(_f32(1.0, dev),
                           _f32(cfg.grad_clip, dev)
@@ -123,20 +172,23 @@ def adamw_update(
 
     # Python scalars enter the foreach kernels rounded to float32, as
     # JAX's weakly typed constants do
-    names = list(grads)
     fm, fa, fd = torch._foreach_mul, torch._foreach_add, torch._foreach_div
-    g = fm([grads[n].to(torch.float32) for n in names], scale)
-    m = fa(fm([opt_state["m"][n] for n in names], cfg.b1), fm(g, 1 - cfg.b1))
-    v = fa(fm([opt_state["v"][n] for n in names], cfg.b2),
-           fm(fm(g, 1 - cfg.b2), g))
-    del g
-    upd = fd(fd(m, bc1), fa(torch._foreach_sqrt(fd(v, bc2)), cfg.eps))
-    master = [opt_state["master"][n] for n in names]
-    upd = fa(upd, fm(master, cfg.weight_decay))
-    p = torch._foreach_sub(master, fm(upd, lr))
-    del upd
-    new_params = {n: x.to(param_dtype) for n, x in zip(names, p)}
-    state = {**opt_state, "master": dict(zip(names, p)),
-             "m": dict(zip(names, m)), "v": dict(zip(names, v)),
-             "step": step}
-    return new_params, state, {"grad_norm": gnorm, "lr": lr}
+    for names in _groups(list(grads), grads):
+        g = fm([grads[n].to(torch.float32) for n in names], scale)
+        m = [opt_state["m"][n] for n in names]
+        v = [opt_state["v"][n] for n in names]
+        master = [opt_state["master"][n] for n in names]
+        torch._foreach_mul_(m, cfg.b1)
+        torch._foreach_add_(m, fm(g, 1 - cfg.b1))
+        torch._foreach_mul_(v, cfg.b2)
+        torch._foreach_add_(v, fm(fm(g, 1 - cfg.b2), g))
+        del g
+        upd = fd(fd(m, bc1), fa(torch._foreach_sqrt(fd(v, bc2)), cfg.eps))
+        torch._foreach_add_(upd, fm(master, cfg.weight_decay))
+        torch._foreach_sub_(master, fm(upd, lr))
+        del upd
+        with torch.no_grad():
+            torch._foreach_copy_([params[n] for n in names],
+                                 [x.to(param_dtype) for x in master])
+    opt_state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}

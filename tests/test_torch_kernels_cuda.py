@@ -28,6 +28,10 @@ attention kernel is held to its plain version at the reference's
 to ``attention_bwd_ref`` within ``1e-4`` of each gradient's largest
 |value| (+ ``1e-6``) in float32 (the same float32 formulas summed in another order)
 and at ``atol = rtol = 3e-2`` in bf16, and two runs give the same bits;
+B7's backward kernel to ``wkv6_bwd_ref`` within ``1e-4`` of each
+gradient's largest |value| (+ ``1e-6``; float32, dlw from a telescoping
+sum), two runs the same bits, and ``wkv6`` under autograd to
+``wkv6_bwd`` bit for bit;
 ``DecoderLM`` on the
 card (B6 in every prefill) to the same model on the CPU (``gqa_attention``)
 at ``1e-3`` in float32, where the two attentions are one function, and at
@@ -77,10 +81,12 @@ from repro_torch.kernels.window_agg.ref import (
 from repro_torch.kernels.wkv6.ops import (
     launch_wkv6,
     plan_wkv6,
+    plan_wkv6_bwd,
     wkv6,
+    wkv6_bwd,
     wkv6_chunked,
 )
-from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_ref
+from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_bwd_ref, wkv6_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -1265,8 +1271,16 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
     torch.testing.assert_close(st272, sc272, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="mixed devices"):
         wkv6(r, k, v, lw, u.cpu(), s0)
-    with pytest.raises(NotImplementedError, match="B7's backward"):
-        wkv6(r.requires_grad_(), k, v, lw, u, s0)
+    # under autograd: the forward kernel, then B7's backward kernel
+    rg = r.detach().clone().requires_grad_()
+    y, _ = wkv6(rg, k, v, lw, u, s0)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    y.backward(dy)
+    _wkv_bwd_close(rg.grad, wkv6_bwd_ref(r, k, v, lw, u, s0, dy, None)[0])
+    with pytest.raises(NotImplementedError, match="A11d"):
+        r128 = _wkv_case(cuda, (1, 2, 20, 128), 5)[0]
+        wkv6(r128.requires_grad_(), r128, r128, -r128.abs(),
+             torch.zeros((2, 128), device=cuda))
     out = torch.empty_like(r.detach()), torch.empty_like(s0)
     launch_wkv6(r.detach(), k, v, lw, u, None, *out)  # zero state from null
     torch.cuda.synchronize()
@@ -1274,6 +1288,107 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
                                atol=1e-4, rtol=1e-4)
     with pytest.raises(RuntimeError, match="launch failed"):
         launch_wkv6(r48, k48, v48, lw48, u48, None, *out)  # no D = 48 build
+
+
+def _wkv_bwd_close(got, want):
+    """Within 1e-4 of the gradient's largest |value| + 1e-6 (float32
+    formulas summed in another order; dlw from the telescoping sum of
+    ``wkv6_bwd.cu``)."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if not want.numel():
+        return
+    bound = 1e-4 * float(want.abs().max()) + 1e-6
+    assert float((got - want).abs().max()) <= bound
+
+
+# (B, H, T, D), s0, ds_fin, lw edge, layout: the training shape on the
+# model's views, T on both sides of the kernel's 8-row chunks and of the
+# forward's 16, D below 64 (zero-padded), the lw edges
+WKV_BWD_CASES = [
+    ((2, 40, 1024, 64), False, False, None, "bthd"),
+    ((2, 40, 1024, 64), True, True, None, "bthd"),
+    *[((2, 3, T, 64), True, True, None, "bthd") for T in (1, 7, 8, 15, 17, 100)],
+    ((2, 3, 0, 64), True, True, None, "bhtd"),
+    ((1, 2, 33, 48), True, True, None, "bthd"),
+    ((1, 2, 20, 32), False, True, None, "bhtd"),
+    ((1, 2, 48, 64), True, True, "positive", "bhtd"),
+    ((1, 2, 48, 64), True, True, "below_floor", "bhtd"),
+    ((1, 2, 48, 64), True, True, "zero", "bhtd"),
+    ((1, 2, 48, 64), True, True, "chunk_at_floor", "bhtd"),
+]
+
+
+@pytest.mark.parametrize("shape,with_s0,with_dsf,edge,layout", WKV_BWD_CASES)
+def test_wkv6_bwd_kernel_matches_ref(cuda, shape, with_s0, with_dsf, edge,
+                                     layout):
+    """B7's backward kernel against ``wkv6_bwd_ref``: one launch; two runs
+    the same bits; the model's views take their gradients in their own
+    layout, uncopied; D < 64 padded."""
+    r, k, v, lw, u, s0 = _wkv_case(cuda, shape, 3 + sum(shape), edge, layout)
+    g = torch.Generator().manual_seed(sum(shape))
+    dy = torch.randn(r.shape, generator=g).to(cuda)
+    if layout == "bthd":
+        dy = dy.transpose(1, 2).contiguous().transpose(1, 2)
+    dsf = torch.randn(s0.shape, generator=g).to(cuda) * 0.1 if with_dsf else None
+    s0 = s0 if with_s0 else None
+    plan = plan_wkv6_bwd(r, k, v, lw, dy)
+    assert plan.copy == (shape[3] != 64,) * 5
+    kernels.reset_launches()
+    got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == {"d64": 1}
+    assert kernels.LAUNCHES["wkv6_bwd"] == 1
+    again = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+    want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
+    torch.cuda.synchronize()
+    for x, a, b, w in zip((r, k, v, lw, u, s0), got, again, want):
+        if w is None:
+            assert a is None
+            continue
+        assert torch.equal(a, b)
+        _wkv_bwd_close(a, w)
+        if x.dim() == 4 and not any(plan.copy):
+            assert a.stride() == x.stride()
+
+
+def test_wkv6_autograd_on_the_card(cuda):
+    """``wkv6`` under autograd on the model's (B, S, H, 64) views: the
+    forward kernel once (the same bits as under no_grad), the backward
+    kernel once, gradients == ``wkv6_bwd``; an unused final state brings
+    no gradient (ds_fin None), an unused y none either (dy zeros); the
+    forward twice and the backward once under ``checkpoint``; only the
+    gradients asked for are computed."""
+    from torch.utils.checkpoint import checkpoint
+
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (2, 4, 70, 64), 21, None, "bthd")
+    leaves = [x.detach().clone().requires_grad_() for x in (r, k, v, lw, u, s0)]
+    with torch.no_grad():
+        plain = wkv6(r, k, v, lw, u, s0)
+    kernels.reset_launches()
+    y, s_fin = wkv6(*leaves)
+    assert kernels.LAUNCHES["wkv6"] == 1 and torch.equal(y, plain[0])
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+    y.backward(dy)
+    assert kernels.LAUNCHES["wkv6_bwd"] == 1
+    want = wkv6_bwd(r, k, v, lw, u, s0, dy, None)
+    for x, w in zip(leaves, want):
+        assert torch.equal(x.grad, w)
+    # only the final state used: dy comes in as zeros
+    for x in leaves:
+        x.grad = None
+    _, s_fin = wkv6(*leaves)
+    dsf = torch.randn(s_fin.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    s_fin.backward(dsf)
+    want = wkv6_bwd(r, k, v, lw, u, s0, torch.zeros_like(r), dsf)
+    for x, w in zip(leaves, want):
+        assert torch.equal(x.grad, w)
+    # rematerialized as RWKV6LM.loss does; u alone asks for a gradient
+    kernels.reset_launches()
+    ul = u.detach().clone().requires_grad_()
+    out = checkpoint(lambda uu: wkv6(r, k, v, lw, uu, None)[0], ul,
+                     use_reentrant=False)
+    out.backward(dy)
+    assert (kernels.LAUNCHES["wkv6"], kernels.LAUNCHES["wkv6_bwd"]) == (2, 1)
+    _wkv_bwd_close(ul.grad, wkv6_bwd_ref(r, k, v, lw, u, None, dy, None)[4])
 
 
 def test_time_mix_hands_b7_its_views_without_copies(cuda, monkeypatch):

@@ -114,6 +114,37 @@ def test_adamw_writes_the_param_dtype_and_leaves_the_state_alone():
     assert int(state["step"]) == 0 and int(new_state["step"]) == 1
 
 
+def test_adamw_update_in_place_by_groups_is_the_same_step(monkeypatch):
+    """``adamw_update_`` (the train step's, in place) a group of leaves at
+    a time gives the bits of ``adamw_update`` with every leaf in one group
+    over 3 steps: master, m, v, step, the metrics, and the parameters
+    written in their own dtypes (bf16 and float32 leaves)."""
+    rng = np.random.default_rng(4)
+    flat = dict(_flat(_tree(rng)))
+    params = {k: torch.from_numpy(v).to(
+        torch.float32 if "ln" in k else torch.bfloat16) for k, v in flat.items()}
+    cfg = adamw.AdamWConfig(warmup_steps=2, decay_steps=5, grad_clip=0.5)
+    pure = adamw.adamw_init(params)
+    state = adamw.adamw_init(params)
+    live = {n: p.clone() for n, p in params.items()}
+    assert len(list(adamw._groups(list(live), live))) == 1
+    for _ in range(3):
+        grads = {n: torch.from_numpy(rng.normal(size=p.shape).astype(
+            np.float32)) for n, p in params.items()}
+        new, pure, pm = adamw.adamw_update(cfg, grads, pure, torch.bfloat16)
+        with monkeypatch.context() as mp:
+            mp.setattr(adamw, "GROUP_ELEMS", 600)
+            assert len(list(adamw._groups(list(live), live))) == 4
+            m = adamw.adamw_update_(cfg, grads, state, live, torch.bfloat16)
+        for k in ("grad_norm", "lr"):
+            assert torch.equal(m[k], pm[k])
+        assert torch.equal(state["step"], pure["step"])
+        for n in params:
+            for k in ("master", "m", "v"):
+                assert torch.equal(state[k][n], pure[k][n]), (k, n)
+            assert torch.equal(live[n], new[n].to(live[n].dtype)), n
+
+
 def _leaves(rng):
     return [
         rng.normal(size=(1000,)).astype(np.float32),         # 1000 % 256

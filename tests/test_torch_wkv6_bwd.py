@@ -1,0 +1,273 @@
+"""B7's backward on the CPU: the plain version ``wkv6_bwd_ref`` against
+``jax.vjp`` of the reference's ``wkv6(..., impl="xla")`` (the function its
+model differentiates), against autograd of the port's two forward plain
+versions, the clamp's end rule, a numpy replay of the backward kernel's
+sweeps (``kernels/csrc/wkv6_bwd.cu``) and the kernel's plan.
+
+Inputs are drawn with ``np.random.default_rng`` and scaled as
+``tests/test_kernels.py`` scales the forward's.  Tolerance: each gradient
+within ``2e-5`` of its largest |value| + ``1e-6`` (float32 formulas summed
+in other orders; the chunked forward's exp(±cum) reach e^56 inside a
+chunk, yet its gradient stays within 2.5e-6 of the recurrence's).  The
+lw drawn for the JAX comparison keep away from the clamp's ends, where
+the packages part by design: ``jnp.clip``'s gradient is 0.5 there,
+``torch.clamp``'s (and the port's) 1 (``test_clamp_end_rule``).
+
+Cost: one ``jax.jit`` compile of the vjp per case of ``JAX_CASES`` (the
+clamp test reuses the first case's); everything else is PyTorch at small
+sizes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
+from repro_torch.kernels.wkv6.ops import (
+    BWD_HEAD_DIM,
+    plan_wkv6_bwd,
+    wkv6_bwd,
+    wkv6_chunked,
+)
+from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_bwd_ref, wkv6_ref
+
+REL, ABS = 2e-5, 1e-6
+NAMES = ("dr", "dk", "dv", "dlw", "du", "ds0")
+
+# (B, H, T, D), s0 given, ds_fin given: T = 1 and T = 17 (not a multiple
+# of the chunk), D = 64 and D = 32, s0 and ds_fin present and absent
+JAX_CASES = [
+    ((2, 2, 17, 64), True, True),
+    ((1, 3, 1, 32), False, False),
+    ((2, 2, 40, 32), True, False),
+    ((1, 2, 33, 64), False, True),
+]
+
+
+def _inputs(shape, seed, with_s0=True, with_dsf=True, lw_scale=1.0):
+    """(r, k, v, lw, u, s0, dy, ds_fin) as numpy float32 (s0 / ds_fin
+    None when not given); lw = -exp(N(0, 1) - 1) * ``lw_scale``."""
+    B, H, T, D = shape
+    rng = np.random.default_rng(seed)
+    f = np.float32
+
+    def n(*s):
+        return rng.normal(size=s)
+
+    lw = (-np.exp(n(B, H, T, D) - 1.0) * lw_scale).astype(f)
+    return ((n(B, H, T, D) * 0.5).astype(f), (n(B, H, T, D) * 0.5).astype(f),
+            n(B, H, T, D).astype(f), lw, (n(H, D) * 0.3).astype(f),
+            (n(B, H, D, D) * 0.1).astype(f) if with_s0 else None,
+            n(B, H, T, D).astype(f),
+            (n(B, H, D, D) * 0.1).astype(f) if with_dsf else None)
+
+
+def _torch(xs):
+    return [None if x is None else torch.from_numpy(x) for x in xs]
+
+
+def _close(got, want, what):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape, what
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    bound = REL * (float(np.abs(want).max()) if want.size else 0.0) + ABS
+    assert err <= bound, f"{what}: max |diff| {err:.3e} > {bound:.3e}"
+
+
+_JAX_VJP = {}
+
+
+def _jax_grads(r, k, v, lw, u, s0, dy, ds_fin):
+    """The reference's gradients of ``wkv6(..., impl="xla")`` (one jit of
+    the whole vjp per argument structure and shape)."""
+    with_s0 = s0 is not None
+    fn = _JAX_VJP.get(with_s0)
+    if fn is None:
+        def vjp(args, cot):
+            def f(*a):
+                return jax_wkv6(*a[:5], a[5] if with_s0 else None, impl="xla")
+            return jax.vjp(f, *args)[1](cot)
+        fn = _JAX_VJP[with_s0] = jax.jit(vjp)
+    B, H, T, D = r.shape
+    args = [jnp.asarray(x) for x in (r, k, v, lw, u) + ((s0,) if with_s0 else ())]
+    dsf = np.zeros((B, H, D, D), np.float32) if ds_fin is None else ds_fin
+    out = [np.asarray(g) for g in fn(args, (jnp.asarray(dy), jnp.asarray(dsf)))]
+    return out + ([] if with_s0 else [None])
+
+
+def _check_all(got, want, where):
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None, f"{where}: {name} should be None"
+            continue
+        _close(g, w, f"{where}: {name}")
+
+
+@pytest.mark.parametrize("shape,with_s0,with_dsf", JAX_CASES)
+def test_bwd_ref_matches_jax_vjp(shape, with_s0, with_dsf):
+    xs = _inputs(shape, sum(shape), with_s0, with_dsf)
+    r, k, v, lw, u, s0, dy, dsf = xs
+    # keep lw away from the clamp's ends (the packages' rules differ there)
+    assert not np.any(np.isin(lw, [LOG_W_MIN, 0.0]))
+    want = _jax_grads(*xs)
+    got = wkv6_bwd_ref(*_torch(xs))
+    _check_all([None if g is None else g.numpy() for g in got], want,
+               f"wkv6_bwd_ref vs jax.vjp {shape}")
+
+
+def _autograd(forward, r, k, v, lw, u, s0, dy, ds_fin):
+    """Gradients of ``forward`` (wkv6_ref or wkv6_chunked) by autograd,
+    with cotangents dy and ds_fin (zero when None)."""
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, lw, u)]
+    s0l = None if s0 is None else s0.clone().requires_grad_()
+    y, s_fin = forward(*leaves, s0l)
+    outs, cots = [y], [dy]
+    if ds_fin is not None:
+        outs.append(s_fin)
+        cots.append(ds_fin)
+    wrt = leaves + ([s0l] if s0l is not None else [])
+    grads = torch.autograd.grad(outs, wrt, cots, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, wrt)]
+    return grads + ([] if s0l is not None else [None])
+
+
+@pytest.mark.parametrize("shape,with_s0,with_dsf,lw_scale", [
+    ((2, 2, 17, 64), True, True, 1.0),
+    ((1, 3, 1, 32), False, False, 1.0),
+    ((2, 2, 40, 32), True, False, 4.0),    # many lw below the floor
+    ((1, 2, 64, 16), False, True, 0.05),   # little decay: the state grows
+])
+def test_bwd_matches_autograd_of_the_forward_plain_versions(
+        shape, with_s0, with_dsf, lw_scale):
+    """``wkv6_bwd`` on CPU tensors (its plain version) against autograd of
+    the recurrence ``wkv6_ref`` and of the chunked ``wkv6_chunked``."""
+    xs = _torch(_inputs(shape, 3 + sum(shape), with_s0, with_dsf, lw_scale))
+    got = wkv6_bwd(*xs[:6], xs[6], xs[7])
+    for forward in (wkv6_ref, wkv6_chunked):
+        want = _autograd(forward, *xs)
+        _check_all(got, want, f"wkv6_bwd vs autograd of {forward.__name__} {shape}")
+
+
+def test_bwd_needs_dtypes_and_no_rows():
+    """``needs`` leaves the gradients not asked for None; each gradient
+    comes back in its input's dtype; T = 0 passes ds_fin through."""
+    r, k, v, lw, u, s0, dy, dsf = _torch(_inputs((1, 2, 9, 64), 5))
+    got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf,
+                   needs=(True, False, True, False, True, False))
+    assert [g is None for g in got] == [False, True, False, True, False, True]
+    bf = wkv6_bwd(r.bfloat16(), k, v, lw, u.double(), s0, dy, None)
+    assert bf[0].dtype == torch.bfloat16 and bf[4].dtype == torch.float64
+    assert bf[1].dtype == torch.float32 and bf[5].dtype == torch.float32
+    # no rows: empty gradients, du = 0, ds0 = ds_fin
+    r, k, v, lw, u, s0, dy, dsf = _torch(_inputs((1, 2, 0, 64), 6))
+    dr, dk, dv, dlw, du, ds0 = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+    assert dr.shape == (1, 2, 0, 64) and not du.any()
+    assert torch.equal(ds0, dsf)
+
+
+def test_clamp_end_rule():
+    """At lw = -3.5 and lw = 0 exactly the port's dlw follows
+    ``torch.clamp`` (gradient 1: equal to autograd of ``wkv6_ref``), while
+    the reference's ``jnp.clip`` gives half of it there; beyond the ends
+    both give 0, inside they agree."""
+    shape, with_s0, with_dsf = JAX_CASES[0]  # the first case's compile
+    xs = list(_inputs(shape, 77, with_s0, with_dsf))
+    lw = xs[3]
+    lw[..., 0::4] = LOG_W_MIN
+    lw[..., 1::4] = 0.0
+    lw[..., 2, :] = -5.0                      # beyond the floor
+    lw[..., 3, :8] = 0.25                     # above 0
+    ends = np.zeros(lw.shape, bool)
+    ends[..., 0::4] = ends[..., 1::4] = True
+    ends[..., 2, :] = False
+    ends[..., 3, :8] = False
+    got = wkv6_bwd_ref(*_torch(xs))
+    dlw = got[3].numpy()
+    want = _autograd(wkv6_ref, *_torch(xs))
+    _close(dlw, want[3].numpy(), "dlw vs torch.clamp's autograd")
+    assert np.all(dlw[..., 2, :] == 0.0) and np.all(dlw[..., 3, :8] == 0.0)
+    assert np.abs(dlw[ends]).min() > 0.0
+    jax_dlw = _jax_grads(*xs)[3]
+    _close(jax_dlw[ends], 0.5 * dlw[ends], "JAX's dlw at the ends (half)")
+    _close(jax_dlw[~ends], dlw[~ends], "JAX's dlw elsewhere")
+    for g, w in zip(got[:3] + got[4:], want[:3] + want[4:]):
+        _close(g.numpy(), w.numpy(), "the other gradients")
+
+
+def _replay_kernel(r, k, v, lw, u, s0, dy, ds_fin):
+    """numpy replay (float64) of ``wkv6_bwd.cu``'s arithmetic: the rows
+    blocks' forward sweep (dr, q_t = r_t (S_{t-1} dy_t) left in dlw's
+    slot, du), their reverse sweep carrying dS and P_t = Σ_j dS_t S_t
+    (dlw_t = P_t - k_t (dS_t v_t), P_{t-1} = dlw_t + q_t), and the columns
+    blocks' reverse sweep (dv)."""
+    f = np.float64
+    r, k, v, lw, dy = (x.astype(f) for x in (r, k, v, lw, dy))
+    B, H, T, D = r.shape
+    w = np.exp(np.clip(lw, LOG_W_MIN, 0.0))
+    S = np.zeros((B, H, D, D)) if s0 is None else s0.astype(f)
+    dr, dk, dv, dlw = (np.zeros((B, H, T, D)) for _ in range(4))
+    du = np.zeros((B, H, D))
+    for t in range(T):
+        sdy = np.einsum("bhij,bhj->bhi", S, dy[:, :, t])
+        vdy = (v[:, :, t] * dy[:, :, t]).sum(-1, keepdims=True)
+        dr[:, :, t] = sdy + u * k[:, :, t] * vdy
+        dlw[:, :, t] = r[:, :, t] * sdy                       # q_t
+        du += r[:, :, t] * k[:, :, t] * vdy
+        S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None, :]
+    dS = np.zeros((B, H, D, D)) if ds_fin is None else ds_fin.astype(f)
+    P = (dS * S).sum(-1)
+    for t in reversed(range(T)):
+        dsv = np.einsum("bhij,bhj->bhi", dS, v[:, :, t])
+        vdy = (v[:, :, t] * dy[:, :, t]).sum(-1, keepdims=True)
+        dk[:, :, t] = dsv + u * r[:, :, t] * vdy
+        dv[:, :, t] = (np.einsum("bhij,bhi->bhj", dS, k[:, :, t])
+                       + (r[:, :, t] * u * k[:, :, t]).sum(-1, keepdims=True)
+                       * dy[:, :, t])
+        g = P - k[:, :, t] * dsv
+        P = g + dlw[:, :, t]
+        inside = (lw[:, :, t] >= LOG_W_MIN) & (lw[:, :, t] <= 0.0)
+        dlw[:, :, t] = np.where(inside, g, 0.0)
+        dS = w[:, :, t, :, None] * dS + r[:, :, t, :, None] * dy[:, :, t, None, :]
+    return dr, dk, dv, dlw, du.sum(0), None if s0 is None else dS
+
+
+@pytest.mark.parametrize("lw_scale,with_s0,with_dsf", [
+    (1.0, True, True), (0.02, False, True), (8.0, True, False),
+])
+def test_kernel_sweeps_replay_matches_bwd_ref(lw_scale, with_s0, with_dsf):
+    """The kernel's dlw without the states: the telescoping P recurrence
+    (replayed in numpy) equals ``wkv6_bwd_ref`` over 100 rows, with little
+    decay (the state grows), typical decay and lw mostly at the floor."""
+    xs = _inputs((2, 2, 100, 64), 11, with_s0, with_dsf, lw_scale)
+    if lw_scale == 8.0:
+        xs[3][..., ::5] = LOG_W_MIN             # on the end: kept
+        xs[3][..., 1::7] = 0.0
+    got = _replay_kernel(*xs)
+    want = wkv6_bwd_ref(*_torch(xs))
+    _check_all(got, [None if w is None else w.numpy() for w in want],
+               f"replay lw_scale={lw_scale}")
+
+
+def test_bwd_plan():
+    """What the kernel takes as it is: the model's (B, T, H, 64) views
+    viewed as (B, H, T, 64); D < 64 is padded (every input copied), a
+    bf16 dy, a D-strided or 4-byte-offset view is copied; D > 64 raises
+    naming ROADMAP A11d."""
+    def views(D, T=40):
+        return [torch.randn(2, T, 3, D).transpose(1, 2) for _ in range(5)]
+
+    plan = plan_wkv6_bwd(*views(64))
+    assert plan.head_dim == BWD_HEAD_DIM == 64
+    assert plan.copy == (False,) * 5
+    assert plan_wkv6_bwd(*views(48)).copy == (True,) * 5
+    r, k, v, lw, dy = views(64)
+    assert plan_wkv6_bwd(r, k, v, lw, dy.bfloat16()).copy == (False,) * 4 + (True,)
+    base = torch.randn(2, 3, 40, 65)
+    assert plan_wkv6_bwd(base[..., 1:], k, v, lw, dy).copy[0]
+    v_strided = torch.randn(2, 3, 64, 40).transpose(2, 3)   # D not contiguous
+    assert plan_wkv6_bwd(r, k, v_strided, lw, dy).copy == (
+        False, False, True, False, False)
+    with pytest.raises(NotImplementedError, match="A11d"):
+        plan_wkv6_bwd(*views(128))

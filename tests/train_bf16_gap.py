@@ -1,20 +1,31 @@
-"""How far seamless-m4t-medium's bf16 training pass parts when flash
-attention (B6, forward and backward kernels) is swapped for the plain
-``gqa_attention`` (a measurement, not a test: pytest does not collect this
-file).  Card only; full width and depth, weights drawn at each seed as
+"""How far a model's bf16 training pass parts when its kernels (forward
+and backward) are swapped for their plain versions (a measurement, not a
+test: pytest does not collect this file).  ``--model seamless`` (the
+default): flash attention (B6) against the plain ``gqa_attention`` on
+seamless-m4t-medium; ``--model rwkv6``: the WKV6 scan (B7) against
+autograd of ``wkv6_chunked`` on rwkv6-3b, its ``mu``, ``u`` and ``w0``
+randomized from the seed + 10 as ``chip_smoke.py``'s checks do.  Card
+only; full width and depth, weights drawn at each seed as
 ``chip_smoke.py`` draws them at its ``SEED``, on the batch its training
 checks use (``launch.train``'s first batch, ``TRAIN_PLAIN_BATCH``
 sequences)::
 
     PYTHONPATH=src python tests/train_bf16_gap.py --seeds 0 1 2 3 4
+    PYTHONPATH=src python tests/train_bf16_gap.py --model rwkv6 --seeds 0 1 2 3 4
 
 Prints one JSON line per seed -- the loss's |diff| and the largest
 per-leaf gradient distances (``grad_rel``: ||g_kernel - g_plain|| over
 ||g_plain||; ``grad_max_rel``: max |g_kernel - g_plain| over the leaf's
 largest |g_plain|) -- then one with the largest values, which
-``chip_smoke.py``'s ``TRAIN_BF16_LOSS`` / ``TRAIN_BF16_GRAD`` bound at
-1.5 times.  ``--float32``: the float32 model at 1 + 1 layers (full
-width), which ``TRAIN_F32_REL`` bounds.
+``chip_smoke.py``'s ``TRAIN_BF16_LOSS`` / ``TRAIN_BF16_GRAD`` (seamless)
+and ``TRAIN_RWKV_BF16_LOSS`` / ``TRAIN_RWKV_BF16_GRAD`` (rwkv6) bound at
+1.5 times.  ``--float32``: the float32 model at 1 + 1 layers (seamless)
+or ``TRAIN_RWKV_F32_LAYERS`` layers (rwkv6), full width, which
+``TRAIN_F32_REL`` / ``TRAIN_RWKV_F32_REL`` bound; ``loss_rel`` is the
+loss's relative |diff| there.  ``--model rwkv6 --scans``: the same
+distances between two plain versions, autograd of ``wkv6_chunked``
+against autograd of the recurrence ``wkv6_ref`` (no kernel): how far
+bf16 alone carries a float32 rounding difference in the scan.
 """
 
 import argparse
@@ -27,32 +38,69 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 
-from repro_torch.configs import seamless_m4t_medium  # noqa: E402
+from repro_torch.configs import rwkv6_3b, seamless_m4t_medium  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+
+
+def scans_gap(model, batch):
+    """``train_against_plain``'s distances between autograd of the two
+    plain WKV6 scans, the chunked one as "kernel", the recurrence as
+    "plain"."""
+    from repro_torch.kernels.wkv6.ops import wkv6_chunked
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.models import rwkv6
+
+    kernel_fn, runs = rwkv6.wkv6, []
+    try:
+        for fn in (wkv6_chunked, wkv6_ref):
+            rwkv6.wkv6 = fn
+            runs.append(cs.loss_and_grads(model, batch))
+    finally:
+        rwkv6.wkv6 = kernel_fn
+    return cs.grad_gap(model, *runs[0], *runs[1])
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("seamless", "rwkv6"),
+                    default="seamless")
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--float32", action="store_true")
+    ap.add_argument("--scans", action="store_true",
+                    help="rwkv6: wkv6_chunked against wkv6_ref, no kernel")
     args = ap.parse_args(argv)
-    cfg = seamless_m4t_medium.config()
-    if args.float32:
-        cfg = cfg.replace(n_layers=1, n_encoder_layers=1,
-                          param_dtype="float32", compute_dtype="float32")
-    batch = cs._plain_batch(cfg, cs.TRAIN_PLAIN_BATCH)
-    worst = {"loss_diff": 0.0, "grad_rel": 0.0, "grad_max_rel": 0.0}
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    if args.model == "seamless":
+        cfg = seamless_m4t_medium.config()
+        if args.float32:
+            cfg = cfg.replace(n_layers=1, n_encoder_layers=1, **f32)
+        batch = cs._plain_batch(cfg, cs.TRAIN_PLAIN_BATCH)
+        plain = cs.b6_plain()
+    else:
+        cfg = rwkv6_3b.config()
+        if args.float32:
+            cfg = cfg.replace(n_layers=cs.TRAIN_RWKV_F32_LAYERS, **f32)
+        batch = cs._plain_batch(cfg, cs.TRAIN_PLAIN_BATCH, cs.TRAIN_RWKV)
+        plain = cs.b7_plain()
+    worst = {"loss_diff": 0.0, "loss_rel": 0.0, "grad_rel": 0.0,
+             "grad_max_rel": 0.0}
     for seed in args.seeds:
         model = build_model(cfg, seed=seed, device="cuda")
-        r = cs.train_against_plain(model, batch)
+        if args.model == "rwkv6":
+            cs.randomize_rwkv6(model, seed + 10)
+        r = (scans_gap(model, batch) if args.scans
+             else cs.train_against_plain(model, batch, plain))
+        r["loss_rel"] = r["loss_diff"] / abs(r["loss_plain"])
         r["seed"] = seed
         print(json.dumps(r), flush=True)
         for k in worst:
             worst[k] = max(worst[k], r[k])
         del model
         torch.cuda.empty_cache()
-    print(json.dumps({"largest": worst, "seeds": args.seeds,
-                      "float32": args.float32}), flush=True)
+    print(json.dumps({"largest": worst, "model": args.model,
+                      "seeds": args.seeds, "float32": args.float32,
+                      "scans": args.scans}),
+          flush=True)
 
 
 if __name__ == "__main__":
