@@ -416,17 +416,26 @@ Phases, in order; any failure exits non-zero:
    cards in a day, where the ring (256 rows) wraps and every one of the
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
-24. **Training.**  (a) B6's backward kernel against
-    ``attention_bwd_ref``: the reference's six kernel-test shapes in
-    float32, S = 1, 127, 129 in both dtypes, the training paths' shapes
-    in bf16 (``FA_BWD_SHAPES``); two runs the same bits; D = 288 under
+24. **Training.**  (a) B6's backward kernel: its build report (HGMMA in
+    the bf16 dQ and dK / dV kernels, no atomic instruction in the
+    library), then against ``attention_bwd_ref``: the reference's six
+    kernel-test shapes in float32 (``simt``), S = 1, 127, 129 in both
+    dtypes, the training paths' shapes in bf16 (``FA_BWD_SHAPES``,
+    ``wgmma`` with the forward's lse, itself within ``FA_LSE_TOL`` of
+    ``attention_lse_ref`` and leaving o's bits as they are); each call's
+    launches by name as planned; two runs the same bits; D = 288 under
     autograd raises; ``attention`` under autograd on (B, S, H, D) views
-    launches the forward once and the backward once; each path shape
-    timed beside the plain version and SDPA's backward.  (b)
-    seamless-m4t-medium at full width and depth through
+    launches the forward once and the backward's launches once; each path
+    shape timed in turns with SDPA's backward under its fastest backend
+    (``FA_BWD_REPS`` reps each after 3 warm-ups; every backend that takes
+    the shape timed and printed), beside the plain version and the bound
+    (device times alone: ``scripts/torch_kernel_times.py --kernels
+    b6bwd``, in a process of its own).
+    (b) seamless-m4t-medium at full width and depth through
     ``launch.train.main(TRAIN_SEAMLESS)``: 20 steps of 8 x 1,024 tokens
     in 4 microbatches, the loss finite and falling, B6 forward 192
-    (``wgmma``) and backward 192 launches every step; step p50, tokens/s,
+    (``wgmma``) and backward 288 launches (96 calls of delta, dq, dkdv)
+    every step; step p50, tokens/s,
     peak memory and one traced step; then one microbatch of 2 sequences
     against ``gqa_attention``: bf16 at full depth within
     ``TRAIN_BF16_LOSS`` / ``TRAIN_BF16_GRAD``, float32 at 1 + 1 layers
@@ -692,6 +701,9 @@ FA_THRESHOLD_SHAPES = {
 # least one of these
 FA_TENSOR_CORE_OPS = {"fa_wgmma_kernel": ("HGMMA",),
                       "fa_mma16_kernel": ("HMMA", "HGMMA")}
+# B6's backward: its bf16 kernels must reach the tensor cores
+FA_BWD_TENSOR_CORE_OPS = {"bwd_dq_wgmma_kernel": ("HGMMA",),
+                          "bwd_dkdv_wgmma_kernel": ("HGMMA",)}
 # the nemotron-4-15b serving phase: 8 prompts of 2,048 tokens, 32 greedy
 # decode steps into a FullKV of 2,080 positions
 NEMO_BATCH, NEMO_PROMPT, NEMO_DECODE = 8, 2048, 32
@@ -768,6 +780,11 @@ FA_BWD_SHAPES = {
     "window": (1, 32, 8, 4096, 128, True, 2048),
     "recurrentgemma": (1, 16, 1, 4096, 256, True, 2048),
 }
+# B6-bwd and SDPA's backward: reps of each, timed in turns
+FA_BWD_REPS = 20
+# the forward's lse against attention_lse_ref: atol = rtol (float32 sums
+# of the same exponentials in other orders)
+FA_LSE_TOL = 1e-4
 # S = 1 and S on either side of a 128-row boundary, both dtypes
 FA_BWD_EDGES = [(2, 4, 2, 1, 64, True, None), (2, 4, 2, 127, 64, True, None),
                 (2, 4, 2, 129, 96, False, 40)]
@@ -4815,31 +4832,36 @@ def _fa_inputs(gen, shape, dtype):
 
 
 def _fa_label(mangled: str) -> str:
-    """``fa_wgmma_kernel<128>`` from a mangled kernel name."""
+    """``fa_wgmma_kernel<128>`` / ``bwd_dq_wgmma_kernel<128>`` from a
+    mangled kernel name."""
     import re
 
     m = re.search(r"(fa_[a-z0-9]+_kernel)I(13__nv_bfloat16|f)E", mangled)
     if m is not None:  # fa_wide_kernel<float> / <bf16>
         return f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"
-    m = re.search(r"(fa_[a-z0-9]+_kernel)I((?:Li\d+E)+)E", mangled)
+    # the name follows its length's digits (past the file's namespace)
+    m = re.search(r"(?<=\d)((?:fa|bwd)_[a-z0-9_]+?_kernel)(I(?:f|Li\d+E)+E)?",
+                  mangled)
     if m is None:
         return mangled
-    return f"{m.group(1)}<{', '.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
+    args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
 
-def flash_attention_build_report() -> dict:
-    """Per instantiation of B6: registers and spills (``ptxas -v``), and
-    its ``HGMMA`` / ``HMMA`` instruction counts (``cuobjdump -sass`` on the
-    built library).  Fails if a bf16 instantiation has no tensor-core
-    instruction."""
+def kernel_build_report(name: str, tensor_core_ops: dict) -> dict:
+    """Per kernel of library ``name``: registers and spills (``ptxas
+    -v``), and its ``HGMMA`` / ``HMMA`` and atomic (``ATOM`` / ``RED``)
+    instruction counts (``cuobjdump -sass`` on the built library).  Fails
+    if a kernel named in ``tensor_core_ops`` has none of its tensor-core
+    instructions, or is missing."""
     import re
     import shutil
 
     from repro_torch.kernels import build
 
-    path = build.build(["flash_attention"])["flash_attention"]
+    path = build.build([name])[name]
     report, fn = {}, None
-    for ln in build.BUILD_LOGS.get("flash_attention", "").splitlines():
+    for ln in build.BUILD_LOGS.get(name, "").splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             fn = _fa_label(m.group(1))
@@ -4858,24 +4880,27 @@ def flash_attention_build_report() -> dict:
         m = re.search(r"Function : (\S+)", ln)
         if m:
             fn = _fa_label(m.group(1))
-            report.setdefault(fn, {}).update(HGMMA=0, HMMA=0)
+            report.setdefault(fn, {}).update(HGMMA=0, HMMA=0, atomics=0)
         elif fn:
             for op in ("HGMMA", "HMMA"):
                 if re.search(rf"\b{op}\.", ln):
                     report[fn][op] += 1
-    if not build.BUILD_LOGS:
-        print("  (the library was already built: no ptxas report)", flush=True)
+            if re.search(r"\b(ATOMS?|ATOMG|RED)\b", ln):
+                report[fn]["atomics"] += 1
+    if name not in build.BUILD_LOGS:
+        print(f"  ({name} was already built: no ptxas report)", flush=True)
     for fn, r in sorted(report.items()):
-        print(f"  flash_attention {fn}: {r.get('registers', '?')} registers, "
-              f"spill stores / loads {r.get('spills', '?')} bytes, SASS "
-              f"HGMMA {r.get('HGMMA', 0)}, HMMA {r.get('HMMA', 0)}", flush=True)
-        for kernel, ops in FA_TENSOR_CORE_OPS.items():
+        print(f"  {name} {fn}: {r.get('registers', '?')} registers, spill "
+              f"stores / loads {r.get('spills', '?')} bytes, SASS HGMMA "
+              f"{r.get('HGMMA', 0)}, HMMA {r.get('HMMA', 0)}, atomics "
+              f"{r.get('atomics', 0)}", flush=True)
+        for kernel, ops in tensor_core_ops.items():
             if fn.startswith(kernel) and not any(r.get(op) for op in ops):
-                _fail(f"flash attention's bf16 instantiation {fn} has no "
+                _fail(f"{name}'s bf16 kernel {fn} has no "
                       f"{' / '.join(ops)} instruction in its SASS")
-    for kernel in FA_TENSOR_CORE_OPS:
+    for kernel in tensor_core_ops:
         if not any(fn.startswith(kernel) for fn in report):
-            _fail(f"no {kernel} instantiation in the built library")
+            _fail(f"no {kernel} instantiation in the built {name} library")
     return report
 
 
@@ -4900,15 +4925,17 @@ def check_flash_attention_kernel(results) -> None:
     """Flash attention (B6): the build report of its instantiations; the
     kernel against ``attention_ref`` on the reference's test shapes and
     the paths' shapes; every path shape timed beside the plain version and
-    SDPA; both bf16 instantiations timed at short sequences (the dispatch
-    threshold); float32 timed at nemotron's shape."""
+    SDPA; the lse epilogue timed on and off in turns at those shapes (o
+    bit-equal); both bf16 instantiations timed at short sequences (the
+    dispatch threshold); float32 timed at nemotron's shape."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
-        SHORT_SEQ_MAX, attention, launch_flash_attention, plan_attention,
+        MAX_HEAD_DIM, SHORT_SEQ_MAX, attention, attention_with_lse,
+        launch_flash_attention, plan_attention,
     )
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    flash_attention_build_report()
+    kernel_build_report("flash_attention", FA_TENSOR_CORE_OPS)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     cases = [(f"test {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
              for sh in FA_TEST_SHAPES]
@@ -4967,6 +4994,30 @@ def check_flash_attention_kernel(results) -> None:
               f"{max(by_bytes, by_ops) / kernel_ms:.3f} of the bound)",
               flush=True)
         del q, k, v
+        torch.cuda.empty_cache()
+
+    # the lse the forward writes under autograd (D <= 256): the output's
+    # bits and the time without it (no_grad, the serving paths) and with
+    # it, in turns
+    for name in FA_TIMED:
+        shape = FA_PATH_SHAPES[name]
+        if shape[4] > MAX_HEAD_DIM:
+            continue
+        causal, window = shape[5:]
+        q, k, v = _fa_inputs(gen, shape, torch.bfloat16)
+        o = attention(q, k, v, causal=causal, window=window)
+        o2, _ = attention_with_lse(q, k, v, causal=causal, window=window)
+        if not torch.equal(o, o2):
+            _fail(f"flash attention on {name}: o differs with lse written")
+        off_ms, on_ms = _time_turns([
+            lambda: attention(q, k, v, causal=causal, window=window),
+            lambda: attention_with_lse(q, k, v, causal=causal, window=window),
+        ], FA_BWD_REPS, 3)
+        timed[name].update(lse_off_ms=off_ms, lse_on_ms=on_ms)
+        print(f"flash_attention {name} {shape} bf16: lse off {off_ms:.4f} ms, "
+              f"on {on_ms:.4f} ms in turns ({FA_BWD_REPS} reps each; on / off "
+              f"{on_ms / off_ms:.4f}); o bit-equal", flush=True)
+        del q, k, v, o, o2
         torch.cuda.empty_cache()
 
     # the threshold between the bf16 instantiations, measured
@@ -5710,6 +5761,52 @@ def _sdpa_bwd(q, k, v, do, shape):
     return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
 
 
+def _time_turns(fns, reps: int = FA_BWD_REPS, warmup: int = 3):
+    """Mean device time of each of ``fns``, timed in turns: every rep
+    calls each function once between its own pair of CUDA events, so a
+    drift of the card's clock falls on all of them alike."""
+    for _ in range(warmup):
+        for fn in fns:
+            fn()
+    torch.cuda.synchronize()
+    events = [[(torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+              for _ in fns]
+    for r in range(reps):
+        for fn, ev in zip(fns, events):
+            ev[r][0].record()
+            fn()
+            ev[r][1].record()
+    torch.cuda.synchronize()
+    return [sum(a.elapsed_time(b) for a, b in ev) / reps for ev in events]
+
+
+def _sdpa_bwd_fastest(q, k, v, do, shape):
+    """SDPA's backward under each backend that accepts the shape
+    (``sdpa_kernel`` forcing one at a time; the forward's choice fixes
+    the backward's kernels): each timed over 5 calls after 3 (CUDA
+    events) and printed.  Returns (backend name, the fastest one's
+    backward).  Device times alone, in a process of their own:
+    ``scripts/torch_kernel_times.py --kernels b6bwd``."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times, fns = {}, {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                fn = _sdpa_bwd(q, k, v, do, shape)
+            times[backend.name] = _time_turns([fn], 5, 3)[0]
+            fns[backend.name] = fn
+        except RuntimeError:
+            continue
+    best = min(times, key=times.get)
+    print("  SDPA backward by backend: " + ", ".join(
+        f"{n} {t:.4f} ms" for n, t in times.items()) + f" (fastest {best})",
+        flush=True)
+    return best, fns[best]
+
+
 def _fa_bwd_close(got, want, dtype) -> float:
     """max |diff|; fails past the tolerance: float32 ``FA_BWD_F32_REL`` of
     the gradient's largest |value| + 1e-6, bf16 ``FA_TOL``."""
@@ -5722,19 +5819,48 @@ def _fa_bwd_close(got, want, dtype) -> float:
     return err if ok else -err
 
 
+def _bwd_expected(plan) -> dict:
+    """The backward's launches by name for one call under ``plan``."""
+    from repro_torch import kernels
+
+    return {n: int(n in plan.launches)
+            for n in kernels.VARIANT_LAUNCHES["flash_attention_bwd"]}
+
+
+def bwd_launches_per_call(cfg) -> int:
+    """B6-bwd's launches in one call at a model's heads (bf16)."""
+    from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
+
+    q = torch.empty((1, cfg.n_heads, 2, cfg.head_dim), dtype=torch.bfloat16,
+                    device="meta")
+    kv = torch.empty((1, cfg.n_kv_heads, 2, cfg.head_dim),
+                     dtype=torch.bfloat16, device="meta")
+    return len(plan_attention_bwd(q, kv, kv, q, q).launches)
+
+
 def check_flash_attention_bwd(results) -> None:
-    """B6's backward kernel against ``attention_bwd_ref``: the reference's
-    six test shapes in float32, the edges (S = 1, 127, 129) in both dtypes,
-    the training paths' shapes in bf16; two runs the same bits; a D > 256
-    call under autograd raises; ``attention`` under autograd launches the
-    forward once and the backward once; each path shape timed beside the
-    plain version and SDPA's backward."""
+    """B6's backward kernel against ``attention_bwd_ref``: its build report
+    (tensor-core instructions in the bf16 kernels, no atomics anywhere);
+    the reference's six test shapes in float32 (``simt``), the edges (S =
+    1, 127, 129) in both dtypes, the training paths' shapes in bf16
+    (``wgmma``, with the forward's lse, itself checked against
+    ``attention_lse_ref`` and the output's bits against the forward
+    without it); each call's launches by name; two runs the same bits; a
+    D > 256 call under autograd raises; ``attention`` under autograd
+    launches the forward once and the backward's launches once; each path
+    shape timed in turns with SDPA's fastest backend (``FA_BWD_REPS``
+    reps after 3 warm-ups) beside the plain version and the bound."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
-        attention, attention_bwd, plan_attention_bwd,
+        attention, attention_bwd, attention_with_lse, plan_attention_bwd,
     )
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_lse_ref,
+    )
 
+    report = kernel_build_report("flash_attention_bwd", FA_BWD_TENSOR_CORE_OPS)
+    if any(r.get("atomics") for r in report.values()):
+        _fail("B6's backward library has atomic instructions")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
     cases = [(f"test {sh[:5]}", sh, torch.float32) for sh in FA_TEST_SHAPES]
     cases += [(f"edge {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
@@ -5747,13 +5873,29 @@ def check_flash_attention_bwd(results) -> None:
         q, k, v = _fa_inputs(gen, shape, dtype)
         with torch.no_grad():
             o = attention(q, k, v, **kw)
+        lse, lse_err = None, 0.0
+        if dtype == torch.bfloat16:
+            o2, lse = attention_with_lse(q, k, v, **kw)
+            if not torch.equal(o, o2):
+                _fail(f"B6 forward on {name}: o differs with lse written")
+            want_lse = attention_lse_ref(q, k, v, **kw)[1]
+            if not torch.allclose(lse, want_lse, atol=FA_LSE_TOL,
+                                  rtol=FA_LSE_TOL):
+                _fail(f"B6 forward's lse differs from attention_lse_ref on "
+                      f"{name}")
+            fin = torch.isfinite(want_lse)
+            lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(
+                fin.any()) else 0.0
+            del o2, want_lse
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        plan = plan_attention_bwd(q, k, v, o, do)
         kernels.reset_launches()
-        got = attention_bwd(q, k, v, o, do, **kw)
-        if kernels.VARIANT_LAUNCHES["flash_attention_bwd"] != {"dq": 1, "dkdv": 1}:
+        got = attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        if kernels.VARIANT_LAUNCHES["flash_attention_bwd"] != _bwd_expected(plan):
             _fail(f"B6 backward on {name}: launches "
-                  f"{kernels.VARIANT_LAUNCHES['flash_attention_bwd']}")
-        again = attention_bwd(q, k, v, o, do, **kw)
+                  f"{kernels.VARIANT_LAUNCHES['flash_attention_bwd']}, plan "
+                  f"{plan.launches}")
+        again = attention_bwd(q, k, v, o, do, lse=lse, **kw)
         want = attention_bwd_ref(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
         errs = []
@@ -5768,9 +5910,12 @@ def check_flash_attention_bwd(results) -> None:
             errs.append(e)
         worst[dtype] = max(worst.get(dtype, 0.0), *errs)
         print(f"flash_attention_bwd == attention_bwd_ref on {name} {shape} "
-              f"{dtype}: max |diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
-              f"{errs[2]:.3e}; two runs bit-equal", flush=True)
-        del q, k, v, o, do, got, again, want
+              f"{dtype} ({plan.variant}: {'+'.join(plan.launches)}): max "
+              f"|diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; "
+              f"two runs bit-equal"
+              + (f"; lse max |diff| {lse_err:.3e}, o bit-equal with lse "
+                 "written" if lse is not None else ""), flush=True)
+        del q, k, v, o, do, got, again, want, lse
     torch.cuda.empty_cache()
 
     wide = torch.randn((1, 2, 16, 288), generator=gen, device="cuda")
@@ -5789,20 +5934,23 @@ def check_flash_attention_bwd(results) -> None:
     kernels.reset_launches()
     o = attention(q, k, v)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    if any(plan_attention_bwd(q, k, v, o, do).copy):
+    plan = plan_attention_bwd(q, k, v, o, do)
+    if any(plan.copy):
         _fail("B6 backward copies the model's transposed views")
     o.backward(do)
     if (kernels.LAUNCHES["flash_attention"],
-            kernels.LAUNCHES["flash_attention_bwd"]) != (1, 2):
+            kernels.LAUNCHES["flash_attention_bwd"]) != (1, len(plan.launches)):
         _fail(f"attention under autograd: launches {kernels.LAUNCHES}")
-    want = attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(), do)
+    _, lse = attention_with_lse(q.detach(), k.detach(), v.detach())
+    want = attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(), do,
+                         lse=lse)
     for t, w in zip(x, want):
         if not torch.equal(t.grad.transpose(1, 2), w):
             _fail("attention's autograd gradient differs from attention_bwd")
-    print("attention under autograd on (B, S, H, D) views: 1 forward + 1 "
-          "backward call (dq, dkdv launches), no copy, gradients == "
-          "attention_bwd", flush=True)
-    del x, q, k, v, o, do, want
+    print(f"attention under autograd on (B, S, H, D) views: 1 forward + 1 "
+          f"backward call ({', '.join(plan.launches)} launches), no copy, "
+          "gradients == attention_bwd", flush=True)
+    del x, q, k, v, o, do, want, lse
     torch.cuda.empty_cache()
 
     timed = {}
@@ -5810,27 +5958,32 @@ def check_flash_attention_bwd(results) -> None:
         causal, window = shape[5:]
         kw = dict(causal=causal, window=window)
         q, k, v = _fa_inputs(gen, shape, torch.bfloat16)
-        with torch.no_grad():
-            o = attention(q, k, v, **kw)
+        o, lse = attention_with_lse(q, k, v, **kw)
         do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
-        kernel_ms = _time_ms(lambda: attention_bwd(q, k, v, o, do, **kw), 5, 1)
+        backend, sdpa = _sdpa_bwd_fastest(q, k, v, do, shape)
+        kernel_ms, library_ms = _time_turns([
+            lambda: attention_bwd(q, k, v, o, do, lse=lse, **kw), sdpa])
         plain_ms = _time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw), 2, 1)
-        library_ms = _time_ms(_sdpa_bwd(q, k, v, do, shape), 5, 1)
         nbytes, flop = _fa_bwd_cost(shape, 2)
         by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         by_ops = 1e3 * flop / BF16_FLOP_PER_S
+        bound = max(by_bytes, by_ops)
+        plan = plan_attention_bwd(q, k, v, o, do)
         timed[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                           library_ms=library_ms,
-                           bound_ms=max(by_bytes, by_ops),
-                           bound_by="bytes" if by_bytes >= by_ops else "operations")
-        print(f"flash_attention_bwd {name} {shape} bf16: kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
-              f"{library_ms:.4f} ms, bound {max(by_bytes, by_ops):.5f} ms "
-              f"({nbytes} bytes -> {by_bytes:.5f} ms; {flop} FLOP -> "
-              f"{by_ops:.5f} ms; kernel at {flop / kernel_ms / 1e9:.1f} "
-              f"TFLOP/s; {max(by_bytes, by_ops) / kernel_ms:.4f} of the "
-              f"bound)", flush=True)
-        del q, k, v, o, do
+                           library_ms=library_ms, sdpa_backend=backend,
+                           bound_ms=bound,
+                           bound_by="bytes" if by_bytes >= by_ops else "operations",
+                           scratch_bytes=plan.scratch_bytes)
+        print(f"flash_attention_bwd {name} {shape} bf16 ({'+'.join(plan.launches)}"
+              f"; scratch {plan.scratch_bytes} B): kernel {kernel_ms:.4f} ms, "
+              f"SDPA backward ({backend}) {library_ms:.4f} ms in turns, "
+              f"{FA_BWD_REPS} reps each; plain {plain_ms:.4f} ms; bound "
+              f"{bound:.5f} ms ({nbytes} bytes -> {by_bytes:.5f} ms; {flop} "
+              f"FLOP -> {by_ops:.5f} ms); kernel at "
+              f"{flop / kernel_ms / 1e9:.1f} TFLOP/s = {bound / kernel_ms:.4f} "
+              f"of the bound; kernel / SDPA {kernel_ms / library_ms:.3f}",
+              flush=True)
+        del q, k, v, o, do, lse, sdpa
         torch.cuda.empty_cache()
     main = timed["seamless_causal"]
     results["flash_attention_bwd"] = dict(
@@ -6025,10 +6178,12 @@ def _print_b6_bwd_share(dev, busy_ms) -> None:
 
     by = {}
     for e in dev:
-        m = re.search(r"bwd_(dq|dkdv)_kernel", e.key)
+        m = re.search(r"bwd_(delta|dq|dkdv|reduce)(_wgmma|_simt)?_kernel",
+                      e.key)
         if m:
-            ms, n = by.get(m.group(1), (0.0, 0))
-            by[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+            name = m.group(1) + (m.group(2) or "")
+            ms, n = by.get(name, (0.0, 0))
+            by[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
     if not by:
         print("  B6 backward: no device time in the trace", flush=True)
         return
@@ -6108,6 +6263,10 @@ def _train_run(tag, argv, per_step, variant, pair=B6_PAIR):
     steps = len(losses)
     if variants[fwd][variant] != per_step[0] * steps:
         _fail(f"{tag}: {label} forward instantiations {variants[fwd]}")
+    out["bwd_variants"] = variants[bwd]
+    if any(variants[bwd].get(n) for n in ("simt_dq", "simt_dkdv")):
+        _fail(f"{tag}: a bf16 run launched {label}'s float32 backward: "
+              f"{variants[bwd]}")
     ms = 1e3 * np.array(out["step_s"])
     args = dict(zip(argv[::2], argv[1::2]))
     tokens = int(args["--batch"]) * int(args["--seq"])
@@ -6304,24 +6463,28 @@ def train_path(results) -> None:
     cfg = seamless_m4t_medium.config()
     nm = int(dict(zip(TRAIN_SEAMLESS[::2], TRAIN_SEAMLESS[1::2]))["--microbatches"])
     # every block rematerialized: B6's forward twice a block (the pass and
-    # the recomputation), its backward once (two launches)
+    # the recomputation), its backward once (delta, dq, dkdv at G = 1)
     per_block = nm * (cfg.n_encoder_layers + cfg.n_layers)
+    per_call = bwd_launches_per_call(cfg)
     out, launches = _train_run("seamless-m4t-medium train", TRAIN_SEAMLESS,
-                               (2 * per_block, 2 * per_block), "wgmma")
+                               (2 * per_block, per_call * per_block), "wgmma")
     if out["n_params"] != cfg.param_count() + 2 * cfg.d_model * (
             2 * cfg.n_encoder_layers + 3 * cfg.n_layers + 2):
         _fail(f"seamless train: {out['n_params']} parameters")
     results["flash_attention"]["launches_train"] = launches["flash_attention"]
     results["flash_attention_bwd"]["launches"] = launches["flash_attention_bwd"]
-    results["flash_attention_bwd"]["launches_per_step"] = 2 * per_block
+    results["flash_attention_bwd"]["launches_per_step"] = per_call * per_block
+    results["flash_attention_bwd"]["variants"] = out["bwd_variants"]
     trace_train_step("seamless-m4t-medium", out)
     del out
     torch.cuda.empty_cache()
     seamless_train_checks(cfg)
 
     fcfg = featinsight_fraud.config()
-    out, launches = _train_run("featinsight-fraud train", TRAIN_FRAUD,
-                               (2 * fcfg.n_layers, 2 * fcfg.n_layers), "mma16")
+    out, launches = _train_run(
+        "featinsight-fraud train", TRAIN_FRAUD,
+        (2 * fcfg.n_layers, bwd_launches_per_call(fcfg) * fcfg.n_layers),
+        "mma16")
     results["flash_attention_bwd"]["launches_fraud_train"] = launches[
         "flash_attention_bwd"]
     del out

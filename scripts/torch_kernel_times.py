@@ -1,10 +1,10 @@
-"""Time the port's route kernel (B2), signature-embedding kernel (B5)
-and window-stats kernel (B3) alone, at the main path's shapes, in one
-checkout of this repository.
+"""Time the port's route kernel (B2), signature-embedding kernel (B5),
+window-stats kernel (B3) and flash attention's backward (B6-bwd) alone,
+at their paths' shapes, in one checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
@@ -21,8 +21,17 @@ B3's two instantiations also the shared-memory one forced at 2 x 2).
 Each kernel is timed three ways: eager launches (CUDA events over many
 calls: the host's launch path included), the same launches captured in a
 CUDA graph, and the device time per launch under ``torch.profiler``; B3
-also through its wrapper.  Entries a tree does not have (the route kernel from keys, B5
-from signatures) are left out.  Prints one JSON line.
+also through its wrapper.  B6-bwd (``b6bwd``, not in the default set):
+``attention_bwd`` in bf16 at ``chip_smoke.py``'s ``FA_BWD_SHAPES``, the
+forward's lse handed over where the tree takes one, as CUDA events over
+20 calls after 3 (``b6bwd_<shape>_ms``), the host's enqueue time a call
+(``_host_ms``), each launch's device time under ``torch.profiler``
+(``_<kernel>_ms``) and their sum (``_device_ms``); beside it SDPA's
+backward (``chip_smoke.py``'s ``_sdpa_bwd``, a yardstick the port never
+calls) under each backend that takes the shape, the same two ways
+(``sdpa_<shape>_<backend>_ms``, ``..._device_ms``: every kernel a call
+runs).  Entries a tree does not have (the route kernel from
+keys, B5 from signatures) are left out.  Prints one JSON line.
 """
 
 import json
@@ -141,14 +150,86 @@ def main() -> None:
     sys.path.insert(1, str(repo))  # chip_smoke.py's helpers, for B3
     from repro_torch.kernels import build
     names = {"b2": ["route_rank"], "b5": ["signature_embed"],
-             "b3": ["window_stats", "fused_ingest", "route_rank"]}
+             "b3": ["window_stats", "fused_ingest", "route_rank"],
+             "b6bwd": ["flash_attention", "flash_attention_bwd"]}
     build.build(sorted({n for k in todo for n in names[k]}))
     out = {"tree": str(root)}
     if "b3" in todo:
         _b3(out)
+    if "b6bwd" in todo:
+        _b6_bwd(out)
     if todo & {"b2", "b5"}:
         _b2_b5(out, todo)
     print(json.dumps(out))
+
+
+def _b6_bwd(out) -> None:
+    """B6's backward at chip_smoke.py's training-path shapes, bf16."""
+    import inspect
+    import re
+    import time
+
+    import chip_smoke as cs
+    from torch.autograd import DeviceType
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import ops
+
+    takes_lse = "lse" in inspect.signature(ops.attention_bwd).parameters
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 21)
+    for name, shape in cs.FA_BWD_SHAPES.items():
+        causal, window = shape[5:]
+        kw = dict(causal=causal, window=window)
+        q, k, v = cs._fa_inputs(gen, shape, torch.bfloat16)
+        if takes_lse:
+            o, kw["lse"] = ops.attention_with_lse(q, k, v, **kw)
+        else:
+            o = ops.attention(q, k, v, **kw)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+
+        def call():
+            ops.attention_bwd(q, k, v, o, do, **kw)
+
+        out[f"b6bwd_{name}_ms"] = _events_ms(call, 20, 3)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        out[f"b6bwd_{name}_host_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in p.key_averages():
+            m = re.search(r"bwd_(delta|dq|dkdv|reduce)\w*_kernel", e.key)
+            if e.device_type == DeviceType.CUDA and m:
+                key = f"b6bwd_{name}_{m.group(1)}_ms"
+                out[key] = out.get(key, 0.0) + e.self_device_time_total / 5e3
+                total += e.self_device_time_total / 5e3
+        out[f"b6bwd_{name}_device_ms"] = total
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([backend]):
+                    fn = cs._sdpa_bwd(q, k, v, do, shape)
+                    fn()
+            except RuntimeError:
+                continue
+            key = f"sdpa_{name}_{backend.name.lower()}"
+            out[f"{key}_ms"] = _events_ms(fn, 20, 3)
+            with profile(activities=[ProfilerActivity.CUDA]) as p:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            out[f"{key}_device_ms"] = sum(
+                e.self_device_time_total for e in p.key_averages()
+                if e.device_type == DeviceType.CUDA) / 5e3
+            del fn
+        del q, k, v, o, do, kw
+        torch.cuda.empty_cache()
 
 
 def _b2_b5(out, todo) -> None:

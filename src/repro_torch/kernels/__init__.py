@@ -46,8 +46,11 @@ LAUNCHES: Dict[str, int] = {
 # kernel name -> instantiation -> CUDA launches since the last reset
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
-    # B6's backward: the dQ pass and the dK / dV pass of each call
-    "flash_attention_bwd": {"dq": 0, "dkdv": 0},
+    # B6's backward, each launch by name: bf16 ("wgmma" variant) the Δ
+    # pre-pass, the dQ and dK / dV kernels and, for grouped heads, the
+    # group sum; float32 ("simt") its dQ and dK / dV kernels
+    "flash_attention_bwd": {"delta": 0, "dq": 0, "dkdv": 0, "reduce": 0,
+                            "simt_dq": 0, "simt_dkdv": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide": 0},
     # B7's backward: one launch a call, built at head dim 64 (a smaller D
     # zero-padded to it)

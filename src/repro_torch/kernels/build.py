@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels (``kernels/csrc/*.cu``).
 
 Each source has a plain C interface and is compiled by ``nvcc`` into its
-own shared library, loaded with ``ctypes``.  Builds run at first use into
-``build/repro_torch/`` at the repository root (listed in ``.gitignore``),
-from the sources in the checkout alone; the file name carries a hash of
-the source and flags, so an edited kernel is never served from a stale
-library.  :func:`build` starts one ``nvcc`` per missing library, all at
-once, and waits for all of them.
+own shared library, loaded with ``ctypes`` (``csrc/hopper.cuh`` holds the
+TMA, mbarrier and wgmma helpers both flash-attention sources include).
+Builds run at first use into ``build/repro_torch/`` at the repository root
+(listed in ``.gitignore``), from the sources in the checkout alone; the
+file name carries a hash of the source, the headers and the flags, so an
+edited kernel is never served from a stale library.  :func:`build` starts
+one ``nvcc`` per missing library, all at once, and waits for all of them.
 
 Flags: ``sm_90a`` (Hopper), C++17, ``-O3`` and ``-fmad=false`` — the
 ingest kernel's float sums must round exactly like the plain version's
@@ -76,8 +77,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / SOURCES[name]
+    # the shared headers (csrc/*.cuh) too: an edited header rebuilds every
+    # source that may include it
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return build_dir() / f"{name}-{digest}.so"
 

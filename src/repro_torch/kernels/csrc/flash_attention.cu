@@ -59,6 +59,13 @@
 // In 1 and 2 the weights P are rounded to bf16 for the PV product (the
 // reference model's gqa_attention rounds them the same way); the
 // denominator l sums the float32 P.
+// Under autograd 1 and 2 also write each row's log-sum-exp,
+// lse = (m + log2 l) ln 2 (+inf for a row that sees no key), for the
+// backward (flash_attention_bwd.cu); with a null pointer they write
+// nothing and the output's bits are the same either way.
+//
+// The TMA, mbarrier and wgmma helpers live in hopper.cuh, shared with the
+// backward.
 //
 // Layouts: per-(b, h, s) element strides with D contiguous, so the model
 // passes its (B, S, H, hd) activations as transposed views without a
@@ -72,16 +79,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float NEG = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  // (B, H, S) float32, each row's log-sum-exp of its scaled scores, +inf
+  // for a row that sees no key; written by the bf16 instantiations when
+  // not null (the backward's P = exp(scale * s - lse)), else nothing
+  float* lse;
   int H, group, S, D;
   long long sq[3], sk[3], sv[3], so[3];  // (b, h, s) element strides
   int causal, has_window, window;
@@ -106,28 +120,20 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int key) {
   return ok;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+// a row's log-sum-exp in natural units from its running max m (log2
+// units, scale folded in) and denominator l; +inf where no key was seen,
+// so that exp(scale * s - lse) is 0
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? (m + log2f(l)) * LN2 : INFINITY;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* dst, float lo,
-                                             float hi) {
-  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// the rows' lse, from the lane that holds column 0 of the quad
+__device__ __forceinline__ void store_lse(const Params& p, long long b, int h,
+                                          int row0, int row1, float m0,
+                                          float s0, float m1, float s1) {
+  float* lg = p.lse + (b * p.H + h) * (long long)p.S;
+  if (row0 < p.S) lg[row0] = row_lse(m0, s0);
+  if (row1 < p.S) lg[row1] = row_lse(m1, s1);
 }
 
 // ---------------------------------------------------------------------------
@@ -754,8 +760,11 @@ __global__ void __launch_bounds__(256) fa_mma16_kernel(Params p) {
       }
     }
 
-    const float i0 = 1.0f / fmaxf(quad_sum(l0), 1e-30f);
-    const float i1 = 1.0f / fmaxf(quad_sum(l1), 1e-30f);
+    const float s0 = quad_sum(l0), s1 = quad_sum(l1);
+    const float i0 = 1.0f / fmaxf(s0, 1e-30f);
+    const float i1 = 1.0f / fmaxf(s1, 1e-30f);
+    if (p.lse != nullptr && tig == 0)
+      store_lse(p, b, h, row0, row1, m0, s0, m1, s1);
     __nv_bfloat16* og =
         static_cast<__nv_bfloat16*>(p.o) + b * p.so[0] + h * p.so[1];
 #pragma unroll
@@ -812,235 +821,6 @@ struct WgLayout {
   static constexpr size_t bytes() { return BARS + 8 * (1 + 3 * ST) + 1024; }
 };
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box (64 columns, R rows) at (d0, s0, h, b) of a 4-D tensor map
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int d0, int s0, int h,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(d0), "r"(s0), "r"(h), "r"(b),
-      "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.  K-major tiles (Q, K):
-// 8-row groups 1,024 bytes apart (SBO), LBO unused.  MN-major V: 8-key
-// groups 1,024 bytes apart (SBO), 64-column boxes LBO apart.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile(
-      "wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::
-          : "memory");
-}
-
-// keep the compiler from moving accumulator reads or writes across an
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "
-      "1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, "
-      "%71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, "
-      "%85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
-      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
-      "%121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, "
-      "%132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
-          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
-          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int scale_d) {
-  if constexpr (N == 64)
-    wgmma_ss_n64(d, da, db, scale_d);
-  else
-    wgmma_ss_n128(d, da, db, scale_d);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (N == 64)
-    wgmma_rs_n64(d, a, db);
-  else if constexpr (N == 128)
-    wgmma_rs_n128(d, a, db);
-  else
-    wgmma_rs_n256(d, a, db);
-}
 
 template <int DP>
 __global__ void __launch_bounds__(128 * (Wg<DP>::NC + 1), 1)
@@ -1193,8 +973,11 @@ __global__ void __launch_bounds__(128 * (Wg<DP>::NC + 1), 1)
       if (tid == 0) mbar_arrive(empty(s));
     }
 
-    const float i0 = 1.0f / fmaxf(quad_sum(l0), 1e-30f);
-    const float i1 = 1.0f / fmaxf(quad_sum(l1), 1e-30f);
+    const float s0 = quad_sum(l0), s1 = quad_sum(l1);
+    const float i0 = 1.0f / fmaxf(s0, 1e-30f);
+    const float i1 = 1.0f / fmaxf(s1, 1e-30f);
+    if (p.lse != nullptr && tig == 0)
+      store_lse(p, b, h, row0, row1, m0, s0, m1, s1);
     __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
                         (long long)b * p.so[0] + (long long)h * p.so[1];
 #pragma unroll
@@ -1215,60 +998,6 @@ __global__ void __launch_bounds__(128 * (Wg<DP>::NC + 1), 1)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-template <typename K, typename... A>
-int launch(K kernel, size_t bytes, dim3 grid, int threads, cudaStream_t st,
-           A... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, threads, bytes, st>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: fetched through the
-// runtime, so the library links only the runtime like every other kernel's
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// a (D, S, heads, B) bf16 map with (s, h, b) element strides st[2], st[1],
-// st[0]; boxes of 64 columns x `rows` rows, 128-byte swizzled; past S and
-// D the hardware fills zeros
-int tensor_map(CUtensorMap* map, const void* ptr, int D, int S, int heads,
-               int B, const long long* st, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
 
 template <int DP>
 int launch_wgmma(const Params& p, int B, int Hkv, dim3 grid, cudaStream_t st) {
@@ -1292,11 +1021,6 @@ int launch_simt(const Params& p, dim3 grid, cudaStream_t st) {
                   p);
 }
 
-bool aligned16(const void* ptr, const long long* st) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && st[0] % 8 == 0 &&
-         st[1] % 8 == 0 && st[2] % 8 == 0;
-}
-
 }  // namespace
 
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D); element strides over (b, h, s),
@@ -1305,11 +1029,13 @@ bool aligned16(const void* ptr, const long long* st) {
 // (float32 / bf16, D > 256); tile_d the instantiation's
 // head-dim tile; grid and threads as the wrapper planned them (checked
 // here against the instantiation's tiles).  window is read when has_window
-// is set.  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
+// is set.  lse: null, or a (B, H, S) float32 output of each row's
+// log-sum-exp (bf16 instantiations 1 and 2 only).  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
 // does not fit the instantiation (tile, grid, D, strides or alignment) or a
 // tensor map the driver refuses.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int variant,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int variant,
     int tile_d, int B, int H, int Hkv, int S, int D, long long sqb,
     long long sqh, long long sqs, long long skb, long long skh, long long sks,
     long long svb, long long svh, long long svs, long long sob, long long soh,
@@ -1318,13 +1044,15 @@ extern "C" int flash_attention_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 ||
-      (D > tile_d && variant < 3) || grid_y > 65535)
+      (D > tile_d && variant < 3) || grid_y > 65535 ||
+      (lse != nullptr && variant != 1 && variant != 2))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.H = H;
   p.group = H / Hkv;
   p.S = S;

@@ -9,56 +9,106 @@
 //     dQ   = scale · dS K
 //     dK   = scale · Σ_{G heads} dSᵀ Q,   dV = Σ_{G heads} Pᵀ dO
 //
-// in float32 from float32 or bf16 inputs, the gradients written in the
-// inputs' dtype.  The visible pairs are the forward's: k_pos <= q_pos
-// (causal), k_pos > q_pos - window, both < S; a row with no visible key
-// has P = 0 and gets zero gradients.
+// with float32 sums, the gradients written in the inputs' dtype.  The
+// visible pairs are the forward's: k_pos <= q_pos (causal), k_pos > q_pos
+// - window, both < S; a row with no visible key has P = 0 and gets zero
+// gradients.
 //
-// The reference package has no backward kernel (its models differentiate
-// the XLA path); this is the gradient of flash_attention_pallas
-// (src/repro/kernels/flash_attention/flash_attention.py) for the port,
-// whose models run the forward kernel under autograd.
+// Replaces no TPU kernel: the reference package has no backward kernel
+// (its models differentiate the XLA path).  This is the gradient of
+// flash_attention_pallas (src/repro/kernels/flash_attention/
+// flash_attention.py) for the port, whose models run the forward kernel
+// under autograd.
 //
-// A simple design on the CUDA cores, two kernels, no atomics -- every
-// gradient element is summed by one thread in a fixed order, so two runs
-// give the same bits:
+// Bound on the H100 (chip_smoke.py, _fa_bwd_cost): operations -- 2·D FLOP
+// for each of the five products (S, dP, dV, dK, dQ) per visible pair and
+// head, 2.5 times the forward's, at 989 TFLOP/s in bf16 -- against bytes:
+// q, k, v, o, dO read once and dq, dk, dv written once at 3.35 TB/s.  The
+// group sum of variant 1 adds 2·(B·H·S·D·4) bytes of float32 partials
+// written and read back, counted in the kernel's time, not in the bound.
 //
-// 1. bwd_dq_kernel, a block per (b, h, query tile of BT rows): Δ for its
-//    rows, then the row statistics (running max m and denominator l) over
-//    the visible key tiles in ascending order, then a second pass over the
-//    same tiles forming P = exp(s - m) / l, dP, dS (staged in shared
-//    memory) and accumulating dQ in registers.  It writes m, l and Δ of
-//    each row for kernel 2.
-// 2. bwd_dkdv_kernel, a block per (b, KV head, key tile of BT rows),
-//    holding its K and V tile: for each of the group's G heads in order,
-//    for each visible query tile in ascending order, P and dS of the
-//    (query, key) tile (from kernel 1's m, l, Δ) staged in shared memory,
-//    then dK and dV accumulated in registers, query rows ascending.
+// Two variants, chosen by the wrapper (kernels/flash_attention/ops.py,
+// plan_attention_bwd), neither with atomics: every gradient element is
+// summed in a fixed order, so two runs give the same bits.
 //
-// Tiles live in shared memory as float32 with an odd row pitch (DT + 1),
-// so the 16 rows a half-warp reads at one column fall in distinct banks.
-// 256 threads as 16 x 16: thread (ty, tx) owns score rows ty + 16a and
-// columns tx + 16b of a BT x BT tile, and output rows ty + 16a, columns
-// tx + 16c of a BT x DT tile.  DT (the head-dim tile, D <= DT) is 32, 64,
-// 128 or 256; BT is 64, or 32 at DT = 256 to stay within shared memory.
-// Products spell fmaf (the build has -fmad=false).
+// 1. "wgmma", bf16, D <= 256 (D a multiple of 16; the wrapper pads), up
+//    to four launches:
+//    a. bwd_delta_kernel: Δ = rowsum(dO ∘ O) in float32, a small
+//       bytes-bound pre-pass (a group of lanes a row, 16-byte loads),
+//       written once for both kernels below;
+//    b. bwd_dq_wgmma_kernel, a block per (b, h, query tile of 64 rows per
+//       consumer warpgroup: 128 at D <= 128, 64 at 256): the forward's
+//       warp-specialized shape -- a producer warpgroup whose one thread
+//       loads the Q and dO tiles once and 64-key K and V tiles into a
+//       two-stage TMA ring (128-byte swizzle, full / empty mbarriers) --
+//       over the visible key tiles only.  Per tile: S = Q Kᵀ and
+//       dP = dO Vᵀ as wgmma from shared memory; P = exp(scale·S − lse)
+//       in registers from the forward's saved log-sum-exp (no second pass
+//       for the row statistics); dS = P ∘ (dP − Δ) packed in place into
+//       bf16 A fragments; dQ += dS K as wgmma with K read MN-major (the
+//       forward's transpose bit for V).  dQ is scaled and written once;
+//    c. bwd_dkdv_wgmma_kernel, a block per (b, query head h, key tile):
+//       K and V of the tile loaded once, Q and dO tiles of 64 rows (with
+//       the rows' lse and Δ, staged by a second producer warp) streamed
+//       through the ring over the visible query tiles.  It forms the
+//       transposed products, so Pᵀ and dSᵀ land in registers as A
+//       operands: Sᵀ = K Qᵀ, Pᵀ = exp(scale·Sᵀ − lse), dV += Pᵀ dO,
+//       dPᵀ = V dOᵀ, dSᵀ = Pᵀ ∘ (dPᵀ − Δ), dK += dSᵀ Q (Q and dO read
+//       MN-major).  At D <= 128 two consumer warpgroups each own 64 of a
+//       128-row key tile; at D = 256 the float32 dK and dV of 64 x 256
+//       would need 256 registers a thread, so the two consumers share a
+//       64-row key tile and split D's columns, 128 each, both forming the
+//       tile's Sᵀ and dPᵀ (2 of the 5 products done twice at D = 256).
+//       With G = 1 it writes dk, dv; with G > 1 each block writes its
+//       head's float32 partial dK (scaled), dV into a (2, B, H, S, D)
+//       scratch;
+//    d. bwd_reduce_kernel (G > 1 only): sums each KV head's G partials in
+//       ascending head order and writes dk, dv -- the group sum with no
+//       atomics and no block walking the group's heads one after another.
+//    Tiles wholly inside the causal limit and the window skip the mask;
+//    a warpgroup skips a tile it cannot see at all.  P and dS are rounded
+//    to bf16 for the dV, dK and dQ products (as the forward rounds P).
+//    Against the float32 kernels below, run in bf16, this design: runs
+//    every product on the tensor cores; forms S once per kernel (the saved
+//    lse replaces the statistics pass); gives each query head its own
+//    blocks (no serial walk over a KV head's G heads); loads bf16 tiles by
+//    TMA into swizzled shared memory instead of float32 element by element.
+// 2. "simt", float32 (the reference's 1e-4 bound does not survive TF32),
+//    the first kernels, on the CUDA cores: bwd_dq_simt_kernel, a
+//    block per (b, h, query tile of BT rows): Δ for its rows, the row
+//    statistics (running max m and denominator l) over the visible key
+//    tiles in ascending order, then a second pass forming P, dP, dS
+//    (staged in shared memory) and accumulating dQ in registers; it writes
+//    m, l and Δ of each row.  bwd_dkdv_simt_kernel, a block per (b, KV
+//    head, key tile of BT rows) holding its K and V tile: for each of the
+//    group's G heads in order, for each visible query tile in ascending
+//    order, P and dS staged in shared memory, then dK and dV accumulated
+//    in registers.  Float32 tiles with an odd row pitch (DT + 1); 256
+//    threads as 16 x 16; DT (D <= DT) is 32, 64, 128 or 256, BT 64 (32 at
+//    DT = 256).  Products spell fmaf (the build has -fmad=false).
 //
-// Bound on the H100: operations -- 2·D FLOP for each of the five products
-// (S recomputed, dP, dQ, dK, dV) per visible pair and head, 2.5 times the
-// forward's two; this kernel recomputes S once more for the statistics --
-// over the peak of the dtype's units.  wgmma, TMA and a forward that saves
-// its log-sum-exp are later work.
+// Layouts: per-(b, h, s) element strides with D contiguous, so the model's
+// (B, S, H, hd) activations go in as transposed views without a copy;
+// variant 1 needs 16-byte aligned bases and strides (TMA), and the wrapper
+// copies a tensor where that does not hold.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+// ---------------------------------------------------------------------------
+// 2. float32 on the CUDA cores ("simt")
+// ---------------------------------------------------------------------------
 
 constexpr int NT = 256;
 
-struct Params {
+struct SimtParams {
   const void* q;
   const void* k;
   const void* v;
@@ -75,21 +125,15 @@ struct Params {
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
-__device__ __forceinline__ bool visible(const Params& p, int i, int j) {
+__device__ __forceinline__ bool simt_visible(const SimtParams& p, int i,
+                                             int j) {
   return i < p.S && j < p.S && (!p.causal || j <= i) &&
          (!p.has_window || j > i - p.window);
 }
@@ -98,7 +142,7 @@ __device__ __forceinline__ bool visible(const Params& p, int i, int j) {
 // zero past S and D
 template <typename T, int BT, int DT>
 __device__ void load_tile(float* dst, const T* base, const long long* st,
-                          int b, int head, int r0, const Params& p) {
+                          int b, int head, int r0, const SimtParams& p) {
   const T* src = base + b * st[0] + head * st[1];
   for (int idx = threadIdx.x; idx < BT * DT; idx += NT) {
     const int r = idx / DT, c = idx % DT;
@@ -146,7 +190,7 @@ __device__ __forceinline__ void scores(float (&s)[BT / 16][BT / 16],
 }
 
 template <typename T, int BT, int DT>
-__global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
+__global__ void __launch_bounds__(NT) bwd_dq_simt_kernel(SimtParams p) {
   constexpr int R = BT / 16, C = DT / 16, LD = DT + 1;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -208,7 +252,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < R; ++c) {
-        s[a][c] = visible(p, i, j0 + tx + 16 * c) ? s[a][c] * p.scale
+        s[a][c] = simt_visible(p, i, j0 + tx + 16 * c) ? s[a][c] * p.scale
                                                    : -INFINITY;
         mx = fmaxf(mx, s[a][c]);
       }
@@ -247,7 +291,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
       for (int c = 0; c < R; ++c) {
         const int col = tx + 16 * c;
         float ds = 0.f;
-        if (visible(p, i, j0 + col) && l[a] > 0.f) {
+        if (simt_visible(p, i, j0 + col) && l[a] > 0.f) {
           const float pr = expf(s[a][c] * p.scale - m[a]) / l[a];
           ds = pr * (dp[a][c] - delta[a]);
         }
@@ -290,7 +334,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Params p) {
 }
 
 template <typename T, int BT, int DT>
-__global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
+__global__ void __launch_bounds__(NT) bwd_dkdv_simt_kernel(SimtParams p) {
   constexpr int R = BT / 16, C = DT / 16, LD = DT + 1;
   extern __shared__ float smem[];
   float* sK = smem;
@@ -350,7 +394,7 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
         for (int c = 0; c < R; ++c) {
           const int col = tx + 16 * c;
           float pr = 0.f, ds = 0.f;
-          if (visible(p, i, j0 + col) && l > 0.f) {
+          if (simt_visible(p, i, j0 + col) && l > 0.f) {
             pr = expf(s[a][c] * p.scale - m) / l;
             ds = pr * (dp[a][c] - delta);
           }
@@ -400,64 +444,604 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Params p) {
 }
 
 template <int BT, int DT>
-constexpr size_t dq_bytes() {
+constexpr size_t simt_dq_bytes() {
   return sizeof(float) * (4 * BT * (DT + 1) + BT * (BT + 1));
 }
 template <int BT, int DT>
-constexpr size_t dkdv_bytes() {
+constexpr size_t simt_dkdv_bytes() {
   return sizeof(float) * (4 * BT * (DT + 1) + 2 * BT * (BT + 1) + 3 * BT);
 }
 
-template <class K>
-int launch(K kernel, size_t bytes, dim3 grid, cudaStream_t st, const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, bytes, st>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int DT>
-int launch_both(const Params& p, int Hkv, cudaStream_t st) {
+template <int DT>
+int launch_simt(const SimtParams& p, int Hkv, cudaStream_t st) {
   constexpr int BT = DT <= 128 ? 64 : 32;
   const int tiles = (p.S + BT - 1) / BT;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  int err = launch(bwd_dq_kernel<T, BT, DT>, dq_bytes<BT, DT>(),
-                   dim3(p.B * p.H, tiles), st, p);
+  int err = launch(bwd_dq_simt_kernel<float, BT, DT>, simt_dq_bytes<BT, DT>(),
+                   dim3(p.B * p.H, tiles), NT, st, p);
   if (err != 0) return err;
-  return launch(bwd_dkdv_kernel<T, BT, DT>, dkdv_bytes<BT, DT>(),
-                dim3(p.B * Hkv, tiles), st, p);
+  return launch(bwd_dkdv_simt_kernel<float, BT, DT>,
+                simt_dkdv_bytes<BT, DT>(), dim3(p.B * Hkv, tiles), NT, st, p);
 }
 
-template <typename T>
-int launch_dtype(const Params& p, int Hkv, int tile_d, cudaStream_t st) {
-  switch (tile_d) {
-    case 32: return launch_both<T, 32>(p, Hkv, st);
-    case 64: return launch_both<T, 64>(p, Hkv, st);
-    case 128: return launch_both<T, 128>(p, Hkv, st);
-    case 256: return launch_both<T, 256>(p, Hkv, st);
-    default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// 1. bf16 on the tensor cores ("wgmma")
+// ---------------------------------------------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct WgParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  const __nv_bfloat16* o;
+  const __nv_bfloat16* dout;
+  const float* lse;  // (B, H, S): the forward's, natural units
+  float* delta;      // (B, H, S): Δ, written by bwd_delta_kernel
+  __nv_bfloat16* dq;
+  __nv_bfloat16* dk;
+  __nv_bfloat16* dv;
+  float* part;  // G > 1: (2, B, H, S, D) partial dK, dV; G = 1: null
+  int B, H, group, S, D;
+  long long sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
+  int causal, has_window, window;
+  float scale;
+};
+
+__device__ __forceinline__ bool seen(const WgParams& p, int row, int key) {
+  return key < p.S && (!p.causal || key <= row) &&
+         (!p.has_window || key > row - p.window);
+}
+
+// Δ of each (b, h, row): GS = 2^gs_log2 lanes a row, 8 bf16 (16 bytes) of
+// o and dO a lane at a time, summed over the group by shuffles
+__global__ void __launch_bounds__(256) bwd_delta_kernel(WgParams p,
+                                                        int gs_log2) {
+  const int GS = 1 << gs_log2;
+  const long long rows = (long long)p.B * p.H * p.S;
+  const long long row =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> gs_log2;
+  const int lane = threadIdx.x & (GS - 1);
+  float acc = 0.0f;
+  if (row < rows) {
+    const int s = (int)(row % p.S);
+    const long long bh = row / p.S;
+    const long long b = bh / p.H, h = bh % p.H;
+    const __nv_bfloat16* orow = p.o + b * p.so[0] + h * p.so[1] + s * p.so[2];
+    const __nv_bfloat16* drow =
+        p.dout + b * p.sdo[0] + h * p.sdo[1] + s * p.sdo[2];
+    for (int c = lane * 8; c < p.D; c += GS * 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(orow + c);
+      const uint4 d = *reinterpret_cast<const uint4*>(drow + c);
+      const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = __bfloat1622float2(a2[e]);
+        const float2 y = __bfloat1622float2(d2[e]);
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+      }
+    }
   }
+  // every lane of the warp takes part in the shuffles
+  for (int off = GS / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && lane == 0) p.delta[row] = acc;
+}
+
+// dQ: NC consumer warpgroups of 64 query rows over 64-key tiles, ST ring
+// stages.  Shared memory: the Q tile, the dO tile, then ST x (K, V) tiles;
+// a tile of R rows is DP / 64 boxes of R rows x 128 bytes (64 bf16),
+// 128-byte swizzled by TMA.
+template <int DP>
+struct DqTile {
+  static constexpr int NC = DP <= 128 ? 2 : 1;
+  static constexpr int BQ = 64 * NC, BK = 64, ST = 2;
+  static constexpr uint32_t Q_BYTES = BQ * DP * 2;
+  static constexpr uint32_t KV_BYTES = BK * DP * 2;
+  static constexpr uint32_t BARS = 2 * Q_BYTES + ST * 2 * KV_BYTES;
+  // q_full, k_full[ST], v_full[ST], empty[ST]; 1,024 for aligning the base
+  static constexpr size_t bytes() { return BARS + 8 * (1 + 3 * ST) + 1024; }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(128 * (DqTile<DP>::NC + 1), 1)
+    bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, WgParams p) {
+  using L = DqTile<DP>;
+  constexpr int NC = L::NC, BK = L::BK, ST = L::ST, BQ = L::BQ, NB = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sq = base, sdo = base + L::Q_BYTES;
+  const uint32_t skv = base + 2 * L::Q_BYTES;
+  const uint32_t q_full = base + L::BARS;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + 2 * ST + s); };
+  auto k_tile = [&](int s) { return skv + s * 2 * L::KV_BYTES; };
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  // the keys any of the tile's rows can see: [k_lo, k_hi)
+  int k_lo = 0, k_hi = p.S;
+  if (p.causal) k_hi = min(p.S, q0 + BQ);
+  if (p.has_window) k_lo = max(0, q0 - p.window + 1);
+  const int t_lo = k_lo / BK;
+  const int nt = max(0, (k_hi + BK - 1) / BK - t_lo);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_load(sq + nb * BQ * 128, &tq, q_full, nb * 64, q0, h, b);
+        tma_load(sdo + nb * BQ * 128, &tdo, q_full, nb * 64, q0, h, b);
+      }
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % ST, k0 = (t_lo + i) * BK;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), L::KV_BYTES);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load(k_tile(s) + nb * BK * 128, &tk, k_full(s), nb * 64, k0, hk,
+                   b);
+        mbar_expect_tx(v_full(s), L::KV_BYTES);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load(k_tile(s) + L::KV_BYTES + nb * BK * 128, &tv, v_full(s),
+                   nb * 64, k0, hk, b);
+      }
+    }
+  } else {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1, tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+    const int r_lo = q0 + 64 * c;  // this warpgroup's first row
+    const int row0 = r_lo + 16 * warp + g, row1 = row0 + 8;
+    const float sl = p.scale * LOG2E;
+    // the rows' lse in log2 units (+inf past S: P = 0) and Δ
+    const long long bh = (long long)b * p.H + h;
+    const float ls0 = row0 < p.S ? p.lse[bh * p.S + row0] * LOG2E : INFINITY;
+    const float ls1 = row1 < p.S ? p.lse[bh * p.S + row1] * LOG2E : INFINITY;
+    const float dl0 = row0 < p.S ? p.delta[bh * p.S + row0] : 0.0f;
+    const float dl1 = row1 < p.S ? p.delta[bh * p.S + row1] : 0.0f;
+    float dq[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dq[i] = 0.0f;
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % ST, k0 = (t_lo + i) * BK;
+      const uint32_t ph = (i / ST) & 1;
+      const uint32_t kt = k_tile(s), vt = kt + L::KV_BYTES;
+      mbar_wait(k_full(s), ph);
+      mbar_wait(v_full(s), ph);
+      // a key tile this warpgroup's rows cannot see at all adds nothing
+      const bool none = (p.causal && k0 > r_lo + 63) ||
+                        (p.has_window && k0 + BK - 1 <= r_lo - p.window);
+      if (!none) {
+        // S = Q Kᵀ and dP = dO Vᵀ: 64 rows x BK keys, DP / 16 steps of k16
+        float sc[BK / 2], dp[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<BK>(sc,
+                       gmma_desc(sq + (kk / 4) * BQ * 128 + c * 64 * 128 +
+                                     (kk % 4) * 32, 16, 1024),
+                       gmma_desc(kt + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
+                                 1024),
+                       kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<BK>(dp,
+                       gmma_desc(sdo + (kk / 4) * BQ * 128 + c * 64 * 128 +
+                                     (kk % 4) * 32, 16, 1024),
+                       gmma_desc(vt + (kk / 4) * BK * 128 + (kk % 4) * 32, 16,
+                                 1024),
+                       kk > 0);
+        wgmma_commit_wait();
+        reg_fence(sc);
+        reg_fence(dp);
+
+        // P from the saved lse, masked unless the tile is inside every
+        // row's limits; dS as bf16 A fragments: the accumulator's (row, 2
+        // keys) pairs of two neighbouring 8-key columns are one k16
+        // fragment
+        const bool inside = k0 + BK <= p.S &&
+                            (!p.causal || k0 + BK - 1 <= r_lo) &&
+                            (!p.has_window || k0 > r_lo + 63 - p.window);
+        uint32_t da[BK / 16][4];
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool hi = e >= 2;
+            float pr = exp2f(sc[4 * j + e] * sl - (hi ? ls1 : ls0));
+            if (!inside &&
+                !seen(p, hi ? row1 : row0, k0 + 8 * j + 2 * tig + (e & 1)))
+              pr = 0.0f;
+            ds[e] = pr * (dp[4 * j + e] - (hi ? dl1 : dl0));
+          }
+          da[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+          da[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+
+        // dQ += dS K: BK / 16 steps of k16, K MN-major
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BK / 16; ++kc)
+          wgmma_rs<DP>(dq, da[kc],
+                       gmma_desc(kt + kc * 16 * 128, BK * 128, 1024));
+        wgmma_commit_wait();
+        reg_fence(dq);
+      }
+      if (tid == 0) mbar_arrive(empty(s));
+    }
+
+    __nv_bfloat16* dqg = p.dq + (long long)b * p.sdq[0] + (long long)h * p.sdq[1];
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * tig;
+      if (d < p.D) {
+        if (row0 < p.S)
+          store_bf16x2(dqg + (long long)row0 * p.sdq[2] + d,
+                       p.scale * dq[4 * j], p.scale * dq[4 * j + 1]);
+        if (row1 < p.S)
+          store_bf16x2(dqg + (long long)row1 * p.sdq[2] + d,
+                       p.scale * dq[4 * j + 2], p.scale * dq[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// dK / dV: two consumer warpgroups.  At D <= 128 each owns 64 rows of a
+// 128-row key tile and every column (DC = DP); at D = 256 both own the
+// tile's 64 rows, DC = 128 columns each.  Shared memory: the K tile, the
+// V tile, ST ring stages of (Q tile, dO tile) of BQ = 64 rows, then ST
+// stages of the rows' lse (log2 units) and Δ.
+template <int DP>
+struct KvTile {
+  static constexpr int NC = 2;
+  static constexpr int DC = DP <= 128 ? DP : 128;
+  static constexpr int RG = DP <= 128 ? 2 : 1;  // 64-row key groups
+  static constexpr int BKV = 64 * RG, BQ = 64, ST = 2;
+  static constexpr uint32_t KV_BYTES = BKV * DP * 2;
+  static constexpr uint32_t QD_BYTES = BQ * DP * 2;
+  static constexpr uint32_t RING = 2 * KV_BYTES;
+  static constexpr uint32_t STATS = RING + ST * 2 * QD_BYTES;
+  static constexpr uint32_t BARS = STATS + ST * 2 * BQ * 4;
+  // kv_full, full[ST], empty[ST]; 1,024 for aligning the base
+  static constexpr size_t bytes() { return BARS + 8 * (1 + 2 * ST) + 1024; }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(128 * (KvTile<DP>::NC + 1), 1)
+    bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv, WgParams p) {
+  using L = KvTile<DP>;
+  constexpr int NC = L::NC, DC = L::DC, RG = L::RG, BKV = L::BKV, BQ = L::BQ,
+                ST = L::ST, NB = DP / 64;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sk = base, sv = base + L::KV_BYTES, ring = base + L::RING;
+  float* stats = reinterpret_cast<float*>(smem_raw + (base - raw) + L::STATS);
+  const uint32_t kv_full = base + L::BARS;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + ST + s); };
+  auto q_tile = [&](int s) { return ring + s * 2 * L::QD_BYTES; };
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, hk = h / p.group;
+  const int j0 = blockIdx.y * BKV;  // causal: the longest key tiles first
+  // the queries any of the tile's keys is seen by: [i_lo, i_hi)
+  const int j_last = min(j0 + BKV, p.S) - 1;
+  const int i_lo = p.causal ? j0 : 0;
+  const int i_hi = p.has_window ? min(p.S, j_last + p.window) : p.S;
+  const int t_lo = i_lo / BQ;
+  const int nt = max(0, (i_hi + BQ - 1) / BQ - t_lo);
+  const long long bh = (long long)b * p.H + h;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1 + 32);  // the TMA thread and the stats warp
+      mbar_init(empty(s), NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      // thread 0: K and V once, then Q and dO tiles into the ring
+      mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        tma_load(sk + nb * BKV * 128, &tk, kv_full, nb * 64, j0, hk, b);
+        tma_load(sv + nb * BKV * 128, &tv, kv_full, nb * 64, j0, hk, b);
+      }
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % ST, i0 = (t_lo + i) * BQ;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::QD_BYTES);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_load(q_tile(s) + nb * BQ * 128, &tq, full(s), nb * 64, i0, h, b);
+          tma_load(q_tile(s) + L::QD_BYTES + nb * BQ * 128, &tdo, full(s),
+                   nb * 64, i0, h, b);
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      // warp 1: each stage's lse (log2 units; +inf past S, so P = 0) and Δ
+      const int lane = threadIdx.x - 32;
+      for (int i = 0; i < nt; ++i) {
+        const int s = i % ST, i0 = (t_lo + i) * BQ;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        float* st = stats + s * 2 * BQ;
+        for (int r = lane; r < BQ; r += 32) {
+          const int row = i0 + r;
+          st[r] = row < p.S ? p.lse[bh * p.S + row] * LOG2E : INFINITY;
+          st[BQ + r] = row < p.S ? p.delta[bh * p.S + row] : 0.0f;
+        }
+        mbar_arrive(full(s));
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1, tid = threadIdx.x - 128 * wg;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+    const int rg = RG == 2 ? c : 0, c0 = RG == 2 ? 0 : DC * c;
+    const int j_lo = j0 + 64 * rg;  // this warpgroup's first key
+    const int key0 = j_lo + 16 * warp + g, key1 = key0 + 8;
+    const float sl = p.scale * LOG2E;
+    float dk[DC / 2], dv[DC / 2];
+#pragma unroll
+    for (int i = 0; i < DC / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < nt; ++i) {
+      const int s = i % ST, i0 = (t_lo + i) * BQ;
+      const uint32_t ph = (i / ST) & 1;
+      const uint32_t qt = q_tile(s), dot = qt + L::QD_BYTES;
+      mbar_wait(full(s), ph);
+      // a query tile that sees none of this warpgroup's keys adds nothing
+      const bool none = j_lo >= p.S || (p.causal && i0 + BQ - 1 < j_lo) ||
+                        (p.has_window && i0 >= j_lo + 63 + p.window);
+      if (!none) {
+        // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: 64 keys x BQ queries, DP / 16 k16
+        float st[BQ / 2], dpt[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<BQ>(st,
+                       gmma_desc(sk + (kk / 4) * BKV * 128 + rg * 64 * 128 +
+                                     (kk % 4) * 32, 16, 1024),
+                       gmma_desc(qt + (kk / 4) * BQ * 128 + (kk % 4) * 32, 16,
+                                 1024),
+                       kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<BQ>(dpt,
+                       gmma_desc(sv + (kk / 4) * BKV * 128 + rg * 64 * 128 +
+                                     (kk % 4) * 32, 16, 1024),
+                       gmma_desc(dot + (kk / 4) * BQ * 128 + (kk % 4) * 32,
+                                 16, 1024),
+                       kk > 0);
+        wgmma_commit_wait();
+        reg_fence(st);
+        reg_fence(dpt);
+
+        // Pᵀ and dSᵀ as bf16 A fragments (rows: keys, columns: queries)
+        const bool inside = j_lo + 64 <= p.S &&
+                            (!p.causal || j_lo + 63 <= i0) &&
+                            (!p.has_window || j_lo > i0 + 63 - p.window);
+        const float* stage = stats + s * 2 * BQ;
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+          const int col = 8 * j + 2 * tig;
+          const float2 ls = *reinterpret_cast<const float2*>(stage + col);
+          const float2 dl = *reinterpret_cast<const float2*>(stage + BQ + col);
+          float pr[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool odd = e & 1;
+            float x = exp2f(st[4 * j + e] * sl - (odd ? ls.y : ls.x));
+            if (!inside && !seen(p, i0 + col + odd, e < 2 ? key0 : key1))
+              x = 0.0f;
+            pr[e] = x;
+            ds[e] = x * (dpt[4 * j + e] - (odd ? dl.y : dl.x));
+          }
+          pa[j / 2][(j % 2) * 2] = pack_bf16(pr[0], pr[1]);
+          pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pr[2], pr[3]);
+          da[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
+          da[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+
+        // dV += Pᵀ dO and dK += dSᵀ Q over this warpgroup's DC columns:
+        // BQ / 16 steps of k16, dO and Q MN-major
+        const uint32_t cb = (c0 / 64) * BQ * 128;
+        wgmma_fence();
+#pragma unroll
+        for (int kc = 0; kc < BQ / 16; ++kc)
+          wgmma_rs<DC>(dv, pa[kc],
+                       gmma_desc(dot + cb + kc * 16 * 128, BQ * 128, 1024));
+#pragma unroll
+        for (int kc = 0; kc < BQ / 16; ++kc)
+          wgmma_rs<DC>(dk, da[kc],
+                       gmma_desc(qt + cb + kc * 16 * 128, BQ * 128, 1024));
+        wgmma_commit_wait();
+        reg_fence(dv);
+        reg_fence(dk);
+      }
+      if (tid == 0) mbar_arrive(empty(s));
+    }
+
+    if (p.part == nullptr) {
+      // G = 1: the head's gradients are its KV head's
+      __nv_bfloat16* dkg =
+          p.dk + (long long)b * p.sdk[0] + (long long)hk * p.sdk[1];
+      __nv_bfloat16* dvg =
+          p.dv + (long long)b * p.sdv[0] + (long long)hk * p.sdv[1];
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        const int d = c0 + 8 * j + 2 * tig;
+        if (d < p.D) {
+          if (key0 < p.S) {
+            store_bf16x2(dkg + (long long)key0 * p.sdk[2] + d,
+                         p.scale * dk[4 * j], p.scale * dk[4 * j + 1]);
+            store_bf16x2(dvg + (long long)key0 * p.sdv[2] + d, dv[4 * j],
+                         dv[4 * j + 1]);
+          }
+          if (key1 < p.S) {
+            store_bf16x2(dkg + (long long)key1 * p.sdk[2] + d,
+                         p.scale * dk[4 * j + 2], p.scale * dk[4 * j + 3]);
+            store_bf16x2(dvg + (long long)key1 * p.sdv[2] + d, dv[4 * j + 2],
+                         dv[4 * j + 3]);
+          }
+        }
+      }
+    } else {
+      // G > 1: this head's float32 partials, dK already scaled
+      float* pk = p.part + bh * p.S * p.D;
+      float* pv = pk + (long long)p.B * p.H * p.S * p.D;
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        const int d = c0 + 8 * j + 2 * tig;
+        if (d < p.D) {
+          if (key0 < p.S) {
+            *reinterpret_cast<float2*>(pk + (long long)key0 * p.D + d) =
+                make_float2(p.scale * dk[4 * j], p.scale * dk[4 * j + 1]);
+            *reinterpret_cast<float2*>(pv + (long long)key0 * p.D + d) =
+                make_float2(dv[4 * j], dv[4 * j + 1]);
+          }
+          if (key1 < p.S) {
+            *reinterpret_cast<float2*>(pk + (long long)key1 * p.D + d) =
+                make_float2(p.scale * dk[4 * j + 2], p.scale * dk[4 * j + 3]);
+            *reinterpret_cast<float2*>(pv + (long long)key1 * p.D + d) =
+                make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// dk, dv of each KV head: the sum of its G heads' partials in ascending
+// head order, 4 columns a thread (float4 in, 4 bf16 out)
+__global__ void __launch_bounds__(256) bwd_reduce_kernel(WgParams p) {
+  const int Hkv = p.H / p.group, C4 = p.D / 4;
+  const long long per = (long long)p.B * Hkv * p.S * C4;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= 2 * per) return;
+  const bool is_v = t >= per;
+  if (is_v) t -= per;
+  const int c4 = (int)(t % C4);
+  long long r = t / C4;
+  const int s = (int)(r % p.S);
+  r /= p.S;
+  const long long hk = r % Hkv, b = r / Hkv;
+  const long long hstride = (long long)p.S * p.D;
+  const float* src = p.part + (is_v ? p.B * p.H * hstride : 0) +
+                     (b * p.H + hk * p.group) * hstride + (long long)s * p.D +
+                     4 * c4;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int g = 1; g < p.group; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(src + g * hstride);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat16* dst =
+      is_v ? p.dv + b * p.sdv[0] + hk * p.sdv[1] + s * p.sdv[2]
+           : p.dk + b * p.sdk[0] + hk * p.sdk[1] + s * p.sdk[2];
+  store_bf16x2(dst + 4 * c4, acc.x, acc.y);
+  store_bf16x2(dst + 4 * c4 + 2, acc.z, acc.w);
+}
+
+template <int DP>
+int launch_wgmma(const WgParams& p, int Hkv, cudaStream_t st) {
+  using Q = DqTile<DP>;
+  using K = KvTile<DP>;
+  const long long rows = (long long)p.B * p.H * p.S;
+  int gs_log2 = 0;
+  while ((1 << gs_log2) < p.D / 8) ++gs_log2;
+  int err = launch(bwd_delta_kernel, 0,
+                   dim3((unsigned)(((rows << gs_log2) + 255) / 256)), 256, st,
+                   p, gs_log2);
+  if (err != 0) return err;
+
+  CUtensorMap tq, tdo, tk, tv;
+  err = tensor_map(&tq, p.q, p.D, p.S, p.H, p.B, p.sq, Q::BQ);
+  if (err == 0) err = tensor_map(&tdo, p.dout, p.D, p.S, p.H, p.B, p.sdo, Q::BQ);
+  if (err == 0) err = tensor_map(&tk, p.k, p.D, p.S, Hkv, p.B, p.sk, Q::BK);
+  if (err == 0) err = tensor_map(&tv, p.v, p.D, p.S, Hkv, p.B, p.sv, Q::BK);
+  if (err != 0) return err;
+  err = launch(bwd_dq_wgmma_kernel<DP>, Q::bytes(),
+               dim3(p.B * p.H, (p.S + Q::BQ - 1) / Q::BQ), 128 * (Q::NC + 1),
+               st, tq, tdo, tk, tv, p);
+  if (err != 0) return err;
+
+  err = tensor_map(&tq, p.q, p.D, p.S, p.H, p.B, p.sq, K::BQ);
+  if (err == 0) err = tensor_map(&tdo, p.dout, p.D, p.S, p.H, p.B, p.sdo, K::BQ);
+  if (err == 0) err = tensor_map(&tk, p.k, p.D, p.S, Hkv, p.B, p.sk, K::BKV);
+  if (err == 0) err = tensor_map(&tv, p.v, p.D, p.S, Hkv, p.B, p.sv, K::BKV);
+  if (err != 0) return err;
+  err = launch(bwd_dkdv_wgmma_kernel<DP>, K::bytes(),
+               dim3(p.B * p.H, (p.S + K::BKV - 1) / K::BKV),
+               128 * (K::NC + 1), st, tq, tdo, tk, tv, p);
+  if (err != 0 || p.group == 1) return err;
+
+  const long long groups = 2LL * p.B * Hkv * p.S * (p.D / 4);
+  return launch(bwd_reduce_kernel, 0, dim3((unsigned)((groups + 255) / 256)),
+                256, st, p);
+}
+
+bool aligned4(const void* ptr, const long long* st) {
+  return reinterpret_cast<uintptr_t>(ptr) % 4 == 0 && st[0] % 2 == 0 &&
+         st[1] % 2 == 0 && st[2] % 2 == 0;
 }
 
 }  // namespace
 
-// dtype 0 = float32, 1 = bf16; tile_d the head-dim tile (32, 64, 128 or
-// 256, D <= tile_d); strides per (b, head, s) in elements, D contiguous,
-// in the order q, k, v, o, dO, dq, dk, dv; stats a float32 scratch of
-// 3·B·H·S.  Two kernel launches on `stream`.
-extern "C" int flash_attention_bwd_launch(
+// Variant "simt" (float32): tile_d the head-dim tile (32, 64, 128 or 256,
+// D <= tile_d); strides per (b, head, s) in elements, D contiguous, in the
+// order q, k, v, o, dO, dq, dk, dv; stats a float32 scratch of 3·B·H·S.
+// Two kernel launches on `stream`.
+extern "C" int flash_attention_bwd_simt_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, float* stats, int dtype,
-    int tile_d, int B, int H, int Hkv, int S, int D, const long long* strides,
-    int causal, int has_window, int window, float scale, int device,
-    void* stream) {
+    const void* dout, void* dq, void* dk, void* dv, float* stats, int tile_d,
+    int B, int H, int Hkv, int S, int D, const long long* strides, int causal,
+    int has_window, int window, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 ||
       D > tile_d)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  SimtParams p;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -480,7 +1064,68 @@ extern "C" int flash_attention_bwd_launch(
   p.window = window;
   p.scale = scale;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_dtype<float>(p, Hkv, tile_d, st);
-  if (dtype == 1) return launch_dtype<__nv_bfloat16>(p, Hkv, tile_d, st);
-  return (int)cudaErrorInvalidValue;
+  switch (tile_d) {
+    case 32: return launch_simt<32>(p, Hkv, st);
+    case 64: return launch_simt<64>(p, Hkv, st);
+    case 128: return launch_simt<128>(p, Hkv, st);
+    case 256: return launch_simt<256>(p, Hkv, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Variant "wgmma" (bf16): tile_d 64, 128 or 256; D (a multiple of 16,
+// D <= tile_d, above tile_d / 2 past 64) as the tensors hold it; strides as
+// above; lse the forward's (B, H, S) float32; delta a float32 scratch of
+// B·H·S; part a float32 scratch of 2·B·H·S·D when H > Hkv, else null.
+// Bases and strides of q, k, v, o, dO 16-byte aligned (TMA, 16-byte
+// loads), of dq, dk, dv 4-byte.  Three launches on `stream` (delta, dq,
+// dkdv), a fourth (reduce) when H > Hkv.
+extern "C" int flash_attention_bwd_wgmma_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, float* part, int tile_d, int B, int H, int Hkv, int S, int D,
+    const long long* strides, int causal, int has_window, int window,
+    float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int bad = (int)cudaErrorInvalidValue;
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 ||
+      (tile_d != 64 && tile_d != 128 && tile_d != 256) || D % 16 != 0 ||
+      D < 16 || D > tile_d || (tile_d > 64 && D <= tile_d / 2) ||
+      (part == nullptr) != (H == Hkv) || (S + 63) / 64 > 65535)
+    return bad;
+  WgParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<const __nv_bfloat16*>(o);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dk = static_cast<__nv_bfloat16*>(dk);
+  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.part = part;
+  p.B = B;
+  p.H = H;
+  p.group = H / Hkv;
+  p.S = S;
+  p.D = D;
+  long long* dst[8] = {p.sq, p.sk, p.sv, p.so, p.sdo, p.sdq, p.sdk, p.sdv};
+  for (int t = 0; t < 8; ++t)
+    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
+  p.causal = causal;
+  p.has_window = has_window;
+  p.window = window;
+  p.scale = scale;
+  const void* in[5] = {q, k, v, o, dout};
+  for (int t = 0; t < 5; ++t)
+    if (!aligned16(in[t], dst[t])) return bad;
+  void* out[3] = {dq, dk, dv};
+  for (int t = 0; t < 3; ++t)
+    if (!aligned4(out[t], dst[5 + t])) return bad;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tile_d == 64) return launch_wgmma<64>(p, Hkv, st);
+  if (tile_d == 128) return launch_wgmma<128>(p, Hkv, st);
+  return launch_wgmma<256>(p, Hkv, st);
 }

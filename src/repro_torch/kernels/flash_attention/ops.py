@@ -45,17 +45,28 @@ weights p to bf16 for the PV product, as the reference model's
 differentiate the XLA path).  Here, on CUDA tensors that need a gradient,
 ``attention`` is a ``torch.autograd.Function``: its forward launches the
 forward kernel exactly as above (same plan, same instantiation, same
-bits) and saves q, k, v and o; its backward calls :func:`attention_bwd`,
-the hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``,
-two launches a call, counted in ``LAUNCHES["flash_attention_bwd"]`` and
-``VARIANT_LAUNCHES["flash_attention_bwd"]`` as ``dq`` and ``dkdv``).  The
-pad and slice of D stay inside the forward; the backward reads the
-unpadded views, any D up to :data:`MAX_HEAD_DIM`, with their strides (a
-tensor whose D is not contiguous is copied; :func:`plan_attention_bwd`
-says which).  Above it there is no backward kernel yet: a CUDA call that
-needs a gradient raises ``NotImplementedError``.  Under ``no_grad`` /
-``inference_mode`` nothing changes.  CPU tensors run ``attention_ref``,
-which autograd differentiates.
+bits of o) and, in bf16, also has it write each row's log-sum-exp; it
+saves q, k, v, o and that lse.  Its backward calls :func:`attention_bwd`,
+the hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``),
+in one of two variants that :func:`plan_attention_bwd` picks:
+
+* ``"wgmma"``, bf16: the Δ pre-pass, the tensor-core dQ and dK / dV
+  kernels (TMA + ``wgmma``, P from the saved lse) and, when H > Hkv, the
+  ordered group sum of per-head float32 partials -- 3 or 4 launches,
+  counted as ``delta``, ``dq``, ``dkdv``, ``reduce``;
+* ``"simt"``, float32: two CUDA-core kernels (``simt_dq``, ``simt_dkdv``)
+  that recompute the row statistics, to hold the 1e-4 float32 bound.
+
+Each launch counts in ``LAUNCHES["flash_attention_bwd"]`` and, by name, in
+``VARIANT_LAUNCHES["flash_attention_bwd"]``; no launch uses atomics, so
+two runs give the same bits.  bf16 pads D to a multiple of 16 and copies
+a tensor TMA cannot take, as the forward does; float32 copies a tensor
+whose D is not contiguous.  D above :data:`MAX_HEAD_DIM` has no backward
+kernel yet: a CUDA call that needs a gradient raises
+``NotImplementedError``.  Under ``no_grad`` / ``inference_mode`` nothing
+changes and no lse is written.  CPU tensors run ``attention_ref``, which
+autograd differentiates; :func:`attention_with_lse` and
+:func:`attention_bwd` run ``attention_lse_ref`` / ``attention_bwd_ref``.
 """
 
 from __future__ import annotations
@@ -72,11 +83,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import count_launch, note_dispatch, use_cuda_kernel
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
+    attention_lse_ref,
     attention_ref,
 )
 
 __all__ = [
     "attention",
+    "attention_with_lse",
     "attention_bwd",
     "launch_flash_attention",
     "launch_flash_attention_bwd",
@@ -101,7 +114,7 @@ _VARIANT_CODE = {"simt": 0, "wgmma": 1, "mma16": 2, "wide": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _argtypes_set = False
-_bwd_fn = None
+_bwd_fns = {}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -126,8 +139,11 @@ class AttentionPlan:
 def _tma_ready(x: torch.Tensor) -> bool:
     """D contiguous, a 16-byte base and 16-byte (b, h, s) strides (a
     dimension of size 1 has no stride to speak of)."""
-    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(x.stride(i) % 8 == 0 for i in range(3) if x.shape[i] > 1))
+    st, shape = x.stride(), x.shape
+    return (st[3] == 1 and x.data_ptr() % 16 == 0
+            and (st[0] % 8 == 0 or shape[0] == 1)
+            and (st[1] % 8 == 0 or shape[1] == 1)
+            and (st[2] % 8 == 0 or shape[2] == 1))
 
 
 def plan_attention(q: torch.Tensor, k: torch.Tensor,
@@ -161,9 +177,9 @@ def plan_attention(q: torch.Tensor, k: torch.Tensor,
 def _strides(x: torch.Tensor):
     """(b, h, s) element strides; a dimension of size 1 gets its
     contiguous stride (its index is always 0)."""
-    shape = x.shape
-    dense = (shape[1] * shape[2] * shape[3], shape[2] * shape[3], shape[3])
-    return [x.stride(i) if shape[i] > 1 else dense[i] for i in range(3)]
+    (_, h, s, d), st = x.shape, x.stride()
+    return (st[0] if x.shape[0] > 1 else h * s * d,
+            st[1] if h > 1 else s * d, st[2] if s > 1 else d)
 
 
 def launch_flash_attention(
@@ -176,10 +192,13 @@ def launch_flash_attention(
     window: Optional[int],
     scale: float,
     plan: Optional[AttentionPlan] = None,
+    lse: Optional[torch.Tensor] = None,  # (B, H, S) float32 out, or None
 ) -> None:
     """Launch the CUDA kernel (``plan``, default :func:`plan_attention`'s):
-    ``o`` is written on the current stream; raises if the plan needs a
-    copy of q, k or v (:func:`attention` makes it) or the launch fails."""
+    ``o`` is written on the current stream, and ``lse`` (each row's
+    log-sum-exp; the bf16 instantiations only) when given; raises if the
+    plan needs a copy of q, k or v (:func:`attention` makes it) or the
+    launch fails."""
     global _argtypes_set
     from repro_torch.kernels.build import library
 
@@ -190,10 +209,19 @@ def launch_flash_attention(
             f"q, k, v with D = {plan.head_dim} and aligned strides "
             f"(copies {plan.copy}); attention() makes them"
         )
+    if lse is not None and (
+            plan.variant not in ("wgmma", "mma16") or lse.dtype != torch.float32
+            or lse.shape != q.shape[:3] or not lse.is_contiguous()):
+        raise ValueError(
+            f"launch_flash_attention: lse must be a contiguous float32 "
+            f"{tuple(q.shape[:3])} tensor and the instantiation wgmma or "
+            f"mma16, got {plan.variant} and "
+            f"{None if lse is None else (lse.dtype, tuple(lse.shape))}"
+        )
     fn = library("flash_attention").flash_attention_launch
     if not _argtypes_set:
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 12
             + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 4
             + [ctypes.c_void_p]
@@ -208,6 +236,7 @@ def launch_flash_attention(
         plan.variant == "wide" and q.dtype == torch.bfloat16)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         code, plan.tile_d, B, H, k.shape[1], S, D,
         *strides, int(causal), int(window is not None),
         # a window beyond ±(S + 1) masks as ±(S + 1) does; kept in an int
@@ -245,9 +274,10 @@ def _check_dtypes(*xs: torch.Tensor) -> None:
         )
 
 
-def _forward_cuda(q, k, v, causal, window, scale) -> torch.Tensor:
+def _forward_cuda(q, k, v, causal, window, scale, with_lse=False):
     """The forward kernel on CUDA tensors: the plan, the copies it asks
-    for, the launch, the padded head dim sliced off."""
+    for, the launch, the padded head dim sliced off.  Returns o, or
+    (o, lse) with ``with_lse`` (bf16; o has the same bits either way)."""
     D = q.shape[-1]
     plan = plan_attention(q, k, v)
     pad = plan.head_dim - D
@@ -260,10 +290,13 @@ def _forward_cuda(q, k, v, causal, window, scale) -> torch.Tensor:
     # q's strides when q is dense (a transposed view stays one), else
     # contiguous: D contiguous either way
     o = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if o.numel():
         launch_flash_attention(q, k, v, o, causal=causal, window=window,
-                               scale=scale, plan=plan)
-    return o[..., :D] if pad else o
+                               scale=scale, plan=plan, lse=lse)
+    o = o[..., :D] if pad else o
+    return (o, lse) if with_lse else o
 
 
 class _Attention(torch.autograd.Function):
@@ -271,17 +304,23 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        o = _forward_cuda(q, k, v, causal, window, scale)
-        ctx.save_for_backward(q, k, v, o)
+        # the bf16 backward reads P = exp(scale * s - lse) from the saved
+        # lse; float32's recomputes its row statistics
+        if q.dtype == torch.bfloat16:
+            o, lse = _forward_cuda(q, k, v, causal, window, scale,
+                                   with_lse=True)
+        else:
+            o, lse = _forward_cuda(q, k, v, causal, window, scale), None
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, window, scale)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         causal, window, scale = ctx.args
         dq, dk, dv = attention_bwd(q, k, v, o, do, causal=causal,
-                                   window=window, scale=scale)
+                                   window=window, scale=scale, lse=lse)
         return dq, dk, dv, None, None, None
 
 
@@ -318,6 +357,38 @@ def attention(
     return _forward_cuda(q, k, v, causal, window, scale)
 
 
+def attention_with_lse(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): :func:`attention`'s output (no autograd) and each row's
+    log-sum-exp of its visible scaled scores, (B, H, S) float32, +inf for a
+    row that sees no key -- what the forward saves for the bf16 backward.
+    CUDA tensors: the forward kernel, bf16, D <= 256; CPU tensors:
+    :func:`attention_lse_ref`."""
+    _check_shapes(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if not use_cuda_kernel("flash_attention", q, k, v):
+        note_dispatch("flash_attention", "ref")
+        return attention_lse_ref(q, k, v, causal=causal, window=window,
+                                 scale=scale)
+    note_dispatch("flash_attention", "cuda")
+    _check_dtypes(q, k, v)
+    if q.dtype != torch.bfloat16 or q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            "attention_with_lse: the kernel writes lse in bf16 at head dims "
+            f"up to {MAX_HEAD_DIM}, got {q.dtype} at D = {q.shape[-1]}"
+        )
+    with torch.no_grad():
+        return _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
+
+
 # ---------------------------------------------------------------------------
 # backward
 # ---------------------------------------------------------------------------
@@ -325,67 +396,128 @@ def attention(
 
 @dataclass(frozen=True)
 class AttentionBwdPlan:
-    """How one backward call runs: the head-dim tile the kernels are built
-    for (D <= tile_d; the kernel takes 64-row tiles up to 128, 32-row
-    ones at 256) and which of q, k, v, o, dO need a copy (D not
-    contiguous)."""
+    """How one backward call runs: the variant (``"wgmma"`` for bf16,
+    ``"simt"`` for float32), the head-dim tile the kernels are built for,
+    the head dim they see (bf16: D padded with zeros to a multiple of 16),
+    the rows of a block's query tile in the dQ kernel and of its key tile
+    in the dK / dV kernel, which of q, k, v, o, dO need a copy (padded or
+    made contiguous), whether the group sum launches (bf16, H > Hkv), the
+    float32 scratch the call allocates in bytes, and its launches by
+    name."""
 
+    variant: str
     tile_d: int
+    head_dim: int
+    rows: Tuple[int, int]
     copy: Tuple[bool, bool, bool, bool, bool]
+    reduce: bool
+    scratch_bytes: int
+    launches: Tuple[str, ...]
 
 
 def plan_attention_bwd(q, k, v, o, do) -> AttentionBwdPlan:
-    """The plan for ``attention_bwd`` on the card; reads only shapes and
-    strides."""
-    D = q.shape[-1]
+    """The plan for ``attention_bwd`` on the card; reads only shapes,
+    strides, dtypes and base addresses."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
     if D > MAX_HEAD_DIM:
         raise NotImplementedError(
             f"attention_bwd: head dim {D} > {MAX_HEAD_DIM} has no backward "
             "kernel yet (ROADMAP Queue A: B6 backward for D > 256)"
         )
-    return AttentionBwdPlan(next(t for t in (32, 64, 128, 256) if D <= t),
-                            tuple(x.stride(-1) != 1 for x in (q, k, v, o, do)))
+    xs = (q, k, v, o, do)
+    if q.dtype == torch.float32:
+        tile = next(t for t in (32, 64, 128, 256) if D <= t)
+        bt = 64 if tile <= 128 else 32
+        # the row statistics m, l and Δ of every (b, h, row)
+        return AttentionBwdPlan("simt", tile, D, (bt, bt),
+                                tuple(x.stride(-1) != 1 for x in xs), False,
+                                3 * B * H * S * 4, ("simt_dq", "simt_dkdv"))
+    head_dim = _cdiv(D, 16) * 16
+    tile = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+    rows = 128 if tile <= 128 else 64
+    reduce = H > Hkv
+    # Δ, and with grouped heads the float32 partial dK, dV of every head
+    scratch = 4 * B * H * S * (1 + (2 * head_dim if reduce else 0))
+    return AttentionBwdPlan(
+        "wgmma", tile, head_dim, (rows, rows),
+        tuple(head_dim != D or not _tma_ready(x) for x in xs), reduce,
+        scratch, ("delta", "dq", "dkdv") + (("reduce",) if reduce else ()))
+
+
+def _bwd_fn(variant: str):
+    """The backward library's C entry point of ``variant``, typed."""
+    fn = _bwd_fns.get(variant)
+    if fn is None:
+        from repro_torch.kernels.build import library
+
+        lib = library("flash_attention_bwd")
+        if variant == "simt":
+            fn = lib.flash_attention_bwd_simt_launch
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        else:
+            fn = lib.flash_attention_bwd_wgmma_launch
+            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fns[variant] = fn
+    return fn
 
 
 def launch_flash_attention_bwd(
     q, k, v, o, do, dq, dk, dv, *, causal: bool, window: Optional[int],
-    scale: float, plan: Optional[AttentionBwdPlan] = None,
+    scale: float, lse: Optional[torch.Tensor] = None,
+    plan: Optional[AttentionBwdPlan] = None,
 ) -> None:
-    """Launch the backward kernel (two launches, dQ then dK / dV) on the
-    current stream: ``dq``, ``dk``, ``dv`` written; every tensor with D
-    contiguous (:func:`attention_bwd` copies where it is not)."""
-    global _bwd_fn
+    """Launch the backward kernels of ``plan`` (default
+    :func:`plan_attention_bwd`'s) on the current stream: ``dq``, ``dk``,
+    ``dv`` written.  Every tensor as the plan needs it (:func:`attention_bwd`
+    pads or copies); ``wgmma`` reads the forward's ``lse`` (B, H, S)
+    float32.  Scratch is allocated here."""
     plan = plan or plan_attention_bwd(q, k, v, o, do)
-    if any(plan.copy) or any(x.stride(-1) != 1 for x in (dq, dk, dv)):
+    if (any(plan.copy) or q.shape[-1] != plan.head_dim
+            or any(x.stride(-1) != 1 for x in (dq, dk, dv))):
         raise ValueError(
-            "launch_flash_attention_bwd: every tensor needs D contiguous "
+            f"launch_flash_attention_bwd: the {plan.variant} variant needs "
+            f"D = {plan.head_dim}, D contiguous and (bf16) 16-byte strides "
             f"(copies {plan.copy}); attention_bwd() makes them"
         )
-    if _bwd_fn is None:
-        from repro_torch.kernels.build import library
-
-        fn = library("flash_attention_bwd").flash_attention_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _bwd_fn = fn
     B, H, S, D = q.shape
+    Hkv = k.shape[1]
     strides = (ctypes.c_longlong * 24)(
         *(s for x in (q, k, v, o, do, dq, dk, dv) for s in _strides(x)))
-    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    win = 0 if window is None else max(-(S + 1), min(int(window), S + 1))
     dev = q.device
-    err = _bwd_fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        int(q.dtype == torch.bfloat16), plan.tile_d, B, H, k.shape[1], S, D,
-        ctypes.cast(strides, ctypes.c_void_p), int(causal),
-        int(window is not None),
-        0 if window is None else max(-(S + 1), min(int(window), S + 1)),
-        float(scale), dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    count_launch("flash_attention_bwd", variant="dq")
-    count_launch("flash_attention_bwd", variant="dkdv")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = [x.data_ptr() for x in (q, k, v, o, do)]
+    outs = [x.data_ptr() for x in (dq, dk, dv)]
+    if plan.variant == "simt":
+        stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=dev)
+        err = _bwd_fn("simt")(
+            *ptrs, *outs, stats.data_ptr(), plan.tile_d, B, H, Hkv, S, D,
+            ctypes.cast(strides, ctypes.c_void_p), int(causal),
+            int(window is not None), win, float(scale), dev.index, stream)
+    else:
+        if (lse is None or lse.dtype != torch.float32
+                or lse.shape != q.shape[:3] or not lse.is_contiguous()):
+            raise ValueError(
+                "launch_flash_attention_bwd: the wgmma variant needs the "
+                f"forward's lse, a contiguous float32 {tuple(q.shape[:3])} "
+                "tensor (attention_with_lse)"
+            )
+        delta = torch.empty(B * H * S, dtype=torch.float32, device=dev)
+        part = (torch.empty(2 * B * H * S * D, dtype=torch.float32,
+                            device=dev) if plan.reduce else None)
+        err = _bwd_fn("wgmma")(
+            *ptrs, lse.data_ptr(), delta.data_ptr(), *outs,
+            None if part is None else part.data_ptr(), plan.tile_d, B, H,
+            Hkv, S, D, ctypes.cast(strides, ctypes.c_void_p), int(causal),
+            int(window is not None), win, float(scale), dev.index, stream)
+    for name in plan.launches:
+        count_launch("flash_attention_bwd", variant=name)
     if err != 0:
         raise RuntimeError(
             f"flash_attention_bwd kernel launch failed ({plan}): CUDA error "
@@ -403,10 +535,14 @@ def attention_bwd(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    lse: Optional[torch.Tensor] = None,  # (B, H, S) the forward's
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention`, each with its input's shape and
-    dtype (and strides, where the input is dense): the backward kernel on
-    CUDA tensors, :func:`attention_bwd_ref` on CPU tensors."""
+    dtype (and strides, where the input is dense and needs no padding):
+    the backward kernel on CUDA tensors, :func:`attention_bwd_ref` on CPU
+    tensors.  ``lse`` is the forward's log-sum-exp
+    (:func:`attention_with_lse`); a bf16 CUDA call without it launches the
+    forward kernel once more to get it."""
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
@@ -418,16 +554,24 @@ def attention_bwd(
     if not use_cuda_kernel("flash_attention_bwd", q, k, v, o, do):
         note_dispatch("flash_attention_bwd", "ref")
         return attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                 window=window, scale=scale)
+                                 window=window, scale=scale, lse=lse)
     note_dispatch("flash_attention_bwd", "cuda")
     _check_dtypes(q, k, v, o, do)
     plan = plan_attention_bwd(q, k, v, o, do)
+    if plan.variant == "wgmma" and lse is None:
+        _, lse = _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
+    D = q.shape[-1]
+    pad = plan.head_dim - D
     if any(plan.copy):
-        q, k, v, o, do = (x.contiguous() if c else x
-                          for x, c in zip((q, k, v, o, do), plan.copy))
+        q, k, v, o, do = (
+            (F.pad(x, (0, pad)) if pad else x.contiguous()) if c else x
+            for x, c in zip((q, k, v, o, do), plan.copy))
         plan = dataclasses.replace(plan, copy=(False,) * 5)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if dq.numel():
         launch_flash_attention_bwd(q, k, v, o, do, dq, dk, dv, causal=causal,
-                                   window=window, scale=scale, plan=plan)
+                                   window=window, scale=scale, lse=lse,
+                                   plan=plan)
+    if pad:
+        return dq[..., :D], dk[..., :D], dv[..., :D]
     return dq, dk, dv

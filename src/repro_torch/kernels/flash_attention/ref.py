@@ -12,7 +12,12 @@ one float32 score tensor is 6.4 GB.
 (``kernels/csrc/flash_attention_bwd.cu``): the weights recomputed as above,
 then the explicit gradient formulas in float32, Δ taken from the stored
 output ``o`` (bf16 on bf16 paths, as the kernel and FlashAttention-2 take
-it).
+it).  Given the forward's log-sum-exp ``lse`` it takes P = exp(scale · s −
+lse) instead, as the bf16 kernel does.
+
+:func:`attention_lse_ref` is the plain counterpart of the forward kernel
+run under autograd: ``attention_ref``'s output and each row's log-sum-exp
+of its visible scaled scores (+inf for a row that sees no key).
 """
 
 from __future__ import annotations
@@ -22,14 +27,15 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["attention_ref", "attention_bwd_ref", "MASKED"]
+__all__ = ["attention_ref", "attention_lse_ref", "attention_bwd_ref",
+           "MASKED"]
 
 MASKED = -1e30
 
 
-def _weights(q, k, *, causal, window, scale) -> torch.Tensor:
-    """The float32 attention weights P (B, H, S, S): masked scores at
-    ``MASKED``, masked weights 0, the denominator floored at 1e-30."""
+def _scores(q, k, *, causal, window, scale):
+    """The float32 scaled scores (B, H, S, S) and the (S, S) mask of the
+    pairs no query sees."""
     S = q.shape[2]
     group = q.shape[1] // k.shape[1]
     f32 = torch.float32
@@ -43,7 +49,24 @@ def _weights(q, k, *, causal, window, scale) -> torch.Tensor:
         mask &= k_pos <= q_pos
     if window is not None:
         mask &= k_pos > q_pos - window
-    masked = ~mask
+    return s, ~mask
+
+
+def _lse(s, masked) -> torch.Tensor:
+    """Each row's log-sum-exp of its visible scores, float32; +inf for a
+    row that sees no key (then exp(s - lse) is 0)."""
+    lse = torch.logsumexp(s.masked_fill(masked, -math.inf), dim=-1)
+    return lse.masked_fill_(torch.isneginf(lse), math.inf)
+
+
+def _weights(q, k, *, causal, window, scale, lse=None) -> torch.Tensor:
+    """The float32 attention weights P (B, H, S, S): masked scores at
+    ``MASKED``, masked weights 0, the denominator floored at 1e-30; or,
+    given ``lse`` (B, H, S), P = exp(s - lse) on the visible pairs."""
+    s, masked = _scores(q, k, causal=causal, window=window, scale=scale)
+    if lse is not None:
+        return s.sub_(lse.to(torch.float32)[..., None]).exp_().masked_fill_(
+            masked, 0.0)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
         # out of place: autograd keeps what each step's gradient reads
         s = s.masked_fill(masked, MASKED)
@@ -75,6 +98,26 @@ def attention_ref(
     return out.to(q.dtype)
 
 
+def attention_lse_ref(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, Hkv, S, D)
+    v: torch.Tensor,  # (B, Hkv, S, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse): :func:`attention_ref`'s output, and (B, H, S) float32 each
+    row's log-sum-exp of its visible scaled scores, +inf for a row that
+    sees no key."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    o = attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+    with torch.no_grad():
+        s, masked = _scores(q, k, causal=causal, window=window, scale=scale)
+        return o, _lse(s, masked)
+
+
 def attention_bwd_ref(
     q: torch.Tensor,   # (B, H, S, D)
     k: torch.Tensor,   # (B, Hkv, S, D)
@@ -85,20 +128,22 @@ def attention_bwd_ref(
     causal: bool = True,
     window: Optional[int] = None,
     scale: Optional[float] = None,
+    lse: Optional[torch.Tensor] = None,  # (B, H, S) the forward's
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the inputs' dtypes and shapes::
 
         dV = Pᵀ dO,  dP = dO Vᵀ,  Δ = rowsum(dO ∘ O),  dS = P ∘ (dP − Δ),
         dQ = scale · dS K,  dK = scale · dSᵀ Q
 
-    in float32, dK and dV summed over each KV head's query heads."""
+    in float32, dK and dV summed over each KV head's query heads; P
+    recomputed by the softmax, or from ``lse`` when it is given."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     group = H // Hkv
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
-    p = _weights(q, k, causal=causal, window=window, scale=scale)
+    p = _weights(q, k, causal=causal, window=window, scale=scale, lse=lse)
     dof = do.to(f32)
     vv = v.to(f32).repeat_interleave(group, dim=1)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)

@@ -25,6 +25,7 @@ from repro.models.layers import gqa_attention as jax_gqa_attention
 from repro_torch.kernels.flash_attention.ops import attention, attention_bwd
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
+    attention_lse_ref,
     attention_ref,
 )
 
@@ -112,3 +113,126 @@ def test_plan_attention_bwd_tiles_copies_and_refusal():
     big = torch.zeros((1, 2, 4, 288))
     with pytest.raises(NotImplementedError, match="D > 256"):
         plan_attention_bwd(big, big, big, big, big)
+
+
+# chip_smoke.py's FA_BWD_SHAPES, the training paths' shapes (B, H, Hkv, S,
+# D): the scorer, seamless-m4t-medium's decoder and encoder, nemotron's
+# GQA, a 2,048 window, recurrentgemma's MQA at D = 256; and phi3's D = 96
+PLAN_SHAPES = [
+    (256, 8, 8, 72, 64), (2, 16, 16, 1024, 64), (1, 48, 8, 2048, 128),
+    (1, 32, 8, 4096, 128), (1, 16, 1, 4096, 256), (8, 32, 32, 1024, 96),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,D", PLAN_SHAPES)
+def test_plan_attention_bwd_variant_padding_reduce_and_scratch(B, H, Hkv, S,
+                                                               D, dtype):
+    """bf16 plans ``wgmma`` (D padded to a multiple of 16, its tile 64 /
+    128 / 256: D = 96 on 128), the Δ pre-pass, dQ, dK / dV and, only for
+    H > Hkv, the group sum, whose float32 partials (2·B·H·S·D) are the
+    scratch beside Δ; float32 plans ``simt`` (its row statistics the
+    scratch).  Shapes only: the tensors are on the meta device."""
+    from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
+
+    q = torch.empty((B, H, S, D), dtype=dtype, device="meta")
+    kv = torch.empty((B, Hkv, S, D), dtype=dtype, device="meta")
+    plan = plan_attention_bwd(q, kv, kv, q, q)
+    assert not any(plan.copy)
+    if dtype == torch.float32:
+        assert plan.variant == "simt" and not plan.reduce
+        assert plan.launches == ("simt_dq", "simt_dkdv")
+        assert plan.scratch_bytes == 3 * B * H * S * 4
+        return
+    tile = {64: 64, 96: 128, 128: 128, 256: 256}[D]
+    assert (plan.variant, plan.tile_d, plan.head_dim) == ("wgmma", tile, D)
+    assert plan.rows == ((128, 128) if tile <= 128 else (64, 64))
+    assert plan.reduce == (H > Hkv)
+    assert plan.launches == ("delta", "dq", "dkdv") + (
+        ("reduce",) if H > Hkv else ())
+    assert plan.scratch_bytes == 4 * B * H * S * (
+        1 + (2 * D if H > Hkv else 0))
+
+
+def test_plan_attention_bwd_bf16_pads_and_copies():
+    """bf16: D = 40 pads to 48 (every tensor copied), a D-strided tensor
+    or a 16-byte-unaligned stride is copied, the model's (B, S, H, D)
+    views are not; the refusal above 256."""
+    from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
+
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    x = torch.empty((2, 9, 4, 40), **bf).transpose(1, 2)
+    plan = plan_attention_bwd(x, x, x, x, x)
+    assert (plan.head_dim, plan.tile_d, plan.copy) == (48, 64, (True,) * 5)
+    x = torch.empty((2, 9, 4, 64), **bf).transpose(1, 2)
+    assert not any(plan_attention_bwd(x, x, x, x, x).copy)
+    y = torch.empty((2, 4, 9, 128), **bf)[..., ::2]
+    odd = torch.empty((2, 4, 9, 68), **bf)[..., :64]
+    assert plan_attention_bwd(x, x, x, y, odd).copy == (False,) * 3 + (True,) * 2
+    big = torch.empty((1, 2, 4, 288), **bf)
+    with pytest.raises(NotImplementedError, match="D > 256"):
+        plan_attention_bwd(big, big, big, big, big)
+
+
+LSE_CASES = [  # B, H, Hkv, S, D, causal, window
+    (2, 4, 2, 65, 64, True, None),
+    (1, 6, 3, 40, 32, False, 9),
+    (1, 4, 1, 33, 256, True, 17),
+    (1, 2, 2, 12, 64, True, -2),  # no row sees a key: lse = +inf
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", LSE_CASES)
+def test_attention_lse_ref_matches_float64_logsumexp(B, H, Hkv, S, D, causal,
+                                                     window):
+    """``attention_lse_ref``'s lse equals a float64 numpy log-sum-exp of the
+    same scaled scores over the visible keys within 1e-6 relative (+ 1e-6
+    absolute, for a row whose lse is near 0), +inf on a row that sees no
+    key; its o is ``attention_ref``'s, bit for bit."""
+    q, k, v, _ = _inputs(B, H, Hkv, S, D, S * D + H)
+    kw = dict(causal=causal, window=window)
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    o, lse = attention_lse_ref(tq, tk, tv, **kw)
+    assert torch.equal(o, attention_ref(tq, tk, tv, **kw))
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    kk = np.repeat(k.astype(np.float64), H // Hkv, axis=1)
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), kk) / np.sqrt(D)
+    pos = np.arange(S)
+    vis = np.ones((S, S), bool)
+    if causal:
+        vis &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        vis &= pos[None, :] > pos[:, None] - window
+    s = np.where(vis, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    with np.errstate(invalid="ignore"):
+        want = (m + np.log(np.exp(s - m).sum(-1, keepdims=True)))[..., 0]
+    want = np.where(vis.any(-1), want, np.inf)
+    got = lse.numpy().astype(np.float64)
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    fin = np.isfinite(want)
+    assert np.all(np.abs(got[fin] - want[fin])
+                  <= 1e-6 * np.abs(want[fin]) + 1e-6)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", LSE_CASES)
+def test_attention_bwd_ref_given_lse_equals_its_recomputation(
+        B, H, Hkv, S, D, causal, window):
+    """``attention_bwd_ref`` taking P = exp(scale·s − lse) from the
+    forward's lse equals its own softmax recomputation (float32, the
+    module's tolerance); ``attention_with_lse`` and ``attention_bwd`` on
+    CPU tensors are the plain versions."""
+    from repro_torch.kernels.flash_attention.ops import attention_with_lse
+
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(B, H, Hkv, S, D, S + 3 * D))
+    kw = dict(causal=causal, window=window)
+    o, lse = attention_with_lse(q, k, v, **kw)
+    want_o, want_lse = attention_lse_ref(q, k, v, **kw)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    got = attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    want = attention_bwd_ref(q, k, v, o, do, **kw)
+    for g, w in zip(got, want):
+        _close(g, w.numpy())
+    for g, w in zip(attention_bwd(q, k, v, o, do, lse=lse, **kw), got):
+        assert torch.equal(g, w)

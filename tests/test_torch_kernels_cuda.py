@@ -28,6 +28,8 @@ attention kernel is held to its plain version at the reference's
 to ``attention_bwd_ref`` within ``1e-4`` of each gradient's largest
 |value| (+ ``1e-6``) in float32 (the same float32 formulas summed in another order)
 and at ``atol = rtol = 3e-2`` in bf16, and two runs give the same bits;
+the forward's lse to ``attention_lse_ref`` within ``1e-4``, with the
+output's bits the same whether lse is written or not;
 B7's backward kernel to ``wkv6_bwd_ref`` within ``1e-4`` of each
 gradient's largest |value| (+ ``1e-6``; float32, dlw from a telescoping
 sum), two runs the same bits, and ``wkv6`` under autograd to
@@ -53,12 +55,14 @@ from repro_torch.core import storage as st
 from repro_torch.kernels.flash_attention.ops import (
     attention,
     attention_bwd,
+    attention_with_lse,
     launch_flash_attention,
     plan_attention,
     plan_attention_bwd,
 )
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
+    attention_lse_ref,
     attention_ref,
 )
 from repro_torch.kernels.ingest.ops import fused_ingest
@@ -1616,9 +1620,11 @@ def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
                                atol=tol, rtol=tol)
 
 
-# (B, H, Hkv, S, D, causal, window): GQA 2:1, 4:1 and 16:1, not causal,
-# windows, S = 1 and S not a multiple of the 64- or 32-row tile, every
-# head-dim tile (32, 64, 128, 256) and D = 48 / 96 inside one
+# (B, H, Hkv, S, D, causal, window): GQA 1:1, 2:1, 4:1, 6:1 and 16:1,
+# not causal, windows, S = 1, 127, 129 and S not a multiple of the 64- or
+# 128-row tiles, every head-dim tile (32, 64, 128, 256 in float32; 64, 128,
+# 256 in bf16) with D = 32, 48, 80 and 96 inside one (bf16 pads 48 and 80
+# to multiples of 16, and 32 / 96 reach the tiles' zero-filled columns)
 FA_BWD_SHAPES = [
     (2, 4, 2, 128, 64, True, None),
     (2, 4, 4, 65, 64, False, None),
@@ -1628,6 +1634,11 @@ FA_BWD_SHAPES = [
     (2, 2, 2, 1, 64, True, None),
     (1, 4, 2, 130, 96, True, None),
     (1, 2, 1, 100, 48, False, 30),
+    (1, 12, 2, 200, 64, False, None),
+    (1, 4, 4, 129, 32, False, 40),
+    (1, 16, 1, 300, 128, True, None),
+    (2, 8, 2, 257, 256, False, None),
+    (1, 6, 1, 127, 80, True, 17),
 ]
 
 
@@ -1649,24 +1660,63 @@ def _fa_bwd_close(got, want, dtype):
 def test_flash_attention_bwd_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
                                                 window, dtype):
     """The backward kernel against ``attention_bwd_ref`` on the same q, k,
-    v, o (the forward kernel's) and dO; a second run gives the same bits;
-    two launches (dQ, dK / dV) a call."""
+    v, o (the forward kernel's) and dO: bf16 through the ``wgmma`` variant
+    with the forward's lse (delta, dq, dkdv and, for H > Hkv, the reduce),
+    float32 through ``simt`` (simt_dq, simt_dkdv); a second run gives the
+    same bits, and so does a bf16 call that fetches its own lse."""
     q, k, v = _fa_case(cuda, B, H, Hkv, S, D, dtype, 7 * S + D)
+    kw = dict(causal=causal, window=window)
+    lse = None
     with torch.no_grad():
-        o = attention(q, k, v, causal=causal, window=window)
+        o = attention(q, k, v, **kw)
+    if dtype == torch.bfloat16:
+        o_lse, lse = attention_with_lse(q, k, v, **kw)
+        assert torch.equal(o_lse, o)
     g = torch.Generator().manual_seed(S + D)
     do = torch.randn(q.shape, generator=g).to(cuda, dtype)
+    plan = plan_attention_bwd(q, k, v, o, do)
+    assert plan.variant == ("simt" if dtype == torch.float32 else "wgmma")
+    assert plan.reduce == (dtype == torch.bfloat16 and H > Hkv)
     kernels.reset_launches()
-    got = attention_bwd(q, k, v, o, do, causal=causal, window=window)
-    assert kernels.VARIANT_LAUNCHES["flash_attention_bwd"] == {"dq": 1,
-                                                               "dkdv": 1}
-    again = attention_bwd(q, k, v, o, do, causal=causal, window=window)
-    want = attention_bwd_ref(q, k, v, o, do, causal=causal, window=window)
+    got = attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    counts = kernels.VARIANT_LAUNCHES["flash_attention_bwd"]
+    assert counts == {n: int(n in plan.launches) for n in counts}
+    assert kernels.LAUNCHES["flash_attention"] == 0
+    again = attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    want = attention_bwd_ref(q, k, v, o, do, **kw)
+    runs = [again]
+    if dtype == torch.bfloat16:
+        runs.append(attention_bwd(q, k, v, o, do, **kw))
     torch.cuda.synchronize()
-    for a, b, w, x in zip(got, again, want, (q, k, v)):
+    for i, (a, w, x) in enumerate(zip(got, want, (q, k, v))):
         assert a.shape == x.shape and a.dtype == dtype
-        assert torch.equal(a, b)
+        for run in runs:
+            assert torch.equal(a, run[i])
         _fa_bwd_close(a, w, dtype)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", [
+    (2, 4, 2, 65, 64, True, None), (1, 8, 2, 129, 128, True, None),
+    (1, 4, 1, 300, 256, True, 100), (2, 4, 4, 200, 96, False, None),
+    (1, 2, 2, 150, 64, True, -3),
+])
+def test_flash_attention_lse_keeps_the_output_bits(cuda, B, H, Hkv, S, D,
+                                                   causal, window):
+    """bf16 ``mma16`` and ``wgmma``: the forward with its lse written gives
+    the same bits of o as without; lse equals ``attention_lse_ref``'s
+    within ``1e-4`` (float32 sums in other orders), +inf on rows that see
+    no key (a window of -3 hides every key)."""
+    q, k, v = _fa_case(cuda, B, H, Hkv, S, D, torch.bfloat16, S + D)
+    kw = dict(causal=causal, window=window)
+    with torch.no_grad():
+        o = attention(q, k, v, **kw)
+    kernels.reset_launches()
+    o2, lse = attention_with_lse(q, k, v, **kw)
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    assert torch.equal(o, o2)
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    _, want = attention_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1689,7 +1739,8 @@ def test_flash_attention_autograd_on_the_card(cuda, dtype):
         do = torch.randn(o.shape, generator=g).to(cuda, dtype)
         assert not any(plan_attention_bwd(q, k, v, o, do).copy)
         o.backward(do)
-        assert kernels.LAUNCHES["flash_attention_bwd"] == 2
+        assert kernels.LAUNCHES["flash_attention_bwd"] == len(
+            plan_attention_bwd(q, k, v, o, do).launches)
         want = attention_bwd_ref(q, k, v, o, do, window=window)
         for t, w in zip(x, want):
             assert t.grad.shape == t.shape
