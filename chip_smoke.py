@@ -445,19 +445,21 @@ Phases, in order; any failure exits non-zero:
     ``examples.train_lm``) on the card.  (e) B7's backward kernel against
     ``wkv6_bwd_ref`` within ``WKV_BWD_REL`` of each gradient's largest
     |value|: the training shape (2, 40, 1,024, 64) on the model's views
-    with and without s0 and ds_fin, T = 1, 15, 17, 100, D = 48 (padded),
-    lw above 0, below -3.5, at 0, a chunk at -3.5 and on both ends
-    (``torch.clamp``'s rule, against autograd of ``wkv6_ref``); two runs
-    the same bits, one launch a call, gradients written in the inputs'
-    layout; ``wkv6`` under autograd == ``wkv6_bwd``; D = 128 under
-    autograd raises; timed at the training shape (CUDA events) beside the
-    plain version, its bound the larger of 9 B·H·T·D floats over 3.35
-    TB/s and 12 D² FLOP a (b, h, t) over 67 TFLOP/s.  (f) rwkv6-3b at
+    with and without s0 and ds_fin, T = 1, 15, 16, 17, 32, 33, 100, D = 48
+    (padded), lw above 0, below -3.5, at 0, a chunk at -3.5 and on both
+    ends (``torch.clamp``'s rule, against autograd of ``wkv6_ref``); two
+    runs the same bits, the forward and the reverse sweep once each a
+    call, gradients written in the inputs' layout; ``wkv6`` under autograd
+    == ``wkv6_bwd``; D = 128 under autograd raises; timed at the training
+    shape (CUDA events) beside the plain version, its bound the larger of
+    9 B·H·T·D floats over 3.35 TB/s and 3 x 12 D² FLOP a (b, h, t) over
+    the tensor cores' 495 TFLOP/s (3xTF32).  (f) rwkv6-3b at
     full width and depth (2,900,298,240 parameters, bf16, float32 AdamW
     state) through ``launch.train.main(TRAIN_RWKV)``: 12 steps of 4 x
     1,024 tokens in 2 microbatches, the loss finite and falling, B7's
     forward 128 (``chunk``: twice a layer, the pass and the
-    recomputation) and backward 64 launches every step; step p50,
+    recomputation) and backward 128 launches (both sweeps once a layer)
+    every step; step p50,
     tokens/s, peak memory and one traced step with B7's and B7-bwd's
     shares.  (g) One microbatch of 2 sequences, ``mu``, ``u`` and ``w0``
     randomized, against autograd of ``wkv6_chunked`` swapped in (no B7
@@ -656,6 +658,9 @@ LM_F32_TOL = 5e-4
 # bf16 dense tensor-core peak, H100 SXM (NVIDIA data sheet): flash
 # attention's products are bf16 on the main path
 BF16_FLOP_PER_S = 989e12
+# TF32 dense tensor-core peak, H100 SXM (NVIDIA data sheet): B7's backward
+# runs its products there, three TF32 products for each float32 one
+TF32_FLOP_PER_S = 495e12
 # flash attention (B6) against its plain version: the reference's own
 # tolerances (tests/test_kernels.py), allclose atol = rtol
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
@@ -819,8 +824,19 @@ TRAIN_RWKV = ["--arch", "rwkv6-3b", "--batch", "4", "--seq", "1024",
 # gradient's largest |value| (+ 1e-6), the forward's WKV_TOL
 WKV_BWD_REL = 1e-4
 # B7's backward: head dims checked (48 zero-padded to 64) and the lengths
-# on both sides of its 8-row chunks and of the forward's 16
-WKV_BWD_LENGTHS = (1, 15, 17, 100)
+# on both sides of its 16-row chunks (one and two whole chunks, a row past)
+WKV_BWD_LENGTHS = (1, 15, 16, 17, 32, 33, 100)
+# B7's backward asked for some of (dr, dk, dv, dlw, du, ds0) only, as
+# autograd's needs_input_grad asks, and the sweeps that launch for them
+WKV_BWD_SUBSETS = [
+    ((True, False, False, False, False, False), {"fwd": 1, "rev": 0}),
+    ((False, True, False, False, False, False), {"fwd": 0, "rev": 1}),
+    ((False, False, True, False, False, False), {"fwd": 0, "rev": 1}),
+    ((False, False, False, True, False, False), {"fwd": 1, "rev": 1}),
+    ((False, False, False, False, True, False), {"fwd": 1, "rev": 0}),
+    ((False, False, False, False, False, True), {"fwd": 0, "rev": 1}),
+    ((True, False, True, False, False, False), {"fwd": 1, "rev": 1}),
+]
 # rwkv6-3b bf16 at full depth (mu, u and w0 randomized), B7 forward and
 # backward vs autograd of wkv6_chunked: the loss's |diff| and the largest
 # per-leaf ||diff|| / ||g||, 1.5 x the largest over seeds 0-4, rounded up
@@ -6000,7 +6016,9 @@ def _wkv6_bwd_cost(shape):
     and du written; per (b, h) and row 12 D² FLOP -- the state's rebuild
     and dS's update 3 D² each (a scaled state plus an outer product), dr,
     dk and dv's sums over D² products 2 D² each.  dlw needs no sum of its
-    own: the telescoping P_t of wkv6_bwd.cu gives it in O(D) a row."""
+    own: the suffix sums of wkv6_bwd.cu give it in O(D) a row.  The
+    kernels run every product on the tensor cores in 3xTF32, so the
+    operations' time is 3 x FLOP over ``TF32_FLOP_PER_S``."""
     B, H, T, D = shape
     n = B * H * T * D
     return 4 * (9 * n + 2 * H * D), 12 * B * H * T * D * D
@@ -6019,11 +6037,13 @@ def _wkv_bwd_err(got, want):
 def check_wkv6_bwd(results) -> None:
     """B7's backward kernel against ``wkv6_bwd_ref`` in float32: the
     training shape (2, 40, 1,024, 64) on the model's views with and without
-    s0 and ds_fin, T = 1, 15, 17 and 100, D = 48 (padded), lw inside, on
-    and beyond both clamp ends (``torch.clamp``'s rule, against autograd of
-    ``wkv6_ref``); two runs the same bits; one launch a call; ``wkv6``
-    under autograd == ``wkv6_bwd``; D = 128 under autograd raises; timed at
-    the training shape beside the plain version."""
+    s0 and ds_fin, T in ``WKV_BWD_LENGTHS``, D = 48 (padded), lw inside,
+    on and beyond both clamp ends (``torch.clamp``'s rule, against autograd
+    of ``wkv6_ref``); two runs the same bits; the forward and the reverse
+    sweep once each a call; each of ``WKV_BWD_SUBSETS`` asked for alone,
+    with only the sweeps it needs; ``wkv6`` under autograd ==
+    ``wkv6_bwd``; D = 128 under autograd raises; timed at the training
+    shape beside the plain version."""
     from repro_torch import kernels
     from repro_torch.kernels.wkv6.ops import (
         launch_wkv6_bwd, plan_wkv6_bwd, wkv6, wkv6_bwd,
@@ -6060,7 +6080,7 @@ def check_wkv6_bwd(results) -> None:
             _fail(f"B7 backward on '{name}': plan {plan}")
         kernels.reset_launches()
         got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
-        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != {"d64": 1}:
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != {"fwd": 1, "rev": 1}:
             _fail(f"B7 backward on '{name}': launches "
                   f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}")
         again = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
@@ -6108,6 +6128,38 @@ def check_wkv6_bwd(results) -> None:
         del r, k, v, lw, u, s0, dy, dsf, got, again, want
     torch.cuda.empty_cache()
 
+    # some gradients only: each sweep writes what it is asked for whatever
+    # else is left out (the reverse's dv reads the dS its rows warps carry)
+    shape = (2, 8, 100, 64)
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)
+    dy = torch.randn(shape, generator=gen, device="cuda")
+    dsf = 0.1 * torch.randn(s0.shape, generator=gen, device="cuda")
+    want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
+    for needs, runs in WKV_BWD_SUBSETS:
+        kernels.reset_launches()
+        got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf, needs=needs)
+        torch.cuda.synchronize()
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != runs:
+            _fail(f"B7 backward asked for {needs}: launches "
+                  f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}, not {runs}")
+        for tag, n, a, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
+                                needs, got, want):
+            if (a is None) == n:
+                _fail(f"B7 backward asked for {needs}: {tag} is {a}")
+            if not n:
+                continue
+            e = _wkv_bwd_err(a, w)
+            if e < 0:
+                _fail(f"B7 backward asked for {needs}: {tag} max |diff| "
+                      f"{float((a - w).abs().max()):.3e} (largest |{tag}| "
+                      f"{float(w.abs().max()):.3e})")
+            worst = max(worst, e)
+            worst_abs = max(worst_abs, float((a - w).abs().max()))
+    print(f"wkv6_bwd {shape} with s0 and ds_fin, {len(WKV_BWD_SUBSETS)} "
+          "subsets of the gradients asked for: each == wkv6_bwd_ref, the "
+          "sweeps launched as each needs", flush=True)
+    del r, k, v, lw, u, s0, dy, dsf, got, want
+
     # through autograd on the model's views: the forward once, the
     # backward once, the gradients == wkv6_bwd's; a D > 64 call raises
     r, k, v, lw, u, _ = _wkv6_inputs(gen, train)
@@ -6116,14 +6168,15 @@ def check_wkv6_bwd(results) -> None:
     y, _ = wkv6(*leaves)
     dy = torch.randn(y.shape, generator=gen, device="cuda")
     y.backward(dy)
-    if (kernels.LAUNCHES["wkv6"], kernels.LAUNCHES["wkv6_bwd"]) != (1, 1):
+    if (kernels.LAUNCHES["wkv6"], kernels.LAUNCHES["wkv6_bwd"]) != (1, 2):
         _fail(f"wkv6 under autograd: launches {kernels.LAUNCHES}")
     want = wkv6_bwd(r, k, v, lw, u, None, dy, None)
     for t, w in zip(leaves, want):
         if not torch.equal(t.grad, w):
             _fail("wkv6's autograd gradient differs from wkv6_bwd")
     print("wkv6 under autograd on the model's (B, T, H, D) views: 1 forward "
-          "+ 1 backward launch, gradients == wkv6_bwd bit for bit", flush=True)
+          "+ 2 backward launches (both sweeps), gradients == wkv6_bwd bit for "
+          "bit", flush=True)
     wide = torch.randn((1, 2, 16, 128), generator=gen, device="cuda")
     try:
         wkv6(wide.requires_grad_(), wide, wide, -wide.abs(),
@@ -6143,13 +6196,14 @@ def check_wkv6_bwd(results) -> None:
     plain_ms = _time_ms(lambda: wkv6_bwd_ref(r, k, v, lw, u, None, dy, None), 2)
     nbytes, flop = _wkv6_bwd_cost(train)
     by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    by_ops = 1e3 * flop / FP32_FLOP_PER_S
+    by_ops = 1e3 * 3 * flop / TF32_FLOP_PER_S
     bound = max(by_bytes, by_ops)
     print(f"wkv6_bwd {train} on the model's views (the training call: no s0, "
           f"no ds_fin): kernel {kernel_ms:.4f} ms (the wrapper wkv6_bwd "
           f"{wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound:.5f} "
-          f"ms ({nbytes} bytes -> {by_bytes:.5f} ms; {flop} FLOP -> "
-          f"{by_ops:.5f} ms; {bound / kernel_ms:.4f} of the bound)", flush=True)
+          f"ms ({nbytes} bytes -> {by_bytes:.5f} ms; {flop} FLOP x 3 in "
+          f"TF32 -> {by_ops:.5f} ms; {bound / kernel_ms:.4f} of the bound)",
+          flush=True)
     results["wkv6_bwd"] = dict(
         max_abs_err=worst_abs, max_rel_err=worst, ms=kernel_ms,
         wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bound,
@@ -6161,14 +6215,23 @@ def check_wkv6_bwd(results) -> None:
 
 
 def _print_b7_bwd_share(dev, busy_ms) -> None:
-    """B7's backward kernel's device time in a trace and its share of the
-    device busy time."""
-    ms = sum(e.self_device_time_total for e in dev
-             if "wkv6_bwd_kernel" in e.key) / 1e3
-    n = sum(e.count for e in dev if "wkv6_bwd_kernel" in e.key)
-    if n:
-        print(f"  B7 backward: {ms:.4f} ms device time = {ms / busy_ms:.4f} "
-              f"of device busy (x{n})", flush=True)
+    """B7's backward kernels' device time in a trace, together and by
+    sweep, and their share of the device busy time."""
+    import re
+
+    by = {}
+    for e in dev:
+        m = re.search(r"wkv6_bwd_(fwd|rev)_kernel", e.key)
+        if m:
+            ms, n = by.get(m.group(1), (0.0, 0))
+            by[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    if by:
+        total = sum(ms for ms, _ in by.values())
+        print(f"  B7 backward: {total:.4f} ms device time = "
+              f"{total / busy_ms:.4f} of device busy ("
+              + ", ".join(f"{k} {ms:.4f} ms x{n}"
+                          for k, (ms, n) in sorted(by.items())) + ")",
+              flush=True)
 
 
 def _print_b6_bwd_share(dev, busy_ms) -> None:
@@ -6516,15 +6579,20 @@ def train_path(results) -> None:
     rcfg = rwkv6_3b.config()
     nm = int(dict(zip(TRAIN_RWKV[::2], TRAIN_RWKV[1::2]))["--microbatches"])
     # every layer rematerialized: B7's forward twice a layer (the pass and
-    # the recomputation), its backward once
+    # the recomputation), its backward's two sweeps once each
     per_layer = nm * rcfg.n_layers
     out, launches = _train_run("rwkv6-3b train", TRAIN_RWKV,
-                               (2 * per_layer, per_layer), "chunk", B7_PAIR)
+                               (2 * per_layer, 2 * per_layer), "chunk",
+                               B7_PAIR)
     if out["n_params"] != RWKV_PARAMS:
         _fail(f"rwkv6-3b train: {out['n_params']} parameters")
+    steps = len(out["losses"])
+    if out["bwd_variants"] != {"fwd": per_layer * steps,
+                               "rev": per_layer * steps}:
+        _fail(f"rwkv6-3b train: B7 backward sweeps {out['bwd_variants']}")
     results["wkv6"]["launches_train"] = launches["wkv6"]
     results["wkv6_bwd"]["launches"] = launches["wkv6_bwd"]
-    results["wkv6_bwd"]["launches_per_step"] = per_layer
+    results["wkv6_bwd"]["launches_per_step"] = 2 * per_layer
     trace_train_step("rwkv6-3b", out)
     del out
     torch.cuda.empty_cache()

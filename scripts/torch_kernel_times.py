@@ -1,10 +1,11 @@
 """Time the port's route kernel (B2), signature-embedding kernel (B5),
-window-stats kernel (B3) and flash attention's backward (B6-bwd) alone,
+window-stats kernel (B3), flash attention's backward (B6-bwd) and the
+WKV6 backward (B7-bwd) alone,
 at their paths' shapes, in one checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
@@ -30,8 +31,19 @@ forward's lse handed over where the tree takes one, as CUDA events over
 backward (``chip_smoke.py``'s ``_sdpa_bwd``, a yardstick the port never
 calls) under each backend that takes the shape, the same two ways
 (``sdpa_<shape>_<backend>_ms``, ``..._device_ms``: every kernel a call
-runs).  Entries a tree does not have (the route kernel from
-keys, B5 from signatures) are left out.  Prints one JSON line.
+runs).  B7-bwd (``b7bwd``, not in the default set): ``launch_wkv6_bwd``
+at rwkv6-3b's training call, (2, 40, 1024, 64) float32 on the model's
+(B, T, H, D) views with no s0 / ds_fin, built by ``chip_smoke.py``'s
+``_wkv6_inputs``: CUDA events over 20 calls after 3 (``b7bwd_ms``), the
+host's enqueue time a call (``b7bwd_host_ms``), the device time a call
+under ``torch.profiler``, the sum over the call's kernels
+(``b7bwd_device_ms``, and by kernel ``b7bwd_<kernel>_ms``), and the
+wrapper ``wkv6_bwd`` by CUDA events (``b7bwd_wrapper_ms``); the sha256 of
+B7's forward output (y and the final state) at that shape with s0 and at
+(2, 8, 100, 64) (``b7_fwd_sha256``), so two trees' forward bits compare.
+Entries a
+tree does not have (the route kernel from keys, B5 from signatures) are
+left out.  Prints one JSON line.
 """
 
 import json
@@ -151,13 +163,16 @@ def main() -> None:
     from repro_torch.kernels import build
     names = {"b2": ["route_rank"], "b5": ["signature_embed"],
              "b3": ["window_stats", "fused_ingest", "route_rank"],
-             "b6bwd": ["flash_attention", "flash_attention_bwd"]}
+             "b6bwd": ["flash_attention", "flash_attention_bwd"],
+             "b7bwd": ["wkv6", "wkv6_bwd"]}
     build.build(sorted({n for k in todo for n in names[k]}))
     out = {"tree": str(root)}
     if "b3" in todo:
         _b3(out)
     if "b6bwd" in todo:
         _b6_bwd(out)
+    if "b7bwd" in todo:
+        _b7_bwd(out)
     if todo & {"b2", "b5"}:
         _b2_b5(out, todo)
     print(json.dumps(out))
@@ -230,6 +245,63 @@ def _b6_bwd(out) -> None:
             del fn
         del q, k, v, o, do, kw
         torch.cuda.empty_cache()
+
+
+def _b7_bwd(out) -> None:
+    """B7's backward at rwkv6-3b's training call; B7's forward bits."""
+    import hashlib
+    import re
+    import time
+
+    import chip_smoke as cs
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.wkv6 import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 22)
+    sha = hashlib.sha256()
+    for shape in ((2, 40, 1024, 64), (2, 8, 100, 64)):
+        r, k, v, lw, u, s0 = cs._wkv6_inputs(gen, shape)
+        with torch.no_grad():
+            y, s_fin = ops.wkv6(r, k, v, lw, u, s0)
+        torch.cuda.synchronize()
+        for x in (y, s_fin):
+            sha.update(x.contiguous().cpu().numpy().tobytes())
+    out["b7_fwd_sha256"] = sha.hexdigest()
+
+    train = (2, 40, 1024, 64)
+    r, k, v, lw, u, _ = cs._wkv6_inputs(gen, train)
+    dy = torch.randn((train[0], train[2], train[1], 64), generator=gen,
+                     device="cuda").transpose(1, 2)
+    outs = [torch.empty_like(t) for t in (r, k, v, lw)]
+    du_part = torch.empty((train[0], train[1], 64), device="cuda")
+
+    def call():
+        ops.launch_wkv6_bwd(r, k, v, lw, dy, u, None, None, *outs, du_part,
+                            None)
+
+    out["b7bwd_ms"] = _events_ms(call, 20, 3)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        call()
+    out["b7bwd_host_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(5):
+            call()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in p.key_averages():
+        if e.device_type == DeviceType.CUDA and "wkv6_bwd" in e.key:
+            m = re.search(r"(wkv6_bwd\w*kernel)", e.key)
+            key = f"b7bwd_{m.group(1) if m else e.key[:40]}_ms"
+            out[key] = out.get(key, 0.0) + e.self_device_time_total / 5e3
+            total += e.self_device_time_total / 5e3
+    out["b7bwd_device_ms"] = total
+
+    out["b7bwd_wrapper_ms"] = _events_ms(
+        lambda: ops.wkv6_bwd(r, k, v, lw, u, None, dy), 20, 3)
 
 
 def _b2_b5(out, todo) -> None:

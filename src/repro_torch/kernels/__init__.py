@@ -52,9 +52,9 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention_bwd": {"delta": 0, "dq": 0, "dkdv": 0, "reduce": 0,
                             "simt_dq": 0, "simt_dkdv": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide": 0},
-    # B7's backward: one launch a call, built at head dim 64 (a smaller D
-    # zero-padded to it)
-    "wkv6_bwd": {"d64": 0},
+    # B7's backward, each launch by name: the chunks in order ("fwd") and
+    # in reverse ("rev"), built at head dim 64 (a smaller D zero-padded)
+    "wkv6_bwd": {"fwd": 0, "rev": 0},
     # B2 from keys (the Feistel walk and the rank) or from shard ids
     "route_rank": {"keys": 0, "shards": 0},
     # B5 from signatures (the ids hashed in the kernel) or from ids

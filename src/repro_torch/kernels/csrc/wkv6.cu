@@ -46,10 +46,11 @@
 //         lanes); spreading a channel over two lanes measured no faster;
 //      c. each warp on the tensor cores (mma.sync.m16n8k8, TF32): y = r~ S
 //         + (A + diag(bonus)) v and Sᵀ += vᵀ k~, then S scaled by
-//         exp(cum_last).  Every product is 3xTF32: each float32 operand
-//         split into a TF32 hi part and a TF32 lo part of the remainder,
-//         and lo·hi + hi·lo + hi·hi summed in float32 -- ~2^-21 relative
-//         where one TF32 product gives ~5e-4, outside the 1e-4 tolerance.
+//         exp(cum_last).  Every product is 3xTF32 (tf32.cuh): each float32
+//         operand split into a TF32 hi part and a TF32 lo part of the
+//         remainder, and lo·hi + hi·lo + hi·hi summed in float32 -- ~2^-21
+//         relative where one TF32 product gives ~5e-4, outside the 1e-4
+//         tolerance.
 //    The warp's slice of the state, Sᵀ (16 columns x D channels), lives in
 //    mma accumulator fragments, in registers, for the whole sequence.  The
 //    same registers are the B operand of r~ S: the fragment's k index is
@@ -82,6 +83,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32.cuh"
 
 namespace {
 
@@ -128,52 +131,6 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// x = hi + lo + O(2^-21 |x|): hi is x rounded to TF32 by integer ops (add
-// half a TF32 ulp, clear the 13 low bits: full-rate ALU work, where the
-// cvt instruction would not be), lo the exact remainder, which the tensor
-// core reads as TF32 by dropping its 13 low bits
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));  // exact
-}
-
-// d (16 x 8, f32) += a (16 x 8, tf32, row) * b (8 x 8, tf32, col)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// An A fragment (a0..a3) and a B fragment (b0, b1), split into hi and lo
-struct FragA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3) {
-    split_tf32(a0, hi[0], lo[0]);
-    split_tf32(a1, hi[1], lo[1]);
-    split_tf32(a2, hi[2], lo[2]);
-    split_tf32(a3, hi[3], lo[3]);
-  }
-};
-
-struct FragB {
-  uint32_t hi[2], lo[2];
-  __device__ __forceinline__ FragB(float b0, float b1) {
-    split_tf32(b0, hi[0], lo[0]);
-    split_tf32(b1, hi[1], lo[1]);
-  }
-};
-
-// d += a b in 3xTF32: the two cross terms first, then the large product
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi[0], b.hi[1]);
-  mma_tf32(d, a.hi, b.lo[0], b.lo[1]);
-  mma_tf32(d, a.hi, b.hi[0], b.hi[1]);
 }
 
 // one butterfly step: lanes with bit 2W set keep rows W .. 2W - 1 of the

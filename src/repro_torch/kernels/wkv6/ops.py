@@ -44,8 +44,10 @@ On CUDA tensors that autograd records, ``wkv6`` is a
 ``torch.autograd.Function`` (:class:`_WKV6`): its forward launches the
 kernel above unchanged and saves only its inputs (a checkpoint's
 recomputation reproduces them), its backward launches B7's backward
-kernel (``kernels/csrc/wkv6_bwd.cu``, one launch a call, through
-:func:`wkv6_bwd`) for the gradients autograd asks for.  The backward
+kernels (``kernels/csrc/wkv6_bwd.cu``, through :func:`wkv6_bwd`: the
+chunks in order for dr, dlw's q and du, then in reverse for dk, dv, dlw
+and ds0, each only where a gradient it writes is asked for) for the
+gradients autograd asks for.  The backward
 kernel is built at head dim 64 (``BWD_HEAD_DIM``, every registry model's);
 a smaller D is zero-padded to it, a wider one raises
 ``NotImplementedError`` (ROADMAP A11d) -- on the card nothing falls back
@@ -88,7 +90,7 @@ _VARIANT_CODE = {"chunk": 0, "step": 1, "wide": 2}
 _pack_strides = struct.Struct("20q").pack
 
 _launch_fn = None  # the library's wkv6_launch, bound at first launch
-_bwd_fn = None     # the library's wkv6_bwd_launch, likewise
+_bwd_lib = None    # the library's wkv6_bwd_launch and wkv6_bwd_kernels
 # the head dim B7's backward kernel is built for; a smaller D is
 # zero-padded up to it, a wider one refused (ROADMAP A11d)
 BWD_HEAD_DIM = 64
@@ -357,34 +359,45 @@ def launch_wkv6_bwd(
     du_part: Optional[torch.Tensor],  # (B, H, 64) float32 out, or None
     ds0: Optional[torch.Tensor],      # (B, H, 64, 64) float32 out, or None
 ) -> None:
-    """Launch B7's backward kernel on the current stream (one launch):
-    the outputs given are written; raises if the launch fails (a D other
-    than 64, an input the kernel cannot read)."""
-    global _bwd_fn
-    if _bwd_fn is None:
+    """Launch B7's backward kernels on the current stream, those the
+    library's ``wkv6_bwd_kernels`` names for the outputs given: ``"fwd"``
+    (the chunks in order: dr, dlw's q and P_fin, du) where dr, dlw or du
+    is asked for, then ``"rev"`` (in reverse: dk, dv, dlw, ds0) where dk,
+    dv, dlw or ds0 is.  The outputs given are written; raises if a launch
+    fails (a D other than 64, an input the kernel cannot read)."""
+    global _bwd_lib
+    if _bwd_lib is None:
         from repro_torch.kernels.build import library
 
-        fn = library("wkv6_bwd").wkv6_bwd_launch
+        lib = library("wkv6_bwd")
+        fn = lib.wkv6_bwd_launch
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
                        + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _bwd_fn = fn
+        kernels = lib.wkv6_bwd_kernels
+        kernels.argtypes = [ctypes.c_int] * 6
+        kernels.restype = ctypes.c_int
+        _bwd_lib = fn, kernels
+    launch, kernels = _bwd_lib
     B, H, T, D = r.shape
     index = r.get_device()
     tensors = (r, k, v, lw, dy, dr, dk, dv, dlw)
     strides = [s for x in tensors for s in (x.stride() if x is not None
                                             else (0, 0, 0, 1))]
-    err = _bwd_fn(
+    err = launch(
         *(0 if x is None else x.data_ptr()
           for x in (r, k, v, lw, dy, u, s0, ds_fin, dr, dk, dv, dlw,
                     du_part, ds0)),
         B, H, T, D, _pack_bwd_strides(*strides),
         index, torch._C._cuda_getCurrentRawStream(index),
     )
-    count_launch("wkv6_bwd", variant="d64")
     if err != 0:
         raise RuntimeError(
             f"wkv6_bwd kernel launch failed (D = {D}): CUDA error {err}")
+    run = kernels(*(x is not None for x in (dr, dk, dv, dlw, du_part, ds0)))
+    for bit, name in ((1, "fwd"), (2, "rev")):
+        if run & bit:
+            count_launch("wkv6_bwd", variant=name)
 
 
 # the (b, h, t, d) strides of r, k, v, lw, dy, dr, dk, dv, dlw

@@ -30,9 +30,9 @@ to ``attention_bwd_ref`` within ``1e-4`` of each gradient's largest
 and at ``atol = rtol = 3e-2`` in bf16, and two runs give the same bits;
 the forward's lse to ``attention_lse_ref`` within ``1e-4``, with the
 output's bits the same whether lse is written or not;
-B7's backward kernel to ``wkv6_bwd_ref`` within ``1e-4`` of each
-gradient's largest |value| (+ ``1e-6``; float32, dlw from a telescoping
-sum), two runs the same bits, and ``wkv6`` under autograd to
+B7's backward kernels to ``wkv6_bwd_ref`` within ``1e-4`` of each
+gradient's largest |value| (+ ``1e-6``; float32, the products in 3xTF32,
+dlw from suffix sums), two runs the same bits, and ``wkv6`` under autograd to
 ``wkv6_bwd`` bit for bit;
 ``DecoderLM`` on the
 card (B6 in every prefill) to the same model on the CPU (``gqa_attention``)
@@ -1296,8 +1296,8 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
 
 def _wkv_bwd_close(got, want):
     """Within 1e-4 of the gradient's largest |value| + 1e-6 (float32
-    formulas summed in another order; dlw from the telescoping sum of
-    ``wkv6_bwd.cu``)."""
+    formulas summed in another order, the products in 3xTF32; dlw from the
+    suffix sums of ``wkv6_bwd.cu``)."""
     assert got.shape == want.shape and got.dtype == want.dtype
     if not want.numel():
         return
@@ -1306,12 +1306,13 @@ def _wkv_bwd_close(got, want):
 
 
 # (B, H, T, D), s0, ds_fin, lw edge, layout: the training shape on the
-# model's views, T on both sides of the kernel's 8-row chunks and of the
-# forward's 16, D below 64 (zero-padded), the lw edges
+# model's views, T on both sides of the kernels' 16-row chunks (one and two
+# whole chunks, a row past them), D below 64 (zero-padded), the lw edges
 WKV_BWD_CASES = [
     ((2, 40, 1024, 64), False, False, None, "bthd"),
     ((2, 40, 1024, 64), True, True, None, "bthd"),
-    *[((2, 3, T, 64), True, True, None, "bthd") for T in (1, 7, 8, 15, 17, 100)],
+    *[((2, 3, T, 64), True, True, None, "bthd")
+      for T in (1, 7, 8, 15, 16, 17, 32, 33, 100)],
     ((2, 3, 0, 64), True, True, None, "bhtd"),
     ((1, 2, 33, 48), True, True, None, "bthd"),
     ((1, 2, 20, 32), False, True, None, "bhtd"),
@@ -1325,9 +1326,9 @@ WKV_BWD_CASES = [
 @pytest.mark.parametrize("shape,with_s0,with_dsf,edge,layout", WKV_BWD_CASES)
 def test_wkv6_bwd_kernel_matches_ref(cuda, shape, with_s0, with_dsf, edge,
                                      layout):
-    """B7's backward kernel against ``wkv6_bwd_ref``: one launch; two runs
-    the same bits; the model's views take their gradients in their own
-    layout, uncopied; D < 64 padded."""
+    """B7's backward kernels against ``wkv6_bwd_ref``: the forward and the
+    reverse sweep once each; two runs the same bits; the model's views take
+    their gradients in their own layout, uncopied; D < 64 padded."""
     r, k, v, lw, u, s0 = _wkv_case(cuda, shape, 3 + sum(shape), edge, layout)
     g = torch.Generator().manual_seed(sum(shape))
     dy = torch.randn(r.shape, generator=g).to(cuda)
@@ -1339,8 +1340,8 @@ def test_wkv6_bwd_kernel_matches_ref(cuda, shape, with_s0, with_dsf, edge,
     assert plan.copy == (shape[3] != 64,) * 5
     kernels.reset_launches()
     got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
-    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == {"d64": 1}
-    assert kernels.LAUNCHES["wkv6_bwd"] == 1
+    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == {"fwd": 1, "rev": 1}
+    assert kernels.LAUNCHES["wkv6_bwd"] == 2
     again = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
     want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
     torch.cuda.synchronize()
@@ -1354,13 +1355,50 @@ def test_wkv6_bwd_kernel_matches_ref(cuda, shape, with_s0, with_dsf, edge,
             assert a.stride() == x.stride()
 
 
+# (dr, dk, dv, dlw, du, ds0) asked for, and the sweeps that launch: each
+# gradient alone, and r with v
+WKV_BWD_SUBSETS = [
+    ((True, False, False, False, False, False), {"fwd": 1, "rev": 0}),
+    ((False, True, False, False, False, False), {"fwd": 0, "rev": 1}),
+    ((False, False, True, False, False, False), {"fwd": 0, "rev": 1}),
+    ((False, False, False, True, False, False), {"fwd": 1, "rev": 1}),
+    ((False, False, False, False, True, False), {"fwd": 1, "rev": 0}),
+    ((False, False, False, False, False, True), {"fwd": 0, "rev": 1}),
+    ((True, False, True, False, False, False), {"fwd": 1, "rev": 1}),
+]
+
+
+@pytest.mark.parametrize("needs,runs", WKV_BWD_SUBSETS)
+def test_wkv6_bwd_kernel_gradient_subsets(cuda, needs, runs):
+    """B7's backward asked for some gradients only, with s0 and ds_fin over
+    several chunks: each one asked for matches ``wkv6_bwd_ref`` whatever
+    else is left out (dv without dk, dlw or ds0 reads the dS the reverse
+    sweep's rows warps carry), the others are None, and only the sweeps
+    that write them launch."""
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (2, 3, 70, 64), 17, None, "bthd")
+    g = torch.Generator().manual_seed(17)
+    dy = torch.randn(r.shape, generator=g).to(cuda)
+    dsf = torch.randn(s0.shape, generator=g).to(cuda) * 0.1
+    kernels.reset_launches()
+    got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf, needs=needs)
+    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == runs
+    want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
+    torch.cuda.synchronize()
+    for n, a, w in zip(needs, got, want):
+        if n:
+            _wkv_bwd_close(a, w)
+        else:
+            assert a is None
+
+
 def test_wkv6_autograd_on_the_card(cuda):
     """``wkv6`` under autograd on the model's (B, S, H, 64) views: the
     forward kernel once (the same bits as under no_grad), the backward
-    kernel once, gradients == ``wkv6_bwd``; an unused final state brings
-    no gradient (ds_fin None), an unused y none either (dy zeros); the
-    forward twice and the backward once under ``checkpoint``; only the
-    gradients asked for are computed."""
+    kernels once each (both sweeps), gradients == ``wkv6_bwd``; an unused
+    final state brings no gradient (ds_fin None), an unused y none either
+    (dy zeros); the forward twice and the backward once under
+    ``checkpoint``; only the gradients asked for are computed (du alone:
+    the forward sweep only; v alone: the reverse sweep only)."""
     from torch.utils.checkpoint import checkpoint
 
     r, k, v, lw, u, s0 = _wkv_case(cuda, (2, 4, 70, 64), 21, None, "bthd")
@@ -1372,7 +1410,7 @@ def test_wkv6_autograd_on_the_card(cuda):
     assert kernels.LAUNCHES["wkv6"] == 1 and torch.equal(y, plain[0])
     dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
     y.backward(dy)
-    assert kernels.LAUNCHES["wkv6_bwd"] == 1
+    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == {"fwd": 1, "rev": 1}
     want = wkv6_bwd(r, k, v, lw, u, s0, dy, None)
     for x, w in zip(leaves, want):
         assert torch.equal(x.grad, w)
@@ -1392,7 +1430,14 @@ def test_wkv6_autograd_on_the_card(cuda):
                      use_reentrant=False)
     out.backward(dy)
     assert (kernels.LAUNCHES["wkv6"], kernels.LAUNCHES["wkv6_bwd"]) == (2, 1)
+    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == {"fwd": 1, "rev": 0}
     _wkv_bwd_close(ul.grad, wkv6_bwd_ref(r, k, v, lw, u, None, dy, None)[4])
+    # v alone asks for a gradient, over five chunks
+    kernels.reset_launches()
+    vl = v.detach().clone().requires_grad_()
+    wkv6(r, k, vl, lw, u, s0)[0].backward(dy)
+    assert kernels.VARIANT_LAUNCHES["wkv6_bwd"] == {"fwd": 0, "rev": 1}
+    _wkv_bwd_close(vl.grad, wkv6_bwd_ref(r, k, v, lw, u, s0, dy, None)[2])
 
 
 def test_time_mix_hands_b7_its_views_without_copies(cuda, monkeypatch):

@@ -1,8 +1,9 @@
 """B7's backward on the CPU: the plain version ``wkv6_bwd_ref`` against
 ``jax.vjp`` of the reference's ``wkv6(..., impl="xla")`` (the function its
 model differentiates), against autograd of the port's two forward plain
-versions, the clamp's end rule, a numpy replay of the backward kernel's
-sweeps (``kernels/csrc/wkv6_bwd.cu``) and the kernel's plan.
+versions, the clamp's end rule, a float64 replay of the backward
+kernel's chunked algorithm (``kernels/csrc/wkv6_bwd.cu``) and the kernel's
+plan.
 
 Inputs are drawn with ``np.random.default_rng`` and scaled as
 ``tests/test_kernels.py`` scales the forward's.  Tolerance: each gradient
@@ -197,57 +198,105 @@ def test_clamp_end_rule():
 
 
 def _replay_kernel(r, k, v, lw, u, s0, dy, ds_fin):
-    """numpy replay (float64) of ``wkv6_bwd.cu``'s arithmetic: the rows
-    blocks' forward sweep (dr, q_t = r_t (S_{t-1} dy_t) left in dlw's
-    slot, du), their reverse sweep carrying dS and P_t = Σ_j dS_t S_t
-    (dlw_t = P_t - k_t (dS_t v_t), P_{t-1} = dlw_t + q_t), and the columns
-    blocks' reverse sweep (dv)."""
-    f = np.float64
-    r, k, v, lw, dy = (x.astype(f) for x in (r, k, v, lw, dy))
+    """float64 torch replay of ``wkv6_bwd.cu``'s chunked algorithm, chunk by
+    chunk: the forward sweep from s0 (dr, q_t left in dlw's row t, P_fin =
+    Σ_j ds_fin S_{T-1} in its row 0, du), then the reverse sweep from
+    ds_fin, which needs no state (dk, dv, ds0, and dlw from the suffix
+    sums dlw_t = P_t - k_t dk'_t, P_{t-1} = dlw_t + q_t).  Rows past T are
+    identity rows (r = k = v = dy = 0, lw = 0), as the kernel stages them."""
+    f = torch.float64
+    r, k, v, lw, dy = (torch.from_numpy(x).to(f) for x in (r, k, v, lw, dy))
+    u = torch.from_numpy(u).to(f)
     B, H, T, D = r.shape
-    w = np.exp(np.clip(lw, LOG_W_MIN, 0.0))
-    S = np.zeros((B, H, D, D)) if s0 is None else s0.astype(f)
-    dr, dk, dv, dlw = (np.zeros((B, H, T, D)) for _ in range(4))
-    du = np.zeros((B, H, D))
-    for t in range(T):
-        sdy = np.einsum("bhij,bhj->bhi", S, dy[:, :, t])
-        vdy = (v[:, :, t] * dy[:, :, t]).sum(-1, keepdims=True)
-        dr[:, :, t] = sdy + u * k[:, :, t] * vdy
-        dlw[:, :, t] = r[:, :, t] * sdy                       # q_t
-        du += r[:, :, t] * k[:, :, t] * vdy
-        S = w[:, :, t, :, None] * S + k[:, :, t, :, None] * v[:, :, t, None, :]
-    dS = np.zeros((B, H, D, D)) if ds_fin is None else ds_fin.astype(f)
-    P = (dS * S).sum(-1)
-    for t in reversed(range(T)):
-        dsv = np.einsum("bhij,bhj->bhi", dS, v[:, :, t])
-        vdy = (v[:, :, t] * dy[:, :, t]).sum(-1, keepdims=True)
-        dk[:, :, t] = dsv + u * r[:, :, t] * vdy
-        dv[:, :, t] = (np.einsum("bhij,bhi->bhj", dS, k[:, :, t])
-                       + (r[:, :, t] * u * k[:, :, t]).sum(-1, keepdims=True)
-                       * dy[:, :, t])
-        g = P - k[:, :, t] * dsv
-        P = g + dlw[:, :, t]
-        inside = (lw[:, :, t] >= LOG_W_MIN) & (lw[:, :, t] <= 0.0)
-        dlw[:, :, t] = np.where(inside, g, 0.0)
-        dS = w[:, :, t, :, None] * dS + r[:, :, t, :, None] * dy[:, :, t, None, :]
-    return dr, dk, dv, dlw, du.sum(0), None if s0 is None else dS
+    C = 16
+    nc = -(-T // C)
+
+    def chunks(x):  # (B, H, T, D) -> (B, H, nc, C, D), identity rows padded
+        return torch.nn.functional.pad(x, (0, 0, 0, nc * C - T)).view(
+            B, H, nc, C, D)
+
+    rc, kc, vc, dyc, lwc = (chunks(x) for x in (r, k, v, dy, lw))
+    g = torch.clamp(lwc, LOG_W_MIN, 0.0)
+    cum = g.cumsum(3)
+    cp = cum - g
+    last = cum[:, :, :, -1:]                       # L, (B, H, nc, 1, D)
+    rt, kt = rc * torch.exp(cp), kc * torch.exp(-cum)
+    ke = kc * torch.exp(last - cum)
+    vdy = (vc * dyc).sum(-1, keepdim=True)
+    bonus = (rc * u[:, None, None] * kc).sum(-1, keepdim=True)
+    tril = torch.tril(torch.ones(C, C, dtype=f), -1)
+    triu = tril.T
+
+    def tr(x):
+        return x.transpose(-1, -2)
+
+    zeros = torch.zeros((B, H, D, D), dtype=f)
+    S = zeros if s0 is None else torch.from_numpy(s0).to(f)
+    dr = torch.zeros_like(rc)
+    slot = torch.zeros_like(rc)                    # dlw's rows
+    du = torch.zeros((B, H, D), dtype=f)
+    for c in range(nc):
+        x = dyc[:, :, c] @ tr(S) + (tril * (dyc[:, :, c] @ tr(vc[:, :, c]))) @ kt[:, :, c]
+        drp = torch.exp(cp[:, :, c]) * x
+        dr[:, :, c] = drp + u[:, None] * kc[:, :, c] * vdy[:, :, c]
+        slot[:, :, c] = rc[:, :, c] * drp          # q
+        du += (rc[:, :, c] * kc[:, :, c] * vdy[:, :, c]).sum(2)
+        S = tr(torch.exp(last[:, :, c])) * (S + tr(kt[:, :, c]) @ vc[:, :, c])
+    dS = zeros if ds_fin is None else torch.from_numpy(ds_fin).to(f)
+    slot = slot.view(B, H, nc * C, D)
+    if T:
+        slot[:, :, 0] = (dS * S).sum(-1)           # P_fin over q_0
+    dk, dv, dlw = (torch.zeros_like(rc) for _ in range(3))
+    P = slot[:, :, 0].clone()
+    for c in reversed(range(nc)):
+        x1 = vc[:, :, c] @ tr(dS)
+        x2 = (triu * (vc[:, :, c] @ tr(dyc[:, :, c]))) @ rt[:, :, c]
+        dkp = torch.exp(last[:, :, c] - cum[:, :, c]) * x1 + torch.exp(-cum[:, :, c]) * x2
+        dk[:, :, c] = dkp + u[:, None] * rc[:, :, c] * vdy[:, :, c]
+        dv[:, :, c] = ((triu * (kt[:, :, c] @ tr(rt[:, :, c]))) @ dyc[:, :, c]
+                       + ke[:, :, c] @ dS + bonus[:, :, c] * dyc[:, :, c])
+        dS = tr(torch.exp(last[:, :, c])) * dS + tr(rt[:, :, c]) @ dyc[:, :, c]
+        for t in reversed(range(min(C, T - c * C))):
+            row = c * C + t
+            glw = P - kc[:, :, c, t] * dkp[:, :, t]
+            P = glw + slot[:, :, row]
+            inside = (lwc[:, :, c, t] >= LOG_W_MIN) & (lwc[:, :, c, t] <= 0.0)
+            dlw[:, :, c, t] = torch.where(inside, glw, 0.0)
+
+    def rows(x):
+        return x.reshape(B, H, nc * C, D)[:, :, :T].numpy()
+
+    return (rows(dr), rows(dk), rows(dv), rows(dlw), du.sum(0).numpy(),
+            None if s0 is None else dS.numpy())
 
 
-@pytest.mark.parametrize("lw_scale,with_s0,with_dsf", [
-    (1.0, True, True), (0.02, False, True), (8.0, True, False),
-])
-def test_kernel_sweeps_replay_matches_bwd_ref(lw_scale, with_s0, with_dsf):
-    """The kernel's dlw without the states: the telescoping P recurrence
-    (replayed in numpy) equals ``wkv6_bwd_ref`` over 100 rows, with little
-    decay (the state grows), typical decay and lw mostly at the floor."""
-    xs = _inputs((2, 2, 100, 64), 11, with_s0, with_dsf, lw_scale)
-    if lw_scale == 8.0:
+# (lw_scale, s0 given, ds_fin given, T, lw edge): little decay (the state
+# grows), typical decay and lw mostly at the floor over 100 rows; T on both
+# sides of a chunk; a whole chunk at the floor (e^56 inside it)
+REPLAY_CASES = [
+    (1.0, True, True, 100, None), (0.02, False, True, 100, None),
+    (8.0, True, False, 100, "ends"),
+    *[(1.0, True, True, T, None) for T in (1, 15, 16, 17, 33)],
+    (1.0, True, True, 48, "chunk_at_floor"),
+]
+
+
+@pytest.mark.parametrize("lw_scale,with_s0,with_dsf,T,edge", REPLAY_CASES)
+def test_kernel_sweeps_replay_matches_bwd_ref(lw_scale, with_s0, with_dsf, T,
+                                              edge):
+    """The kernel's chunked algorithm (replayed in float64 torch): the two
+    sweeps, the per-chunk products and dlw without the states, from the
+    suffix sums, equal ``wkv6_bwd_ref``."""
+    xs = _inputs((2, 2, T, 64), 11, with_s0, with_dsf, lw_scale)
+    if edge == "ends":
         xs[3][..., ::5] = LOG_W_MIN             # on the end: kept
         xs[3][..., 1::7] = 0.0
+    elif edge == "chunk_at_floor":
+        xs[3][:, :, 16:32] = LOG_W_MIN          # e^{-cum} reaches e^56
     got = _replay_kernel(*xs)
     want = wkv6_bwd_ref(*_torch(xs))
     _check_all(got, [None if w is None else w.numpy() for w in want],
-               f"replay lw_scale={lw_scale}")
+               f"replay T={T} lw_scale={lw_scale} edge={edge}")
 
 
 def test_bwd_plan():

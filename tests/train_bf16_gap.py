@@ -26,6 +26,16 @@ loss's relative |diff| there.  ``--model rwkv6 --scans``: the same
 distances between two plain versions, autograd of ``wkv6_chunked``
 against autograd of the recurrence ``wkv6_ref`` (no kernel): how far
 bf16 alone carries a float32 rounding difference in the scan.
+``--model rwkv6 --steps N``: the per-step losses of ``chip_smoke.py``'s
+``TRAIN_RWKV`` training run (full width and depth, bf16, 4 x 1,024 tokens
+in 2 microbatches) cut to N steps, with B7's kernels or, with
+``--plain``, autograd of ``wkv6_chunked`` in their place (no B7 launch).
+The checkout on ``PYTHONPATH`` trains, so two commits compare on one card
+by running once per tree; runs that differ only in how their float32 sums
+are ordered give the same first loss and part afterwards, as far as bf16
+training amplifies the difference::
+
+    PYTHONPATH=src python tests/train_bf16_gap.py --model rwkv6 --steps 12 [--plain]
 """
 
 import argparse
@@ -60,6 +70,25 @@ def scans_gap(model, batch):
     return cs.grad_gap(model, *runs[0], *runs[1])
 
 
+def train_losses(steps, plain):
+    """The per-step losses of ``launch.train`` run with ``cs.TRAIN_RWKV``
+    cut to ``steps``; ``plain``: ``wkv6_chunked`` in B7's place."""
+    from repro_torch.kernels.wkv6.ops import wkv6_chunked
+    from repro_torch.launch import train
+    from repro_torch.models import rwkv6
+
+    argv = list(cs.TRAIN_RWKV)
+    argv[argv.index("--steps") + 1] = str(steps)
+    kernel_fn = rwkv6.wkv6
+    if plain:
+        rwkv6.wkv6 = wkv6_chunked
+    try:
+        out = train.main(argv + ["--device", "cuda"])
+    finally:
+        rwkv6.wkv6 = kernel_fn
+    return [float(x) for x in out["losses"]]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=("seamless", "rwkv6"),
@@ -68,7 +97,18 @@ def main(argv=None):
     ap.add_argument("--float32", action="store_true")
     ap.add_argument("--scans", action="store_true",
                     help="rwkv6: wkv6_chunked against wkv6_ref, no kernel")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="rwkv6: the training run's losses over N steps")
+    ap.add_argument("--plain", action="store_true",
+                    help="with --steps: wkv6_chunked in B7's place")
     args = ap.parse_args(argv)
+    if args.steps:
+        if args.model != "rwkv6":
+            ap.error("--steps trains rwkv6-3b: give --model rwkv6")
+        print(json.dumps({"plain": args.plain,
+                          "losses": train_losses(args.steps, args.plain)}),
+              flush=True)
+        return
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     if args.model == "seamless":
         cfg = seamless_m4t_medium.config()
