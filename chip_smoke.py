@@ -287,17 +287,23 @@ Phases, in order; any failure exits non-zero:
    contiguous (1, 2, 100, 64), the lw edges (above 0, below the -3.5
    floor, 0, a whole chunk at the floor), and every head dim the kernel is
    built for plus D = 48 (zero-padded) at T = 1, 15, 16 and 100, and
-   D = 288, 512 and 1,000 (``wide``) at T = 1, 16 and 100; each
+   D = 288, 512 and 1,000 at T = 1, 16, 100, 256 and 1,024 (``wide_chunk``
+   from T = 16, ``wide_step`` below), with no s0 at D = 512 / T = 256 and
+   D = 1,000 / T = 1, with a NaN in lw at D = 512 / T = 100 and D = 288 /
+   T = 7 (NaN where the chunked plain version has it); each
    against the chunked plain version and, on four heads, the recurrence,
-   at ``WKV_TOL``; D > 256 must run the ``wide`` instantiation, T < 16
+   at ``WKV_TOL``, each wide case run twice for the same bits; D > 256
+   must run ``wide_chunk`` from T = 16 and ``wide_step`` below, T < 16
    ``step``, longer sequences ``chunk``, and only D = 48 may be copied.
    The prefill and decode shapes are timed on the model's views with CUDA
    events: the kernel's eager launches (as the model issues them; at
    decode the host's launch overhead is most of that time) and the same
    launches inside a CUDA graph (the kernel alone), the wrapper ``wkv6``
    apart, and the chunked plain version; its bound is the larger of its
-   bytes over 3.35 TB/s and its chunk products over the float32 peak.  ``wide`` is timed at (2, 8, 256, 512) beside the chunked plain
-   version.
+   bytes over 3.35 TB/s and its chunk products over the float32 peak.
+   ``wide_chunk`` is timed at (2, 8, 256, 512) and (2, 8, 1,024, 512)
+   beside the chunked plain version, its bound also stated at the TF32
+   rate with three products a float32 one.
 16. **RWKV6 serving.**  ``build_model(rwkv6_3b.config())`` at full width
    (32 layers, d_model 2560, 40 heads of 64, d_ff 8960, vocab 65536, bf16:
    2,900,298,240 parameters drawn on the card from a seeded generator, no
@@ -333,15 +339,18 @@ Phases, in order; any failure exits non-zero:
    over 2, 1,024, 512), and the model phases' prefill shapes: moonshot's
    (8, 16, 2,048, 128) causal, recurrentgemma's (8, 16 over 1, 4,096,
    256, window 2,048) and seamless's encoder (8, 16, 2,048, 64) not
-   causal; head dims above 256 (288, 320, 512, 1000, the
-   ``wide`` instantiation) in float32 and bf16; tolerances ``FA_TOL``,
+   causal; head dims above 256 (288, 320, 512 at S = 300 and 1,024,
+   1,000, 1,344, 1,500: the ``wide`` instantiation, bf16 on the tensor
+   cores, float32 on the CUDA cores) in float32 and bf16, each run twice
+   for the same bits; tolerances ``FA_TOL``,
    each shape's instantiation launched once.  Every path
    shape is timed with CUDA events beside the plain version and
    ``F.scaled_dot_product_attention`` (the library call, timed only; a
    boolean mask for a window); the bound is the larger of the visible
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
-   short-sequence threshold), and float32 at nemotron's shape.
+   short-sequence threshold), and float32 at nemotron's shape and at
+   D = 512 (``wide``, beside SDPA in float32).
 18. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
@@ -614,10 +623,12 @@ WKV_TOL = {"chunked": 1e-4, "recurrence": 5e-4}
 # 64; sequence lengths on both sides of a chunk (T < 16 runs "step")
 WKV_CHECK_DIMS = (16, 32, 48, 64, 128, 256)
 WKV_CHECK_LENGTHS = (1, 15, 16, 100)
-# head dims above 256 ("wide", any T), and the shape it is timed at
+# head dims above 256 ("wide_chunk" from T = 16, "wide_step" below), and
+# the shapes they are timed at
 WKV_WIDE_DIMS = (288, 512, 1000)
-WKV_WIDE_LENGTHS = (1, 16, 100)
+WKV_WIDE_LENGTHS = (1, 16, 100, 256, 1024)
 WKV_WIDE_TIMED = (2, 8, 256, 512)
+WKV_WIDE_TIMED_LONG = (2, 8, 1024, 512)
 # an LM's bf16 prefill with a kernel and with its plain version swapped in
 # (WKV6's chunked version; gqa_attention, which rounds the attention
 # weights to bf16 as B6 does, but sums in another order) differ in
@@ -690,10 +701,14 @@ FA_PATH_SHAPES = {
     # above the tiled instantiations ("wide"): no registry config has it
     "d512": (2, 8, 2, 1024, 512, True, None),
 }
-# head dims above 256 ("wide"), checked in both dtypes
+# head dims above 256 ("wide"), checked in both dtypes, each run twice
+# for the same bits: a sequence of 1,024 at D = 512, bf16 Q streamed
+# through the ring (D = 1,344) and column passes (1,344; float32 1,500)
 FA_WIDE_SHAPES = [
     (2, 4, 2, 100, 288, True, None), (2, 4, 2, 65, 320, True, 30),
     (2, 4, 2, 300, 512, True, None), (2, 4, 2, 77, 1000, True, 50),
+    (2, 4, 2, 1024, 512, True, None), (2, 4, 2, 130, 1344, True, None),
+    (2, 4, 2, 70, 1500, True, 40),
 ]
 FA_TIMED = tuple(FA_PATH_SHAPES)
 # the short-sequence dispatch threshold: both bf16 instantiations timed at
@@ -705,7 +720,8 @@ FA_THRESHOLD_SHAPES = {
 # a bf16 instantiation must run on the tensor cores: its SASS holds at
 # least one of these
 FA_TENSOR_CORE_OPS = {"fa_wgmma_kernel": ("HGMMA",),
-                      "fa_mma16_kernel": ("HMMA", "HGMMA")}
+                      "fa_mma16_kernel": ("HMMA", "HGMMA"),
+                      "fa_wide_wgmma_kernel": ("HGMMA",)}
 # B6's backward: its bf16 kernels must reach the tensor cores
 FA_BWD_TENSOR_CORE_OPS = {"bwd_dq_wgmma_kernel": ("HGMMA",),
                           "bwd_dkdv_wgmma_kernel": ("HGMMA",)}
@@ -4358,6 +4374,8 @@ def _wkv6_inputs(gen, shape, lw_edge=None, layout="bthd"):
         lw.zero_()
     elif lw_edge == "a chunk at -3.5 (e^56)":
         lw[:, :, 16:32] = -3.5
+    elif lw_edge == "lw NaN":  # one channel of one row of the last head
+        lw[:, -1, T // 3, D // 2] = float("nan")
     return r, k, v, lw, randn(H, D) * 0.3, randn(B, H, D, D) * 0.1
 
 
@@ -4406,13 +4424,22 @@ def check_wkv6_kernel(results) -> None:
               for D in WKV_CHECK_DIMS for T in WKV_CHECK_LENGTHS]
     cases += [(f"D={D}, T={T} (wide)", (2, 4, T, D), True, None, "bthd")
               for D in WKV_WIDE_DIMS for T in WKV_WIDE_LENGTHS]
+    cases += [("D=512, T=256, zero state (wide)", (2, 4, 256, 512), False,
+               None, "bthd"),
+              ("D=1000, T=1, zero state (wide)", (2, 4, 1, 1000), False,
+               None, "bthd"),
+              ("D=512, T=100, lw NaN (wide)", (2, 4, 100, 512), True,
+               "lw NaN", "bthd"),
+              ("D=288, T=7, lw NaN (wide)", (2, 4, 7, 288), True, "lw NaN",
+               "bthd")]
     worst = 0.0
     for name, shape, with_s0, edge, layout in cases:
         r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape, edge, layout)
         s0 = s0 if with_s0 else None
         plan = plan_wkv6(r, k, v, lw)
         D = shape[3]
-        want = ("wide" if D > 256 else "step" if shape[2] < 16 else "chunk")
+        want = ("step" if shape[2] < 16 else "chunk") if D <= 256 else (
+            "wide_step" if shape[2] < 16 else "wide_chunk")
         if plan.variant != want or (
                 any(plan.copy) != (D <= 256 and D not in (16, 32, 64, 128, 256))):
             _fail(f"wkv6 on '{name}' {shape}: plan {plan}")
@@ -4422,7 +4449,24 @@ def check_wkv6_kernel(results) -> None:
             _fail(f"wkv6 on '{name}': the {plan.variant} instantiation was "
                   f"not launched ({kernels.VARIANT_LAUNCHES['wkv6']})")
         yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
+        if D > 256:  # the wide kernels: two runs, the same bits
+            y2, s2 = wkv6(r, k, v, lw, u, s0)
+            torch.cuda.synchronize()
+            if not (torch.equal(y.isnan(), y2.isnan())
+                    and torch.equal(y.nan_to_num(), y2.nan_to_num())
+                    and torch.equal(s.nan_to_num(), s2.nan_to_num())):
+                _fail(f"wkv6 ({plan.variant}) on '{name}': two runs differ")
+            del y2, s2
         torch.cuda.synchronize()
+        if edge == "lw NaN":
+            # NaN where the chunked plain version has it (the rows from the
+            # NaN's on, every later row, its state row), the rest compared
+            nan_y, nan_s = yc.isnan(), sc.isnan()
+            if not (nan_y.any() and torch.equal(y.isnan(), nan_y)
+                    and torch.equal(s.isnan(), nan_s)):
+                _fail(f"wkv6 on '{name}': NaN not where the chunked plain "
+                      f"version has it")
+            y, yc, s, sc = (x.nan_to_num() for x in (y, yc, s, sc))
         err = max(float((y - yc).abs().max()), float((s - sc).abs().max()))
         tol = WKV_TOL["chunked"]
         if not (torch.allclose(y, yc, rtol=tol, atol=tol)
@@ -4430,8 +4474,9 @@ def check_wkv6_kernel(results) -> None:
             _fail(f"wkv6 differs from its chunked plain version on '{name}' "
                   f"{shape} (max |diff| {err:.3e}, tolerance {tol})")
         worst = max(worst, err)
-        # the recurrence on every case, on a slice of the large ones
-        sl = slice(0, 4)
+        # the recurrence on every case, on a slice of the large ones (the
+        # NaN's head left out)
+        sl = slice(0, 4) if edge != "lw NaN" else slice(0, shape[1] - 1)
         yr, sr = wkv6_ref(r[:1, sl], k[:1, sl], v[:1, sl], lw[:1, sl], u[sl],
                           None if s0 is None else s0[:1, sl])
         ref_err = max(float((y[:1, sl] - yr).abs().max()),
@@ -4444,8 +4489,8 @@ def check_wkv6_kernel(results) -> None:
         print(f"wkv6 ({plan.variant}, {layout}, copies {plan.copy}) on "
               f"'{name}' {shape}: max |diff| {err:.3e} to the chunked plain "
               f"version (atol = rtol = {tol}), {ref_err:.3e} to the "
-              f"recurrence on (1, 4) heads (atol = rtol = {tol_r})",
-              flush=True)
+              f"recurrence on (1, 4) heads (atol = rtol = {tol_r})"
+              + ("; two runs bit-equal" if D > 256 else ""), flush=True)
         del r, k, v, lw, u, s0, y, s, yc, sc, yr, sr
 
     timed = {}
@@ -4479,30 +4524,43 @@ def check_wkv6_kernel(results) -> None:
               f"{max(by_bytes, by_ops) / graph_ms:.3f} in the graph)",
               flush=True)
         del r, k, v, lw, u, s0, y, s
-    # "wide" (D > 256, off every model's path): its time beside the
-    # chunked plain version's
-    r, k, v, lw, u, s0 = _wkv6_inputs(gen, WKV_WIDE_TIMED)
-    y, s = torch.empty_like(r), torch.empty_like(s0)
-    wide_ms = _time_ms(lambda: launch_wkv6(r, k, v, lw, u, s0, y, s), 3)
-    wide_plain_ms = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, s0), 3)
-    nbytes, flop = _wkv6_cost(WKV_WIDE_TIMED, True)
-    wide_bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S)
-    print(f"wkv6 wide {WKV_WIDE_TIMED}: kernel {wide_ms:.4f} ms, chunked "
-          f"plain {wide_plain_ms:.4f} ms, bound {wide_bound:.5f} ms",
-          flush=True)
-    del r, k, v, lw, u, s0, y, s
+    # "wide_chunk" (D > 256, off every model's path): its time beside the
+    # chunked plain version's; bound, as B7-bwd's, by bytes and by the TF32
+    # rate at three products a float32 one (the rate its 3xTF32 products
+    # run at); the float32 peak's time is printed beside it
+    wide = {}
+    for label, shape in (("wide", WKV_WIDE_TIMED),
+                         ("wide_long", WKV_WIDE_TIMED_LONG)):
+        r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)
+        y, s = torch.empty_like(r), torch.empty_like(s0)
+        ms = _time_ms(lambda: launch_wkv6(r, k, v, lw, u, s0, y, s), 10, 2)
+        plain = _time_ms(lambda: wkv6_chunked(r, k, v, lw, u, s0), 3)
+        nbytes, flop = _wkv6_cost(shape, True)
+        by = {"bytes": 1e3 * nbytes / HBM_BYTES_PER_S,
+              "fp32": 1e3 * flop / FP32_FLOP_PER_S,
+              "tf32x3": 1e3 * 3 * flop / TF32_FLOP_PER_S}
+        bound = max(by["bytes"], by["tf32x3"])
+        wide.update({f"{label}_ms": ms, f"{label}_plain_ms": plain,
+                     f"{label}_bound_ms": bound,
+                     f"{label}_bound_fp32_ms": by["fp32"]})
+        print(f"wkv6 wide_chunk {shape}: kernel {ms:.4f} ms, chunked plain "
+              f"{plain:.4f} ms, bound {bound:.5f} ms ({nbytes} bytes -> "
+              f"{by['bytes']:.5f} ms; {flop} FLOP -> {by['tf32x3']:.5f} ms as "
+              f"3 TF32 products, {by['fp32']:.5f} ms at the float32 peak; "
+              f"{bound / ms:.3f} of the bound)", flush=True)
+        del r, k, v, lw, u, s0, y, s
     pre, dec = timed["prefill"], timed["decode"]
     results["wkv6"] = dict(
         max_abs_err=worst, **pre,
         decode_ms=dec["ms"], decode_graph_ms=dec["graph_ms"],
         decode_wrapper_ms=dec["wrapper_ms"], decode_plain_ms=dec["plain_ms"],
-        decode_bound_ms=dec["bound_ms"],
-        wide_ms=wide_ms, wide_plain_ms=wide_plain_ms, wide_bound_ms=wide_bound,
+        decode_bound_ms=dec["bound_ms"], **wide,
         shape=f"{main} prefill with s0 on the model's views (decode "
               f"{decode}: kernel {dec['ms']:.4f} ms eager, "
               f"{dec['graph_ms']:.4f} ms in a CUDA graph, bound "
-              f"{dec['bound_ms']:.5f} ms; wide {WKV_WIDE_TIMED}: "
-              f"{wide_ms:.4f} ms)",
+              f"{dec['bound_ms']:.5f} ms; wide_chunk {WKV_WIDE_TIMED}: "
+              f"{wide['wide_ms']:.4f} ms, {WKV_WIDE_TIMED_LONG}: "
+              f"{wide['wide_long_ms']:.4f} ms)",
     )
     torch.cuda.empty_cache()
 
@@ -4969,6 +5027,9 @@ def check_flash_attention_kernel(results) -> None:
             _fail(f"flash attention on {name}: the {variant} instantiation "
                   f"was not launched ({kernels.VARIANT_LAUNCHES})")
         want = attention_ref(q, k, v, causal=causal, window=window)
+        if variant == "wide" and not torch.equal(
+                out, attention(q, k, v, causal=causal, window=window)):
+            _fail(f"flash attention ({variant}) on {name}: two runs differ")
         torch.cuda.synchronize()
         err = float((out.float() - want.float()).abs().max())
         tol = FA_TOL[dtype]
@@ -4977,7 +5038,8 @@ def check_flash_attention_kernel(results) -> None:
                   f"{shape} {dtype} (max |diff| {err:.3e}, tolerance {tol})")
         worst[dtype] = max(worst.get(dtype, 0.0), err)
         print(f"flash_attention == attention_ref on {name} {shape} {dtype} "
-              f"({variant}): max |diff| {err:.3e} (atol = rtol = {tol})",
+              f"({variant}): max |diff| {err:.3e} (atol = rtol = {tol})"
+              + ("; two runs bit-equal" if variant == "wide" else ""),
               flush=True)
         del q, k, v, out, want
     torch.cuda.empty_cache()
@@ -5066,6 +5128,20 @@ def check_flash_attention_kernel(results) -> None:
     print(f"flash_attention nemotron {shape} float32 (simt): kernel "
           f"{f32_ms:.4f} ms", flush=True)
     del q, k, v
+    # float32 at D = 512 ("wide", the CUDA cores) beside SDPA in float32
+    shape = FA_PATH_SHAPES["d512"]
+    q, k, v = _fa_inputs(gen, shape, torch.float32)
+    wide_f32 = dict(ms=_time_ms(lambda: attention(q, k, v), 5, 1),
+                    plain_ms=_time_ms(lambda: attention_ref(q, k, v), 3),
+                    library_ms=_time_ms(_fa_library_call(q, k, v, shape), 5, 1))
+    nbytes, flop = _fa_cost(shape, 4)
+    wide_f32["bound_ms"] = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                     flop / FP32_FLOP_PER_S)
+    print(f"flash_attention d512 {shape} float32 (wide): kernel "
+          f"{wide_f32['ms']:.4f} ms, plain {wide_f32['plain_ms']:.4f} ms, "
+          f"SDPA {wide_f32['library_ms']:.4f} ms, bound "
+          f"{wide_f32['bound_ms']:.5f} ms at the float32 peak", flush=True)
+    del q, k, v
     torch.cuda.empty_cache()
 
     others = "; ".join(
@@ -5078,6 +5154,7 @@ def check_flash_attention_kernel(results) -> None:
     results["flash_attention"] = dict(
         max_abs_err=worst[torch.bfloat16], max_abs_err_f32=worst[torch.float32],
         **main, f32_ms=f32_ms,
+        **{f"d512_f32_{k}": v for k, v in wide_f32.items()},
         shape=f"{FA_PATH_SHAPES['nemotron'][:5]} bf16 causal (wgmma; {others})",
         shapes=timed,
     )

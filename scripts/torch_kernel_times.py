@@ -1,11 +1,11 @@
 """Time the port's route kernel (B2), signature-embedding kernel (B5),
-window-stats kernel (B3), flash attention's backward (B6-bwd) and the
-WKV6 backward (B7-bwd) alone,
+window-stats kernel (B3), flash attention's backward (B6-bwd), the WKV6
+backward (B7-bwd) and B6's and B7's kernels above head dim 256 alone,
 at their paths' shapes, in one checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
@@ -41,6 +41,21 @@ under ``torch.profiler``, the sum over the call's kernels
 wrapper ``wkv6_bwd`` by CUDA events (``b7bwd_wrapper_ms``); the sha256 of
 B7's forward output (y and the final state) at that shape with s0 and at
 (2, 8, 100, 64) (``b7_fwd_sha256``), so two trees' forward bits compare.
+B6 above head dim 256 (``b6wide``, not in the default set): ``attention``
+at ``chip_smoke.py``'s ``d512`` shape, (2, 8 over 2, 1,024, 512) causal,
+in bf16 and float32: CUDA events over 20 calls after 3
+(``b6wide_<dtype>_ms``), the device time a call under ``torch.profiler``
+summed over the kernels whose name holds ``fa_wide``
+(``b6wide_<dtype>_device_ms``), and SDPA (``chip_smoke.py``'s
+``_fa_library_call``, a yardstick the port never calls) the same two ways
+(``sdpa_d512_<dtype>_ms``, ``..._device_ms``: every kernel of a call).
+B7 above head dim 256 (``b7wide``, not in the default set):
+``launch_wkv6`` with s0 at (2, 8, 256, 512) and (2, 8, 1,024, 512)
+float32 on the model's views (``chip_smoke.py``'s ``_wkv6_inputs``):
+events over 20 after 3 (``b7wide_<T>_ms``), the device time a call of the
+kernels whose name holds ``wkv6_wide`` (``b7wide_<T>_device_ms``), and the
+chunked plain version ``wkv6_chunked`` by events over 3
+(``b7wide_<T>_plain_ms``).
 Entries a
 tree does not have (the route kernel from keys, B5 from signatures) are
 left out.  Prints one JSON line.
@@ -164,7 +179,8 @@ def main() -> None:
     names = {"b2": ["route_rank"], "b5": ["signature_embed"],
              "b3": ["window_stats", "fused_ingest", "route_rank"],
              "b6bwd": ["flash_attention", "flash_attention_bwd"],
-             "b7bwd": ["wkv6", "wkv6_bwd"]}
+             "b7bwd": ["wkv6", "wkv6_bwd"],
+             "b6wide": ["flash_attention"], "b7wide": ["wkv6"]}
     build.build(sorted({n for k in todo for n in names[k]}))
     out = {"tree": str(root)}
     if "b3" in todo:
@@ -173,6 +189,10 @@ def main() -> None:
         _b6_bwd(out)
     if "b7bwd" in todo:
         _b7_bwd(out)
+    if "b6wide" in todo:
+        _b6_wide(out)
+    if "b7wide" in todo:
+        _b7_wide(out)
     if todo & {"b2", "b5"}:
         _b2_b5(out, todo)
     print(json.dumps(out))
@@ -302,6 +322,70 @@ def _b7_bwd(out) -> None:
 
     out["b7bwd_wrapper_ms"] = _events_ms(
         lambda: ops.wkv6_bwd(r, k, v, lw, u, None, dy), 20, 3)
+
+
+def _profiled_ms(fn, match, reps=5) -> float:
+    """Device time a call of ``fn``: the kernels whose name holds
+    ``match`` (every kernel when it is None), under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in p.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and (match is None or match in e.key)) / 1e3 / reps
+
+
+def _b6_wide(out) -> None:
+    """B6 above head dim 256 at chip_smoke.py's d512 shape, both dtypes,
+    beside SDPA."""
+    import chip_smoke as cs
+
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 23)
+    shape = cs.FA_PATH_SHAPES["d512"]
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = cs._fa_inputs(gen, shape, dtype)
+
+        def call():
+            ops.attention(q, k, v, causal=shape[5], window=shape[6])
+
+        lib = cs._fa_library_call(q, k, v, shape)
+        out[f"b6wide_{tag}_ms"] = _events_ms(call, 20, 3)
+        out[f"b6wide_{tag}_device_ms"] = _profiled_ms(call, "fa_wide")
+        out[f"sdpa_d512_{tag}_ms"] = _events_ms(lib, 20, 3)
+        out[f"sdpa_d512_{tag}_device_ms"] = _profiled_ms(lib, None)
+        del q, k, v, lib
+        torch.cuda.empty_cache()
+
+
+def _b7_wide(out) -> None:
+    """B7 above head dim 256 at (2, 8, T, 512), T = 256 and 1,024."""
+    import chip_smoke as cs
+
+    from repro_torch.kernels.wkv6 import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 24)
+    for shape in (cs.WKV_WIDE_TIMED, cs.WKV_WIDE_TIMED_LONG):
+        r, k, v, lw, u, s0 = cs._wkv6_inputs(gen, shape)
+        y, s = torch.empty_like(r), torch.empty_like(s0)
+
+        def call():
+            ops.launch_wkv6(r, k, v, lw, u, s0, y, s)
+
+        tag = f"b7wide_{shape[2]}"
+        out[f"{tag}_ms"] = _events_ms(call, 20, 3)
+        out[f"{tag}_device_ms"] = _profiled_ms(call, "wkv6_wide")
+        out[f"{tag}_plain_ms"] = _events_ms(
+            lambda: ops.wkv6_chunked(r, k, v, lw, u, s0), 3, 1)
+        del r, k, v, lw, u, s0, y, s
+        torch.cuda.empty_cache()
 
 
 def _b2_b5(out, todo) -> None:

@@ -51,7 +51,7 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     # group sum; float32 ("simt") its dQ and dK / dV kernels
     "flash_attention_bwd": {"delta": 0, "dq": 0, "dkdv": 0, "reduce": 0,
                             "simt_dq": 0, "simt_dkdv": 0},
-    "wkv6": {"chunk": 0, "step": 0, "wide": 0},
+    "wkv6": {"chunk": 0, "step": 0, "wide_chunk": 0, "wide_step": 0},
     # B7's backward, each launch by name: the chunks in order ("fwd") and
     # in reverse ("rev"), built at head dim 64 (a smaller D zero-padded)
     "wkv6_bwd": {"fwd": 0, "rev": 0},

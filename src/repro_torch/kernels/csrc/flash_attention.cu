@@ -24,8 +24,8 @@
 // Bound on the H100: operations -- 4·D FLOP per visible (q, k) pair and
 // head at 989 TFLOP/s of bf16 tensor-core peak -- for long sequences;
 // bytes (q, k, v read once, o written once at 3.35 TB/s) for short ones
-// and for small D.  Four instantiations, chosen by the wrapper
-// (kernels/flash_attention/ops.py, plan_attention):
+// and for small D.  Four instantiations (five kernels), chosen by the
+// wrapper (kernels/flash_attention/ops.py, plan_attention):
 //
 // 1. fa_wgmma_kernel -- bf16, S > 128: Hopper's own design.  A producer
 //    warpgroup (one thread issues) loads the query tile once and K / V
@@ -51,12 +51,19 @@
 //    the IEEE divide) to hold the reference's 2e-5; on tensor cores
 //    float32 would run as TF32.  A 64-row query tile at D <= 128, a
 //    32-row one above, so the accumulator stays in registers.
-// 4. fa_wide_kernel -- D > 256, float32 or bf16, on the CUDA cores: the
-//    output columns split across blocks, 256 to a block; each block forms
-//    the scores from all of D in 128-column slices of q and k, summed in
-//    float32.
+// 4. "wide", D > 256, where a 64-row x D float32 accumulator no longer
+//    fits one warpgroup's registers:
+//    a. fa_wide_simt_kernel -- float32 on the CUDA cores (as 3, for the
+//       2e-5): a 32-row query tile and all output columns up to 1,024 in
+//       one block, so each score is formed once;
+//    b. fa_wide_wgmma_kernel -- bf16 on the tensor cores: a 64-row query
+//       tile, two consumer warpgroups that split D for the scores (their
+//       partial sums added through shared memory) and 512 output columns
+//       between them for P V; Q, K and V move as 64 x 64 TMA boxes
+//       through one ring.  Bound by operations at long sequences; the
+//       K / V re-reads of each 64-row tile come from L2.
 //
-// In 1 and 2 the weights P are rounded to bf16 for the PV product (the
+// In 1, 2 and 4b the weights P are rounded to bf16 for the PV product (the
 // reference model's gqa_attention rounds them the same way); the
 // denominator l sums the float32 P.
 // Under autograd 1 and 2 also write each row's log-sum-exp,
@@ -72,12 +79,14 @@
 // copy.  The bf16 instantiations need D a multiple of 16 and 16-byte
 // aligned bases and strides (TMA, cp.async); the wrapper pads or copies
 // where they are not.  D up to 256 on the tiled instantiations; any D
-// above on fa_wide_kernel.
+// above on the wide ones (bf16: a multiple of 8, the wrapper pads).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -344,82 +353,74 @@ __global__ void __launch_bounds__(NT, 2) fa_simt_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// 4. D > 256, float32 or bf16, on the CUDA cores
+// 4a. D > 256, float32, on the CUDA cores
 // ---------------------------------------------------------------------------
 
-// The output's columns are split across blocks: a block owns WIDE_DO of
-// them for a WIDE_BQ-row query tile, and forms each score tile from all
-// of D in WIDE_DS-column slices of q and k staged in turn (the scores
-// summed in float32 registers), then takes its columns of P V.  Every
-// column block recomputes the scores: ~D / 256 times the QKᵀ work, for
-// head dims no registry config has.  Thread (ty, tx) as in fa_simt_kernel:
-// query rows ty + 16 i, score columns tx + 8 j, output columns
-// 4 tx + 32 jj + e.  bf16 loads widen to float32 and P rounds to bf16 for
-// P V, as in the other bf16 instantiations.
-constexpr int WIDE_BQ = 32;
+// A block owns a WIDE_BQ-row query tile and up to 64 CJ output columns: all
+// of D up to 1,024, so each score is formed once; wider heads take column
+// passes (blocks), each forming the scores again.  256 threads (ty, tx) =
+// (tid / 16, tid % 16): query rows ty + 16 i, score columns tx + 16 j of a
+// 32-key tile, output columns 4 tx + 64 jj + e.  The scores are summed in
+// float32 over D in WIDE_DS-column slices of q and k staged in turn; the
+// weights go through shared memory to the P V pass, which reads the tile's
+// V rows over all the pass's columns, staged once.
+constexpr int WIDE_NT = 256;
+constexpr int WIDE_BQ = 32;   // query rows a block, keys a tile
 constexpr int WIDE_DS = 128;  // head-dim slice of a score pass
-constexpr int WIDE_DO = 256;  // output columns of a block
 
-struct Wide {
-  static constexpr int BQ = WIDE_BQ, BK = WIDE_BQ;
-  static constexpr int LD = WIDE_DS + 4, LV = WIDE_DO + 4, LP = BK + 4;
-  static constexpr int RI = BQ / 16, KJ = BK / 8, CJ = WIDE_DO / 32;
+template <int CJ>
+struct WideSimt {
+  static constexpr int BQ = WIDE_BQ, BK = WIDE_BQ, DO = 64 * CJ;
+  // q and k rows of WIDE_DS + 4 floats, V rows of DO + 4 (float4 reads
+  // conflict-free); P rows of BK + 16, so the two row groups of a warp
+  // write to distinct banks
+  static constexpr int LD = WIDE_DS + 4, LV = DO + 4, LP = BK + 16;
+  static constexpr int RI = BQ / 16, KJ = BK / 16;
   static constexpr size_t bytes() {
-    return sizeof(float) *
-           ((size_t)(BQ + BK) * LD + (size_t)BQ * LP + (size_t)BK * LV);
+    return sizeof(float) * ((size_t)(BQ + BK) * LD + (size_t)BQ * LP +
+                            (size_t)BK * LV);
   }
 };
 
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void narrow(float* dst, float x) { *dst = x; }
-__device__ __forceinline__ void narrow(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);
-}
-
 // rows row0 .. row0 + ROWS - 1, columns c0 .. c0 + COLS - 1 of one head as
-// float32 rows of LDT floats; rows >= S and columns >= D are zeros
-template <int ROWS, int COLS, int LDT, typename E>
-__device__ __forceinline__ void stage_wide(float* dst, const E* src,
-                                          long long rs, int row0, int c0,
-                                          int S, int D) {
+// rows of LDT floats; rows >= S and columns >= D are zeros
+template <int ROWS, int COLS, int LDT>
+__device__ __forceinline__ void stage_wide(float* dst, const float* src,
+                                           long long rs, int row0, int c0,
+                                           int S, int D) {
 #pragma unroll 4
-  for (int it = 0; it < ROWS * COLS / NT; ++it) {
-    const int e = it * NT + threadIdx.x;
+  for (int it = 0; it < ROWS * COLS / WIDE_NT; ++it) {
+    const int e = it * WIDE_NT + threadIdx.x;
     const int r = e / COLS, d = e % COLS;
     float x = 0.0f;
-    if (row0 + r < S && c0 + d < D)
-      x = widen(src[(long long)(row0 + r) * rs + c0 + d]);
+    if (row0 + r < S && c0 + d < D) x = src[(long long)(row0 + r) * rs + c0 + d];
     dst[r * LDT + d] = x;
   }
 }
 
-template <typename E>
-__global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
-  using C = Wide;
+template <int CJ>
+__global__ void __launch_bounds__(WIDE_NT, 1) fa_wide_simt_kernel(Params p) {
+  using C = WideSimt<CJ>;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LV = C::LV, LP = C::LP,
-                RI = C::RI, KJ = C::KJ, CJ = C::CJ;
-  constexpr bool BF16 = sizeof(E) == 2;
+                RI = C::RI, KJ = C::KJ, DO = C::DO;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);
   float* ks = qs + BQ * LD;
   float* ps = ks + BK * LD;
   float* vs = ps + BQ * LP;
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
-  const int nd = (p.D + WIDE_DO - 1) / WIDE_DO;
-  const int bh = blockIdx.x / nd;
-  const int d0 = (blockIdx.x % nd) * WIDE_DO;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int passes = (p.D + DO - 1) / DO;
+  const int bh = blockIdx.x / passes;
+  const int d0 = (blockIdx.x % passes) * DO;
   const long long b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / p.group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
-  const E* qg = static_cast<const E*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const E* kg = static_cast<const E*>(p.k) + b * p.sk[0] + hk * p.sk[1];
-  const E* vg = static_cast<const E*>(p.v) + b * p.sv[0] + hk * p.sv[1];
-  E* og = static_cast<E*>(p.o) + b * p.so[0] + h * p.so[1];
+  const float* qg = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
+  const float* kg = static_cast<const float*>(p.k) + b * p.sk[0] + hk * p.sk[1];
+  const float* vg = static_cast<const float*>(p.v) + b * p.sv[0] + hk * p.sv[1];
+  float* og = static_cast<float*>(p.o) + b * p.so[0] + h * p.so[1];
 
   int k_lo, k_hi;
   key_range(p, q0, BQ, k_lo, k_hi);
@@ -459,7 +460,7 @@ __global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
 #pragma unroll
         for (int j = 0; j < KJ; ++j) {
           const float4 kv =
-              *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * LD + d);
+              *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * LD + d);
 #pragma unroll
           for (int i = 0; i < RI; ++i) {
             s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
@@ -471,8 +472,9 @@ __global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
       }
     }
 
-    // scale, mask, the running max and the weights (the last tile's P V
-    // finished before the slices' first barrier)
+    // scale, mask, the running max over the 16 lanes of each row, and the
+    // weights (the last tile's P V finished before the slices' first
+    // barrier)
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
       const int qp = q0 + ty + 16 * i;
@@ -480,25 +482,24 @@ __global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
       bool ok[KJ];
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
-        ok[j] = visible(p, qp, k0 + tx + 8 * j);
+        ok[j] = visible(p, qp, k0 + tx + 16 * j);
         s[i][j] = ok[j] ? s[i][j] * p.scale : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[i], mx);
       float sum = 0.0f;
 #pragma unroll
       for (int j = 0; j < KJ; ++j) {
         const float pw = ok[j] ? expf(s[i][j] - m_new) : 0.0f;
         sum += pw;
-        ps[(ty + 16 * i) * LP + tx + 8 * j] =
-            BF16 ? __bfloat162float(__float2bfloat16(pw)) : pw;
+        ps[(ty + 16 * i) * LP + tx + 16 * j] = pw;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
       const float alpha = m[i] == NEG ? 0.0f : expf(m[i] - m_new);
       l[i] = l[i] * alpha + sum;
       m[i] = m_new;
@@ -507,7 +508,7 @@ __global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
     }
-    stage_wide<BK, WIDE_DO, LV>(vs, vg, p.sv[2], k0, d0, p.S, p.D);
+    stage_wide<BK, DO, LV>(vs, vg, p.sv[2], k0, d0, p.S, p.D);
     __syncthreads();
 
     // acc += p v over this block's output columns
@@ -522,7 +523,7 @@ __global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
 #pragma unroll
         for (int jj = 0; jj < CJ; ++jj) {
           const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (c + cc) * LV + 4 * tx + 32 * jj);
+              vs + (c + cc) * LV + 4 * tx + 64 * jj);
 #pragma unroll
           for (int i = 0; i < RI; ++i) {
             const float pw = lane_of(pv[i], cc);
@@ -541,13 +542,13 @@ __global__ void __launch_bounds__(NT) fa_wide_kernel(Params p) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    E* orow = og + (long long)row * p.so[2];
+    float* orow = og + (long long)row * p.so[2];
 #pragma unroll
     for (int jj = 0; jj < CJ; ++jj)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = d0 + 4 * tx + 32 * jj + e;
-        if (d < p.D) narrow(orow + d, acc[i][jj][e] / denom);
+        const int d = d0 + 4 * tx + 64 * jj + e;
+        if (d < p.D) orow[d] = acc[i][jj][e] / denom;
       }
   }
 }
@@ -996,6 +997,311 @@ __global__ void __launch_bounds__(128 * (Wg<DP>::NC + 1), 1)
 }
 
 // ---------------------------------------------------------------------------
+// 4b. D > 256, bf16: the tensor cores, each score formed once
+// ---------------------------------------------------------------------------
+
+// A block owns a 64-row query tile and up to WIDE_PASS 64-column boxes of
+// the output: one column pass covers D <= 512; wider heads take
+// ceil(D / 512) passes (blocks), each forming the scores again, since a
+// 64 x D float32 accumulator does not fit two warpgroups' registers.
+// Three warpgroups: a producer (one thread issues every TMA load) and two
+// consumers, which share one P.  Every tile of Q, K and V moves as 64-row
+// x 64-column boxes (8 KB, 128-byte swizzled) through one ring of slots in
+// shared memory, each slot with a full and an empty mbarrier; K's box nb
+// (and Q's box nb just before it when Q streams) belongs to consumer
+// nb % 2, the pass's V box j to consumer j % 2, so each box has one
+// reader.  Per 64-key tile:
+//   a. consumer c forms S_c = Q Kᵀ over its boxes of D (wgmma, both
+//      operands in shared memory); the two partials together form each
+//      score once;
+//   b. each writes S_c to shared memory and reads the other's: S = S_0 +
+//      S_1, the same bits in both (float addition commutes);
+//   c. both run the same online softmax (as fa_wgmma_kernel: log2 units,
+//      P rounded to bf16 as A fragments in registers);
+//   d. consumer c adds P V for its output boxes (wgmma, V read MN-major)
+//      into up to 4 accumulators of 64 columns, 128 registers a thread.
+// Each consumer releases a unit's slots once its next unit's products are
+// issued (wgmma.wait_group 1); its index is a constant in its code, so no
+// branch around a wgmma depends on the thread.  Q stays in shared memory for the whole
+// block where it fits beside WIDE_MIN_SLOTS ring slots (D <= 1,280 with
+// the 32 KB of partial scores); wider, its boxes stream through the ring
+// beside K's, once a key tile.
+constexpr int WIDE_ROWS = 64;               // query rows a block, keys a tile
+constexpr uint32_t WIDE_BOX = 64 * 64 * 2;  // a TMA box: 64 rows x 64 bf16
+constexpr int WIDE_PASS = 8;                // output boxes of a column pass
+constexpr int WIDE_MIN_SLOTS = 4;
+constexpr int WIDE_MAX_SLOTS = 16;
+constexpr uint32_t WIDE_X = 2 * 64 * 64 * 4;  // the consumers' partial S
+constexpr size_t SMEM_BLOCK_MAX = 232448;     // a block's shared memory
+
+// the shared memory of one launch at head dim D: Q's boxes when resident,
+// the ring, the partial scores, the mbarriers (q_full, full[], empty[])
+struct WideWg {
+  int nkb, passes, slots, q_res;
+  size_t bytes;
+  explicit WideWg(int D) {
+    nkb = (D + 63) / 64;
+    passes = (nkb + WIDE_PASS - 1) / WIDE_PASS;
+    const size_t fixed = 1024 + WIDE_X + 8 * (1 + 2 * WIDE_MAX_SLOTS);
+    const size_t avail = SMEM_BLOCK_MAX - fixed;
+    q_res = (size_t)(nkb + WIDE_MIN_SLOTS) * WIDE_BOX <= avail;
+    const size_t ring = avail - (q_res ? (size_t)nkb * WIDE_BOX : 0);
+    slots = (int)(ring / WIDE_BOX < WIDE_MAX_SLOTS ? ring / WIDE_BOX
+                                                    : WIDE_MAX_SLOTS);
+    bytes = fixed + (size_t)((q_res ? nkb : 0) + slots) * WIDE_BOX;
+  }
+};
+
+__global__ void __launch_bounds__(384, 1)
+    fa_wide_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv, Params p,
+                         int slots, int q_res) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const int nkb = (p.D + 63) / 64;
+  const int passes = (nkb + WIDE_PASS - 1) / WIDE_PASS;
+  const uint32_t sq = base;
+  const uint32_t ring = base + (q_res ? nkb * WIDE_BOX : 0u);
+  const uint32_t xo = ring + slots * WIDE_BOX;
+  float* xs = reinterpret_cast<float*>(smem_raw + (xo - raw));
+  const uint32_t q_full = xo + WIDE_X;
+  auto full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8 * (1 + slots + s); };
+
+  const int bh = blockIdx.x / passes;
+  const int v0 = blockIdx.x % passes * WIDE_PASS;  // the pass's first box
+  const int nvb = min(WIDE_PASS, nkb - v0);
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * WIDE_ROWS;  // longest first
+  int k_lo, k_hi;
+  key_range(p, q0, WIDE_ROWS, k_lo, k_hi);
+  const int t_lo = k_lo / WIDE_ROWS;
+  const int nt = max(0, (k_hi + WIDE_ROWS - 1) / WIDE_ROWS - t_lo);
+  const int nki = q_res ? nkb : 2 * nkb;  // ring items of a tile's scores
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every load, ring item by ring item
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      if (q_res) {
+        mbar_expect_tx(q_full, nkb * WIDE_BOX);
+        for (int nb = 0; nb < nkb; ++nb)
+          tma_load(sq + nb * WIDE_BOX, &tq, q_full, nb * 64, q0, h, b);
+      }
+      int it = 0;
+      for (int i = 0; i < nt; ++i) {
+        const int k0 = (t_lo + i) * WIDE_ROWS;
+        for (int j = 0; j < nki + nvb; ++j, ++it) {
+          const int s = it % slots;
+          mbar_wait(empty(s), ((it / slots) & 1) ^ 1);
+          mbar_expect_tx(full(s), WIDE_BOX);
+          const uint32_t dst = ring + s * WIDE_BOX;
+          if (j >= nki)
+            tma_load(dst, &tv, full(s), (v0 + j - nki) * 64, k0, hk, b);
+          else if (!q_res && j % 2 == 0)
+            tma_load(dst, &tq, full(s), j / 2 * 64, q0, h, b);
+          else
+            tma_load(dst, &tk, full(s), (q_res ? j : j / 2) * 64, k0, hk, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // the consumer's index as a constant, so that no branch around its
+    // wgmma depends on the thread (ptxas would serialize them)
+    auto consume = [&](auto cc) {
+      constexpr int c = decltype(cc)::value;
+      const int tid = threadIdx.x - 128 * (c + 1);
+      const int warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
+      const int row0 = q0 + 16 * warp + g, row1 = row0 + 8;
+      const float sl = p.scale * LOG2E;
+      float o[WIDE_PASS / 2][32];
+#pragma unroll
+      for (int jb = 0; jb < WIDE_PASS / 2; ++jb)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) o[jb][e] = 0.0f;
+      float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
+      // a thread's partial scores sit at [e][tid]: thread tid of the other
+      // consumer holds the same (row, key) elements
+      float* x_mine = xs + c * 64 * 64;
+      const float* x_other = xs + (1 - c) * 64 * 64;
+      auto slot = [&](int item) { return ring + (item % slots) * WIDE_BOX; };
+      auto wait_full = [&](int item) {
+        mbar_wait_spin(full(item % slots), (item / slots) & 1);
+      };
+      // the slots of a unit whose products are done (a < 0: none)
+      auto release = [&](int a, int b) {
+        mbar_arrive_if(empty(a % slots), tid == 0 && a >= 0);
+        mbar_arrive_if(empty(b % slots), tid == 0 && b >= 0);
+      };
+
+      if (q_res) mbar_wait(q_full, 0);
+      for (int i = 0; i < nt; ++i) {
+        const int k0 = (t_lo + i) * WIDE_ROWS;
+        const int base = i * (nki + nvb);  // the tile's first ring item
+
+        // a. S_c = Q Kᵀ over this consumer's boxes nb = c, c + 2, ... of
+        //    D: 64 rows x 64 keys; a unit's slots are released once the
+        //    next unit's products are issued
+        float sc[32];
+        int held = -1, held_q = -1;
+        wgmma_fence();
+        for (int nb = c; nb < nkb; nb += 2) {
+          const int ki = base + (q_res ? nb : 2 * nb + 1);
+          const int qi = q_res ? -1 : base + 2 * nb;
+          wait_full(ki);
+          uint32_t qa = sq + nb * WIDE_BOX;
+          if (!q_res) {
+            wait_full(qi);
+            qa = slot(qi);
+          }
+          const uint32_t ka = slot(ki);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_ss<64>(sc, gmma_desc(qa + kk * 32, 16, 1024),
+                         gmma_desc(ka + kk * 32, 16, 1024),
+                         nb > c || kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();
+          release(held, held_q);
+          held = ki;
+          held_q = qi;
+        }
+        wgmma_wait<0>();
+        reg_fence(sc);
+        release(held, held_q);
+
+        // b. S = S_0 + S_1; the first barrier holds this write until the
+        //    other consumer has read the last tile's
+        named_bar_sync(1, 256);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) x_mine[e * 128 + tid] = sc[e];
+        named_bar_sync(2, 256);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sc[e] += x_other[e * 128 + tid];
+
+        // c. scale (log2 units) and mask; a tile inside every row's limits
+        //    skips the mask
+        const bool inside = k0 + WIDE_ROWS <= p.S &&
+                            (!p.causal || k0 + WIDE_ROWS - 1 <= q0) &&
+                            (!p.has_window || k0 > q0 + 63 - p.window);
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * j + e] * sl;
+            if (!inside && !visible(p, e < 2 ? row0 : row1,
+                                    k0 + 8 * j + 2 * tig + (e & 1)))
+              x = -INFINITY;
+            sc[4 * j + e] = x;
+            if (e < 2)
+              mx0 = fmaxf(mx0, x);
+            else
+              mx1 = fmaxf(mx1, x);
+          }
+        const float mn0 = fmaxf(m0, quad_max(mx0));
+        const float mn1 = fmaxf(m1, quad_max(mx1));
+        const float a0 = m0 == NEG ? 0.0f : exp2f(m0 - mn0);
+        const float a1 = m1 == NEG ? 0.0f : exp2f(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        l0 *= a0;
+        l1 *= a1;
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float p0 = exp2f(sc[4 * j] - m0),
+                      p1 = exp2f(sc[4 * j + 1] - m0);
+          const float p2 = exp2f(sc[4 * j + 2] - m1),
+                      p3 = exp2f(sc[4 * j + 3] - m1);
+          l0 += p0 + p1;
+          l1 += p2 + p3;
+          pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+          pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+        }
+#pragma unroll
+        for (int jb = 0; jb < WIDE_PASS / 2; ++jb)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            o[jb][4 * j] *= a0;
+            o[jb][4 * j + 1] *= a0;
+            o[jb][4 * j + 2] *= a1;
+            o[jb][4 * j + 3] *= a1;
+          }
+
+        // d. O += P V over this consumer's boxes j = c, c + 2, ... of the
+        //    pass
+        held = -1;
+        wgmma_fence();
+#pragma unroll
+        for (int jb = 0; jb < WIDE_PASS / 2; ++jb) {
+          const int j = 2 * jb + c;
+          if (j < nvb) {
+            const int vi = base + nki + j;
+            wait_full(vi);
+            const uint32_t va = slot(vi);
+#pragma unroll
+            for (int kc = 0; kc < 4; ++kc)
+              wgmma_rs<64>(o[jb], pa[kc],
+                           gmma_desc(va + kc * 16 * 128, WIDE_BOX, 1024));
+            wgmma_commit();
+            wgmma_wait<1>();
+            release(held, -1);
+            held = vi;
+          }
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int jb = 0; jb < WIDE_PASS / 2; ++jb) reg_fence(o[jb]);
+        release(held, -1);
+      }
+
+      const float s0 = quad_sum(l0), s1 = quad_sum(l1);
+      const float i0 = 1.0f / fmaxf(s0, 1e-30f);
+      const float i1 = 1.0f / fmaxf(s1, 1e-30f);
+      __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                          (long long)b * p.so[0] + (long long)h * p.so[1];
+#pragma unroll
+      for (int jb = 0; jb < WIDE_PASS / 2; ++jb) {
+        const int j = 2 * jb + c;
+        if (j < nvb) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const int d = (v0 + j) * 64 + 8 * n + 2 * tig;
+            if (d < p.D) {
+              if (row0 < p.S)
+                store_bf16x2(og + (long long)row0 * p.so[2] + d,
+                             o[jb][4 * n] * i0, o[jb][4 * n + 1] * i0);
+              if (row1 < p.S)
+                store_bf16x2(og + (long long)row1 * p.so[2] + d,
+                             o[jb][4 * n + 2] * i1, o[jb][4 * n + 3] * i1);
+            }
+          }
+        }
+      }
+    };
+    if (wg == 1)
+      consume(std::integral_constant<int, 0>{});
+    else
+      consume(std::integral_constant<int, 1>{});
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1025,9 +1331,10 @@ int launch_simt(const Params& p, dim3 grid, cudaStream_t st) {
 
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D); element strides over (b, h, s),
 // D contiguous.  variant: 0 = fa_simt_kernel (float32), 1 = fa_wgmma_kernel
-// (bf16), 2 = fa_mma16_kernel (bf16, S <= 128), 3 / 4 = fa_wide_kernel
-// (float32 / bf16, D > 256); tile_d the instantiation's
-// head-dim tile; grid and threads as the wrapper planned them (checked
+// (bf16), 2 = fa_mma16_kernel (bf16, S <= 128), 3 = fa_wide_simt_kernel
+// (float32, D > 256), 4 = fa_wide_wgmma_kernel (bf16, D > 256, a multiple
+// of 8); tile_d the instantiation's head-dim tile (for 3 and 4 the output
+// columns of a block); grid and threads as the wrapper planned them (checked
 // here against the instantiation's tiles).  window is read when has_window
 // is set.  lse: null, or a (B, H, S) float32 output of each row's
 // log-sum-exp (bf16 instantiations 1 and 2 only).  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
@@ -1074,15 +1381,33 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = (cudaStream_t)stream;
   const int bad = (int)cudaErrorInvalidValue;
 
-  if (variant == 3 || variant == 4) {  // fa_wide_kernel, float32 / bf16
-    if (tile_d != WIDE_DO || D <= 256 ||
-        (long long)grid_x != BH * ((D + WIDE_DO - 1) / WIDE_DO) ||
-        grid_y != (S + WIDE_BQ - 1) / WIDE_BQ || threads != NT)
+  if (variant == 3) {  // fa_wide_simt_kernel: float32, D > 256
+    const int cj = D <= 512 ? 8 : 16;
+    if (tile_d != 64 * cj || D <= 256 ||
+        (long long)grid_x != BH * ((D + 64 * cj - 1) / (64 * cj)) ||
+        grid_y != (S + WIDE_BQ - 1) / WIDE_BQ || threads != WIDE_NT)
       return bad;
-    if (variant == 3)
-      return launch(fa_wide_kernel<float>, Wide::bytes(), grid, NT, s, p);
-    return launch(fa_wide_kernel<__nv_bfloat16>, Wide::bytes(), grid, NT, s,
-                  p);
+    if (cj == 8)
+      return launch(fa_wide_simt_kernel<8>, WideSimt<8>::bytes(), grid,
+                    WIDE_NT, s, p);
+    return launch(fa_wide_simt_kernel<16>, WideSimt<16>::bytes(), grid,
+                  WIDE_NT, s, p);
+  }
+  if (variant == 4) {  // fa_wide_wgmma_kernel: bf16, D > 256
+    const WideWg w(D);
+    if (tile_d != 64 * WIDE_PASS || D <= 256 || D % 8 != 0 ||
+        (long long)grid_x != BH * w.passes ||
+        grid_y != (S + WIDE_ROWS - 1) / WIDE_ROWS || threads != 384 ||
+        !aligned16(q, p.sq) || !aligned16(k, p.sk) || !aligned16(v, p.sv) ||
+        !aligned16(o, p.so))
+      return bad;
+    CUtensorMap tq, tk, tv;
+    int e = tensor_map(&tq, q, D, S, H, B, p.sq, WIDE_ROWS);
+    if (e == 0) e = tensor_map(&tk, k, D, S, Hkv, B, p.sk, WIDE_ROWS);
+    if (e == 0) e = tensor_map(&tv, v, D, S, Hkv, B, p.sv, WIDE_ROWS);
+    if (e != 0) return e;
+    return launch(fa_wide_wgmma_kernel, w.bytes, grid, 384, s, tq, tk, tv, p,
+                  w.slots, w.q_res);
   }
   if (variant == 0) {
     const int bq = tile_d <= 128 ? 64 : 32;

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu): shared-memory addresses,
-// bf16 packing, quad reductions, mbarriers, TMA tile loads and their 4-D
-// tensor maps, wgmma descriptors (128-byte swizzle) and the m64nNk16 bf16
-// products with float32 accumulators, A from shared memory (ss) or from
-// registers (rs, B read MN-major).  Included by each source, which is its
+// bf16 packing, quad reductions, mbarriers (also a wait and an arrive with
+// no branch the compiler sees), named barriers, TMA tile loads and their
+// 4-D tensor maps, wgmma descriptors (128-byte swizzle), commit / wait
+// groups and the m64nNk16 bf16 products with float32 accumulators, A from
+// shared memory (ss) or from registers (rs, B read MN-major).  Included by each source, which is its
 // own library: everything here has internal linkage.
 
 #pragma once
@@ -71,6 +72,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait with its loop inside the asm, and an arrive predicated inside
+// it: no branch the compiler sees, so either may sit between a wgmma's
+// issue and its wait without ptxas serializing the wgmma
+__device__ __forceinline__ void mbar_wait_spin(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+
 // box (64 columns, R rows) at (d0, s0, h, b) of a 4-D tensor map
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int d0, int s0, int h,
@@ -101,6 +123,22 @@ __device__ __forceinline__ void wgmma_commit_wait() {
   asm volatile(
       "wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::
           : "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) on hardware barrier id
+// (1..15; 0 is __syncthreads')
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // keep the compiler from moving accumulator reads or writes across an

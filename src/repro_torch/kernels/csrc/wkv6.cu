@@ -73,13 +73,21 @@
 // where they are not); u (H, D), s0 and S (B, H, D, D) are contiguous.
 // Head dims 16, 32, 64, 128 and 256; the wrapper zero-pads any other D
 // up to 256 (padded channels carry r = k = v = 0, lw = 0, which add
-// nothing).  D above 256 runs a third kernel, wkv6_wide_kernel: the
-// recurrence for any T, a block per (b, h) and 32 value columns, with
-// the state in device memory (s_out), so no D is too wide.  It is off
-// every model's path and right first: each step reads and writes the
-// block's columns of the state through L2.  Exponentials are exp2f of log2(e)-scaled prefixes.  The
-// build's -fmad=false forbids only contraction the compiler would choose;
-// the kernels spell their multiply-adds with fmaf.
+// nothing).  Above 256 the state slice of one warp no longer fits its
+// registers, and two kernels take over:
+// 3. wkv6_wide_chunk_kernel -- D > 256, T >= 16: the same chunk-16
+//    factorization in 3xTF32, a block per (b, h) and 16 value columns,
+//    the key rows split across its 8 warps and the channels staged in
+//    slices of 128; the warps' partial sums of y and of the intra-chunk
+//    matrix added in a fixed order through shared memory.  Built for D
+//    up to 2,048 (zero-padded to 384, 512, 1,024 or 2,048 inside).
+// 4. wkv6_wide_step_kernel -- D > 256, T < 16 (and D above 2,048): the
+//    recurrence for any T, a block per (b, h) and 32 value columns, with
+//    the state in device memory (s_out), so no D is too wide; a decode
+//    step reads and writes the state once.
+// Exponentials are exp2f of log2(e)-scaled prefixes.  The build's
+// -fmad=false forbids only contraction the compiler would choose; the
+// kernels spell their multiply-adds with fmaf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -135,8 +143,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // one butterfly step: lanes with bit 2W set keep rows W .. 2W - 1 of the
 // pair's sum, the others rows 0 .. W - 1, now at v[0 .. W - 1]
-template <int W>
-__device__ __forceinline__ void fold_rows(float (&v)[CHUNK], int lane) {
+template <int W, int N>
+__device__ __forceinline__ void fold_rows(float (&v)[N], int lane) {
   const bool up = lane & (2 * W);
 #pragma unroll
   for (int j = 0; j < W; ++j) {
@@ -150,6 +158,16 @@ __device__ __forceinline__ void fold_rows(float (&v)[CHUNK], int lane) {
 // (8 + 4 + 2 + 1 + 1 shuffles)
 __device__ __forceinline__ float warp_sum16(float (&v)[CHUNK], int lane) {
   fold_rows<8>(v, lane);
+  fold_rows<4>(v, lane);
+  fold_rows<2>(v, lane);
+  fold_rows<1>(v, lane);
+  return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// v[t] per lane, rows 8 h + t of the lane's half h = lane >> 4 -> the sum
+// over the half's 16 lanes of row 8 h + ((lane >> 1) & 7) (4 + 2 + 1 + 1
+// shuffles, none across the halves)
+__device__ __forceinline__ float half_sum8(float (&v)[8], int lane) {
   fold_rows<4>(v, lane);
   fold_rows<2>(v, lane);
   fold_rows<1>(v, lane);
@@ -513,7 +531,326 @@ __global__ void __launch_bounds__(StepLayout<D>::NT) wkv6_step_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// 3. D > 256: the recurrence with the state in device memory
+// 3. D > 256, T >= 16: the chunk factorization over slices of the channels
+// ---------------------------------------------------------------------------
+
+// A block holds 16 value columns of one (b, h) on chip for the whole
+// sequence, as the chunk kernel's warp does; above D = 256 that slice of
+// the state (16 x D floats) no longer fits one warp's accumulators, so the
+// key rows split across the block's WIDE_WARPS warps too.  The channels
+// are taken in slices of WIDE_SLICE, one ring stage each (r, k, lw of the
+// chunk's 16 rows, cp.async, WIDE_STAGES deep): warp w owns channels
+// 16 w .. 16 w + 15 of every slice, and its share of the state (Sᵀ, 16
+// columns x 16 NSL channels: 64 registers a thread at D = 1,024) as mma
+// accumulator fragments.  D is padded to the instantiation's 128 NSL with
+// zero channels (r = k = 0, lw = 0: they add nothing).  Per slice, each
+// warp on its own 16 channels, so no barrier but the ring's:
+//   a. two lanes a channel, eight rows each: the prefix over the 16 rows
+//      (the upper rows' from the lower rows' total), r~ and k~ in place,
+//      exp(cum_last), its part of the bonus Σ_i r_i u_i k_i;
+//   b. 3xTF32 mma.sync as in the chunk kernel: y_w += r~ S and A_w +=
+//      r~ k~ᵀ (the old state), then Sᵀ += vᵀ k~ and the decay.
+// After the chunk's last slice the warps' partial y_w, A_w and bonus sums
+// are added in warp order through shared memory (no atomics: two runs give
+// the same bits), and warp 0 adds (A' = tril_{-1}(A) + diag(bonus)) v and
+// writes y.  One barrier a slice (the ring's) and one a chunk.
+constexpr int WIDE_WARPS = 8;
+constexpr int WIDE_NT = 32 * WIDE_WARPS;
+constexpr int WIDE_SLICE = 128;  // channels of a ring stage
+constexpr int WIDE_STAGES = 3;
+// row strides of WIDE_SLICE + 8 and 16 + 8 floats: the fragment loads are
+// conflict-free as in the chunk kernel
+constexpr int WIDE_LD = WIDE_SLICE + 8;
+constexpr int WIDE_LV = 16 + 8;
+// r, k, lw rows and the slice's exp(cum_last)
+constexpr int WIDE_STAGE = 3 * CHUNK * WIDE_LD + WIDE_SLICE;
+// the largest head dim the chunked instantiation is built for; wider
+// heads run the recurrence (the state would not fit registers)
+constexpr int WIDE_CHUNK_MAX = 16 * WIDE_SLICE;
+
+template <int NSL>
+struct WideLayout {
+  static constexpr int DP = WIDE_SLICE * NSL;
+  // stages, v of two chunks, the warps' partials (y and A: 4 float4 a
+  // lane), their bonus sums, u
+  static constexpr size_t bytes() {
+    return sizeof(float) * ((size_t)WIDE_STAGES * WIDE_STAGE +
+                            2 * CHUNK * WIDE_LV + WIDE_WARPS * 16 * 32 +
+                            WIDE_WARPS * CHUNK + DP);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ring item (chunk c, slice s): r, k, lw of rows c * 16 .. c * 16 + 15 at
+// channels 128 s .. 128 s + 127 into a stage, and with slice 0 the chunk's
+// v (the block's 16 columns); rows past T and channels past D are zeros
+__device__ __forceinline__ void stage_wide(float* stg, float* vbuf,
+                                           const float* rg, const float* kg,
+                                           const float* vg, const float* lg,
+                                           const Args& a, int D, int c,
+                                           int s) {
+  constexpr int PR = WIDE_SLICE / 4;  // 16-byte pieces of a row
+  float* rs = stg;
+  float* ks = rs + CHUNK * WIDE_LD;
+  float* ls = ks + CHUNK * WIDE_LD;
+  const int t0 = c * CHUNK, c0 = s * WIDE_SLICE;
+#pragma unroll
+  for (int e = threadIdx.x; e < CHUNK * PR; e += WIDE_NT) {
+    const int t = e / PR, p = 4 * (e % PR);
+    const bool ok = t0 + t < a.T && c0 + p < D;
+    const long long row = ok ? t0 + t : 0;
+    const int col = ok ? c0 + p : 0;
+    cp_async16(rs + t * WIDE_LD + p, rg + row * a.sr[2] + col, ok);
+    cp_async16(ks + t * WIDE_LD + p, kg + row * a.sk[2] + col, ok);
+    cp_async16(ls + t * WIDE_LD + p, lg + row * a.sl[2] + col, ok);
+  }
+  if (s == 0 && threadIdx.x < CHUNK * 4) {
+    const int t = threadIdx.x / 4, p = 4 * (threadIdx.x % 4);
+    const bool ok = t0 + t < a.T && blockIdx.y * 16 + p < D;
+    const long long row = ok ? t0 + t : 0;
+    cp_async16(vbuf + (c & 1) * CHUNK * WIDE_LV + t * WIDE_LV + p,
+               vg + row * a.sv[2] + (ok ? p : 0), ok);
+  }
+  cp_async_commit();
+}
+
+template <int NSL>
+__global__ void __launch_bounds__(WIDE_NT, NSL <= 4 ? 2 : 1)
+    wkv6_wide_chunk_kernel(Args a, int D) {
+  using L = WideLayout<NSL>;
+  constexpr int LD = WIDE_LD, LV = WIDE_LV;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* vbuf = sm + WIDE_STAGES * WIDE_STAGE;                // [2][16][LV]
+  float4* part = reinterpret_cast<float4*>(vbuf + 2 * CHUNK * LV);  // [8][4][32]
+  float* bsum = reinterpret_cast<float*>(part + WIDE_WARPS * 4 * 32);  // [8][16]
+  float* us = bsum + WIDE_WARPS * CHUNK;                      // [DP]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x;
+  const long long b = bh / a.H;
+  const int h = bh % a.H;
+  const int jb = blockIdx.y * 16;  // the block's first value column
+  const int T = a.T;
+  const float* rg = a.r + b * a.sr[0] + h * a.sr[1];
+  const float* kg = a.k + b * a.sk[0] + h * a.sk[1];
+  const float* vg = a.v + b * a.sv[0] + h * a.sv[1] + jb;
+  const float* lg = a.lw + b * a.sl[0] + h * a.sl[1];
+  float* yg = a.y + b * a.sy[0] + h * a.sy[1] + jb;
+  for (int i = tid; i < L::DP; i += WIDE_NT)
+    us[i] = i < D ? a.u[(long long)h * D + i] : 0.0f;
+
+  // the warp's share of the state as Sᵀ accumulator fragments: st[2 s +
+  // n][e] = S[128 s + 16 warp + 8 n + 2 tig + (e & 1)][jb + gid + 8 (e >> 1)]
+  float st[2 * NSL][4];
+#pragma unroll
+  for (int s = 0; s < NSL; ++s)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = WIDE_SLICE * s + 16 * warp + 8 * n + 2 * tig + (e & 1);
+        const int col = jb + gid + 8 * (e >> 1);
+        st[2 * s + n][e] =
+            a.s0 != nullptr && ch < D && col < D
+                ? a.s0[(long long)bh * D * D + (long long)ch * D + col]
+                : 0.0f;
+      }
+
+  const int nc = (T + CHUNK - 1) / CHUNK;
+  const int items = nc * NSL;
+#pragma unroll
+  for (int i = 0; i < WIDE_STAGES - 1; ++i) {
+    if (i < items)
+      stage_wide(sm + i * WIDE_STAGE, vbuf, rg, kg, vg, lg, a, D, i / NSL,
+                 i % NSL);
+    else
+      cp_async_commit();
+  }
+  for (int c = 0; c < nc; ++c) {
+    const float* vs = vbuf + (c & 1) * CHUNK * LV;
+    float yw[2][4], aw[2][4], bp[8];  // bp: rows 8 (lane >> 4) + t
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yw[x][e] = aw[x][e] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) bp[t] = 0.0f;
+
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) {
+      const int it = c * NSL + s;
+      cp_async_wait<WIDE_STAGES - 2>();
+      __syncthreads();  // item it has landed; item it - 1 is done with
+      {
+        const int nx = it + WIDE_STAGES - 1;
+        if (nx < items)
+          stage_wide(sm + (nx % WIDE_STAGES) * WIDE_STAGE, vbuf, rg, kg, vg,
+                     lg, a, D, nx / NSL, nx % NSL);
+        else
+          cp_async_commit();
+      }
+      float* rs = sm + (it % WIDE_STAGES) * WIDE_STAGE;
+      float* ks = rs + CHUNK * LD;
+      const float* ls = ks + CHUNK * LD;
+      float* decay = rs + 3 * CHUNK * LD;
+
+      // a. the warp's own 16 channels, two lanes each (rows 0 .. 7 and
+      //    8 .. 15, the upper half's prefix starting from the lower's
+      //    total): prefixes, r~ and k~ in place, exp(cum_last), the bonus
+      //    terms of each row
+      {
+        const int ch = 16 * warp + (lane & 15), r0 = 8 * (lane >> 4);
+        const float uu = us[WIDE_SLICE * s + ch];
+        float l[8], below = 0.0f;  // in log2 units
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          l[t] = clamp_lw(ls[(r0 + t) * LD + ch]) * LOG2E;
+          below = below + l[t];
+        }
+        below = __shfl_xor_sync(FULL, below, 16);
+        float cum = lane >> 4 ? below : 0.0f;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          cum = cum + l[t];
+          const float prev = cum - l[t];
+          const float rv = rs[(r0 + t) * LD + ch], kv = ks[(r0 + t) * LD + ch];
+          bp[t] = fmaf(rv * uu, kv, bp[t]);
+          rs[(r0 + t) * LD + ch] = rv * exp2f(prev);
+          ks[(r0 + t) * LD + ch] = kv * exp2f(-cum);
+        }
+        if (lane >> 4) decay[ch] = exp2f(cum);
+      }
+      __syncwarp();
+
+      // b. this warp's 16 channels of the slice
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int cw = 16 * warp + 8 * n;
+        const float2 r0 =
+            *reinterpret_cast<const float2*>(rs + gid * LD + cw + 2 * tig);
+        const float2 r1 = *reinterpret_cast<const float2*>(
+            rs + (gid + 8) * LD + cw + 2 * tig);
+        const FragA fa(r0.x, r1.x, r0.y, r1.y);
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          mma3(yw[x], fa, FragB(st[2 * s + n][2 * x], st[2 * s + n][2 * x + 1]));
+          const float2 kb = *reinterpret_cast<const float2*>(
+              ks + (8 * x + gid) * LD + cw + 2 * tig);
+          mma3(aw[x], fa, FragB(kb.x, kb.y));
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int t = 8 * kk + tig;
+        const FragA fv(vs[t * LV + gid], vs[t * LV + gid + 8],
+                       vs[(t + 4) * LV + gid], vs[(t + 4) * LV + gid + 8]);
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int cw = 16 * warp + 8 * n;
+          mma3(st[2 * s + n], fv,
+               FragB(ks[t * LD + cw + gid], ks[(t + 4) * LD + cw + gid]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 dc = *reinterpret_cast<const float2*>(
+            decay + 16 * warp + 8 * n + 2 * tig);
+        st[2 * s + n][0] *= dc.x;
+        st[2 * s + n][1] *= dc.y;
+        st[2 * s + n][2] *= dc.x;
+        st[2 * s + n][3] *= dc.y;
+      }
+    }
+
+    // the warps' partial sums, added in warp order by warp 0
+    {
+      const float sb = half_sum8(bp, lane);
+      if ((lane & 1) == 0)
+        bsum[warp * CHUNK + 8 * (lane >> 4) + ((lane >> 1) & 7)] = sb;
+    }
+    float4* pw = part + warp * 4 * 32 + lane;
+    pw[0] = make_float4(yw[0][0], yw[0][1], yw[0][2], yw[0][3]);
+    pw[32] = make_float4(yw[1][0], yw[1][1], yw[1][2], yw[1][3]);
+    pw[64] = make_float4(aw[0][0], aw[0][1], aw[0][2], aw[0][3]);
+    pw[96] = make_float4(aw[1][0], aw[1][1], aw[1][2], aw[1][3]);
+    __syncthreads();
+    if (warp == 0) {
+      float y[2][4], ac[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[x][e] = ac[x][e] = 0.0f;
+      float bonus[2] = {0.0f, 0.0f};  // rows gid, gid + 8
+      for (int w = 0; w < WIDE_WARPS; ++w) {
+        const float4* q = part + w * 4 * 32 + lane;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float4 yv = q[32 * x], av = q[64 + 32 * x];
+          y[x][0] += yv.x;
+          y[x][1] += yv.y;
+          y[x][2] += yv.z;
+          y[x][3] += yv.w;
+          ac[x][0] += av.x;
+          ac[x][1] += av.y;
+          ac[x][2] += av.z;
+          ac[x][3] += av.w;
+        }
+        bonus[0] += bsum[w * CHUNK + gid];
+        bonus[1] += bsum[w * CHUNK + gid + 8];
+      }
+      // ac[x][e] = A[gid + 8 (e >> 1)][8x + 2 tig + (e & 1)] -> A'
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = gid + 8 * (e >> 1), col = 8 * x + 2 * tig + (e & 1);
+          ac[x][e] = col < t ? ac[x][e] : col == t ? bonus[e >> 1] : 0.0f;
+        }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const FragA fa(ac[x][0], ac[x][2], ac[x][1], ac[x][3]);
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+          mma3(y[jn], fa,
+               FragB(vs[(8 * x + 2 * tig) * LV + 8 * jn + gid],
+                     vs[(8 * x + 2 * tig + 1) * LV + 8 * jn + gid]));
+      }
+      const int t0 = c * CHUNK;
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int t = t0 + gid + 8 * hf, col = 8 * jn + 2 * tig;
+          if (t < T && jb + col < D)
+            *reinterpret_cast<float2*>(yg + (long long)t * a.sy[2] + col) =
+                make_float2(y[jn][2 * hf], y[jn][2 * hf + 1]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int s = 0; s < NSL; ++s)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = WIDE_SLICE * s + 16 * warp + 8 * n + 2 * tig + (e & 1);
+        const int col = jb + gid + 8 * (e >> 1);
+        if (ch < D && col < D)
+          a.s_out[(long long)bh * D * D + (long long)ch * D + col] =
+              st[2 * s + n][e];
+      }
+}
+
+// ---------------------------------------------------------------------------
+// 4. D > 256, T < 16 (or D above WIDE_CHUNK_MAX): the recurrence with the
+//    state in device memory
 // ---------------------------------------------------------------------------
 
 constexpr int WIDE_GROUPS = 8;  // warps of a block: row groups
@@ -523,9 +860,10 @@ constexpr int WIDE_THREADS = 32 * WIDE_GROUPS;
 // row group (rows g, g + 8, ...).  The block's columns of the state stay
 // in s_out, which each thread reads and writes at its own (row, column)
 // elements only, so no D is too wide; y_j is the row groups' sums added
-// through shared memory.  Any T, D not padded (columns past D idle).
+// through shared memory.  Any T, D not padded (columns past D idle).  A
+// decode step reads and writes the state once, as the bound asks.
 __global__ void __launch_bounds__(WIDE_THREADS)
-    wkv6_wide_kernel(Args a, int D) {
+    wkv6_wide_step_kernel(Args a, int D) {
   __shared__ float red[WIDE_GROUPS][32];
   const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
   const int bh = blockIdx.x;
@@ -595,6 +933,17 @@ int launch_step(const Args& a, int BH, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <int NSL>
+int launch_wide_chunk(const Args& a, int BH, int D, cudaStream_t st) {
+  using L = WideLayout<NSL>;
+  auto kernel = wkv6_wide_chunk_kernel<NSL>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes());
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(BH, (D + 15) / 16), WIDE_NT, L::bytes(), st>>>(a, D);
+  return (int)cudaGetLastError();
+}
+
 bool aligned(const float* p, const long long* st, int floats) {
   return reinterpret_cast<uintptr_t>(p) % (4 * floats) == 0 &&
          st[0] % floats == 0 && st[1] % floats == 0 && st[2] % floats == 0;
@@ -608,10 +957,12 @@ bool aligned(const float* p, const long long* st, int floats) {
 // state) and s_out: (B, H, D, D), contiguous.  variant 0 =
 // wkv6_chunk_kernel (16-byte aligned bases and strides of r, k, v, lw;
 // 8-byte ones of y), 1 = wkv6_step_kernel (T < 16; 16-byte aligned s0 and
-// s_out), 2 = wkv6_wide_kernel (any D and T).  Returns a cudaError_t:
-// cudaErrorInvalidValue for a D outside {16, 32, 64, 128, 256} (variants 0
-// and 1), a negative size, D not contiguous, a variant that does not take
-// T, or strides the variant cannot take.
+// s_out), 2 = wkv6_wide_step_kernel (any D and T), 3 =
+// wkv6_wide_chunk_kernel (D a multiple of 4 up to 2,048; the alignments of
+// 0).  Returns a cudaError_t: cudaErrorInvalidValue for a D outside {16,
+// 32, 64, 128, 256} (variants 0 and 1) or outside variant 3's, a negative
+// size, D not contiguous, a variant that does not take T, or strides the
+// variant cannot take.
 extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
                            const float* lw, const float* u, const float* s0,
                            float* y, float* s_out, int B, int H, int T, int D,
@@ -643,8 +994,19 @@ extern "C" int wkv6_launch(const float* r, const float* k, const float* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 2) {  // any D, any T
     if (D < 1) return bad;
-    wkv6_wide_kernel<<<dim3(BH, (D + 31) / 32), WIDE_THREADS, 0, s>>>(a, D);
+    wkv6_wide_step_kernel<<<dim3(BH, (D + 31) / 32), WIDE_THREADS, 0, s>>>(a,
+                                                                          D);
     return (int)cudaGetLastError();
+  }
+  if (variant == 3) {  // D a multiple of 4 up to WIDE_CHUNK_MAX, any T
+    if (D < 1 || D % 4 != 0 || D > WIDE_CHUNK_MAX || !aligned(r, a.sr, 4) ||
+        !aligned(k, a.sk, 4) || !aligned(v, a.sv, 4) ||
+        !aligned(lw, a.sl, 4) || !aligned(y, a.sy, 2))
+      return bad;
+    if (D <= 3 * WIDE_SLICE) return launch_wide_chunk<3>(a, BH, D, s);
+    if (D <= 4 * WIDE_SLICE) return launch_wide_chunk<4>(a, BH, D, s);
+    if (D <= 8 * WIDE_SLICE) return launch_wide_chunk<8>(a, BH, D, s);
+    return launch_wide_chunk<16>(a, BH, D, s);
   }
   if (variant == 1) {  // the state moves as float4
     if (T >= CHUNK || reinterpret_cast<uintptr_t>(s0) % 16 != 0 ||

@@ -17,9 +17,12 @@ it):
   holding all of that head's K and V, ``mma.sync`` on 16-row query tiles;
 * ``"simt"``: float32 -- CUDA-core products, which hold the reference's
   ``2e-5`` (tensor cores would round float32 to TF32);
-* ``"wide"``: D above :data:`MAX_HEAD_DIM`, float32 or bf16 -- CUDA-core
-  products with the output's columns split across blocks, 256 to a block,
-  each block forming the scores from all of D in 128-column slices.
+* ``"wide"``: D above :data:`MAX_HEAD_DIM` -- in bf16 the tensor cores
+  (TMA + ``wgmma``): a 64-row query tile whose two consumer warpgroups
+  split D for the scores, summed once through shared memory, and 512
+  output columns for P V (wider heads take column passes); in float32
+  CUDA-core products, a 32-row query tile and up to 1,024 output columns
+  a block, each score formed once up to that width.
 
 The reference's ``impl`` (Pallas or XLA), ``block_q`` / ``block_k`` (VMEM
 tile sizes) and ``interpret`` are controls of its TPU lowering and have no
@@ -27,7 +30,8 @@ counterpart.  The reference pads D to 128 lanes for its MXU; here the
 bf16 instantiations need D a multiple of 16 and 16-byte aligned bases and
 (b, h, s) strides (TMA, ``cp.async``), so :func:`attention` pads D with
 zeros (which add nothing) or makes a tensor contiguous where that does not
-hold; float32 takes any D as it is, and so does ``"wide"`` in bf16.
+hold (``"wide"`` in bf16: D a multiple of 8, TMA zero-fills the rest of
+its 64-column boxes); float32 takes any D as it is.
 
 The kernel takes per-(b, h, s) element strides with D contiguous, so a
 model passes its (B, S, H, hd) activations as ``transpose(1, 2)`` views
@@ -103,13 +107,11 @@ __all__ = [
 
 # the largest head dim of the tiled instantiations: "simt" keeps a 32 x 256
 # output tile in registers, the bf16 ones a 64 x 256 wgmma accumulator;
-# above it "wide" splits the output's columns across blocks
+# above it "wide" splits the output's columns across warpgroups or threads
 MAX_HEAD_DIM = 256
 # bf16 sequences up to this length take "mma16" (the block stages a whole
 # KV head in shared memory); longer ones "wgmma"
 SHORT_SEQ_MAX = 128
-# "wide": query rows and output columns of a block
-WIDE_ROWS, WIDE_COLS = 32, 256
 _VARIANT_CODE = {"simt": 0, "wgmma": 1, "mma16": 2, "wide": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -153,9 +155,18 @@ def plan_attention(q: torch.Tensor, k: torch.Tensor,
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     if D > MAX_HEAD_DIM:
-        return AttentionPlan(
-            "wide", WIDE_COLS, D, tuple(x.stride(-1) != 1 for x in (q, k, v)),
-            (B * H * _cdiv(D, WIDE_COLS), _cdiv(S, WIDE_ROWS)), 128)
+        # "wide": a block's query rows and output columns (more columns
+        # take column passes); bf16 needs 16-byte rows for TMA
+        if q.dtype == torch.bfloat16:
+            head_dim = _cdiv(D, 8) * 8
+            copy = tuple(head_dim != D or not _tma_ready(x) for x in (q, k, v))
+            rows, cols, threads = 64, 512, 384
+        else:
+            head_dim, copy = D, tuple(x.stride(-1) != 1 for x in (q, k, v))
+            rows, cols, threads = 32, 512 if D <= 512 else 1024, 256
+        return AttentionPlan("wide", cols, head_dim, copy,
+                             (B * H * _cdiv(head_dim, cols), _cdiv(S, rows)),
+                             threads)
     if q.dtype == torch.float32:
         tile = _cdiv(D, 32) * 32
         bq = 64 if tile <= 128 else 32

@@ -10,26 +10,35 @@ carried state untouched.  The reference's ``impl`` switch (Pallas or XLA,
 two lowerings of one function on the TPU) has no counterpart: where the
 tensors live decides.
 
-The kernel has three instantiations; :func:`plan_wkv6` picks one from
+The kernel has four instantiations; :func:`plan_wkv6` picks one from
 the shapes alone (pure Python, so the CPU tests reach it):
 
 * ``"chunk"``: D <= 256, T >= 16 -- chunks of 16 rows, the value columns
   split across blocks, the chunk products on the tensor cores in 3xTF32;
 * ``"step"``: D <= 256, T < 16 (a decode step) -- the recurrence, one
   pass over the state per step;
-* ``"wide"``: D > 256, any T -- the recurrence with the state in device
-  memory, 32 value columns a block; off every model's path.
+* ``"wide_chunk"``: 256 < D <= :data:`WIDE_CHUNK_MAX`, T >= 16 -- the
+  chunk factorization with 16 value columns a block and the key rows
+  split across its 8 warps, the channels staged in slices of 128;
+* ``"wide_step"``: D > 256 and T < 16, or D above ``WIDE_CHUNK_MAX`` --
+  the recurrence with the state in device memory, 32 value columns a
+  block.
+
+The two ``wide`` ones are off every model's path.
 
 All read r, k, v, lw through their (b, h, t) strides with D contiguous
 and write y with ``r``'s strides, so a model hands over its (B, T, H, D)
 projections as ``transpose(1, 2)`` views and takes y back the same way,
 with no copy.  :func:`wkv6` copies an input only where the kernel cannot
-take it: another dtype than float32, D not contiguous, or (``"chunk"``,
-whose ``cp.async`` moves 16 bytes) a base or stride that is not 16-byte
-aligned.  ``"chunk"`` and ``"step"`` are built at head dims 16, 32, 64,
-128 and 256; any other D up to 256 is zero-padded to the next one (padded
-channels carry r = k = v = 0 and lw = 0, which add nothing to y or S).
-``"wide"`` takes any D as it is.
+take it: another dtype than float32, D not contiguous, or (``"chunk"``
+and ``"wide_chunk"``, whose ``cp.async`` moves 16 bytes) a base or stride
+that is not 16-byte aligned.  ``"chunk"`` and ``"step"`` are built at
+head dims 16, 32, 64, 128 and 256; any other D up to 256 is zero-padded
+to the next one (padded channels carry r = k = v = 0 and lw = 0, which
+add nothing to y or S).
+``"wide_chunk"`` pads D to a multiple of 4 here (16-byte rows for
+``cp.async``) and further inside the kernel; ``"wide_step"`` takes any D
+as it is.
 
 Tolerances (``tests/test_torch_rwkv6.py``): :func:`wkv6_chunked` and the
 recurrence :func:`~repro_torch.kernels.wkv6.ref.wkv6_ref` are held to the
@@ -75,17 +84,21 @@ from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_bwd_ref
 __all__ = [
     "wkv6", "wkv6_chunked", "launch_wkv6", "plan_wkv6", "kernel_inputs",
     "WKV6Plan", "CHUNK",
-    "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM",
+    "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM", "WIDE_CHUNK_MAX",
     "wkv6_bwd", "launch_wkv6_bwd", "plan_wkv6_bwd", "WKV6BwdPlan",
     "BWD_HEAD_DIM",
 ]
 
 CHUNK = 16
 # head dims the tiled instantiations ("chunk", "step") are built for;
-# others up to MAX_HEAD_DIM are zero-padded up to one, wider ones run "wide"
+# others up to MAX_HEAD_DIM are zero-padded up to one, wider ones run
+# "wide_chunk" or "wide_step"
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
-_VARIANT_CODE = {"chunk": 0, "step": 1, "wide": 2}
+# the widest head "wide_chunk" is built for: 16 value columns of the state
+# over 2,048 key rows fill its warps' registers
+WIDE_CHUNK_MAX = 2048
+_VARIANT_CODE = {"chunk": 0, "step": 1, "wide_step": 2, "wide_chunk": 3}
 # the (b, h, t, d) strides of r, k, v, lw and y, as the launcher reads them
 _pack_strides = struct.Struct("20q").pack
 
@@ -156,7 +169,8 @@ def _variant(T: int, D: int) -> str:
     """The instantiation for T rows of head dim D: the recurrence below
     one chunk, and above the tiled head dims."""
     if D > MAX_HEAD_DIM:
-        return "wide"
+        chunked = T >= CHUNK and D <= WIDE_CHUNK_MAX
+        return "wide_chunk" if chunked else "wide_step"
     return "step" if T < CHUNK else "chunk"
 
 
@@ -186,9 +200,13 @@ def plan_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shapes, strides, dtypes and base addresses."""
     T, D = r.shape[2], r.shape[3]
     variant = _variant(T, D)
-    head_dim = D if D in KERNEL_HEAD_DIMS or variant == "wide" else next(
-        d for d in KERNEL_HEAD_DIMS if d >= D)
-    floats = 4 if variant == "chunk" else 1
+    if variant == "wide_chunk":
+        head_dim = -(-D // 4) * 4
+    elif variant == "wide_step" or D in KERNEL_HEAD_DIMS:
+        head_dim = D
+    else:
+        head_dim = next(d for d in KERNEL_HEAD_DIMS if d >= D)
+    floats = 4 if variant in ("chunk", "wide_chunk") else 1
     return WKV6Plan(variant, head_dim, tuple(
         head_dim != D or not _takes(x, floats) for x in (r, k, v, lw)))
 
@@ -203,10 +221,10 @@ def launch_wkv6(
     y: torch.Tensor,    # (B, H, T, D) float32 out, D contiguous
     s_out: torch.Tensor,  # (B, H, D, D) float32 out, contiguous
 ) -> None:
-    """Launch the CUDA kernel (``"wide"`` for D > 256, else ``"step"``
-    for T < 16 and ``"chunk"`` above): ``y`` and ``s_out`` are written on
-    the current stream; raises if the launch fails (a D the tiled kernels
-    are not built for, strides the instantiation cannot take)."""
+    """Launch the CUDA kernel (the instantiation :func:`plan_wkv6` names
+    for these shapes): ``y`` and ``s_out`` are written on the current
+    stream; raises if the launch fails (a D the kernels are not built for,
+    strides the instantiation cannot take)."""
     global _launch_fn
     if _launch_fn is None:
         from repro_torch.kernels.build import library

@@ -25,6 +25,8 @@ from repro_torch.kernels.flash_attention.ops import (
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.obs import Telemetry, use_telemetry
 
+import flash_wide_replay
+
 # B, H, Hkv, S, D, causal, window: tests/test_kernels.py's six shapes,
 # then the scorer's sequence and recurrentgemma-9b's head dim
 FA_SHAPES = [
@@ -172,14 +174,57 @@ def test_plan_instantiations_padding_grid_and_refusal():
         "simt", 128, 100, (8, 5))
     x = torch.zeros(2, 4, 300, 160)
     assert plan_attention(x, x, x).grid == (8, 10)
-    # above MAX_HEAD_DIM, either dtype: "wide", 256 output columns and 32
-    # query rows a block, D as it is
-    for dt in (torch.bfloat16, torch.float32):
+    # above MAX_HEAD_DIM: "wide"; bf16 a 64-row query tile and 512 output
+    # columns a block (3 warpgroups), float32 32 rows and all 512 / 1,024
+    # columns a block (256 threads); D as it is
+    for dt, want in ((torch.bfloat16, ("wide", 512, 288, (False,) * 3,
+                                       (2 * 1, 1), 384)),
+                     (torch.float32, ("wide", 512, 288, (False,) * 3,
+                                      (2 * 1, 2), 256))):
         plan = plan_attention(*[torch.zeros(1, 2, 40, MAX_HEAD_DIM + 32,
                                             dtype=dt)] * 3)
         assert (plan.variant, plan.tile_d, plan.head_dim, plan.copy,
-                plan.grid, plan.threads) == (
-            "wide", 256, 288, (False,) * 3, (2 * 2, 2), 128)
+                plan.grid, plan.threads) == want
+    # wider heads take column passes: bf16 1,000 = 2 x 512 columns, float32
+    # 1,000 in one pass of 1,024 and 1,500 in two
+    x = torch.zeros(1, 2, 130, 1000, dtype=torch.bfloat16)
+    assert plan_attention(x, x, x).grid == (2 * 2, 3)
+    x = torch.zeros(1, 2, 130, 1000)
+    assert (plan_attention(x, x, x).tile_d, plan_attention(x, x, x).grid) == (
+        1024, (2, 5))
+    x = torch.zeros(1, 2, 130, 1500)
+    assert plan_attention(x, x, x).grid == (2 * 2, 5)
+    # bf16 pads D to a multiple of 8 (copied), and copies a view TMA
+    # cannot take
+    x = torch.zeros(1, 2, 70, 289, dtype=torch.bfloat16)
+    plan = plan_attention(x, x, x)
+    assert (plan.head_dim, plan.copy) == (296, (True,) * 3)
+    base = torch.zeros(1, 2, 70, 300, dtype=torch.bfloat16)
+    plan = plan_attention(base[..., :288], base[..., :288], base[..., :288])
+    assert (plan.head_dim, plan.copy) == (288, (True,) * 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [288, 512])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 40),
+                                           (False, 50)])
+def test_wide_kernel_replay_matches_jax(D, causal, window, dtype):
+    """Above head dim 256: the ``"wide"`` kernels' schedule
+    (``tests/flash_wide_replay.py``: bf16's D split between two consumers
+    and their partial scores summed, 64 x 64 tiles, P rounded to bf16,
+    the output in 64-column boxes; float32's 128-column score slices over
+    32 x 32 tiles) and ``attention_ref``, against JAX's ``impl="xla"`` --
+    causal, windowed, not causal, GQA 2:1, 130 rows (a ragged last tile)."""
+    jx, tx = _inputs(2, 4, 2, 130, D, dtype, D + 7)
+    kw = dict(causal=causal, window=window)
+    want = jax_attention(*jx, impl="xla", **kw)
+    assert plan_attention(*tx).variant == "wide"
+    tol = TOL[dtype]
+    got = flash_wide_replay.replay(*tx, **kw)
+    assert got.dtype == tx[0].dtype
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_np(attention_ref(*tx, **kw)), _np(want),
+                               atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

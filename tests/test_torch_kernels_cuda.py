@@ -1220,24 +1220,67 @@ def test_wkv6_kernel_matches_plain_versions(cuda, shape, with_s0, edge,
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
+def _same_nan_and_close(got, want, tol):
+    """NaN where ``want`` has NaN, elsewhere within ``atol = rtol = tol``."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    ok = ~torch.isnan(want)
+    torch.testing.assert_close(got[ok], want[ok], atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("D", [288, 512, 1000])
-@pytest.mark.parametrize("T", [1, 16, 100])
+@pytest.mark.parametrize("T", [1, 16, 100, 256, 1024])
 @pytest.mark.parametrize("layout", ["bhtd", "bthd"])
 def test_wkv6_kernel_wide_head_dims(cuda, D, T, layout):
-    """Head dims above 256 run "wide" at any T (decode, one chunk, a
-    ragged sequence), on contiguous inputs and the model's views: within
-    1e-4 of the chunked plain version, one launch, no copy."""
+    """Head dims above 256: "wide_chunk" from T = 16 up (one chunk, a
+    ragged sequence, long ones), "wide_step" below (a decode step), on
+    contiguous inputs and the model's views: within 1e-4 of the chunked
+    plain version with s0 and without, one launch, no copy, two runs the
+    same bits."""
     r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 2, T, D), D + T, None, layout)
     plan = plan_wkv6(r, k, v, lw)
-    assert plan.variant == "wide" and plan.head_dim == D
+    want = "wide_chunk" if T >= 16 else "wide_step"
+    assert plan.variant == want and plan.head_dim == D
     assert plan.copy == (False,) * 4
-    kernels.reset_launches()
+    for state in (s0, None):
+        kernels.reset_launches()
+        y, s = wkv6(r, k, v, lw, u, state)
+        assert kernels.VARIANT_LAUNCHES["wkv6"][want] == 1
+        assert kernels.LAUNCHES["wkv6"] == 1
+        yc, sc = wkv6_chunked(r, k, v, lw, u, state)
+        y2, s2 = wkv6(r, k, v, lw, u, state)
+        torch.cuda.synchronize()
+        assert y.stride() == r.stride()
+        torch.testing.assert_close(y, yc, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(s, sc, atol=1e-4, rtol=1e-4)
+        assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("D,T", [(288, 40), (512, 100), (1000, 33),
+                                 (512, 7)])
+def test_wkv6_kernel_wide_nan_and_padding(cuda, D, T):
+    """A NaN in lw reaches y and the state as in the chunked plain version
+    (the rows from it on, then every later chunk); D = 290 is padded to
+    292 by the wrapper and to 384 inside "wide_chunk"; above
+    ``WIDE_CHUNK_MAX`` "wide_step" runs at any T."""
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 2, T, D), D + 7 * T)
+    lw[0, 1, T // 3, D // 2] = float("nan")
     y, s = wkv6(r, k, v, lw, u, s0)
-    assert kernels.VARIANT_LAUNCHES["wkv6"]["wide"] == 1
-    assert kernels.LAUNCHES["wkv6"] == 1
     yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
     torch.cuda.synchronize()
-    assert y.stride() == r.stride()
+    assert torch.isnan(y[0, 1]).any() and not torch.isnan(y[0, 0]).any()
+    _same_nan_and_close(y, yc, 1e-4)
+    _same_nan_and_close(s, sc, 1e-4)
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 2, 50, 290), 290)
+    assert plan_wkv6(r, k, v, lw).head_dim == 292
+    y, s = wkv6(r, k, v, lw, u, s0)
+    yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
+    torch.testing.assert_close(y, yc, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, sc, atol=1e-4, rtol=1e-4)
+    r, k, v, lw, u, s0 = _wkv_case(cuda, (1, 1, 20, 2056), 9)
+    kernels.reset_launches()
+    y, s = wkv6(r, k, v, lw, u, s0)
+    assert kernels.VARIANT_LAUNCHES["wkv6"]["wide_step"] == 1
+    yc, sc = wkv6_chunked(r, k, v, lw, u, s0)
     torch.testing.assert_close(y, yc, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, sc, atol=1e-4, rtol=1e-4)
 
@@ -1267,7 +1310,7 @@ def test_wkv6_kernel_dtypes_and_refusals(cuda):
     torch.testing.assert_close(
         y3, wkv6_chunked(base[..., 1:], k, v, lw, u, s0)[0], atol=1e-4,
         rtol=1e-4)
-    # D above 256 runs "wide" (it raised before)
+    # D above 256 runs "wide_chunk" (it raised before)
     r272, k272, v272, lw272, u272, s272 = _wkv_case(cuda, (1, 2, 20, 272), 5)
     y272, st272 = wkv6(r272, k272, v272, lw272, u272, s272)
     yc272, sc272 = wkv6_chunked(r272, k272, v272, lw272, u272, s272)
@@ -1474,7 +1517,8 @@ def test_time_mix_hands_b7_its_views_without_copies(cuda, monkeypatch):
     model.decode_step(state, tokens[:, :1].to(cuda))
     assert kernels.VARIANT_LAUNCHES["wkv6"] == {"chunk": cfg.n_layers,
                                                 "step": cfg.n_layers,
-                                                "wide": 0}
+                                                "wide_chunk": 0,
+                                                "wide_step": 0}
     assert len(calls) == 2 * cfg.n_layers
     for c in calls:
         assert c["launched"] == c["given"]
@@ -1589,14 +1633,20 @@ def test_flash_attention_kernel_head_dims(cuda, D, S, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,S,window", [
     (288, 100, None), (320, 65, 30), (512, 300, None), (1000, 77, 50),
+    (512, 1024, None), (1344, 130, None), (1500, 70, 40),
 ])
 def test_flash_attention_kernel_wide_head_dims(cuda, D, S, window, dtype):
-    """Head dims above 256 ("wide": the output's columns split across
-    blocks, the scores summed over 128-column slices of D), causal and
-    windowed, GQA, and a (B, S, H, D) transposed view."""
+    """Head dims above 256 ("wide": bf16 on the tensor cores, the scores'
+    D split between two warpgroups and summed once, 512 output columns a
+    pass; float32 on the CUDA cores, up to 1,024 columns a pass), causal
+    and windowed, GQA, a (B, S, H, D) transposed view, a sequence of
+    1,024, bf16 with Q streamed through the ring (D = 1,344), column
+    passes (1,344 and 1,500), two runs the same bits."""
     q, k, v = _fa_case(cuda, 2, 4, 2, S, D, dtype, D + S)
     plan = plan_attention(q, k, v)
-    assert plan.variant == "wide" and not any(plan.copy)
+    assert plan.variant == "wide"
+    # bf16 pads D = 1,500 to 1,504 (copied); the others go in as they are
+    assert any(plan.copy) == (dtype == torch.bfloat16 and D % 8 != 0)
     kernels.reset_launches()
     out = attention(q, k, v, window=window)
     assert kernels.VARIANT_LAUNCHES["flash_attention"]["wide"] == 1
@@ -1604,10 +1654,12 @@ def test_flash_attention_kernel_wide_head_dims(cuda, D, S, window, dtype):
     want = attention_ref(q, k, v, window=window)
     tol = _fa_tol(dtype)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(out, attention(q, k, v, window=window))
     qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
                   for x in (q, k, v))
     out_t = attention(qt, kt, vt, causal=False, window=window)
-    assert out_t.stride() == qt.stride()
+    if not any(plan.copy):
+        assert out_t.stride() == qt.stride()
     want = attention_ref(q, k, v, causal=False, window=window)
     torch.testing.assert_close(out_t.float(), want.float(), atol=tol,
                                rtol=tol)

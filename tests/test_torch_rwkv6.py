@@ -42,6 +42,7 @@ from repro.models import build_model as jax_build_model
 from repro_torch.configs import registry
 from repro_torch.convert import rwkv6_from_numpy
 from repro_torch.kernels.wkv6.ops import (
+    WIDE_CHUNK_MAX,
     WKV6Plan,
     kernel_inputs,
     plan_wkv6,
@@ -51,6 +52,8 @@ from repro_torch.kernels.wkv6.ops import (
 from repro_torch.kernels.wkv6.ref import LOG_W_MIN, wkv6_ref
 from repro_torch.models import build_model
 from repro_torch.models.rwkv6 import RWKV6LM
+
+import wkv6_wide_replay
 
 WKV_SHAPES = [(2, 3, 64, 32), (1, 2, 100, 64), (2, 4, 128, 64), (1, 1, 16, 16)]
 
@@ -207,7 +210,7 @@ def test_wkv6_zero_padded_head_dim_is_exact():
 
 @pytest.mark.parametrize("T,with_s0", [(1, True), (5, False), (20, True)])
 def test_wkv6_plain_versions_match_jax_above_256(T, with_s0):
-    """A head dim above 256 (D = 272, the ``"wide"`` kernel's range on the
+    """A head dim above 256 (D = 272, the ``"wide_*"`` kernels' range on the
     card): the port's recurrence and chunked plain version against JAX's
     recurrence (``5e-4``) and ``impl="xla"`` (``2e-5``), as at D <= 256."""
     out = _port_and_jax(_wkv_inputs((1, 2, T, 272), 272 + T), with_s0,
@@ -216,6 +219,39 @@ def test_wkv6_plain_versions_match_jax_above_256(T, with_s0):
         _close(out["ref"][i], out["jax_ref"][i], 5e-4, f"recurrence {what}")
         _close(out["chunked"][i], out["jax_ref"][i], 5e-4, f"chunked {what}")
         _close(out["chunked"][i], out["jax_xla"][i], 2e-5, f"xla {what}")
+
+
+@pytest.mark.parametrize("D", [272, 512])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 40])
+@pytest.mark.parametrize("with_s0", [True, False])
+def test_wkv6_wide_kernel_replay_matches_jax(D, T, with_s0):
+    """The schedule of B7's kernels above 256 (``tests/wkv6_wide_replay.py``:
+    ``wide_chunk``'s 16-column blocks, key rows split over 8 warps, 128-
+    channel slices, D zero-padded to 384 / 512, warp partials added in
+    order; ``wide_step``'s row groups below one chunk), the one
+    ``plan_wkv6`` picks, against JAX's recurrence (``5e-4``) and, from
+    T = 16, its ``impl="xla"`` chunked form (``2e-5``) -- as
+    ``test_wkv6_plain_versions_match_jax_above_256`` holds the plain
+    versions; below one chunk the replayed recurrence is held to JAX's at
+    ``2e-5``."""
+    args = _wkv_inputs((1, 2, T, D), D + 3 * T)
+    if not with_s0:
+        args = args[:5] + (None,)
+    j = [None if a is None else jnp.asarray(a) for a in args]
+    t = [None if a is None else torch.from_numpy(a) for a in args]
+    y, s = wkv6_wide_replay.replay(*t)
+    variant = plan_wkv6(*t[:4]).variant
+    assert variant == ("wide_chunk" if T >= 16 else "wide_step")
+    want_ref = jax_wkv6_ref(*j)
+    for i, got in enumerate((y, s)):
+        _close(got, want_ref[i], 5e-4, f"{variant} vs recurrence")
+    if variant == "wide_chunk":
+        want = jax_wkv6(*j, impl="xla")
+        for i, got in enumerate((y, s)):
+            _close(got, want[i], 2e-5, f"{variant} vs xla")
+    else:
+        for i, got in enumerate((y, s)):
+            _close(got, want_ref[i], 2e-5, f"{variant} vs recurrence")
 
 
 @pytest.mark.parametrize("T", [1, 37])
@@ -241,7 +277,10 @@ def test_wkv6_plan_takes_the_model_views_as_they_are():
     """``plan_wkv6`` (what the card would run): the model's (B, T, H, 64)
     views need no copy in either instantiation; D = 48 is padded to 64,
     bf16 and a view off the 16-byte grid are copied; D > 256 plans
-    ``"wide"`` at any T, unpadded, copying only bf16 or a D stride."""
+    ``"wide_step"`` below one chunk (and above ``WIDE_CHUNK_MAX``), unpadded,
+    copying only bf16 or a D stride, and ``"wide_chunk"`` from T = 16 up,
+    which pads D to a multiple of 4 and copies what ``cp.async`` cannot
+    read."""
     B, H, D = 2, 40, 64
     for T, variant in ((1, "step"), (15, "step"), (16, "chunk"), (1024, "chunk")):
         x = torch.zeros(B, T, H, D).transpose(1, 2)
@@ -275,23 +314,42 @@ def test_wkv6_plan_takes_the_model_views_as_they_are():
                          torch.zeros(2, 64), state)[5]
     assert s_in.data_ptr() % 16 == 0 and torch.equal(s_in, state)
     assert not plan_wkv6(base[:, :, :3, 1:], *(t[:, :, :3] for t in (x, x, x))).copy[0]
-    for T in (1, 15, 16, 100):
+    for T, variant in ((1, "wide_step"), (15, "wide_step"),
+                       (16, "wide_chunk"), (100, "wide_chunk")):
         x = torch.zeros(2, T, 3, 272).transpose(1, 2)
-        assert plan_wkv6(x, x, x, x) == WKV6Plan("wide", 272, (False,) * 4)
+        assert plan_wkv6(x, x, x, x) == WKV6Plan(variant, 272, (False,) * 4)
     x = torch.zeros(1, 2, 20, 1000)
     assert plan_wkv6(x.bfloat16(), x, x[..., ::1], x) == WKV6Plan(
-        "wide", 1000, (True, False, False, False))
+        "wide_chunk", 1000, (True, False, False, False))
     base = torch.zeros(1, 2, 20, 1001)
-    assert plan_wkv6(base[..., 1:], x, x, x).copy == (False,) * 4  # no cp.async
+    assert plan_wkv6(base[..., 1:], x, x, x).copy == (
+        True, False, False, False)  # cp.async: a 4-byte offset is copied
+    assert plan_wkv6(base[:, :, :3, 1:], *(t[:, :, :3] for t in (x, x, x))
+                     ) == WKV6Plan("wide_step", 1000, (False,) * 4)
     strided = torch.zeros(1, 2, 1000, 20).transpose(2, 3)   # D not contiguous
     assert plan_wkv6(strided, x, x, x) == WKV6Plan(
-        "wide", 1000, (True, False, False, False))
-    # what "wide" launches: nothing padded, u and s0 contiguous float32
+        "wide_chunk", 1000, (True, False, False, False))
+    # D = 290 pads to 292 for "wide_chunk", not for "wide_step"
+    x290 = torch.zeros(1, 2, 20, 290)
+    assert plan_wkv6(x290, x290, x290, x290) == WKV6Plan(
+        "wide_chunk", 292, (True,) * 4)
+    assert plan_wkv6(*(t[:, :, :1] for t in (x290,) * 4)) == WKV6Plan(
+        "wide_step", 290, (False,) * 4)
+    # above WIDE_CHUNK_MAX the recurrence at any T
+    xw = torch.zeros(1, 1, 20, WIDE_CHUNK_MAX + 8)
+    assert plan_wkv6(xw, xw, xw, xw).variant == "wide_step"
+    # what "wide_chunk" launches: D = 1000 not padded, u and s0 contiguous
+    # float32; at D = 290 all of them padded with zeros to 292
     ins = kernel_inputs(plan_wkv6(x.bfloat16(), x, x, x), x.bfloat16(), x,
                         x, x, torch.zeros(2, 1000, dtype=torch.float64),
                         torch.zeros(1, 2, 1000, 1000))
     assert [t.shape[-1] for t in ins] == [1000] * 6
     assert ins[0].dtype == ins[4].dtype == torch.float32 and ins[1] is x
+    ins = kernel_inputs(plan_wkv6(x290, x290, x290, x290), x290 + 1, x290,
+                        x290, x290, torch.ones(2, 290),
+                        torch.ones(1, 2, 290, 290))
+    assert [t.shape[-1] for t in ins] == [292] * 6
+    assert not ins[0][..., 290:].any() and not ins[5][..., 290:, :].any()
 
 
 # ---------------------------------------------------------------------------
