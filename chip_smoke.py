@@ -432,14 +432,20 @@ Phases, in order; any failure exits non-zero:
     dtypes, the training paths' shapes in bf16 (``FA_BWD_SHAPES``,
     ``wgmma`` with the forward's lse, itself within ``FA_LSE_TOL`` of
     ``attention_lse_ref`` and leaving o's bits as they are); each call's
-    launches by name as planned; two runs the same bits; D = 288 under
-    autograd raises; ``attention`` under autograd on (B, S, H, D) views
-    launches the forward once and the backward's launches once; each path
-    shape timed in turns with SDPA's backward under its fastest backend
-    (``FA_BWD_REPS`` reps each after 3 warm-ups; every backend that takes
-    the shape timed and printed), beside the plain version and the bound
-    (device times alone: ``scripts/torch_kernel_times.py --kernels
-    b6bwd``, in a process of its own).
+    launches by name as planned; two runs the same bits; above head dim
+    256 the ``wide`` backward at ``FA_WIDE_SHAPES`` in both dtypes (bf16
+    with the wide forward's lse); ``attention`` under autograd on (B, S,
+    H, D) views at D = 64 and 512 launches the forward once and the
+    backward's launches once; each path shape timed in turns with SDPA's
+    backward under its fastest backend (``FA_BWD_REPS`` reps each after 3
+    warm-ups; every backend that takes the shape timed and printed),
+    beside the plain version and the bound, and ``wide`` at d512 in both
+    dtypes (device times alone: ``scripts/torch_kernel_times.py --kernels
+    b6bwd,b6bwdwide``, in a process of its own); then ``DecoderLM.loss``
+    at nemotron-4-15b's width with head_dim 512 (12 heads over 2 KV
+    heads, 2 layers, ``TRAIN_WIDE``'s first 2 sequences) against
+    ``gqa_attention``: bf16 within ``TRAIN_BF16_*``, float32 within
+    ``TRAIN_F32_*``, the wide kernels once a layer.
     (b) seamless-m4t-medium at full width and depth through
     ``launch.train.main(TRAIN_SEAMLESS)``: 20 steps of 8 x 1,024 tokens
     in 4 microbatches, the loss finite and falling, B6 forward 192
@@ -459,10 +465,16 @@ Phases, in order; any failure exits non-zero:
     ends (``torch.clamp``'s rule, against autograd of ``wkv6_ref``); two
     runs the same bits, the forward and the reverse sweep once each a
     call, gradients written in the inputs' layout; ``wkv6`` under autograd
-    == ``wkv6_bwd``; D = 128 under autograd raises; timed at the training
-    shape (CUDA events) beside the plain version, its bound the larger of
-    9 B·H·T·D floats over 3.35 TB/s and 3 x 12 D² FLOP a (b, h, t) over
-    the tensor cores' 495 TFLOP/s (3xTF32).  (f) rwkv6-3b at
+    == ``wkv6_bwd``; timed at the training shape (CUDA events) beside the
+    plain version, its bound the larger of 9 B·H·T·D floats over 3.35 TB/s
+    and 3 x 12 D² FLOP a (b, h, t) over the tensor cores' 495 TFLOP/s
+    (3xTF32).  Above D = 64 the ``wide`` backward: D in
+    ``WKV_BWD_WIDE_DIMS`` at every ``WKV_BWD_LENGTHS`` with s0 and ds_fin,
+    the subsets at D = 288 with only their launches, autograd at D = 128
+    == ``wkv6_bwd``; its path (``WKV_BWD_WIDE_PATH``: rwkv6-3b's width at
+    D = 128 and 256, the wide forward's timed shapes) under autograd,
+    each shape timed (``scripts/torch_kernel_times.py --kernels
+    b7bwdwide`` for device times alone).  (f) rwkv6-3b at
     full width and depth (2,900,298,240 parameters, bf16, float32 AdamW
     state) through ``launch.train.main(TRAIN_RWKV)``: 12 steps of 4 x
     1,024 tokens in 2 microbatches, the loss finite and falling, B7's
@@ -806,6 +818,17 @@ FA_BWD_REPS = 20
 # the forward's lse against attention_lse_ref: atol = rtol (float32 sums
 # of the same exponentials in other orders)
 FA_LSE_TOL = 1e-4
+# above head dim 256 the "wide" backward: FA_WIDE_SHAPES' head dims in
+# both dtypes, each twice for the same bits, and timed at the path's
+# "d512" in both dtypes in turns with SDPA's backward
+FA_BWD_WIDE_TIMED = FA_PATH_SHAPES["d512"]
+# the slice's path for it: DecoderLM.loss at nemotron-4-15b's width
+# (d_model 6,144) with head_dim 512 -- 12 query heads over 2 KV heads --
+# 2 layers, one microbatch of TRAIN_PLAIN_BATCH x TRAIN_WIDE_SEQ tokens,
+# the kernels against gqa_attention within the TRAIN_BF16_* / TRAIN_F32_*
+# bounds
+TRAIN_WIDE = ["--arch", "nemotron-4-15b", "--batch", "2", "--seq", "1024"]
+TRAIN_WIDE_HEADS = dict(n_layers=2, n_heads=12, n_kv_heads=2, head_dim=512)
 # S = 1 and S on either side of a 128-row boundary, both dtypes
 FA_BWD_EDGES = [(2, 4, 2, 1, 64, True, None), (2, 4, 2, 127, 64, True, None),
                 (2, 4, 2, 129, 96, False, 40)]
@@ -842,8 +865,23 @@ WKV_BWD_REL = 1e-4
 # B7's backward: head dims checked (48 zero-padded to 64) and the lengths
 # on both sides of its 16-row chunks (one and two whole chunks, a row past)
 WKV_BWD_LENGTHS = (1, 15, 16, 17, 32, 33, 100)
+# above D = 64 B7's backward runs "wide": these head dims at every
+# WKV_BWD_LENGTHS, each twice for the same bits; its path: wkv6 under
+# autograd at rwkv6-3b's width H·D = 2,560 (B 2, T 1,024) at D = 128 and
+# 256, and at the wide forward's timed shapes, each against wkv6_bwd_ref
+# and twice for the same bits; at WKV_BWD_WIDE_BIG, whose partials would
+# take 12 GB, the groups in batches within the library's 1 GiB of scratch
+# (WKV_BWD_SCRATCH_CAP), against wkv6_bwd_ref at WKV_BWD_WIDE_BATCHED
+WKV_BWD_WIDE_DIMS = (96, 128, 256, 288, 512, 1000)
+WKV_BWD_WIDE_PATH = {"d128": (2, 20, 1024, 128), "d256": (2, 10, 1024, 256),
+                     "wide": WKV_WIDE_TIMED, "wide_long": WKV_WIDE_TIMED_LONG}
+WKV_BWD_WIDE_BIG = (2, 8, 1024, 1000)
+WKV_BWD_WIDE_BATCHED = (1, 2, 1024, 1000)
+WKV_BWD_SCRATCH_CAP = 4 << 28  # bytes (wkv6_bwd.cu's WB_SCRATCH_CAP floats)
 # B7's backward asked for some of (dr, dk, dv, dlw, du, ds0) only, as
-# autograd's needs_input_grad asks, and the sweeps that launch for them
+# autograd's needs_input_grad asks, and the sweeps that launch for them at
+# D = 64 (at D > 64 wide_fwd, wide_rev and the sum of their partials, as
+# the library counts them: wkv6.ops.bwd_schedule)
 WKV_BWD_SUBSETS = [
     ((True, False, False, False, False, False), {"fwd": 1, "rev": 0}),
     ((False, True, False, False, False, False), {"fwd": 0, "rev": 1}),
@@ -5004,8 +5042,8 @@ def check_flash_attention_kernel(results) -> None:
     dispatch threshold); float32 timed at nemotron's shape."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
-        MAX_HEAD_DIM, SHORT_SEQ_MAX, attention, attention_with_lse,
-        launch_flash_attention, plan_attention,
+        SHORT_SEQ_MAX, attention, attention_with_lse, launch_flash_attention,
+        plan_attention,
     )
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -5074,13 +5112,11 @@ def check_flash_attention_kernel(results) -> None:
         del q, k, v
         torch.cuda.empty_cache()
 
-    # the lse the forward writes under autograd (D <= 256): the output's
-    # bits and the time without it (no_grad, the serving paths) and with
-    # it, in turns
+    # the lse the forward writes under autograd (every bf16 instantiation,
+    # "wide" too): the output's bits and the time without it (no_grad, the
+    # serving paths) and with it, in turns
     for name in FA_TIMED:
         shape = FA_PATH_SHAPES[name]
-        if shape[4] > MAX_HEAD_DIM:
-            continue
         causal, window = shape[5:]
         q, k, v = _fa_inputs(gen, shape, torch.bfloat16)
         o = attention(q, k, v, causal=causal, window=window)
@@ -5938,11 +5974,13 @@ def check_flash_attention_bwd(results) -> None:
     1, 127, 129) in both dtypes, the training paths' shapes in bf16
     (``wgmma``, with the forward's lse, itself checked against
     ``attention_lse_ref`` and the output's bits against the forward
-    without it); each call's launches by name; two runs the same bits; a
-    D > 256 call under autograd raises; ``attention`` under autograd
-    launches the forward once and the backward's launches once; each path
-    shape timed in turns with SDPA's fastest backend (``FA_BWD_REPS``
-    reps after 3 warm-ups) beside the plain version and the bound."""
+    without it); each call's launches by name; two runs the same bits;
+    ``wide`` at ``FA_WIDE_SHAPES`` in both dtypes; ``attention`` under
+    autograd launches the forward once and the backward's launches once
+    (D = 64 and, ``wide``, 512); each path shape timed in turns with
+    SDPA's fastest backend (``FA_BWD_REPS`` reps after 3 warm-ups) beside
+    the plain version and the bound, and ``wide`` at d512 in both
+    dtypes."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
         attention, attention_bwd, attention_with_lse, plan_attention_bwd,
@@ -5959,7 +5997,9 @@ def check_flash_attention_bwd(results) -> None:
     cases += [(f"edge {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
               for sh in FA_BWD_EDGES]
     cases += [(n, sh, torch.bfloat16) for n, sh in FA_BWD_SHAPES.items()]
-    worst = {}
+    cases += [(f"wide {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
+              for sh in FA_WIDE_SHAPES]
+    worst, worst_wide = {}, {}
     for name, shape, dtype in cases:
         causal, window = shape[5:]
         kw = dict(causal=causal, window=window)
@@ -6001,7 +6041,8 @@ def check_flash_attention_bwd(results) -> None:
                       f"{shape} {dtype}: d{tag} max |diff| {-e:.3e} (largest "
                       f"|d{tag}| {float(w.float().abs().max()):.3e})")
             errs.append(e)
-        worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+        into = worst_wide if plan.variant == "wide" else worst
+        into[dtype] = max(into.get(dtype, 0.0), *errs)
         print(f"flash_attention_bwd == attention_bwd_ref on {name} {shape} "
               f"{dtype} ({plan.variant}: {'+'.join(plan.launches)}): max "
               f"|diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; "
@@ -6011,39 +6052,34 @@ def check_flash_attention_bwd(results) -> None:
         del q, k, v, o, do, got, again, want, lse
     torch.cuda.empty_cache()
 
-    wide = torch.randn((1, 2, 16, 288), generator=gen, device="cuda")
-    wide = wide.to(torch.bfloat16).requires_grad_()
-    try:
-        attention(wide, wide, wide)
-        _fail("attention under autograd at D = 288 did not raise")
-    except NotImplementedError as e:
-        print(f"D = 288 under autograd raises: {e}", flush=True)
-
     # through autograd on the model's (B, S, H, D) views: forward once,
-    # backward once, no copy
-    x = [torch.randn((2, 1024, 16, 64), generator=gen, device="cuda")
-         .to(torch.bfloat16).requires_grad_() for _ in range(3)]
-    q, k, v = (t.transpose(1, 2) for t in x)
-    kernels.reset_launches()
-    o = attention(q, k, v)
-    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    plan = plan_attention_bwd(q, k, v, o, do)
-    if any(plan.copy):
-        _fail("B6 backward copies the model's transposed views")
-    o.backward(do)
-    if (kernels.LAUNCHES["flash_attention"],
-            kernels.LAUNCHES["flash_attention_bwd"]) != (1, len(plan.launches)):
-        _fail(f"attention under autograd: launches {kernels.LAUNCHES}")
-    _, lse = attention_with_lse(q.detach(), k.detach(), v.detach())
-    want = attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(), do,
-                         lse=lse)
-    for t, w in zip(x, want):
-        if not torch.equal(t.grad.transpose(1, 2), w):
-            _fail("attention's autograd gradient differs from attention_bwd")
-    print(f"attention under autograd on (B, S, H, D) views: 1 forward + 1 "
-          f"backward call ({', '.join(plan.launches)} launches), no copy, "
-          "gradients == attention_bwd", flush=True)
-    del x, q, k, v, o, do, want, lse
+    # backward once, no copy; at D = 64 and, on "wide", at D = 512 with
+    # grouped heads
+    for B, S, H, Hkv, D in ((2, 1024, 16, 16, 64), (1, 300, 8, 2, 512)):
+        x = [torch.randn((B, S, h, D), generator=gen, device="cuda")
+             .to(torch.bfloat16).requires_grad_() for h in (H, Hkv, Hkv)]
+        q, k, v = (t.transpose(1, 2) for t in x)
+        kernels.reset_launches()
+        o = attention(q, k, v)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        plan = plan_attention_bwd(q, k, v, o, do)
+        if any(plan.copy):
+            _fail("B6 backward copies the model's transposed views")
+        o.backward(do)
+        if (kernels.LAUNCHES["flash_attention"],
+                kernels.LAUNCHES["flash_attention_bwd"]) != (1, len(plan.launches)):
+            _fail(f"attention under autograd: launches {kernels.LAUNCHES}")
+        _, lse = attention_with_lse(q.detach(), k.detach(), v.detach())
+        want = attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(),
+                             do, lse=lse)
+        for t, w in zip(x, want):
+            if not torch.equal(t.grad.transpose(1, 2), w):
+                _fail("attention's autograd gradient differs from attention_bwd")
+        print(f"attention under autograd on (B, S, H, D) views at D = {D} "
+              f"({plan.variant}): 1 forward + 1 backward call "
+              f"({', '.join(plan.launches)} launches), no copy, gradients == "
+              "attention_bwd", flush=True)
+        del x, q, k, v, o, do, want, lse
     torch.cuda.empty_cache()
 
     timed = {}
@@ -6086,6 +6122,47 @@ def check_flash_attention_bwd(results) -> None:
               "(seamless-m4t-medium's decoder at the training shape)",
         shapes=timed)
 
+    # "wide" at d512, each dtype in turns with SDPA's fastest backend
+    shape = FA_BWD_WIDE_TIMED
+    wide = {}
+    for dtype, peak in ((torch.bfloat16, BF16_FLOP_PER_S),
+                        (torch.float32, FP32_FLOP_PER_S)):
+        q, k, v = _fa_inputs(gen, shape, dtype)
+        lse = None
+        if dtype == torch.bfloat16:
+            o, lse = attention_with_lse(q, k, v)
+        else:
+            o = attention(q, k, v)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        backend, sdpa = _sdpa_bwd_fastest(q, k, v, do, shape)
+        kernel_ms, library_ms = _time_turns([
+            lambda: attention_bwd(q, k, v, o, do, lse=lse), sdpa], 10, 2)
+        plain_ms = _time_ms(lambda: attention_bwd_ref(q, k, v, o, do), 2, 1)
+        nbytes, flop = _fa_bwd_cost(shape, q.element_size())
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * flop / peak
+        bound = max(by_bytes, by_ops)
+        name = "bf16" if dtype == torch.bfloat16 else "float32"
+        wide[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                          library_ms=library_ms, sdpa_backend=backend,
+                          bound_ms=bound,
+                          bound_by="bytes" if by_bytes >= by_ops else "operations")
+        print(f"flash_attention_bwd d512 {shape} {name} (wide: "
+              f"{'+'.join(plan_attention_bwd(q, k, v, o, do).launches)}): "
+              f"kernel {kernel_ms:.4f} ms, SDPA backward ({backend}) "
+              f"{library_ms:.4f} ms in turns, 10 reps each; plain "
+              f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({nbytes} bytes -> "
+              f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms); kernel at "
+              f"{bound / kernel_ms:.4f} of the bound; kernel / SDPA "
+              f"{kernel_ms / library_ms:.3f}", flush=True)
+        del q, k, v, o, do, lse, sdpa
+        torch.cuda.empty_cache()
+    results["flash_attention_bwd_wide"] = dict(
+        max_abs_err=worst_wide[torch.bfloat16],
+        max_abs_err_f32=worst_wide[torch.float32], **wide["bf16"],
+        float32=wide["float32"],
+        shape=f"{shape[:5]} bf16 causal (d512, the wide forward's timed shape)")
+
 
 def _wkv6_bwd_cost(shape):
     """(bytes, FLOP) of the training call of B7's backward (no s0, no
@@ -6111,6 +6188,14 @@ def _wkv_bwd_err(got, want):
     return err / max(top, 1e-30) if err <= WKV_BWD_REL * top + 1e-6 else -1.0
 
 
+def _b7_runs(runs) -> dict:
+    """``runs`` (launches by name) over every name of B7's backward, the
+    others 0: what ``VARIANT_LAUNCHES["wkv6_bwd"]`` holds after a call."""
+    from repro_torch import kernels
+
+    return {n: runs.get(n, 0) for n in kernels.VARIANT_LAUNCHES["wkv6_bwd"]}
+
+
 def check_wkv6_bwd(results) -> None:
     """B7's backward kernel against ``wkv6_bwd_ref`` in float32: the
     training shape (2, 40, 1,024, 64) on the model's views with and without
@@ -6119,8 +6204,9 @@ def check_wkv6_bwd(results) -> None:
     of ``wkv6_ref``); two runs the same bits; the forward and the reverse
     sweep once each a call; each of ``WKV_BWD_SUBSETS`` asked for alone,
     with only the sweeps it needs; ``wkv6`` under autograd ==
-    ``wkv6_bwd``; D = 128 under autograd raises; timed at the training
-    shape beside the plain version."""
+    ``wkv6_bwd``; timed at the training shape beside the plain version.
+    Then ``"wide"`` (D > 64): ``WKV_BWD_WIDE_DIMS`` at every
+    ``WKV_BWD_LENGTHS``, the subsets at D = 288, autograd at D = 128."""
     from repro_torch import kernels
     from repro_torch.kernels.wkv6.ops import (
         launch_wkv6_bwd, plan_wkv6_bwd, wkv6, wkv6_bwd,
@@ -6157,7 +6243,7 @@ def check_wkv6_bwd(results) -> None:
             _fail(f"B7 backward on '{name}': plan {plan}")
         kernels.reset_launches()
         got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
-        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != {"fwd": 1, "rev": 1}:
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != _b7_runs({"fwd": 1, "rev": 1}):
             _fail(f"B7 backward on '{name}': launches "
                   f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}")
         again = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
@@ -6216,7 +6302,7 @@ def check_wkv6_bwd(results) -> None:
         kernels.reset_launches()
         got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf, needs=needs)
         torch.cuda.synchronize()
-        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != runs:
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != _b7_runs(runs):
             _fail(f"B7 backward asked for {needs}: launches "
                   f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}, not {runs}")
         for tag, n, a, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
@@ -6238,7 +6324,7 @@ def check_wkv6_bwd(results) -> None:
     del r, k, v, lw, u, s0, dy, dsf, got, want
 
     # through autograd on the model's views: the forward once, the
-    # backward once, the gradients == wkv6_bwd's; a D > 64 call raises
+    # backward once, the gradients == wkv6_bwd's
     r, k, v, lw, u, _ = _wkv6_inputs(gen, train)
     leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, lw, u)]
     kernels.reset_launches()
@@ -6254,13 +6340,6 @@ def check_wkv6_bwd(results) -> None:
     print("wkv6 under autograd on the model's (B, T, H, D) views: 1 forward "
           "+ 2 backward launches (both sweeps), gradients == wkv6_bwd bit for "
           "bit", flush=True)
-    wide = torch.randn((1, 2, 16, 128), generator=gen, device="cuda")
-    try:
-        wkv6(wide.requires_grad_(), wide, wide, -wide.abs(),
-             torch.zeros((2, 128), device="cuda"))
-        _fail("wkv6 under autograd at D = 128 did not raise")
-    except NotImplementedError as e:
-        print(f"D = 128 under autograd raises: {e}", flush=True)
     del leaves, y, want
 
     dy = torch.randn((train[0], train[2], H, 64), generator=gen,
@@ -6289,6 +6368,162 @@ def check_wkv6_bwd(results) -> None:
               "(one rwkv6-3b layer of a training microbatch)")
     del r, k, v, lw, u, dy, outs, du_part
     torch.cuda.empty_cache()
+    check_wkv6_bwd_wide(results, gen)
+
+
+def check_wkv6_bwd_wide(results, gen) -> None:
+    """B7's ``"wide"`` backward (D > 64) against ``wkv6_bwd_ref``:
+    ``WKV_BWD_WIDE_DIMS`` x ``WKV_BWD_LENGTHS`` with s0 and ds_fin, each
+    twice bit-equal, its three launches by name; ``WKV_BWD_SUBSETS`` at
+    D = 288, each with only its launches; ``wkv6`` under autograd at
+    D = 128 on the model's views == ``wkv6_bwd`` bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import (
+        bwd_schedule, plan_wkv6_bwd, wkv6, wkv6_bwd,
+    )
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+
+    worst, worst_abs = 0.0, 0.0
+    every = (True,) * 6
+    for D in WKV_BWD_WIDE_DIMS:
+        errs_d = []
+        for T in WKV_BWD_LENGTHS:
+            shape = (2, 2, T, D)
+            r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)
+            dy = torch.randn(shape, generator=gen, device="cuda")
+            dsf = 0.1 * torch.randn(s0.shape, generator=gen, device="cuda")
+            plan = plan_wkv6_bwd(r, k, v, lw, dy)
+            kernels.reset_launches()
+            got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+            runs = bwd_schedule(plan, *shape[:3], every)[1]
+            if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != _b7_runs(runs):
+                _fail(f"B7 backward (wide) at {shape}: launches "
+                      f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}")
+            again = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf)
+            want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
+            torch.cuda.synchronize()
+            for tag, a, b, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
+                                    got, again, want):
+                if not torch.equal(a, b):
+                    _fail(f"B7 backward (wide) at {shape}: {tag} differs "
+                          "between two runs")
+                e = _wkv_bwd_err(a, w)
+                if e < 0:
+                    _fail(f"B7 backward (wide) differs from wkv6_bwd_ref at "
+                          f"{shape}: {tag} max |diff| "
+                          f"{float((a - w).abs().max()):.3e} (largest |{tag}| "
+                          f"{float(w.abs().max()):.3e}, allowed {WKV_BWD_REL} "
+                          "of it)")
+                worst = max(worst, e)
+                errs_d.append(e)
+                worst_abs = max(worst_abs, float((a - w).abs().max()))
+            del r, k, v, lw, u, s0, dy, dsf, got, again, want
+        print(f"wkv6_bwd (wide, head dim {plan.head_dim}) == wkv6_bwd_ref "
+              f"at D = {D}, T in {WKV_BWD_LENGTHS}, with s0 and ds_fin: "
+              f"every gradient's max |diff| / largest |value| <= "
+              f"{max(errs_d):.2e}; launches {runs} a call; two runs "
+              "bit-equal", flush=True)
+    torch.cuda.empty_cache()
+
+    shape = (2, 8, 100, 288)
+    r, k, v, lw, u, s0 = _wkv6_inputs(gen, shape)
+    dy = torch.randn(shape, generator=gen, device="cuda")
+    dsf = 0.1 * torch.randn(s0.shape, generator=gen, device="cuda")
+    want = wkv6_bwd_ref(r, k, v, lw, u, s0, dy, dsf)
+    plan = plan_wkv6_bwd(r, k, v, lw, dy)
+    for needs, _ in WKV_BWD_SUBSETS:
+        kernels.reset_launches()
+        got = wkv6_bwd(r, k, v, lw, u, s0, dy, dsf, needs=needs)
+        torch.cuda.synchronize()
+        runs = bwd_schedule(plan, *shape[:3], needs)[1]
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != _b7_runs(runs):
+            _fail(f"B7 backward (wide) asked for {needs}: launches "
+                  f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}, not {runs}")
+        for tag, n, a, w in zip(("dr", "dk", "dv", "dlw", "du", "ds0"),
+                                needs, got, want):
+            if (a is None) == n:
+                _fail(f"B7 backward (wide) asked for {needs}: {tag} is {a}")
+            if n and _wkv_bwd_err(a, w) < 0:
+                _fail(f"B7 backward (wide) asked for {needs}: {tag} max "
+                      f"|diff| {float((a - w).abs().max()):.3e}")
+    print(f"wkv6_bwd (wide) {shape} with s0 and ds_fin, "
+          f"{len(WKV_BWD_SUBSETS)} subsets of the gradients asked for: each "
+          "== wkv6_bwd_ref, only the launches each needs", flush=True)
+    del r, k, v, lw, u, s0, dy, dsf, got, want
+
+    # through autograd on the model's (B, T, H, D) views at D = 128
+    shape = (2, 20, 256, 128)
+    r, k, v, lw, u, _ = _wkv6_inputs(gen, shape)
+    leaves = [t.detach().clone().requires_grad_() for t in (r, k, v, lw, u)]
+    kernels.reset_launches()
+    y, _ = wkv6(*leaves)
+    dy = torch.randn(y.shape, generator=gen, device="cuda")
+    y.backward(dy)
+    if (kernels.LAUNCHES["wkv6"], kernels.LAUNCHES["wkv6_bwd"]) != (1, 3):
+        _fail(f"wkv6 under autograd at D = 128: launches {kernels.LAUNCHES}")
+    want = wkv6_bwd(r, k, v, lw, u, None, dy, None)
+    for t, w in zip(leaves, want):
+        if not torch.equal(t.grad, w):
+            _fail("wkv6's autograd gradient at D = 128 differs from wkv6_bwd")
+    print(f"wkv6 under autograd at {shape} on the model's views: 1 forward + "
+          "3 backward launches (wide_fwd, wide_rev, wide_reduce), gradients "
+          "== wkv6_bwd bit for bit", flush=True)
+    del r, k, v, lw, u, leaves, y, dy, want
+    torch.cuda.empty_cache()
+
+    # partials past the library's scratch cap: the value column groups in
+    # batches, against wkv6_bwd_ref at WKV_BWD_WIDE_BATCHED; at
+    # WKV_BWD_WIDE_BIG (12 GB of partials at once) the call's memory
+    for shape in (WKV_BWD_WIDE_BATCHED, WKV_BWD_WIDE_BIG):
+        r, k, v, lw, u, _ = _wkv6_inputs(gen, shape)
+        dy = torch.randn(shape, generator=gen, device="cuda")
+        floats, runs = bwd_schedule(plan_wkv6_bwd(r, k, v, lw, dy),
+                                    *shape[:3], (True,) * 5 + (False,))
+        if 4 * floats > WKV_BWD_SCRATCH_CAP or runs["wide_fwd"] < 2:
+            _fail(f"B7 backward (wide) at {shape}: {floats} floats of scratch "
+                  f"in {runs['wide_fwd']} batches")
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = wkv6_bwd(r, k, v, lw, u, None, dy)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - held
+        if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != _b7_runs(runs):
+            _fail(f"B7 backward (wide) at {shape}: launches "
+                  f"{kernels.VARIANT_LAUNCHES['wkv6_bwd']}, not {runs}")
+        got = got[:5]  # ds0 is None: no s0
+        outs = 4 * sum(g.numel() for g in got)
+        if peak > outs + 4 * floats + (64 << 20):
+            _fail(f"B7 backward (wide) at {shape}: {peak} bytes at its peak "
+                  f"for {outs} of gradients and {4 * floats} of scratch")
+        again = wkv6_bwd(r, k, v, lw, u, None, dy)
+        for tag, a, b in zip(("dr", "dk", "dv", "dlw", "du"), got, again):
+            if not torch.equal(a, b) or not bool(torch.isfinite(a).all()):
+                _fail(f"B7 backward (wide) at {shape}: {tag} not finite or "
+                      "not the same bits twice")
+        del again
+        checked = ""
+        if shape == WKV_BWD_WIDE_BATCHED:
+            want = wkv6_bwd_ref(r, k, v, lw, u, None, dy, None)
+            errs = [_wkv_bwd_err(a, w) for a, w in zip(got, want[:5])]
+            if min(errs) < 0:
+                _fail(f"B7 backward (wide) at {shape}, groups in batches, "
+                      f"differs from wkv6_bwd_ref: {errs}")
+            checked = f" == wkv6_bwd_ref within {max(errs):.2e} of the top,"
+            del want
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        print(f"wkv6_bwd (wide) {shape}: {runs} in batches of value column "
+              f"groups,{checked} two runs bit-equal; scratch {4 * floats} "
+              f"bytes (all groups at once: "
+              f"{4 * 3 * -(-shape[3] // 16) * n}), the call's peak "
+              f"{peak} bytes over what it was given; {secs * 1e3:.1f} ms "
+              "(host, first call)", flush=True)
+        del r, k, v, lw, u, dy, got
+        torch.cuda.empty_cache()
+    results["wkv6_bwd_wide"] = dict(max_abs_err=worst_abs, max_rel_err=worst)
 
 
 def _print_b7_bwd_share(dev, busy_ms) -> None:
@@ -6454,6 +6689,8 @@ def train_against_plain(model, batch, plain=None) -> dict:
     lk, gk = loss_and_grads(model, batch)
     if not kernels.LAUNCHES[bwd]:
         _fail(f"the kernel run launched no {label} backward")
+    launches = {k: kernels.LAUNCHES[k] for k in (fwd, bwd)}
+    variants = {k: dict(kernels.VARIANT_LAUNCHES[k]) for k in (fwd, bwd)}
     kernel_fn = getattr(module, attr)
     setattr(module, attr, plain_fn)
     try:
@@ -6463,7 +6700,8 @@ def train_against_plain(model, batch, plain=None) -> dict:
             _fail(f"the plain training run launched {label}")
     finally:
         setattr(module, attr, kernel_fn)
-    return grad_gap(model, lk, gk, lp, gp)
+    return dict(grad_gap(model, lk, gk, lp, gp), launches=launches,
+                variants=variants)
 
 
 def loss_and_grads(model, batch):
@@ -6585,6 +6823,156 @@ def rwkv6_train_checks(cfg) -> None:
         torch.cuda.empty_cache()
 
 
+def wide_train_checks(results) -> None:
+    """B6's ``"wide"`` backward on its path: ``DecoderLM.loss`` and its
+    gradients at nemotron-4-15b's width with head_dim 512
+    (``TRAIN_WIDE_HEADS``) on one microbatch of ``TRAIN_PLAIN_BATCH`` x
+    ``TRAIN_WIDE_SEQ`` tokens of ``launch.train``'s stream, against
+    ``gqa_attention`` swapped in: bf16 within ``TRAIN_BF16_*``, float32
+    within ``TRAIN_F32_*``.  The kernel run's launches (counts set to 0
+    just before it) must be the wide forward and the wide backward's
+    launches once a layer, nothing else."""
+    from repro_torch.configs import nemotron_4_15b
+    from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
+    from repro_torch.models import build_model
+
+    cfg = nemotron_4_15b.config().replace(**TRAIN_WIDE_HEADS)
+    batch = _plain_batch(cfg, TRAIN_PLAIN_BATCH, TRAIN_WIDE)
+    q = torch.empty((1, cfg.n_heads, 2, cfg.head_dim), dtype=torch.bfloat16,
+                    device="meta")
+    kv = torch.empty((1, cfg.n_kv_heads, 2, cfg.head_dim),
+                     dtype=torch.bfloat16, device="meta")
+    names = plan_attention_bwd(q, kv, kv, q, q).launches
+    seq = int(dict(zip(TRAIN_WIDE[::2], TRAIN_WIDE[1::2]))["--seq"])
+    out = {}
+    for tag, c, loss_bound, grad_bound in (
+            ("bf16", cfg, TRAIN_BF16_LOSS, TRAIN_BF16_GRAD),
+            ("float32", cfg.replace(param_dtype="float32",
+                                    compute_dtype="float32"),
+             TRAIN_F32_LOSS_REL, TRAIN_F32_REL)):
+        model = build_model(c, seed=SEED, device="cuda")
+        r = train_against_plain(model, batch)
+        rel = r["loss_diff"] / abs(r["loss_plain"])
+        loss_err = r["loss_diff"] if tag == "bf16" else rel
+        variants = r["variants"]
+        want = ({n: c.n_layers for n in names} if tag == "bf16" else
+                {"wide_simt_dq": c.n_layers, "wide_simt_dkdv": c.n_layers})
+        got = {n: x for n, x in variants["flash_attention_bwd"].items() if x}
+        if got != want or set(
+                n for n, x in variants["flash_attention"].items() if x) != {"wide"}:
+            _fail(f"DecoderLM head_dim 512 {tag}: launches {variants}, "
+                  f"backward expected {want}")
+        print(f"DecoderLM at nemotron-4-15b's width, head_dim 512 (12 heads "
+              f"over 2 KV heads, {c.n_layers} layers) {tag}, "
+              f"{TRAIN_PLAIN_BATCH} x {seq} tokens, B6 (wide forward "
+              f"{r['launches']['flash_attention']}x, backward {got}) vs "
+              f"gqa_attention: loss {r['loss_kernel']:.6f} vs "
+              f"{r['loss_plain']:.6f} (|diff| {r['loss_diff']:.3e}, relative "
+              f"{rel:.3e}; bound {loss_bound}); largest per-leaf ||diff|| / "
+              f"||g|| {r['grad_rel']:.4e} ({r['worst_leaf']}; median "
+              f"{r['median_rel']:.3e}; bound {grad_bound}); largest per-leaf "
+              f"max |diff| / max |g| {r['grad_max_rel']:.4e} "
+              f"({r['worst_max_leaf']})", flush=True)
+        if loss_err > loss_bound or r["grad_rel"] > grad_bound:
+            _fail(f"DecoderLM head_dim 512 {tag} training: B6 vs the plain "
+                  f"attention beyond the bounds: {r}")
+        out[tag] = r
+        del model
+        torch.cuda.empty_cache()
+    results["flash_attention_bwd_wide"].update(
+        launches=out["bf16"]["launches"]["flash_attention_bwd"],
+        launches_f32=out["float32"]["launches"]["flash_attention_bwd"],
+        train_bf16_grad_rel=out["bf16"]["grad_rel"],
+        train_f32_grad_rel=out["float32"]["grad_rel"])
+
+
+def wkv6_bwd_wide_path(results) -> None:
+    """B7's ``"wide"`` backward on its path: ``wkv6`` under autograd at
+    ``WKV_BWD_WIDE_PATH``'s shapes on the model's views (counts set to 0
+    just before, read just after: wide_fwd, wide_rev, wide_reduce as the
+    library counts them, once a shape unless its partials pass the scratch
+    cap); at each shape the gradients against ``wkv6_bwd_ref`` within
+    ``WKV_BWD_REL`` and a second run, ``wkv6_bwd`` itself, the same bits;
+    then each shape's backward timed (the training call, no s0 / ds_fin)
+    beside its bound, and the plain version at D = 128."""
+    from repro_torch import kernels
+    from repro_torch.kernels.wkv6.ops import (
+        bwd_schedule, plan_wkv6_bwd, wkv6, wkv6_bwd,
+    )
+    from repro_torch.kernels.wkv6.ref import wkv6_bwd_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    inputs, runs = {}, {}
+    want = (True,) * 5 + (False,)
+    for name, shape in WKV_BWD_WIDE_PATH.items():
+        inputs[name] = [t.detach() for t in _wkv6_inputs(gen, shape)[:5]]
+        inputs[name].append(torch.randn(shape, generator=gen, device="cuda"))
+        plan = plan_wkv6_bwd(*inputs[name][:4], inputs[name][5])
+        for n, c in bwd_schedule(plan, *shape[:3], want)[1].items():
+            runs[n] = runs.get(n, 0) + c
+    kernels.reset_launches()
+    grads = {}
+    for name, shape in WKV_BWD_WIDE_PATH.items():
+        leaves = [t.clone().requires_grad_() for t in inputs[name][:5]]
+        y, _ = wkv6(*leaves)
+        y.backward(inputs[name][5])
+        grads[name] = [t.grad for t in leaves]
+        del leaves, y
+    launches = kernels.LAUNCHES["wkv6_bwd"]
+    if kernels.VARIANT_LAUNCHES["wkv6_bwd"] != _b7_runs(runs):
+        _fail(f"B7's wide path: launches {kernels.VARIANT_LAUNCHES['wkv6_bwd']}"
+              f", the library counts {runs}")
+    print(f"B7 backward (wide) on its path, wkv6 under autograd at "
+          f"{list(WKV_BWD_WIDE_PATH.values())}: {launches} launches "
+          f"({kernels.VARIANT_LAUNCHES['wkv6_bwd']})", flush=True)
+    timed = {}
+    for name, shape in WKV_BWD_WIDE_PATH.items():
+        r, k, v, lw, u, dy = inputs.pop(name)
+        ref = wkv6_bwd_ref(r, k, v, lw, u, None, dy, None)
+        again = wkv6_bwd(r, k, v, lw, u, None, dy)
+        errs = []
+        for tag, g, a, w in zip(("dr", "dk", "dv", "dlw", "du"),
+                                grads.pop(name), again, ref):
+            if not torch.equal(g, a):
+                _fail(f"B7's wide path at {shape}: {tag} under autograd "
+                      "differs from a second run (wkv6_bwd) in its bits")
+            e = _wkv_bwd_err(g, w)
+            if e < 0:
+                _fail(f"B7's wide path at {shape}: {tag} max |diff| "
+                      f"{float((g - w).abs().max()):.3e} from wkv6_bwd_ref "
+                      f"(largest |{tag}| {float(w.abs().max()):.3e}, allowed "
+                      f"{WKV_BWD_REL} of it)")
+            errs.append(e)
+        del ref, again
+        ms = _time_ms(lambda: wkv6_bwd(r, k, v, lw, u, None, dy), 5, 1)
+        nbytes, flop = _wkv6_bwd_cost(shape)
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * 3 * flop / TF32_FLOP_PER_S
+        timed[name] = dict(ms=ms, bound_ms=max(by_bytes, by_ops),
+                           bound_by="bytes" if by_bytes >= by_ops else "operations",
+                           max_rel_err=max(errs))
+        if name == "d128":
+            timed[name]["plain_ms"] = _time_ms(
+                lambda: wkv6_bwd_ref(r, k, v, lw, u, None, dy, None), 1)
+        print(f"wkv6_bwd (wide) {name} {shape} (the training call): "
+              f"autograd's gradients == wkv6_bwd_ref within "
+              f"{max(errs):.2e} of the largest |value|, == a second run bit "
+              f"for bit; wrapper {ms:.4f} ms"
+              + (f", plain {timed[name]['plain_ms']:.4f} ms"
+                 if "plain_ms" in timed[name] else "")
+              + f"; bound {timed[name]['bound_ms']:.5f} ms ({nbytes} bytes "
+              f"-> {by_bytes:.5f} ms; {flop} FLOP x 3 in TF32 -> "
+              f"{by_ops:.5f} ms; {timed[name]['bound_ms'] / ms:.4f} of the "
+              "bound)", flush=True)
+        del r, k, v, lw, u, dy
+        torch.cuda.empty_cache()
+    results["wkv6_bwd_wide"].update(
+        launches=launches, **timed["d128"],
+        shape=f"{WKV_BWD_WIDE_PATH['d128']} float32 on the model's views, no "
+              "s0 / ds_fin (rwkv6-3b's width at head dim 128)",
+        shapes=timed)
+
+
 def train_path(results) -> None:
     """The training phase: (a) B6's backward kernel; (b) seamless-m4t-medium
     at full width and depth through ``launch.train``, a traced step, the
@@ -6599,6 +6987,7 @@ def train_path(results) -> None:
 
     t_phase = time.perf_counter()
     check_flash_attention_bwd(results)
+    wide_train_checks(results)
 
     cfg = seamless_m4t_medium.config()
     nm = int(dict(zip(TRAIN_SEAMLESS[::2], TRAIN_SEAMLESS[1::2]))["--microbatches"])
@@ -6653,6 +7042,7 @@ def train_path(results) -> None:
     torch.cuda.empty_cache()
 
     check_wkv6_bwd(results)
+    wkv6_bwd_wide_path(results)
     rcfg = rwkv6_3b.config()
     nm = int(dict(zip(TRAIN_RWKV[::2], TRAIN_RWKV[1::2]))["--microbatches"])
     # every layer rematerialized: B7's forward twice a layer (the pass and
@@ -6664,8 +7054,8 @@ def train_path(results) -> None:
     if out["n_params"] != RWKV_PARAMS:
         _fail(f"rwkv6-3b train: {out['n_params']} parameters")
     steps = len(out["losses"])
-    if out["bwd_variants"] != {"fwd": per_layer * steps,
-                               "rev": per_layer * steps}:
+    if out["bwd_variants"] != _b7_runs({"fwd": per_layer * steps,
+                                        "rev": per_layer * steps}):
         _fail(f"rwkv6-3b train: B7 backward sweeps {out['bwd_variants']}")
     results["wkv6"]["launches_train"] = launches["wkv6"]
     results["wkv6_bwd"]["launches"] = launches["wkv6_bwd"]
@@ -6895,6 +7285,14 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
              replaces="src/repro/kernels/wkv6/wkv6.py:99",
              library_ms=None, **results["wkv6_bwd"]),
+        dict(name="flash_attention_bwd_wide", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
+             **results["flash_attention_bwd_wide"]),
+        dict(name="wkv6_bwd_wide", route="cuda",
+             source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
+             replaces="src/repro/kernels/wkv6/wkv6.py:99",
+             library_ms=None, **results["wkv6_bwd_wide"]),
     ]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
           flush=True)

@@ -1,11 +1,12 @@
 """Time the port's route kernel (B2), signature-embedding kernel (B5),
 window-stats kernel (B3), flash attention's backward (B6-bwd), the WKV6
-backward (B7-bwd) and B6's and B7's kernels above head dim 256 alone,
-at their paths' shapes, in one checkout of this repository.
+backward (B7-bwd), B6's and B7's kernels above head dim 256 and their
+backward kernels above head dim 256 and 64 alone, at their paths'
+shapes, in one checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide,b6bwdwide,b7bwdwide]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
@@ -56,6 +57,28 @@ events over 20 after 3 (``b7wide_<T>_ms``), the device time a call of the
 kernels whose name holds ``wkv6_wide`` (``b7wide_<T>_device_ms``), and the
 chunked plain version ``wkv6_chunked`` by events over 3
 (``b7wide_<T>_plain_ms``).
+B6-bwd above head dim 256 (``b6bwdwide``, not in the default set):
+``attention_bwd`` at ``d512`` in bf16 (the wide forward's lse handed
+over) and float32: CUDA events over 20 calls after 3
+(``b6bwdwide_<dtype>_ms``), the device time a call under
+``torch.profiler`` by kernel (``b6bwdwide_<dtype>_<kernel>_ms``) and
+summed (``b6bwdwide_<dtype>_device_ms``); in float32 also not causal
+(``b6bwdwide_f32_full_...``) and the bytes each kernel stages into shared
+memory, counted from its loops (``..._<kernel>_staged_bytes``); SDPA's
+backward under each
+backend that takes the shape the same two ways
+(``sdpa_bwd_d512_<dtype>_<backend>_ms``, ``..._device_ms``).  B7-bwd
+above head dim 64 (``b7bwdwide``, not in the default set): ``wkv6_bwd``,
+the training call (no s0 / ds_fin) on the model's views, at
+``chip_smoke.py``'s ``WKV_BWD_WIDE_PATH`` -- rwkv6-3b's width at D = 128
+and 256, (2, 8, 256 / 1,024, 512): events over 10 after 2
+(``b7bwdwide_<name>_ms``), the device time a call by kernel and
+summed (``b7bwdwide_<name>_device_ms``) and the memory a call takes
+beyond its inputs (``b7bwdwide_<name>_peak_bytes``); also at
+``WKV_BWD_WIDE_BIG`` (``b7bwdwide_big_...``), whose partials pass the
+scratch cap.  A tree whose backward has no
+kernel at these head dims records the error it raises
+(``..._error``) in place of its times.
 Entries a
 tree does not have (the route kernel from keys, B5 from signatures) are
 left out.  Prints one JSON line.
@@ -180,7 +203,9 @@ def main() -> None:
              "b3": ["window_stats", "fused_ingest", "route_rank"],
              "b6bwd": ["flash_attention", "flash_attention_bwd"],
              "b7bwd": ["wkv6", "wkv6_bwd"],
-             "b6wide": ["flash_attention"], "b7wide": ["wkv6"]}
+             "b6wide": ["flash_attention"], "b7wide": ["wkv6"],
+             "b6bwdwide": ["flash_attention", "flash_attention_bwd"],
+             "b7bwdwide": ["wkv6", "wkv6_bwd"]}
     build.build(sorted({n for k in todo for n in names[k]}))
     out = {"tree": str(root)}
     if "b3" in todo:
@@ -193,6 +218,10 @@ def main() -> None:
         _b6_wide(out)
     if "b7wide" in todo:
         _b7_wide(out)
+    if "b6bwdwide" in todo:
+        _b6_bwd_wide(out)
+    if "b7bwdwide" in todo:
+        _b7_bwd_wide(out)
     if todo & {"b2", "b5"}:
         _b2_b5(out, todo)
     print(json.dumps(out))
@@ -201,13 +230,10 @@ def main() -> None:
 def _b6_bwd(out) -> None:
     """B6's backward at chip_smoke.py's training-path shapes, bf16."""
     import inspect
-    import re
     import time
 
     import chip_smoke as cs
-    from torch.autograd import DeviceType
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.flash_attention import ops
 
@@ -231,19 +257,8 @@ def _b6_bwd(out) -> None:
         for _ in range(20):
             call()
         out[f"b6bwd_{name}_host_ms"] = 1e3 * (time.perf_counter() - t0) / 20
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as p:
-            for _ in range(5):
-                call()
-            torch.cuda.synchronize()
-        total = 0.0
-        for e in p.key_averages():
-            m = re.search(r"bwd_(delta|dq|dkdv|reduce)\w*_kernel", e.key)
-            if e.device_type == DeviceType.CUDA and m:
-                key = f"b6bwd_{name}_{m.group(1)}_ms"
-                out[key] = out.get(key, 0.0) + e.self_device_time_total / 5e3
-                total += e.self_device_time_total / 5e3
-        out[f"b6bwd_{name}_device_ms"] = total
+        _by_kernel(call, r"bwd_(delta|dq|dkdv|reduce)\w*_kernel",
+                   f"b6bwd_{name}", out)
         for backend in (SDPBackend.FLASH_ATTENTION,
                         SDPBackend.EFFICIENT_ATTENTION,
                         SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
@@ -255,13 +270,7 @@ def _b6_bwd(out) -> None:
                 continue
             key = f"sdpa_{name}_{backend.name.lower()}"
             out[f"{key}_ms"] = _events_ms(fn, 20, 3)
-            with profile(activities=[ProfilerActivity.CUDA]) as p:
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-            out[f"{key}_device_ms"] = sum(
-                e.self_device_time_total for e in p.key_averages()
-                if e.device_type == DeviceType.CUDA) / 5e3
+            out[f"{key}_device_ms"] = _profiled_ms(fn, None)
             del fn
         del q, k, v, o, do, kw
         torch.cuda.empty_cache()
@@ -270,12 +279,9 @@ def _b6_bwd(out) -> None:
 def _b7_bwd(out) -> None:
     """B7's backward at rwkv6-3b's training call; B7's forward bits."""
     import hashlib
-    import re
     import time
 
     import chip_smoke as cs
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.wkv6 import ops
 
@@ -306,19 +312,7 @@ def _b7_bwd(out) -> None:
     for _ in range(20):
         call()
     out["b7bwd_host_ms"] = 1e3 * (time.perf_counter() - t0) / 20
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        for _ in range(5):
-            call()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in p.key_averages():
-        if e.device_type == DeviceType.CUDA and "wkv6_bwd" in e.key:
-            m = re.search(r"(wkv6_bwd\w*kernel)", e.key)
-            key = f"b7bwd_{m.group(1) if m else e.key[:40]}_ms"
-            out[key] = out.get(key, 0.0) + e.self_device_time_total / 5e3
-            total += e.self_device_time_total / 5e3
-    out["b7bwd_device_ms"] = total
+    _by_kernel(call, r"(wkv6_bwd\w*kernel)", "b7bwd", out)
 
     out["b7bwd_wrapper_ms"] = _events_ms(
         lambda: ops.wkv6_bwd(r, k, v, lw, u, None, dy), 20, 3)
@@ -385,6 +379,142 @@ def _b7_wide(out) -> None:
         out[f"{tag}_plain_ms"] = _events_ms(
             lambda: ops.wkv6_chunked(r, k, v, lw, u, s0), 3, 1)
         del r, k, v, lw, u, s0, y, s
+        torch.cuda.empty_cache()
+
+
+def _by_kernel(fn, pattern, key, out, reps=5) -> None:
+    """Each CUDA kernel of a call of ``fn`` whose name ``pattern`` finds,
+    its device time a call under ``torch.profiler`` as
+    ``<key>_<group 1>_ms``, and their sum as ``<key>_device_ms``."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in p.key_averages():
+        m = re.search(pattern, e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            k = f"{key}_{m.group(1)}_ms"
+            out[k] = out.get(k, 0.0) + e.self_device_time_total / 1e3 / reps
+            total += e.self_device_time_total / 1e3 / reps
+    out[f"{key}_device_ms"] = total
+
+
+def _b6_bwd_wide(out) -> None:
+    """B6's backward above head dim 256 at chip_smoke.py's d512 shape, both
+    dtypes, beside SDPA's backward under each backend."""
+    import chip_smoke as cs
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 25)
+    shape = cs.FA_PATH_SHAPES["d512"]
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        q, k, v = cs._fa_inputs(gen, shape, dtype)
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        key = f"b6bwdwide_{tag}"
+        try:
+            if dtype == torch.bfloat16:
+                o, lse = ops.attention_with_lse(q, k, v)
+            else:
+                o, lse = ops.attention(q, k, v), None
+
+            def call():
+                ops.attention_bwd(q, k, v, o, do, lse=lse)
+
+            call()
+            out[f"{key}_ms"] = _events_ms(call, 20, 3)
+            _by_kernel(call, r"(bwd_\w+?_kernel)", key, out)
+            if dtype == torch.float32:
+                # the same call over every key (twice the query-key
+                # pairs, each dK / dV block the causal first tile's walk)
+                o_full = ops.attention(q, k, v, causal=False)
+
+                def full():
+                    ops.attention_bwd(q, k, v, o_full, do, causal=False)
+
+                full()
+                _by_kernel(full, r"(bwd_\w+?_kernel)", f"{key}_full", out)
+                for causal in (True, False):
+                    for kern, n in _f32_wide_staged(shape, causal).items():
+                        out[f"{key}{'' if causal else '_full'}_{kern}_"
+                            "staged_bytes"] = n
+                del o_full
+        except (NotImplementedError, ValueError) as e:
+            out[f"{key}_error"] = f"{type(e).__name__}: {str(e)[:120]}"
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            try:
+                with sdpa_kernel([backend]):
+                    fn = cs._sdpa_bwd(q, k, v, do, shape)
+                    fn()
+            except RuntimeError:
+                continue
+            sk = f"sdpa_bwd_d512_{tag}_{backend.name.lower()}"
+            out[f"{sk}_ms"] = _events_ms(fn, 20, 3)
+            out[f"{sk}_device_ms"] = _profiled_ms(fn, None)
+            del fn
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+
+def _f32_wide_staged(shape, causal) -> dict:
+    """Bytes the float32 ``wide`` backward kernels of
+    ``flash_attention_bwd.cu`` stage from global memory into shared memory
+    in one call, counted from their loops (32-row tiles, 64-column score
+    slices, 512-column passes): per visible (query tile, key tile) pair
+    and column pass, ``bwd_dq_wide_simt_kernel`` stages Q and K for the
+    statistics, Q, K, dO and V for P and dP, and K over the pass's
+    columns; ``bwd_dkdv_wide_simt_kernel`` Q, K, dO and V for P and dP
+    and Q and dO over the pass's columns (for each of the group's heads)."""
+    B, H, Hkv, S, D = shape[:5]
+    tiles = -(-S // 32)
+    pairs = tiles * (tiles + 1) // 2 if causal else tiles * tiles
+    slices, passes = -(-D // 64), -(-D // 512)
+    tile = 32 * 64 * 4  # bytes of one 32 x 64 float32 slice
+    per_pass = {"bwd_dq_wide_simt_kernel": (6 * slices + 8) * tile,
+                "bwd_dkdv_wide_simt_kernel": (4 * slices + 16) * tile}
+    return {k: B * H * pairs * passes * n for k, n in per_pass.items()}
+
+
+def _b7_bwd_wide(out) -> None:
+    """B7's backward above head dim 64 at chip_smoke.py's
+    WKV_BWD_WIDE_PATH, the training call (no s0 / ds_fin)."""
+    import chip_smoke as cs
+
+    from repro_torch.kernels.wkv6 import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 26)
+    shapes = dict(cs.WKV_BWD_WIDE_PATH, big=cs.WKV_BWD_WIDE_BIG)
+    for name, shape in shapes.items():
+        r, k, v, lw, u, _ = cs._wkv6_inputs(gen, shape)
+        dy = torch.randn(shape, generator=gen, device="cuda")
+        key = f"b7bwdwide_{name}"
+
+        def call():
+            ops.wkv6_bwd(r, k, v, lw, u, None, dy)
+
+        try:
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            call()
+            torch.cuda.synchronize()
+            out[f"{key}_peak_bytes"] = torch.cuda.max_memory_allocated() - held
+            out[f"{key}_ms"] = _events_ms(call, 10, 2)
+            _by_kernel(call, r"(wkv6_bwd\w*?_kernel)", key, out)
+        except (NotImplementedError, RuntimeError) as e:
+            out[f"{key}_error"] = f"{type(e).__name__}: {str(e)[:120]}"
+        del r, k, v, lw, u, dy
         torch.cuda.empty_cache()
 
 

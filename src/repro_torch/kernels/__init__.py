@@ -48,13 +48,21 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
     # B6's backward, each launch by name: bf16 ("wgmma" variant) the Δ
     # pre-pass, the dQ and dK / dV kernels and, for grouped heads, the
-    # group sum; float32 ("simt") its dQ and dK / dV kernels
+    # group sum; float32 ("simt") its dQ and dK / dV kernels; above head
+    # dim 256 ("wide") the bf16 Δ, wide_dq, wide_dkdv and group sum, the
+    # float32 wide_simt_dq and wide_simt_dkdv
     "flash_attention_bwd": {"delta": 0, "dq": 0, "dkdv": 0, "reduce": 0,
-                            "simt_dq": 0, "simt_dkdv": 0},
+                            "simt_dq": 0, "simt_dkdv": 0, "wide_dq": 0,
+                            "wide_dkdv": 0, "wide_simt_dq": 0,
+                            "wide_simt_dkdv": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide_chunk": 0, "wide_step": 0},
-    # B7's backward, each launch by name: the chunks in order ("fwd") and
-    # in reverse ("rev"), built at head dim 64 (a smaller D zero-padded)
-    "wkv6_bwd": {"fwd": 0, "rev": 0},
+    # B7's backward, each launch by name: at head dim 64 (a smaller D
+    # zero-padded) the chunks in order ("fwd") and in reverse ("rev");
+    # above it the value columns split over blocks, the two sweeps
+    # ("wide_fwd", "wide_rev") and the ordered sum of their partials
+    # ("wide_reduce")
+    "wkv6_bwd": {"fwd": 0, "rev": 0, "wide_fwd": 0, "wide_rev": 0,
+                 "wide_reduce": 0},
     # B2 from keys (the Feistel walk and the rank) or from shard ids
     "route_rank": {"keys": 0, "shards": 0},
     # B5 from signatures (the ids hashed in the kernel) or from ids

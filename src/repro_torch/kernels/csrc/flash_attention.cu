@@ -66,7 +66,7 @@
 // In 1, 2 and 4b the weights P are rounded to bf16 for the PV product (the
 // reference model's gqa_attention rounds them the same way); the
 // denominator l sums the float32 P.
-// Under autograd 1 and 2 also write each row's log-sum-exp,
+// Under autograd 1, 2 and 4b also write each row's log-sum-exp,
 // lse = (m + log2 l) ln 2 (+inf for a row that sees no key), for the
 // backward (flash_attention_bwd.cu); with a null pointer they write
 // nothing and the output's bits are the same either way.
@@ -1273,6 +1273,10 @@ __global__ void __launch_bounds__(384, 1)
       const float s0 = quad_sum(l0), s1 = quad_sum(l1);
       const float i0 = 1.0f / fmaxf(s0, 1e-30f);
       const float i1 = 1.0f / fmaxf(s1, 1e-30f);
+      // both consumers and every column pass hold the same m and l: the
+      // first pass's consumer 0 writes the rows' lse
+      if (p.lse != nullptr && c == 0 && v0 == 0 && tig == 0)
+        store_lse(p, b, h, row0, row1, m0, s0, m1, s1);
       __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
                           (long long)b * p.so[0] + (long long)h * p.so[1];
 #pragma unroll
@@ -1337,7 +1341,7 @@ int launch_simt(const Params& p, dim3 grid, cudaStream_t st) {
 // columns of a block); grid and threads as the wrapper planned them (checked
 // here against the instantiation's tiles).  window is read when has_window
 // is set.  lse: null, or a (B, H, S) float32 output of each row's
-// log-sum-exp (bf16 instantiations 1 and 2 only).  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
+// log-sum-exp (bf16 instantiations 1, 2 and 4 only).  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
 // does not fit the instantiation (tile, grid, D, strides or alignment) or a
 // tensor map the driver refuses.
 extern "C" int flash_attention_launch(
@@ -1352,7 +1356,7 @@ extern "C" int flash_attention_launch(
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 ||
       (D > tile_d && variant < 3) || grid_y > 65535 ||
-      (lse != nullptr && variant != 1 && variant != 2))
+      (lse != nullptr && variant != 1 && variant != 2 && variant != 4))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;

@@ -80,9 +80,34 @@
 // place.  Any output may be null (not computed; a kernel none of whose
 // outputs is asked for is not launched); s0 and ds_fin null mean zero.
 // du's per-(b, h) partials go to du_part (B, H, D), summed over b by the
-// wrapper: no atomics, so two runs give the same bits.  Only D = 64 is
-// built (RWKV_HEAD_DIM, every registry model's); the wrapper zero-pads a
-// smaller D and refuses a wider one.
+// wrapper: no atomics, so two runs give the same bits.  The kernels above
+// are built for D = 64 (RWKV_HEAD_DIM, every registry model's); the
+// wrapper zero-pads a smaller D.
+//
+// Above D = 64 ("wide", section 3 below): the block above keeps a (b, h)'s
+// D x D state on chip -- 64 KB at D = 128, 256 KB at 256, more than a
+// block holds.  Column j of S evolves alone in the forward sweep and of
+// dS in the reverse one, so a block owns 16 value columns J of a (b, h)
+// and carries S[:, J] or dS[:, J] in registers over all its channels: 8
+// warps, each the 16 channels 128 s + 16 warp .. of every 128-channel
+// slice s, the slices staged in turn through a two-item cp.async ring
+// (at D <= 128 two blocks share an SM).  A block holds up to 16 slices
+// (2,048 channels); a wider head takes channel passes.  The
+// same chunk-16 formulas with every sum over the value columns taken over
+// J only: dr, dk, dlw (its P_fin and q, so its own suffix sums) and du
+// are each group's partials, written to scratch; dv, a sum over the
+// channels, is whole in a block (the warps' partials of (k e^{L-cum}) dS,
+// k~ r~ᵀ and the bonus added in warp order through shared memory), or a
+// channel pass's partial.  wkv6_bwd_wide_fwd_kernel and
+// wkv6_bwd_wide_rev_kernel run the two sweeps; wkv6_bwd_wide_reduce_kernel
+// adds the partials in group (pass) order.  The wrapper zero-pads D
+// above 64 to a multiple of 4.  The partials are 3 B·H·T·D floats for
+// each of the D / 16 groups (0.5 GB at (2, 20, 1024, 128)), a size that
+// grows as D²; past WB_SCRATCH_CAP floats (1 GiB) the groups run in
+// batches, each batch's sweeps then its sum, which continues the
+// previous batches' sums from the outputs in the same order: the same
+// bits as one batch, scratch bounded by the cap or one group's partials.
+// r, k, lw are staged again by each group's block from L2.
 //
 // Bound on the H100: r, k, v, lw, dy read and dr, dk, dv, dlw written
 // (9 · B·H·T·D floats) at 3.35 TB/s, against 12 D² FLOP a (b, h, t) on
@@ -992,14 +1017,897 @@ int launch_rev(const Args& a, int BH, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 3. D > 64 ("wide"): the value columns split across blocks
+// ---------------------------------------------------------------------------
+
+// Column j of S and of dS is a closed recurrence in both sweeps, so a block
+// owns 16 value columns J of one (b, h) and carries S[:, J] (forward sweep)
+// or dS[:, J] (reverse sweep) over all of its channels: 8 warps, each the
+// 16 channels 128 s + 16 warp .. + 15 of every 128-channel slice s, the
+// slices staged in turn through a two-item cp.async ring (item = chunk,
+// slice): the next item lands while this one computes.  At D <= 128 (one
+// slice) each sweep's shared memory fits two blocks on an SM, so its 8
+// warps are not alone there.  A block holds up to
+// WB_MAX_SLICES slices (2,048 channels); a wider head takes channel passes
+// (blocks), each over its own channels.  What sums over the value columns
+// -- dr, dk, dlw (q and P_fin with it) and du -- each block writes as its
+// group's partial; dv, which sums over the channels, each block forms
+// whole (the warps' partials added in warp order through shared memory),
+// or, with channel passes, as its pass's partial.  A last launch
+// (wkv6_bwd_wide_reduce_kernel) adds the partials in group (pass) order:
+// no atomics, two runs the same bits.  Every product is 3xTF32 mma.sync.
+constexpr int WB_SLICE = 128;          // channels of a staged slice
+constexpr int WB_WARPS = 8;            // 16 channels of each slice a warp
+constexpr int WB_NT = 32 * WB_WARPS;
+constexpr int WB_COLS = 16;            // value columns a block
+constexpr int WB_MAX_SLICES = 16;      // channels a block: 2,048
+constexpr int WB_STAGES = 2;
+constexpr int WB_LD = WB_SLICE + 8;    // row stride of a slice tile
+constexpr int WB_LV = WB_COLS + 8;     // row stride of a 16-column tile
+constexpr int WB_TILE = CHUNK * WB_LD;
+// a ring item: r, k, lw rows of the slice, then its e^{L} (by channel)
+constexpr int WB_STAGE = 3 * WB_TILE + WB_SLICE;
+constexpr int WB_VBUF = 2 * CHUNK * WB_LV;  // a chunk's v and dy (J)
+// floats of group partials a call's scratch holds at most, unless one
+// group's alone need more: past it the groups run in batches
+constexpr long long WB_SCRATCH_CAP = 1LL << 28;
+
+struct WideArgs {
+  const float* in[NIN];  // r, k, lw, v, dy: (B, H, T, D) through strides
+  long long si[NIN][3];
+  const float* u;        // (H, D)
+  const float* s0;       // (B, H, D, D) contiguous, or null (zeros)
+  const float* ds_fin;   // (B, H, D, D) contiguous, or null (zeros)
+  float* dv;             // (B, H, T, D) through sdv (one channel pass), or null
+  long long sdv[3];
+  float* ds0;            // (B, H, D, D) contiguous, or null
+  // partials, each (groups or passes, B, H, T, D) contiguous, or null:
+  // dr's and dk's, q then dlw's (row 0: P_fin's), dv's (channel passes)
+  float* drp;
+  float* dkp;
+  float* qp;
+  float* dvp;
+  float* dup;  // (G, B, H, D) du's, or null
+  int H, T, D;
+  int g0;      // the batch's first value column group (blockIdx.y = 0)
+};
+
+// per block: (b, h), the first value column, the first channel
+struct WideBlock {
+  long long b;
+  int h, bh, jb, cb;
+  __device__ __forceinline__ WideBlock(const WideArgs& a) {
+    bh = blockIdx.x;
+    b = bh / a.H;
+    h = bh % a.H;
+    jb = (a.g0 + blockIdx.y) * WB_COLS;
+    cb = blockIdx.z * WB_MAX_SLICES * WB_SLICE;
+  }
+  // offset of (t, channel ch) in a (groups, B, H, T, D) partial's group g
+  // (of the batch)
+  __device__ __forceinline__ long long part(const WideArgs& a, int g, int t,
+                                            int ch) const {
+    return (((long long)g * gridDim.x + bh) * a.T + t) * a.D + ch;
+  }
+};
+
+// ring item it = (chunk c, slice s): r, k, lw rows c·16 .. + 15 at the
+// slice's channels into a stage and, with slice 0, the chunk's v and dy at
+// the block's columns into vbuf[c % 3]; rows past T and channels past D
+// are zeros
+__device__ __forceinline__ void wb_stage(float* stg, float* vbuf,
+                                         const WideArgs& a,
+                                         const WideBlock& w, int c, int s) {
+  constexpr int PR = WB_SLICE / 4;  // 16-byte pieces of a row
+  const int t0 = c * CHUNK, c0 = w.cb + s * WB_SLICE;
+  const int xs[3] = {0, 1, 2};  // r, k, lw
+#pragma unroll
+  for (int x = 0; x < 3; ++x) {
+    const float* g = a.in[xs[x]] + w.b * a.si[xs[x]][0] + w.h * a.si[xs[x]][1];
+#pragma unroll
+    for (int e = threadIdx.x; e < CHUNK * PR; e += WB_NT) {
+      const int t = e / PR, p = 4 * (e % PR);
+      const bool ok = t0 + t < a.T && c0 + p < a.D;
+      cp_async16(stg + x * WB_TILE + t * WB_LD + p,
+                 g + (ok ? (long long)(t0 + t) * a.si[xs[x]][2] + c0 + p : 0),
+                 ok);
+    }
+  }
+  if (s == 0 && threadIdx.x < 2 * CHUNK * 4) {
+    const int x = threadIdx.x < CHUNK * 4 ? 3 : 4;  // v, dy
+    const int e = threadIdx.x % (CHUNK * 4), t = e / 4, p = 4 * (e % 4);
+    const bool ok = t0 + t < a.T && w.jb + p < a.D;
+    const float* g = a.in[x] + w.b * a.si[x][0] + w.h * a.si[x][1];
+    cp_async16(vbuf + (c % 3) * WB_VBUF + (x - 3) * CHUNK * WB_LV + t * WB_LV + p,
+               g + (ok ? (long long)(t0 + t) * a.si[x][2] + w.jb + p : 0), ok);
+  }
+  cp_async_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a warp's 16 channels of the staged slice, two lanes a channel (rows 0 ..
+// 7 and 8 .. 15): half_prefix over the lane's 8 rows of lw
+__device__ __forceinline__ float wb_prefix(const float* ls, int ch, int r0,
+                                           int lane, float (&cum)[HALF],
+                                           float (&prev)[HALF]) {
+  float lv[HALF];
+#pragma unroll
+  for (int t = 0; t < HALF; ++t) lv[t] = ls[(r0 + t) * WB_LD + ch];
+  return half_prefix(lv, cum, prev, lane & 16);
+}
+
+// the chunk's 16 x 16 product P Qᵀ over the block's 16 columns (P, Q
+// tiles of row stride WB_LV) as two accumulator tiles (columns 8x ..), the
+// k index permuted as pqt_tile's
+__device__ __forceinline__ void wb_pqt(const float* P, const float* Q,
+                                       int gid, int tig, float (&acc)[2][4]) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[x][e] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float2 p0 =
+        *reinterpret_cast<const float2*>(P + gid * WB_LV + 8 * n + 2 * tig);
+    const float2 p1 = *reinterpret_cast<const float2*>(
+        P + (gid + 8) * WB_LV + 8 * n + 2 * tig);
+    const FragA fa(p0.x, p1.x, p0.y, p1.y);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float2 q0 = *reinterpret_cast<const float2*>(
+          Q + (8 * x + gid) * WB_LV + 8 * n + 2 * tig);
+      mma3(acc[x], fa, FragB(q0.x, q0.y));
+    }
+  }
+}
+
+// v_t · dy_t over the block's columns for rows gid and gid + 8
+__device__ __forceinline__ void wb_vdy(const float* vs, const float* ys,
+                                       int gid, float (&vdy)[2]) {
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float x = 0.0f;
+#pragma unroll
+    for (int j = 0; j < WB_COLS; ++j)
+      x = fmaf(vs[(gid + 8 * hf) * WB_LV + j], ys[(gid + 8 * hf) * WB_LV + j], x);
+    vdy[hf] = x;
+  }
+}
+
+// 3a. the forward sweep: each group's partial dr and q (in dlw's partial
+// rows; row 0 P_fin), du's partial
+template <int NSL>
+__global__ void __launch_bounds__(WB_NT, NSL == 1 ? 2 : 1)
+    wkv6_bwd_wide_fwd_kernel(WideArgs a) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* vbuf = sm + WB_STAGES * WB_STAGE;      // [3][v, dy][16][LV]
+  float* kts = vbuf + 3 * WB_VBUF;             // k~ of the item [16][LD]
+  float* us = kts + WB_TILE;                   // u [NSL·128]
+  float* dus = us + NSL * WB_SLICE;            // du's partial [NSL·128]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const WideBlock w(a);
+  const int T = a.T, nc = (T + CHUNK - 1) / CHUNK;
+  for (int i = tid; i < NSL * WB_SLICE; i += WB_NT) {
+    const int ch = w.cb + i;
+    us[i] = ch < a.D ? a.u[(long long)w.h * a.D + ch] : 0.0f;
+    dus[i] = 0.0f;
+  }
+
+  // st[s][n][e] = S[cb + 128 s + 16 warp + gid + 8 (e >> 1)][jb + 8 n + 2
+  // tig + (e & 1)]: rows are channels, as the D = 64 kernel's
+  float st[NSL][2][4];
+  const long long sbase = (long long)w.bh * a.D * a.D;
+#pragma unroll
+  for (int s = 0; s < NSL; ++s)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = w.cb + WB_SLICE * s + 16 * warp + gid + 8 * (e >> 1);
+        const int col = w.jb + 8 * n + 2 * tig + (e & 1);
+        st[s][n][e] = a.s0 != nullptr && ch < a.D && col < a.D
+                          ? a.s0[sbase + (long long)ch * a.D + col]
+                          : 0.0f;
+      }
+
+  const int items = nc * NSL;
+#pragma unroll
+  for (int i = 0; i < WB_STAGES - 1; ++i) {
+    if (i < items)
+      wb_stage(sm + i * WB_STAGE, vbuf, a, w, i / NSL, i % NSL);
+    else
+      cp_async_commit();
+  }
+  for (int c = 0; c < nc; ++c) {
+    const float* vs = vbuf + (c % 3) * WB_VBUF;
+    const float* ys = vs + CHUNK * WB_LV;
+    const int t0 = c * CHUNK;
+    float ay[2][4], vdy[2];
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) {
+      const int it = c * NSL + s;
+      cp_async_wait_n<WB_STAGES - 2>();
+      __syncthreads();  // item it has landed; item it - 1 is done with
+      {
+        const int nx = it + WB_STAGES - 1;
+        if (nx < items)
+          wb_stage(sm + (nx % WB_STAGES) * WB_STAGE, vbuf, a, w, nx / NSL,
+                   nx % NSL);
+        else
+          cp_async_commit();
+      }
+      if (s == 0) {
+        // tril_{-1}(dy vᵀ) over the block's columns, and vdy
+        wb_pqt(ys, vs, gid, tig, ay);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!(acc_col(x, tig, e) < acc_row(gid, e))) ay[x][e] = 0.0f;
+        wb_vdy(vs, ys, gid, vdy);
+      }
+      float* rs = sm + (it % WB_STAGES) * WB_STAGE;
+      const float* ks = rs + WB_TILE;
+      float* ls = rs + 2 * WB_TILE;
+      float* decay = rs + 3 * WB_TILE;
+      const int cw = 16 * warp;  // the warp's channels in the slice
+
+      // a. prefixes: e^{cp} over lw, k~, e^{L}
+      {
+        const int ch = cw + (lane & 15), r0 = HALF * (lane >> 4);
+        float cum[HALF], prev[HALF];
+        const float tot = wb_prefix(ls, ch, r0, lane, cum, prev);
+#pragma unroll
+        for (int t = 0; t < HALF; ++t) {
+          const int o = (r0 + t) * WB_LD + ch;
+          ls[o] = exp2f(prev[t]);
+          kts[o] = ks[o] * exp2f(-cum[t]);
+        }
+        if (lane >> 4) decay[ch] = exp2f(tot);
+      }
+      __syncwarp();
+
+      // b. X = dy Sᵀ + tril_{-1}(dy vᵀ) k~ (t, the warp's channels)
+      float xc[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xc[x][e] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float2 y0 =
+            *reinterpret_cast<const float2*>(ys + gid * WB_LV + 8 * n + 2 * tig);
+        const float2 y1 = *reinterpret_cast<const float2*>(
+            ys + (gid + 8) * WB_LV + 8 * n + 2 * tig);
+        const FragA fy(y0.x, y1.x, y0.y, y1.y);
+        mma3x2(xc[0], fy, FragB(st[s][n][0], st[s][n][1]), xc[1], fy,
+               FragB(st[s][n][2], st[s][n][3]));
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const FragA fa(ay[x][0], ay[x][2], ay[x][1], ay[x][3]);
+        const float* kr = kts + (8 * x + 2 * tig) * WB_LD + cw + gid;
+        mma3x2(xc[0], fa, FragB(kr[0], kr[WB_LD]), xc[1], fa,
+               FragB(kr[8], kr[WB_LD + 8]));
+      }
+
+      // c. dr' = e^{cp} X; dr's and q's partials; du's
+      float dr[2][4];
+      float du[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // channels 8x + 2 tig + q
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int o = acc_row(gid, e) * WB_LD + cw + acc_col(x, tig, e);
+          const float drp = xc[x][e] * ls[o];
+          const float rv = rs[o], kv = ks[o];
+          du[2 * x + (e & 1)] =
+              fmaf(rv * kv, vdy[e >> 1], du[2 * x + (e & 1)]);
+          dr[x][e] = fmaf(us[WB_SLICE * s + cw + acc_col(x, tig, e)] * kv,
+                          vdy[e >> 1], drp);
+          xc[x][e] = rv * drp;  // q
+        }
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        du[x] += __shfl_xor_sync(FULL, du[x], 4);
+        du[x] += __shfl_xor_sync(FULL, du[x], 8);
+        du[x] += __shfl_xor_sync(FULL, du[x], 16);
+      }
+      if (gid == 0)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            dus[WB_SLICE * s + cw + 8 * x + 2 * tig + q] += du[2 * x + q];
+      const int chg = w.cb + WB_SLICE * s + cw;  // the warp's first channel
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int t = t0 + gid + 8 * hf;
+        if (t >= T) continue;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int ch = chg + 8 * x + 2 * tig;  // D is even: ch + 1 < D too
+          if (ch >= a.D) continue;
+          const long long o = w.part(a, blockIdx.y, t, ch);
+          if (a.drp != nullptr)
+            *reinterpret_cast<float2*>(a.drp + o) =
+                make_float2(dr[x][2 * hf], dr[x][2 * hf + 1]);
+          if (a.qp != nullptr && t > 0)
+            *reinterpret_cast<float2*>(a.qp + o) =
+                make_float2(xc[x][2 * hf], xc[x][2 * hf + 1]);
+        }
+      }
+
+      // d. S <- e^{L} (S + k~ᵀ v)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int t = 8 * kk + tig;
+        const FragA fk(kts[t * WB_LD + cw + gid], kts[t * WB_LD + cw + gid + 8],
+                       kts[(t + 4) * WB_LD + cw + gid],
+                       kts[(t + 4) * WB_LD + cw + gid + 8]);
+        const float* v0 = vs + t * WB_LV + gid;
+        mma3x2(st[s][0], fk, FragB(v0[0], v0[4 * WB_LV]), st[s][1], fk,
+               FragB(v0[8], v0[4 * WB_LV + 8]));
+      }
+      const float d0 = decay[cw + gid], d1 = decay[cw + gid + 8];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        st[s][n][0] *= d0;
+        st[s][n][1] *= d0;
+        st[s][n][2] *= d1;
+        st[s][n][3] *= d1;
+      }
+      __syncwarp();  // k~ is read; the next item overwrites it
+    }
+  }
+
+  // S is S_{T-1}: P_fin's partial Σ_{j in J} ds_fin S_{T-1} into q's row 0
+  if (a.qp != nullptr && T > 0)
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) {
+      const int ch = w.cb + WB_SLICE * s + 16 * warp + gid;
+      float pf[2] = {0.0f, 0.0f};
+      if (a.ds_fin != nullptr)
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = ch + 8 * (e >> 1);
+            const int col = w.jb + 8 * n + 2 * tig + (e & 1);
+            if (r < a.D && col < a.D)
+              pf[e >> 1] =
+                  fmaf(a.ds_fin[sbase + (long long)r * a.D + col], st[s][n][e],
+                       pf[e >> 1]);
+          }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        pf[hf] += __shfl_xor_sync(FULL, pf[hf], 1);
+        pf[hf] += __shfl_xor_sync(FULL, pf[hf], 2);
+      }
+      if (tig == 0)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          if (ch + 8 * hf < a.D)
+            a.qp[w.part(a, blockIdx.y, 0, ch + 8 * hf)] = pf[hf];
+    }
+  if (a.dup != nullptr) {
+    __syncthreads();
+    for (int i = tid; i < NSL * WB_SLICE; i += WB_NT)
+      if (w.cb + i < a.D)
+        a.dup[((long long)blockIdx.y * gridDim.x + w.bh) * a.D + w.cb + i] =
+            dus[i];
+  }
+}
+
+// 3b. the reverse sweep: each group's partial dk and dlw (over q's rows),
+// dv (whole, or its channel pass's partial), ds0 at the block's columns
+template <int NSL>
+__global__ void __launch_bounds__(WB_NT, NSL == 1 ? 2 : 1)
+    wkv6_bwd_wide_rev_kernel(WideArgs a, int want_dk, int want_dlw) {
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* vbuf = sm + WB_STAGES * WB_STAGE;  // [3][v, dy][16][LV]
+  float* der = vbuf + 3 * WB_VBUF;  // r~, k~ (then k ⊙ dk'), e^{-cum}, e^{L-cum}
+  float* dsw = der + 4 * WB_TILE;   // each warp's dS [8][16][LV]
+  float* bsum = dsw + WB_WARPS * CHUNK * WB_LV;  // [8][16]
+  float* us = bsum + WB_WARPS * CHUNK;           // u [NSL·128]
+  // the warps' chunk-end partials [8][4][32] go over the derived tiles,
+  // which a chunk's end no longer reads
+  float4* part = reinterpret_cast<float4*>(der);
+  float* rt = der;
+  float* kt = der + WB_TILE;
+  float* kdk = kt;
+  float* emc = der + 2 * WB_TILE;
+  float* elc = der + 3 * WB_TILE;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const WideBlock w(a);
+  const int T = a.T, nc = (T + CHUNK - 1) / CHUNK;
+  const int cw = 16 * warp;
+  for (int i = tid; i < NSL * WB_SLICE; i += WB_NT) {
+    const int ch = w.cb + i;
+    us[i] = ch < a.D ? a.u[(long long)w.h * a.D + ch] : 0.0f;
+  }
+
+  float ds[NSL][2][4];
+  const long long sbase = (long long)w.bh * a.D * a.D;
+#pragma unroll
+  for (int s = 0; s < NSL; ++s)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ch = w.cb + WB_SLICE * s + cw + gid + 8 * (e >> 1);
+        const int col = w.jb + 8 * n + 2 * tig + (e & 1);
+        ds[s][n][e] = a.ds_fin != nullptr && ch < a.D && col < a.D
+                          ? a.ds_fin[sbase + (long long)ch * a.D + col]
+                          : 0.0f;
+      }
+  // dlw: lanes 0 .. 15 a channel each, P from P_fin's partial in q's row 0
+  const bool scan = want_dlw && lane < 16;
+  float P[NSL];
+#pragma unroll
+  for (int s = 0; s < NSL; ++s) {
+    const int ch = w.cb + WB_SLICE * s + cw + lane;
+    P[s] = scan && T > 0 && ch < a.D ? a.qp[w.part(a, blockIdx.y, 0, ch)]
+                                     : 0.0f;
+  }
+  __syncthreads();  // u
+
+  const int items = nc * NSL;
+#pragma unroll
+  for (int i = 0; i < WB_STAGES - 1; ++i) {
+    if (i < items)
+      wb_stage(sm + i * WB_STAGE, vbuf, a, w, nc - 1 - i / NSL, i % NSL);
+    else
+      cp_async_commit();
+  }
+  for (int step = 0; step < nc; ++step) {
+    const int c = nc - 1 - step;
+    const float* vs = vbuf + (c % 3) * WB_VBUF;
+    const float* ys = vs + CHUNK * WB_LV;
+    const int t0 = c * CHUNK, n_rows = min(CHUNK, T - t0);
+    float av[2][4], vdy[2];
+    // the chunk's partial sums over the warp's channels: V = (k e^{L-cum})
+    // dS (t, j), K = k~ r~ᵀ (t, s), the bonus Σ r u k of rows 8 (lane >>
+    // 4) + t
+    float vw[2][4], aw[2][4], bp[HALF];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vw[x][e] = aw[x][e] = 0.0f;
+#pragma unroll
+    for (int t = 0; t < HALF; ++t) bp[t] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) {
+      const int it = step * NSL + s;
+      cp_async_wait_n<WB_STAGES - 2>();
+      __syncthreads();
+      {
+        const int nx = it + WB_STAGES - 1;
+        if (nx < items)
+          wb_stage(sm + (nx % WB_STAGES) * WB_STAGE, vbuf, a, w,
+                   nc - 1 - nx / NSL, nx % NSL);
+        else
+          cp_async_commit();
+      }
+      if (s == 0) {
+        // triu_{+1}(v dyᵀ) over the block's columns, and vdy
+        wb_pqt(vs, ys, gid, tig, av);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!(acc_col(x, tig, e) > acc_row(gid, e))) av[x][e] = 0.0f;
+        wb_vdy(vs, ys, gid, vdy);
+      }
+      float* rs = sm + (it % WB_STAGES) * WB_STAGE;
+      const float* ks = rs + WB_TILE;
+      const float* ls = rs + 2 * WB_TILE;
+      float* decay = rs + 3 * WB_TILE;
+
+      // a. prefixes: r~, k~, k e^{L-cum}, e^{-cum}, e^{L-cum}, e^{L}; the
+      //    bonus terms of the lane's rows
+      {
+        const int ch = cw + (lane & 15), r0 = HALF * (lane >> 4);
+        const float uu = us[WB_SLICE * s + ch];
+        float cum[HALF], prev[HALF];
+        const float tot = wb_prefix(ls, ch, r0, lane, cum, prev);
+#pragma unroll
+        for (int t = 0; t < HALF; ++t) {
+          const int o = (r0 + t) * WB_LD + ch;
+          const float rv = rs[o], kv = ks[o];
+          const float em = exp2f(-cum[t]), el = exp2f(tot - cum[t]);
+          bp[t] = fmaf(rv * uu, kv, bp[t]);
+          rt[o] = rv * exp2f(prev[t]);
+          kt[o] = kv * em;
+          emc[o] = em;
+          elc[o] = el;
+        }
+        if (lane >> 4) decay[ch] = exp2f(tot);
+      }
+      // the warp's rows of dS at the chunk's end, for V
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          *reinterpret_cast<float2*>(dsw + warp * CHUNK * WB_LV +
+                                     (gid + 8 * hf) * WB_LV + 8 * n + 2 * tig) =
+              make_float2(ds[s][n][2 * hf], ds[s][n][2 * hf + 1]);
+      __syncwarp();
+
+      // b. V += (k e^{L-cum}) dS and K += k~ r~ᵀ over the warp's channels
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int o0 = gid * WB_LD + cw + 8 * kk + tig, o1 = o0 + 8 * WB_LD;
+        const FragA fe(ks[o0] * elc[o0], ks[o1] * elc[o1],
+                       ks[o0 + 4] * elc[o0 + 4], ks[o1 + 4] * elc[o1 + 4]);
+        const float* dw = dsw + warp * CHUNK * WB_LV + (8 * kk + tig) * WB_LV + gid;
+        mma3x2(vw[0], fe, FragB(dw[0], dw[4 * WB_LV]), vw[1], fe,
+               FragB(dw[8], dw[4 * WB_LV + 8]));
+        const FragA fk(kt[o0], kt[o1], kt[o0 + 4], kt[o1 + 4]);
+        mma3x2(aw[0], fk, FragB(rt[o0], rt[o0 + 4]), aw[1], fk,
+               FragB(rt[o1], rt[o1 + 4]));
+      }
+      __syncwarp();  // k~ is read: k ⊙ dk' goes over it
+
+      if (want_dk || want_dlw) {
+        // c. X1 = v dSᵀ, X2 = triu_{+1}(v dyᵀ) r~ (t, the warp's channels)
+        float x1[2][4], x2[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x1[x][e] = x2[x][e] = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const float2 v0 = *reinterpret_cast<const float2*>(
+              vs + gid * WB_LV + 8 * n + 2 * tig);
+          const float2 v1 = *reinterpret_cast<const float2*>(
+              vs + (gid + 8) * WB_LV + 8 * n + 2 * tig);
+          const FragA fv(v0.x, v1.x, v0.y, v1.y);
+          mma3x2(x1[0], fv, FragB(ds[s][n][0], ds[s][n][1]), x1[1], fv,
+                 FragB(ds[s][n][2], ds[s][n][3]));
+        }
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const FragA fa(av[x][0], av[x][2], av[x][1], av[x][3]);
+          const float* rr = rt + (8 * x + 2 * tig) * WB_LD + cw + gid;
+          mma3x2(x2[0], fa, FragB(rr[0], rr[WB_LD]), x2[1], fa,
+                 FragB(rr[8], rr[WB_LD + 8]));
+        }
+        // dk' = e^{L-cum} X1 + e^{-cum} X2; dk's partial; k ⊙ dk' for dlw
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int o = acc_row(gid, e) * WB_LD + cw + acc_col(x, tig, e);
+            const float dkp = fmaf(elc[o], x1[x][e], emc[o] * x2[x][e]);
+            x1[x][e] = fmaf(us[WB_SLICE * s + cw + acc_col(x, tig, e)] * rs[o],
+                            vdy[e >> 1], dkp);
+            kdk[o] = ks[o] * dkp;
+          }
+        const int chg = w.cb + WB_SLICE * s + cw;
+        if (want_dk)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int ch = chg + 8 * x + 2 * tig;
+              if (gid + 8 * hf < n_rows && ch < a.D)
+                *reinterpret_cast<float2*>(
+                    a.dkp + w.part(a, blockIdx.y, t0 + gid + 8 * hf, ch)) =
+                    make_float2(x1[x][2 * hf], x1[x][2 * hf + 1]);
+            }
+        __syncwarp();
+        // dlw_t = P_t - k_t dk'_t, P_{t-1} = dlw_t + q_t, the rows in
+        // reverse (rows past T carry k = 0 and q = 0)
+        if (scan && chg + lane < a.D) {
+          const int ch = chg + lane;
+          float kd[CHUNK], qv[CHUNK];
+#pragma unroll
+          for (int t = 0; t < CHUNK; ++t) {
+            kd[t] = kdk[t * WB_LD + cw + lane];
+            qv[t] = t0 + t < T && t0 + t > 0
+                        ? a.qp[w.part(a, blockIdx.y, t0 + t, ch)]
+                        : 0.0f;
+          }
+#pragma unroll
+          for (int t = CHUNK - 1; t >= 0; --t) {
+            const float g = P[s] - kd[t];
+            P[s] = g + qv[t];
+            const float lv = ls[t * WB_LD + cw + lane];
+            kd[t] = (lv >= LOG_W_MIN && lv <= 0.0f) ? g : 0.0f;
+          }
+#pragma unroll
+          for (int t = 0; t < CHUNK; ++t)
+            if (t < n_rows) a.qp[w.part(a, blockIdx.y, t0 + t, ch)] = kd[t];
+        }
+      }
+
+      // d. dS <- e^{L} dS + r~ᵀ dy
+      const float d0 = decay[cw + gid], d1 = decay[cw + gid + 8];
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        ds[s][n][0] *= d0;
+        ds[s][n][1] *= d0;
+        ds[s][n][2] *= d1;
+        ds[s][n][3] *= d1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int t = 8 * kk + tig;
+        const FragA fr(rt[t * WB_LD + cw + gid], rt[t * WB_LD + cw + gid + 8],
+                       rt[(t + 4) * WB_LD + cw + gid],
+                       rt[(t + 4) * WB_LD + cw + gid + 8]);
+        const float* y0 = ys + t * WB_LV + gid;
+        mma3x2(ds[s][0], fr, FragB(y0[0], y0[4 * WB_LV]), ds[s][1], fr,
+               FragB(y0[8], y0[4 * WB_LV + 8]));
+      }
+      __syncwarp();  // the derived tiles are read; the next item rewrites them
+    }
+
+    // the warps' partial sums, added in warp order by warp 0: dv = V +
+    // (triu_{+1}(K) + diag(bonus)) dy; the barrier holds them until every
+    // warp is done with the derived tiles they go over
+    __syncthreads();
+    {
+      const float sb = half_warp_sum8(bp, lane);
+      if ((lane & 1) == 0)
+        bsum[warp * CHUNK + 8 * (lane >> 4) + ((lane >> 1) & 7)] = sb;
+    }
+    float4* pw = part + warp * 4 * 32 + lane;
+    pw[0] = make_float4(vw[0][0], vw[0][1], vw[0][2], vw[0][3]);
+    pw[32] = make_float4(vw[1][0], vw[1][1], vw[1][2], vw[1][3]);
+    pw[64] = make_float4(aw[0][0], aw[0][1], aw[0][2], aw[0][3]);
+    pw[96] = make_float4(aw[1][0], aw[1][1], aw[1][2], aw[1][3]);
+    __syncthreads();
+    if (warp == 0 && (a.dv != nullptr || a.dvp != nullptr)) {
+      float y[2][4], ac[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[x][e] = ac[x][e] = 0.0f;
+      float bonus[2] = {0.0f, 0.0f};  // rows gid, gid + 8
+      for (int wi = 0; wi < WB_WARPS; ++wi) {
+        const float4* q = part + wi * 4 * 32 + lane;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const float4 yv = q[32 * x], kv = q[64 + 32 * x];
+          y[x][0] += yv.x;
+          y[x][1] += yv.y;
+          y[x][2] += yv.z;
+          y[x][3] += yv.w;
+          ac[x][0] += kv.x;
+          ac[x][1] += kv.y;
+          ac[x][2] += kv.z;
+          ac[x][3] += kv.w;
+        }
+        bonus[0] += bsum[wi * CHUNK + gid];
+        bonus[1] += bsum[wi * CHUNK + gid + 8];
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = acc_row(gid, e), col = acc_col(x, tig, e);
+          ac[x][e] = col > t ? ac[x][e] : col == t ? bonus[e >> 1] : 0.0f;
+        }
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const FragA fa(ac[x][0], ac[x][2], ac[x][1], ac[x][3]);
+#pragma unroll
+        for (int jn = 0; jn < 2; ++jn)
+          mma3(y[jn], fa,
+               FragB(ys[(8 * x + 2 * tig) * WB_LV + 8 * jn + gid],
+                     ys[(8 * x + 2 * tig + 1) * WB_LV + 8 * jn + gid]));
+      }
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int t = t0 + gid + 8 * hf, col = w.jb + 8 * jn + 2 * tig;
+          if (t >= T || col >= a.D) continue;
+          const float2 val = make_float2(y[jn][2 * hf], y[jn][2 * hf + 1]);
+          if (a.dvp != nullptr)
+            *reinterpret_cast<float2*>(a.dvp + w.part(a, blockIdx.z, t, col)) =
+                val;
+          else
+            *reinterpret_cast<float2*>(
+                a.dv + w.b * a.sdv[0] + w.h * a.sdv[1] + t * a.sdv[2] + col) =
+                val;
+        }
+    }
+  }
+  if (a.ds0 != nullptr)
+#pragma unroll
+    for (int s = 0; s < NSL; ++s)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ch = w.cb + WB_SLICE * s + cw + gid + 8 * (e >> 1);
+          const int col = w.jb + 8 * n + 2 * tig + (e & 1);
+          if (ch < a.D && col < a.D)
+            a.ds0[sbase + (long long)ch * a.D + col] = ds[s][n][e];
+        }
+}
+
+// 3c. the partials added in group (pass) order: dr, dk, dlw at every (b,
+// h, t, channel), du at every (b, h, channel), dv at every (b, h, t,
+// column) when there were channel passes.  A batch after the first adds
+// its G groups to what the outputs hold, the sum of the groups before it
+// in the same order, so a sum's bits do not depend on the batches.
+struct ReduceArgs {
+  const float* drp;
+  const float* dkp;
+  const float* qp;
+  const float* dvp;
+  const float* dup;
+  float* out[4];  // dr, dk, dv, dlw through their strides, or null
+  long long so[4][3];
+  float* du_part;  // (B, H, D)
+  int H, T, D, G, passes;
+  int first;       // the first batch: the outputs hold nothing yet
+};
+
+__global__ void __launch_bounds__(256) wkv6_bwd_wide_reduce_kernel(ReduceArgs a,
+                                                                  long long BH) {
+  const long long n = BH * a.T * a.D;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n) {
+    const int ch = (int)(e % a.D);
+    const long long row = e / a.D;
+    const int t = (int)(row % a.T);
+    const long long bh = row / a.T;
+    const long long b = bh / a.H, h = bh % a.H;
+    const float* srcs[4] = {a.drp, a.dkp, a.dvp, a.qp};
+    const int count[4] = {a.G, a.G, a.passes, a.G};
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if (a.out[x] == nullptr || srcs[x] == nullptr) continue;
+      float* o = a.out[x] + b * a.so[x][0] + h * a.so[x][1] + t * a.so[x][2] + ch;
+      const bool carry = !a.first && x != 2;  // dv's passes sum at once
+      float acc = carry ? *o : srcs[x][e];
+      for (int g = carry ? 0 : 1; g < count[x]; ++g) acc += srcs[x][g * n + e];
+      *o = acc;
+    }
+  }
+  if (a.dup != nullptr && e < BH * a.D) {
+    float acc = a.first ? a.dup[e] : a.du_part[e];
+    for (int g = a.first ? 1 : 0; g < a.G; ++g) acc += a.dup[g * BH * a.D + e];
+    a.du_part[e] = acc;
+  }
+}
+
+template <int NSL>
+constexpr size_t wb_fwd_bytes() {
+  return sizeof(float) * ((size_t)WB_STAGES * WB_STAGE + 3 * WB_VBUF +
+                          WB_TILE + 2 * NSL * WB_SLICE);
+}
+template <int NSL>
+constexpr size_t wb_rev_bytes() {
+  static_assert(WB_WARPS * 4 * 32 * 4 <= 4 * WB_TILE, "the partials fit");
+  return sizeof(float) *
+         ((size_t)WB_STAGES * WB_STAGE + 3 * WB_VBUF + 4 * WB_TILE +
+          WB_WARPS * CHUNK * WB_LV + WB_WARPS * CHUNK + NSL * WB_SLICE);
+}
+
+template <int NSL>
+int launch_wide_sweeps(const WideArgs& a, dim3 grid, int run, int want_dk,
+                       int want_dlw, cudaStream_t st) {
+  if (run & 1) {
+    auto k = wkv6_bwd_wide_fwd_kernel<NSL>;
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wb_fwd_bytes<NSL>());
+    if (err != cudaSuccess) return (int)err;
+    k<<<grid, WB_NT, wb_fwd_bytes<NSL>(), st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (run & 2) {
+    auto k = wkv6_bwd_wide_rev_kernel<NSL>;
+    cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wb_rev_bytes<NSL>());
+    if (err != cudaSuccess) return (int)err;
+    k<<<grid, WB_NT, wb_rev_bytes<NSL>(), st>>>(a, want_dk, want_dlw);
+    return (int)cudaGetLastError();
+  }
+  return 0;
+}
+
+int launch_reduce_wide(const ReduceArgs& r, long long BH, cudaStream_t st) {
+  const long long n = BH * r.T * r.D, m = BH * r.D;
+  const long long top = n > m ? n : m;
+  if (top == 0) return 0;
+  wkv6_bwd_wide_reduce_kernel<<<(unsigned)((top + 255) / 256), 256, 0, st>>>(
+      r, BH);
+  return (int)cudaGetLastError();
+}
+
+// the value column groups and channel passes of head dim D
+int wide_groups(int D) { return (D + WB_COLS - 1) / WB_COLS; }
+int wide_passes(int D) {
+  return (D + WB_MAX_SLICES * WB_SLICE - 1) / (WB_MAX_SLICES * WB_SLICE);
+}
+
+// The scratch of a wide call: `group` floats for each value column group
+// of a batch (its partial dr, dk and q / dlw, B·H·T·D each where asked
+// for, and du's B·H·D) and `fixed` for the whole call (with channel
+// passes each pass's partial dv)
+struct WideScratch {
+  long long group, fixed;
+  WideScratch(long long B, long long H, long long T, int Dh, int dr, int dk,
+              int dv, int dlw, int du) {
+    const long long n = B * H * T * Dh;
+    group = n * ((dr ? 1 : 0) + (dk ? 1 : 0) + (dlw ? 1 : 0)) +
+            (du ? B * H * Dh : 0);
+    fixed = dv && wide_passes(Dh) > 1 ? wide_passes(Dh) * n : 0;
+  }
+  // groups a batch takes when `floats` of scratch are given: the G groups
+  // in as few batches as fit, evened out; 0 when not even one group fits
+  int batch(int Dh, long long floats) const {
+    const int G = wide_groups(Dh);
+    if (floats < fixed + group) return 0;
+    if (group == 0) return G;
+    const long long fit = (floats - fixed) / group;
+    const int most = fit < G ? (int)fit : G;
+    const int batches = (G + most - 1) / most;
+    return (G + batches - 1) / batches;
+  }
+};
 }  // namespace
 
-// The kernels wkv6_bwd_launch launches for these outputs (each flag
-// nonzero where the output is asked for): bit 0 wkv6_bwd_fwd_kernel, where
-// dr, dlw or du is; bit 1 wkv6_bwd_rev_kernel, where dk, dv, dlw or ds0 is.
-extern "C" int wkv6_bwd_kernels(int dr, int dk, int dv, int dlw, int du,
-                                int ds0) {
-  return ((dr || dlw || du) ? 1 : 0) | ((dk || dv || dlw || ds0) ? 2 : 0);
+// Floats of scratch wkv6_bwd_launch is given at head dim Dh > 64 for these
+// outputs (each flag nonzero where it is asked for): every group's
+// partials, or where those pass WB_SCRATCH_CAP the fewest even batches of
+// groups within it (one group at the least), and the channel passes' dv.
+// 0 at Dh = 64.
+extern "C" long long wkv6_bwd_scratch_floats(int B, int H, int T, int Dh,
+                                             int dr, int dk, int dv, int dlw,
+                                             int du) {
+  if (Dh <= D) return 0;
+  const WideScratch w(B, H, T, Dh, dr, dk, dv, dlw, du);
+  const long long all = w.group * wide_groups(Dh);
+  const long long room = all < WB_SCRATCH_CAP ? all : WB_SCRATCH_CAP;
+  return w.group * w.batch(Dh, w.fixed + (room > w.group ? room : w.group)) +
+         w.fixed;
+}
+
+// The launches wkv6_bwd_launch makes at head dim Dh for these outputs,
+// given `scratch_floats` of scratch, into launches[0 .. 2].  Dh = 64:
+// wkv6_bwd_fwd_kernel once where dr, dlw or du is asked for,
+// wkv6_bwd_rev_kernel once where dk, dv, dlw or ds0 is, no third.  Dh >
+// 64: wkv6_bwd_wide_fwd_kernel and wkv6_bwd_wide_rev_kernel likewise once
+// a batch of groups, wkv6_bwd_wide_reduce_kernel once a batch where dr,
+// dk, dlw or du is, else once where dv is with channel passes (Dh >
+// 2,048).  Returns cudaErrorInvalidValue where the scratch holds less
+// than one group's partials, else 0.
+extern "C" int wkv6_bwd_kernels(int B, int H, int T, int Dh, int dr, int dk,
+                                int dv, int dlw, int du, int ds0,
+                                long long scratch_floats, int* launches) {
+  const int fwd = dr || dlw || du, rev = dk || dv || dlw || ds0;
+  launches[0] = fwd;
+  launches[1] = rev;
+  launches[2] = 0;
+  if (Dh <= D) return 0;
+  const WideScratch w(B, H, T, Dh, dr, dk, dv, dlw, du);
+  const int per = w.batch(Dh, scratch_floats);
+  if (per == 0) return (int)cudaErrorInvalidValue;
+  const int batches = (wide_groups(Dh) + per - 1) / per;
+  launches[0] *= batches;
+  launches[1] *= batches;
+  launches[2] = (dr || dk || dlw || du) ? batches
+                : (dv && wide_passes(Dh) > 1) ? 1 : 0;
+  return 0;
 }
 
 // r, k, v, lw, dy: (B, H, T, D) float32 with D contiguous, 16-byte aligned
@@ -1009,21 +1917,29 @@ extern "C" int wkv6_bwd_kernels(int dr, int dk, int dv, int dlw, int du,
 // (the stride of a dimension of size 1 is ignored; a null output's are not
 // read).  u: (H, D); s0, ds_fin (null: zeros) and ds0 (null: not
 // computed): (B, H, D, D) contiguous; du_part (null: not computed):
-// (B, H, D), each (b, h)'s share of du.  Launches the kernels of
-// wkv6_bwd_kernels, wkv6_bwd_fwd_kernel first.  Returns a cudaError_t:
-// cudaErrorInvalidValue for D != 64, a negative size, D not contiguous or
-// an input not 16-byte aligned.
+// (B, H, D), each (b, h)'s share of du.  D = 64 (wkv6_bwd_fwd_kernel, then
+// wkv6_bwd_rev_kernel) or any D > 64 that is a multiple of 4 (the wide
+// sweeps, then the sum of their partials, batch by batch of groups), with
+// `scratch` a float32 buffer of `scratch_floats`: what
+// wkv6_bwd_scratch_floats gives, or any size that holds one group's
+// partials, the groups then batched to fit (null at D = 64).  Launches
+// the kernels wkv6_bwd_kernels counts.  Returns a cudaError_t:
+// cudaErrorInvalidValue for another D, a negative size, D not contiguous,
+// an input not 16-byte aligned or too little scratch.
 extern "C" int wkv6_bwd_launch(const float* r, const float* k, const float* v,
                                const float* lw, const float* dy,
                                const float* u, const float* s0,
                                const float* ds_fin, float* dr, float* dk,
                                float* dv, float* dlw, float* du_part,
-                               float* ds0, int B, int H, int T, int Dh,
-                               const long long* st, int device, void* stream) {
+                               float* ds0, float* scratch,
+                               long long scratch_floats, int B, int H, int T,
+                               int Dh, const long long* st, int device,
+                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int bad = (int)cudaErrorInvalidValue;
-  if (B < 0 || H < 0 || T < 0 || Dh != D) return bad;
+  if (B < 0 || H < 0 || T < 0 || (Dh != D && (Dh < D || Dh % 4 != 0)))
+    return bad;
   const int BH = B * H;
   if (BH == 0) return 0;
   Args a;
@@ -1052,12 +1968,97 @@ extern "C" int wkv6_bwd_launch(const float* r, const float* k, const float* v,
   a.H = H;
   a.T = T;
   cudaStream_t s = (cudaStream_t)stream;
-  const int run = wkv6_bwd_kernels(dr != nullptr, dk != nullptr, dv != nullptr,
-                                   dlw != nullptr, du_part != nullptr,
-                                   ds0 != nullptr);
-  if (run & 1) {
-    const int e = launch_fwd(a, BH, s);
+  int runs[3];
+  if (wkv6_bwd_kernels(B, H, T, Dh, dr != nullptr, dk != nullptr,
+                       dv != nullptr, dlw != nullptr, du_part != nullptr,
+                       ds0 != nullptr, scratch_floats, runs) != 0)
+    return bad;
+  const int run = (runs[0] ? 1 : 0) | (runs[1] ? 2 : 0) | (runs[2] ? 4 : 0);
+  if (Dh == D) {
+    if (run & 1) {
+      const int e = launch_fwd(a, BH, s);
+      if (e != 0) return e;
+    }
+    return run & 2 ? launch_rev(a, BH, s) : 0;
+  }
+
+  // D > 64: carve the partials; each batch of groups runs the sweeps,
+  // then adds its partials to the outputs
+  const int G = wide_groups(Dh), P = wide_passes(Dh);
+  const WideScratch need(B, H, T, Dh, dr != nullptr, dk != nullptr,
+                         dv != nullptr, dlw != nullptr, du_part != nullptr);
+  const int per = need.batch(Dh, scratch_floats);
+  if (per > 65535 || P > 65535) return bad;
+  const long long n = (long long)BH * T * Dh;
+  float* next = scratch;
+  auto carve = [&](bool on, long long floats) {
+    float* ptr = on ? next : nullptr;
+    if (on) next += floats;
+    return ptr;
+  };
+  WideArgs w;
+  for (int x = 0; x < NIN; ++x) {
+    w.in[x] = a.in[x];
+    for (int d = 0; d < 3; ++d) w.si[x][d] = a.si[x][d];
+  }
+  w.u = u;
+  w.s0 = s0;
+  w.ds_fin = ds_fin;
+  w.dv = P == 1 ? dv : nullptr;
+  for (int d = 0; d < 3; ++d) w.sdv[d] = a.so[2][d];
+  w.ds0 = ds0;
+  w.drp = carve(dr != nullptr, per * n);
+  w.dkp = carve(dk != nullptr, per * n);
+  w.qp = carve(dlw != nullptr, per * n);
+  w.dup = carve(du_part != nullptr, (long long)per * BH * Dh);
+  w.dvp = carve(dv != nullptr && P > 1, P * n);
+  w.H = H;
+  w.T = T;
+  w.D = Dh;
+  const int slices = (Dh + WB_SLICE - 1) / WB_SLICE;
+  const int dk_on = dk != nullptr, dlw_on = dlw != nullptr;
+  const bool sums = dr != nullptr || dk != nullptr || dlw != nullptr ||
+                    du_part != nullptr;
+  for (int g0 = 0; g0 < G; g0 += per) {
+    const int groups = G - g0 < per ? G - g0 : per;
+    const bool last = g0 + groups == G;
+    w.g0 = g0;
+    const dim3 grid(BH, groups, P);
+    int e;
+    if (slices <= 1)
+      e = launch_wide_sweeps<1>(w, grid, run, dk_on, dlw_on, s);
+    else if (slices <= 2)
+      e = launch_wide_sweeps<2>(w, grid, run, dk_on, dlw_on, s);
+    else if (slices <= 3)
+      e = launch_wide_sweeps<3>(w, grid, run, dk_on, dlw_on, s);
+    else if (slices <= 4)
+      e = launch_wide_sweeps<4>(w, grid, run, dk_on, dlw_on, s);
+    else if (slices <= 8)
+      e = launch_wide_sweeps<8>(w, grid, run, dk_on, dlw_on, s);
+    else
+      e = launch_wide_sweeps<16>(w, grid, run, dk_on, dlw_on, s);
+    if (e != 0) return e;
+    if (!(run & 4) || !(sums || last)) continue;
+    ReduceArgs ra;
+    ra.drp = w.drp;
+    ra.dkp = w.dkp;
+    ra.qp = w.qp;
+    ra.dvp = last ? w.dvp : nullptr;  // dv's passes, once every group is in
+    ra.dup = w.dup;
+    for (int x = 0; x < 4; ++x) {
+      ra.out[x] = outs[x];
+      for (int d = 0; d < 3; ++d) ra.so[x][d] = a.so[x][d];
+    }
+    if (P == 1) ra.out[2] = nullptr;  // dv is whole already
+    ra.du_part = du_part;
+    ra.H = H;
+    ra.T = T;
+    ra.D = Dh;
+    ra.G = groups;
+    ra.passes = P;
+    ra.first = g0 == 0;
+    e = launch_reduce_wide(ra, BH, s);
     if (e != 0) return e;
   }
-  return run & 2 ? launch_rev(a, BH, s) : 0;
+  return 0;
 }

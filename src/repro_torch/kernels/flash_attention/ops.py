@@ -52,22 +52,29 @@ forward kernel exactly as above (same plan, same instantiation, same
 bits of o) and, in bf16, also has it write each row's log-sum-exp; it
 saves q, k, v, o and that lse.  Its backward calls :func:`attention_bwd`,
 the hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``),
-in one of two variants that :func:`plan_attention_bwd` picks:
+in one of three variants that :func:`plan_attention_bwd` picks:
 
 * ``"wgmma"``, bf16: the Δ pre-pass, the tensor-core dQ and dK / dV
   kernels (TMA + ``wgmma``, P from the saved lse) and, when H > Hkv, the
   ordered group sum of per-head float32 partials -- 3 or 4 launches,
   counted as ``delta``, ``dq``, ``dkdv``, ``reduce``;
 * ``"simt"``, float32: two CUDA-core kernels (``simt_dq``, ``simt_dkdv``)
-  that recompute the row statistics, to hold the 1e-4 float32 bound.
+  that recompute the row statistics, to hold the 1e-4 float32 bound;
+* ``"wide"``, D above :data:`MAX_HEAD_DIM`: in bf16 the same passes on
+  the tensor cores with 64 x 64 TMA boxes through one ring, the two
+  consumer warpgroups splitting D for each score product and adding
+  their partials once (``delta``, ``wide_dq``, ``wide_dkdv``,
+  ``reduce``); in float32 the two CUDA-core kernels with the scores
+  summed over D's slices (``wide_simt_dq``, ``wide_simt_dkdv``).  The
+  output columns go in passes: 512 of dQ, 256 of dK and dV a bf16 block,
+  512 a float32 one, each pass forming its tile's scores again.
 
 Each launch counts in ``LAUNCHES["flash_attention_bwd"]`` and, by name, in
 ``VARIANT_LAUNCHES["flash_attention_bwd"]``; no launch uses atomics, so
 two runs give the same bits.  bf16 pads D to a multiple of 16 and copies
-a tensor TMA cannot take, as the forward does; float32 copies a tensor
-whose D is not contiguous.  D above :data:`MAX_HEAD_DIM` has no backward
-kernel yet: a CUDA call that needs a gradient raises
-``NotImplementedError``.  Under ``no_grad`` / ``inference_mode`` nothing
+a tensor TMA cannot take, as the forward does (``"wide"``: D padded to a
+multiple of 8); float32 copies a tensor whose D is not contiguous.
+Under ``no_grad`` / ``inference_mode`` nothing
 changes and no lse is written.  CPU tensors run ``attention_ref``, which
 autograd differentiates; :func:`attention_with_lse` and
 :func:`attention_bwd` run ``attention_lse_ref`` / ``attention_bwd_ref``.
@@ -221,12 +228,12 @@ def launch_flash_attention(
             f"(copies {plan.copy}); attention() makes them"
         )
     if lse is not None and (
-            plan.variant not in ("wgmma", "mma16") or lse.dtype != torch.float32
+            q.dtype != torch.bfloat16 or lse.dtype != torch.float32
             or lse.shape != q.shape[:3] or not lse.is_contiguous()):
         raise ValueError(
             f"launch_flash_attention: lse must be a contiguous float32 "
-            f"{tuple(q.shape[:3])} tensor and the instantiation wgmma or "
-            f"mma16, got {plan.variant} and "
+            f"{tuple(q.shape[:3])} tensor and the instantiation a bf16 one, "
+            f"got {plan.variant} in {q.dtype} and "
             f"{None if lse is None else (lse.dtype, tuple(lse.shape))}"
         )
     fn = library("flash_attention").flash_attention_launch
@@ -357,13 +364,6 @@ def attention(
     note_dispatch("flash_attention", "cuda")
     _check_dtypes(q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        if D > MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"attention: no backward kernel for head dim {D} > "
-                f"{MAX_HEAD_DIM} yet (ROADMAP Queue A: B6 backward for "
-                "D > 256); call under torch.no_grad() or "
-                "torch.inference_mode()"
-            )
         return _Attention.apply(q, k, v, causal, window, scale)
     return _forward_cuda(q, k, v, causal, window, scale)
 
@@ -380,7 +380,7 @@ def attention_with_lse(
     """(o, lse): :func:`attention`'s output (no autograd) and each row's
     log-sum-exp of its visible scaled scores, (B, H, S) float32, +inf for a
     row that sees no key -- what the forward saves for the bf16 backward.
-    CUDA tensors: the forward kernel, bf16, D <= 256; CPU tensors:
+    CUDA tensors: the forward kernel, bf16 (any D); CPU tensors:
     :func:`attention_lse_ref`."""
     _check_shapes(q, k, v)
     if scale is None:
@@ -391,10 +391,9 @@ def attention_with_lse(
                                  scale=scale)
     note_dispatch("flash_attention", "cuda")
     _check_dtypes(q, k, v)
-    if q.dtype != torch.bfloat16 or q.shape[-1] > MAX_HEAD_DIM:
+    if q.dtype != torch.bfloat16:
         raise ValueError(
-            "attention_with_lse: the kernel writes lse in bf16 at head dims "
-            f"up to {MAX_HEAD_DIM}, got {q.dtype} at D = {q.shape[-1]}"
+            f"attention_with_lse: the kernel writes lse in bf16, got {q.dtype}"
         )
     with torch.no_grad():
         return _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
@@ -408,8 +407,10 @@ def attention_with_lse(
 @dataclass(frozen=True)
 class AttentionBwdPlan:
     """How one backward call runs: the variant (``"wgmma"`` for bf16,
-    ``"simt"`` for float32), the head-dim tile the kernels are built for,
-    the head dim they see (bf16: D padded with zeros to a multiple of 16),
+    ``"simt"`` for float32, ``"wide"`` above :data:`MAX_HEAD_DIM`), the
+    head-dim tile the kernels are built for (``"wide"``: dQ's output
+    columns a block, 512), the head dim they see (bf16: D padded with
+    zeros to a multiple of 16, ``"wide"`` of 8),
     the rows of a block's query tile in the dQ kernel and of its key tile
     in the dK / dV kernel, which of q, k, v, o, dO need a copy (padded or
     made contiguous), whether the group sum launches (bf16, H > Hkv), the
@@ -431,12 +432,20 @@ def plan_attention_bwd(q, k, v, o, do) -> AttentionBwdPlan:
     strides, dtypes and base addresses."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
-    if D > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"attention_bwd: head dim {D} > {MAX_HEAD_DIM} has no backward "
-            "kernel yet (ROADMAP Queue A: B6 backward for D > 256)"
-        )
     xs = (q, k, v, o, do)
+    if D > MAX_HEAD_DIM:
+        if q.dtype == torch.float32:
+            return AttentionBwdPlan(
+                "wide", 512, D, (32, 32),
+                tuple(x.stride(-1) != 1 for x in xs), False,
+                3 * B * H * S * 4, ("wide_simt_dq", "wide_simt_dkdv"))
+        head_dim = _cdiv(D, 8) * 8
+        reduce = H > Hkv
+        return AttentionBwdPlan(
+            "wide", 512, head_dim, (64, 64),
+            tuple(head_dim != D or not _tma_ready(x) for x in xs), reduce,
+            4 * B * H * S * (1 + (2 * head_dim if reduce else 0)),
+            ("delta", "wide_dq", "wide_dkdv") + (("reduce",) if reduce else ()))
     if q.dtype == torch.float32:
         tile = next(t for t in (32, 64, 128, 256) if D <= t)
         bt = 64 if tile <= 128 else 32
@@ -486,8 +495,8 @@ def launch_flash_attention_bwd(
     """Launch the backward kernels of ``plan`` (default
     :func:`plan_attention_bwd`'s) on the current stream: ``dq``, ``dk``,
     ``dv`` written.  Every tensor as the plan needs it (:func:`attention_bwd`
-    pads or copies); ``wgmma`` reads the forward's ``lse`` (B, H, S)
-    float32.  Scratch is allocated here."""
+    pads or copies); bf16 reads the forward's ``lse`` (B, H, S) float32.
+    Scratch is allocated here."""
     plan = plan or plan_attention_bwd(q, k, v, o, do)
     if (any(plan.copy) or q.shape[-1] != plan.head_dim
             or any(x.stride(-1) != 1 for x in (dq, dk, dv))):
@@ -505,7 +514,7 @@ def launch_flash_attention_bwd(
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in (q, k, v, o, do)]
     outs = [x.data_ptr() for x in (dq, dk, dv)]
-    if plan.variant == "simt":
+    if q.dtype == torch.float32:
         stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=dev)
         err = _bwd_fn("simt")(
             *ptrs, *outs, stats.data_ptr(), plan.tile_d, B, H, Hkv, S, D,
@@ -515,9 +524,9 @@ def launch_flash_attention_bwd(
         if (lse is None or lse.dtype != torch.float32
                 or lse.shape != q.shape[:3] or not lse.is_contiguous()):
             raise ValueError(
-                "launch_flash_attention_bwd: the wgmma variant needs the "
-                f"forward's lse, a contiguous float32 {tuple(q.shape[:3])} "
-                "tensor (attention_with_lse)"
+                f"launch_flash_attention_bwd: bf16 ({plan.variant}) needs "
+                f"the forward's lse, a contiguous float32 "
+                f"{tuple(q.shape[:3])} tensor (attention_with_lse)"
             )
         delta = torch.empty(B * H * S, dtype=torch.float32, device=dev)
         part = (torch.empty(2 * B * H * S * D, dtype=torch.float32,
@@ -569,7 +578,7 @@ def attention_bwd(
     note_dispatch("flash_attention_bwd", "cuda")
     _check_dtypes(q, k, v, o, do)
     plan = plan_attention_bwd(q, k, v, o, do)
-    if plan.variant == "wgmma" and lse is None:
+    if q.dtype == torch.bfloat16 and lse is None:
         _, lse = _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
     D = q.shape[-1]
     pad = plan.head_dim - D

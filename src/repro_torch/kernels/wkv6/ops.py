@@ -56,11 +56,19 @@ recomputation reproduces them), its backward launches B7's backward
 kernels (``kernels/csrc/wkv6_bwd.cu``, through :func:`wkv6_bwd`: the
 chunks in order for dr, dlw's q and du, then in reverse for dk, dv, dlw
 and ds0, each only where a gradient it writes is asked for) for the
-gradients autograd asks for.  The backward
-kernel is built at head dim 64 (``BWD_HEAD_DIM``, every registry model's);
-a smaller D is zero-padded to it, a wider one raises
-``NotImplementedError`` (ROADMAP A11d) -- on the card nothing falls back
-to a plain version.  :func:`wkv6_bwd` runs
+gradients autograd asks for.  :func:`plan_wkv6_bwd` names the variant:
+``"chunk"`` at head dim 64 (every registry model's; a smaller D
+zero-padded to it), two launches ``fwd`` and ``rev`` with a block per
+(b, h); ``"wide"`` above it (D zero-padded to a multiple of 4), the
+value columns split over blocks of 16 (a block per (b, h, column group,
+channel pass of up to 2,048 channels)): ``wide_fwd`` and ``wide_rev``
+write each group's partial dr, dk, dlw and du into scratch,
+``wide_reduce`` adds them in group order; where the partials would pass
+1 GiB the groups run in batches that fit, each batch's sum continuing the
+last one's, the same bits.  The library says what a call launches and
+how much scratch it takes (:func:`bwd_schedule`).  On the card nothing
+falls back to a plain version.
+:func:`wkv6_bwd` runs
 :func:`~repro_torch.kernels.wkv6.ref.wkv6_bwd_ref` on CPU tensors, which
 follows ``torch.clamp``'s rule at the clamp's ends (gradient 1 on
 [LOG_W_MIN, 0], ends included; ``jnp.clip``'s is 0.5 there).  The
@@ -86,7 +94,7 @@ __all__ = [
     "WKV6Plan", "CHUNK",
     "KERNEL_HEAD_DIMS", "MAX_HEAD_DIM", "WIDE_CHUNK_MAX",
     "wkv6_bwd", "launch_wkv6_bwd", "plan_wkv6_bwd", "WKV6BwdPlan",
-    "BWD_HEAD_DIM",
+    "bwd_schedule", "BWD_KERNELS",
 ]
 
 CHUNK = 16
@@ -103,10 +111,11 @@ _VARIANT_CODE = {"chunk": 0, "step": 1, "wide_step": 2, "wide_chunk": 3}
 _pack_strides = struct.Struct("20q").pack
 
 _launch_fn = None  # the library's wkv6_launch, bound at first launch
-_bwd_lib = None    # the library's wkv6_bwd_launch and wkv6_bwd_kernels
-# the head dim B7's backward kernel is built for; a smaller D is
-# zero-padded up to it, a wider one refused (ROADMAP A11d)
-BWD_HEAD_DIM = 64
+_bwd_lib = None    # the wkv6_bwd library, its entries bound at first use
+# the backward's kernels of each variant, in the order of the library's
+# wkv6_bwd_kernels counts
+BWD_KERNELS = {"chunk": ("fwd", "rev"),
+               "wide": ("wide_fwd", "wide_rev", "wide_reduce")}
 
 
 def wkv6_chunked(
@@ -282,8 +291,6 @@ def wkv6(
         return wkv6_chunked(r, k, v, lw, u, s0)
     note_dispatch("wkv6", "cuda")
     if torch.is_grad_enabled() and any(x.requires_grad for x in given):
-        if D > BWD_HEAD_DIM:
-            raise NotImplementedError(_bwd_wide("wkv6", D))
         return _WKV6.apply(r, k, v, lw, u, s0)
     return _forward_cuda(r, k, v, lw, u, s0)
 
@@ -332,19 +339,14 @@ def _dense32(x: torch.Tensor, pad: int, dims: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _bwd_wide(name: str, D: int) -> str:
-    return (f"{name}: B7's backward kernel is built for head dims up to "
-            f"{BWD_HEAD_DIM}, not {D} (ROADMAP A11d: B7's backward for "
-            "D > 64); call under torch.no_grad() or torch.inference_mode()")
-
-
 class WKV6BwdPlan(NamedTuple):
-    """How one backward call runs on the card: the head dim the kernel is
-    built for (D zero-padded up to it) and which of r, k, v, lw, dy are
-    copied (converted to float32, padded, or made D-contiguous on a
-    16-byte base with strides of whole 16-byte pieces, as ``cp.async``
-    reads them)."""
+    """How one backward call runs on the card: the variant (``"chunk"`` at
+    head dim 64, ``"wide"`` above), the head dim its kernels are built for
+    (D zero-padded up to it), and which of r, k, v, lw, dy are copied
+    (converted to float32, padded, or made D-contiguous on a 16-byte base
+    with strides of whole 16-byte pieces, as ``cp.async`` reads them)."""
 
+    variant: str
     head_dim: int
     copy: Tuple[bool, bool, bool, bool, bool]
 
@@ -352,70 +354,111 @@ class WKV6BwdPlan(NamedTuple):
 def plan_wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lw: torch.Tensor, dy: torch.Tensor) -> WKV6BwdPlan:
     """The plan for ``wkv6_bwd`` on the card; reads only shapes, strides,
-    dtypes and base addresses.  Raises ``NotImplementedError`` for
-    D > ``BWD_HEAD_DIM``."""
+    dtypes and base addresses."""
     D = r.shape[-1]
-    if D > BWD_HEAD_DIM:
-        raise NotImplementedError(_bwd_wide("wkv6_bwd", D))
-    return WKV6BwdPlan(BWD_HEAD_DIM, tuple(
-        D != BWD_HEAD_DIM or not _takes(x, 4) for x in (r, k, v, lw, dy)))
+    variant, head_dim = ("chunk", 64) if D <= 64 else ("wide", -(-D // 4) * 4)
+    return WKV6BwdPlan(variant, head_dim, tuple(
+        D != head_dim or not _takes(x, 4) for x in (r, k, v, lw, dy)))
 
 
-def launch_wkv6_bwd(
-    r: torch.Tensor,    # (B, H, T, 64) float32, D contiguous, 16-byte aligned
-    k: torch.Tensor,    # (as r, k, v, lw and dy)
-    v: torch.Tensor,
-    lw: torch.Tensor,
-    dy: torch.Tensor,
-    u: torch.Tensor,    # (H, 64) float32, contiguous
-    s0: Optional[torch.Tensor],      # (B, H, 64, 64) float32 contiguous / None
-    ds_fin: Optional[torch.Tensor],  # likewise
-    dr: Optional[torch.Tensor],      # (B, H, T, 64) float32 outs, D
-    dk: Optional[torch.Tensor],      # contiguous, or None: not computed
-    dv: Optional[torch.Tensor],
-    dlw: Optional[torch.Tensor],
-    du_part: Optional[torch.Tensor],  # (B, H, 64) float32 out, or None
-    ds0: Optional[torch.Tensor],      # (B, H, 64, 64) float32 out, or None
-) -> None:
-    """Launch B7's backward kernels on the current stream, those the
-    library's ``wkv6_bwd_kernels`` names for the outputs given: ``"fwd"``
-    (the chunks in order: dr, dlw's q and P_fin, du) where dr, dlw or du
-    is asked for, then ``"rev"`` (in reverse: dk, dv, dlw, ds0) where dk,
-    dv, dlw or ds0 is.  The outputs given are written; raises if a launch
-    fails (a D other than 64, an input the kernel cannot read)."""
+def _bwd_library():
+    """The wkv6_bwd library, its three entries typed (built at first use)."""
     global _bwd_lib
     if _bwd_lib is None:
         from repro_torch.kernels.build import library
 
         lib = library("wkv6_bwd")
-        fn = lib.wkv6_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-                       + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        kernels = lib.wkv6_bwd_kernels
-        kernels.argtypes = [ctypes.c_int] * 6
-        kernels.restype = ctypes.c_int
-        _bwd_lib = fn, kernels
-    launch, kernels = _bwd_lib
+        lib.wkv6_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 15 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 4
+            + [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p])
+        lib.wkv6_bwd_launch.restype = ctypes.c_int
+        lib.wkv6_bwd_kernels.argtypes = (
+            [ctypes.c_int] * 10 + [ctypes.c_longlong, ctypes.c_void_p])
+        lib.wkv6_bwd_kernels.restype = ctypes.c_int
+        lib.wkv6_bwd_scratch_floats.argtypes = [ctypes.c_int] * 9
+        lib.wkv6_bwd_scratch_floats.restype = ctypes.c_longlong
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def bwd_schedule(plan: WKV6BwdPlan, B: int, H: int, T: int, want,
+                 scratch_floats: Optional[int] = None
+                 ) -> Tuple[int, dict]:
+    """(floats of scratch, launches by name) of a backward call under
+    ``plan`` asking for the gradients ``want`` (dr, dk, dv, dlw, du, ds0),
+    as the library counts them (``wkv6_bwd_scratch_floats`` and
+    ``wkv6_bwd_kernels``): the scratch it asks for unless
+    ``scratch_floats`` is given, the launches that scratch makes.  Loads
+    the library, so it runs where the kernels are built."""
+    lib = _bwd_library()
+    flags = [int(bool(x)) for x in want]
+    if scratch_floats is None:
+        scratch_floats = lib.wkv6_bwd_scratch_floats(
+            B, H, T, plan.head_dim, *flags[:5])
+    counts = (ctypes.c_int * 3)()
+    if lib.wkv6_bwd_kernels(B, H, T, plan.head_dim, *flags, scratch_floats,
+                            counts) != 0:
+        raise ValueError(
+            f"wkv6_bwd: {scratch_floats} floats of scratch hold less than "
+            f"one value column group's partials at {(B, H, T, plan.head_dim)}")
+    return scratch_floats, dict(zip(BWD_KERNELS[plan.variant], counts))
+
+
+def launch_wkv6_bwd(
+    r: torch.Tensor,    # (B, H, T, D) float32, D contiguous, 16-byte aligned
+    k: torch.Tensor,    # (as r, k, v, lw and dy)
+    v: torch.Tensor,
+    lw: torch.Tensor,
+    dy: torch.Tensor,
+    u: torch.Tensor,    # (H, D) float32, contiguous
+    s0: Optional[torch.Tensor],      # (B, H, D, D) float32 contiguous / None
+    ds_fin: Optional[torch.Tensor],  # likewise
+    dr: Optional[torch.Tensor],      # (B, H, T, D) float32 outs, D
+    dk: Optional[torch.Tensor],      # contiguous, or None: not computed
+    dv: Optional[torch.Tensor],
+    dlw: Optional[torch.Tensor],
+    du_part: Optional[torch.Tensor],  # (B, H, D) float32 out, or None
+    ds0: Optional[torch.Tensor],      # (B, H, D, D) float32 out, or None
+    scratch_floats: Optional[int] = None,
+) -> None:
+    """Launch B7's backward kernels on the current stream, those the
+    library's ``wkv6_bwd_kernels`` counts for the outputs given.  D = 64
+    (``"chunk"``): ``fwd`` (the chunks in order: dr, dlw's q and P_fin,
+    du) where dr, dlw or du is asked for, then ``rev`` (in reverse: dk,
+    dv, dlw, ds0) where dk, dv, dlw or ds0 is.  D > 64, a multiple of 4
+    (``"wide"``): ``wide_fwd`` and ``wide_rev`` likewise, writing their
+    partials into a scratch allocated here, then ``wide_reduce``, which
+    adds them, once for each batch of value column groups the scratch
+    holds: the library's size (within 1 GiB unless one group needs more)
+    unless ``scratch_floats`` is given, the bits the same either way.
+    The outputs given are written; raises if a launch fails (a D the
+    kernels do not take, an input the kernel cannot read)."""
+    lib = _bwd_library()
     B, H, T, D = r.shape
     index = r.get_device()
+    want = tuple(x is not None for x in (dr, dk, dv, dlw, du_part, ds0))
+    plan = plan_wkv6_bwd(r, k, v, lw, dy)
+    floats, runs = bwd_schedule(plan, B, H, T, want, scratch_floats)
+    scratch = (torch.empty(floats, dtype=torch.float32, device=r.device)
+               if floats else None)
     tensors = (r, k, v, lw, dy, dr, dk, dv, dlw)
     strides = [s for x in tensors for s in (x.stride() if x is not None
                                             else (0, 0, 0, 1))]
-    err = launch(
+    err = lib.wkv6_bwd_launch(
         *(0 if x is None else x.data_ptr()
           for x in (r, k, v, lw, dy, u, s0, ds_fin, dr, dk, dv, dlw,
-                    du_part, ds0)),
-        B, H, T, D, _pack_bwd_strides(*strides),
+                    du_part, ds0, scratch)),
+        floats, B, H, T, D, _pack_bwd_strides(*strides),
         index, torch._C._cuda_getCurrentRawStream(index),
     )
     if err != 0:
         raise RuntimeError(
-            f"wkv6_bwd kernel launch failed (D = {D}): CUDA error {err}")
-    run = kernels(*(x is not None for x in (dr, dk, dv, dlw, du_part, ds0)))
-    for bit, name in ((1, "fwd"), (2, "rev")):
-        if run & bit:
-            count_launch("wkv6_bwd", variant=name)
+            f"wkv6_bwd kernel launch failed ({plan.variant}, D = {D}): CUDA "
+            f"error {err}")
+    for name, n in runs.items():
+        if n:
+            count_launch("wkv6_bwd", n, variant=name)
 
 
 # the (b, h, t, d) strides of r, k, v, lw, dy, dr, dk, dv, dlw

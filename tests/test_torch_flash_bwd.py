@@ -5,8 +5,8 @@ JAX's gradients, on the CPU: ``jax.vjp`` of the reference's
 ``gqa_attention``, for the same q, k, v and output cotangent dO.
 
 Cases: causal, a sliding window, not causal; GQA 1:1, 2:1, 4:1 and 16:1;
-S = 1, S = 65 (not a multiple of a tile) and 128; D = 32, 64 and 256;
-float32.  Tolerance: each gradient within ``2e-5`` of its largest
+S = 1, S = 65 (not a multiple of a tile) and 128; D = 32, 64, 256 and,
+above the tiled kernels, 288 and 512; float32.  Tolerance: each gradient within ``2e-5`` of its largest
 |value| plus ``1e-5`` (float32 products summed in other orders; at
 S = 1 dQ and dK are zero in exact arithmetic and come out as the rounding
 of dP - Δ, two sums of D unit-scale products, ~1e-6).  The dispatcher: on CPU
@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+import flash_wide_replay
 
 from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
 from repro.models.layers import gqa_attention as jax_gqa_attention
@@ -37,6 +39,8 @@ CASES = [  # B, H, Hkv, S, D, causal, window
     (1, 8, 2, 1, 64, True, None),
     (1, 4, 1, 40, 256, True, 17),
     (2, 2, 2, 20, 256, False, 7),
+    (1, 4, 2, 40, 288, True, None),
+    (1, 4, 1, 33, 512, True, 9),
 ]
 
 
@@ -99,7 +103,8 @@ def test_cpu_attention_is_differentiated_through_the_plain_forward():
 def test_plan_attention_bwd_tiles_copies_and_refusal():
     """The backward's head-dim tile (32 / 64 / 128 / 256), no copy of the
     model's (B, S, H, D) transposed views, a copy of a tensor whose D is
-    strided, and the refusal above 256 (ROADMAP Queue A)."""
+    strided, and above 256 the ``"wide"`` CUDA-core kernels (512 output
+    columns a block) where the plan once refused."""
     from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
 
     for D, tile in ((8, 32), (32, 32), (48, 64), (64, 64), (96, 128),
@@ -111,8 +116,11 @@ def test_plan_attention_bwd_tiles_copies_and_refusal():
     x = torch.zeros((2, 4, 9, 64))
     assert plan_attention_bwd(x, x, x, x, y).copy == (False,) * 4 + (True,)
     big = torch.zeros((1, 2, 4, 288))
-    with pytest.raises(NotImplementedError, match="D > 256"):
-        plan_attention_bwd(big, big, big, big, big)
+    plan = plan_attention_bwd(big, big, big, big, big)
+    assert (plan.variant, plan.tile_d, plan.head_dim, plan.rows, plan.copy,
+            plan.reduce, plan.launches) == (
+        "wide", 512, 288, (32, 32), (False,) * 5, False,
+        ("wide_simt_dq", "wide_simt_dkdv"))
 
 
 # chip_smoke.py's FA_BWD_SHAPES, the training paths' shapes (B, H, Hkv, S,
@@ -157,7 +165,9 @@ def test_plan_attention_bwd_variant_padding_reduce_and_scratch(B, H, Hkv, S,
 def test_plan_attention_bwd_bf16_pads_and_copies():
     """bf16: D = 40 pads to 48 (every tensor copied), a D-strided tensor
     or a 16-byte-unaligned stride is copied, the model's (B, S, H, D)
-    views are not; the refusal above 256."""
+    views are not; above 256 the ``"wide"`` tensor-core kernels (D padded
+    to a multiple of 8, the group sum with grouped heads) where the plan
+    once refused."""
     from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
 
     bf = dict(dtype=torch.bfloat16, device="meta")
@@ -170,8 +180,17 @@ def test_plan_attention_bwd_bf16_pads_and_copies():
     odd = torch.empty((2, 4, 9, 68), **bf)[..., :64]
     assert plan_attention_bwd(x, x, x, y, odd).copy == (False,) * 3 + (True,) * 2
     big = torch.empty((1, 2, 4, 288), **bf)
-    with pytest.raises(NotImplementedError, match="D > 256"):
-        plan_attention_bwd(big, big, big, big, big)
+    plan = plan_attention_bwd(big, big, big, big, big)
+    assert (plan.variant, plan.tile_d, plan.head_dim, plan.rows, plan.copy,
+            plan.reduce, plan.launches) == (
+        "wide", 512, 288, (64, 64), (False,) * 5, False,
+        ("delta", "wide_dq", "wide_dkdv"))
+    q = torch.empty((1, 8, 4, 300), **bf)
+    kv = torch.empty((1, 2, 4, 300), **bf)
+    plan = plan_attention_bwd(q, kv, kv, q, q)
+    assert (plan.head_dim, plan.copy, plan.reduce) == (304, (True,) * 5, True)
+    assert plan.launches == ("delta", "wide_dq", "wide_dkdv", "reduce")
+    assert plan.scratch_bytes == 4 * 8 * 4 * (1 + 2 * 304)
 
 
 LSE_CASES = [  # B, H, Hkv, S, D, causal, window
@@ -236,3 +255,44 @@ def test_attention_bwd_ref_given_lse_equals_its_recomputation(
         _close(g, w.numpy())
     for g, w in zip(attention_bwd(q, k, v, o, do, lse=lse, **kw), got):
         assert torch.equal(g, w)
+
+
+# (B, H, Hkv, S, D, causal, window): one column pass of each at D = 288;
+# two of dQ and three of dK / dV (bf16), two of each (float32) at D = 600
+WIDE_BWD_CASES = [
+    (1, 4, 2, 70, 288, True, None),
+    (1, 2, 1, 40, 600, True, 9),
+    (1, 2, 2, 33, 288, False, 20),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", WIDE_BWD_CASES)
+def test_wide_bwd_replay_matches_bwd_ref(B, H, Hkv, S, D, causal, window,
+                                         dtype):
+    """Above head dim 256: the ``"wide"`` backward kernels' schedule
+    (``tests/flash_wide_replay.py``: bf16's score products split over D's
+    boxes between two consumers and their partials summed, P from the
+    forward's lse, P and dS rounded to bf16, dQ in 512-column passes and
+    dK / dV in 256-column ones, each forming its scores again, the group
+    summed in head order; float32's 64-column score slices, row
+    statistics and 512-column passes) against ``attention_bwd_ref`` --
+    bf16 within the forward's bf16 tolerance 3e-2, float32 within the
+    module's."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(B, H, Hkv, S, D, S + D + H))
+    kw = dict(causal=causal, window=window)
+    if dtype == torch.bfloat16:
+        q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+        o, lse = attention_lse_ref(q, k, v, **kw)
+        got = flash_wide_replay.wide_bwd_bf16(q, k, v, o, do, lse, **kw)
+        want = attention_bwd_ref(q, k, v, o, do, **kw)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       atol=3e-2, rtol=3e-2)
+        return
+    o = attention_ref(q, k, v, **kw)
+    got = flash_wide_replay.wide_bwd_f32(q, k, v, o, do, **kw)
+    for g, w in zip(got, attention_bwd_ref(q, k, v, o, do, **kw)):
+        _close(g, w.numpy())

@@ -27,7 +27,6 @@ import torch
 
 from repro.kernels.wkv6.ops import wkv6 as jax_wkv6
 from repro_torch.kernels.wkv6.ops import (
-    BWD_HEAD_DIM,
     plan_wkv6_bwd,
     wkv6_bwd,
     wkv6_chunked,
@@ -38,12 +37,15 @@ REL, ABS = 2e-5, 1e-6
 NAMES = ("dr", "dk", "dv", "dlw", "du", "ds0")
 
 # (B, H, T, D), s0 given, ds_fin given: T = 1 and T = 17 (not a multiple
-# of the chunk), D = 64 and D = 32, s0 and ds_fin present and absent
+# of the chunk), D = 64 and D = 32, s0 and ds_fin present and absent; the
+# "wide" backward's head dims, D = 128 and D = 288
 JAX_CASES = [
     ((2, 2, 17, 64), True, True),
     ((1, 3, 1, 32), False, False),
     ((2, 2, 40, 32), True, False),
     ((1, 2, 33, 64), False, True),
+    ((1, 2, 20, 128), True, True),
+    ((1, 1, 17, 288), False, True),
 ]
 
 
@@ -299,24 +301,160 @@ def test_kernel_sweeps_replay_matches_bwd_ref(lw_scale, with_s0, with_dsf, T,
                f"replay T={T} lw_scale={lw_scale} edge={edge}")
 
 
+def _bwd_views(D, T=40):
+    return [torch.randn(2, T, 3, D).transpose(1, 2) for _ in range(5)]
+
+
 def test_bwd_plan():
     """What the kernel takes as it is: the model's (B, T, H, 64) views
     viewed as (B, H, T, 64); D < 64 is padded (every input copied), a
-    bf16 dy, a D-strided or 4-byte-offset view is copied; D > 64 raises
-    naming ROADMAP A11d."""
-    def views(D, T=40):
-        return [torch.randn(2, T, 3, D).transpose(1, 2) for _ in range(5)]
-
-    plan = plan_wkv6_bwd(*views(64))
-    assert plan.head_dim == BWD_HEAD_DIM == 64
+    bf16 dy, a D-strided or 4-byte-offset view is copied; D > 64 plans
+    ``"wide"`` as it is on the model's views."""
+    plan = plan_wkv6_bwd(*_bwd_views(64))
+    assert (plan.variant, plan.head_dim) == ("chunk", 64)
     assert plan.copy == (False,) * 5
-    assert plan_wkv6_bwd(*views(48)).copy == (True,) * 5
-    r, k, v, lw, dy = views(64)
+    assert plan_wkv6_bwd(*_bwd_views(48)).copy == (True,) * 5
+    r, k, v, lw, dy = _bwd_views(64)
     assert plan_wkv6_bwd(r, k, v, lw, dy.bfloat16()).copy == (False,) * 4 + (True,)
     base = torch.randn(2, 3, 40, 65)
     assert plan_wkv6_bwd(base[..., 1:], k, v, lw, dy).copy[0]
     v_strided = torch.randn(2, 3, 64, 40).transpose(2, 3)   # D not contiguous
     assert plan_wkv6_bwd(r, k, v_strided, lw, dy).copy == (
         False, False, True, False, False)
-    with pytest.raises(NotImplementedError, match="A11d"):
-        plan_wkv6_bwd(*views(128))
+    assert plan_wkv6_bwd(*_bwd_views(128)) == ("wide", 128, (False,) * 5)
+
+
+# D > 64 and the "wide" plan: (head dim, inputs copied) -- D padded to a
+# multiple of 4 (16-byte rows for cp.async), nothing else
+WIDE_PLANS = [(65, (68, True)), (96, (96, False)), (128, (128, False)),
+              (200, (200, False)), (254, (256, True)), (256, (256, False)),
+              (288, (288, False)), (1000, (1000, False)),
+              (2048, (2048, False)), (2100, (2100, False)),
+              (4097, (4100, True))]
+
+
+@pytest.mark.parametrize("D,want", WIDE_PLANS)
+def test_bwd_plan_wide(D, want):
+    """Above D = 64 the plan is ``"wide"``, D padded only to a multiple of
+    4; a view the kernel reads as it is goes in uncopied, a D-strided one
+    is copied."""
+    x = torch.empty((1, 2, 3, D), device="meta")
+    p = plan_wkv6_bwd(x, x, x, x, x)
+    assert (p.variant, p.head_dim, p.copy[0]) == ("wide",) + want
+    assert len(set(p.copy)) == 1
+    if not want[1]:
+        views = _bwd_views(D, T=5)
+        assert plan_wkv6_bwd(*views).copy == (False,) * 5
+        strided = torch.randn(2, 3, D, 5).transpose(2, 3)
+        assert plan_wkv6_bwd(*views[:2], strided, *views[3:]).copy == (
+            False, False, True, False, False)
+
+
+def _replay_wide(r, k, v, lw, u, s0, dy, ds_fin, cols=16, chans=2048):
+    """float64 torch replay of ``wkv6_bwd.cu``'s "wide" schedule: the value
+    columns in groups of ``cols`` and the channels in passes of ``chans``,
+    each (group, pass) running both sweeps over its own columns J and
+    channels I -- S[I, J] and dS[I, J] carried, dr, dk, dlw (its own
+    P_fin and suffix sums) and du as the group's partials over J, dv[:, J]
+    as the pass's partial over I -- then the partials added in group
+    (pass) order.  Rows and columns past T and D are the kernel's zeros
+    (identity rows)."""
+    f = torch.float64
+    r, k, v, lw, dy = (torch.from_numpy(x).to(f) for x in (r, k, v, lw, dy))
+    u = torch.from_numpy(u).to(f)
+    B, H, T, D = r.shape
+    C = 16
+    nc = -(-T // C)
+
+    def chunks(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, nc * C - T)).view(
+            B, H, nc, C, D)
+
+    rc, kc, vc, dyc, lwc = (chunks(x) for x in (r, k, v, dy, lw))
+    g = torch.clamp(lwc, LOG_W_MIN, 0.0)
+    cum = g.cumsum(3)
+    cp = cum - g
+    last = cum[:, :, :, -1:]
+    rt, kt = rc * torch.exp(cp), kc * torch.exp(-cum)
+    ke = kc * torch.exp(last - cum)
+    inside = (lwc >= LOG_W_MIN) & (lwc <= 0.0)
+    tril = torch.tril(torch.ones(C, C, dtype=f), -1)
+    triu = tril.T
+
+    def tr(x):
+        return x.transpose(-1, -2)
+
+    S0 = None if s0 is None else torch.from_numpy(s0).to(f)
+    DSF = None if ds_fin is None else torch.from_numpy(ds_fin).to(f)
+    outs = [torch.zeros_like(rc) for _ in range(4)]  # dr, dk, dv, dlw
+    du = torch.zeros((B, H, D), dtype=f)
+    ds0 = torch.zeros((B, H, D, D), dtype=f)
+    for j0 in range(0, D, cols):
+        J = slice(j0, min(D, j0 + cols))
+        vJ, dyJ = vc[..., J], dyc[..., J]
+        vdy = (vJ * dyJ).sum(-1, keepdim=True)       # the group's share
+        for i0 in range(0, D, chans):
+            I = slice(i0, min(D, i0 + chans))
+            rI, kI, rtI, ktI, keI = (x[..., I] for x in (rc, kc, rt, kt, ke))
+            cpI, cumI, lastI = cp[..., I], cum[..., I], last[..., I]
+            uI = u[:, None, I]
+            S = torch.zeros((B, H, I.stop - I.start, J.stop - J.start),
+                            dtype=f) if S0 is None else S0[:, :, I, J]
+            qs = torch.zeros_like(rI)
+            for c in range(nc):
+                x = dyJ[:, :, c] @ tr(S) + (tril * (dyJ[:, :, c] @ tr(vJ[:, :, c]))) @ ktI[:, :, c]
+                drp = torch.exp(cpI[:, :, c]) * x
+                outs[0][:, :, c, :, I] += drp + uI * kI[:, :, c] * vdy[:, :, c]
+                qs[:, :, c] = rI[:, :, c] * drp
+                du[..., I] += (rI[:, :, c] * kI[:, :, c] * vdy[:, :, c]).sum(2)
+                S = tr(torch.exp(lastI[:, :, c])) * (S + tr(ktI[:, :, c]) @ vJ[:, :, c])
+            dS = (torch.zeros_like(S) if DSF is None else DSF[:, :, I, J])
+            P = (dS * S).sum(-1)                      # P_fin's share
+            qs = qs.view(B, H, nc * C, -1)
+            for c in reversed(range(nc)):
+                x1 = vJ[:, :, c] @ tr(dS)
+                x2 = (triu * (vJ[:, :, c] @ tr(dyJ[:, :, c]))) @ rtI[:, :, c]
+                dkp = torch.exp(lastI[:, :, c] - cumI[:, :, c]) * x1 + torch.exp(-cumI[:, :, c]) * x2
+                outs[1][:, :, c, :, I] += dkp + uI * rI[:, :, c] * vdy[:, :, c]
+                bonus = (rI[:, :, c] * uI * kI[:, :, c]).sum(-1, keepdim=True)
+                outs[2][:, :, c, :, J] += (
+                    (triu * (ktI[:, :, c] @ tr(rtI[:, :, c]))) @ dyJ[:, :, c]
+                    + keI[:, :, c] @ dS + bonus * dyJ[:, :, c])
+                dS = tr(torch.exp(lastI[:, :, c])) * dS + tr(rtI[:, :, c]) @ dyJ[:, :, c]
+                for t in reversed(range(min(C, T - c * C))):
+                    glw = P - kI[:, :, c, t] * dkp[:, :, t]
+                    P = glw + (qs[:, :, c * C + t] if c * C + t > 0 else 0.0)
+                    outs[3][:, :, c, t, I] += torch.where(
+                        inside[:, :, c, t, I], glw, 0.0)
+            ds0[:, :, I, J] = dS
+
+    def rows(x):
+        return x.reshape(B, H, nc * C, D)[:, :, :T].numpy()
+
+    return (*(rows(x) for x in outs), du.sum(0).numpy(),
+            None if s0 is None else ds0.numpy())
+
+
+# (B, H, T, D), s0, ds_fin, lw_scale, channels a pass: the wide variant's
+# padded head dims, T on both sides of a chunk, lw on the clamp's ends and
+# beyond, and channel passes (a pass of 48 channels stands for 2,048)
+WIDE_REPLAY_CASES = [
+    ((1, 2, 33, 128), True, True, 1.0, 2048),
+    ((2, 1, 17, 96), False, True, 8.0, 2048),
+    ((1, 2, 1, 288), True, False, 1.0, 2048),
+    ((1, 1, 20, 96), True, True, 1.0, 48),
+]
+
+
+@pytest.mark.parametrize("shape,with_s0,with_dsf,lw_scale,chans",
+                         WIDE_REPLAY_CASES)
+def test_wide_kernel_replay_matches_bwd_ref(shape, with_s0, with_dsf,
+                                            lw_scale, chans):
+    """The "wide" backward's schedule (replayed in float64 torch): the
+    value-column groups' partials of dr, dk, dlw, du and the channel
+    passes' partials of dv, added in order, equal ``wkv6_bwd_ref``."""
+    xs = _inputs(shape, 5 + sum(shape), with_s0, with_dsf, lw_scale)
+    got = _replay_wide(*xs, chans=chans)
+    want = wkv6_bwd_ref(*_torch(xs))
+    _check_all(got, [None if w is None else w.numpy() for w in want],
+               f"wide replay {shape} passes of {chans}")
