@@ -426,22 +426,26 @@ Phases, in order; any failure exits non-zero:
    512 bucket slots of 64 s is reused; naive and preagg mode: all must
    pass.
 24. **Training.**  (a) B6's backward kernel: its build report (HGMMA in
-    the bf16 dQ and dK / dV kernels, no atomic instruction in the
-    library), then against ``attention_bwd_ref``: the reference's six
-    kernel-test shapes in float32 (``simt``), S = 1, 127, 129 in both
-    dtypes, the training paths' shapes in bf16 (``FA_BWD_SHAPES``,
-    ``wgmma`` with the forward's lse, itself within ``FA_LSE_TOL`` of
-    ``attention_lse_ref`` and leaving o's bits as they are); each call's
+    the bf16 dQ and dK / dV kernels, HMMA -- 3xTF32 mma.sync -- in the
+    float32 ones and their Δ, no atomic instruction in the library), then
+    against ``attention_bwd_ref``: the reference's six kernel-test shapes
+    in float32 (``f32``), S = 1, 127, 129 and the training paths' shapes
+    (``FA_BWD_SHAPES``) in both dtypes (``wgmma`` / ``f32``), each with
+    the forward's lse, itself within ``FA_LSE_TOL`` of
+    ``attention_lse_ref`` and leaving o's bits as they are; each call's
     launches by name as planned; two runs the same bits; above head dim
-    256 the ``wide`` backward at ``FA_WIDE_SHAPES`` in both dtypes (bf16
-    with the wide forward's lse); ``attention`` under autograd on (B, S,
-    H, D) views at D = 64 and 512 launches the forward once and the
-    backward's launches once; each path shape timed in turns with SDPA's
-    backward under its fastest backend (``FA_BWD_REPS`` reps each after 3
-    warm-ups; every backend that takes the shape timed and printed),
-    beside the plain version and the bound, and ``wide`` at d512 in both
-    dtypes (device times alone: ``scripts/torch_kernel_times.py --kernels
-    b6bwd,b6bwdwide``, in a process of its own); then ``DecoderLM.loss``
+    256 the ``wide`` backward at ``FA_WIDE_SHAPES`` in both dtypes;
+    ``attention`` under autograd on (B, S, H, D) views at D = 64 and 512,
+    both dtypes, launches the forward once and the backward's launches
+    once; each path shape timed in turns with SDPA's backward under its
+    fastest backend in bf16 (``FA_BWD_REPS`` reps each after 3 warm-ups;
+    every backend that takes the shape timed and printed) and under every
+    backend that takes it in float32 (10 reps after 2, also at d512),
+    beside the plain version and the bound (float32: its operations as
+    three TF32 products, and at the float32 peak), and ``wide`` at d512
+    in bf16 (device times alone: ``scripts/torch_kernel_times.py
+    --kernels b6bwd,b6bwdwide,b6bwdf32``, in a process of its own); then
+    ``DecoderLM.loss``
     at nemotron-4-15b's width with head_dim 512 (12 heads over 2 KV
     heads, 2 layers, ``TRAIN_WIDE``'s first 2 sequences) against
     ``gqa_attention``: bf16 within ``TRAIN_BF16_*``, float32 within
@@ -454,7 +458,9 @@ Phases, in order; any failure exits non-zero:
     peak memory and one traced step; then one microbatch of 2 sequences
     against ``gqa_attention``: bf16 at full depth within
     ``TRAIN_BF16_LOSS`` / ``TRAIN_BF16_GRAD``, float32 at 1 + 1 layers
-    within ``TRAIN_F32_LOSS_REL`` / ``TRAIN_F32_REL``.  (c)
+    within ``TRAIN_F32_LOSS_REL`` / ``TRAIN_F32_REL``, its backward the
+    float32 kernels alone (f32_delta, f32_dq, f32_dkdv once a layer: the
+    kernels line's ``flash_attention_bwd_f32`` launches).  (c)
     featinsight-fraud at full width (``TRAIN_FRAUD``, ``mma16``).  (d)
     The training twins (``examples.fraud_detection``,
     ``examples.train_lm``) on the card.  (e) B7's backward kernel against
@@ -734,9 +740,15 @@ FA_THRESHOLD_SHAPES = {
 FA_TENSOR_CORE_OPS = {"fa_wgmma_kernel": ("HGMMA",),
                       "fa_mma16_kernel": ("HMMA", "HGMMA"),
                       "fa_wide_wgmma_kernel": ("HGMMA",)}
-# B6's backward: its bf16 kernels must reach the tensor cores
+# B6's backward: its bf16 kernels must reach the tensor cores by wgmma, its
+# float32 ones (and their Δ) by 3xTF32 mma.sync
 FA_BWD_TENSOR_CORE_OPS = {"bwd_dq_wgmma_kernel": ("HGMMA",),
-                          "bwd_dkdv_wgmma_kernel": ("HGMMA",)}
+                          "bwd_dkdv_wgmma_kernel": ("HGMMA",),
+                          "bwd_delta_f32_kernel": ("HMMA",),
+                          "bwd_dq_f32_kernel": ("HMMA",),
+                          "bwd_dkdv_f32_kernel": ("HMMA",),
+                          "bwd_dq_f32_wide_kernel": ("HMMA",),
+                          "bwd_dkdv_f32_wide_kernel": ("HMMA",)}
 # the nemotron-4-15b serving phase: 8 prompts of 2,048 tokens, 32 greedy
 # decode steps into a FullKV of 2,080 positions
 NEMO_BATCH, NEMO_PROMPT, NEMO_DECODE = 8, 2048, 32
@@ -5910,25 +5922,33 @@ def _time_turns(fns, reps: int = FA_BWD_REPS, warmup: int = 3):
     return [sum(a.elapsed_time(b) for a, b in ev) / reps for ev in events]
 
 
-def _sdpa_bwd_fastest(q, k, v, do, shape):
+def _sdpa_bwd_backends(q, k, v, do, shape) -> dict:
     """SDPA's backward under each backend that accepts the shape
     (``sdpa_kernel`` forcing one at a time; the forward's choice fixes
-    the backward's kernels): each timed over 5 calls after 3 (CUDA
-    events) and printed.  Returns (backend name, the fastest one's
-    backward).  Device times alone, in a process of their own:
-    ``scripts/torch_kernel_times.py --kernels b6bwd``."""
+    the backward's kernels): backend name -> the backward's call."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    times, fns = {}, {}
+    fns = {}
     for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                     SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([backend]):
                 fn = _sdpa_bwd(q, k, v, do, shape)
-            times[backend.name] = _time_turns([fn], 5, 3)[0]
-            fns[backend.name] = fn
+            fn()
         except RuntimeError:
             continue
+        fns[backend.name] = fn
+    return fns
+
+
+def _sdpa_bwd_fastest(q, k, v, do, shape):
+    """SDPA's backward under each backend that accepts the shape, each
+    timed over 5 calls after 3 (CUDA events) and printed.  Returns
+    (backend name, the fastest one's backward).  Device times alone, in a
+    process of their own: ``scripts/torch_kernel_times.py --kernels
+    b6bwd``."""
+    fns = _sdpa_bwd_backends(q, k, v, do, shape)
+    times = {n: _time_turns([fn], 5, 3)[0] for n, fn in fns.items()}
     best = min(times, key=times.get)
     print("  SDPA backward by backend: " + ", ".join(
         f"{n} {t:.4f} ms" for n, t in times.items()) + f" (fastest {best})",
@@ -5969,18 +5989,20 @@ def bwd_launches_per_call(cfg) -> int:
 
 def check_flash_attention_bwd(results) -> None:
     """B6's backward kernel against ``attention_bwd_ref``: its build report
-    (tensor-core instructions in the bf16 kernels, no atomics anywhere);
-    the reference's six test shapes in float32 (``simt``), the edges (S =
-    1, 127, 129) in both dtypes, the training paths' shapes in bf16
-    (``wgmma``, with the forward's lse, itself checked against
-    ``attention_lse_ref`` and the output's bits against the forward
-    without it); each call's launches by name; two runs the same bits;
-    ``wide`` at ``FA_WIDE_SHAPES`` in both dtypes; ``attention`` under
-    autograd launches the forward once and the backward's launches once
-    (D = 64 and, ``wide``, 512); each path shape timed in turns with
-    SDPA's fastest backend (``FA_BWD_REPS`` reps after 3 warm-ups) beside
-    the plain version and the bound, and ``wide`` at d512 in both
-    dtypes."""
+    (wgmma in the bf16 kernels, 3xTF32 mma.sync in the float32 ones, no
+    atomics anywhere); the reference's six test shapes in float32
+    (``f32``), the edges (S = 1, 127, 129) and the training paths' shapes
+    (``FA_BWD_SHAPES``) in both dtypes (``wgmma`` / ``f32``), each with the
+    forward's lse, itself checked against ``attention_lse_ref`` and the
+    output's bits against the forward without it; each call's launches by
+    name; two runs the same bits; ``wide`` at ``FA_WIDE_SHAPES`` in both
+    dtypes; ``attention`` under autograd launches the forward once and the
+    backward's launches once (D = 64 and, ``wide``, 512; both dtypes); each
+    path shape timed in turns with SDPA's fastest backend (bf16,
+    ``FA_BWD_REPS`` reps after 3 warm-ups) or with every backend that
+    takes it (float32, and d512; 10 after 2) beside the plain version and
+    the bound (float32: three TF32 products, and at the float32 peak), and
+    ``wide`` at d512 in bf16."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
         attention, attention_bwd, attention_with_lse, plan_attention_bwd,
@@ -5996,7 +6018,8 @@ def check_flash_attention_bwd(results) -> None:
     cases = [(f"test {sh[:5]}", sh, torch.float32) for sh in FA_TEST_SHAPES]
     cases += [(f"edge {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
               for sh in FA_BWD_EDGES]
-    cases += [(n, sh, torch.bfloat16) for n, sh in FA_BWD_SHAPES.items()]
+    cases += [(n, sh, dt) for dt in (torch.bfloat16, torch.float32)
+              for n, sh in FA_BWD_SHAPES.items()]
     cases += [(f"wide {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
               for sh in FA_WIDE_SHAPES]
     worst, worst_wide = {}, {}
@@ -6006,20 +6029,18 @@ def check_flash_attention_bwd(results) -> None:
         q, k, v = _fa_inputs(gen, shape, dtype)
         with torch.no_grad():
             o = attention(q, k, v, **kw)
-        lse, lse_err = None, 0.0
-        if dtype == torch.bfloat16:
-            o2, lse = attention_with_lse(q, k, v, **kw)
-            if not torch.equal(o, o2):
-                _fail(f"B6 forward on {name}: o differs with lse written")
-            want_lse = attention_lse_ref(q, k, v, **kw)[1]
-            if not torch.allclose(lse, want_lse, atol=FA_LSE_TOL,
-                                  rtol=FA_LSE_TOL):
-                _fail(f"B6 forward's lse differs from attention_lse_ref on "
-                      f"{name}")
-            fin = torch.isfinite(want_lse)
-            lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(
-                fin.any()) else 0.0
-            del o2, want_lse
+        o2, lse = attention_with_lse(q, k, v, **kw)
+        if not torch.equal(o, o2):
+            _fail(f"B6 forward on {name} {dtype}: o differs with lse written")
+        want_lse = attention_lse_ref(q, k, v, **kw)[1]
+        if not torch.allclose(lse, want_lse, atol=FA_LSE_TOL,
+                              rtol=FA_LSE_TOL):
+            _fail(f"B6 forward's lse differs from attention_lse_ref on "
+                  f"{name} {dtype}")
+        fin = torch.isfinite(want_lse)
+        lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(
+            fin.any()) else 0.0
+        del o2, want_lse
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         plan = plan_attention_bwd(q, k, v, o, do)
         kernels.reset_launches()
@@ -6046,22 +6067,23 @@ def check_flash_attention_bwd(results) -> None:
         print(f"flash_attention_bwd == attention_bwd_ref on {name} {shape} "
               f"{dtype} ({plan.variant}: {'+'.join(plan.launches)}): max "
               f"|diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; "
-              f"two runs bit-equal"
-              + (f"; lse max |diff| {lse_err:.3e}, o bit-equal with lse "
-                 "written" if lse is not None else ""), flush=True)
+              f"two runs bit-equal; lse max |diff| {lse_err:.3e}, o "
+              "bit-equal with lse written", flush=True)
         del q, k, v, o, do, got, again, want, lse
     torch.cuda.empty_cache()
 
     # through autograd on the model's (B, S, H, D) views: forward once,
     # backward once, no copy; at D = 64 and, on "wide", at D = 512 with
     # grouped heads
-    for B, S, H, Hkv, D in ((2, 1024, 16, 16, 64), (1, 300, 8, 2, 512)):
+    for (B, S, H, Hkv, D), dtype in itertools.product(
+            ((2, 1024, 16, 16, 64), (1, 300, 8, 2, 512)),
+            (torch.bfloat16, torch.float32)):
         x = [torch.randn((B, S, h, D), generator=gen, device="cuda")
-             .to(torch.bfloat16).requires_grad_() for h in (H, Hkv, Hkv)]
+             .to(dtype).requires_grad_() for h in (H, Hkv, Hkv)]
         q, k, v = (t.transpose(1, 2) for t in x)
         kernels.reset_launches()
         o = attention(q, k, v)
-        do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
         plan = plan_attention_bwd(q, k, v, o, do)
         if any(plan.copy):
             _fail("B6 backward copies the model's transposed views")
@@ -6076,7 +6098,7 @@ def check_flash_attention_bwd(results) -> None:
             if not torch.equal(t.grad.transpose(1, 2), w):
                 _fail("attention's autograd gradient differs from attention_bwd")
         print(f"attention under autograd on (B, S, H, D) views at D = {D} "
-              f"({plan.variant}): 1 forward + 1 backward call "
+              f"{dtype} ({plan.variant}): 1 forward + 1 backward call "
               f"({', '.join(plan.launches)} launches), no copy, gradients == "
               "attention_bwd", flush=True)
         del x, q, k, v, o, do, want, lse
@@ -6122,45 +6144,85 @@ def check_flash_attention_bwd(results) -> None:
               "(seamless-m4t-medium's decoder at the training shape)",
         shapes=timed)
 
-    # "wide" at d512, each dtype in turns with SDPA's fastest backend
-    shape = FA_BWD_WIDE_TIMED
-    wide = {}
-    for dtype, peak in ((torch.bfloat16, BF16_FLOP_PER_S),
-                        (torch.float32, FP32_FLOP_PER_S)):
-        q, k, v = _fa_inputs(gen, shape, dtype)
-        lse = None
-        if dtype == torch.bfloat16:
-            o, lse = attention_with_lse(q, k, v)
-        else:
-            o = attention(q, k, v)
-        do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        backend, sdpa = _sdpa_bwd_fastest(q, k, v, do, shape)
-        kernel_ms, library_ms = _time_turns([
-            lambda: attention_bwd(q, k, v, o, do, lse=lse), sdpa], 10, 2)
-        plain_ms = _time_ms(lambda: attention_bwd_ref(q, k, v, o, do), 2, 1)
-        nbytes, flop = _fa_bwd_cost(shape, q.element_size())
+    # float32 at the paths' shapes and d512, in turns with every SDPA
+    # backend that takes the shape
+    timed32 = {}
+    for name, shape in dict(FA_BWD_SHAPES, d512=FA_BWD_WIDE_TIMED).items():
+        causal, window = shape[5:]
+        kw = dict(causal=causal, window=window)
+        q, k, v = _fa_inputs(gen, shape, torch.float32)
+        o, lse = attention_with_lse(q, k, v, **kw)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        sdpa = _sdpa_bwd_backends(q, k, v, do, shape)
+        times = _time_turns(
+            [lambda: attention_bwd(q, k, v, o, do, lse=lse, **kw)]
+            + list(sdpa.values()), 10, 2)
+        kernel_ms, lib = times[0], dict(zip(sdpa, times[1:]))
+        backend = min(lib, key=lib.get)
+        plain_ms = _time_ms(lambda: attention_bwd_ref(q, k, v, o, do, **kw), 2, 1)
+        nbytes, flop = _fa_bwd_cost(shape, 4)
         by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        by_ops = 1e3 * flop / peak
+        # three TF32 products for each float32 one, as B7's backward counts
+        by_ops = 3e3 * flop / TF32_FLOP_PER_S
         bound = max(by_bytes, by_ops)
-        name = "bf16" if dtype == torch.bfloat16 else "float32"
-        wide[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
-                          library_ms=library_ms, sdpa_backend=backend,
-                          bound_ms=bound,
-                          bound_by="bytes" if by_bytes >= by_ops else "operations")
-        print(f"flash_attention_bwd d512 {shape} {name} (wide: "
-              f"{'+'.join(plan_attention_bwd(q, k, v, o, do).launches)}): "
-              f"kernel {kernel_ms:.4f} ms, SDPA backward ({backend}) "
-              f"{library_ms:.4f} ms in turns, 10 reps each; plain "
-              f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({nbytes} bytes -> "
-              f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms); kernel at "
-              f"{bound / kernel_ms:.4f} of the bound; kernel / SDPA "
-              f"{kernel_ms / library_ms:.3f}", flush=True)
+        peak_ms = max(by_bytes, 1e3 * flop / FP32_FLOP_PER_S)
+        plan = plan_attention_bwd(q, k, v, o, do)
+        timed32[name] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                             library_ms=lib[backend], sdpa_backend=backend,
+                             sdpa_ms=lib, bound_ms=bound,
+                             bound_by="bytes" if by_bytes >= by_ops else "operations",
+                             f32_peak_bound_ms=peak_ms,
+                             scratch_bytes=plan.scratch_bytes)
+        print(f"flash_attention_bwd {name} {shape} float32 "
+              f"({'+'.join(plan.launches)}; scratch {plan.scratch_bytes} B): "
+              f"kernel {kernel_ms:.4f} ms, SDPA backward "
+              + ", ".join(f"{n} {t:.4f}" for n, t in lib.items())
+              + f" ms in turns, 10 reps each; plain {plain_ms:.4f} ms; bound "
+              f"{bound:.5f} ms ({nbytes} bytes -> {by_bytes:.5f} ms; {flop} "
+              f"FLOP as 3 TF32 products -> {by_ops:.5f} ms; "
+              f"{peak_ms:.5f} ms at the float32 peak); kernel at "
+              f"{bound / kernel_ms:.4f} of the bound ({peak_ms / kernel_ms:.4f}"
+              f" of the float32-peak one); kernel / SDPA ({backend}) "
+              f"{kernel_ms / lib[backend]:.3f}", flush=True)
         del q, k, v, o, do, lse, sdpa
         torch.cuda.empty_cache()
+    results["flash_attention_bwd_f32"] = dict(
+        max_abs_err=worst[torch.float32], **timed32["seamless_causal"],
+        shape=f"{FA_BWD_SHAPES['seamless_causal'][:5]} float32 causal "
+              "(seamless-m4t-medium's decoder at the training shape)",
+        shapes=timed32)
+
+    # "wide" at d512 in bf16, in turns with SDPA's fastest backend (float32
+    # above)
+    shape = FA_BWD_WIDE_TIMED
+    q, k, v = _fa_inputs(gen, shape, torch.bfloat16)
+    o, lse = attention_with_lse(q, k, v)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    backend, sdpa = _sdpa_bwd_fastest(q, k, v, do, shape)
+    kernel_ms, library_ms = _time_turns([
+        lambda: attention_bwd(q, k, v, o, do, lse=lse), sdpa], 10, 2)
+    plain_ms = _time_ms(lambda: attention_bwd_ref(q, k, v, o, do), 2, 1)
+    nbytes, flop = _fa_bwd_cost(shape, 2)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flop / BF16_FLOP_PER_S
+    bound = max(by_bytes, by_ops)
+    print(f"flash_attention_bwd d512 {shape} bf16 (wide: "
+          f"{'+'.join(plan_attention_bwd(q, k, v, o, do).launches)}): "
+          f"kernel {kernel_ms:.4f} ms, SDPA backward ({backend}) "
+          f"{library_ms:.4f} ms in turns, 10 reps each; plain "
+          f"{plain_ms:.4f} ms; bound {bound:.5f} ms ({nbytes} bytes -> "
+          f"{by_bytes:.5f} ms; {flop} FLOP -> {by_ops:.5f} ms); kernel at "
+          f"{bound / kernel_ms:.4f} of the bound; kernel / SDPA "
+          f"{kernel_ms / library_ms:.3f}", flush=True)
+    del q, k, v, o, do, lse, sdpa
+    torch.cuda.empty_cache()
     results["flash_attention_bwd_wide"] = dict(
         max_abs_err=worst_wide[torch.bfloat16],
-        max_abs_err_f32=worst_wide[torch.float32], **wide["bf16"],
-        float32=wide["float32"],
+        max_abs_err_f32=worst_wide[torch.float32], ms=kernel_ms,
+        plain_ms=plain_ms, library_ms=library_ms, sdpa_backend=backend,
+        bound_ms=bound,
+        bound_by="bytes" if by_bytes >= by_ops else "operations",
+        float32=timed32["d512"],
         shape=f"{shape[:5]} bf16 causal (d512, the wide forward's timed shape)")
 
 
@@ -6553,7 +6615,7 @@ def _print_b6_bwd_share(dev, busy_ms) -> None:
 
     by = {}
     for e in dev:
-        m = re.search(r"bwd_(delta|dq|dkdv|reduce)(_wgmma|_simt)?_kernel",
+        m = re.search(r"bwd_(delta|dq|dkdv|reduce)(_wgmma|_f32)?_kernel",
                       e.key)
         if m:
             name = m.group(1) + (m.group(2) or "")
@@ -6639,7 +6701,7 @@ def _train_run(tag, argv, per_step, variant, pair=B6_PAIR):
     if variants[fwd][variant] != per_step[0] * steps:
         _fail(f"{tag}: {label} forward instantiations {variants[fwd]}")
     out["bwd_variants"] = variants[bwd]
-    if any(variants[bwd].get(n) for n in ("simt_dq", "simt_dkdv")):
+    if any(x for n, x in variants[bwd].items() if n.startswith("f32_")):
         _fail(f"{tag}: a bf16 run launched {label}'s float32 backward: "
               f"{variants[bwd]}")
     ms = 1e3 * np.array(out["step_s"])
@@ -6745,11 +6807,13 @@ def _plain_batch(cfg, n, argv=TRAIN_SEAMLESS):
     return {k: v[:n] for k, v in b.items()}
 
 
-def seamless_train_checks(cfg) -> None:
+def seamless_train_checks(cfg, results) -> None:
     """One microbatch of ``TRAIN_PLAIN_BATCH`` sequences: bf16 at full
     width and depth, B6 against the plain-attention run within the bounds
     measured over seeds; float32 at 1 + 1 layers within
-    ``TRAIN_F32_REL``."""
+    ``TRAIN_F32_REL``, the float32 backward's path: its run (counts set to
+    0 just before, read just after) must launch only the float32 kernels,
+    each once a layer, which the kernels line reports as its launches."""
     from repro_torch.models import build_model
 
     batch = _plain_batch(cfg, TRAIN_PLAIN_BATCH)
@@ -6773,6 +6837,15 @@ def seamless_train_checks(cfg) -> None:
     model = build_model(cfg32, seed=SEED, device="cuda")
     r = train_against_plain(model, batch)
     rel = r["loss_diff"] / abs(r["loss_plain"])
+    got = {n: x for n, x in r["variants"]["flash_attention_bwd"].items() if x}
+    want = {n: cfg32.n_layers + cfg32.n_encoder_layers
+            for n in ("f32_delta", "f32_dq", "f32_dkdv")}
+    if got != want:
+        _fail(f"seamless float32 training: B6 backward launches {got}, "
+              f"expected {want}")
+    results["flash_attention_bwd_f32"]["launches"] = r["launches"][
+        "flash_attention_bwd"]
+    results["flash_attention_bwd_f32"]["variants"] = got
     print(f"seamless float32 (1 + 1 layers) train pass, B6 vs "
           f"gqa_attention: loss relative |diff| {rel:.3e} (bound "
           f"{TRAIN_F32_LOSS_REL}); largest per-leaf ||diff|| / ||g|| "
@@ -6855,8 +6928,9 @@ def wide_train_checks(results) -> None:
         rel = r["loss_diff"] / abs(r["loss_plain"])
         loss_err = r["loss_diff"] if tag == "bf16" else rel
         variants = r["variants"]
-        want = ({n: c.n_layers for n in names} if tag == "bf16" else
-                {"wide_simt_dq": c.n_layers, "wide_simt_dkdv": c.n_layers})
+        names32 = plan_attention_bwd(q.float(), kv.float(), kv.float(),
+                                     q.float(), q.float()).launches
+        want = {n: c.n_layers for n in (names if tag == "bf16" else names32)}
         got = {n: x for n, x in variants["flash_attention_bwd"].items() if x}
         if got != want or set(
                 n for n, x in variants["flash_attention"].items() if x) != {"wide"}:
@@ -7007,7 +7081,7 @@ def train_path(results) -> None:
     trace_train_step("seamless-m4t-medium", out)
     del out
     torch.cuda.empty_cache()
-    seamless_train_checks(cfg)
+    seamless_train_checks(cfg, results)
 
     fcfg = featinsight_fraud.config()
     out, launches = _train_run(
@@ -7289,6 +7363,10 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
              **results["flash_attention_bwd_wide"]),
+        dict(name="flash_attention_bwd_f32", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
+             **results["flash_attention_bwd_f32"]),
         dict(name="wkv6_bwd_wide", route="cuda",
              source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
              replaces="src/repro/kernels/wkv6/wkv6.py:99",

@@ -6,7 +6,7 @@ shapes, in one checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide,b6bwdwide,b7bwdwide]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide,b6bwdwide,b7bwdwide,b6bwdf32]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
@@ -25,8 +25,9 @@ calls: the host's launch path included), the same launches captured in a
 CUDA graph, and the device time per launch under ``torch.profiler``; B3
 also through its wrapper.  B6-bwd (``b6bwd``, not in the default set):
 ``attention_bwd`` in bf16 at ``chip_smoke.py``'s ``FA_BWD_SHAPES``, the
-forward's lse handed over where the tree takes one, as CUDA events over
-20 calls after 3 (``b6bwd_<shape>_ms``), the host's enqueue time a call
+forward's lse handed over where the tree takes one, the sha256 of its
+gradients (``b6bwd_<shape>_sha256``: two trees' bits compare), CUDA
+events over 20 calls after 3 (``b6bwd_<shape>_ms``), the host's enqueue time a call
 (``_host_ms``), each launch's device time under ``torch.profiler``
 (``_<kernel>_ms``) and their sum (``_device_ms``); beside it SDPA's
 backward (``chip_smoke.py``'s ``_sdpa_bwd``, a yardstick the port never
@@ -58,14 +59,12 @@ kernels whose name holds ``wkv6_wide`` (``b7wide_<T>_device_ms``), and the
 chunked plain version ``wkv6_chunked`` by events over 3
 (``b7wide_<T>_plain_ms``).
 B6-bwd above head dim 256 (``b6bwdwide``, not in the default set):
-``attention_bwd`` at ``d512`` in bf16 (the wide forward's lse handed
-over) and float32: CUDA events over 20 calls after 3
+``attention_bwd`` at ``d512`` in bf16 and float32 (the forward's lse
+handed over where the tree's forward writes one): CUDA events over 20 calls after 3
 (``b6bwdwide_<dtype>_ms``), the device time a call under
 ``torch.profiler`` by kernel (``b6bwdwide_<dtype>_<kernel>_ms``) and
 summed (``b6bwdwide_<dtype>_device_ms``); in float32 also not causal
-(``b6bwdwide_f32_full_...``) and the bytes each kernel stages into shared
-memory, counted from its loops (``..._<kernel>_staged_bytes``); SDPA's
-backward under each
+(``b6bwdwide_f32_full_...``); SDPA's backward under each
 backend that takes the shape the same two ways
 (``sdpa_bwd_d512_<dtype>_<backend>_ms``, ``..._device_ms``).  B7-bwd
 above head dim 64 (``b7bwdwide``, not in the default set): ``wkv6_bwd``,
@@ -76,7 +75,18 @@ and 256, (2, 8, 256 / 1,024, 512): events over 10 after 2
 summed (``b7bwdwide_<name>_device_ms``) and the memory a call takes
 beyond its inputs (``b7bwdwide_<name>_peak_bytes``); also at
 ``WKV_BWD_WIDE_BIG`` (``b7bwdwide_big_...``), whose partials pass the
-scratch cap.  A tree whose backward has no
+scratch cap.  B6-bwd in float32 (``b6bwdf32``, not in the default set):
+``attention_bwd`` at ``chip_smoke.py``'s ``FA_BWD_SHAPES`` and ``d512`` in
+float32, the forward's lse handed over where the tree's float32 forward
+writes one: CUDA events over 10 calls after 2 (``b6bwdf32_<shape>_ms``),
+the device time a call by kernel (``b6bwdf32_<shape>_<kernel>_ms``) and
+summed (``b6bwdf32_<shape>_device_ms``); SDPA's float32 backward under
+each backend that takes the shape the same two ways
+(``sdpa_bwd_f32_<shape>_<backend>_ms``, ``..._device_ms``); and the
+float32 forward at nemotron's prefill shape, B6 (its output's sha256,
+``b6f32fwd_nemotron_sha256``) and SDPA under each backend
+(``b6f32fwd_nemotron_ms``, ``..._device_ms``,
+``sdpa_f32fwd_nemotron_<backend>_...``).  A tree whose backward has no
 kernel at these head dims records the error it raises
 (``..._error``) in place of its times.
 Entries a
@@ -205,6 +215,7 @@ def main() -> None:
              "b7bwd": ["wkv6", "wkv6_bwd"],
              "b6wide": ["flash_attention"], "b7wide": ["wkv6"],
              "b6bwdwide": ["flash_attention", "flash_attention_bwd"],
+             "b6bwdf32": ["flash_attention", "flash_attention_bwd"],
              "b7bwdwide": ["wkv6", "wkv6_bwd"]}
     build.build(sorted({n for k in todo for n in names[k]}))
     out = {"tree": str(root)}
@@ -220,6 +231,8 @@ def main() -> None:
         _b7_wide(out)
     if "b6bwdwide" in todo:
         _b6_bwd_wide(out)
+    if "b6bwdf32" in todo:
+        _b6_bwd_f32(out)
     if "b7bwdwide" in todo:
         _b7_bwd_wide(out)
     if todo & {"b2", "b5"}:
@@ -250,8 +263,9 @@ def _b6_bwd(out) -> None:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
 
         def call():
-            ops.attention_bwd(q, k, v, o, do, **kw)
+            return ops.attention_bwd(q, k, v, o, do, **kw)
 
+        out[f"b6bwd_{name}_sha256"] = _sha256(call())
         out[f"b6bwd_{name}_ms"] = _events_ms(call, 20, 3)
         t0 = time.perf_counter()
         for _ in range(20):
@@ -422,9 +436,9 @@ def _b6_bwd_wide(out) -> None:
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         key = f"b6bwdwide_{tag}"
         try:
-            if dtype == torch.bfloat16:
+            try:
                 o, lse = ops.attention_with_lse(q, k, v)
-            else:
+            except ValueError:  # a float32 forward that writes no lse
                 o, lse = ops.attention(q, k, v), None
 
             def call():
@@ -443,10 +457,6 @@ def _b6_bwd_wide(out) -> None:
 
                 full()
                 _by_kernel(full, r"(bwd_\w+?_kernel)", f"{key}_full", out)
-                for causal in (True, False):
-                    for kern, n in _f32_wide_staged(shape, causal).items():
-                        out[f"{key}{'' if causal else '_full'}_{kern}_"
-                            "staged_bytes"] = n
                 del o_full
         except (NotImplementedError, ValueError) as e:
             out[f"{key}_error"] = f"{type(e).__name__}: {str(e)[:120]}"
@@ -467,23 +477,86 @@ def _b6_bwd_wide(out) -> None:
         torch.cuda.empty_cache()
 
 
-def _f32_wide_staged(shape, causal) -> dict:
-    """Bytes the float32 ``wide`` backward kernels of
-    ``flash_attention_bwd.cu`` stage from global memory into shared memory
-    in one call, counted from their loops (32-row tiles, 64-column score
-    slices, 512-column passes): per visible (query tile, key tile) pair
-    and column pass, ``bwd_dq_wide_simt_kernel`` stages Q and K for the
-    statistics, Q, K, dO and V for P and dP, and K over the pass's
-    columns; ``bwd_dkdv_wide_simt_kernel`` Q, K, dO and V for P and dP
-    and Q and dO over the pass's columns (for each of the group's heads)."""
-    B, H, Hkv, S, D = shape[:5]
-    tiles = -(-S // 32)
-    pairs = tiles * (tiles + 1) // 2 if causal else tiles * tiles
-    slices, passes = -(-D // 64), -(-D // 512)
-    tile = 32 * 64 * 4  # bytes of one 32 x 64 float32 slice
-    per_pass = {"bwd_dq_wide_simt_kernel": (6 * slices + 8) * tile,
-                "bwd_dkdv_wide_simt_kernel": (4 * slices + 16) * tile}
-    return {k: B * H * pairs * passes * n for k, n in per_pass.items()}
+def _sha256(tensors) -> str:
+    """The sha256 of the tensors' bytes, in order: two trees' bits compare
+    by it."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sdpa_backends(out, key, make) -> None:
+    """``make()`` (a call) under each SDPA backend that takes it: CUDA
+    events over 10 calls after 2 (``<key>_<backend>_ms``) and the device
+    time a call, every kernel (``..._device_ms``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        k = f"{key}_{backend.name.lower()}"
+        with sdpa_kernel([backend]):
+            try:
+                fn = make()
+                fn()
+            except RuntimeError:
+                continue
+            out[f"{k}_ms"] = _events_ms(fn, 10, 2)
+            out[f"{k}_device_ms"] = _profiled_ms(fn, None)
+        del fn
+        torch.cuda.empty_cache()
+
+
+def _b6_bwd_f32(out) -> None:
+    """B6's backward in float32 at chip_smoke.py's training-path shapes
+    and d512, beside SDPA's backward under each backend; B6's float32
+    forward and SDPA's at nemotron's prefill shape."""
+    import chip_smoke as cs
+
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 26)
+    shapes = dict(cs.FA_BWD_SHAPES, d512=cs.FA_PATH_SHAPES["d512"])
+    for name, shape in shapes.items():
+        causal, window = shape[5:]
+        kw = dict(causal=causal, window=window)
+        q, k, v = cs._fa_inputs(gen, shape, torch.float32)
+        do = torch.randn(q.shape, generator=gen, device="cuda")
+        key = f"b6bwdf32_{name}"
+        try:
+            try:
+                o, lse = ops.attention_with_lse(q, k, v, **kw)
+            except ValueError:  # a float32 forward that writes no lse
+                o, lse = ops.attention(q, k, v, **kw), None
+
+            def call():
+                ops.attention_bwd(q, k, v, o, do, lse=lse, **kw)
+
+            call()
+            out[f"{key}_ms"] = _events_ms(call, 10, 2)
+            _by_kernel(call, r"(bwd_\w+?_kernel)", key, out)
+            del o, lse
+        except (NotImplementedError, ValueError, RuntimeError) as e:
+            out[f"{key}_error"] = f"{type(e).__name__}: {str(e)[:120]}"
+        _sdpa_backends(out, f"sdpa_bwd_f32_{name}",
+                       lambda: cs._sdpa_bwd(q, k, v, do, shape))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    shape = cs.FA_PATH_SHAPES["nemotron"]
+    q, k, v = cs._fa_inputs(gen, shape, torch.float32)
+    with torch.no_grad():
+        def fwd():
+            return ops.attention(q, k, v)
+
+        out["b6f32fwd_nemotron_sha256"] = _sha256([fwd()])
+        out["b6f32fwd_nemotron_ms"] = _events_ms(fwd, 10, 2)
+        out["b6f32fwd_nemotron_device_ms"] = _profiled_ms(fwd, "fa_")
+        _sdpa_backends(out, "sdpa_f32fwd_nemotron",
+                       lambda: cs._fa_library_call(q, k, v, shape))
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 def _b7_bwd_wide(out) -> None:

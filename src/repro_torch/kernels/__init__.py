@@ -48,13 +48,13 @@ VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
     "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
     # B6's backward, each launch by name: bf16 ("wgmma" variant) the Δ
     # pre-pass, the dQ and dK / dV kernels and, for grouped heads, the
-    # group sum; float32 ("simt") its dQ and dK / dV kernels; above head
-    # dim 256 ("wide") the bf16 Δ, wide_dq, wide_dkdv and group sum, the
-    # float32 wide_simt_dq and wide_simt_dkdv
+    # group sum; above head dim 256 ("wide") the same with wide_dq and
+    # wide_dkdv; float32 the same four on the tensor cores in 3xTF32,
+    # f32_wide_dq and f32_wide_dkdv above head dim 256
     "flash_attention_bwd": {"delta": 0, "dq": 0, "dkdv": 0, "reduce": 0,
-                            "simt_dq": 0, "simt_dkdv": 0, "wide_dq": 0,
-                            "wide_dkdv": 0, "wide_simt_dq": 0,
-                            "wide_simt_dkdv": 0},
+                            "wide_dq": 0, "wide_dkdv": 0, "f32_delta": 0,
+                            "f32_dq": 0, "f32_dkdv": 0, "f32_reduce": 0,
+                            "f32_wide_dq": 0, "f32_wide_dkdv": 0},
     "wkv6": {"chunk": 0, "step": 0, "wide_chunk": 0, "wide_step": 0},
     # B7's backward, each launch by name: at head dim 64 (a smaller D
     # zero-padded) the chunks in order ("fwd") and in reverse ("rev");

@@ -66,10 +66,12 @@
 // In 1, 2 and 4b the weights P are rounded to bf16 for the PV product (the
 // reference model's gqa_attention rounds them the same way); the
 // denominator l sums the float32 P.
-// Under autograd 1, 2 and 4b also write each row's log-sum-exp,
-// lse = (m + log2 l) ln 2 (+inf for a row that sees no key), for the
-// backward (flash_attention_bwd.cu); with a null pointer they write
-// nothing and the output's bits are the same either way.
+// Under autograd every instantiation also writes each row's log-sum-exp
+// (+inf for a row that sees no key) for the backward
+// (flash_attention_bwd.cu): lse = (m + log2 l) ln 2 in 1, 2 and 4b, whose
+// running max is in log2 units; m + ln l in 3 and 4a, from their own m and
+// l with logf as they use expf.  With a null pointer they write nothing and
+// the output's bits are the same either way.
 //
 // The TMA, mbarrier and wgmma helpers live in hopper.cuh, shared with the
 // backward.
@@ -102,8 +104,8 @@ struct Params {
   const void* v;
   void* o;
   // (B, H, S) float32, each row's log-sum-exp of its scaled scores, +inf
-  // for a row that sees no key; written by the bf16 instantiations when
-  // not null (the backward's P = exp(scale * s - lse)), else nothing
+  // for a row that sees no key; written by every instantiation when not
+  // null (the backward's P = exp(scale * s - lse)), else nothing
   float* lse;
   int H, group, S, D;
   long long sq[3], sk[3], sv[3], so[3];  // (b, h, s) element strides
@@ -134,6 +136,12 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int key) {
 // so that exp(scale * s - lse) is 0
 __device__ __forceinline__ float row_lse(float m, float l) {
   return l > 0.0f ? (m + log2f(l)) * LN2 : INFINITY;
+}
+
+// the same from the float32 kernels' m (natural units, scale folded in)
+// and l, with expf / logf as they use them; m is -1e30 where l = 0
+__device__ __forceinline__ float row_lse_f32(float m, float l) {
+  return l > 0.0f ? m + logf(l) : INFINITY;
 }
 
 // the rows' lse, from the lane that holds column 0 of the quad
@@ -340,6 +348,8 @@ __global__ void __launch_bounds__(NT, 2) fa_simt_kernel(Params p) {
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.S) continue;
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(b * p.H + h) * (long long)p.S + row] = row_lse_f32(m[i], l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = og + (long long)row * p.so[2];
 #pragma unroll
@@ -541,6 +551,9 @@ __global__ void __launch_bounds__(WIDE_NT, 1) fa_wide_simt_kernel(Params p) {
   for (int i = 0; i < RI; ++i) {
     const int row = q0 + ty + 16 * i;
     if (row >= p.S) continue;
+    // every column pass holds the row's statistics; the first writes them
+    if (p.lse != nullptr && tx == 0 && d0 == 0)
+      p.lse[(b * p.H + h) * (long long)p.S + row] = row_lse_f32(m[i], l[i]);
     const float denom = fmaxf(l[i], 1e-30f);
     float* orow = og + (long long)row * p.so[2];
 #pragma unroll
@@ -1341,9 +1354,10 @@ int launch_simt(const Params& p, dim3 grid, cudaStream_t st) {
 // columns of a block); grid and threads as the wrapper planned them (checked
 // here against the instantiation's tiles).  window is read when has_window
 // is set.  lse: null, or a (B, H, S) float32 output of each row's
-// log-sum-exp (bf16 instantiations 1, 2 and 4 only).  Returns a cudaError_t: cudaErrorInvalidValue for a plan that
-// does not fit the instantiation (tile, grid, D, strides or alignment) or a
-// tensor map the driver refuses.
+// log-sum-exp (every instantiation).  Returns a cudaError_t:
+// cudaErrorInvalidValue for a plan that does not fit the instantiation
+// (tile, grid, D, strides or alignment) or a tensor map that
+// cuTensorMapEncodeTiled refuses.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int variant,
@@ -1355,8 +1369,7 @@ extern "C" int flash_attention_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 ||
-      (D > tile_d && variant < 3) || grid_y > 65535 ||
-      (lse != nullptr && variant != 1 && variant != 2 && variant != 4))
+      (D > tile_d && variant < 3) || grid_y > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;

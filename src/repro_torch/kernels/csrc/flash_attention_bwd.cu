@@ -2,8 +2,9 @@
 // grouped-query attention (flash_attention.cu's function) with respect to
 // q, k and v.  For q, o, dO (B, H, S, D) and k, v (B, Hkv, S, D), query
 // head h reading KV head h / G (G = H / Hkv), with the weights P of the
-// forward recomputed from q and k:
+// forward recomputed from q, k and the log-sum-exp the forward saves:
 //
+//     P    = exp(scale · Q Kᵀ − lse)            (lse from the forward)
 //     Δ_i  = Σ_d dO_id · O_id                   (from the stored o)
 //     dP   = dO Vᵀ,   dS = P ∘ (dP − Δ)
 //     dQ   = scale · dS K
@@ -11,8 +12,8 @@
 //
 // with float32 sums, the gradients written in the inputs' dtype.  The
 // visible pairs are the forward's: k_pos <= q_pos (causal), k_pos > q_pos
-// - window, both < S; a row with no visible key has P = 0 and gets zero
-// gradients.
+// - window, both < S; a row with no visible key has lse = +inf, so P = 0,
+// and gets zero gradients.
 //
 // Replaces no TPU kernel: the reference package has no backward kernel
 // (its models differentiate the XLA path).  This is the gradient of
@@ -22,19 +23,23 @@
 //
 // Bound on the H100 (chip_smoke.py, _fa_bwd_cost): operations -- 2·D FLOP
 // for each of the five products (S, dP, dV, dK, dQ) per visible pair and
-// head, 2.5 times the forward's, at 989 TFLOP/s in bf16 (67 TFLOP/s in
-// float32) -- against bytes: q, k, v, o, dO read once and dq, dk, dv
-// written once at 3.35 TB/s.  The group sum of variants 1 and 3a adds
-// 2·(B·H·S·D·4) bytes of float32 partials written and read back, and 3's
-// column passes repeat score products; both count in the kernels' time,
-// not in the bound.
+// head, 2.5 times the forward's, at 989 TFLOP/s in bf16 and, for the
+// float32 kernels, as three TF32 products at 495 TFLOP/s (3xTF32) --
+// against bytes: q, k, v, o, dO read once and dq, dk, dv written once at
+// 3.35 TB/s.  The two kernels each form S and dP (7 products a pair where
+// the bound counts 5), the group sum adds 2·(B·H·S·D·4) bytes of float32
+// partials written and read back, and the wide variants' column passes
+// repeat score products; all count in the kernels' time, not in the bound.
 //
-// Three variants, chosen by the wrapper (kernels/flash_attention/ops.py,
-// plan_attention_bwd), none with atomics: every gradient element is
-// summed in a fixed order, so two runs give the same bits.
+// Every variant runs Δ first, then a dQ kernel and a dK / dV kernel that
+// each give every query head its own blocks, and, for G > 1, a group sum
+// (bwd_reduce_kernel) that adds each KV head's G per-head partials in
+// ascending head order: no atomics, no block walking a group's heads one
+// after another, and every gradient element summed in a fixed order, so
+// two runs give the same bits.  Variants, chosen by the wrapper
+// (kernels/flash_attention/ops.py, plan_attention_bwd):
 //
-// 1. "wgmma", bf16, D <= 256 (D a multiple of 16; the wrapper pads), up
-//    to four launches:
+// 1. "wgmma", bf16, D <= 256 (D a multiple of 16; the wrapper pads):
 //    a. bwd_delta_kernel: Δ = rowsum(dO ∘ O) in float32, a small
 //       bytes-bound pre-pass (a group of lanes a row, 16-byte loads),
 //       written once for both kernels below;
@@ -45,9 +50,8 @@
 //       two-stage TMA ring (128-byte swizzle, full / empty mbarriers) --
 //       over the visible key tiles only.  Per tile: S = Q Kᵀ and
 //       dP = dO Vᵀ as wgmma from shared memory; P = exp(scale·S − lse)
-//       in registers from the forward's saved log-sum-exp (no second pass
-//       for the row statistics); dS = P ∘ (dP − Δ) packed in place into
-//       bf16 A fragments; dQ += dS K as wgmma with K read MN-major (the
+//       in registers; dS = P ∘ (dP − Δ) packed in place into bf16 A
+//       fragments; dQ += dS K as wgmma with K read MN-major (the
 //       forward's transpose bit for V).  dQ is scaled and written once;
 //    c. bwd_dkdv_wgmma_kernel, a block per (b, query head h, key tile):
 //       K and V of the tile loaded once, Q and dO tiles of 64 rows (with
@@ -64,68 +68,77 @@
 //       With G = 1 it writes dk, dv; with G > 1 each block writes its
 //       head's float32 partial dK (scaled), dV into a (2, B, H, S, D)
 //       scratch;
-//    d. bwd_reduce_kernel (G > 1 only): sums each KV head's G partials in
-//       ascending head order and writes dk, dv -- the group sum with no
-//       atomics and no block walking the group's heads one after another.
+//    d. bwd_reduce_kernel (G > 1 only): the group sum into dk, dv.
 //    Tiles wholly inside the causal limit and the window skip the mask;
 //    a warpgroup skips a tile it cannot see at all.  P and dS are rounded
 //    to bf16 for the dV, dK and dQ products (as the forward rounds P).
-//    Against the float32 kernels below, run in bf16, this design: runs
-//    every product on the tensor cores; forms S once per kernel (the saved
-//    lse replaces the statistics pass); gives each query head its own
-//    blocks (no serial walk over a KV head's G heads); loads bf16 tiles by
-//    TMA into swizzled shared memory instead of float32 element by element.
-// 2. "simt", float32 (the reference's 1e-4 bound does not survive TF32),
-//    the first kernels, on the CUDA cores: bwd_dq_simt_kernel, a
-//    block per (b, h, query tile of BT rows): Δ for its rows, the row
-//    statistics (running max m and denominator l) over the visible key
-//    tiles in ascending order, then a second pass forming P, dP, dS
-//    (staged in shared memory) and accumulating dQ in registers; it writes
-//    m, l and Δ of each row.  bwd_dkdv_simt_kernel, a block per (b, KV
-//    head, key tile of BT rows) holding its K and V tile: for each of the
-//    group's G heads in order, for each visible query tile in ascending
-//    order, P and dS staged in shared memory, then dK and dV accumulated
-//    in registers.  Float32 tiles with an odd row pitch (DT + 1); 256
-//    threads as 16 x 16; DT (D <= DT) is 32, 64, 128 or 256, BT 64 (32 at
-//    DT = 256).  Products spell fmaf (the build has -fmad=false).
-// 3. "wide", D > 256, where a 64 x D float32 accumulator no longer fits
-//    a warpgroup's registers (the forward's "wide" case):
-//    a. bf16 (D a multiple of 8; TMA zero-fills each 64-column box past
-//       D): bwd_delta_kernel, then bwd_dq_wide_kernel and
-//       bwd_dkdv_wide_kernel with the tiled variant's passes and the
-//       forward's fa_wide_wgmma_kernel shape -- a producer warpgroup and
-//       two consumers, every operand a 64 x 64 TMA box through one ring of
-//       16 slots, each box read by one consumer.  The score products S =
-//       Q Kᵀ and dP = dO Vᵀ (Sᵀ = K Qᵀ, dPᵀ = V dOᵀ for dK / dV) contract
-//       over D: each consumer takes D's boxes c, c + 2, ... and adds the
-//       other's partial once through 32 KB of shared memory, so each is
-//       formed once per tile pair, with the same bits in both.  P comes
-//       from the forward's lse (fa_wide_wgmma_kernel writes it under
-//       autograd), dS = P ∘ (dP − Δ); P and dS are rounded to bf16 A
-//       fragments.  The output columns go in passes (blocks): dQ holds 8
-//       boxes (512 columns, 4 a consumer, 128 registers a thread) a
-//       block; dK and dV, two 64 x D accumulators (256 KB at D = 512),
-//       hold 4 boxes of each (256 columns, 2 a consumer), so D = 512
-//       takes two dK / dV passes.  The choice among the issue's three (a
-//       pass per column group; dK and dV in separate passes; one
-//       accumulator in shared memory): column passes of both, which keeps
-//       P and dS in registers for the two products that read each of them
-//       and needs no second copy of the ring.  Each pass forms its tile
-//       pair's S and dP again: at D = 512 the kernels do 3 + 2 x 3 = 9
-//       products of 2·D FLOP a visible pair against the bound's 5 (1.8x
-//       its operations).  With H > Hkv each head writes float32 partials
-//       and bwd_reduce_kernel sums each group in head order, as variant 1.
-//    b. float32: bwd_dq_wide_simt_kernel and bwd_dkdv_wide_simt_kernel,
-//       the simt kernels on 32-row tiles with the scores summed over D in
-//       64-column slices staged in turn and the output columns in passes
-//       of 512 (a block each; each pass forms its scores once, a second
-//       pass again): the row statistics, P and dS as in 2, then Q's, dO's
-//       or K's rows over the pass's columns staged and accumulated.
+// 2. "wide", bf16, D > 256 (D a multiple of 8; TMA zero-fills each
+//    64-column box past D): bwd_delta_kernel, then bwd_dq_wide_kernel and
+//    bwd_dkdv_wide_kernel with variant 1's passes and the forward's
+//    fa_wide_wgmma_kernel shape -- a producer warpgroup and two consumers,
+//    every operand a 64 x 64 TMA box through one ring of 16 slots, each
+//    box read by one consumer.  The score products S = Q Kᵀ and dP = dO
+//    Vᵀ (Sᵀ = K Qᵀ, dPᵀ = V dOᵀ for dK / dV) contract over D: each
+//    consumer takes D's boxes c, c + 2, ... and adds the other's partial
+//    once through 32 KB of shared memory, so each is formed once per tile
+//    pair, with the same bits in both.  P comes from the forward's lse
+//    (fa_wide_wgmma_kernel writes it under autograd), dS = P ∘ (dP − Δ);
+//    P and dS are rounded to bf16 A fragments.  The output columns go in
+//    passes (blocks): dQ holds 8 boxes (512 columns, 4 a consumer, 128
+//    registers a thread) a block; dK and dV, two 64 x D accumulators (256
+//    KB at D = 512), hold 4 boxes of each (256 columns, 2 a consumer), so
+//    D = 512 takes two dK / dV passes.  Each pass forms its tile pair's S
+//    and dP again: at D = 512 the kernels do 3 + 2 x 3 = 9 products of
+//    2·D FLOP a visible pair against the bound's 5.  With H > Hkv the
+//    group sum as in 1.
+// 3. float32 on the tensor cores: every product a 3xTF32 mma.sync.m16n8k8
+//    (each operand split into a TF32 hi part -- here the value with its 13
+//    low bits cleared -- and the remainder, which the tensor core reads as
+//    TF32; lo·hi + hi·lo + hi·hi summed in float32, ~2^-20 relative a
+//    product, where one TF32 product's ~2^-11 would not hold the
+//    reference's 1e-4 bound), the softmax in float32 with expf (the build
+//    keeps -fmad=false), P from the lse the float32 forward saves.  wgmma
+//    takes 32-bit operands K-major only, and dQ += dS K, dV += Pᵀ dO, dK
+//    += dSᵀ Q read theirs MN-major, so the products are mma.sync with
+//    fragments read from shared tiles of rows of a multiple of 32 plus 4
+//    floats, conflict-free in either orientation; the S / dP accumulators
+//    become the A fragments of the next product in registers.  Tiles move
+//    by cp.async (16 bytes, zeros past S and D; the wrapper pads D to a
+//    multiple of 4).  Δ comes from bwd_delta_f32_kernel, formed the way
+//    each kernel forms its dP -- the same 3xTF32 chains with O in V's
+//    place -- so dP − Δ is exactly 0 where a key's V is the row's O (a row
+//    that sees one key, whose gradient through dS is 0 and would otherwise
+//    be the difference of two roundings); two planes, one a kernel.
+//    a. "f32", D <= 256: bwd_dq_f32_kernel, a block per (b, h, query tile;
+//       64 rows, 128 at D = 128), a warp per 16 rows, Q and dO held, K and
+//       V tiles (64 keys, 32 above D = 64) through a two-stage ring (one
+//       stage at D = 256) over the visible key tiles, longest query tiles
+//       first, S and dP formed in one loop; and bwd_dkdv_f32_kernel, a
+//       block per (b, query head, key tile; 64 keys, 128 at D = 128, 32 at
+//       256), K and V held, Q and dO tiles with their rows' lse and Δ
+//       through a two-stage ring, Sᵀ = K Qᵀ, dPᵀ = V dOᵀ, dV += Pᵀ dO, dK
+//       += dSᵀ Q.  At D <= 64 a sequence of up to 96 rows takes 32-row
+//       tiles both ways.  A tile pair every row sees whole skips the mask.  At D = 256 the dK and dV of 16 rows x 256 would need 256
+//       registers a thread, so two warps share each 16 key rows and split
+//       D: each contracts the scores over 128 of D's columns and owns 128
+//       columns of dK and dV, and the two add their partial Sᵀ and dPᵀ
+//       through shared memory in warp order;
+//    b. "f32 wide", D > 256: bwd_dq_f32_wide_kernel and
+//       bwd_dkdv_f32_wide_kernel, 32-row tiles of both sides, four warps
+//       a 16-row group: the score products contract over D in chunks
+//       (256 columns in dQ, 128 in dK / dV) staged in turn, each warp a
+//       quarter of every chunk, their partials summed as in a; then the
+//       pass's 512 output columns of K (dQ) or of Q and dO (dK / dV) are
+//       staged over the chunks' memory, 128 a warp.  Wider heads take
+//       column passes (blocks), each forming S and dP again: 2 P + 1
+//       products in dQ and 2 P + 2 in dK / dV a visible pair for P passes
+//       (7 at D <= 512) against the bound's 5;
+//    c. with H > Hkv bwd_reduce_kernel's float32 build sums the group.
 //
 // Layouts: per-(b, h, s) element strides with D contiguous, so the model's
 // (B, S, H, hd) activations go in as transposed views without a copy;
-// variant 1 needs 16-byte aligned bases and strides (TMA), and the wrapper
-// copies a tensor where that does not hold.
+// variants 1 and 2 need 16-byte aligned bases and strides (TMA), 3 too
+// (cp.async), and the wrapper copies a tensor where that does not hold.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -136,396 +149,40 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// 2. float32 on the CUDA cores ("simt")
-// ---------------------------------------------------------------------------
-
-constexpr int NT = 256;
-
-struct SimtParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
-  void* dq;
-  void* dk;
-  void* dv;
-  float* stats;  // (3, B, H, S): m, l, Δ
-  int B, H, group, S, D;
-  long long sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
-  int causal, has_window, window;
-  float scale;
-};
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
-__device__ __forceinline__ bool simt_visible(const SimtParams& p, int i,
-                                             int j) {
-  return i < p.S && j < p.S && (!p.causal || j <= i) &&
-         (!p.has_window || j > i - p.window);
-}
-
-// rows [r0, r0 + BT) of a (b, head) slice into a BT x (DT + 1) float tile,
-// zero past S and D
-template <typename T, int BT, int DT>
-__device__ void load_tile(float* dst, const T* base, const long long* st,
-                          int b, int head, int r0, const SimtParams& p) {
-  const T* src = base + b * st[0] + head * st[1];
-  for (int idx = threadIdx.x; idx < BT * DT; idx += NT) {
-    const int r = idx / DT, c = idx % DT;
-    const int row = r0 + r;
-    float x = 0.f;
-    if (row < p.S && c < p.D) x = to_f(src[row * st[2] + c]);
-    dst[r * (DT + 1) + c] = x;
-  }
-}
-
-// a sum over the 16 lanes of a half-warp (the tx of one ty)
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
-}
-__device__ __forceinline__ float max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
-  return x;
-}
-
-// s[a][b] = scale · q_row(ty + 16a) · k_row(tx + 16b), from shared tiles
-template <int BT, int DT>
-__device__ __forceinline__ void scores(float (&s)[BT / 16][BT / 16],
-                                       const float* sQ, const float* sK,
-                                       int ty, int tx, int D) {
-  constexpr int R = BT / 16, LD = DT + 1;
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int b = 0; b < R; ++b) s[a][b] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float qa[R], kb[R];
-#pragma unroll
-    for (int a = 0; a < R; ++a) qa[a] = sQ[(ty + 16 * a) * LD + d];
-#pragma unroll
-    for (int b = 0; b < R; ++b) kb[b] = sK[(tx + 16 * b) * LD + d];
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int b = 0; b < R; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
-  }
-}
-
-template <typename T, int BT, int DT>
-__global__ void __launch_bounds__(NT) bwd_dq_simt_kernel(SimtParams p) {
-  constexpr int R = BT / 16, C = DT / 16, LD = DT + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + BT * LD;
-  float* sK = sDO + BT * LD;
-  float* sV = sK + BT * LD;
-  float* sDS = sV + BT * LD;  // BT x (BT + 1)
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H, h = bh % p.H, kvh = h / p.group;
-  const int i0 = blockIdx.y * BT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* q = static_cast<const T*>(p.q);
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  const T* o = static_cast<const T*>(p.o);
-  const T* dout = static_cast<const T*>(p.dout);
-
-  load_tile<T, BT, DT>(sQ, q, p.sq, b, h, i0, p);
-  load_tile<T, BT, DT>(sDO, dout, p.sdo, b, h, i0, p);
-
-  // Δ of the thread's rows: its columns, then the half-warp's sum
-  float delta[R];
-  {
-    const T* ob = o + b * p.so[0] + h * p.so[1];
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int r = ty + 16 * a, row = i0 + r;
-      float part = 0.f;
-      if (row < p.S)
-        for (int d = tx; d < p.D; d += 16)
-          part = fmaf(sDO[r * LD + d], to_f(ob[row * p.so[2] + d]), part);
-      delta[a] = sum16(part);
-    }
-  }
-
-  // the visible key range of the tile's rows
-  const int i_last = min(i0 + BT, p.S) - 1;
-  int jlo = 0, jhi = p.causal ? i_last + 1 : p.S;
-  if (p.has_window) jlo = max(0, i0 - p.window + 1);
-
-  // pass 1: running max and denominator, keys ascending
-  float m[R], l[R];
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-  }
-  for (int j0 = jlo; j0 < jhi; j0 += BT) {
-    __syncthreads();
-    load_tile<T, BT, DT>(sK, k, p.sk, b, kvh, j0, p);
-    __syncthreads();
-    float s[R][R];
-    scores<BT, DT>(s, sQ, sK, ty, tx, p.D);
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int i = i0 + ty + 16 * a;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < R; ++c) {
-        s[a][c] = simt_visible(p, i, j0 + tx + 16 * c) ? s[a][c] * p.scale
-                                                   : -INFINITY;
-        mx = fmaxf(mx, s[a][c]);
-      }
-      mx = max16(mx);
-      // every lane of the warp takes part in the shuffles: a row with
-      // nothing visible yet keeps m = -inf, l = 0
-      const float m_new = fmaxf(m[a], mx);
-      const bool none = m_new == -INFINITY;
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < R; ++c) part += expf(s[a][c] - (none ? 0.f : m_new));
-      part = sum16(part);
-      l[a] = none ? 0.f : l[a] * expf(m[a] - m_new) + part;
-      m[a] = m_new;
-    }
-  }
-
-  // pass 2: dS, dQ
-  float acc[R][C];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[a][c] = 0.f;
-  for (int j0 = jlo; j0 < jhi; j0 += BT) {
-    __syncthreads();
-    load_tile<T, BT, DT>(sK, k, p.sk, b, kvh, j0, p);
-    load_tile<T, BT, DT>(sV, v, p.sv, b, kvh, j0, p);
-    __syncthreads();
-    float s[R][R], dp[R][R];
-    scores<BT, DT>(s, sQ, sK, ty, tx, p.D);
-    scores<BT, DT>(dp, sDO, sV, ty, tx, p.D);
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int r = ty + 16 * a, i = i0 + r;
-#pragma unroll
-      for (int c = 0; c < R; ++c) {
-        const int col = tx + 16 * c;
-        float ds = 0.f;
-        if (simt_visible(p, i, j0 + col) && l[a] > 0.f) {
-          const float pr = expf(s[a][c] * p.scale - m[a]) / l[a];
-          ds = pr * (dp[a][c] - delta[a]);
-        }
-        sDS[r * (BT + 1) + col] = ds;
-      }
-    }
-    __syncthreads();
-    const int jn = min(BT, p.S - j0);
-    for (int j = 0; j < jn; ++j) {
-      float kv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) kv[c] = sK[j * LD + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < R; ++a) {
-        const float ds = sDS[(ty + 16 * a) * (BT + 1) + j];
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[a][c] = fmaf(ds, kv[c], acc[a][c]);
-      }
-    }
-  }
-
-  T* dq = static_cast<T*>(p.dq) + b * p.sdq[0] + h * p.sdq[1];
-  const long long plane = (long long)p.B * p.H * p.S;
-  float* st = p.stats + ((long long)b * p.H + h) * p.S;
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int row = i0 + ty + 16 * a;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int d = tx + 16 * c;
-      if (d < p.D) dq[row * p.sdq[2] + d] = from_f<T>(p.scale * acc[a][c]);
-    }
-    if (tx == 0) {
-      st[row] = m[a];
-      st[plane + row] = l[a];
-      st[2 * plane + row] = delta[a];
-    }
-  }
-}
-
-template <typename T, int BT, int DT>
-__global__ void __launch_bounds__(NT) bwd_dkdv_simt_kernel(SimtParams p) {
-  constexpr int R = BT / 16, C = DT / 16, LD = DT + 1;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + BT * LD;
-  float* sQ = sV + BT * LD;
-  float* sDO = sQ + BT * LD;
-  float* sP = sDO + BT * LD;      // BT x (BT + 1), [query][key]
-  float* sDS = sP + BT * (BT + 1);
-  float* sStat = sDS + BT * (BT + 1);  // m, l, Δ of the query tile's rows
-
-  const int Hkv = p.H / p.group;
-  const int b = blockIdx.x / Hkv, kvh = blockIdx.x % Hkv;
-  const int j0 = blockIdx.y * BT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const T* q = static_cast<const T*>(p.q);
-  const T* dout = static_cast<const T*>(p.dout);
-  const long long plane = (long long)p.B * p.H * p.S;
-
-  load_tile<T, BT, DT>(sK, static_cast<const T*>(p.k), p.sk, b, kvh, j0, p);
-  load_tile<T, BT, DT>(sV, static_cast<const T*>(p.v), p.sv, b, kvh, j0, p);
-
-  // the visible query range of the tile's keys
-  const int j_last = min(j0 + BT, p.S) - 1;
-  const int ilo = p.causal ? j0 : 0;
-  int ihi = p.S;
-  if (p.has_window) ihi = min(p.S, j_last + p.window);
-
-  float dk[R][C], dv[R][C];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int c = 0; c < C; ++c) dk[a][c] = dv[a][c] = 0.f;
-
-  for (int g = 0; g < p.group; ++g) {
-    const int h = kvh * p.group + g;
-    const float* st = p.stats + ((long long)b * p.H + h) * p.S;
-    for (int i0 = ilo; i0 < ihi; i0 += BT) {
-      __syncthreads();
-      load_tile<T, BT, DT>(sQ, q, p.sq, b, h, i0, p);
-      load_tile<T, BT, DT>(sDO, dout, p.sdo, b, h, i0, p);
-      for (int r = threadIdx.x; r < BT; r += NT) {
-        const int row = i0 + r;
-        const bool in = row < p.S;
-        sStat[r] = in ? st[row] : 0.f;
-        sStat[BT + r] = in ? st[plane + row] : 0.f;
-        sStat[2 * BT + r] = in ? st[2 * plane + row] : 0.f;
-      }
-      __syncthreads();
-      float s[R][R], dp[R][R];
-      scores<BT, DT>(s, sQ, sK, ty, tx, p.D);
-      scores<BT, DT>(dp, sDO, sV, ty, tx, p.D);
-#pragma unroll
-      for (int a = 0; a < R; ++a) {
-        const int r = ty + 16 * a, i = i0 + r;
-        const float m = sStat[r], l = sStat[BT + r], delta = sStat[2 * BT + r];
-#pragma unroll
-        for (int c = 0; c < R; ++c) {
-          const int col = tx + 16 * c;
-          float pr = 0.f, ds = 0.f;
-          if (simt_visible(p, i, j0 + col) && l > 0.f) {
-            pr = expf(s[a][c] * p.scale - m) / l;
-            ds = pr * (dp[a][c] - delta);
-          }
-          sP[r * (BT + 1) + col] = pr;
-          sDS[r * (BT + 1) + col] = ds;
-        }
-      }
-      __syncthreads();
-      const int rn = min(BT, p.S - i0);
-      for (int r = 0; r < rn; ++r) {
-        float qv[C], dov[C];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          qv[c] = sQ[r * LD + tx + 16 * c];
-          dov[c] = sDO[r * LD + tx + 16 * c];
-        }
-#pragma unroll
-        for (int a = 0; a < R; ++a) {
-          const int j = ty + 16 * a;
-          const float pr = sP[r * (BT + 1) + j];
-          const float ds = sDS[r * (BT + 1) + j];
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            dv[a][c] = fmaf(pr, dov[c], dv[a][c]);
-            dk[a][c] = fmaf(ds, qv[c], dk[a][c]);
-          }
-        }
-      }
-    }
-  }
-
-  T* dkp = static_cast<T*>(p.dk) + b * p.sdk[0] + kvh * p.sdk[1];
-  T* dvp = static_cast<T*>(p.dv) + b * p.sdv[0] + kvh * p.sdv[1];
-#pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int row = j0 + ty + 16 * a;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int d = tx + 16 * c;
-      if (d < p.D) {
-        dkp[row * p.sdk[2] + d] = from_f<T>(p.scale * dk[a][c]);
-        dvp[row * p.sdv[2] + d] = from_f<T>(dv[a][c]);
-      }
-    }
-  }
-}
-
-template <int BT, int DT>
-constexpr size_t simt_dq_bytes() {
-  return sizeof(float) * (4 * BT * (DT + 1) + BT * (BT + 1));
-}
-template <int BT, int DT>
-constexpr size_t simt_dkdv_bytes() {
-  return sizeof(float) * (4 * BT * (DT + 1) + 2 * BT * (BT + 1) + 3 * BT);
-}
-
-template <int DT>
-int launch_simt(const SimtParams& p, int Hkv, cudaStream_t st) {
-  constexpr int BT = DT <= 128 ? 64 : 32;
-  const int tiles = (p.S + BT - 1) / BT;
-  if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  int err = launch(bwd_dq_simt_kernel<float, BT, DT>, simt_dq_bytes<BT, DT>(),
-                   dim3(p.B * p.H, tiles), NT, st, p);
-  if (err != 0) return err;
-  return launch(bwd_dkdv_simt_kernel<float, BT, DT>,
-                simt_dkdv_bytes<BT, DT>(), dim3(p.B * Hkv, tiles), NT, st, p);
-}
-
-// ---------------------------------------------------------------------------
-// 1. bf16 on the tensor cores ("wgmma")
-// ---------------------------------------------------------------------------
-
 constexpr float LOG2E = 1.4426950408889634f;
 
-struct WgParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+// a launch's arguments; T the inputs' and gradients' element type
+template <typename T>
+struct BwdParams {
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* o;
+  const T* dout;
   const float* lse;  // (B, H, S): the forward's, natural units
   float* delta;      // (B, H, S): Δ, written by bwd_delta_kernel
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  T* dq;
+  T* dk;
+  T* dv;
   float* part;  // G > 1: (2, B, H, S, D) partial dK, dV; G = 1: null
   int B, H, group, S, D;
   long long sq[3], sk[3], sv[3], so[3], sdo[3], sdq[3], sdk[3], sdv[3];
   int causal, has_window, window;
   float scale;
 };
+using WgParams = BwdParams<__nv_bfloat16>;
+using F32Params = BwdParams<float>;
 
-__device__ __forceinline__ bool seen(const WgParams& p, int row, int key) {
+// ---------------------------------------------------------------------------
+// 1. bf16 on the tensor cores ("wgmma")
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__device__ __forceinline__ bool seen(const BwdParams<T>& p, int row, int key) {
   return key < p.S && (!p.causal || key <= row) &&
          (!p.has_window || key > row - p.window);
 }
@@ -987,8 +644,9 @@ __global__ void __launch_bounds__(128 * (KvTile<DP>::NC + 1), 1)
 }
 
 // dk, dv of each KV head: the sum of its G heads' partials in ascending
-// head order, 4 columns a thread (float4 in, 4 bf16 out)
-__global__ void __launch_bounds__(256) bwd_reduce_kernel(WgParams p) {
+// head order, 4 columns a thread (float4 in, 4 of T out)
+template <typename T>
+__global__ void __launch_bounds__(256) bwd_reduce_kernel(BwdParams<T> p) {
   const int Hkv = p.H / p.group, C4 = p.D / 4;
   const long long per = (long long)p.B * Hkv * p.S * C4;
   long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -1012,11 +670,14 @@ __global__ void __launch_bounds__(256) bwd_reduce_kernel(WgParams p) {
     acc.z += x.z;
     acc.w += x.w;
   }
-  __nv_bfloat16* dst =
-      is_v ? p.dv + b * p.sdv[0] + hk * p.sdv[1] + s * p.sdv[2]
-           : p.dk + b * p.sdk[0] + hk * p.sdk[1] + s * p.sdk[2];
-  store_bf16x2(dst + 4 * c4, acc.x, acc.y);
-  store_bf16x2(dst + 4 * c4 + 2, acc.z, acc.w);
+  T* dst = is_v ? p.dv + b * p.sdv[0] + hk * p.sdv[1] + s * p.sdv[2]
+               : p.dk + b * p.sdk[0] + hk * p.sdk[1] + s * p.sdk[2];
+  if constexpr (std::is_same_v<T, float>) {
+    *reinterpret_cast<float4*>(dst + 4 * c4) = acc;
+  } else {
+    store_bf16x2(dst + 4 * c4, acc.x, acc.y);
+    store_bf16x2(dst + 4 * c4 + 2, acc.z, acc.w);
+  }
 }
 
 // Δ of every (b, h, row): 2^gs lanes a row, at most a warp's 32
@@ -1030,9 +691,10 @@ int launch_delta(const WgParams& p, cudaStream_t st) {
 }
 
 // the group sum of G > 1 heads' partials into dk, dv
-int launch_reduce(const WgParams& p, int Hkv, cudaStream_t st) {
+template <typename T>
+int launch_reduce(const BwdParams<T>& p, int Hkv, cudaStream_t st) {
   const long long groups = 2LL * p.B * Hkv * p.S * (p.D / 4);
-  return launch(bwd_reduce_kernel, 0, dim3((unsigned)((groups + 255) / 256)),
+  return launch(bwd_reduce_kernel<T>, 0, dim3((unsigned)((groups + 255) / 256)),
                 256, st, p);
 }
 
@@ -1067,10 +729,10 @@ int launch_wgmma(const WgParams& p, int Hkv, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// 3. D > 256 ("wide")
+// 2. bf16, D > 256 ("wide")
 // ---------------------------------------------------------------------------
 
-// 3a. bf16 on the tensor cores.  Three warpgroups as in the forward's
+// Three warpgroups as in the forward's
 // fa_wide_wgmma_kernel: a producer (one thread issues every TMA load) and
 // two consumers.  Every tile of Q, K, V and dO moves as 64-row x 64-column
 // boxes (8 KB, 128-byte swizzled) through one ring of WIDE_SLOTS slots,
@@ -1541,361 +1203,6 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-// 3b. float32 on the CUDA cores, to hold the 1e-4 float32 bound: the simt
-// kernels with the scores summed over D in WS_DS-column slices staged in
-// turn, and the output columns in passes of WS_DC (a block each), each
-// pass forming the scores once.  256 threads (ty, tx) = (tid / 16, tid %
-// 16); a 32-row tile: rows ty + 16 a, score columns tx + 16 c, output
-// columns 4 tx + 64 jj + e of the pass.  Shared tiles have rows of a
-// multiple of 4 floats plus 4, so each thread reads float4s: 16
-// multiply-adds for 4 loads in the scores, 8 or 16 for 1 or 2 in the
-// output products.
-constexpr int WS_BT = 32;          // rows of a query or key tile
-constexpr int WS_DS = 64;          // head-dim slice of a score pass
-constexpr int WS_LS = WS_DS + 4;
-constexpr int WS_DC = 512;         // output columns of a block
-constexpr int WS_LC = WS_DC + 4;
-constexpr int WS_CJ = WS_DC / 64;  // a thread's float4s of output columns
-constexpr int WS_LP = WS_BT + 1;
-
-// rows r0 .. r0 + WS_BT - 1, columns c0 .. c0 + COLS - 1 of one head into
-// rows of LD floats; zeros past S and D
-template <int COLS, int LD>
-__device__ __forceinline__ void stage_f32(float* dst, const float* src,
-                                          long long rs, int r0, int c0,
-                                          int S, int D) {
-  for (int idx = threadIdx.x; idx < WS_BT * COLS; idx += NT) {
-    const int r = idx / COLS, c = idx % COLS;
-    float x = 0.0f;
-    if (r0 + r < S && c0 + c < D) x = src[(long long)(r0 + r) * rs + c0 + c];
-    dst[r * LD + c] = x;
-  }
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// acc += a · b over the 4 lanes of two float4s, in lane order
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-// acc[0 .. 3] += x · v
-__device__ __forceinline__ void axpy4(float (&acc)[4], float x, float4 v) {
-  acc[0] = fmaf(x, v.x, acc[0]);
-  acc[1] = fmaf(x, v.y, acc[1]);
-  acc[2] = fmaf(x, v.z, acc[2]);
-  acc[3] = fmaf(x, v.w, acc[3]);
-}
-
-// s[a][c] += X[ty + 16 a] · Y[tx + 16 c] over a staged slice
-__device__ __forceinline__ void slice_scores(float (&s)[2][2], const float* X,
-                                             const float* Y, int ty, int tx) {
-#pragma unroll 4
-  for (int d = 0; d < WS_DS; d += 4) {
-    const float4 x0 = ld4(X + ty * WS_LS + d), x1 = ld4(X + (ty + 16) * WS_LS + d);
-    const float4 y0 = ld4(Y + tx * WS_LS + d), y1 = ld4(Y + (tx + 16) * WS_LS + d);
-    s[0][0] = dot4(x0, y0, s[0][0]);
-    s[0][1] = dot4(x0, y1, s[0][1]);
-    s[1][0] = dot4(x1, y0, s[1][0]);
-    s[1][1] = dot4(x1, y1, s[1][1]);
-  }
-}
-
-// dQ: a block per (b, h, column pass, 32-row query tile): Δ of its rows,
-// the row statistics (pass 1), then P, dP, dS (staged in shared memory)
-// and dQ += dS K over the pass's columns; the first pass writes m, l, Δ
-__global__ void __launch_bounds__(NT) bwd_dq_wide_simt_kernel(SimtParams p) {
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + WS_BT * WS_LS;
-  float* sK = sDO + WS_BT * WS_LS;
-  float* sV = sK + WS_BT * WS_LS;
-  float* sDS = sV + WS_BT * WS_LS;  // [query][key]
-  float* sKc = sDS + WS_BT * WS_LP;  // K's rows over the pass's columns
-
-  const int passes = (p.D + WS_DC - 1) / WS_DC;
-  const int bh = blockIdx.x / passes, d0 = blockIdx.x % passes * WS_DC;
-  const int b = bh / p.H, h = bh % p.H, kvh = h / p.group;
-  const int i0 = blockIdx.y * WS_BT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* q = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
-  const float* k = static_cast<const float*>(p.k) + b * p.sk[0] + kvh * p.sk[1];
-  const float* v = static_cast<const float*>(p.v) + b * p.sv[0] + kvh * p.sv[1];
-  const float* o = static_cast<const float*>(p.o) + b * p.so[0] + h * p.so[1];
-  const float* dout =
-      static_cast<const float*>(p.dout) + b * p.sdo[0] + h * p.sdo[1];
-
-  // Δ of the thread's rows: its columns, then the half-warp's sum
-  float delta[2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int row = i0 + ty + 16 * a;
-    float part = 0.f;
-    if (row < p.S)
-      for (int d = tx; d < p.D; d += 16)
-        part = fmaf(dout[row * p.sdo[2] + d], o[row * p.so[2] + d], part);
-    delta[a] = sum16(part);
-  }
-
-  const int i_last = min(i0 + WS_BT, p.S) - 1;
-  int jlo = 0, jhi = p.causal ? i_last + 1 : p.S;
-  if (p.has_window) jlo = max(0, i0 - p.window + 1);
-
-  // pass 1: running max and denominator, keys ascending
-  float m[2], l[2];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    m[a] = -INFINITY;
-    l[a] = 0.f;
-  }
-  for (int j0 = jlo; j0 < jhi; j0 += WS_BT) {
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    for (int c0 = 0; c0 < p.D; c0 += WS_DS) {
-      __syncthreads();
-      stage_f32<WS_DS, WS_LS>(sQ, q, p.sq[2], i0, c0, p.S, p.D);
-      stage_f32<WS_DS, WS_LS>(sK, k, p.sk[2], j0, c0, p.S, p.D);
-      __syncthreads();
-      slice_scores(s, sQ, sK, ty, tx);
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int i = i0 + ty + 16 * a;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        s[a][c] = simt_visible(p, i, j0 + tx + 16 * c) ? s[a][c] * p.scale
-                                                       : -INFINITY;
-        mx = fmaxf(mx, s[a][c]);
-      }
-      mx = max16(mx);
-      const float m_new = fmaxf(m[a], mx);
-      const bool none = m_new == -INFINITY;
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) part += expf(s[a][c] - (none ? 0.f : m_new));
-      part = sum16(part);
-      l[a] = none ? 0.f : l[a] * expf(m[a] - m_new) + part;
-      m[a] = m_new;
-    }
-  }
-
-  // pass 2: dS, dQ over the pass's columns
-  float acc[2][WS_CJ][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int jj = 0; jj < WS_CJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[a][jj][e] = 0.f;
-  for (int j0 = jlo; j0 < jhi; j0 += WS_BT) {
-    float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    for (int c0 = 0; c0 < p.D; c0 += WS_DS) {
-      __syncthreads();
-      stage_f32<WS_DS, WS_LS>(sQ, q, p.sq[2], i0, c0, p.S, p.D);
-      stage_f32<WS_DS, WS_LS>(sK, k, p.sk[2], j0, c0, p.S, p.D);
-      stage_f32<WS_DS, WS_LS>(sDO, dout, p.sdo[2], i0, c0, p.S, p.D);
-      stage_f32<WS_DS, WS_LS>(sV, v, p.sv[2], j0, c0, p.S, p.D);
-      __syncthreads();
-      slice_scores(s, sQ, sK, ty, tx);
-      slice_scores(dp, sDO, sV, ty, tx);
-    }
-#pragma unroll
-    for (int a = 0; a < 2; ++a) {
-      const int r = ty + 16 * a, i = i0 + r;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = tx + 16 * c;
-        float ds = 0.f;
-        if (simt_visible(p, i, j0 + col) && l[a] > 0.f) {
-          const float pr = expf(s[a][c] * p.scale - m[a]) / l[a];
-          ds = pr * (dp[a][c] - delta[a]);
-        }
-        sDS[r * WS_LP + col] = ds;
-      }
-    }
-    stage_f32<WS_DC, WS_LC>(sKc, k, p.sk[2], j0, d0, p.S, p.D);
-    __syncthreads();
-    const int jn = min(WS_BT, p.S - j0);
-    for (int j = 0; j < jn; ++j) {
-      const float ds0 = sDS[ty * WS_LP + j], ds1 = sDS[(ty + 16) * WS_LP + j];
-#pragma unroll
-      for (int jj = 0; jj < WS_CJ; ++jj) {
-        const float4 kv = ld4(sKc + j * WS_LC + 4 * tx + 64 * jj);
-        axpy4(acc[0][jj], ds0, kv);
-        axpy4(acc[1][jj], ds1, kv);
-      }
-    }
-  }
-
-  float* dq = static_cast<float*>(p.dq) + b * p.sdq[0] + h * p.sdq[1];
-  const long long plane = (long long)p.B * p.H * p.S;
-  float* stt = p.stats + ((long long)b * p.H + h) * p.S;
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int row = i0 + ty + 16 * a;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int jj = 0; jj < WS_CJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = d0 + 4 * tx + 64 * jj + e;
-        if (d < p.D) dq[row * p.sdq[2] + d] = p.scale * acc[a][jj][e];
-      }
-    if (tx == 0 && d0 == 0) {
-      stt[row] = m[a];
-      stt[plane + row] = l[a];
-      stt[2 * plane + row] = delta[a];
-    }
-  }
-}
-
-// dK / dV: a block per (b, KV head, column pass, 32-key tile) holding its
-// keys' dK and dV over the pass's columns in registers; for each of the
-// group's G heads in order, each visible query tile in ascending order:
-// the scores over D's slices, P and dS from the row statistics (staged in
-// shared memory), then Q's and dO's rows over the pass's columns staged
-// and dK, dV accumulated
-__global__ void __launch_bounds__(NT) bwd_dkdv_wide_simt_kernel(SimtParams p) {
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sDO = sQ + WS_BT * WS_LS;
-  float* sK = sDO + WS_BT * WS_LS;
-  float* sV = sK + WS_BT * WS_LS;
-  float* sP = sV + WS_BT * WS_LS;  // [query][key]
-  float* sDS = sP + WS_BT * WS_LP;
-  float* sStat = sDS + WS_BT * WS_LP;  // m, l, Δ of the query tile's rows
-  float* sQc = sStat + 3 * WS_BT;
-  float* sDOc = sQc + WS_BT * WS_LC;
-
-  const int Hkv = p.H / p.group;
-  const int passes = (p.D + WS_DC - 1) / WS_DC;
-  const int bk = blockIdx.x / passes, d0 = blockIdx.x % passes * WS_DC;
-  const int b = bk / Hkv, kvh = bk % Hkv;
-  const int j0 = blockIdx.y * WS_BT;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* k = static_cast<const float*>(p.k) + b * p.sk[0] + kvh * p.sk[1];
-  const float* v = static_cast<const float*>(p.v) + b * p.sv[0] + kvh * p.sv[1];
-  const long long plane = (long long)p.B * p.H * p.S;
-
-  const int j_last = min(j0 + WS_BT, p.S) - 1;
-  const int ilo = p.causal ? j0 : 0;
-  int ihi = p.S;
-  if (p.has_window) ihi = min(p.S, j_last + p.window);
-
-  float dk[2][WS_CJ][4], dv[2][WS_CJ][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int jj = 0; jj < WS_CJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk[a][jj][e] = dv[a][jj][e] = 0.f;
-
-  for (int g = 0; g < p.group; ++g) {
-    const int h = kvh * p.group + g;
-    const float* q = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
-    const float* dout =
-        static_cast<const float*>(p.dout) + b * p.sdo[0] + h * p.sdo[1];
-    const float* st = p.stats + ((long long)b * p.H + h) * p.S;
-    for (int i0 = ilo; i0 < ihi; i0 += WS_BT) {
-      float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      float dp[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-      for (int c0 = 0; c0 < p.D; c0 += WS_DS) {
-        __syncthreads();
-        stage_f32<WS_DS, WS_LS>(sQ, q, p.sq[2], i0, c0, p.S, p.D);
-        stage_f32<WS_DS, WS_LS>(sK, k, p.sk[2], j0, c0, p.S, p.D);
-        stage_f32<WS_DS, WS_LS>(sDO, dout, p.sdo[2], i0, c0, p.S, p.D);
-        stage_f32<WS_DS, WS_LS>(sV, v, p.sv[2], j0, c0, p.S, p.D);
-        if (c0 == 0)
-          for (int r = threadIdx.x; r < WS_BT; r += NT) {
-            const int row = i0 + r;
-            const bool in = row < p.S;
-            sStat[r] = in ? st[row] : 0.f;
-            sStat[WS_BT + r] = in ? st[plane + row] : 0.f;
-            sStat[2 * WS_BT + r] = in ? st[2 * plane + row] : 0.f;
-          }
-        __syncthreads();
-        slice_scores(s, sQ, sK, ty, tx);
-        slice_scores(dp, sDO, sV, ty, tx);
-      }
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        const int r = ty + 16 * a, i = i0 + r;
-        const float m = sStat[r], l = sStat[WS_BT + r],
-                    delta = sStat[2 * WS_BT + r];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = tx + 16 * c;
-          float pr = 0.f, ds = 0.f;
-          if (simt_visible(p, i, j0 + col) && l > 0.f) {
-            pr = expf(s[a][c] * p.scale - m) / l;
-            ds = pr * (dp[a][c] - delta);
-          }
-          sP[r * WS_LP + col] = pr;
-          sDS[r * WS_LP + col] = ds;
-        }
-      }
-      stage_f32<WS_DC, WS_LC>(sQc, q, p.sq[2], i0, d0, p.S, p.D);
-      stage_f32<WS_DC, WS_LC>(sDOc, dout, p.sdo[2], i0, d0, p.S, p.D);
-      __syncthreads();
-      const int rn = min(WS_BT, p.S - i0);
-      for (int r = 0; r < rn; ++r) {
-        const float p0 = sP[r * WS_LP + ty], p1 = sP[r * WS_LP + ty + 16];
-        const float s0 = sDS[r * WS_LP + ty], s1 = sDS[r * WS_LP + ty + 16];
-#pragma unroll
-        for (int jj = 0; jj < WS_CJ; ++jj) {
-          const float4 qv = ld4(sQc + r * WS_LC + 4 * tx + 64 * jj);
-          const float4 dov = ld4(sDOc + r * WS_LC + 4 * tx + 64 * jj);
-          axpy4(dv[0][jj], p0, dov);
-          axpy4(dv[1][jj], p1, dov);
-          axpy4(dk[0][jj], s0, qv);
-          axpy4(dk[1][jj], s1, qv);
-        }
-      }
-    }
-  }
-
-  float* dkp = static_cast<float*>(p.dk) + b * p.sdk[0] + kvh * p.sdk[1];
-  float* dvp = static_cast<float*>(p.dv) + b * p.sdv[0] + kvh * p.sdv[1];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    const int row = j0 + ty + 16 * a;
-    if (row >= p.S) continue;
-#pragma unroll
-    for (int jj = 0; jj < WS_CJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = d0 + 4 * tx + 64 * jj + e;
-        if (d < p.D) {
-          dkp[row * p.sdk[2] + d] = p.scale * dk[a][jj][e];
-          dvp[row * p.sdv[2] + d] = dv[a][jj][e];
-        }
-      }
-  }
-}
-
-constexpr size_t WS_DQ_BYTES =
-    sizeof(float) * (4 * WS_BT * WS_LS + WS_BT * WS_LP + WS_BT * WS_LC);
-constexpr size_t WS_KV_BYTES =
-    sizeof(float) *
-    (4 * WS_BT * WS_LS + 2 * WS_BT * WS_LP + 3 * WS_BT + 2 * WS_BT * WS_LC);
-
-int launch_wide_simt(const SimtParams& p, int Hkv, cudaStream_t st) {
-  const int passes = (p.D + WS_DC - 1) / WS_DC;
-  const int tiles = (p.S + WS_BT - 1) / WS_BT;
-  if (tiles > 65535) return (int)cudaErrorInvalidValue;
-  int err = launch(bwd_dq_wide_simt_kernel, WS_DQ_BYTES,
-                   dim3(p.B * p.H * passes, tiles), NT, st, p);
-  if (err != 0) return err;
-  return launch(bwd_dkdv_wide_simt_kernel, WS_KV_BYTES,
-                dim3(p.B * Hkv * passes, tiles), NT, st, p);
-}
-
 // "wide" in bf16: Δ, dQ, dK / dV (column passes of each) and, for G > 1,
 // the group sum; every box 64 rows x 64 columns
 int launch_wide(const WgParams& p, int Hkv, cudaStream_t st) {
@@ -1925,33 +1232,789 @@ bool aligned4(const void* ptr, const long long* st) {
          st[1] % 2 == 0 && st[2] % 2 == 0;
 }
 
-}  // namespace
 
-// Variant "simt" (float32): tile_d the head-dim tile (32, 64, 128 or 256,
-// D <= tile_d); strides per (b, head, s) in elements, D contiguous, in the
-// order q, k, v, o, dO, dq, dk, dv; stats a float32 scratch of 3·B·H·S.
-// Two kernel launches on `stream`.
-extern "C" int flash_attention_bwd_simt_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, float* stats, int tile_d,
-    int B, int H, int Hkv, int S, int D, const long long* strides, int causal,
-    int has_window, int window, float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const bool wide = tile_d == WS_DC;
-  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 1 ||
-      (wide ? D <= 256 : D > tile_d))
-    return (int)cudaErrorInvalidValue;
-  SimtParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.dout = dout;
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
-  p.stats = stats;
+// ---------------------------------------------------------------------------
+// 3. float32 on the tensor cores in 3xTF32 ("f32", "f32 wide")
+// ---------------------------------------------------------------------------
+
+// 16 bytes global -> shared; zeros where !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr int F32_WIDE_COLS = 512;  // output columns of a "f32 wide" block
+
+constexpr int cmaxi(int a, int b) { return a > b ? a : b; }
+
+// A kernel's tiles.  A block owns R row groups of 16 rows (BM = 16 R: query
+// rows in dQ, key rows in dK / dV) and streams BN-row tiles of the other
+// side.  Each row group has W warps: warp j contracts the score products
+// over columns [j KW, (j + 1) KW) of each staged chunk of DT columns and
+// owns output columns [j DC / W, (j + 1) DC / W) of the block's DC; with
+// W > 1 the warps' partial scores meet in shared memory and each adds them
+// in warp order, so all hold the same bits.  Tiled (D <= DT <= 256): the
+// block's own rows are staged once, the streamed tiles through ST stages,
+// DC = DT.  Wide: each tile pair stages D in chunks of DT columns in turn,
+// then the pass's DC = 512 columns of the output product's operand.  Rows
+// of DT + 4 (DC + 4) floats: a pitch of 4 modulo 32 banks, so the fragment
+// reads below are conflict-free in either orientation.
+template <int DT_, int W_, int R_, int BN_, int ST_, bool WIDE_>
+struct F32Tile {
+  static constexpr int DT = DT_, W = W_, R = R_, BN = BN_, ST = ST_;
+  static constexpr bool WIDE = WIDE_;
+  static constexpr int BM = 16 * R, NT = 32 * W * R;
+  static constexpr int DC = WIDE ? F32_WIDE_COLS : DT;
+  static constexpr int LD = DT + 4, LC = DC + 4;
+  static constexpr int NB = BN / 8;       // the scores' n-tiles
+  static constexpr int NC = DC / W / 8;   // a warp's output n-tiles
+  static constexpr int KW = DT / W;       // a warp's columns of a chunk
+  static constexpr int XF = W > 1 ? 2 * NB * 4 * 32 : 0;  // a warp's partials
+  // the block's rows and the streamed tiles (tiled), or a chunk of both and
+  // the pass's operand columns (wide, over the same floats); then the
+  // streamed rows' lse and Δ (dK / dV) and the partial scores
+  static constexpr int MAIN_DQ =
+      WIDE ? cmaxi(2 * (BM + BN) * LD, BN * LC) : 2 * (BM + ST * BN) * LD;
+  static constexpr int MAIN_KV =
+      WIDE ? cmaxi(2 * (BM + BN) * LD, 2 * BN * LC) : 2 * (BM + ST * BN) * LD;
+  static constexpr int STATS = (WIDE ? 1 : ST) * 2 * BN;
+  static constexpr size_t dq_bytes() {
+    return sizeof(float) * (MAIN_DQ + W * R * XF);
+  }
+  static constexpr size_t kv_bytes() {
+    return sizeof(float) * (MAIN_KV + STATS + W * R * XF);
+  }
+};
+
+// rows r0 .. r0 + ROWS - 1, columns c0 .. c0 + COLS - 1 of one head into
+// rows of LDS floats by cp.async; zeros past S and D (D a multiple of 4)
+template <int ROWS, int COLS, int LDS, int NT>
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          long long rs, int r0, int c0,
+                                          int S, int D) {
+  constexpr int CH = COLS / 4;
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = 4 * (i % CH);
+    const bool ok = r0 + r < S && c0 + c < D;
+    cp_async16(dst + r * LDS + c,
+               ok ? src + (long long)(r0 + r) * rs + c0 + c : src, ok);
+  }
+}
+
+// 3xTF32 operands as tf32.cuh splits them, but with hi the float32 value
+// truncated to TF32 (its 13 low bits cleared, one ALU op) rather than
+// rounded (two): x = hi + lo exactly, |lo| < 2^-10 |x|, the tensor core
+// reading lo as TF32 by dropping its own 13 low bits -- ~2^-20 relative a
+// product where the rounded split gives ~2^-21, for a third fewer split
+// instructions
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));  // exact
+}
+
+struct TfA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ TfA(float a0, float a1, float a2, float a3) {
+    split_trunc(a0, hi[0], lo[0]);
+    split_trunc(a1, hi[1], lo[1]);
+    split_trunc(a2, hi[2], lo[2]);
+    split_trunc(a3, hi[3], lo[3]);
+  }
+};
+
+struct TfB {
+  uint32_t hi[2], lo[2];
+  TfB() = default;
+  __device__ __forceinline__ TfB(float b0, float b1) {
+    split_trunc(b0, hi[0], lo[0]);
+    split_trunc(b1, hi[1], lo[1]);
+  }
+};
+
+// the NB products acc[n] += a b[n] in 3xTF32, lo·hi, hi·lo, then hi·hi
+// into each accumulator (tf32.cuh's mma3 order), the passes interleaved
+// across n
+template <int NB>
+__device__ __forceinline__ void mma3_rows(float (*acc)[4], const TfA& a,
+                                          const TfB (&b)[NB]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.lo, b[n].hi[0], b[n].hi[1]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.hi, b[n].lo[0], b[n].lo[1]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.hi, b[n].hi[0], b[n].hi[1]);
+}
+
+// the two score products, s[n] += A1 B1ᵀ and dp[n] += A2 B2ᵀ (16 x 8
+// each), over columns [k0, k1) (multiples of 8, k1 - k0 <= KW), formed in
+// one loop: A1, A2 the warp's 16 rows at a1, a2 (pitch LA), B1, B2 the 8 NB
+// rows at b1, b2 (pitch LB); unrolled over KW / 8 steps, the ones past k1
+// skipped
+template <int NB, int LA, int LB, int KW>
+__device__ __forceinline__ void score_mma(float (&s)[NB][4],
+                                          float (&dp)[NB][4],
+                                          const float* a1, const float* b1,
+                                          const float* a2, const float* b2,
+                                          int k0, int k1, int gid, int tig) {
+#pragma unroll
+  for (int kk = 0; kk < KW; kk += 8) {
+    const int k = k0 + kk;
+    if (k < k1) {
+      const float* ar1 = a1 + gid * LA + k + tig;
+      const float* ar2 = a2 + gid * LA + k + tig;
+      const TfA fa1(ar1[0], ar1[8 * LA], ar1[4], ar1[8 * LA + 4]);
+      const TfA fa2(ar2[0], ar2[8 * LA], ar2[4], ar2[8 * LA + 4]);
+      TfB fb1[NB], fb2[NB];
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        const float* br1 = b1 + (8 * n + gid) * LB + k + tig;
+        const float* br2 = b2 + (8 * n + gid) * LB + k + tig;
+        fb1[n] = TfB(br1[0], br1[4]);
+        fb2[n] = TfB(br2[0], br2[4]);
+      }
+      mma3_rows<NB>(s, fa1, fb1);
+      mma3_rows<NB>(dp, fa2, fb2);
+    }
+  }
+}
+
+// out[c] (16 x 8) += P B: P the 16 x 8 NK product in accumulators (an
+// accumulator is an A fragment with its k slots permuted: tf32.cuh), B the
+// 8 NK rows at b (pitch LB) over the warp's 8 NC columns from b
+template <int NK, int NC, int LB>
+__device__ __forceinline__ void out_mma(float (&out)[NC][4],
+                                        const float (&pm)[NK][4],
+                                        const float* b, int gid, int tig) {
+  constexpr int G = NC % 4 == 0 ? 4 : NC;  // columns interleaved at a time
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const TfA fa(pm[kk][0], pm[kk][2], pm[kk][1], pm[kk][3]);
+    const float* br = b + (8 * kk + 2 * tig) * LB + gid;
+#pragma unroll
+    for (int c0 = 0; c0 < NC; c0 += G) {
+      TfB fb[G];
+#pragma unroll
+      for (int c = 0; c < G; ++c)
+        fb[c] = TfB(br[8 * (c0 + c)], br[LB + 8 * (c0 + c)]);
+      mma3_rows<G>(out + c0, fa, fb);
+    }
+  }
+}
+
+// W > 1: the row group's W warps' partial scores summed in warp order, the
+// same bits in each warp; x is the block's partials region
+template <class C>
+__device__ __forceinline__ void exchange(float (&s)[C::NB][4],
+                                         float (&dp)[C::NB][4], float* x,
+                                         int warp, int rg, int lane) {
+  if constexpr (C::W > 1) {
+    constexpr int NB = C::NB;
+    float* mine = x + warp * C::XF + lane;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        mine[(n * 4 + e) * 32] = s[n][e];
+        mine[((NB + n) * 4 + e) * 32] = dp[n][e];
+      }
+    __syncthreads();
+    const float* grp = x + rg * C::W * C::XF + lane;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float a = grp[(n * 4 + e) * 32], d = grp[((NB + n) * 4 + e) * 32];
+#pragma unroll
+        for (int j = 1; j < C::W; ++j) {
+          a += grp[j * C::XF + (n * 4 + e) * 32];
+          d += grp[j * C::XF + ((NB + n) * 4 + e) * 32];
+        }
+        s[n][e] = a;
+        dp[n][e] = d;
+      }
+  }
+}
+
+__device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
+
+// Δ = rowsum(dO ∘ O) for the float32 kernels, formed the way each forms its
+// dP: as the dQ kernel's dP = dO Vᵀ (A = dO rows, B = O rows) and as the
+// dK / dV kernel's dPᵀ = V dOᵀ (A = O rows, B = dO rows), each row's Δ the
+// diagonal element of its warp's 16 x 16 product, from the same 3xTF32
+// chains over the same column shares -- warp j of a row group of the
+// consumer's tiles C over columns [j KW, (j + 1) KW) of each DT-column
+// chunk, ascending, the W partials then summed in warp order -- so dP − Δ
+// is exactly 0 where a key's V equals the row's O, as on a row that sees
+// one key, whose gradient through dS is 0; a float32 rowsum beside
+// tensor-core dP would leave the two roundings' difference there.  Two
+// (B, H, S) planes, the dQ kernel's Δ then the dK / dV kernel's.  A block
+// of 4 warps takes 64 rows of a head, O and dO staged 64 columns at a time
+// by cp.async; each 8-column step goes to the partial of the share that
+// holds it.
+constexpr int DELTA_ROWS = 64, DELTA_COLS = 64, DELTA_LD = DELTA_COLS + 4;
+
+template <class C, int NP>
+__device__ __forceinline__ void delta_step(float (&part)[NP][2][4], int k,
+                                           const TfA& a, const TfB (&b)[2]) {
+  const int j = (k % C::DT) / C::KW;
+#pragma unroll
+  for (int jj = 0; jj < NP; ++jj)
+    if (jj == j) mma3_rows<2>(part[jj], a, b);
+}
+
+template <class Q, class K>
+__device__ __forceinline__ void delta_f32(const F32Params& p) {
+  __shared__ float4 so4[DELTA_ROWS * DELTA_LD / 4];
+  __shared__ float4 sd4[DELTA_ROWS * DELTA_LD / 4];
+  float* const so = reinterpret_cast<float*>(so4);
+  float* const sd = reinterpret_cast<float*>(sd4);
+  constexpr int LD = DELTA_LD, NT = 128;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
+  const int row0 = blockIdx.y * DELTA_ROWS, r0 = row0 + 16 * warp;
+  const float* og = p.o + b * p.so[0] + h * p.so[1];
+  const float* dog = p.dout + b * p.sdo[0] + h * p.sdo[1];
+  float pq[Q::W][2][4] = {}, pk[K::W][2][4] = {};
+  const int kend = round8(p.D);
+  for (int c0 = 0; c0 < p.D; c0 += DELTA_COLS) {
+    __syncthreads();  // the last chunk read by every warp
+    stage_f32<DELTA_ROWS, DELTA_COLS, LD, NT>(so, og, p.so[2], row0, c0, p.S,
+                                              p.D);
+    stage_f32<DELTA_ROWS, DELTA_COLS, LD, NT>(sd, dog, p.sdo[2], row0, c0,
+                                              p.S, p.D);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const float* o = so + 16 * warp * LD;
+    const float* d = sd + 16 * warp * LD;
+#pragma unroll 2
+    for (int kk = 0; kk < DELTA_COLS && c0 + kk < kend; kk += 8) {
+      const float* ar = d + gid * LD + kk + tig;
+      const float* br = o + gid * LD + kk + tig;
+      const TfA a_do(ar[0], ar[8 * LD], ar[4], ar[8 * LD + 4]);
+      const TfA a_o(br[0], br[8 * LD], br[4], br[8 * LD + 4]);
+      const TfB b_o[2] = {TfB(br[0], br[4]), TfB(br[8 * LD], br[8 * LD + 4])};
+      const TfB b_do[2] = {TfB(ar[0], ar[4]), TfB(ar[8 * LD], ar[8 * LD + 4])};
+      delta_step<Q>(pq, c0 + kk, a_do, b_o);
+      delta_step<K>(pk, c0 + kk, a_o, b_do);
+    }
+  }
+#pragma unroll
+  for (int j = 1; j < Q::W; ++j)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pq[0][t][e] += pq[j][t][e];
+#pragma unroll
+  for (int j = 1; j < K::W; ++j)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pk[0][t][e] += pk[j][t][e];
+  // row gid's diagonal element is in lane (gid, gid / 2), e = gid % 2;
+  // row gid + 8's in the second n-tile, e = 2 + gid % 2
+  if (tig != (gid >> 1)) return;
+  const long long plane = (long long)p.B * p.H * p.S;
+  float* out = p.delta + (long long)bh * p.S + r0 + gid;
+  const int e = gid & 1;
+  if (r0 + gid < p.S) {
+    out[0] = pq[0][0][e];
+    out[plane] = pk[0][0][e];
+  }
+  if (r0 + gid + 8 < p.S) {
+    out[8] = pq[0][1][2 + e];
+    out[plane + 8] = pk[0][1][2 + e];
+  }
+}
+
+// dQ: a block per (b, query head, [column pass,] BM-row query tile), the
+// visible key tiles in ascending order, the longest query tiles first
+template <class C>
+__device__ __forceinline__ void dq_f32(const F32Params& p) {
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, NB = C::NB, NC = C::NC,
+                DT = C::DT, NT = C::NT;
+  constexpr int LB = C::WIDE ? C::LC : LD;  // pitch of the output's operand
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float* const sQ = sm;
+  float* const sdO = sm + BM * LD;
+  float* const sKV = sm + 2 * BM * LD;  // [stage][K, V][BN][LD]
+  float* const sX = sm + C::MAIN_DQ;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp / C::W, wj = warp % C::W;
+  const int passes = C::WIDE ? (p.D + C::DC - 1) / C::DC : 1;
+  const int bh = blockIdx.x / passes;
+  const int d0 = (blockIdx.x % passes) * C::DC;
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const float* qg = p.q + b * p.sq[0] + h * p.sq[1];
+  const float* dog = p.dout + b * p.sdo[0] + h * p.sdo[1];
+  const float* kg = p.k + b * p.sk[0] + hk * p.sk[1];
+  const float* vg = p.v + b * p.sv[0] + hk * p.sv[1];
+
+  // the thread's rows: their lse and Δ
+  const int ra = q0 + 16 * rg + gid, rb = ra + 8;
+  const long long lrow = (long long)bh * p.S;
+  const float lse_a = ra < p.S ? p.lse[lrow + ra] : INFINITY;
+  const float lse_b = rb < p.S ? p.lse[lrow + rb] : INFINITY;
+  const float dl_a = ra < p.S ? p.delta[lrow + ra] : 0.0f;
+  const float dl_b = rb < p.S ? p.delta[lrow + rb] : 0.0f;
+
+  int k_lo = 0, k_hi = p.S;
+  if (p.causal) k_hi = min(p.S, q0 + BM);
+  if (p.has_window) k_lo = max(0, q0 - p.window + 1);
+  const int t_lo = k_lo / BN;
+  const int t_hi = k_hi > k_lo ? (k_hi + BN - 1) / BN : t_lo;
+
+  float acc[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  auto stage_kv = [&](float* dst, int k0, int c0) {
+    stage_f32<BN, DT, LD, NT>(dst, kg, p.sk[2], k0, c0, p.S, p.D);
+    stage_f32<BN, DT, LD, NT>(dst + BN * LD, vg, p.sv[2], k0, c0, p.S, p.D);
+  };
+  if constexpr (!C::WIDE) {
+    stage_f32<BM, DT, LD, NT>(sQ, qg, p.sq[2], q0, 0, p.S, p.D);
+    stage_f32<BM, DT, LD, NT>(sdO, dog, p.sdo[2], q0, 0, p.S, p.D);
+    if (t_lo < t_hi) stage_kv(sKV, t_lo * BN, 0);
+    cp_async_commit();
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BN;
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    const float* tk;  // the tile the output product reads
+    if constexpr (!C::WIDE) {
+      float* cur = sKV + ((t - t_lo) % C::ST) * 2 * BN * LD;
+      if constexpr (C::ST == 2) {
+        cp_async_wait_all();
+        __syncthreads();  // tile t landed; tile t - 1 read by every warp
+        if (t + 1 < t_hi)
+          stage_kv(sKV + ((t + 1 - t_lo) % 2) * 2 * BN * LD, k0 + BN, 0);
+        cp_async_commit();
+      } else {
+        if (t > t_lo) {
+          __syncthreads();
+          stage_kv(cur, k0, 0);
+          cp_async_commit();
+        }
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      const int kb = wj * C::KW, ke = min(kb + C::KW, round8(p.D));
+      score_mma<NB, LD, LD, C::KW>(s, dp, sQ + 16 * rg * LD, cur,
+                                   sdO + 16 * rg * LD, cur + BN * LD, kb, ke,
+                                   gid, tig);
+      tk = cur;
+    } else {
+      for (int c0 = 0; c0 < p.D; c0 += DT) {
+        __syncthreads();  // the last chunk (or tile) read by every warp
+        stage_f32<BM, DT, LD, NT>(sQ, qg, p.sq[2], q0, c0, p.S, p.D);
+        stage_f32<BM, DT, LD, NT>(sdO, dog, p.sdo[2], q0, c0, p.S, p.D);
+        stage_kv(sKV, k0, c0);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        const int kb = wj * C::KW, ke = min(kb + C::KW, round8(p.D - c0));
+        score_mma<NB, LD, LD, C::KW>(s, dp, sQ + 16 * rg * LD, sKV,
+                                     sdO + 16 * rg * LD, sKV + BN * LD, kb,
+                                     ke, gid, tig);
+      }
+      __syncthreads();  // every chunk read: the pass's K columns go there
+      stage_f32<BN, C::DC, C::LC, NT>(sm, kg, p.sk[2], k0, d0, p.S, p.D);
+      cp_async_commit();
+      tk = sm;
+    }
+    exchange<C>(s, dp, sX, warp, rg, lane);
+    if constexpr (C::WIDE) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // P from the forward's lse, dS = P ∘ (dP − Δ), in place of s; a tile
+    // every row of the block sees whole skips the mask (rows past S have
+    // lse = +inf, so P = 0 there)
+    const bool inside = k0 + BN <= p.S &&
+                        (!p.causal || k0 + BN - 1 <= q0) &&
+                        (!p.has_window || k0 > q0 + BM - 1 - p.window);
+    auto weights = [&](auto all) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = e < 2 ? ra : rb;
+          const int key = k0 + 8 * n + 2 * tig + (e & 1);
+          const float pr =
+              decltype(all)::value || (row < p.S && seen(p, row, key))
+                  ? expf(p.scale * s[n][e] - (e < 2 ? lse_a : lse_b))
+                  : 0.0f;
+          s[n][e] = pr * (dp[n][e] - (e < 2 ? dl_a : dl_b));
+        }
+    };
+    if (inside)
+      weights(std::true_type{});
+    else
+      weights(std::false_type{});
+    out_mma<NB, NC, LB>(acc, s, tk + wj * (C::DC / C::W), gid, tig);
+  }
+  cp_async_wait_all();
+
+  float* dqg = p.dq + b * p.sdq[0] + h * p.sdq[1];
+  const int c0 = d0 + wj * (C::DC / C::W) + 2 * tig;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = c0 + 8 * c;
+    if (col >= p.D) continue;
+    if (ra < p.S)
+      *reinterpret_cast<float2*>(dqg + (long long)ra * p.sdq[2] + col) =
+          make_float2(p.scale * acc[c][0], p.scale * acc[c][1]);
+    if (rb < p.S)
+      *reinterpret_cast<float2*>(dqg + (long long)rb * p.sdq[2] + col) =
+          make_float2(p.scale * acc[c][2], p.scale * acc[c][3]);
+  }
+}
+
+// dK, dV: a block per (b, query head, [column pass,] BM-row key tile), its
+// K and V rows held (tiled) and the visible query tiles streamed in
+// ascending order with their rows' lse and Δ; the transposed products
+// Sᵀ = K Qᵀ, dPᵀ = V dOᵀ put Pᵀ and dSᵀ in accumulators, the A operands of
+// dV += Pᵀ dO and dK += dSᵀ Q.  With G = 1 it writes dk, dv; with G > 1 its
+// head's partial dK (scaled), dV into the (2, B, H, S, D) scratch.
+template <class C>
+__device__ __forceinline__ void dkdv_f32(const F32Params& p) {
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, NB = C::NB, NC = C::NC,
+                DT = C::DT, NT = C::NT;
+  constexpr int LB = C::WIDE ? C::LC : LD;
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);
+  float* const sK = sm;
+  float* const sV = sm + BM * LD;
+  float* const sQD = sm + 2 * BM * LD;  // [stage][Q, dO][BN][LD]
+  float* const sStat = sm + C::MAIN_KV;  // [stage][lse, Δ][BN]
+  float* const sX = sStat + C::STATS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp / C::W, wj = warp % C::W;
+  const int passes = C::WIDE ? (p.D + C::DC - 1) / C::DC : 1;
+  const int bh = blockIdx.x / passes;
+  const int d0 = (blockIdx.x % passes) * C::DC;
+  const int b = bh / p.H, h = bh % p.H, hk = h / p.group;
+  const int j0 = blockIdx.y * BM;  // the first key tiles see the most rows
+  const float* qg = p.q + b * p.sq[0] + h * p.sq[1];
+  const float* dog = p.dout + b * p.sdo[0] + h * p.sdo[1];
+  const float* kg = p.k + b * p.sk[0] + hk * p.sk[1];
+  const float* vg = p.v + b * p.sv[0] + hk * p.sv[1];
+  const long long lrow = (long long)bh * p.S;
+  const float* delta = p.delta + (long long)p.B * p.H * p.S;  // its own Δ
+
+  const int ka = j0 + 16 * rg + gid, kb = ka + 8;  // the thread's keys
+  const int j_last = min(j0 + BM, p.S) - 1;
+  int i_lo = p.causal ? j0 : 0, i_hi = p.S;
+  if (p.has_window) i_hi = min(p.S, j_last + p.window);
+  const int t_lo = i_lo / BN;
+  const int t_hi = i_hi > i_lo ? (i_hi + BN - 1) / BN : t_lo;
+
+  float dk[NC][4], dv[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[c][e] = dv[c][e] = 0.0f;
+
+  // the query rows' lse (+inf past S: P = 0) and Δ
+  auto stage_stats = [&](float* dst, int i0) {
+    for (int r = threadIdx.x; r < BN; r += NT) {
+      const bool in = i0 + r < p.S;
+      dst[r] = in ? p.lse[lrow + i0 + r] : INFINITY;
+      dst[BN + r] = in ? delta[lrow + i0 + r] : 0.0f;
+    }
+  };
+  auto stage_qd = [&](float* dst, int i0, int c0) {
+    stage_f32<BN, DT, LD, NT>(dst, qg, p.sq[2], i0, c0, p.S, p.D);
+    stage_f32<BN, DT, LD, NT>(dst + BN * LD, dog, p.sdo[2], i0, c0, p.S,
+                              p.D);
+  };
+  if constexpr (!C::WIDE) {
+    stage_f32<BM, DT, LD, NT>(sK, kg, p.sk[2], j0, 0, p.S, p.D);
+    stage_f32<BM, DT, LD, NT>(sV, vg, p.sv[2], j0, 0, p.S, p.D);
+    if (t_lo < t_hi) {
+      stage_qd(sQD, t_lo * BN, 0);
+      stage_stats(sStat, t_lo * BN);
+    }
+    cp_async_commit();
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int i0 = t * BN;
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+    const float* tq;  // Q's rows for dK, then dO's for dV (pitch LB)
+    const float* tdo;
+    const float* st;  // the rows' lse, then Δ
+    if constexpr (!C::WIDE) {
+      const int cur = (t - t_lo) % C::ST;
+      float* qd = sQD + cur * 2 * BN * LD;
+      st = sStat + cur * 2 * BN;
+      if constexpr (C::ST == 2) {
+        cp_async_wait_all();
+        __syncthreads();
+        if (t + 1 < t_hi) {
+          const int nx = (t + 1 - t_lo) % 2;
+          stage_qd(sQD + nx * 2 * BN * LD, i0 + BN, 0);
+          stage_stats(sStat + nx * 2 * BN, i0 + BN);
+        }
+        cp_async_commit();
+      } else {
+        if (t > t_lo) {
+          __syncthreads();
+          stage_qd(qd, i0, 0);
+          stage_stats(sStat, i0);
+          cp_async_commit();
+        }
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      const int k0 = wj * C::KW, k1 = min(k0 + C::KW, round8(p.D));
+      score_mma<NB, LD, LD, C::KW>(s, dp, sK + 16 * rg * LD, qd,
+                                   sV + 16 * rg * LD, qd + BN * LD, k0, k1,
+                                   gid, tig);
+      tq = qd;
+      tdo = qd + BN * LD;
+    } else {
+      for (int c0 = 0; c0 < p.D; c0 += DT) {
+        __syncthreads();  // the last chunk (or tile) read by every warp
+        stage_f32<BM, DT, LD, NT>(sK, kg, p.sk[2], j0, c0, p.S, p.D);
+        stage_f32<BM, DT, LD, NT>(sV, vg, p.sv[2], j0, c0, p.S, p.D);
+        stage_qd(sQD, i0, c0);
+        cp_async_commit();
+        if (c0 == 0) stage_stats(sStat, i0);
+        cp_async_wait_all();
+        __syncthreads();
+        const int k0 = wj * C::KW, k1 = min(k0 + C::KW, round8(p.D - c0));
+        score_mma<NB, LD, LD, C::KW>(s, dp, sK + 16 * rg * LD, sQD,
+                                     sV + 16 * rg * LD, sQD + BN * LD, k0,
+                                     k1, gid, tig);
+      }
+      __syncthreads();  // every chunk read: the pass's Q, dO columns go there
+      stage_f32<BN, C::DC, C::LC, NT>(sm, qg, p.sq[2], i0, d0, p.S, p.D);
+      stage_f32<BN, C::DC, C::LC, NT>(sm + BN * C::LC, dog, p.sdo[2], i0, d0,
+                                      p.S, p.D);
+      cp_async_commit();
+      tq = sm;
+      tdo = sm + BN * C::LC;
+      st = sStat;
+    }
+    exchange<C>(s, dp, sX, warp, rg, lane);
+    if constexpr (C::WIDE) {
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // Pᵀ from the forward's lse in s, dSᵀ = Pᵀ ∘ (dPᵀ − Δ) in dp; a tile
+    // every key of the block sees whole skips the mask (query rows past S
+    // have lse = +inf, so P = 0 there)
+    const bool inside = j0 + BM <= p.S &&
+                        (!p.causal || i0 >= j0 + BM - 1) &&
+                        (!p.has_window || i0 + BN - 1 < j0 + p.window);
+    auto weights = [&](auto all) {
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * n + 2 * tig + (e & 1), row = i0 + qi;
+          const float pr =
+              decltype(all)::value || (row < p.S && seen(p, row, e < 2 ? ka : kb))
+                  ? expf(p.scale * s[n][e] - st[qi])
+                  : 0.0f;
+          s[n][e] = pr;
+          dp[n][e] = pr * (dp[n][e] - st[BN + qi]);
+        }
+    };
+    if (inside)
+      weights(std::true_type{});
+    else
+      weights(std::false_type{});
+    const int co = wj * (C::DC / C::W);
+    out_mma<NB, NC, LB>(dv, s, tdo + co, gid, tig);
+    out_mma<NB, NC, LB>(dk, dp, tq + co, gid, tig);
+  }
+  cp_async_wait_all();
+
+  float *dkg, *dvg;
+  long long rs_k, rs_v;
+  if (p.group == 1) {
+    dkg = p.dk + b * p.sdk[0] + hk * p.sdk[1];
+    dvg = p.dv + b * p.sdv[0] + hk * p.sdv[1];
+    rs_k = p.sdk[2];
+    rs_v = p.sdv[2];
+  } else {
+    const long long plane = (long long)p.B * p.H * p.S * p.D;
+    dkg = p.part + (long long)bh * p.S * p.D;
+    dvg = dkg + plane;
+    rs_k = rs_v = p.D;
+  }
+  const int c0 = d0 + wj * (C::DC / C::W) + 2 * tig;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = c0 + 8 * c;
+    if (col >= p.D) continue;
+    if (ka < p.S) {
+      *reinterpret_cast<float2*>(dkg + ka * rs_k + col) =
+          make_float2(p.scale * dk[c][0], p.scale * dk[c][1]);
+      *reinterpret_cast<float2*>(dvg + ka * rs_v + col) =
+          make_float2(dv[c][0], dv[c][1]);
+    }
+    if (kb < p.S) {
+      *reinterpret_cast<float2*>(dkg + kb * rs_k + col) =
+          make_float2(p.scale * dk[c][2], p.scale * dk[c][3]);
+      *reinterpret_cast<float2*>(dvg + kb * rs_v + col) =
+          make_float2(dv[c][2], dv[c][3]);
+    }
+  }
+}
+
+// the instantiations by head-dim tile, 512 for "f32 wide" (32 and 64 share
+// a shape), and at D <= 64 by sequence length: up to F32_SHORT_S rows
+// (SHORT = 1) take 32-row tiles both ways, so a short sequence's tiles
+// hold mostly its own rows (the scorer's 72 fill 64-row tiles by a fifth);
+// Q the dQ kernel's tiles, K the dK / dV kernel's
+constexpr int F32_SHORT_S = 96;
+template <int DT, int SHORT = 0>
+struct F32Cfg {
+  using Q = F32Tile<DT, 1, 4, 64, 2, false>;
+  using K = F32Tile<DT, 1, 4, 64, 2, false>;
+};
+template <int DT>
+struct F32Cfg<DT, 1> {
+  using Q = F32Tile<DT, 1, 2, 32, 2, false>;
+  using K = F32Tile<DT, 1, 2, 32, 2, false>;
+};
+template <>
+struct F32Cfg<128> {
+  using Q = F32Tile<128, 1, 8, 32, 2, false>;
+  using K = F32Tile<128, 1, 8, 32, 2, false>;
+};
+template <>
+struct F32Cfg<256> {
+  using Q = F32Tile<256, 1, 4, 32, 1, false>;
+  using K = F32Tile<256, 2, 2, 32, 2, false>;
+};
+template <>
+struct F32Cfg<F32_WIDE_COLS> {
+  using Q = F32Tile<256, 4, 2, 32, 1, true>;
+  using K = F32Tile<128, 4, 2, 32, 1, true>;
+};
+
+// Δ's chains depend on W, DT and KW alone, which SHORT leaves as they are
+template <int DT>
+__global__ void __launch_bounds__(128) bwd_delta_f32_kernel(F32Params p) {
+  delta_f32<typename F32Cfg<DT>::Q, typename F32Cfg<DT>::K>(p);
+}
+template <int DT, int SHORT>
+__global__ void __launch_bounds__(F32Cfg<DT, SHORT>::Q::NT)
+    bwd_dq_f32_kernel(F32Params p) {
+  dq_f32<typename F32Cfg<DT, SHORT>::Q>(p);
+}
+template <int DT, int SHORT>
+__global__ void __launch_bounds__(F32Cfg<DT, SHORT>::K::NT)
+    bwd_dkdv_f32_kernel(F32Params p) {
+  dkdv_f32<typename F32Cfg<DT, SHORT>::K>(p);
+}
+using F32Wide = F32Cfg<F32_WIDE_COLS>;
+__global__ void __launch_bounds__(F32Wide::Q::NT)
+    bwd_dq_f32_wide_kernel(F32Params p) {
+  dq_f32<F32Wide::Q>(p);
+}
+__global__ void __launch_bounds__(F32Wide::K::NT)
+    bwd_dkdv_f32_wide_kernel(F32Params p) {
+  dkdv_f32<F32Wide::K>(p);
+}
+
+// Δ (two planes), dQ, dK / dV and, for G > 1, the group sum
+template <int DT, int SHORT, typename FQ, typename FK>
+int launch_f32(const F32Params& p, int Hkv, cudaStream_t st, FQ dq,
+               FK dkdv) {
+  using Q = typename F32Cfg<DT, SHORT>::Q;
+  using K = typename F32Cfg<DT, SHORT>::K;
+  const int passes = Q::WIDE ? (p.D + Q::DC - 1) / Q::DC : 1;
+  if ((p.S + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
+  int err = launch(bwd_delta_f32_kernel<DT>, 0,
+                   dim3(p.B * p.H, (p.S + DELTA_ROWS - 1) / DELTA_ROWS), 128,
+                   st, p);
+  if (err != 0) return err;
+  err = launch(dq, Q::dq_bytes(),
+               dim3(p.B * p.H * passes, (p.S + Q::BM - 1) / Q::BM), Q::NT, st,
+               p);
+  if (err != 0) return err;
+  err = launch(dkdv, K::kv_bytes(),
+               dim3(p.B * p.H * passes, (p.S + K::BM - 1) / K::BM), K::NT, st,
+               p);
+  if (err != 0 || p.group == 1) return err;
+  return launch_reduce(p, Hkv, st);
+}
+
+template <int DT>
+int launch_f32_tiled(const F32Params& p, int Hkv, cudaStream_t st) {
+  if constexpr (DT <= 64) {
+    if (p.S <= F32_SHORT_S)
+      return launch_f32<DT, 1>(p, Hkv, st, bwd_dq_f32_kernel<DT, 1>,
+                               bwd_dkdv_f32_kernel<DT, 1>);
+  }
+  return launch_f32<DT, 0>(p, Hkv, st, bwd_dq_f32_kernel<DT, 0>,
+                           bwd_dkdv_f32_kernel<DT, 0>);
+}
+
+bool aligned16_f32(const void* ptr, const long long* st) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && st[0] % 4 == 0 &&
+         st[1] % 4 == 0 && st[2] % 4 == 0;
+}
+
+// a launch's arguments from the C entry points' (strides per (b, h, s) in
+// the order q, k, v, o, dO, dq, dk, dv)
+template <typename T>
+BwdParams<T> bwd_params(const void* q, const void* k, const void* v,
+                        const void* o, const void* dout, const float* lse,
+                        float* delta, void* dq, void* dk, void* dv,
+                        float* part, int B, int H, int Hkv, int S, int D,
+                        const long long* strides, int causal, int has_window,
+                        int window, float scale) {
+  BwdParams<T> p;
+  p.q = static_cast<const T*>(q);
+  p.k = static_cast<const T*>(k);
+  p.v = static_cast<const T*>(v);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
+  p.lse = lse;
+  p.delta = delta;
+  p.dq = static_cast<T*>(dq);
+  p.dk = static_cast<T*>(dk);
+  p.dv = static_cast<T*>(dv);
+  p.part = part;
   p.B = B;
   p.H = H;
   p.group = H / Hkv;
@@ -1964,24 +2027,20 @@ extern "C" int flash_attention_bwd_simt_launch(
   p.has_window = has_window;
   p.window = window;
   p.scale = scale;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (wide) return launch_wide_simt(p, Hkv, st);
-  switch (tile_d) {
-    case 32: return launch_simt<32>(p, Hkv, st);
-    case 64: return launch_simt<64>(p, Hkv, st);
-    case 128: return launch_simt<128>(p, Hkv, st);
-    case 256: return launch_simt<256>(p, Hkv, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return p;
 }
 
+}  // namespace
+
 // Variant "wgmma" (bf16): tile_d 64, 128 or 256; D (a multiple of 16,
-// D <= tile_d, above tile_d / 2 past 64) as the tensors hold it; strides as
-// above; lse the forward's (B, H, S) float32; delta a float32 scratch of
-// B·H·S; part a float32 scratch of 2·B·H·S·D when H > Hkv, else null.
-// Bases and strides of q, k, v, o, dO 16-byte aligned (TMA, 16-byte
-// loads), of dq, dk, dv 4-byte.  Three launches on `stream` (delta, dq,
-// dkdv), a fourth (reduce) when H > Hkv.
+// D <= tile_d, above tile_d / 2 past 64) as the tensors hold it; "wide"
+// (bf16): tile_d 512, D > 256 a multiple of 8.  Strides per (b, head, s) in
+// elements, D contiguous, in the order q, k, v, o, dO, dq, dk, dv; lse the
+// forward's (B, H, S) float32; delta a float32 scratch of B·H·S; part a
+// float32 scratch of 2·B·H·S·D when H > Hkv, else null.  Bases and strides
+// of q, k, v, o, dO 16-byte aligned (TMA, 16-byte loads), of dq, dk, dv
+// 4-byte.  Three launches on `stream` (delta, dq, dkdv), a fourth (reduce)
+// when H > Hkv.
 extern "C" int flash_attention_bwd_wgmma_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
@@ -1999,39 +2058,61 @@ extern "C" int flash_attention_bwd_wgmma_launch(
       (wide ? D % 8 != 0 || D <= 256 : tiled_bad) ||
       (part == nullptr) != (H == Hkv) || (S + 63) / 64 > 65535)
     return bad;
-  WgParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<const __nv_bfloat16*>(o);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = lse;
-  p.delta = delta;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.part = part;
-  p.B = B;
-  p.H = H;
-  p.group = H / Hkv;
-  p.S = S;
-  p.D = D;
-  long long* dst[8] = {p.sq, p.sk, p.sv, p.so, p.sdo, p.sdq, p.sdk, p.sdv};
-  for (int t = 0; t < 8; ++t)
-    for (int i = 0; i < 3; ++i) dst[t][i] = strides[3 * t + i];
-  p.causal = causal;
-  p.has_window = has_window;
-  p.window = window;
-  p.scale = scale;
+  const WgParams p = bwd_params<__nv_bfloat16>(
+      q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, H, Hkv, S, D,
+      strides, causal, has_window, window, scale);
   const void* in[5] = {q, k, v, o, dout};
+  const long long* st5[5] = {p.sq, p.sk, p.sv, p.so, p.sdo};
   for (int t = 0; t < 5; ++t)
-    if (!aligned16(in[t], dst[t])) return bad;
+    if (!aligned16(in[t], st5[t])) return bad;
   void* out[3] = {dq, dk, dv};
+  const long long* st3[3] = {p.sdq, p.sdk, p.sdv};
   for (int t = 0; t < 3; ++t)
-    if (!aligned4(out[t], dst[5 + t])) return bad;
+    if (!aligned4(out[t], st3[t])) return bad;
   cudaStream_t st = (cudaStream_t)stream;
   if (wide) return launch_wide(p, Hkv, st);
   if (tile_d == 64) return launch_wgmma<64>(p, Hkv, st);
   if (tile_d == 128) return launch_wgmma<128>(p, Hkv, st);
   return launch_wgmma<256>(p, Hkv, st);
+}
+
+// Float32 ("f32", tile_d 32, 64, 128 or 256 with D <= tile_d; "f32 wide",
+// tile_d 512, D > 256): D a multiple of 4 as the tensors hold it, every
+// base 16-byte aligned and every (b, h, s) stride a multiple of 4 elements
+// (cp.async); delta a float32 scratch of 2·B·H·S (each kernel's Δ); the
+// other arguments as above, in float32.  Three launches on `stream`
+// (delta, dq, dkdv), a fourth (reduce) when H > Hkv.
+extern "C" int flash_attention_bwd_f32_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, float* part, int tile_d, int B, int H, int Hkv, int S, int D,
+    const long long* strides, int causal, int has_window, int window,
+    float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int bad = (int)cudaErrorInvalidValue;
+  const bool wide = tile_d == F32_WIDE_COLS;
+  if (B <= 0 || S <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || D < 4 ||
+      D % 4 != 0 || (wide ? D <= 256 : D > tile_d) ||
+      (part == nullptr) != (H == Hkv))
+    return bad;
+  const F32Params p = bwd_params<float>(
+      q, k, v, o, dout, lse, delta, dq, dk, dv, part, B, H, Hkv, S, D,
+      strides, causal, has_window, window, scale);
+  const void* all[8] = {q, k, v, o, dout, dq, dk, dv};
+  const long long* sts[8] = {p.sq, p.sk, p.sv, p.so, p.sdo, p.sdq, p.sdk,
+                             p.sdv};
+  for (int t = 0; t < 8; ++t)
+    if (!aligned16_f32(all[t], sts[t])) return bad;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (wide)
+    return launch_f32<F32_WIDE_COLS, 0>(p, Hkv, st, bwd_dq_f32_wide_kernel,
+                                        bwd_dkdv_f32_wide_kernel);
+  switch (tile_d) {
+    case 32: return launch_f32_tiled<32>(p, Hkv, st);
+    case 64: return launch_f32_tiled<64>(p, Hkv, st);
+    case 128: return launch_f32_tiled<128>(p, Hkv, st);
+    case 256: return launch_f32_tiled<256>(p, Hkv, st);
+    default: return bad;
+  }
 }

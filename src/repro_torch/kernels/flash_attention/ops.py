@@ -49,31 +49,37 @@ weights p to bf16 for the PV product, as the reference model's
 differentiate the XLA path).  Here, on CUDA tensors that need a gradient,
 ``attention`` is a ``torch.autograd.Function``: its forward launches the
 forward kernel exactly as above (same plan, same instantiation, same
-bits of o) and, in bf16, also has it write each row's log-sum-exp; it
-saves q, k, v, o and that lse.  Its backward calls :func:`attention_bwd`,
-the hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``),
-in one of three variants that :func:`plan_attention_bwd` picks:
+bits of o) and also has it write each row's log-sum-exp; it saves q, k,
+v, o and that lse.  Its backward calls :func:`attention_bwd`, the
+hand-written backward kernel (``kernels/csrc/flash_attention_bwd.cu``):
+the Δ pre-pass, a dQ kernel and a dK / dV kernel that take P = exp(scale
+· s − lse) from the saved lse and give every query head its own blocks,
+and, when H > Hkv, the group sum of the per-head float32 partials in head
+order -- 3 or 4 launches, in one of four variants that
+:func:`plan_attention_bwd` picks:
 
-* ``"wgmma"``, bf16: the Δ pre-pass, the tensor-core dQ and dK / dV
-  kernels (TMA + ``wgmma``, P from the saved lse) and, when H > Hkv, the
-  ordered group sum of per-head float32 partials -- 3 or 4 launches,
-  counted as ``delta``, ``dq``, ``dkdv``, ``reduce``;
-* ``"simt"``, float32: two CUDA-core kernels (``simt_dq``, ``simt_dkdv``)
-  that recompute the row statistics, to hold the 1e-4 float32 bound;
-* ``"wide"``, D above :data:`MAX_HEAD_DIM`: in bf16 the same passes on
-  the tensor cores with 64 x 64 TMA boxes through one ring, the two
-  consumer warpgroups splitting D for each score product and adding
-  their partials once (``delta``, ``wide_dq``, ``wide_dkdv``,
-  ``reduce``); in float32 the two CUDA-core kernels with the scores
-  summed over D's slices (``wide_simt_dq``, ``wide_simt_dkdv``).  The
-  output columns go in passes: 512 of dQ, 256 of dK and dV a bf16 block,
-  512 a float32 one, each pass forming its tile's scores again.
+* ``"wgmma"``, bf16: TMA + ``wgmma`` tensor-core products (``delta``,
+  ``dq``, ``dkdv``, ``reduce``);
+* ``"f32"``, float32: every product a 3xTF32 ``mma.sync`` on the tensor
+  cores (three TF32 products of split operands, ~2^-21 relative, which
+  hold the 1e-4 float32 bound where one would not), tiles by
+  ``cp.async`` (``f32_delta``, ``f32_dq``, ``f32_dkdv``, ``f32_reduce``);
+* ``"wide"``, D above :data:`MAX_HEAD_DIM`: in bf16 the same passes with
+  64 x 64 TMA boxes through one ring, the two consumer warpgroups
+  splitting D for each score product and adding their partials once
+  (``delta``, ``wide_dq``, ``wide_dkdv``, ``reduce``); in float32 the
+  3xTF32 kernels with the scores contracted over D in chunks, four warps
+  splitting each chunk and adding their partials (``f32_delta``,
+  ``f32_wide_dq``, ``f32_wide_dkdv``, ``f32_reduce``).  The output
+  columns go in passes: 512 of dQ, 256 of dK and dV a bf16 block, 512 a
+  float32 one, each pass forming its tile's scores again.
 
 Each launch counts in ``LAUNCHES["flash_attention_bwd"]`` and, by name, in
 ``VARIANT_LAUNCHES["flash_attention_bwd"]``; no launch uses atomics, so
 two runs give the same bits.  bf16 pads D to a multiple of 16 and copies
 a tensor TMA cannot take, as the forward does (``"wide"``: D padded to a
-multiple of 8); float32 copies a tensor whose D is not contiguous.
+multiple of 8); float32 pads D to a multiple of 4 and copies a tensor
+whose base or (b, h, s) strides are not 16-byte aligned.
 Under ``no_grad`` / ``inference_mode`` nothing
 changes and no lse is written.  CPU tensors run ``attention_ref``, which
 autograd differentiates; :func:`attention_with_lse` and
@@ -214,9 +220,8 @@ def launch_flash_attention(
 ) -> None:
     """Launch the CUDA kernel (``plan``, default :func:`plan_attention`'s):
     ``o`` is written on the current stream, and ``lse`` (each row's
-    log-sum-exp; the bf16 instantiations only) when given; raises if the
-    plan needs a copy of q, k or v (:func:`attention` makes it) or the
-    launch fails."""
+    log-sum-exp) when given; raises if the plan needs a copy of q, k or v
+    (:func:`attention` makes it) or the launch fails."""
     global _argtypes_set
     from repro_torch.kernels.build import library
 
@@ -228,13 +233,12 @@ def launch_flash_attention(
             f"(copies {plan.copy}); attention() makes them"
         )
     if lse is not None and (
-            q.dtype != torch.bfloat16 or lse.dtype != torch.float32
-            or lse.shape != q.shape[:3] or not lse.is_contiguous()):
+            lse.dtype != torch.float32 or lse.shape != q.shape[:3]
+            or not lse.is_contiguous()):
         raise ValueError(
             f"launch_flash_attention: lse must be a contiguous float32 "
-            f"{tuple(q.shape[:3])} tensor and the instantiation a bf16 one, "
-            f"got {plan.variant} in {q.dtype} and "
-            f"{None if lse is None else (lse.dtype, tuple(lse.shape))}"
+            f"{tuple(q.shape[:3])} tensor, got "
+            f"{(lse.dtype, tuple(lse.shape))}"
         )
     fn = library("flash_attention").flash_attention_launch
     if not _argtypes_set:
@@ -295,7 +299,7 @@ def _check_dtypes(*xs: torch.Tensor) -> None:
 def _forward_cuda(q, k, v, causal, window, scale, with_lse=False):
     """The forward kernel on CUDA tensors: the plan, the copies it asks
     for, the launch, the padded head dim sliced off.  Returns o, or
-    (o, lse) with ``with_lse`` (bf16; o has the same bits either way)."""
+    (o, lse) with ``with_lse`` (o has the same bits either way)."""
     D = q.shape[-1]
     plan = plan_attention(q, k, v)
     pad = plan.head_dim - D
@@ -322,13 +326,8 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        # the bf16 backward reads P = exp(scale * s - lse) from the saved
-        # lse; float32's recomputes its row statistics
-        if q.dtype == torch.bfloat16:
-            o, lse = _forward_cuda(q, k, v, causal, window, scale,
-                                   with_lse=True)
-        else:
-            o, lse = _forward_cuda(q, k, v, causal, window, scale), None
+        # the backward reads P = exp(scale * s - lse) from the saved lse
+        o, lse = _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, window, scale)
         return o
@@ -379,8 +378,8 @@ def attention_with_lse(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o, lse): :func:`attention`'s output (no autograd) and each row's
     log-sum-exp of its visible scaled scores, (B, H, S) float32, +inf for a
-    row that sees no key -- what the forward saves for the bf16 backward.
-    CUDA tensors: the forward kernel, bf16 (any D); CPU tensors:
+    row that sees no key -- what the forward saves for the backward.  CUDA
+    tensors: the forward kernel (either dtype, any D); CPU tensors:
     :func:`attention_lse_ref`."""
     _check_shapes(q, k, v)
     if scale is None:
@@ -391,10 +390,6 @@ def attention_with_lse(
                                  scale=scale)
     note_dispatch("flash_attention", "cuda")
     _check_dtypes(q, k, v)
-    if q.dtype != torch.bfloat16:
-        raise ValueError(
-            f"attention_with_lse: the kernel writes lse in bf16, got {q.dtype}"
-        )
     with torch.no_grad():
         return _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
 
@@ -407,15 +402,15 @@ def attention_with_lse(
 @dataclass(frozen=True)
 class AttentionBwdPlan:
     """How one backward call runs: the variant (``"wgmma"`` for bf16,
-    ``"simt"`` for float32, ``"wide"`` above :data:`MAX_HEAD_DIM`), the
+    ``"f32"`` for float32, ``"wide"`` above :data:`MAX_HEAD_DIM`), the
     head-dim tile the kernels are built for (``"wide"``: dQ's output
-    columns a block, 512), the head dim they see (bf16: D padded with
-    zeros to a multiple of 16, ``"wide"`` of 8),
-    the rows of a block's query tile in the dQ kernel and of its key tile
-    in the dK / dV kernel, which of q, k, v, o, dO need a copy (padded or
-    made contiguous), whether the group sum launches (bf16, H > Hkv), the
-    float32 scratch the call allocates in bytes, and its launches by
-    name."""
+    columns a block, 512), the head dim they see (D padded with zeros to a
+    multiple of 16 in bf16, 8 in bf16 ``"wide"``, 4 in float32), the rows
+    of a block's query tile in the dQ kernel and of its key tile in the
+    dK / dV kernel, which of q, k, v, o, dO need a copy (padded or made
+    contiguous), whether the group sum launches (H > Hkv), the float32
+    scratch the call allocates in bytes (Δ, and with the group sum the
+    per-head partial dK, dV), and its launches by name."""
 
     variant: str
     tile_d: int
@@ -427,63 +422,77 @@ class AttentionBwdPlan:
     launches: Tuple[str, ...]
 
 
+def _f32_ready(x: torch.Tensor) -> bool:
+    """D contiguous, a 16-byte base and (b, h, s) strides of whole 16-byte
+    groups of float32 (``cp.async``)."""
+    st, shape = x.stride(), x.shape
+    return (st[3] == 1 and x.data_ptr() % 16 == 0
+            and all(st[i] % 4 == 0 or shape[i] == 1 for i in range(3)))
+
+
+# float32 tiled: the head-dim tile -> (query rows of a dQ block, key rows
+# of a dK / dV block); at D <= 64 sequences up to F32_SHORT_S rows take
+# 32-row tiles (flash_attention_bwd.cu, F32Cfg)
+_F32_ROWS = {32: (64, 64), 64: (64, 64), 128: (128, 128), 256: (64, 32)}
+F32_SHORT_S = 96
+
+
 def plan_attention_bwd(q, k, v, o, do) -> AttentionBwdPlan:
     """The plan for ``attention_bwd`` on the card; reads only shapes,
     strides, dtypes and base addresses."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     xs = (q, k, v, o, do)
-    if D > MAX_HEAD_DIM:
-        if q.dtype == torch.float32:
-            return AttentionBwdPlan(
-                "wide", 512, D, (32, 32),
-                tuple(x.stride(-1) != 1 for x in xs), False,
-                3 * B * H * S * 4, ("wide_simt_dq", "wide_simt_dkdv"))
-        head_dim = _cdiv(D, 8) * 8
-        reduce = H > Hkv
-        return AttentionBwdPlan(
-            "wide", 512, head_dim, (64, 64),
-            tuple(head_dim != D or not _tma_ready(x) for x in xs), reduce,
-            4 * B * H * S * (1 + (2 * head_dim if reduce else 0)),
-            ("delta", "wide_dq", "wide_dkdv") + (("reduce",) if reduce else ()))
-    if q.dtype == torch.float32:
-        tile = next(t for t in (32, 64, 128, 256) if D <= t)
-        bt = 64 if tile <= 128 else 32
-        # the row statistics m, l and Δ of every (b, h, row)
-        return AttentionBwdPlan("simt", tile, D, (bt, bt),
-                                tuple(x.stride(-1) != 1 for x in xs), False,
-                                3 * B * H * S * 4, ("simt_dq", "simt_dkdv"))
-    head_dim = _cdiv(D, 16) * 16
-    tile = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
-    rows = 128 if tile <= 128 else 64
     reduce = H > Hkv
+    group_sum = ("reduce",) if reduce else ()
+    if q.dtype == torch.float32:
+        head_dim = _cdiv(D, 4) * 4
+        copy = tuple(head_dim != D or not _f32_ready(x) for x in xs)
+        # each kernel's Δ, and the per-head partials of the group sum
+        scratch = 4 * B * H * S * (2 + (2 * head_dim if reduce else 0))
+        if D > MAX_HEAD_DIM:
+            variant, tile, rows = "wide", 512, (32, 32)
+        else:
+            variant = "f32"
+            tile = next(t for t in (32, 64, 128, 256) if head_dim <= t)
+            rows = ((32, 32) if tile <= 64 and S <= F32_SHORT_S
+                    else _F32_ROWS[tile])
+        kernels = ("wide_dq", "wide_dkdv") if variant == "wide" else (
+            "dq", "dkdv")
+        return AttentionBwdPlan(
+            variant, tile, head_dim, rows, copy, reduce, scratch,
+            tuple(f"f32_{n}" for n in ("delta",) + kernels + group_sum))
     # Δ, and with grouped heads the float32 partial dK, dV of every head
-    scratch = 4 * B * H * S * (1 + (2 * head_dim if reduce else 0))
+    if D > MAX_HEAD_DIM:
+        head_dim = _cdiv(D, 8) * 8
+        tile, rows, variant, kernels = 512, 64, "wide", ("wide_dq",
+                                                         "wide_dkdv")
+    else:
+        head_dim = _cdiv(D, 16) * 16
+        tile = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
+        rows, variant, kernels = (128 if tile <= 128 else 64), "wgmma", (
+            "dq", "dkdv")
     return AttentionBwdPlan(
-        "wgmma", tile, head_dim, (rows, rows),
+        variant, tile, head_dim, (rows, rows),
         tuple(head_dim != D or not _tma_ready(x) for x in xs), reduce,
-        scratch, ("delta", "dq", "dkdv") + (("reduce",) if reduce else ()))
+        4 * B * H * S * (1 + (2 * head_dim if reduce else 0)),
+        ("delta",) + kernels + group_sum)
 
 
-def _bwd_fn(variant: str):
-    """The backward library's C entry point of ``variant``, typed."""
-    fn = _bwd_fns.get(variant)
+def _bwd_fn(dtype: torch.dtype):
+    """The backward library's C entry point for ``dtype``, typed."""
+    fn = _bwd_fns.get(dtype)
     if fn is None:
         from repro_torch.kernels.build import library
 
         lib = library("flash_attention_bwd")
-        if variant == "simt":
-            fn = lib.flash_attention_bwd_simt_launch
-            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        else:
-            fn = lib.flash_attention_bwd_wgmma_launch
-            fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p] + [ctypes.c_int] * 3
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn = (lib.flash_attention_bwd_f32_launch if dtype == torch.float32
+              else lib.flash_attention_bwd_wgmma_launch)
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _bwd_fns[variant] = fn
+        _bwd_fns[dtype] = fn
     return fn
 
 
@@ -495,15 +504,22 @@ def launch_flash_attention_bwd(
     """Launch the backward kernels of ``plan`` (default
     :func:`plan_attention_bwd`'s) on the current stream: ``dq``, ``dk``,
     ``dv`` written.  Every tensor as the plan needs it (:func:`attention_bwd`
-    pads or copies); bf16 reads the forward's ``lse`` (B, H, S) float32.
-    Scratch is allocated here."""
+    pads or copies); the kernels read the forward's ``lse`` (B, H, S)
+    float32.  Scratch is allocated here."""
     plan = plan or plan_attention_bwd(q, k, v, o, do)
     if (any(plan.copy) or q.shape[-1] != plan.head_dim
             or any(x.stride(-1) != 1 for x in (dq, dk, dv))):
         raise ValueError(
             f"launch_flash_attention_bwd: the {plan.variant} variant needs "
-            f"D = {plan.head_dim}, D contiguous and (bf16) 16-byte strides "
+            f"D = {plan.head_dim}, D contiguous and 16-byte strides "
             f"(copies {plan.copy}); attention_bwd() makes them"
+        )
+    if (lse is None or lse.dtype != torch.float32
+            or lse.shape != q.shape[:3] or not lse.is_contiguous()):
+        raise ValueError(
+            f"launch_flash_attention_bwd: {plan.variant} needs the "
+            f"forward's lse, a contiguous float32 {tuple(q.shape[:3])} "
+            f"tensor (attention_with_lse)"
         )
     B, H, S, D = q.shape
     Hkv = k.shape[1]
@@ -514,28 +530,16 @@ def launch_flash_attention_bwd(
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = [x.data_ptr() for x in (q, k, v, o, do)]
     outs = [x.data_ptr() for x in (dq, dk, dv)]
-    if q.dtype == torch.float32:
-        stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=dev)
-        err = _bwd_fn("simt")(
-            *ptrs, *outs, stats.data_ptr(), plan.tile_d, B, H, Hkv, S, D,
-            ctypes.cast(strides, ctypes.c_void_p), int(causal),
-            int(window is not None), win, float(scale), dev.index, stream)
-    else:
-        if (lse is None or lse.dtype != torch.float32
-                or lse.shape != q.shape[:3] or not lse.is_contiguous()):
-            raise ValueError(
-                f"launch_flash_attention_bwd: bf16 ({plan.variant}) needs "
-                f"the forward's lse, a contiguous float32 "
-                f"{tuple(q.shape[:3])} tensor (attention_with_lse)"
-            )
-        delta = torch.empty(B * H * S, dtype=torch.float32, device=dev)
-        part = (torch.empty(2 * B * H * S * D, dtype=torch.float32,
-                            device=dev) if plan.reduce else None)
-        err = _bwd_fn("wgmma")(
-            *ptrs, lse.data_ptr(), delta.data_ptr(), *outs,
-            None if part is None else part.data_ptr(), plan.tile_d, B, H,
-            Hkv, S, D, ctypes.cast(strides, ctypes.c_void_p), int(causal),
-            int(window is not None), win, float(scale), dev.index, stream)
+    # Δ: the float32 kernels each form their own (two planes)
+    delta = torch.empty((1 + (q.dtype == torch.float32)) * B * H * S,
+                        dtype=torch.float32, device=dev)
+    part = (torch.empty(2 * B * H * S * D, dtype=torch.float32, device=dev)
+            if plan.reduce else None)
+    err = _bwd_fn(q.dtype)(
+        *ptrs, lse.data_ptr(), delta.data_ptr(), *outs,
+        None if part is None else part.data_ptr(), plan.tile_d, B, H, Hkv, S,
+        D, ctypes.cast(strides, ctypes.c_void_p), int(causal),
+        int(window is not None), win, float(scale), dev.index, stream)
     for name in plan.launches:
         count_launch("flash_attention_bwd", variant=name)
     if err != 0:
@@ -561,7 +565,7 @@ def attention_bwd(
     dtype (and strides, where the input is dense and needs no padding):
     the backward kernel on CUDA tensors, :func:`attention_bwd_ref` on CPU
     tensors.  ``lse`` is the forward's log-sum-exp
-    (:func:`attention_with_lse`); a bf16 CUDA call without it launches the
+    (:func:`attention_with_lse`); a CUDA call without it launches the
     forward kernel once more to get it."""
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
@@ -578,13 +582,15 @@ def attention_bwd(
     note_dispatch("flash_attention_bwd", "cuda")
     _check_dtypes(q, k, v, o, do)
     plan = plan_attention_bwd(q, k, v, o, do)
-    if q.dtype == torch.bfloat16 and lse is None:
+    if lse is None:
         _, lse = _forward_cuda(q, k, v, causal, window, scale, with_lse=True)
     D = q.shape[-1]
     pad = plan.head_dim - D
     if any(plan.copy):
+        # a fresh allocation: a contiguous tensor may sit at an unaligned base
         q, k, v, o, do = (
-            (F.pad(x, (0, pad)) if pad else x.contiguous()) if c else x
+            (F.pad(x, (0, pad)) if pad
+             else x.clone(memory_format=torch.contiguous_format)) if c else x
             for x, c in zip((q, k, v, o, do), plan.copy))
         plan = dataclasses.replace(plan, copy=(False,) * 5)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))

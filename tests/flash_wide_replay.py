@@ -1,7 +1,8 @@
 """A torch replay of B6's two kernels above head dim 256
-(``src/repro_torch/kernels/csrc/flash_attention.cu``, ``"wide"``),
-written the way the kernels are written, so the CPU tests can hold their
-schedule's arithmetic to the JAX package.
+(``src/repro_torch/kernels/csrc/flash_attention.cu``, ``"wide"``), of the
+float32 forward's log-sum-exp and of the backward kernels
+(``flash_attention_bwd.cu``), written the way the kernels are written, so
+the CPU tests can hold their schedules' arithmetic to the JAX package.
 
 bf16 (``fa_wide_wgmma_kernel``): D in 64-column boxes (zeros past D, as
 TMA fills them); a block owns a 64-row query tile and a column pass of up
@@ -15,9 +16,12 @@ box adds P V; the end divides by max(l, 1e-30) and rounds to bf16.
 float32 (``fa_wide_simt_kernel``): a 32-row query tile and 32-key tiles;
 the scores summed over D in 128-column slices, scaled, masked to -1e30;
 the running max, P = exp(s - m), l = l · alpha + Σ P, acc = acc · alpha +
-P V; the end divides by max(l, 1e-30).
+P V; the end divides by max(l, 1e-30).  Both float32 instantiations
+(``fa_simt_kernel``: 64-row tiles at D <= 128, 32 above, all of D a
+score; ``fa_wide_simt_kernel``) write each row's lse = m + ln l under
+autograd, +inf where l = 0 (:func:`f32_forward`).
 
-The backward's two schedules (``flash_attention_bwd.cu``, ``"wide"``):
+The backward's schedules (``flash_attention_bwd.cu``):
 
 bf16 (``bwd_dq_wide_kernel``, ``bwd_dkdv_wide_kernel``): Δ = rowsum(dO ∘
 O); every score product S = Q Kᵀ, dP = dO Vᵀ (dQ) or Sᵀ = K Qᵀ, dPᵀ = V
@@ -29,10 +33,23 @@ dK and dV in passes of 256 over the visible 64-row query tiles, each pass
 forming its scores again; each query head's float32 partial dK, dV, then
 the group summed in head order.
 
-float32 (``bwd_dq_wide_simt_kernel``, ``bwd_dkdv_wide_simt_kernel``): the
-row statistics (m, l) over 32-key tiles with the scores summed over D in
-64-column slices; P = exp(s · scale − m) / l, dS = P ∘ (dP − Δ); dQ and
-dK, dV in column passes of 512, the group's heads in order.
+float32 (``bwd_dq_f32_kernel``, ``bwd_dkdv_f32_kernel`` and their
+``_wide`` builds, :func:`f32_bwd`): every product 3xTF32 -- each operand
+split into a TF32 hi part (the bits with the 13 low ones cleared) and the
+remainder, which the tensor core reads with its 13 low bits dropped, and
+lo·hi + hi·lo + hi·hi summed in float32 -- emulated here
+on the int32 bits; D padded with zeros to a multiple of 4; Δ = rowsum(dO
+∘ O) formed as each kernel forms its dP (the dQ kernel's as dO Oᵀ, the
+dK / dV kernel's as O dOᵀ, the diagonal of the same chains), so dP − Δ
+is 0 where a key's V is the row's O; a dQ block per (b, h, query tile)
+over the visible key tiles, a dK /
+dV block per (b, query head, key tile) over the visible query tiles (the
+tiles of ``F32_TILES``); each score product contracted over D by W warps,
+warp j over its share of each staged chunk of columns, and the W partials
+summed in warp order; P = exp(scale · S − lse) from the forward's lse,
+masked, dS = P ∘ (dP − Δ); the output columns in passes of 512 above
+head dim 256 (each pass forming its scores again); with G > 1 each query
+head's partial dK (scaled), dV, then the group summed in head order.
 
 Products run in torch's order (the kernels' in the tensor cores' or a
 thread's), so the replay holds the schedule -- the D split and its sum,
@@ -124,43 +141,11 @@ def wide_bf16(q, k, v, *, causal=True, window=None, scale=None):
     return out[:, :, :S, :D].to(torch.bfloat16)
 
 
-def wide_f32(q, k, v, *, causal=True, window=None, scale=None):
-    """The float32 kernel's output for float32 q, k, v."""
-    B, H, S, D = q.shape
-    group = H // k.shape[1]
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
-    kf, vf = (x.repeat_interleave(group, dim=1) for x in (k, v))
-    qf, kf, vf = (_tiles(x, 32, S) for x in (q, kf, vf))
-    out = torch.zeros_like(qf)
-    for q0 in range(0, S, 32):
-        qt = qf[:, :, q0:q0 + 32]
-        m = torch.full((B, H, 32, 1), NEG)
-        l = torch.zeros((B, H, 32, 1))
-        acc = torch.zeros((B, H, 32, D))
-        lo, hi = _key_range(S, q0, 32, causal, window)
-        for k0 in range(lo // 32 * 32, hi, 32):
-            kt = kf[:, :, k0:k0 + 32]
-            s = torch.zeros((B, H, 32, 32))
-            for c0 in range(0, D, 128):
-                cols = slice(c0, c0 + 128)
-                s = s + qt[..., cols] @ kt[..., cols].transpose(-1, -2)
-            ok = _visible(S, q0, k0, 32, 32, causal, window)
-            s = torch.where(ok, s * scale, NEG)
-            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-            p = torch.where(ok, torch.exp(s - m_new), 0.0)
-            alpha = torch.where(m == NEG, 0.0, torch.exp(m - m_new))
-            l = l * alpha + p.sum(-1, keepdim=True)
-            m = m_new
-            acc = acc * alpha + p @ vf[:, :, k0:k0 + 32]
-        out[:, :, q0:q0 + 32] = acc / torch.clamp(l, min=1e-30)
-    return out[:, :, :S]
-
-
 def replay(q, k, v, **kw):
     """The ``"wide"`` kernel of q's dtype, replayed."""
     if q.dtype == torch.bfloat16:
         return wide_bf16(q, k, v, **kw)
-    return wide_f32(q, k, v, **kw)
+    return f32_forward(q, k, v, **kw)[0]
 
 
 def _split_scores(a, b, nkb):
@@ -242,72 +227,174 @@ def wide_bwd_bf16(q, k, v, o, do, lse, *, causal=True, window=None,
             sv[:, :, :S, :D].to(bf))
 
 
-def wide_bwd_f32(q, k, v, o, do, *, causal=True, window=None, scale=None):
-    """The float32 backward kernels' (dq, dk, dv) for float32 inputs."""
+# float32 backward tiles, as flash_attention_bwd.cu instantiates them: the
+# head-dim tile (512: "f32 wide"; "short": D <= 64 and S <= 96) -> for dQ
+# and for dK / dV (rows of a block, rows of a streamed tile, warps
+# splitting D, columns staged at a time); the wide kernels stage D in
+# chunks of the last entry
+F32_TILES = {
+    32: ((64, 64, 1, 32), (64, 64, 1, 32)),
+    64: ((64, 64, 1, 64), (64, 64, 1, 64)),
+    128: ((128, 32, 1, 128), (128, 32, 1, 128)),
+    256: ((64, 32, 1, 256), (32, 32, 2, 256)),
+    512: ((32, 32, 4, 256), (32, 32, 4, 128)),
+}
+F32_SHORT_S = 96
+
+
+def f32_tile(D):
+    """The float32 backward's head-dim tile for head dim ``D`` (padded to
+    a multiple of 4): 32, 64, 128 or 256, or 512 above 256 (``wide``)."""
+    D = -(-D // 4) * 4
+    return 512 if D > 256 else next(t for t in (32, 64, 128, 256) if D <= t)
+
+
+def f32_tiles(D, S):
+    """``F32_TILES``' entry for head dim ``D`` at sequence length ``S``:
+    at D <= 64 a sequence of up to ``F32_SHORT_S`` rows takes 32-row tiles
+    both ways (the columns and warps unchanged)."""
+    tile = f32_tile(D)
+    q, k = F32_TILES[tile]
+    if tile <= 64 and S <= F32_SHORT_S:
+        return (32, 32) + q[2:], (32, 32) + k[2:]
+    return q, k
+
+
+def tf32_split(x):
+    """(hi, lo) of float32 ``x`` as the tensor core reads them: hi = x with
+    its 13 low bits cleared (TF32), lo = the exact remainder with its own
+    13 low bits dropped."""
+    hi = (x.view(torch.int32) & -0x2000).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def mm3(a, b):
+    """a @ b in 3xTF32: lo·hi + hi·lo + hi·hi, each in float32."""
+    ah, al = tf32_split(a.contiguous())
+    bh, bl = tf32_split(b.contiguous())
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def f32_forward(q, k, v, *, causal=True, window=None, scale=None):
+    """(o, lse) of the float32 forward kernels' schedule: ``fa_simt_kernel``
+    (a 64-row tile at D <= 128, 32 above, all of D a score) or, above 256,
+    ``fa_wide_simt_kernel`` (32-row tiles, the scores summed over D in
+    128-column slices); lse = m + ln l from the online softmax's own m and
+    l, +inf where l = 0."""
     B, H, S, D = q.shape
+    group = H // k.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    rows = 64 if D <= 128 else 32
+    sl = 128 if D > 256 else D
+    kf, vf = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    qf, kf, vf = (_tiles(x, rows, S) for x in (q, kf, vf))
+    out = torch.zeros_like(qf)
+    lse = torch.zeros(qf.shape[:3])
+    for q0 in range(0, S, rows):
+        qt = qf[:, :, q0:q0 + rows]
+        m = torch.full((B, H, rows, 1), NEG)
+        l = torch.zeros((B, H, rows, 1))
+        acc = torch.zeros((B, H, rows, D))
+        lo, hi = _key_range(S, q0, rows, causal, window)
+        for k0 in range(lo // rows * rows, hi, rows):
+            kt = kf[:, :, k0:k0 + rows]
+            s = torch.zeros((B, H, rows, rows))
+            for c0 in range(0, D, sl):
+                cols = slice(c0, c0 + sl)
+                s = s + qt[..., cols] @ kt[..., cols].transpose(-1, -2)
+            ok = _visible(S, q0, k0, rows, rows, causal, window)
+            s = torch.where(ok, s * scale, NEG)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.where(ok, torch.exp(s - m_new), 0.0)
+            alpha = torch.where(m == NEG, 0.0, torch.exp(m - m_new))
+            l = l * alpha + p.sum(-1, keepdim=True)
+            m = m_new
+            acc = acc * alpha + p @ vf[:, :, k0:k0 + rows]
+        out[:, :, q0:q0 + rows] = acc / torch.clamp(l, min=1e-30)
+        lse[:, :, q0:q0 + rows] = torch.where(
+            l > 0, m + torch.log(l), math.inf)[..., 0]
+    return out[:, :, :S], lse[:, :, :S]
+
+
+def f32_bwd(q, k, v, o, do, lse, *, causal=True, window=None, scale=None):
+    """The float32 backward kernels' (dq, dk, dv) for float32 q, k, v, o,
+    dO and the forward's lse: the tiles of ``F32_TILES``, every product in
+    3xTF32, each score contracted by the row group's warps over their
+    shares of each chunk and the partials summed in warp order."""
+    B, H, S, D0 = q.shape
     Hkv = k.shape[1]
     group = H // Hkv
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
-    delta = (do * o).sum(-1)
-    kf, vf = (x.repeat_interleave(group, dim=1) for x in (k, v))
-    qf, kf, vf, dof = (_tiles(x, 32, S) for x in (q, kf, vf, do))
-    n = qf.shape[2]
-    dl = torch.nn.functional.pad(delta, (0, n - S))
+    scale = 1.0 / math.sqrt(D0) if scale is None else scale
+    D = -(-D0 // 4) * 4
+    wide = f32_tile(D) == 512
+    (bmq, bnq, wq, dtq), (bmk, bnk, wk, dtk) = f32_tiles(D, S)
+    pad = lambda x: torch.nn.functional.pad(x, (0, D - D0))  # noqa: E731
+    qf, kf, vf, of, dof = (pad(x) for x in (q, k, v, o, do))
+    kf, vf = (x.repeat_interleave(group, dim=1) for x in (kf, vf))
+    n = -(-S // 128) * 128  # every tile of 32, 64 or 128 rows fits
+    qf, kf, vf, of, dof = (_tiles(x, 128, S) for x in (qf, kf, vf, of, dof))
+    ls = torch.nn.functional.pad(lse, (0, n - S), value=math.inf)
 
-    def scores(a, b):
-        x = torch.zeros(a.shape[:-1] + (b.shape[-2],))
-        for c0 in range(0, D, 64):
-            cols = slice(c0, c0 + 64)
-            x = x + a[..., cols] @ b[..., cols].transpose(-1, -2)
-        return x
+    def scores(a, b, w, dt):
+        """a bᵀ: warp j's partial over columns [j dt / w, (j + 1) dt / w)
+        of each chunk of dt columns, the partials summed in warp order."""
+        part = []
+        for j in range(w):
+            x = torch.zeros(a.shape[:-1] + (b.shape[-2],))
+            for c0 in range(0, D, dt):
+                cols = slice(c0 + j * dt // w, min(D, c0 + (j + 1) * dt // w))
+                if cols.start < cols.stop:
+                    x = x + mm3(a[..., cols], b[..., cols].transpose(-1, -2))
+            part.append(x)
+        total = part[0]
+        for x in part[1:]:
+            total = total + x
+        return total
 
-    def key_tiles(q0):
-        lo, hi = 0, (min(q0 + 32, S) if causal else S)
-        if window is not None:
-            lo = max(0, q0 - window + 1)
-        return range(lo, hi, 32)
-
-    # pass 1 of the dQ kernel: each row's m and l
-    m = torch.full((B, H, n, 1), -math.inf)
-    l = torch.zeros((B, H, n, 1))
-    for q0 in range(0, S, 32):
-        rows = slice(q0, q0 + 32)
-        for j0 in key_tiles(q0):
-            ok = _visible(S, q0, j0, 32, 32, causal, window)
-            s = torch.where(ok, scores(qf[:, :, rows], kf[:, :, j0:j0 + 32])
-                            * scale, -math.inf)
-            mr = m[:, :, rows]
-            m_new = torch.maximum(mr, s.amax(-1, keepdim=True))
-            none = m_new == -math.inf
-            part = torch.exp(s - torch.where(none, 0.0, m_new)).sum(
-                -1, keepdim=True)
-            l[:, :, rows] = torch.where(
-                none, 0.0, l[:, :, rows] * torch.exp(mr - m_new) + part)
-            m[:, :, rows] = m_new
-
-    def weights(i0, j0):
-        rows = slice(i0, i0 + 32)
-        ok = _visible(S, i0, j0, 32, 32, causal, window) & (l[:, :, rows] > 0)
-        s = scores(qf[:, :, rows], kf[:, :, j0:j0 + 32])
-        p = torch.where(ok, torch.exp(s * scale - m[:, :, rows])
-                        / l[:, :, rows], 0.0)
-        dp = scores(dof[:, :, rows], vf[:, :, j0:j0 + 32])
-        return p, p * (dp - dl[:, :, rows, None])
-
+    # each kernel's Δ, the diagonal of its own score chains on dO and O
+    dl = torch.diagonal(scores(dof, of, wq, dtq), dim1=-2, dim2=-1)
+    dlt = torch.diagonal(scores(of, dof, wk, dtk), dim1=-2, dim2=-1)
+    passes = [slice(c, c + 512) for c in range(0, D, 512)] if wide else [
+        slice(0, D)]
     dq = torch.zeros((B, H, n, D))
+    for cols in passes:
+        for q0 in range(0, S, bmq):
+            rows = slice(q0, q0 + bmq)
+            lo, hi = _key_range(S, q0, bmq, causal, window)
+            for k0 in range(lo // bnq * bnq, hi if hi > lo else 0, bnq):
+                keys = slice(k0, k0 + bnq)
+                ok = _visible(S, q0, k0, bmq, bnq, causal, window)
+                s = scores(qf[:, :, rows], kf[:, :, keys], wq, dtq)
+                dp = scores(dof[:, :, rows], vf[:, :, keys], wq, dtq)
+                p = torch.where(ok, torch.exp(scale * s - ls[:, :, rows, None]),
+                                0.0)
+                ds = p * (dp - dl[:, :, rows, None])
+                dq[:, :, rows, cols] += mm3(ds, kf[:, :, keys, cols])
     dk = torch.zeros((B, H, n, D))
     dv = torch.zeros((B, H, n, D))
-    for d0 in range(0, D, 512):           # column passes
-        cols = slice(d0, d0 + 512)
-        for i0 in range(0, S, 32):
-            for j0 in key_tiles(i0):
-                p, ds = weights(i0, j0)
-                dq[:, :, i0:i0 + 32, cols] += ds @ kf[:, :, j0:j0 + 32, cols]
-                keys = slice(j0, j0 + 32)
-                dv[:, :, keys, cols] += p.transpose(-1, -2) @ dof[:, :, i0:i0 + 32, cols]
-                dk[:, :, keys, cols] += ds.transpose(-1, -2) @ qf[:, :, i0:i0 + 32, cols]
-    dk, dv = (x.view(B, Hkv, group, n, D) for x in (scale * dk, dv))
+    for cols in passes:
+        for j0 in range(0, S, bmk):
+            keys = slice(j0, j0 + bmk)
+            j_last = min(j0 + bmk, S) - 1
+            i_lo = j0 if causal else 0
+            i_hi = min(S, j_last + window) if window is not None else S
+            for i0 in range(i_lo // bnk * bnk, i_hi if i_hi > i_lo else 0,
+                            bnk):
+                rows = slice(i0, i0 + bnk)
+                ok = _visible(S, i0, j0, bnk, bmk, causal, window).T
+                st = scores(kf[:, :, keys], qf[:, :, rows], wk, dtk)
+                dpt = scores(vf[:, :, keys], dof[:, :, rows], wk, dtk)
+                pt = torch.where(ok, torch.exp(scale * st - ls[:, :, None, rows]),
+                                 0.0)
+                dst = pt * (dpt - dlt[:, :, None, rows])
+                dv[:, :, keys, cols] += mm3(pt, dof[:, :, rows, cols])
+                dk[:, :, keys, cols] += mm3(dst, qf[:, :, rows, cols])
+    dk = scale * dk
+    # the group's heads in ascending order
+    dk, dv = (x.view(B, Hkv, group, n, D) for x in (dk, dv))
     sk, sv = dk[:, :, 0], dv[:, :, 0]
     for g in range(1, group):
         sk, sv = sk + dk[:, :, g], sv + dv[:, :, g]
-    return (scale * dq)[:, :, :S], sk[:, :, :S], sv[:, :, :S]
+    return ((scale * dq)[:, :, :S, :D0], sk[:, :, :S, :D0],
+            sv[:, :, :S, :D0])

@@ -101,10 +101,11 @@ def test_cpu_attention_is_differentiated_through_the_plain_forward():
 
 
 def test_plan_attention_bwd_tiles_copies_and_refusal():
-    """The backward's head-dim tile (32 / 64 / 128 / 256), no copy of the
-    model's (B, S, H, D) transposed views, a copy of a tensor whose D is
-    strided, and above 256 the ``"wide"`` CUDA-core kernels (512 output
-    columns a block) where the plan once refused."""
+    """The float32 backward's head-dim tile (32 / 64 / 128 / 256), no copy
+    of the model's (B, S, H, D) transposed views, a copy of a tensor whose
+    D is strided, and above 256 the ``"wide"`` 3xTF32 kernels (512 output
+    columns a block: Δ, wide dQ, wide dK / dV, no group sum at G = 1)
+    where the plan once refused."""
     from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
 
     for D, tile in ((8, 32), (32, 32), (48, 64), (64, 64), (96, 128),
@@ -120,7 +121,7 @@ def test_plan_attention_bwd_tiles_copies_and_refusal():
     assert (plan.variant, plan.tile_d, plan.head_dim, plan.rows, plan.copy,
             plan.reduce, plan.launches) == (
         "wide", 512, 288, (32, 32), (False,) * 5, False,
-        ("wide_simt_dq", "wide_simt_dkdv"))
+        ("f32_delta", "f32_wide_dq", "f32_wide_dkdv"))
 
 
 # chip_smoke.py's FA_BWD_SHAPES, the training paths' shapes (B, H, Hkv, S,
@@ -137,29 +138,63 @@ PLAN_SHAPES = [
 def test_plan_attention_bwd_variant_padding_reduce_and_scratch(B, H, Hkv, S,
                                                                D, dtype):
     """bf16 plans ``wgmma`` (D padded to a multiple of 16, its tile 64 /
-    128 / 256: D = 96 on 128), the Δ pre-pass, dQ, dK / dV and, only for
+    128 / 256: D = 96 on 128), float32 ``f32`` (its tile 32 / 64 / 128 /
+    256: D = 96 on 128); each the Δ pre-pass, dQ, dK / dV and, only for
     H > Hkv, the group sum, whose float32 partials (2·B·H·S·D) are the
-    scratch beside Δ; float32 plans ``simt`` (its row statistics the
-    scratch).  Shapes only: the tensors are on the meta device."""
+    scratch beside Δ (float32: each kernel's own Δ, two planes).  Shapes
+    only: the tensors are on the meta device."""
     from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
 
     q = torch.empty((B, H, S, D), dtype=dtype, device="meta")
     kv = torch.empty((B, Hkv, S, D), dtype=dtype, device="meta")
     plan = plan_attention_bwd(q, kv, kv, q, q)
     assert not any(plan.copy)
-    if dtype == torch.float32:
-        assert plan.variant == "simt" and not plan.reduce
-        assert plan.launches == ("simt_dq", "simt_dkdv")
-        assert plan.scratch_bytes == 3 * B * H * S * 4
-        return
     tile = {64: 64, 96: 128, 128: 128, 256: 256}[D]
+    assert plan.reduce == (H > Hkv)
+    f32 = dtype == torch.float32
+    assert plan.scratch_bytes == 4 * B * H * S * (
+        1 + f32 + (2 * D if H > Hkv else 0))
+    if f32:
+        assert (plan.variant, plan.tile_d, plan.head_dim) == ("f32", tile, D)
+        # the scorer's S = 72 takes the short sequences' 32-row tiles
+        assert plan.rows == ((32, 32) if S <= 96 else {
+            64: (64, 64), 128: (128, 128), 256: (64, 32)}[tile])
+        assert plan.launches == ("f32_delta", "f32_dq", "f32_dkdv") + (
+            ("f32_reduce",) if H > Hkv else ())
+        return
     assert (plan.variant, plan.tile_d, plan.head_dim) == ("wgmma", tile, D)
     assert plan.rows == ((128, 128) if tile <= 128 else (64, 64))
-    assert plan.reduce == (H > Hkv)
     assert plan.launches == ("delta", "dq", "dkdv") + (
         ("reduce",) if H > Hkv else ())
-    assert plan.scratch_bytes == 4 * B * H * S * (
-        1 + (2 * D if H > Hkv else 0))
+
+
+def test_plan_attention_bwd_f32_pads_and_copies():
+    """float32: D = 33 pads to 36 (every tensor copied) on the 64 tile, a
+    stride that is not a whole number of 16-byte groups (D = 66 of 68) or a
+    base off 16 bytes is copied, the model's views are not; grouped heads
+    add the group sum above 256 too, its partials at the padded D."""
+    from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
+
+    x = torch.zeros((2, 9, 4, 33)).transpose(1, 2)
+    plan = plan_attention_bwd(x, x, x, x, x)
+    assert (plan.variant, plan.head_dim, plan.tile_d, plan.copy) == (
+        "f32", 36, 64, (True,) * 5)
+    x = torch.zeros((2, 9, 4, 64)).transpose(1, 2)
+    assert not any(plan_attention_bwd(x, x, x, x, x).copy)
+    odd = torch.zeros((2, 4, 9, 68))[..., :66]
+    shifted = torch.zeros(2 * 4 * 9 * 64 + 1)[1:].view(2, 4, 9, 64)
+    y = torch.zeros((2, 4, 9, 64))
+    assert plan_attention_bwd(y, y, y, shifted, y).copy == (
+        (False,) * 3 + (True, False))
+    assert plan_attention_bwd(odd, odd, odd, odd, odd).head_dim == 68
+    q = torch.empty((1, 8, 4, 300), device="meta")
+    kv = torch.empty((1, 2, 4, 300), device="meta")
+    plan = plan_attention_bwd(q, kv, kv, q, q)
+    assert (plan.variant, plan.head_dim, plan.copy, plan.reduce) == (
+        "wide", 300, (False,) * 5, True)
+    assert plan.launches == ("f32_delta", "f32_wide_dq", "f32_wide_dkdv",
+                             "f32_reduce")
+    assert plan.scratch_bytes == 4 * 8 * 4 * (2 + 2 * 300)
 
 
 def test_plan_attention_bwd_bf16_pads_and_copies():
@@ -276,9 +311,10 @@ def test_wide_bwd_replay_matches_bwd_ref(B, H, Hkv, S, D, causal, window,
     forward's lse, P and dS rounded to bf16, dQ in 512-column passes and
     dK / dV in 256-column ones, each forming its scores again, the group
     summed in head order; float32's 64-column score slices, row
-    statistics and 512-column passes) against ``attention_bwd_ref`` --
-    bf16 within the forward's bf16 tolerance 3e-2, float32 within the
-    module's."""
+    chunks of 256 / 128 columns split over four warps, 3xTF32 products,
+    P from the float32 forward's lse, 512-column passes) against
+    ``attention_bwd_ref`` -- bf16 within the forward's bf16 tolerance
+    3e-2, float32 within the module's."""
     q, k, v, do = (torch.from_numpy(x)
                    for x in _inputs(B, H, Hkv, S, D, S + D + H))
     kw = dict(causal=causal, window=window)
@@ -292,7 +328,84 @@ def test_wide_bwd_replay_matches_bwd_ref(B, H, Hkv, S, D, causal, window,
             np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
                                        atol=3e-2, rtol=3e-2)
         return
-    o = attention_ref(q, k, v, **kw)
-    got = flash_wide_replay.wide_bwd_f32(q, k, v, o, do, **kw)
+    o, lse = flash_wide_replay.f32_forward(q, k, v, **kw)
+    got = flash_wide_replay.f32_bwd(q, k, v, o, do, lse, **kw)
     for g, w in zip(got, attention_bwd_ref(q, k, v, o, do, **kw)):
         _close(g, w.numpy())
+
+
+# (B, H, Hkv, S, D, causal, window) of the float32 backward's replay: each
+# head-dim tile (D = 32, 64, 128, 256; 33 padded to 36) and "wide" (288,
+# 512), grouped heads, windows, S = 1 and S off the tiles' multiples
+F32_BWD_CASES = [
+    (1, 8, 2, 128, 32, True, 48),
+    (2, 4, 1, 65, 64, False, None),
+    (1, 8, 2, 1, 64, True, None),
+    (1, 4, 2, 130, 128, True, None),
+    (1, 4, 1, 40, 256, True, 17),
+    (1, 3, 1, 70, 33, True, None),
+    (1, 4, 2, 40, 288, True, None),
+    (1, 4, 1, 33, 512, True, 9),
+]
+# B6-bwd's float32 bound against the plain version (chip_smoke.py's
+# FA_BWD_F32_REL): each gradient within this share of its largest |value|
+# (+ 1e-6)
+FA_BWD_F32_REL = 1e-4
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", F32_BWD_CASES)
+def test_f32_bwd_replay_matches_jax_gradients(B, H, Hkv, S, D, causal,
+                                              window):
+    """The float32 backward kernels' schedule (``tests/flash_wide_replay.py``
+    ``f32_bwd``: the plan's tiles, 3xTF32 products emulated on the int32
+    bits, each score contracted by its row group's warps and their
+    partials summed in warp order, P from the float32 forward's lse, the
+    group's per-head partials summed in head order) against ``jax.vjp`` of
+    the reference's ``attention_ref``, within ``FA_BWD_F32_REL``; the
+    replay's tiles are the plan's."""
+    from repro_torch.kernels.flash_attention.ops import plan_attention_bwd
+
+    q, k, v, do = _inputs(B, H, Hkv, S, D, S + D + H)
+    kw = dict(causal=causal, window=window)
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(a, b, c, **kw),
+                     q, k, v)
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = flash_wide_replay.f32_forward(tq, tk, tv, **kw)
+    got = flash_wide_replay.f32_bwd(tq, tk, tv, o, tdo, lse, **kw)
+    for g, w, x in zip(got, want, (q, k, v)):
+        w = np.asarray(w)
+        assert g.shape == x.shape
+        assert float(np.abs(g.numpy() - w).max()) <= (
+            FA_BWD_F32_REL * float(np.abs(w).max()) + 1e-6)
+    plan = plan_attention_bwd(*(torch.empty(x.shape, device="meta")
+                                for x in (tq, tk, tv, tq, tq)))
+    tile = flash_wide_replay.f32_tile(D)
+    (bmq, *_), (bmk, *_) = flash_wide_replay.f32_tiles(D, S)
+    assert (plan.tile_d, plan.rows, plan.reduce) == (tile, (bmq, bmk),
+                                                     H > Hkv)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", LSE_CASES + [
+    (1, 4, 2, 40, 288, True, None)])
+def test_f32_attention_with_lse_is_attention_lse_ref(B, H, Hkv, S, D, causal,
+                                                    window):
+    """float32 ``attention_with_lse`` returns ``attention_lse_ref``'s o and
+    lse on CPU tensors, and the float32 forward kernels' lse -- m + ln l of
+    their online softmax (``flash_wide_replay.f32_forward``) -- is within
+    1e-6 relative (+ 1e-6) of it, +inf on the same rows, with o within
+    the forward's 2e-5."""
+    from repro_torch.kernels.flash_attention.ops import attention_with_lse
+
+    q, k, v, _ = (torch.from_numpy(x)
+                  for x in _inputs(B, H, Hkv, S, D, 5 * S + D))
+    kw = dict(causal=causal, window=window)
+    o, lse = attention_with_lse(q, k, v, **kw)
+    want_o, want = attention_lse_ref(q, k, v, **kw)
+    assert torch.equal(o, want_o) and torch.equal(lse, want)
+    ro, rl = flash_wide_replay.f32_forward(q, k, v, **kw)
+    assert torch.equal(torch.isinf(rl), torch.isinf(want))
+    fin = torch.isfinite(want)
+    assert bool(((rl[fin] - want[fin]).abs()
+                 <= 1e-6 * want[fin].abs() + 1e-6).all())
+    torch.testing.assert_close(ro, want_o, atol=2e-5, rtol=2e-5)

@@ -26,8 +26,9 @@ different orders, over two layers and three decode steps).  The flash
 attention kernel is held to its plain version at the reference's
 ``atol = rtol = 2e-5`` (float32) and ``3e-2`` (bf16); its backward kernel
 to ``attention_bwd_ref`` within ``1e-4`` of each gradient's largest
-|value| (+ ``1e-6``) in float32 (the same float32 formulas summed in another order)
-and at ``atol = rtol = 3e-2`` in bf16, and two runs give the same bits;
+|value| (+ ``1e-6``) in float32 (the same formulas, its products 3xTF32
+on the tensor cores and summed in another order) and at ``atol = rtol =
+3e-2`` in bf16, and two runs give the same bits;
 the forward's lse to ``attention_lse_ref`` within ``1e-4``, with the
 output's bits the same whether lse is written or not;
 B7's backward kernels to ``wkv6_bwd_ref`` within ``1e-4`` of each
@@ -1893,23 +1894,22 @@ def _fa_bwd_close(got, want, dtype):
 def test_flash_attention_bwd_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
                                                 window, dtype):
     """The backward kernel against ``attention_bwd_ref`` on the same q, k,
-    v, o (the forward kernel's) and dO: bf16 through the ``wgmma`` variant
-    with the forward's lse (delta, dq, dkdv and, for H > Hkv, the reduce),
-    float32 through ``simt`` (simt_dq, simt_dkdv); a second run gives the
-    same bits, and so does a bf16 call that fetches its own lse."""
+    v, o (the forward kernel's) and dO, with the forward's lse: bf16
+    through the ``wgmma`` variant, float32 through ``f32`` (3xTF32 on the
+    tensor cores), each delta, dq, dkdv and, for H > Hkv, the reduce; a
+    second run gives the same bits, and so does a call that fetches its
+    own lse."""
     q, k, v = _fa_case(cuda, B, H, Hkv, S, D, dtype, 7 * S + D)
     kw = dict(causal=causal, window=window)
-    lse = None
     with torch.no_grad():
         o = attention(q, k, v, **kw)
-    if dtype == torch.bfloat16:
-        o_lse, lse = attention_with_lse(q, k, v, **kw)
-        assert torch.equal(o_lse, o)
+    o_lse, lse = attention_with_lse(q, k, v, **kw)
+    assert torch.equal(o_lse, o)
     g = torch.Generator().manual_seed(S + D)
     do = torch.randn(q.shape, generator=g).to(cuda, dtype)
     plan = plan_attention_bwd(q, k, v, o, do)
-    assert plan.variant == ("simt" if dtype == torch.float32 else "wgmma")
-    assert plan.reduce == (dtype == torch.bfloat16 and H > Hkv)
+    assert plan.variant == ("f32" if dtype == torch.float32 else "wgmma")
+    assert plan.reduce == (H > Hkv)
     kernels.reset_launches()
     got = attention_bwd(q, k, v, o, do, lse=lse, **kw)
     counts = kernels.VARIANT_LAUNCHES["flash_attention_bwd"]
@@ -1917,9 +1917,7 @@ def test_flash_attention_bwd_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
     assert kernels.LAUNCHES["flash_attention"] == 0
     again = attention_bwd(q, k, v, o, do, lse=lse, **kw)
     want = attention_bwd_ref(q, k, v, o, do, **kw)
-    runs = [again]
-    if dtype == torch.bfloat16:
-        runs.append(attention_bwd(q, k, v, o, do, **kw))
+    runs = [again, attention_bwd(q, k, v, o, do, **kw)]
     torch.cuda.synchronize()
     for i, (a, w, x) in enumerate(zip(got, want, (q, k, v))):
         assert a.shape == x.shape and a.dtype == dtype
@@ -1943,18 +1941,16 @@ FA_BWD_WIDE_SHAPES = [
 def test_flash_attention_bwd_wide_matches_ref(cuda, B, H, Hkv, S, D, causal,
                                               window, dtype):
     """Above head dim 256, the ``"wide"`` backward against
-    ``attention_bwd_ref``: bf16 on the tensor cores with the wide
-    forward's lse (delta, wide_dq, wide_dkdv and, for H > Hkv, the
-    reduce), float32 on the CUDA cores (wide_simt_dq, wide_simt_dkdv);
+    ``attention_bwd_ref``, both dtypes on the tensor cores with the wide
+    forward's lse: bf16 delta, wide_dq, wide_dkdv, float32 (3xTF32)
+    f32_delta, f32_wide_dq, f32_wide_dkdv and, for H > Hkv, the reduce;
     each launch once by name; two runs the same bits."""
     q, k, v = _fa_case(cuda, B, H, Hkv, S, D, dtype, 5 * S + D)
     kw = dict(causal=causal, window=window)
-    lse = None
     with torch.no_grad():
         o = attention(q, k, v, **kw)
-    if dtype == torch.bfloat16:
-        o_lse, lse = attention_with_lse(q, k, v, **kw)
-        assert torch.equal(o_lse, o)
+    o_lse, lse = attention_with_lse(q, k, v, **kw)
+    assert torch.equal(o_lse, o)
     g = torch.Generator().manual_seed(S + D)
     do = torch.randn(q.shape, generator=g).to(cuda, dtype)
     plan = plan_attention_bwd(q, k, v, o, do)
@@ -1972,6 +1968,7 @@ def test_flash_attention_bwd_wide_matches_ref(cuda, B, H, Hkv, S, D, causal,
         _fa_bwd_close(a, w, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", [
     (2, 4, 2, 65, 64, True, None), (1, 8, 2, 129, 128, True, None),
     (1, 4, 1, 300, 256, True, 100), (2, 4, 4, 200, 96, False, None),
@@ -1979,13 +1976,14 @@ def test_flash_attention_bwd_wide_matches_ref(cuda, B, H, Hkv, S, D, causal,
     (1, 2, 2, 130, 1344, False, 40), (1, 2, 1, 70, 600, True, -3),
 ])
 def test_flash_attention_lse_keeps_the_output_bits(cuda, B, H, Hkv, S, D,
-                                                   causal, window):
+                                                   causal, window, dtype):
     """bf16 ``mma16``, ``wgmma`` and ``wide`` (one column pass, and two at
-    D = 1,344): the forward with its lse written gives
-    the same bits of o as without; lse equals ``attention_lse_ref``'s
-    within ``1e-4`` (float32 sums in other orders), +inf on rows that see
-    no key (a window of -3 hides every key)."""
-    q, k, v = _fa_case(cuda, B, H, Hkv, S, D, torch.bfloat16, S + D)
+    D = 1,344), float32 ``simt`` and ``wide`` (two column passes at D =
+    1,344): the forward with its lse written gives the same bits of o as
+    without; lse equals ``attention_lse_ref``'s within ``1e-4`` (float32
+    sums in other orders), +inf on rows that see no key (a window of -3
+    hides every key)."""
+    q, k, v = _fa_case(cuda, B, H, Hkv, S, D, dtype, S + D)
     kw = dict(causal=causal, window=window)
     with torch.no_grad():
         o = attention(q, k, v, **kw)
