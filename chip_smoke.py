@@ -331,9 +331,11 @@ Phases, in order; any failure exits non-zero:
    library's SASS (``cuobjdump -sass``) -- a bf16 instantiation with no
    tensor-core instruction fails; then the kernel against its plain
    version ``attention_ref``: the reference's six kernel-test shapes in
-   float32 and bf16, then bf16 at nemotron-4-15b's prefill (8, 48 heads
-   over 8, 2,048, 128, causal), mixtral-8x7b's sliding window (1, 32 over
-   8, 8,192, 128, window 4,096), phi3's head dim (8, 32, 32, 1,024, 96),
+   float32 (``fa_f32_kernel``, 3xTF32 on the tensor cores, each run twice
+   for the same bits) and bf16, then bf16 at nemotron-4-15b's prefill (8,
+   48 heads over 8, 2,048, 128, causal), mixtral-8x7b's sliding window (1,
+   32 over 8, 8,192, 128, window 4,096), phi3's head dim (8, 32, 32,
+   1,024, 96),
    the fraud scorer's (4,096, 8, 8, 65, 64), recurrentgemma-9b's head
    dim 256 (2, 16 over 1, 4,096, 256, window 2,048), D = 512 (2, 8
    over 2, 1,024, 512), and the model phases' prefill shapes: moonshot's
@@ -349,8 +351,10 @@ Phases, in order; any failure exits non-zero:
    boolean mask for a window); the bound is the larger of the visible
    (q, k) pairs' products over the bf16 peak and q, k, v, o over 3.35
    TB/s.  Both bf16 instantiations are timed at S = 65 and S = 128 (the
-   short-sequence threshold), and float32 at nemotron's shape and at
-   D = 512 (``wide``, beside SDPA in float32).
+   short-sequence threshold), and float32 at nemotron's shape (``f32``,
+   beside its plain version, SDPA in float32 and its bound as three TF32
+   products at 495 TFLOP/s: the kernels line's ``flash_attention_f32``)
+   and at D = 512 (``wide``, beside SDPA in float32).
 18. **nemotron-4-15b serving.**  ``build_model(nemotron_4_15b.config())``
    at full width and depth (32 layers, d_model 6,144, 48 heads over 8 KV
    heads of 128, squared-ReLU d_ff 24,576, vocab 256,000 untied, bf16:
@@ -460,7 +464,8 @@ Phases, in order; any failure exits non-zero:
     ``TRAIN_BF16_LOSS`` / ``TRAIN_BF16_GRAD``, float32 at 1 + 1 layers
     within ``TRAIN_F32_LOSS_REL`` / ``TRAIN_F32_REL``, its backward the
     float32 kernels alone (f32_delta, f32_dq, f32_dkdv once a layer: the
-    kernels line's ``flash_attention_bwd_f32`` launches).  (c)
+    kernels line's ``flash_attention_bwd_f32`` launches), its forward
+    ``fa_f32_kernel`` alone (``flash_attention_f32``'s launches).  (c)
     featinsight-fraud at full width (``TRAIN_FRAUD``, ``mma16``).  (d)
     The training twins (``examples.fraud_detection``,
     ``examples.train_lm``) on the card.  (e) B7's backward kernel against
@@ -739,6 +744,7 @@ FA_THRESHOLD_SHAPES = {
 # least one of these
 FA_TENSOR_CORE_OPS = {"fa_wgmma_kernel": ("HGMMA",),
                       "fa_mma16_kernel": ("HMMA", "HGMMA"),
+                      "fa_f32_kernel": ("HMMA",),
                       "fa_wide_wgmma_kernel": ("HGMMA",)}
 # B6's backward: its bf16 kernels must reach the tensor cores by wgmma, its
 # float32 ones (and their Δ) by 3xTF32 mma.sync
@@ -2099,7 +2105,7 @@ def _print_b6_share(dev, busy_ms) -> None:
 
     by = {}
     for e in dev:
-        m = re.search(r"fa_(wgmma|mma16|simt|wide)_kernel", e.key)
+        m = re.search(r"fa_(wgmma|mma16|f32|wide)_kernel", e.key)
         if m:
             ms, n = by.get(m.group(1), (0.0, 0))
             by[m.group(1)] = (ms + e.self_device_time_total / 1e3, n + e.count)
@@ -4956,7 +4962,8 @@ def _fa_inputs(gen, shape, dtype):
 
 
 def _fa_label(mangled: str) -> str:
-    """``fa_wgmma_kernel<128>`` / ``bwd_dq_wgmma_kernel<128>`` from a
+    """``fa_wgmma_kernel<128>`` / ``bwd_dq_wgmma_kernel<128>`` /
+    ``fa_f32_kernel<128, 1, 8, 32, 1>`` (its tile struct's arguments) from a
     mangled kernel name."""
     import re
 
@@ -4969,6 +4976,9 @@ def _fa_label(mangled: str) -> str:
     if m is None:
         return mangled
     args = re.findall(r"Li(\d+)E", m.group(2) or "")
+    tile = re.search(r"F32FwdI((?:Li\d+E)+)E", mangled)
+    if not args and tile is not None:
+        args = re.findall(r"Li(\d+)E", tile.group(1))
     return f"{m.group(1)}<{', '.join(args)}>" if args else m.group(1)
 
 
@@ -5048,10 +5058,12 @@ def _fa_library_call(q, k, v, shape):
 def check_flash_attention_kernel(results) -> None:
     """Flash attention (B6): the build report of its instantiations; the
     kernel against ``attention_ref`` on the reference's test shapes and
-    the paths' shapes; every path shape timed beside the plain version and
-    SDPA; the lse epilogue timed on and off in turns at those shapes (o
-    bit-equal); both bf16 instantiations timed at short sequences (the
-    dispatch threshold); float32 timed at nemotron's shape."""
+    the paths' shapes (bf16, and float32 up to D = 256); every path shape
+    timed beside the plain version and SDPA; the lse epilogue timed on and
+    off in turns at those shapes (o bit-equal); both bf16 instantiations timed at short sequences (the
+    dispatch threshold); every float32 case up to D = 256 on ``"f32"``,
+    run twice for the same bits; float32 timed at nemotron's shape beside
+    its plain version, SDPA and its 3xTF32 bound."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention.ops import (
         SHORT_SEQ_MAX, attention, attention_with_lse, launch_flash_attention,
@@ -5065,8 +5077,10 @@ def check_flash_attention_kernel(results) -> None:
              for sh in FA_TEST_SHAPES]
     cases += [(f"wide {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
               for sh in FA_WIDE_SHAPES]
-    cases += [(name, sh, torch.bfloat16) for name, sh in FA_PATH_SHAPES.items()]
-    worst = {}
+    cases += [(name, sh, dt) for dt in (torch.bfloat16, torch.float32)
+              for name, sh in FA_PATH_SHAPES.items()
+              if dt == torch.bfloat16 or sh[4] <= 256]
+    worst, f32_err = {}, {}
     for name, shape, dtype in cases:
         causal, window = shape[5:]
         q, k, v = _fa_inputs(gen, shape, dtype)
@@ -5076,8 +5090,11 @@ def check_flash_attention_kernel(results) -> None:
         if kernels.VARIANT_LAUNCHES["flash_attention"][variant] != 1:
             _fail(f"flash attention on {name}: the {variant} instantiation "
                   f"was not launched ({kernels.VARIANT_LAUNCHES})")
+        if dtype == torch.float32 and shape[4] <= 256 and variant != "f32":
+            _fail(f"flash attention on {name} float32 planned {variant}")
         want = attention_ref(q, k, v, causal=causal, window=window)
-        if variant == "wide" and not torch.equal(
+        twice = variant in ("wide", "f32")
+        if twice and not torch.equal(
                 out, attention(q, k, v, causal=causal, window=window)):
             _fail(f"flash attention ({variant}) on {name}: two runs differ")
         torch.cuda.synchronize()
@@ -5087,9 +5104,13 @@ def check_flash_attention_kernel(results) -> None:
             _fail(f"flash attention differs from its plain version on {name} "
                   f"{shape} {dtype} (max |diff| {err:.3e}, tolerance {tol})")
         worst[dtype] = max(worst.get(dtype, 0.0), err)
+        if variant == "f32" and name in FA_PATH_SHAPES:
+            f32_err[name] = err
+        elif variant == "f32":
+            worst["f32"] = max(worst.get("f32", 0.0), err)
         print(f"flash_attention == attention_ref on {name} {shape} {dtype} "
               f"({variant}): max |diff| {err:.3e} (atol = rtol = {tol})"
-              + ("; two runs bit-equal" if variant == "wide" else ""),
+              + ("; two runs bit-equal" if twice else ""),
               flush=True)
         del q, k, v, out, want
     torch.cuda.empty_cache()
@@ -5169,12 +5190,32 @@ def check_flash_attention_kernel(results) -> None:
         del q, k, v, o
     torch.cuda.empty_cache()
 
-    # float32 (the checks' dtype) at nemotron's shape, on the CUDA cores
+    # float32 ("f32", 3xTF32 on the tensor cores; the float32 models'
+    # forward) at nemotron's shape, checked above, timed beside its plain
+    # version and SDPA in float32 (MATH, the only backend with GQA); the
+    # other path shapes in scripts/torch_kernel_times.py --kernels b6f32
     shape = FA_PATH_SHAPES["nemotron"]
     q, k, v = _fa_inputs(gen, shape, torch.float32)
-    f32_ms = _time_ms(lambda: attention(q, k, v), 3, 1)
-    print(f"flash_attention nemotron {shape} float32 (simt): kernel "
-          f"{f32_ms:.4f} ms", flush=True)
+    nbytes, flop = _fa_cost(shape, 4)
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 3e3 * flop / TF32_FLOP_PER_S  # three TF32 products a float32
+    f32 = dict(ms=_time_ms(lambda: attention(q, k, v), 5, 1),
+               plain_ms=_time_ms(lambda: attention_ref(q, k, v), 2, 1),
+               library_ms=_time_ms(_fa_library_call(q, k, v, shape), 2, 1),
+               bound_ms=max(by_bytes, by_ops),
+               bound_by="bytes" if by_bytes >= by_ops else "operations",
+               f32_peak_bound_ms=max(by_bytes, 1e3 * flop / FP32_FLOP_PER_S),
+               max_abs_err=f32_err["nemotron"],
+               max_abs_err_test_shapes=worst["f32"],
+               max_abs_err_path_shapes=f32_err)
+    print(f"flash_attention nemotron {shape} float32 (f32): kernel "
+          f"{f32['ms']:.4f} ms, plain {f32['plain_ms']:.4f} ms, SDPA "
+          f"{f32['library_ms']:.4f} ms, bound {f32['bound_ms']:.5f} ms "
+          f"({nbytes} bytes -> {by_bytes:.5f} ms; {flop} FLOP as 3 TF32 "
+          f"products -> {by_ops:.5f} ms; {f32['f32_peak_bound_ms']:.5f} ms "
+          f"at the float32 peak); kernel at {f32['bound_ms'] / f32['ms']:.4f} "
+          f"of the bound, {3 * flop / f32['ms'] / 1e9:.1f} TF32-TFLOP/s",
+          flush=True)
     del q, k, v
     # float32 at D = 512 ("wide", the CUDA cores) beside SDPA in float32
     shape = FA_PATH_SHAPES["d512"]
@@ -5201,11 +5242,14 @@ def check_flash_attention_kernel(results) -> None:
     main = {k: v for k, v in timed["nemotron"].items() if k != "variant"}
     results["flash_attention"] = dict(
         max_abs_err=worst[torch.bfloat16], max_abs_err_f32=worst[torch.float32],
-        **main, f32_ms=f32_ms,
+        **main, f32_ms=f32["ms"],
         **{f"d512_f32_{k}": v for k, v in wide_f32.items()},
         shape=f"{FA_PATH_SHAPES['nemotron'][:5]} bf16 causal (wgmma; {others})",
         shapes=timed,
     )
+    # its launches come from the seamless float32 training pass
+    results["flash_attention_f32"] = dict(
+        **f32, shape=f"{FA_PATH_SHAPES['nemotron'][:5]} float32 causal (f32)")
 
 
 def _plain_self_attention(q, k, v, positions, *, causal=True, window=None):
@@ -5993,8 +6037,9 @@ def check_flash_attention_bwd(results) -> None:
     atomics anywhere); the reference's six test shapes in float32
     (``f32``), the edges (S = 1, 127, 129) and the training paths' shapes
     (``FA_BWD_SHAPES``) in both dtypes (``wgmma`` / ``f32``), each with the
-    forward's lse, itself checked against ``attention_lse_ref`` and the
-    output's bits against the forward without it; each call's launches by
+    forward's output and lse, both checked against ``attention_lse_ref``
+    (the output within ``FA_TOL``) and the output's bits against the
+    forward without the lse; each call's launches by
     name; two runs the same bits; ``wide`` at ``FA_WIDE_SHAPES`` in both
     dtypes; ``attention`` under autograd launches the forward once and the
     backward's launches once (D = 64 and, ``wide``, 512; both dtypes); each
@@ -6022,7 +6067,7 @@ def check_flash_attention_bwd(results) -> None:
               for n, sh in FA_BWD_SHAPES.items()]
     cases += [(f"wide {sh[:5]}", sh, dt) for dt in (torch.float32, torch.bfloat16)
               for sh in FA_WIDE_SHAPES]
-    worst, worst_wide = {}, {}
+    worst, worst_wide, worst_o = {}, {}, {}
     for name, shape, dtype in cases:
         causal, window = shape[5:]
         kw = dict(causal=causal, window=window)
@@ -6032,7 +6077,15 @@ def check_flash_attention_bwd(results) -> None:
         o2, lse = attention_with_lse(q, k, v, **kw)
         if not torch.equal(o, o2):
             _fail(f"B6 forward on {name} {dtype}: o differs with lse written")
-        want_lse = attention_lse_ref(q, k, v, **kw)[1]
+        # o feeds both backwards below, so a wrong o would not show there
+        want_o, want_lse = attention_lse_ref(q, k, v, **kw)
+        o_err = float((o.float() - want_o.float()).abs().max())
+        tol = FA_TOL[dtype]
+        if not torch.allclose(o.float(), want_o.float(), atol=tol, rtol=tol):
+            _fail(f"B6 forward differs from attention_ref on {name} {shape} "
+                  f"{dtype} (max |diff| {o_err:.3e}, tolerance {tol})")
+        if dtype == torch.float32 and shape[4] <= 256:
+            worst_o["f32"] = max(worst_o.get("f32", 0.0), o_err)
         if not torch.allclose(lse, want_lse, atol=FA_LSE_TOL,
                               rtol=FA_LSE_TOL):
             _fail(f"B6 forward's lse differs from attention_lse_ref on "
@@ -6040,7 +6093,7 @@ def check_flash_attention_bwd(results) -> None:
         fin = torch.isfinite(want_lse)
         lse_err = float((lse[fin] - want_lse[fin]).abs().max()) if bool(
             fin.any()) else 0.0
-        del o2, want_lse
+        del o2, want_o, want_lse
         do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
         plan = plan_attention_bwd(q, k, v, o, do)
         kernels.reset_launches()
@@ -6067,10 +6120,12 @@ def check_flash_attention_bwd(results) -> None:
         print(f"flash_attention_bwd == attention_bwd_ref on {name} {shape} "
               f"{dtype} ({plan.variant}: {'+'.join(plan.launches)}): max "
               f"|diff| dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}; "
-              f"two runs bit-equal; lse max |diff| {lse_err:.3e}, o "
-              "bit-equal with lse written", flush=True)
+              f"two runs bit-equal; lse max |diff| {lse_err:.3e}, o max "
+              f"|diff| {o_err:.3e} (atol = rtol = {tol}) and bit-equal with "
+              "lse written", flush=True)
         del q, k, v, o, do, got, again, want, lse
     torch.cuda.empty_cache()
+    results["flash_attention_f32"]["max_abs_err_train_shapes"] = worst_o["f32"]
 
     # through autograd on the model's (B, S, H, D) views: forward once,
     # backward once, no copy; at D = 64 and, on "wide", at D = 512 with
@@ -6813,7 +6868,8 @@ def seamless_train_checks(cfg, results) -> None:
     measured over seeds; float32 at 1 + 1 layers within
     ``TRAIN_F32_REL``, the float32 backward's path: its run (counts set to
     0 just before, read just after) must launch only the float32 kernels,
-    each once a layer, which the kernels line reports as its launches."""
+    the forward twice a layer and the backward's once, which the kernels
+    line reports as their launches."""
     from repro_torch.models import build_model
 
     batch = _plain_batch(cfg, TRAIN_PLAIN_BATCH)
@@ -6843,9 +6899,15 @@ def seamless_train_checks(cfg, results) -> None:
     if got != want:
         _fail(f"seamless float32 training: B6 backward launches {got}, "
               f"expected {want}")
+    # every block rematerialized: its forward runs twice
+    fwd = {n: x for n, x in r["variants"]["flash_attention"].items() if x}
+    if fwd != {"f32": 2 * (cfg32.n_layers + cfg32.n_encoder_layers)}:
+        _fail(f"seamless float32 training: B6 forward launches {fwd}, "
+              f"expected f32 only, two a layer")
     results["flash_attention_bwd_f32"]["launches"] = r["launches"][
         "flash_attention_bwd"]
     results["flash_attention_bwd_f32"]["variants"] = got
+    results["flash_attention_f32"]["launches"] = fwd["f32"]
     print(f"seamless float32 (1 + 1 layers) train pass, B6 vs "
           f"gqa_attention: loss relative |diff| {rel:.3e} (bound "
           f"{TRAIN_F32_LOSS_REL}); largest per-leaf ||diff|| / ||g|| "
@@ -7367,6 +7429,10 @@ def main() -> None:
              source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
              **results["flash_attention_bwd_f32"]),
+        dict(name="flash_attention_f32", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:111",
+             **results["flash_attention_f32"]),
         dict(name="wkv6_bwd_wide", route="cuda",
              source="src/repro_torch/kernels/csrc/wkv6_bwd.cu",
              replaces="src/repro/kernels/wkv6/wkv6.py:99",

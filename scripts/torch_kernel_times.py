@@ -1,12 +1,12 @@
 """Time the port's route kernel (B2), signature-embedding kernel (B5),
 window-stats kernel (B3), flash attention's backward (B6-bwd), the WKV6
 backward (B7-bwd), B6's and B7's kernels above head dim 256 and their
-backward kernels above head dim 256 and 64 alone, at their paths'
-shapes, in one checkout of this repository.
+backward kernels above head dim 256 and 64, and B6's float32 forward,
+alone, at their paths' shapes, in one checkout of this repository.
 
 Usage, on a machine with an NVIDIA GPU and the CUDA toolkit::
 
-    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide,b6bwdwide,b7bwdwide,b6bwdf32]
+    python3 scripts/torch_kernel_times.py [CHECKOUT] [--kernels b2,b5,b3,b6bwd,b7bwd,b6wide,b7wide,b6bwdwide,b7bwdwide,b6bwdf32,b6f32]
 
 ``CHECKOUT`` (default: this repository) is the root of the tree whose
 ``src/repro_torch`` is timed, so two commits compare on one card by
@@ -82,13 +82,20 @@ writes one: CUDA events over 10 calls after 2 (``b6bwdf32_<shape>_ms``),
 the device time a call by kernel (``b6bwdf32_<shape>_<kernel>_ms``) and
 summed (``b6bwdf32_<shape>_device_ms``); SDPA's float32 backward under
 each backend that takes the shape the same two ways
-(``sdpa_bwd_f32_<shape>_<backend>_ms``, ``..._device_ms``); and the
-float32 forward at nemotron's prefill shape, B6 (its output's sha256,
-``b6f32fwd_nemotron_sha256``) and SDPA under each backend
-(``b6f32fwd_nemotron_ms``, ``..._device_ms``,
-``sdpa_f32fwd_nemotron_<backend>_...``).  A tree whose backward has no
-kernel at these head dims records the error it raises
-(``..._error``) in place of its times.
+(``sdpa_bwd_f32_<shape>_<backend>_ms``, ``..._device_ms``).  A tree
+whose backward has no kernel at these head dims records the error it
+raises (``..._error``) in place of its times.  B6's float32 forward up to head
+dim 256 (``b6f32``, not in the default set): ``attention`` under
+``no_grad`` at every shape of ``chip_smoke.py``'s ``FA_PATH_SHAPES`` with
+D <= 256, float32: its output's sha256 (``b6f32_<shape>_sha256``), CUDA
+events over 10 calls after 2 (``b6f32_<shape>_ms``), the device time a
+call of the kernels whose name holds ``fa_`` under ``torch.profiler``
+(``b6f32_<shape>_device_ms``), the bound -- bytes over 3.35 TB/s against
+the operations as three TF32 products at 495 TFLOP/s, and at the float32
+peak (``b6f32_<shape>_bound_ms``, ``..._bytes_ms``, ``..._tf32x3_ms``,
+``..._f32_peak_ms``) -- and SDPA in float32 under each backend that takes
+the shape, the same two ways (``sdpa_f32_<shape>_<backend>_ms``,
+``..._device_ms``).
 Entries a
 tree does not have (the route kernel from keys, B5 from signatures) are
 left out.  Prints one JSON line.
@@ -216,6 +223,7 @@ def main() -> None:
              "b6wide": ["flash_attention"], "b7wide": ["wkv6"],
              "b6bwdwide": ["flash_attention", "flash_attention_bwd"],
              "b6bwdf32": ["flash_attention", "flash_attention_bwd"],
+             "b6f32": ["flash_attention"],
              "b7bwdwide": ["wkv6", "wkv6_bwd"]}
     build.build(sorted({n for k in todo for n in names[k]}))
     out = {"tree": str(root)}
@@ -233,6 +241,8 @@ def main() -> None:
         _b6_bwd_wide(out)
     if "b6bwdf32" in todo:
         _b6_bwd_f32(out)
+    if "b6f32" in todo:
+        _b6_f32(out)
     if "b7bwdwide" in todo:
         _b7_bwd_wide(out)
     if todo & {"b2", "b5"}:
@@ -511,8 +521,7 @@ def _sdpa_backends(out, key, make) -> None:
 
 def _b6_bwd_f32(out) -> None:
     """B6's backward in float32 at chip_smoke.py's training-path shapes
-    and d512, beside SDPA's backward under each backend; B6's float32
-    forward and SDPA's at nemotron's prefill shape."""
+    and d512, beside SDPA's backward under each backend."""
     import chip_smoke as cs
 
     from repro_torch.kernels.flash_attention import ops
@@ -544,19 +553,39 @@ def _b6_bwd_f32(out) -> None:
                        lambda: cs._sdpa_bwd(q, k, v, do, shape))
         del q, k, v, do
         torch.cuda.empty_cache()
-    shape = cs.FA_PATH_SHAPES["nemotron"]
-    q, k, v = cs._fa_inputs(gen, shape, torch.float32)
-    with torch.no_grad():
-        def fwd():
-            return ops.attention(q, k, v)
 
-        out["b6f32fwd_nemotron_sha256"] = _sha256([fwd()])
-        out["b6f32fwd_nemotron_ms"] = _events_ms(fwd, 10, 2)
-        out["b6f32fwd_nemotron_device_ms"] = _profiled_ms(fwd, "fa_")
-        _sdpa_backends(out, "sdpa_f32fwd_nemotron",
-                       lambda: cs._fa_library_call(q, k, v, shape))
-    del q, k, v
-    torch.cuda.empty_cache()
+
+def _b6_f32(out) -> None:
+    """B6's float32 forward at chip_smoke.py's path shapes up to head dim
+    256, beside SDPA in float32 under each backend that takes the shape."""
+    import chip_smoke as cs
+
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 35)
+    for name, shape in cs.FA_PATH_SHAPES.items():
+        if shape[4] > 256:
+            continue
+        causal, window = shape[5:]
+        q, k, v = cs._fa_inputs(gen, shape, torch.float32)
+        key = f"b6f32_{name}"
+        nbytes, flop = cs._fa_cost(shape, 4)
+        by_bytes = 1e3 * nbytes / cs.HBM_BYTES_PER_S
+        by_ops = 3e3 * flop / cs.TF32_FLOP_PER_S
+        out.update({f"{key}_bytes_ms": by_bytes, f"{key}_tf32x3_ms": by_ops,
+                    f"{key}_f32_peak_ms": 1e3 * flop / cs.FP32_FLOP_PER_S,
+                    f"{key}_bound_ms": max(by_bytes, by_ops)})
+        with torch.no_grad():
+            def fwd():
+                return ops.attention(q, k, v, causal=causal, window=window)
+
+            out[f"{key}_sha256"] = _sha256([fwd()])
+            out[f"{key}_ms"] = _events_ms(fwd, 10, 2)
+            out[f"{key}_device_ms"] = _profiled_ms(fwd, "fa_")
+            _sdpa_backends(out, f"sdpa_f32_{name}",
+                           lambda: cs._fa_library_call(q, k, v, shape))
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def _b7_bwd_wide(out) -> None:

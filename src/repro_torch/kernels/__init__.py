@@ -45,7 +45,7 @@ LAUNCHES: Dict[str, int] = {
 }
 # kernel name -> instantiation -> CUDA launches since the last reset
 VARIANT_LAUNCHES: Dict[str, Dict[str, int]] = {
-    "flash_attention": {"wgmma": 0, "mma16": 0, "simt": 0, "wide": 0},
+    "flash_attention": {"wgmma": 0, "mma16": 0, "f32": 0, "wide": 0},
     # B6's backward, each launch by name: bf16 ("wgmma" variant) the Δ
     # pre-pass, the dQ and dK / dV kernels and, for grouped heads, the
     # group sum; above head dim 256 ("wide") the same with wide_dq and

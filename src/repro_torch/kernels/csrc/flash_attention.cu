@@ -22,9 +22,9 @@
 // row with no visible key comes out 0.
 //
 // Bound on the H100: operations -- 4·D FLOP per visible (q, k) pair and
-// head at 989 TFLOP/s of bf16 tensor-core peak -- for long sequences;
-// bytes (q, k, v read once, o written once at 3.35 TB/s) for short ones
-// and for small D.  Four instantiations (five kernels), chosen by the
+// head at 989 TFLOP/s of bf16 tensor-core peak (float32: as three TF32
+// products at 495 TFLOP/s) -- for long sequences; bytes (q, k, v read
+// once, o written once at 3.35 TB/s) for short ones and for small D.  Four instantiations (five kernels), chosen by the
 // wrapper (kernels/flash_attention/ops.py, plan_attention):
 //
 // 1. fa_wgmma_kernel -- bf16, S > 128: Hopper's own design.  A producer
@@ -47,14 +47,22 @@
 //    K and V in shared memory once (cp.async, zero-filled past S and D);
 //    each warp takes 16-row query tiles of the group's heads and runs
 //    mma.sync.m16n8k16 over only the keys the tile can see.
-// 3. fa_simt_kernel -- float32: CUDA-core products (explicit fmaf, expf,
-//    the IEEE divide) to hold the reference's 2e-5; on tensor cores
-//    float32 would run as TF32.  A 64-row query tile at D <= 128, a
-//    32-row one above, so the accumulator stays in registers.
+// 3. fa_f32_kernel -- float32, D <= 256, on the tensor cores: every
+//    product a 3xTF32 mma.sync.m16n8k8 (tf32.cuh: each operand split
+//    into a TF32 hi part and the remainder, lo·hi + hi·lo + hi·hi summed
+//    in float32, ~2^-20 relative a product, which holds the reference's
+//    2e-5 where one TF32 product would not; hi truncated, as the float32
+//    backward splits); Q split into hi and lo planes once a block, K, V
+//    and P as each warp reads them; K and V tiles through a two-stage
+//    cp.async ring, P kept in registers (the S accumulator is P's A
+//    fragment), the softmax in float32 with expf and the IEEE divide.  A
+//    warp per 16 query rows: 128 rows a block up to D = 128, 64 above,
+//    where two warps split D's columns (S's partials added through shared
+//    memory); 32-row tiles for sequences of up to 96 at D <= 64.
 // 4. "wide", D > 256, where a 64-row x D float32 accumulator no longer
 //    fits one warpgroup's registers:
-//    a. fa_wide_simt_kernel -- float32 on the CUDA cores (as 3, for the
-//       2e-5): a 32-row query tile and all output columns up to 1,024 in
+//    a. fa_wide_simt_kernel -- float32 on the CUDA cores (explicit fmaf,
+//       for the 2e-5): a 32-row query tile and all output columns up to 1,024 in
 //       one block, so each score is formed once;
 //    b. fa_wide_wgmma_kernel -- bf16 on the tensor cores: a 64-row query
 //       tile, two consumer warpgroups that split D for the scores (their
@@ -74,13 +82,14 @@
 // the output's bits are the same either way.
 //
 // The TMA, mbarrier and wgmma helpers live in hopper.cuh, shared with the
-// backward.
+// backward; the 3xTF32 ones in tf32.cuh, shared with B7.
 //
 // Layouts: per-(b, h, s) element strides with D contiguous, so the model
 // passes its (B, S, H, hd) activations as transposed views without a
 // copy.  The bf16 instantiations need D a multiple of 16 and 16-byte
-// aligned bases and strides (TMA, cp.async); the wrapper pads or copies
-// where they are not.  D up to 256 on the tiled instantiations; any D
+// aligned bases and strides (TMA, cp.async), fa_f32_kernel D a multiple
+// of 4 and 16-byte aligned bases and strides (cp.async); the wrapper pads
+// or copies where they are not.  D up to 256 on the tiled instantiations; any D
 // above on the wide ones (bf16: a multiple of 8, the wrapper pads).
 
 #include <cuda.h>
@@ -91,6 +100,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -112,8 +122,6 @@ struct Params {
   int causal, has_window, window;
   float scale;
 };
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 // the keys any of rows q0 .. q0 + rows - 1 can see: [k_lo, k_hi)
 __device__ __forceinline__ void key_range(const Params& p, int q0, int rows,
@@ -154,212 +162,323 @@ __device__ __forceinline__ void store_lse(const Params& p, long long b, int h,
 }
 
 // ---------------------------------------------------------------------------
-// 3. float32 on the CUDA cores
+// cp.async, shared by 2 and 3
 // ---------------------------------------------------------------------------
 
-constexpr int NT = 128;  // threads: 16 row groups x 8 column groups
+// 16 bytes global -> shared; zeros where !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
 
-// a BQ-row query tile over BK = BQ-row KV tiles; tiles are float32 rows of
-// DP + 4 floats (DP = D rounded up to 32; the padded columns are zeros and
-// add nothing; the 4-float pad shifts rows by four banks, so the float4
-// reads are conflict-free): 101,376 bytes at D = 128 (BQ 64), 99,840 at
-// D = 256 (BQ 32), two blocks to an SM.  Thread (ty, tx) = (tid / 8,
-// tid % 8) owns query rows ty + 16 i (i < BQ / 16) -- score columns
-// tx + 8 j (j < BK / 8) and output columns 4 tx + 32 jj + e -- so a row's
-// max and sum reduce over the 8 lanes of one warp with shuffles.
-template <int DP, int BQ>
-struct Simt {
-  static constexpr int BK = BQ;
-  static constexpr int LD = DP + 4;  // row stride of the q, k, v tiles
-  static constexpr int LP = BK + 4;  // row stride of the weights
-  static constexpr int RI = BQ / 16;
-  static constexpr int KJ = BK / 8;
-  static constexpr int CJ = DP / 32;
+// commits the thread's outstanding copies and waits for all of them
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 3. float32 on the tensor cores in 3xTF32
+// ---------------------------------------------------------------------------
+
+// fa_f32_kernel's tiles.  A block owns R row groups of 16 query rows (BM =
+// 16 R) and streams BN-key tiles of K and V through a two-stage cp.async
+// ring; MINB blocks share an SM (registers a thread: 65,536 / (MINB NT)).
+// Each row group has W warps: warp j contracts the scores over columns
+// [j KW, (j + 1) KW) of the DT-column head-dim tile and owns those output
+// columns; with W = 2 (DT > 128, where a 16 x DT float32 accumulator would
+// need DT / 2 registers a thread) the two warps' partial scores meet in
+// shared memory and each adds them in warp order, so both hold the same
+// bits.  Rows of DT + 4 floats: a pitch of 4 modulo 32 banks, so the
+// fragment reads of Q (rows gid, columns tig), K (the same) and V (rows
+// 2 tig, columns gid) are conflict-free.  Every operand is split as the
+// float32 backward splits it (tf32.cuh's split_trunc, hi truncated: one
+// ALU op a value fewer than split_tf32's rounding, ~2^-20 relative a
+// product against ~2^-21, still far inside the 2e-5): Q into its hi and
+// lo planes once a block, K, V and P as each warp reads them.  A
+// block-wide split of K and V into planes ran no faster on the card:
+// twice the shared-memory traffic for the same fragments.
+template <int DT_, int W_, int R_, int BN_, int MINB_ = 1>
+struct F32Fwd {
+  static constexpr int DT = DT_, W = W_, R = R_, BN = BN_, MINB = MINB_;
+  static constexpr int BM = 16 * R, NT = 32 * W * R, LD = DT + 4;
+  static constexpr int NB = BN / 8;      // the scores' n-tiles
+  static constexpr int KW = DT / W;      // a warp's columns
+  static constexpr int NC = KW / 8;      // a warp's output n-tiles
+  static constexpr int XF = W > 1 ? NB * 4 * 32 : 0;  // a warp's partials
+  // Q's hi and lo planes, the ring's two stages of K and V, the partials
   static constexpr size_t bytes() {
-    return sizeof(float) * ((size_t)BQ * LD + cmax(BK * LD, BQ * LP) +
-                            (size_t)BK * LD);
+    return sizeof(float) *
+           (2 * BM * LD + 2 * 2 * BN * LD + (size_t)W * R * XF);
   }
 };
 
-// rows row0 .. row0 + ROWS - 1 of one head into a tile of rows of DP + 4
-// floats; rows >= S and columns >= D are zeros
-template <int DP, int ROWS>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      long long rs, int row0, int S, int D) {
-  constexpr int LD = DP + 4;
-#pragma unroll 8
-  for (int it = 0; it < ROWS * DP / NT; ++it) {
-    const int e = it * NT + threadIdx.x;
-    const int r = e / DP, d = e % DP;
-    float x = 0.0f;
-    if (row0 + r < S && d < D) x = src[(long long)(row0 + r) * rs + d];
-    dst[r * LD + d] = x;
+// the instantiations by head-dim tile: 128 query rows over 8 warps up to
+// DT = 128 (32-key tiles at 128, so the block fits 227 KB; at DT <= 64 two
+// blocks an SM), 64 rows over 4 pairs of warps above (16-key tiles from
+// DT = 224); sequences of up to F32_SHORT_S rows at DT <= 64 take 32-row
+// tiles over 16-key ones, four blocks an SM (the fraud scorer's 65 rows:
+// 3 tiles, not 2 of 64 whose second holds one row)
+constexpr int F32_SHORT_S = 96;
+constexpr int f32_keys(int dt) {
+  return dt == 96 ? 64 : dt <= 192 ? 32 : 16;
+}
+template <int DT, bool SHORT = false>
+struct F32FwdCfg {
+  using C = F32Fwd<DT, (DT <= 128 ? 1 : 2), (DT <= 128 ? 8 : 4), f32_keys(DT),
+                   (DT <= 64 ? 2 : 1)>;
+};
+template <int DT>
+struct F32FwdCfg<DT, true> {
+  using C = F32Fwd<DT, 1, 2, 16, 4>;
+};
+
+// rows r0 .. r0 + ROWS - 1 of one head, DT columns, into rows of DT + 4
+// floats by cp.async; zeros past S and D (D a multiple of 4)
+template <int ROWS, int DT, int NT>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long rs, int r0, int S,
+                                           int D) {
+  constexpr int CH = DT / 4, LD = DT + 4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = 4 * (i % CH);
+    const bool ok = r0 + r < S && c < D;
+    cp_async16(smem_u32(dst + r * LD + c),
+               ok ? src + (long long)(r0 + r) * rs + c : src, ok);
   }
 }
 
-__device__ __forceinline__ float lane_of(const float4& x, int e) {
-  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
-}
-
-template <int DP, int BQ>
-__global__ void __launch_bounds__(NT, 2) fa_simt_kernel(Params p) {
-  using C = Simt<DP, BQ>;
-  constexpr int BK = C::BK, LD = C::LD, LP = C::LP, RI = C::RI, KJ = C::KJ,
-                CJ = C::CJ;
+// A block per (b, h, BM-row query tile), the longest tiles first; a warp
+// per 16 rows (and share of D's columns) over the key tiles its rows can
+// see.  Per tile: S = Q Kᵀ in 3xTF32 from Q's planes and K split as it is
+// read; the online softmax on the accumulators (a row's max and sum
+// over the 4 lanes of a quad, masked scores -1e30 and weights 0, alpha =
+// 0 while the max is still -1e30, expf); O += P V in 3xTF32 with the S
+// accumulator as P's A fragment (its k slots permuted: key 2 tig in slot
+// tig, 2 tig + 1 in tig + 4) and V read as B in the same key order, so P
+// never leaves registers.  A tile every row of the warp sees whole skips
+// the mask.  Each thread sums its own columns of l, the quad adds them at
+// the end; o = acc / max(l, 1e-30), lse = m + ln l.  No atomics: the
+// same bits every run, with or without the lse.
+template <class C>
+__global__ void __launch_bounds__(C::NT, C::MINB) fa_f32_kernel(Params p) {
+  constexpr int DT = C::DT, W = C::W, BN = C::BN, BM = C::BM, LD = C::LD,
+                NB = C::NB, KW = C::KW, NC = C::NC, NT = C::NT;
+  constexpr int G = NC % 4 == 0 ? 4 : 2;  // output n-tiles issued together
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + BQ * LD;
-  float* ps = ks;  // the weights overwrite K once the scores are taken
-  float* vs = ks + cmax(BK * LD, BQ * LP);
+  float* const sQh = reinterpret_cast<float*>(smem4);
+  float* const sQl = sQh + BM * LD;
+  float* const sKV = sQl + BM * LD;  // [stage][K, V][BN][LD]
+  float* const sX = sKV + 2 * 2 * BN * LD;
 
-  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int rg = warp / W, wj = warp % W;
   const long long b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
-  const int hk = h / p.group;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const int h = blockIdx.x % p.H, hk = h / p.group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest rows first
   const float* qg = static_cast<const float*>(p.q) + b * p.sq[0] + h * p.sq[1];
   const float* kg = static_cast<const float*>(p.k) + b * p.sk[0] + hk * p.sk[1];
   const float* vg = static_cast<const float*>(p.v) + b * p.sv[0] + hk * p.sv[1];
   float* og = static_cast<float*>(p.o) + b * p.so[0] + h * p.so[1];
 
-  stage<DP, BQ>(qs, qg, p.sq[2], q0, p.S, p.D);
-
   int k_lo, k_hi;
-  key_range(p, q0, BQ, k_lo, k_hi);
-  const int t_lo = k_lo / BK;
-  const int t_hi = (k_hi + BK - 1) / BK;
+  key_range(p, q0, BM, k_lo, k_hi);
+  const int t_lo = k_lo / BN;
+  const int t_hi = k_hi > k_lo ? (k_hi + BN - 1) / BN : t_lo;
+  auto stage_kv = [&](int t) {
+    float* dst = sKV + ((t - t_lo) & 1) * 2 * BN * LD;
+    stage_tile<BN, DT, NT>(dst, kg, p.sk[2], t * BN, p.S, p.D);
+    stage_tile<BN, DT, NT>(dst + BN * LD, vg, p.sv[2], t * BN, p.S, p.D);
+  };
 
-  float acc[RI][CJ][4];
-  float m[RI], l[RI];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = NEG;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int jj = 0; jj < CJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.0f;
+  stage_tile<BM, DT, NT>(sQh, qg, p.sq[2], q0, p.S, p.D);
+  if (t_lo < t_hi) stage_kv(t_lo);
+  cp_async_wait_all();
+  __syncthreads();
+  // Q's hi and lo planes, in place of the staged values
+  for (int i = threadIdx.x; i < BM * DT; i += NT) {
+    const int at = i / DT * LD + i % DT;
+    uint32_t hi, lo;
+    split_trunc(sQh[at], hi, lo);
+    sQh[at] = __uint_as_float(hi);
+    sQl[at] = __uint_as_float(lo);
   }
+
+  // the warp's rows, the keys they can see, its columns
+  const int r0 = q0 + 16 * rg, ra = r0 + gid, rb = ra + 8;
+  int w_lo, w_hi;
+  key_range(p, r0, 16, w_lo, w_hi);
+  const bool idle = r0 >= p.S;  // no real row: nothing to compute
+  const int kb = wj * KW;  // past D the staged columns are zeros
+  const float* qh = sQh + 16 * rg * LD + gid * LD + tig;
+  const float* ql = sQl + 16 * rg * LD + gid * LD + tig;
+
+  float o[NC][4];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[c][e] = 0.0f;
+  float m0 = NEG, m1 = NEG, l0 = 0.0f, l1 = 0.0f;
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the last tile's weights and values are read
-    stage<DP, BK>(ks, kg, p.sk[2], k0, p.S, p.D);
-    stage<DP, BK>(vs, vg, p.sv[2], k0, p.S, p.D);
-    __syncthreads();
+    const int k0 = t * BN;
+    const float* tk = sKV + ((t - t_lo) & 1) * 2 * BN * LD;
+    const float* tv = tk + BN * LD;
+    cp_async_wait_all();
+    __syncthreads();  // tile t landed; tile t - 1 read by every warp
+    if (t + 1 < t_hi) stage_kv(t + 1);
+    if (idle || k0 >= w_hi || k0 + BN <= w_lo) continue;  // pairs alike
 
-    // scores of rows ty + 16 i against keys tx + 8 j
-    float s[RI][KJ];
+    // S = Q Kᵀ over the warp's columns, 8 at a step in ascending order:
+    // with W = 1 the chain of the backward's dQ kernel, so the bits of S
+    // it forms again are these (zero columns past D add +0)
+    float s[NB][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
-#pragma unroll 2
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[RI];
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < RI; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD + d);
+    for (int kk = 0; kk < KW; kk += 8) {
+      const int k = kb + kk;
+      TfA fa;  // from Q's planes
+      fa.hi[0] = __float_as_uint(qh[k]);
+      fa.hi[1] = __float_as_uint(qh[k + 8 * LD]);
+      fa.hi[2] = __float_as_uint(qh[k + 4]);
+      fa.hi[3] = __float_as_uint(qh[k + 8 * LD + 4]);
+      fa.lo[0] = __float_as_uint(ql[k]);
+      fa.lo[1] = __float_as_uint(ql[k + 8 * LD]);
+      fa.lo[2] = __float_as_uint(ql[k + 4]);
+      fa.lo[3] = __float_as_uint(ql[k + 8 * LD + 4]);
+      TfB fb[NB];
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(ks + (tx + 8 * j) * LD + d);
+      for (int n = 0; n < NB; ++n) {
+        const float* br = tk + (8 * n + gid) * LD + k + tig;
+        fb[n] = TfB(br[0], br[4]);
+      }
+      mma3_rows<NB>(s, fa, fb);
+    }
+    if constexpr (W > 1) {
+      // the row group's partial scores, summed in warp order
+      float* mine = sX + warp * C::XF + lane;
 #pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          s[i][j] = fmaf(qv[i].x, kv.x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv.y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv.z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv.w, s[i][j]);
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = s[n][e];
+      named_bar_sync(1 + rg, 32 * W);
+      const float* grp = sX + rg * W * C::XF + lane;
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a = grp[(n * 4 + e) * 32];
+#pragma unroll
+          for (int j = 1; j < W; ++j) a += grp[j * C::XF + (n * 4 + e) * 32];
+          s[n][e] = a;
         }
-      }
     }
 
-    // scale and mask; the running max over the 8 lanes of each row
-    unsigned valid = 0u;
-    float m_new[RI];
+    // the online softmax: bit 4 n + e of vis says whether accumulator
+    // element (n, e) -- row ra (e < 2) or rb, key k0 + 8 n + 2 tig + e % 2
+    // -- is visible
+    uint32_t vis = 0xffffffffu;
+    const bool inside = k0 + BN <= p.S &&
+                        (!p.causal || k0 + BN - 1 <= r0) &&
+                        (!p.has_window || k0 > r0 + 15 - p.window);
+    if (!inside) {
+      vis = 0u;
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      float mx = NEG;
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const bool ok = visible(p, qp, k0 + tx + 8 * j);
-        s[i][j] = ok ? s[i][j] * p.scale : NEG;
-        valid |= (ok ? 1u : 0u) << (i * KJ + j);
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      m_new[i] = fmaxf(m[i], mx);
+        for (int e = 0; e < 4; ++e)
+          if (visible(p, e < 2 ? ra : rb, k0 + 8 * n + 2 * tig + (e & 1)))
+            vis |= 1u << (4 * n + e);
     }
-    __syncthreads();  // every thread is done with K: the weights go there
-
+    float mx0 = NEG, mx1 = NEG;
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) {
-        const float pw =
-            (valid >> (i * KJ + j)) & 1u ? expf(s[i][j] - m_new[i]) : 0.0f;
-        ps[(ty + 16 * i) * LP + tx + 8 * j] = pw;
-        sum += pw;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      const float alpha = m[i] == NEG ? 0.0f : expf(m[i] - m_new[i]);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new[i];
-#pragma unroll
-      for (int jj = 0; jj < CJ; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][jj][e] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += p v
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[RI];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * LP + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int jj = 0; jj < CJ; ++jj) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              vs + (c + cc) * LD + 4 * tx + 32 * jj);
-#pragma unroll
-          for (int i = 0; i < RI; ++i) {
-            const float pw = lane_of(pv[i], cc);
-            acc[i][jj][0] = fmaf(pw, vv.x, acc[i][jj][0]);
-            acc[i][jj][1] = fmaf(pw, vv.y, acc[i][jj][1]);
-            acc[i][jj][2] = fmaf(pw, vv.z, acc[i][jj][2]);
-            acc[i][jj][3] = fmaf(pw, vv.w, acc[i][jj][3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= p.S) continue;
-    if (p.lse != nullptr && tx == 0)
-      p.lse[(b * p.H + h) * (long long)p.S + row] = row_lse_f32(m[i], l[i]);
-    const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = og + (long long)row * p.so[2];
-#pragma unroll
-    for (int jj = 0; jj < CJ; ++jj)
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int d = 4 * tx + 32 * jj + e;
-        if (d < p.D) orow[d] = acc[i][jj][e] / denom;
+        const float x = (vis >> (4 * n + e)) & 1u ? s[n][e] * p.scale : NEG;
+        s[n][e] = x;
+        if (e < 2)
+          mx0 = fmaxf(mx0, x);
+        else
+          mx1 = fmaxf(mx1, x);
       }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float al0 = m0 == NEG ? 0.0f : expf(m0 - mn0);
+    const float al1 = m1 == NEG ? 0.0f : expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pr = (vis >> (4 * n + e)) & 1u
+                             ? expf(s[n][e] - (e < 2 ? mn0 : mn1))
+                             : 0.0f;
+        s[n][e] = pr;
+        if (e < 2)
+          ps0 += pr;
+        else
+          ps1 += pr;
+      }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      o[c][0] *= al0;
+      o[c][1] *= al0;
+      o[c][2] *= al1;
+      o[c][3] *= al1;
+    }
+
+    // O += P V: P's A fragment from the accumulator, V's rows 2 tig and
+    // 2 tig + 1 of each 8-key step, columns gid of each n-tile
+#pragma unroll
+    for (int kk = 0; kk < NB; ++kk) {
+      const TfA pa(s[kk][0], s[kk][2], s[kk][1], s[kk][3]);
+      const float* vr = tv + (8 * kk + 2 * tig) * LD + kb + gid;
+#pragma unroll
+      for (int c0 = 0; c0 < NC; c0 += G) {
+        TfB fb[G];
+#pragma unroll
+        for (int c = 0; c < G; ++c)
+          fb[c] = TfB(vr[8 * (c0 + c)], vr[LD + 8 * (c0 + c)]);
+        mma3_rows<G>(o + c0, pa, fb);
+      }
+    }
   }
+  cp_async_wait_all();
+
+  const float sa = quad_sum(l0), sb = quad_sum(l1);
+  if (p.lse != nullptr && wj == 0 && tig == 0) {
+    float* lg = p.lse + (b * p.H + h) * (long long)p.S;
+    if (ra < p.S) lg[ra] = row_lse_f32(m0, sa);
+    if (rb < p.S) lg[rb] = row_lse_f32(m1, sb);
+  }
+  const float da = fmaxf(sa, 1e-30f), db = fmaxf(sb, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = kb + 8 * c + 2 * tig;
+    if (col >= p.D) continue;
+    if (ra < p.S)
+      *reinterpret_cast<float2*>(og + (long long)ra * p.so[2] + col) =
+          make_float2(o[c][0] / da, o[c][1] / da);
+    if (rb < p.S)
+      *reinterpret_cast<float2*>(og + (long long)rb * p.so[2] + col) =
+          make_float2(o[c][2] / db, o[c][3] / db);
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
 }
 
 // ---------------------------------------------------------------------------
@@ -567,21 +686,8 @@ __global__ void __launch_bounds__(WIDE_NT, 1) fa_wide_simt_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 helpers: cp.async, ldmatrix, mma.sync
+// bf16 helpers: ldmatrix, mma.sync
 // ---------------------------------------------------------------------------
-
-// 16 bytes global -> shared; zeros where !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -1334,20 +1440,30 @@ int launch_wgmma(const Params& p, int B, int Hkv, dim3 grid, cudaStream_t st) {
                 tq, tk, tv, p);
 }
 
-template <int DP>
-int launch_simt(const Params& p, dim3 grid, cudaStream_t st) {
-  if constexpr (DP <= 128)
-    return launch(fa_simt_kernel<DP, 64>, Simt<DP, 64>::bytes(), grid, NT, st,
-                  p);
-  else
-    return launch(fa_simt_kernel<DP, 32>, Simt<DP, 32>::bytes(), grid, NT, st,
-                  p);
+// float32 needs 16-byte bases and (b, h, s) strides of whole 16-byte
+// groups (cp.async)
+bool aligned16_f32(const void* ptr, const long long* st) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && st[0] % 4 == 0 &&
+         st[1] % 4 == 0 && st[2] % 4 == 0;
+}
+
+// fa_f32_kernel at head-dim tile DT (short: 32-row tiles); the grid and
+// the threads as the wrapper planned them
+template <int DT, bool SHORT = false>
+int launch_f32(const Params& p, long long BH, dim3 grid, int threads,
+               cudaStream_t st) {
+  using C = typename F32FwdCfg<DT, SHORT>::C;
+  static_assert(C::bytes() <= 232448, "fa_f32_kernel's tiles exceed 227 KB");
+  if (BH != grid.x || grid.y != (unsigned)((p.S + C::BM - 1) / C::BM) ||
+      threads != C::NT)
+    return (int)cudaErrorInvalidValue;
+  return launch(fa_f32_kernel<C>, C::bytes(), grid, C::NT, st, p);
 }
 
 }  // namespace
 
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D); element strides over (b, h, s),
-// D contiguous.  variant: 0 = fa_simt_kernel (float32), 1 = fa_wgmma_kernel
+// D contiguous.  variant: 0 = fa_f32_kernel (float32), 1 = fa_wgmma_kernel
 // (bf16), 2 = fa_mma16_kernel (bf16, S <= 128), 3 = fa_wide_simt_kernel
 // (float32, D > 256), 4 = fa_wide_wgmma_kernel (bf16, D > 256, a multiple
 // of 8); tile_d the instantiation's head-dim tile (for 3 and 4 the output
@@ -1426,20 +1542,24 @@ extern "C" int flash_attention_launch(
     return launch(fa_wide_wgmma_kernel, w.bytes, grid, 384, s, tq, tk, tv, p,
                   w.slots, w.q_res);
   }
-  if (variant == 0) {
-    const int bq = tile_d <= 128 ? 64 : 32;
-    if (tile_d % 32 != 0 || tile_d > 256 || D <= tile_d - 32 ||
-        BH != grid_x || grid_y != (S + bq - 1) / bq || threads != NT)
+  if (variant == 0) {  // fa_f32_kernel: float32, D a multiple of 4
+    if (tile_d % 32 != 0 || tile_d > 256 || D % 4 != 0 ||
+        D <= tile_d - 32 || !aligned16_f32(q, p.sq) ||
+        !aligned16_f32(k, p.sk) || !aligned16_f32(v, p.sv) ||
+        !aligned16_f32(o, p.so))
       return bad;
+    if (tile_d <= 64 && S <= F32_SHORT_S)
+      return tile_d == 32 ? launch_f32<32, true>(p, BH, grid, threads, s)
+                          : launch_f32<64, true>(p, BH, grid, threads, s);
     switch (tile_d) {
-      case 32: return launch_simt<32>(p, grid, s);
-      case 64: return launch_simt<64>(p, grid, s);
-      case 96: return launch_simt<96>(p, grid, s);
-      case 128: return launch_simt<128>(p, grid, s);
-      case 160: return launch_simt<160>(p, grid, s);
-      case 192: return launch_simt<192>(p, grid, s);
-      case 224: return launch_simt<224>(p, grid, s);
-      default: return launch_simt<256>(p, grid, s);
+      case 32: return launch_f32<32>(p, BH, grid, threads, s);
+      case 64: return launch_f32<64>(p, BH, grid, threads, s);
+      case 96: return launch_f32<96>(p, BH, grid, threads, s);
+      case 128: return launch_f32<128>(p, BH, grid, threads, s);
+      case 160: return launch_f32<160>(p, BH, grid, threads, s);
+      case 192: return launch_f32<192>(p, BH, grid, threads, s);
+      case 224: return launch_f32<224>(p, BH, grid, threads, s);
+      default: return launch_f32<256>(p, BH, grid, threads, s);
     }
   }
   // bf16: D a multiple of 16, 16-byte bases and strides

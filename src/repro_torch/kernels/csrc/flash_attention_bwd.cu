@@ -1312,51 +1312,6 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src,
   }
 }
 
-// 3xTF32 operands as tf32.cuh splits them, but with hi the float32 value
-// truncated to TF32 (its 13 low bits cleared, one ALU op) rather than
-// rounded (two): x = hi + lo exactly, |lo| < 2^-10 |x|, the tensor core
-// reading lo as TF32 by dropping its own 13 low bits -- ~2^-20 relative a
-// product where the rounded split gives ~2^-21, for a third fewer split
-// instructions
-__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,
-                                            uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));  // exact
-}
-
-struct TfA {
-  uint32_t hi[4], lo[4];
-  __device__ __forceinline__ TfA(float a0, float a1, float a2, float a3) {
-    split_trunc(a0, hi[0], lo[0]);
-    split_trunc(a1, hi[1], lo[1]);
-    split_trunc(a2, hi[2], lo[2]);
-    split_trunc(a3, hi[3], lo[3]);
-  }
-};
-
-struct TfB {
-  uint32_t hi[2], lo[2];
-  TfB() = default;
-  __device__ __forceinline__ TfB(float b0, float b1) {
-    split_trunc(b0, hi[0], lo[0]);
-    split_trunc(b1, hi[1], lo[1]);
-  }
-};
-
-// the NB products acc[n] += a b[n] in 3xTF32, lo·hi, hi·lo, then hi·hi
-// into each accumulator (tf32.cuh's mma3 order), the passes interleaved
-// across n
-template <int NB>
-__device__ __forceinline__ void mma3_rows(float (*acc)[4], const TfA& a,
-                                          const TfB (&b)[NB]) {
-#pragma unroll
-  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.lo, b[n].hi[0], b[n].hi[1]);
-#pragma unroll
-  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.hi, b[n].lo[0], b[n].lo[1]);
-#pragma unroll
-  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.hi, b[n].hi[0], b[n].hi[1]);
-}
-
 // the two score products, s[n] += A1 B1ᵀ and dp[n] += A2 B2ᵀ (16 x 8
 // each), over columns [k0, k1) (multiples of 8, k1 - k0 <= KW), formed in
 // one loop: A1, A2 the warp's 16 rows at a1, a2 (pitch LA), B1, B2 the 8 NB

@@ -1,9 +1,11 @@
 // 3xTF32 tensor-core products shared by B7's forward and backward kernels
-// (wkv6.cu, wkv6_bwd.cu): mma.sync.m16n8k8 with TF32 operands and float32
-// accumulators, each float32 operand split into a TF32 hi part and a TF32
-// lo part of the remainder, and lo·hi + hi·lo + hi·hi summed in float32 --
-// ~2^-21 relative, where one TF32 product gives ~5e-4.  Included by each
-// source, which is its own library: everything here has internal linkage.
+// (wkv6.cu, wkv6_bwd.cu) and B6's float32 ones (flash_attention.cu,
+// flash_attention_bwd.cu): mma.sync.m16n8k8 with TF32 operands and
+// float32 accumulators, each float32 operand split into a TF32 hi part
+// and a TF32 lo part of the remainder, and lo·hi + hi·lo + hi·hi summed in
+// float32 -- ~2^-21 relative, where one TF32 product gives ~5e-4.
+// Included by each source, which is its own library: everything here has
+// internal linkage.
 
 #pragma once
 
@@ -98,6 +100,51 @@ __device__ __forceinline__ void mma3x4(float (&d0)[4], const FragA& a0,
   mma_tf32(d1, a1.hi, b1.hi[0], b1.hi[1]);
   mma_tf32(d2, a2.hi, b2.hi[0], b2.hi[1]);
   mma_tf32(d3, a3.hi, b3.hi[0], b3.hi[1]);
+}
+
+// 3xTF32 operands as split_tf32 splits them, but with hi the float32
+// value truncated to TF32 (its 13 low bits cleared, one ALU op) rather
+// than rounded (two): x = hi + lo exactly, |lo| < 2^-10 |x|, the tensor core
+// reading lo as TF32 by dropping its own 13 low bits -- ~2^-20 relative a
+// product where the rounded split gives ~2^-21, for a third fewer split
+// instructions
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));  // exact
+}
+
+struct TfA {
+  uint32_t hi[4], lo[4];
+  TfA() = default;  // or filled by the caller from split planes
+  __device__ __forceinline__ TfA(float a0, float a1, float a2, float a3) {
+    split_trunc(a0, hi[0], lo[0]);
+    split_trunc(a1, hi[1], lo[1]);
+    split_trunc(a2, hi[2], lo[2]);
+    split_trunc(a3, hi[3], lo[3]);
+  }
+};
+
+struct TfB {
+  uint32_t hi[2], lo[2];
+  TfB() = default;
+  __device__ __forceinline__ TfB(float b0, float b1) {
+    split_trunc(b0, hi[0], lo[0]);
+    split_trunc(b1, hi[1], lo[1]);
+  }
+};
+
+// the NB products acc[n] += a b[n] in 3xTF32, lo·hi, hi·lo, then hi·hi
+// into each accumulator (mma3's order), the passes interleaved across n
+template <int NB>
+__device__ __forceinline__ void mma3_rows(float (*acc)[4], const TfA& a,
+                                          const TfB (&b)[NB]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.lo, b[n].hi[0], b[n].hi[1]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.hi, b[n].lo[0], b[n].lo[1]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) mma_tf32(acc[n], a.hi, b[n].hi[0], b[n].hi[1]);
 }
 
 }  // namespace

@@ -7,7 +7,7 @@ S, D) in ``q``'s dtype, for q (B, H, S, D) and k, v (B, Hkv, S, D) with
 :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`.  ``scale``
 defaults to ``1 / sqrt(D)``.
 
-The kernel has three instantiations; :func:`plan_attention` picks one
+The kernel has four instantiations; :func:`plan_attention` picks one
 from the dtype and the shape alone (pure Python, so the CPU tests reach
 it):
 
@@ -15,8 +15,12 @@ it):
   tensor-core products, a 128-row query tile (64 at D > 128);
 * ``"mma16"``: bf16, ``S <= SHORT_SEQ_MAX`` -- a block per (b, KV head)
   holding all of that head's K and V, ``mma.sync`` on 16-row query tiles;
-* ``"simt"``: float32 -- CUDA-core products, which hold the reference's
-  ``2e-5`` (tensor cores would round float32 to TF32);
+* ``"f32"``: float32 -- every product a 3xTF32 ``mma.sync`` on the tensor
+  cores (three TF32 products of split operands, ~2^-21 relative, which
+  hold the reference's ``2e-5`` where one TF32 product would not): a warp
+  per 16 query rows, 128 rows a block up to D = 128 and 64 above (two
+  warps splitting D), 32 for sequences up to :data:`F32_SHORT_S` at D <=
+  64; K and V tiles by ``cp.async``;
 * ``"wide"``: D above :data:`MAX_HEAD_DIM` -- in bf16 the tensor cores
   (TMA + ``wgmma``): a 64-row query tile whose two consumer warpgroups
   split D for the scores, summed once through shared memory, and 512
@@ -28,20 +32,21 @@ The reference's ``impl`` (Pallas or XLA), ``block_q`` / ``block_k`` (VMEM
 tile sizes) and ``interpret`` are controls of its TPU lowering and have no
 counterpart.  The reference pads D to 128 lanes for its MXU; here the
 bf16 instantiations need D a multiple of 16 and 16-byte aligned bases and
-(b, h, s) strides (TMA, ``cp.async``), so :func:`attention` pads D with
-zeros (which add nothing) or makes a tensor contiguous where that does not
-hold (``"wide"`` in bf16: D a multiple of 8, TMA zero-fills the rest of
-its 64-column boxes); float32 takes any D as it is.
+(b, h, s) strides (TMA, ``cp.async``), ``"f32"`` D a multiple of 4 with
+the same alignment (``cp.async``), so :func:`attention` pads D with zeros
+(which add nothing) or copies a tensor where that does not hold
+(``"wide"`` in bf16: D a multiple of 8, TMA zero-fills the rest of its
+64-column boxes); ``"wide"`` in float32 takes any D as it is.
 
 The kernel takes per-(b, h, s) element strides with D contiguous, so a
 model passes its (B, S, H, hd) activations as ``transpose(1, 2)`` views
-without a copy (at hd = 64, 96, 128 or 256 in bf16 too); the output is
+without a copy (at hd = 64, 96, 128 or 256 in both dtypes); the output is
 allocated with ``q``'s strides, so its ``transpose(1, 2)`` is contiguous
 again.
 
 Tolerances (``tests/test_torch_attention.py``, ``chip_smoke.py``): the
 reference's own, ``atol = rtol = 2e-5`` in float32 and ``3e-2`` in
-bfloat16 (``tests/test_kernels.py``).  The bf16 instantiations round the
+bfloat16 (``tests/test_kernels.py``), the same on every instantiation.  The bf16 instantiations round the
 weights p to bf16 for the PV product, as the reference model's
 ``gqa_attention`` does (the reference's Pallas kernel keeps them float32).
 
@@ -116,16 +121,22 @@ __all__ = [
     "AttentionBwdPlan",
     "MAX_HEAD_DIM",
     "SHORT_SEQ_MAX",
+    "F32_SHORT_S",
 ]
 
-# the largest head dim of the tiled instantiations: "simt" keeps a 32 x 256
-# output tile in registers, the bf16 ones a 64 x 256 wgmma accumulator;
-# above it "wide" splits the output's columns across warpgroups or threads
+# the largest head dim of the tiled instantiations: "f32" keeps a 16 x 128
+# output tile a warp in registers (two warps share 16 rows above D = 128),
+# the bf16 ones a 64 x 256 wgmma accumulator; above it "wide" splits the
+# output's columns across warpgroups or threads
 MAX_HEAD_DIM = 256
 # bf16 sequences up to this length take "mma16" (the block stages a whole
 # KV head in shared memory); longer ones "wgmma"
 SHORT_SEQ_MAX = 128
-_VARIANT_CODE = {"simt": 0, "wgmma": 1, "mma16": 2, "wide": 3}
+# float32 at head-dim tiles up to 64: sequences up to this length take
+# 32-row tiles, in the forward ("f32") and the backward (F32Cfg,
+# flash_attention_bwd.cu) alike
+F32_SHORT_S = 96
+_VARIANT_CODE = {"f32": 0, "wgmma": 1, "mma16": 2, "wide": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
 
 _argtypes_set = False
@@ -161,6 +172,14 @@ def _tma_ready(x: torch.Tensor) -> bool:
             and (st[2] % 8 == 0 or shape[2] == 1))
 
 
+def _f32_ready(x: torch.Tensor) -> bool:
+    """D contiguous, a 16-byte base and (b, h, s) strides of whole 16-byte
+    groups of float32 (``cp.async``)."""
+    st, shape = x.stride(), x.shape
+    return (st[3] == 1 and x.data_ptr() % 16 == 0
+            and all(st[i] % 4 == 0 or shape[i] == 1 for i in range(3)))
+
+
 def plan_attention(q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> AttentionPlan:
     """The plan for ``attention(q, k, v)`` on the card; reads only shapes,
@@ -181,11 +200,16 @@ def plan_attention(q: torch.Tensor, k: torch.Tensor,
                              (B * H * _cdiv(head_dim, cols), _cdiv(S, rows)),
                              threads)
     if q.dtype == torch.float32:
-        tile = _cdiv(D, 32) * 32
-        bq = 64 if tile <= 128 else 32
+        # D padded to a multiple of 4; query rows a block (32 for short
+        # sequences) and threads as flash_attention.cu's F32FwdCfg
+        head_dim = _cdiv(D, 4) * 4
+        tile = _cdiv(head_dim, 32) * 32
+        short = tile <= 64 and S <= F32_SHORT_S
+        rows = 32 if short else 128 if tile <= 128 else 64
         return AttentionPlan(
-            "simt", tile, D, tuple(x.stride(-1) != 1 for x in (q, k, v)),
-            (B * H, _cdiv(S, bq)), 128)
+            "f32", tile, head_dim,
+            tuple(head_dim != D or not _f32_ready(x) for x in (q, k, v)),
+            (B * H, _cdiv(S, rows)), 64 if short else 256)
     head_dim = _cdiv(D, 16) * 16
     tile = 64 if head_dim <= 64 else 128 if head_dim <= 128 else 256
     copy = tuple(head_dim != D or not _tma_ready(x) for x in (q, k, v))
@@ -304,8 +328,10 @@ def _forward_cuda(q, k, v, causal, window, scale, with_lse=False):
     plan = plan_attention(q, k, v)
     pad = plan.head_dim - D
     if any(plan.copy):
+        # a fresh allocation: a contiguous tensor may sit at an unaligned base
         q, k, v = (
-            (F.pad(x, (0, pad)) if pad else x.contiguous()) if c else x
+            (F.pad(x, (0, pad)) if pad
+             else x.clone(memory_format=torch.contiguous_format)) if c else x
             for x, c in zip((q, k, v), plan.copy)
         )
         plan = dataclasses.replace(plan, copy=(False, False, False))
@@ -422,19 +448,10 @@ class AttentionBwdPlan:
     launches: Tuple[str, ...]
 
 
-def _f32_ready(x: torch.Tensor) -> bool:
-    """D contiguous, a 16-byte base and (b, h, s) strides of whole 16-byte
-    groups of float32 (``cp.async``)."""
-    st, shape = x.stride(), x.shape
-    return (st[3] == 1 and x.data_ptr() % 16 == 0
-            and all(st[i] % 4 == 0 or shape[i] == 1 for i in range(3)))
-
-
 # float32 tiled: the head-dim tile -> (query rows of a dQ block, key rows
 # of a dK / dV block); at D <= 64 sequences up to F32_SHORT_S rows take
 # 32-row tiles (flash_attention_bwd.cu, F32Cfg)
 _F32_ROWS = {32: (64, 64), 64: (64, 64), 128: (128, 128), 256: (64, 32)}
-F32_SHORT_S = 96
 
 
 def plan_attention_bwd(q, k, v, o, do) -> AttentionBwdPlan:

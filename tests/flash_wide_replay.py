@@ -1,8 +1,9 @@
 """A torch replay of B6's two kernels above head dim 256
-(``src/repro_torch/kernels/csrc/flash_attention.cu``, ``"wide"``), of the
-float32 forward's log-sum-exp and of the backward kernels
-(``flash_attention_bwd.cu``), written the way the kernels are written, so
-the CPU tests can hold their schedules' arithmetic to the JAX package.
+(``src/repro_torch/kernels/csrc/flash_attention.cu``, ``"wide"``), of its
+float32 forward up to 256 (``"f32"``) with its log-sum-exp, and of the
+backward kernels (``flash_attention_bwd.cu``), written the way the
+kernels are written, so the CPU tests can hold their schedules'
+arithmetic to the JAX package.
 
 bf16 (``fa_wide_wgmma_kernel``): D in 64-column boxes (zeros past D, as
 TMA fills them); a block owns a 64-row query tile and a column pass of up
@@ -16,10 +17,17 @@ box adds P V; the end divides by max(l, 1e-30) and rounds to bf16.
 float32 (``fa_wide_simt_kernel``): a 32-row query tile and 32-key tiles;
 the scores summed over D in 128-column slices, scaled, masked to -1e30;
 the running max, P = exp(s - m), l = l · alpha + Σ P, acc = acc · alpha +
-P V; the end divides by max(l, 1e-30).  Both float32 instantiations
-(``fa_simt_kernel``: 64-row tiles at D <= 128, 32 above, all of D a
-score; ``fa_wide_simt_kernel``) write each row's lse = m + ln l under
-autograd, +inf where l = 0 (:func:`f32_forward`).
+P V; the end divides by max(l, 1e-30).
+
+float32 up to head dim 256 (``fa_f32_kernel``): D padded to a multiple
+of 4; the tiles of ``F32_FWD_TILES`` (128 query rows over 32- or 64-key
+tiles up to D = 128, 64 rows above, 32 rows x 16 keys for short
+sequences); every product in 3xTF32 with the backward's split (tf32.cuh's
+``split_trunc``: hi = x with its 13 low bits cleared, lo the remainder
+read with its own 13 low bits dropped); above D = 128 each score the sum
+of two warps' partials over D's halves; the same online softmax.  Both float32 instantiations write
+each row's lse = m + ln l under autograd, +inf where l = 0
+(:func:`f32_forward`).
 
 The backward's schedules (``flash_attention_bwd.cu``):
 
@@ -260,35 +268,76 @@ def f32_tiles(D, S):
     return q, k
 
 
-def tf32_split(x):
+def tf32_split(x, rounded=False):
     """(hi, lo) of float32 ``x`` as the tensor core reads them: hi = x with
-    its 13 low bits cleared (TF32), lo = the exact remainder with its own
-    13 low bits dropped."""
-    hi = (x.view(torch.int32) & -0x2000).view(torch.float32)
+    its 13 low bits cleared (TF32) -- or, ``rounded``, x rounded to TF32
+    first (half a TF32 ulp added to the bits: tf32.cuh's ``split_tf32``) --
+    lo = the exact remainder with its own 13 low bits dropped."""
+    bits = x.view(torch.int32)
+    if rounded:
+        bits = bits + 0x1000
+    hi = (bits & -0x2000).view(torch.float32)
     lo = ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
     return hi, lo
 
 
-def mm3(a, b):
+def mm3(a, b, rounded=False):
     """a @ b in 3xTF32: lo·hi + hi·lo + hi·hi, each in float32."""
-    ah, al = tf32_split(a.contiguous())
-    bh, bl = tf32_split(b.contiguous())
+    ah, al = tf32_split(a.contiguous(), rounded)
+    bh, bl = tf32_split(b.contiguous(), rounded)
     return al @ bh + ah @ bl + ah @ bh
 
 
-def f32_forward(q, k, v, *, causal=True, window=None, scale=None):
-    """(o, lse) of the float32 forward kernels' schedule: ``fa_simt_kernel``
-    (a 64-row tile at D <= 128, 32 above, all of D a score) or, above 256,
-    ``fa_wide_simt_kernel`` (32-row tiles, the scores summed over D in
-    128-column slices); lse = m + ln l from the online softmax's own m and
-    l, +inf where l = 0."""
-    B, H, S, D = q.shape
+# float32 forward tiles ("f32", fa_f32_kernel), as flash_attention.cu's
+# F32FwdCfg instantiates them: the head-dim tile -> (query rows of a
+# block, keys of a tile, warps splitting D); at tiles up to 64 a sequence
+# of up to F32_SHORT_S rows takes 32-row tiles of 16 keys
+F32_FWD_TILES = {
+    32: (128, 32, 1), 64: (128, 32, 1), 96: (128, 64, 1), 128: (128, 32, 1),
+    160: (64, 32, 2), 192: (64, 32, 2), 224: (64, 16, 2), 256: (64, 16, 2),
+}
+
+
+def f32_fwd_tiles(D, S):
+    """(head-dim tile, ``F32_FWD_TILES``' entry) of the float32 forward at
+    head dim ``D`` <= 256 (padded to a multiple of 4) and length ``S``."""
+    tile = -(-(-(-D // 4) * 4) // 32) * 32
+    if tile <= 64 and S <= F32_SHORT_S:
+        return tile, (32, 16, 1)
+    return tile, F32_FWD_TILES[tile]
+
+
+def f32_forward(q, k, v, *, causal=True, window=None, scale=None,
+                rounded=False):
+    """(o, lse) of the float32 forward kernels' schedule: up to head dim
+    256 ``fa_f32_kernel`` -- D padded with zeros to a multiple of 4, the
+    tiles of ``F32_FWD_TILES``, S = Q Kᵀ and O += P V in 3xTF32 with the
+    truncated hi part (or, ``rounded``, the rounded one), above D = 128
+    each score the sum of two warps' partials over D's halves; above 256
+    ``fa_wide_simt_kernel`` -- 32-row tiles, the scores summed over D in
+    128-column slices, float32 products.  Both
+    run the online softmax (scores scaled, masked to -1e30, the running
+    max, P = exp(s - m), masked weights 0, alpha = 0 while the max is
+    -1e30, l = l · alpha + Σ P, acc = acc · alpha + P V, o = acc /
+    max(l, 1e-30)) and give lse = m + ln l, +inf where l = 0."""
+    B, H, S, D0 = q.shape
     group = H // k.shape[1]
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
-    rows = 64 if D <= 128 else 32
-    sl = 128 if D > 256 else D
-    kf, vf = (x.repeat_interleave(group, dim=1) for x in (k, v))
-    qf, kf, vf = (_tiles(x, rows, S) for x in (q, kf, vf))
+    scale = 1.0 / math.sqrt(D0) if scale is None else scale
+    if D0 > 256:
+        rows, keys, sl = 32, 32, 128
+        D = D0
+        halves = [slice(c, c + sl) for c in range(0, D, sl)]
+        mm = torch.matmul
+    else:
+        tile, (rows, keys, w) = f32_fwd_tiles(D0, S)
+        D = -(-D0 // 4) * 4
+        # warp j's share of the columns: [j tile / w, (j + 1) tile / w)
+        halves = [slice(c, min(D, c + tile // w))
+                  for c in range(0, D, tile // w)]
+        mm = lambda a, b: mm3(a, b, rounded)  # noqa: E731
+    pad = lambda x: torch.nn.functional.pad(x, (0, D - D0))  # noqa: E731
+    kf, vf = (pad(x).repeat_interleave(group, dim=1) for x in (k, v))
+    qf, kf, vf = (_tiles(x, max(rows, keys), S) for x in (pad(q), kf, vf))
     out = torch.zeros_like(qf)
     lse = torch.zeros(qf.shape[:3])
     for q0 in range(0, S, rows):
@@ -297,24 +346,23 @@ def f32_forward(q, k, v, *, causal=True, window=None, scale=None):
         l = torch.zeros((B, H, rows, 1))
         acc = torch.zeros((B, H, rows, D))
         lo, hi = _key_range(S, q0, rows, causal, window)
-        for k0 in range(lo // rows * rows, hi, rows):
-            kt = kf[:, :, k0:k0 + rows]
-            s = torch.zeros((B, H, rows, rows))
-            for c0 in range(0, D, sl):
-                cols = slice(c0, c0 + sl)
-                s = s + qt[..., cols] @ kt[..., cols].transpose(-1, -2)
-            ok = _visible(S, q0, k0, rows, rows, causal, window)
+        for k0 in range(lo // keys * keys, hi if hi > lo else 0, keys):
+            kt = kf[:, :, k0:k0 + keys]
+            s = torch.zeros((B, H, rows, keys))
+            for cols in halves:
+                s = s + mm(qt[..., cols], kt[..., cols].transpose(-1, -2))
+            ok = _visible(S, q0, k0, rows, keys, causal, window)
             s = torch.where(ok, s * scale, NEG)
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.where(ok, torch.exp(s - m_new), 0.0)
             alpha = torch.where(m == NEG, 0.0, torch.exp(m - m_new))
             l = l * alpha + p.sum(-1, keepdim=True)
             m = m_new
-            acc = acc * alpha + p @ vf[:, :, k0:k0 + rows]
+            acc = acc * alpha + mm(p, vf[:, :, k0:k0 + keys])
         out[:, :, q0:q0 + rows] = acc / torch.clamp(l, min=1e-30)
         lse[:, :, q0:q0 + rows] = torch.where(
             l > 0, m + torch.log(l), math.inf)[..., 0]
-    return out[:, :, :S], lse[:, :, :S]
+    return out[:, :, :S, :D0], lse[:, :, :S]
 
 
 def f32_bwd(q, k, v, o, do, lse, *, causal=True, window=None, scale=None):

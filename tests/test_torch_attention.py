@@ -22,7 +22,10 @@ from repro_torch.kernels.flash_attention.ops import (
     attention,
     plan_attention,
 )
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_lse_ref,
+    attention_ref,
+)
 from repro_torch.obs import Telemetry, use_telemetry
 
 import flash_wide_replay
@@ -141,7 +144,8 @@ def test_plan_takes_the_models_views_without_a_copy(hd):
         assert plan.variant == variant and plan.copy == (False,) * 3
         assert plan.head_dim == hd and plan.tile_d >= hd
     plan = plan_attention(*(x.float() for x in _bf16_views(2, 300, 8, 2, hd)))
-    assert plan.variant == "simt" and plan.copy == (False,) * 3
+    assert plan.variant == "f32" and plan.copy == (False,) * 3
+    assert plan.head_dim == hd and plan.tile_d >= hd
 
 
 def test_plan_instantiations_padding_grid_and_refusal():
@@ -166,14 +170,31 @@ def test_plan_instantiations_padding_grid_and_refusal():
     base = torch.zeros(1, 4, 300, 100, dtype=torch.bfloat16)
     plan = plan_attention(base[..., :64], base[..., :64], base[..., :64])
     assert plan.head_dim == 64 and plan.copy == (True,) * 3
-    # float32 takes any D on the CUDA cores: 64-row tiles, 32 above D 128
+    # float32 ("f32", 3xTF32 on the tensor cores): 128-row tiles of 8
+    # warps up to a head-dim tile of 128, 64 rows of 4 warp pairs above;
+    # 32 rows of 2 warps for sequences up to F32_SHORT_S at tiles <= 64
     x = torch.zeros(2, 4, 300, 100)
     assert plan_attention(x, x, x) == plan_attention(x, x, x)
     plan = plan_attention(x, x, x)
-    assert (plan.variant, plan.tile_d, plan.head_dim, plan.grid) == (
-        "simt", 128, 100, (8, 5))
+    assert (plan.variant, plan.tile_d, plan.head_dim, plan.copy, plan.grid,
+            plan.threads) == ("f32", 128, 100, (False,) * 3, (8, 3), 256)
     x = torch.zeros(2, 4, 300, 160)
-    assert plan_attention(x, x, x).grid == (8, 10)
+    plan = plan_attention(x, x, x)
+    assert (plan.tile_d, plan.grid, plan.threads) == (160, (8, 5), 256)
+    # the scorer's 65 rows: three 32-row tiles a head
+    plan = plan_attention(*[torch.zeros(4096, 8, 65, 64)] * 3)
+    assert (plan.tile_d, plan.grid, plan.threads) == (64, (4096 * 8, 3), 64)
+    assert plan_attention(*[torch.zeros(1, 2, 97, 64)] * 3).grid == (2, 1)
+    # D = 33 is padded to 36 (copied); a row stride that is not a whole
+    # 16-byte group (66 floats) is copied, a transposed view is not
+    x = torch.zeros(1, 2, 100, 33)
+    plan = plan_attention(x, x, x)
+    assert (plan.tile_d, plan.head_dim, plan.copy) == (64, 36, (True,) * 3)
+    base = torch.zeros(1, 2, 100, 66)
+    plan = plan_attention(base[..., :64], base[..., :64], base[..., :64])
+    assert (plan.head_dim, plan.copy) == (64, (True,) * 3)
+    x = torch.zeros(2, 100, 4, 64).transpose(1, 2)
+    assert plan_attention(x, x, x).copy == (False,) * 3
     # above MAX_HEAD_DIM: "wide"; bf16 a 64-row query tile and 512 output
     # columns a block (3 warpgroups), float32 32 rows and all 512 / 1,024
     # columns a block (256 threads); D as it is
@@ -243,3 +264,49 @@ def test_padded_and_copied_inputs_match_jax(dtype):
     got = attention(*(x[..., :64] for x in tx))
     np.testing.assert_allclose(_np(got), _np(jax_attention_ref(*jx64)),
                                atol=TOL[dtype], rtol=TOL[dtype])
+
+
+# (B, H, Hkv, S, D, causal, window) of the float32 forward's replay: each
+# tile shape -- 32 rows x 16 keys for the scorer's short sequences (D =
+# 32), 128 rows over 64-key tiles (D = 80, tile 96) and over 32-key ones
+# (D = 128), 64 rows with D split over two warps over 16-key tiles (D =
+# 256) -- with grouped heads, MQA, windows, not causal, S = 1, 65, 100 and
+# 129
+F32_FWD_CASES = [
+    (2, 4, 2, 65, 32, True, None),
+    (1, 4, 1, 100, 80, True, 40),
+    (1, 2, 2, 65, 80, False, 30),
+    (1, 4, 2, 129, 128, True, None),
+    (2, 4, 2, 1, 128, True, None),
+    (1, 2, 1, 129, 256, True, 48),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,causal,window", F32_FWD_CASES)
+def test_f32_kernel_replay_matches_jax(B, H, Hkv, S, D, causal, window):
+    """Up to head dim 256 in float32: the ``"f32"`` kernel's schedule
+    (``tests/flash_wide_replay.py`` ``f32_forward``: the plan's tiles,
+    S = Q Kᵀ and O += P V in 3xTF32 -- every hi part truncated, as the
+    kernel splits it, and rounded beside it -- above D = 128 each score
+    two warps' partials over D's halves summed)
+    against JAX's ``impl="xla"`` within the reference's 2e-5; its lse =
+    m + ln l within 1e-6 relative (+ 1e-6) of ``attention_lse_ref``'s,
+    +inf on the same rows; the replay's tiles are the plan's."""
+    jx, tx = _inputs(B, H, Hkv, S, D, "float32", 3 * S + D + H)
+    kw = dict(causal=causal, window=window)
+    want = jax_attention(*jx, impl="xla", **kw)
+    o_rounded, _ = flash_wide_replay.f32_forward(*tx, rounded=True, **kw)
+    np.testing.assert_allclose(_np(o_rounded), _np(want), atol=2e-5,
+                               rtol=2e-5)
+    o, lse = flash_wide_replay.f32_forward(*tx, **kw)
+    assert o.shape == (B, H, S, D) and lse.shape == (B, H, S)
+    np.testing.assert_allclose(_np(o), _np(want), atol=2e-5, rtol=2e-5)
+    _, want_lse = attention_lse_ref(*tx, **kw)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+    fin = torch.isfinite(want_lse)
+    assert bool(((lse[fin] - want_lse[fin]).abs()
+                 <= 1e-6 * want_lse[fin].abs() + 1e-6).all())
+    plan = plan_attention(*tx)
+    tile, (rows, _, warps) = flash_wide_replay.f32_fwd_tiles(D, S)
+    assert (plan.variant, plan.tile_d, plan.grid, plan.threads) == (
+        "f32", tile, (B * H, -(-S // rows)), 32 * warps * rows // 16)

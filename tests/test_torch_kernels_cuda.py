@@ -1746,11 +1746,12 @@ def test_flash_attention_kernel_matches_ref(cuda, B, H, Hkv, S, D, causal,
 @pytest.mark.parametrize("D", [32, 64, 80, 96, 128, 160, 256])
 def test_flash_attention_kernel_head_dims(cuda, D, S, dtype):
     """Every head-dim tile of every instantiation: bf16 S <= 128 runs
-    "mma16", S = 129 "wgmma", float32 "simt"; a window on odd D."""
+    "mma16", S = 129 "wgmma", float32 "f32" (3xTF32 on the tensor cores);
+    a window on odd D."""
     window = 40 if D % 32 else None
     q, k, v = _fa_case(cuda, 2, 4, 2, S, D, dtype, D + S)
     variant = plan_attention(q, k, v).variant
-    assert variant == ("simt" if dtype == torch.float32
+    assert variant == ("f32" if dtype == torch.float32
                        else "mma16" if S <= 128 else "wgmma")
     kernels.reset_launches()
     out = attention(q, k, v, window=window)
@@ -1760,6 +1761,44 @@ def test_flash_attention_kernel_head_dims(cuda, D, S, dtype):
     torch.cuda.synchronize()
     tol = _fa_tol(dtype)
     torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("D", [160, 192, 224, 256, 64, 33])
+@pytest.mark.parametrize("S,window", [(100, None), (300, 1000), (70, 20)])
+def test_flash_attention_f32_kernel_tiles(cuda, D, S, window):
+    """float32 ``"f32"`` (3xTF32 on the tensor cores) at every tile above
+    D = 128 -- two warps splitting D's columns over 32-key tiles (160,
+    192) and 16-key ones (224, 256) -- and at D = 64 and 33 (padded to 36,
+    copied): causal, a window wider than the sequence (every tile inside
+    it), a narrow one; GQA 2:1.  Within 2e-5 of ``attention_ref``; two
+    runs the same bits; o's bits the same with the lse, the lse within
+    1e-4 of ``attention_lse_ref``'s; the model's (B, S, H, D) transposed
+    views give the same bits as contiguous inputs, uncopied; a window of 0
+    leaves every row without a key: o 0, lse +inf."""
+    q, k, v = _fa_case(cuda, 2, 4, 2, S, D, torch.float32, D + S)
+    plan = plan_attention(q, k, v)
+    assert plan.variant == "f32" and any(plan.copy) == (D % 4 != 0)
+    kernels.reset_launches()
+    out = attention(q, k, v, window=window)
+    assert kernels.VARIANT_LAUNCHES["flash_attention"]["f32"] == 1
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    want = attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(out, attention(q, k, v, window=window))
+    o2, lse = attention_with_lse(q, k, v, window=window)
+    assert torch.equal(out, o2)
+    _, want_lse = attention_lse_ref(q, k, v, window=window)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().transpose(1, 2)
+                  for x in (q, k, v))
+    assert any(plan_attention(qt, kt, vt).copy) == (D % 4 != 0)
+    out_t = attention(qt, kt, vt, window=window)
+    if D % 4 == 0:
+        assert out_t.stride() == qt.stride()
+    assert torch.equal(out_t, out)
+    o0, lse0 = attention_with_lse(q, k, v, window=0)
+    torch.cuda.synchronize()
+    assert not o0.any() and bool(torch.isinf(lse0).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1836,14 +1875,7 @@ def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
         attention(q, k.to(torch.float64), v)
     with pytest.raises(ValueError, match="mixed devices"):
         attention(q, k.cpu(), v)
-    # above D = 256 the "wide" backward (it raised before)
-    wide = torch.randn((1, 2, 16, 288), generator=g).to(cuda, dtype)
-    leaf = wide.clone().requires_grad_()
-    ow = attention(leaf, wide, wide)
-    dow = torch.randn(ow.shape, generator=g).to(cuda, dtype)
-    ow.backward(dow)
-    _fa_bwd_close(leaf.grad, attention_bwd_ref(wide, wide, wide, ow.detach(),
-                                               dow)[0], dtype)
+    # the raw launcher on the transposed views, into a strided output
     q, k, v = (t.transpose(1, 2) for t in x)
     o = torch.empty_like(q)
     before = kernels.LAUNCHES["flash_attention"]
@@ -1852,6 +1884,14 @@ def test_flash_attention_kernel_strides_scale_and_refusals(cuda, dtype):
     torch.cuda.synchronize()
     torch.testing.assert_close(o.float(), attention_ref(q, k, v).float(),
                                atol=tol, rtol=tol)
+    # above D = 256 the "wide" backward (it raised before)
+    wide = torch.randn((1, 2, 16, 288), generator=g).to(cuda, dtype)
+    leaf = wide.clone().requires_grad_()
+    ow = attention(leaf, wide, wide)
+    dow = torch.randn(ow.shape, generator=g).to(cuda, dtype)
+    ow.backward(dow)
+    _fa_bwd_close(leaf.grad, attention_bwd_ref(wide, wide, wide, ow.detach(),
+                                               dow)[0], dtype)
 
 
 # (B, H, Hkv, S, D, causal, window): GQA 1:1, 2:1, 4:1, 6:1 and 16:1,
@@ -1978,7 +2018,7 @@ def test_flash_attention_bwd_wide_matches_ref(cuda, B, H, Hkv, S, D, causal,
 def test_flash_attention_lse_keeps_the_output_bits(cuda, B, H, Hkv, S, D,
                                                    causal, window, dtype):
     """bf16 ``mma16``, ``wgmma`` and ``wide`` (one column pass, and two at
-    D = 1,344), float32 ``simt`` and ``wide`` (two column passes at D =
+    D = 1,344), float32 ``f32`` and ``wide`` (two column passes at D =
     1,344): the forward with its lse written gives the same bits of o as
     without; lse equals ``attention_lse_ref``'s within ``1e-4`` (float32
     sums in other orders), +inf on rows that see no key (a window of -3
@@ -2130,7 +2170,7 @@ def test_model_families_on_gpu_match_cpu(cuda, family):
     lg, sg = gpu.prefill({n: t.to(cuda) for n, t in batch.items()}, 44)
     assert kernels.LAUNCHES["flash_attention"] == launches
     if family == "encdec":
-        assert kernels.VARIANT_LAUNCHES["flash_attention"]["simt"] == launches
+        assert kernels.VARIANT_LAUNCHES["flash_attention"]["f32"] == launches
     lc, sc = cpu.prefill(batch, 44)
     for step in range(4):
         torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
